@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu).
+
+The sources compile with `nvcc` for `sm_90a` into one shared library
+with a plain C interface, loaded with ctypes.  The library goes into
+`trafficsimulation_tpu_torch/_build/`, named by a hash of the sources
+and flags, and is built at first use: `load()` on a machine without a
+build compiles it (a few seconds), later calls reuse it.
+
+`-fmad=false` keeps nvcc from contracting f32 multiply-adds inside the
+kernels, so their float compares see the values the plain versions
+compute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
+
+_lib = None
+build_seconds = None      # wall time of the last build (None: reused)
+build_log = ""            # nvcc's output of the last build (ptxas -v)
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+_ARGTYPES = {
+    # ip[16], fp[2], sdir4, D4, wnd, pa..pe, pl, stop, rain, ped, inter,
+    # dest_id, r_mal, r_side, r_reroll, r_prio, out pa..pe, out pl,
+    # flags, scratch, H, W, stream
+    "tsim_decide_move": [P, P, P, I, P] + [P] * 6 + [P] * 4 + [P]
+    + [P] * 4 + [P] * 6 + [P, P, I, I, P],
+    "tsim_build_sdir": [P, P, P, P, I, I, I, P],
+    "tsim_build_wavefront": [P, P, P, P, P, I, I, I, P],
+    "tsim_prefix_planes": [P, P, P, I, I, P],
+}
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cu, cuh = sources()
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load():
+    """The loaded kernel library, built first if needed."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    so = BUILD_DIR / f"libtsim_{_digest()}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cu, _ = sources()
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               *map(str, cu)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        build_log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tsim_error_string.argtypes = [I]
+    lib.tsim_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def error_string(rc: int) -> str:
+    return load().tsim_error_string(rc).decode()
