@@ -9,21 +9,46 @@ Phases (any failure raises and the script exits nonzero):
 
   1. the card's name and power limit, torch / CUDA versions, and the
      build of the port's CUDA kernels from `trafficsimulation_tpu_torch/
-     csrc/` (nvcc, sm_90a);
-  2. each kernel against its plain PyTorch version on the card, at the
-     headline's shapes (256x256, D = 608 destination rows), on seeded
-     random inputs: outputs must be bit-equal; median times of both;
-  3. the headline world (BASELINE config #2, 10k vehicles) from the
-     shipped snapshot: the key stack is rebuilt on the card and must
-     hash to the JAX package's sha256, then `TrafficSim.step(23)` must
+     csrc/` (one nvcc per source, sm_90a); the port must not have loaded
+     jax or any module of the JAX package;
+  2. each kernel against its plain PyTorch version on the card, on
+     seeded random inputs at the headline's shapes (256x256, D = 608
+     destination rows): K1-K4 for one world, then K5 and the batched K1,
+     K3, K4 for B = 16 worlds; outputs must be bit-equal; each batched
+     kernel's B = 1 call must equal the single-world kernel; median
+     times of kernel and plain version, the bound of each kernel (bytes
+     over 3.35 TB/s or operations over 67 T/s, the larger), and for K4
+     the two `torch.cumsum` calls that compute the same function;
+  3. the service FSM's ordered scatter-add on a case whose f32 sum
+     depends on the order: the card must give the CPU's update-order
+     result bit for bit;
+  4. the headline world (BASELINE config #2, 10k vehicles) from the
+     shipped snapshot: the key stack is rebuilt on the card and must hash
+     to the JAX package's sha256, then `TrafficSim.step(23)` must
      reproduce the JAX end state stored in the snapshot (integer leaves
-     exactly, f32 leaves within rtol 1e-6), and every kernel must have
-     launched on that path;
-  4. throughput: one `step(200)`, steps/s and cell-updates/s.
+     exactly, f32 leaves within rtol 1e-6), with K1 23, K2 5, K3 5, K4 23
+     launches on that path;
+  5. the shared-geometry batch: `tile_dynamic` of the same world for 16
+     keys (key 0 the snapshot's own), `run_batch_shared(..., 23)`: world
+     0 must equal JAX's end state, worlds 1 and 15 the single-world
+     `run_chunk(23)` with their keys; launches K5 5, K1 23, K3 5, K4 23
+     for the whole batch and K2 0;
+  6. throughput in this one process: `run_batch_shared(..., 200)` from
+     tick 23 (after the demand-window check) and the single-world
+     `step(200)` from tick 23; steps/s and cell-updates/s of both, the
+     batch's device idle share from `torch.profiler`; world 0 of the
+     batch must then equal the single world at tick 223;
+  7. service deliveries at full size: two food vehicles serving one
+     block, parked on two block entrances of the headline world, deliver
+     into the same tank in the first tick, with loads whose f32 sum
+     depends on the order; world 0 of a B = 2 batch on the card must
+     equal the plain version's run of the same world on the CPU (the
+     tank bit for bit).
 
-The line before the last is the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}.  With `--out DIR` the nvcc log and the
-full report are written there too.
+The line before the last is the kernels' JSON summary, the one before it
+the card's name and power limit; the last line is {"ok": true, "device":
+{...}}.  With `--out DIR` the nvcc log and the full report are written
+there too.
 """
 
 from __future__ import annotations
@@ -42,7 +67,15 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_REF_TICKS = 23
 N_BENCH_TICKS = 200
+N_PROFILE_TICKS = 50       # long enough to amortise the per-call set-up
+BATCH = 16
+FLOAT_RTOL = 1e-6
 REPORT = {}
+
+# H100 SXM peaks (the bound of each kernel): device memory bytes/s, and
+# 32-bit operations/s outside the tensor cores (the f32 rate)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
 
 KERNELS = {
     # name: (source, TPU kernel it replaces: file:line of its pallas_call)
@@ -54,7 +87,12 @@ KERNELS = {
                         "trafficsimulation_tpu/ops/pallas_engine.py:466"),
     "prefix_planes": ("trafficsimulation_tpu_torch/csrc/prefix.cu",
                       "trafficsimulation_tpu/ops/pallas_engine.py:520"),
+    "build_sdir_batched": ("trafficsimulation_tpu_torch/csrc/sdir.cu",
+                           "trafficsimulation_tpu/ops/pallas_engine.py:889"),
 }
+# which run's launch count the summary reports: K2 runs on the
+# single-world path only, the others on this slice's batched path
+SUMMARY_PATH = {"build_sdir": "single"}
 
 
 def log(*a):
@@ -84,6 +122,22 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Summed device time of the kernels one call of fn launches, from
+    torch.profiler (a CUDA-event interval around one call also holds the
+    host's time in the wrapper, which is larger for small kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.dtype.is_floating_point:
         return float((a.double() - b.double()).abs().max())
@@ -104,88 +158,250 @@ def compare(name, got, ref):
     return err
 
 
-def phase_kernels(cfg, HE, engine):
-    """Each kernel vs its plain version at the headline shapes."""
-    dev = torch.device("cuda")
-    H, W, D = cfg.HEIGHT, cfg.WIDTH, cfg.MAX_FIELD_DESTS
-    g = torch.Generator(device=dev).manual_seed(0)
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the least time for these bytes and ops."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
-    def bits(*shape):
-        return torch.randint(-2**31, 2**31, shape, generator=g, device=dev,
+
+class Inputs:
+    """Seeded random inputs on the card."""
+
+    def __init__(self, seed):
+        self.dev = torch.device("cuda")
+        self.g = torch.Generator(device=self.dev).manual_seed(seed)
+
+    def bits(self, *shape):
+        return torch.randint(-2**31, 2**31, shape, generator=self.g,
+                             device=self.dev,
                              dtype=torch.int64).to(torch.int32)
 
-    def unif(*shape):
-        return torch.rand(shape, generator=g, device=dev)
+    def unif(self, *shape):
+        return torch.rand(shape, generator=self.g, device=self.dev)
 
-    def bern(p, *shape):
-        return torch.rand(shape, generator=g, device=dev) < p
+    def bern(self, p, *shape):
+        return torch.rand(shape, generator=self.g, device=self.dev) < p
 
-    def rint(lo, hi, *shape):
-        return torch.randint(lo, hi, shape, generator=g, device=dev,
-                             dtype=torch.int32)
+    def rint(self, lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=self.g,
+                             device=self.dev, dtype=torch.int32)
 
-    results = {}
+
+def kernel_cases(cfg, HE, engine, B):
+    """{name: (kernel fn, plain fn, bytes, ops, library fn or None)} at
+    the headline's shapes: one world (B = 0) or a batch of B worlds
+    sharing the geometry and the key stack."""
+    H, W, D = cfg.HEIGHT, cfg.WIDTH, cfg.MAX_FIELD_DESTS
+    HW = H * W
+    D4 = (D + 3) // 4
+    r = Inputs(0)               # B = 0 and B = 1 draw the same inputs
+    nb = max(B, 1)
+    lead = (B,) if B else ()
+    cases = {}
+
     # K1: dense random planes, every fault flag present, fault rolls that
     # fire often, random sdir bytes and wavefront bytes
     kcfg = cfg.replace(VEHICLE_MALFUNCTION_CHANCE=0.01,
                        VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3)
-    sd = rint(0, 256, D, H, W).to(torch.uint8)
-    sdir4 = engine.pack_sdir4(sd)
-    wb = rint(0, 16, 4, H, W)
-    wnd = wb[0] | (wb[1] << 8) | (wb[2] << 16) | (wb[3] << 24)
-    planes = tuple(bits(H, W) for _ in range(5)) + (unif(H, W),)
-    masks = (bern(0.15, H, W), bern(0.1, H, W), bern(0.02, H, W),
-             bern(0.1, H, W))
-    dest = rint(-1, D, H, W)
-    randoms = (unif(H, W), unif(H, W), rint(1, 6, H, W), bits(H, W))
+    sdir4 = torch.stack([engine.pack_sdir4(r.rint(0, 256, D, H, W).to(
+        torch.uint8)) for _ in range(nb)])
+    wb = r.rint(0, 16, nb, 4, H, W)
+    wnd = wb[:, 0] | (wb[:, 1] << 8) | (wb[:, 2] << 16) | (wb[:, 3] << 24)
+    planes = tuple(r.bits(nb, H, W) for _ in range(5)) + (
+        r.unif(nb, H, W),)
+    masks = (r.bern(0.15, nb, H, W), r.bern(0.1, nb, H, W),
+             r.bern(0.02, nb, H, W))
+    inter = r.bern(0.1, H, W)
+    dest = r.rint(-1, D, H, W)
+    randoms = (r.unif(nb, H, W), r.unif(nb, H, W), r.rint(1, 6, nb, H, W),
+               r.bits(nb, H, W))
+    present = int(sum((p & 1).sum() for p in planes[:1]))
+    # per world: 5 i32 + 1 f32 planes, wnd, 3 masks, 4 random planes in;
+    # 6 planes and flags out; one packed sdir word per vehicle; the
+    # geometry (intersection, dest_id) once.  Operations: at least one
+    # per cell, world and phase (2 K + 2 phases).
+    k1_bytes = nb * HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4) + present * 4 \
+        + HW * 5
+    k1_ops = nb * HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2)
+    if B:
+        cases["decide_move"] = (
+            lambda: HE.decide_move_batched(kcfg, sdir4, wnd, planes, *masks,
+                                           inter, dest, randoms),
+            lambda: HE.decide_move_core_batched(kcfg, sdir4, wnd, planes,
+                                                *masks, inter, dest,
+                                                randoms),
+            k1_bytes, k1_ops, None)
+    else:
+        one = (sdir4[0], wnd[0], tuple(p[0] for p in planes),
+               *(m[0] for m in masks), inter, dest,
+               tuple(x[0] for x in randoms))
+        cases["decide_move"] = (
+            lambda: HE.decide_move(kcfg, *one),
+            lambda: HE.decide_move_core(
+                kcfg, one[0], one[1], *one[2], *one[3:8],
+                *one[8]), k1_bytes, k1_ops, None)
 
-    def k1():
-        return HE.decide_move(kcfg, sdir4, wnd, planes, *masks, dest,
-                              randoms)
-
-    def p1():
-        return HE.decide_move_core(kcfg, sdir4, wnd, *planes, *masks, dest,
-                                   *randoms)
-    results["decide_move"] = (k1, p1)
-
-    # K2: key stack with unreachable (KBIG) rows and hard-blocked (2^17)
-    # pens
-    q = rint(0, 60000, D, 4, H, W)
-    q = torch.where(bern(0.15, D, 4, H, W), 65535, q)
+    # K2 / K5: key stack with unreachable (KBIG) rows and hard-blocked
+    # (2^17) pens.  Bytes: K0 once, pen (per world) and legal, the packed
+    # stacks out; 31 integer operations per key row, cell and world.
+    q = r.rint(0, 60000, D, 4, H, W)
+    q = torch.where(r.bern(0.15, D, 4, H, W), 65535, q)
     K0 = engine.costs_u16_to_keys(q)
     del q
-    pen4 = torch.where(bern(0.1, 4, H, W), 1 << 17, rint(0, 3000, 4, H, W))
-    legal4 = bern(0.6, 4, H, W).to(torch.int32)
+    pen4 = torch.where(r.bern(0.1, nb, 4, H, W), 1 << 17,
+                       r.rint(0, 3000, nb, 4, H, W))
+    legal4 = r.bern(0.6, 4, H, W).to(torch.int32)
     tp2 = int(round(2 * cfg.VEHICLE_TURN_PENALTY))
-    results["build_sdir"] = (lambda: (HE.build_sdir(K0, pen4, legal4, tp2),),
-                             lambda: (HE.sdir_encode(K0, pen4, legal4, tp2),))
+    sd_bytes = D * 4 * HW * 4 + nb * 4 * HW * 4 + 4 * HW * 4 \
+        + nb * D4 * HW * 4
+    sd_ops = D * HW * nb * 31
+    if B:
+        cases["build_sdir_batched"] = (
+            lambda: (HE.build_sdir_batched(K0, pen4, legal4, tp2),),
+            lambda: (HE.sdir_encode_batched(K0, pen4, legal4, tp2),),
+            sd_bytes, sd_ops, None)
+    else:
+        cases["build_sdir"] = (
+            lambda: (HE.build_sdir(K0, pen4[0], legal4, tp2),),
+            lambda: (HE.sdir_encode(K0, pen4[0], legal4, tp2),),
+            sd_bytes, sd_ops, None)
 
-    # K3: random geometry
-    allowed = rint(0, 16, H, W).to(torch.uint8)
-    road = bern(0.5, H, W)
-    hard = bern(0.1, H, W) & road
-    results["build_wavefront"] = (
-        lambda: (HE.build_wavefront(cfg, allowed, road, hard),),
-        lambda: (HE.wavefront_core(cfg, allowed, road, hard),))
+    # K3: random geometry.  Bytes: allowed and road once, hard in and the
+    # packed word out per world; operations: per relax step, direction
+    # and neighbour a select and a min.
+    allowed = r.rint(0, 16, H, W).to(torch.uint8)
+    road = r.bern(0.5, H, W)
+    hard = r.bern(0.1, nb, H, W) & road
+    k3_bytes = 2 * HW + nb * HW * 5
+    k3_ops = nb * HW * 4 * 4 * 2 * cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS
+    if B:
+        cases["build_wavefront"] = (
+            lambda: (HE.build_wavefront_batched(cfg, allowed, road, hard),),
+            lambda: (HE.wavefront_core_batched(cfg, allowed, road, hard),),
+            k3_bytes, k3_ops, None)
+    else:
+        cases["build_wavefront"] = (
+            lambda: (HE.build_wavefront(cfg, allowed, road, hard[0]),),
+            lambda: (HE.wavefront_core(cfg, allowed, road, hard[0]),),
+            k3_bytes, k3_ops, None)
 
-    # K4: random occupancy
-    occ = bern(0.3, H, W).to(torch.int32)
-    results["prefix_planes"] = (lambda: HE.prefix_planes(occ),
-                                lambda: HE.prefix_planes_plain(occ))
+    # K4: random occupancy.  Bytes: one plane in, two out; one add per
+    # element and scan.
+    occ = r.bern(0.3, *lead, H, W).to(torch.int32)
+    k4_bytes = nb * HW * 12
+    k4_ops = nb * HW * 2
 
+    def cumsums():
+        return (torch.cumsum(occ, -1, dtype=torch.int32),
+                torch.cumsum(occ, -2, dtype=torch.int32))
+    kern4 = HE.prefix_planes_batched if B else HE.prefix_planes
+    cases["prefix_planes"] = (lambda: kern4(occ),
+                              lambda: HE.prefix_planes_plain(occ),
+                              k4_bytes, k4_ops, cumsums)
+    return cases
+
+
+def phase_kernels(cfg, HE, engine, B):
+    """Each kernel vs its plain version on the card; medians and
+    bounds."""
     out = {}
-    for name, (kern, plain) in results.items():
-        err = compare(name, kern(), plain())
+    cases = kernel_cases(cfg, HE, engine, B)
+    for name, (kern, plain, nbytes, ops, lib) in cases.items():
+        got = kern()
+        ref = plain()
+        err = compare(f"{name} (B={B or 1})", got, ref)
         torch.cuda.synchronize()
         ms = median_ms(kern)
-        plain_ms = median_ms(plain, reps=5 if name == "build_sdir" else 20)
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        log(f"kernel {name}: bit-equal to plain; median {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+        dms = device_ms(kern)
+        heavy = name in ("build_sdir", "build_sdir_batched") or B
+        plain_ms = median_ms(plain, reps=5 if heavy else 20,
+                             warmup=1 if heavy else 3)
+        bms, by = bound(nbytes, ops)
+        lib_ms = median_ms(lib) if lib is not None else None
+        if lib is not None:
+            compare(f"{name} library call", lib(), ref)
+        out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
+                     "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                     "bytes": nbytes, "ops": ops}
+        log(f"kernel {name} (B={B or 1}): bit-equal to plain; median "
+            f"{ms:.4f} ms (device {dms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"bound {bms:.4f} ms "
+            f"({by})" + (f", library {lib_ms:.4f} ms" if lib_ms else ""))
+        del got, ref
+    del cases
+    torch.cuda.empty_cache()
     return out
 
 
-FLOAT_RTOL = 1e-6
+def phase_batch_one(cfg, HE, engine):
+    """Each batched kernel's B = 1 call equals the single-world kernel
+    (K5 at B = 1 against K2)."""
+    cases1 = kernel_cases(cfg, HE, engine, 1)
+    cases0 = kernel_cases(cfg, HE, engine, 0)
+    pairs = {"decide_move": "decide_move", "build_wavefront":
+             "build_wavefront", "prefix_planes": "prefix_planes",
+             "build_sdir_batched": "build_sdir"}
+    for b1, single in pairs.items():
+        got = [g[0] for g in cases1[b1][0]()]
+        compare(f"{b1} at B=1 vs {single}", got, cases0[single][0]())
+    log("batched kernels at B=1 equal the single-world kernels "
+        "(K5 at B=1 equals K2)")
+    del cases0, cases1
+    torch.cuda.empty_cache()
+
+
+def launch_floor_ms(HE) -> float:
+    """One launch of the port's kernel with no work (K4 on a 1x1
+    plane): the latency floor of any single launch."""
+    occ = torch.zeros((1, 1, 1), dtype=torch.int32, device="cuda")
+    return median_ms(lambda: HE.prefix_planes_batched(occ), reps=50)
+
+
+def phase_ordered_add(HE):
+    """Duplicate block indices whose f32 sum depends on the order: the
+    card folds them in update order, as the CPU (and XLA's CPU
+    scatter-add) does."""
+    base = torch.tensor([[1.0, 0.0, 5.0], [0.0, 3.0, 0.0]])
+    idx = torch.tensor([[0, 0, 0, 2, 1, 0], [1, 1, 1, 1, 2, -1]])
+    vals = torch.tensor([[1e8, 1.0, -1e8, 2.0, 7.0, 0.5],
+                         [1e8, -1e8, 1.0, 1.0, 9.0, 9.0]])
+    cpu = HE.ordered_add_plain(base, idx, vals)
+    got = HE.ordered_add(base.cuda(), idx.cuda(), vals.cuda()).cpu()
+    compare("ordered_add", (got,), (cpu,))
+    want = np.float32(np.float32(np.float32(np.float32(
+        np.float32(1.0) + np.float32(1e8)) + np.float32(1.0))
+        - np.float32(1e8)) + np.float32(0.5))
+    if got[0, 0].item() != want:
+        raise AssertionError(f"ordered_add: {got[0, 0].item()} is not the "
+                             f"update-order fold {want}")
+    log(f"ordered scatter-add: card == CPU update order bit for bit "
+        f"({got.tolist()})")
+
+
+def compare_leaves(name, ref: dict, got: dict):
+    bad = []
+    for k, a in ref.items():
+        b = got[k]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            bad.append((k, "shape/dtype", a.shape, b.shape))
+        elif np.issubdtype(a.dtype, np.floating):
+            if not np.allclose(a, b, rtol=FLOAT_RTOL, atol=0.0):
+                bad.append((k, int((a != b).sum())))
+        elif not np.array_equal(a, b):
+            bad.append((k, int((a != b).sum())))
+    if bad:
+        raise AssertionError(f"{name}: leaves differ (leaf, entries): "
+                             f"{bad}")
+    return sum(1 for a in ref.values()
+               if not np.issubdtype(a.dtype, np.floating))
+
+
+def check_launches(name, launches, need):
+    for k, n in need.items():
+        if launches[k] != n:
+            raise AssertionError(f"{name}: kernel {k} launched "
+                                 f"{launches[k]} times, expected {n}")
 
 
 def phase_headline(HE, snapshot, tsim, transfer):
@@ -223,22 +439,8 @@ def phase_headline(HE, snapshot, tsim, transfer):
     launches = dict(HE.launches)
     log(f"step({N_REF_TICKS}) in {t_ref:.2f} s; kernel launches {launches}")
 
-    got = transfer.world_to_numpy(sim.world)
-    bad = []
-    for k, a in ref["end"].items():
-        b = got[k]
-        if a.shape != b.shape or a.dtype != b.dtype:
-            bad.append((k, "shape/dtype", a.shape, b.shape))
-        elif np.issubdtype(a.dtype, np.floating):
-            if not np.allclose(a, b, rtol=FLOAT_RTOL, atol=0.0):
-                bad.append((k, int((a != b).sum())))
-        elif not np.array_equal(a, b):
-            bad.append((k, int((a != b).sum())))
-    if bad:
-        raise AssertionError(f"end state differs from JAX (leaf, entries): "
-                             f"{bad}")
-    n_exact = sum(1 for a in ref["end"].values()
-                  if not np.issubdtype(a.dtype, np.floating))
+    n_exact = compare_leaves("single-world end state vs JAX", ref["end"],
+                             transfer.world_to_numpy(sim.world))
     log(f"end state after {N_REF_TICKS} ticks equals JAX's: {n_exact} "
         f"integer/bool leaves exact, {len(ref['end']) - n_exact} f32 leaves "
         f"within rtol {FLOAT_RTOL}")
@@ -246,31 +448,209 @@ def phase_headline(HE, snapshot, tsim, transfer):
     log("stats: " + json.dumps({k: st[k] for k in (
         "tick", "live_internal", "created_internal", "created_through",
         "completed_internal", "completed_through", "stuck", "raining")}))
-    need = {"decide_move": N_REF_TICKS, "prefix_planes": N_REF_TICKS,
-            "build_sdir": 5, "build_wavefront": 5}
-    for k, n in need.items():
-        if launches[k] < n:
-            raise AssertionError(f"kernel {k} launched {launches[k]} times "
-                                 f"on the main path, expected >= {n}")
-    return cfg, sim, launches
+    check_launches("single-world path", launches, {
+        "decide_move": N_REF_TICKS, "prefix_planes": N_REF_TICKS,
+        "build_sdir": 5, "build_wavefront": 5, "build_sdir_batched": 0})
+    return cfg, world, ref, sim, launches
 
 
-def phase_throughput(cfg, sim, card):
+def batch_keys(world_key: torch.Tensor, prng) -> np.ndarray:
+    """Key 0 is the world's own; keys 1.. come from a fixed key."""
+    k0 = world_key.cpu().numpy().view(np.uint32)
+    rest = prng.split(np.array([0, 2026], np.uint32), BATCH - 1)
+    return np.concatenate([k0[None], rest]).astype(np.uint32)
+
+
+def phase_batch(cfg, world, ref, HE, mesh, tsim, transfer, prng):
+    """B = 16 rollouts of the headline city, 23 ticks, held to JAX (world
+    0) and to the single-world runs (worlds 1 and 15)."""
+    keys = batch_keys(world.key, prng)
+    batch = mesh.tile_dynamic(world, keys)
+    HE.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim.step(N_BENCH_TICKS)
+    batch = mesh.run_batch_shared(cfg, batch, N_REF_TICKS)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    sps = N_BENCH_TICKS / dt
-    cups = cfg.HEIGHT * cfg.WIDTH * sps
-    log(f"throughput ({card}): {N_BENCH_TICKS} ticks in {dt:.3f} s = "
-        f"{sps:.2f} steps/s = {cups:.4g} cell-updates/s")
-    REPORT["throughput"] = {"ticks": N_BENCH_TICKS, "seconds": dt,
-                            "steps_per_s": sps, "cell_updates_per_s": cups,
-                            "card": card}
-    pa = sim.world.vehicles.active
-    if not bool(pa.any()):
-        raise AssertionError("no vehicle left after the throughput run")
+    t_b = time.perf_counter() - t0
+    launches = dict(HE.launches)
+    log(f"run_batch_shared(B={BATCH}, {N_REF_TICKS}) in {t_b:.2f} s; "
+        f"kernel launches {launches}")
+    check_launches("batched path", launches, {
+        "build_sdir_batched": 5, "decide_move": N_REF_TICKS,
+        "build_wavefront": 5, "prefix_planes": N_REF_TICKS,
+        "build_sdir": 0})
+    compare_leaves("batch world 0 vs JAX", ref["end"],
+                   transfer.world_to_numpy(mesh.world_at(batch, 0)))
+    log(f"batch world 0 after {N_REF_TICKS} ticks equals JAX's end state")
+    for b in (1, BATCH - 1):
+        w = world.replace(key=torch.from_numpy(
+            keys[b].view(np.int32).copy()).cuda())
+        single = transfer.world_to_numpy(tsim.run_chunk(cfg, w, N_REF_TICKS))
+        compare_leaves(f"batch world {b} vs single run", single,
+                       transfer.world_to_numpy(mesh.world_at(batch, b)))
+    log(f"batch worlds 1 and {BATCH - 1} equal the single-world runs with "
+        "their keys")
+    vm = batch.veh_map
+    if tuple(vm.shape) != (BATCH, cfg.HEIGHT, cfg.WIDTH):
+        raise AssertionError(f"batch veh_map shape {tuple(vm.shape)}")
+    REPORT["batch_ref"] = {"seconds": t_b, "launches": launches}
+    return batch, launches
+
+
+def device_busy_ms(fn, n_ticks) -> float:
+    """Summed device kernel time per tick of fn() under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    return sum(e.self_device_time_total for e in ka
+               if e.device_type == DeviceType.CUDA) / 1e3 / n_ticks
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_throughput(cfg, sim, batch, card, HE, mesh, transfer):
+    """Batched and single-world ticks/s in this one process, from tick
+    23 over 200 ticks (the first service trips are due at tick 200)."""
+    HW = cfg.HEIGHT * cfg.WIDTH
+    mesh.assert_demand_window(cfg, batch, N_BENCH_TICKS)
+    HE.reset_launches()
+    batch, dt_b = timed(lambda: mesh.run_batch_shared(cfg, batch,
+                                                      N_BENCH_TICKS))
+    adds = HE.launches["ordered_add"]
+    world, dt_1 = timed(lambda: sim.step(N_BENCH_TICKS))
+    sps_b, sps_1 = N_BENCH_TICKS / dt_b, N_BENCH_TICKS / dt_1
+    cups_b, cups_1 = BATCH * HW * sps_b, HW * sps_1
+    log(f"throughput ({card}): batch B={BATCH}: {N_BENCH_TICKS} ticks in "
+        f"{dt_b:.3f} s = {sps_b:.2f} steps/s = {cups_b:.4g} "
+        f"cell-updates/s; single world: {dt_1:.3f} s = {sps_1:.2f} "
+        f"steps/s = {cups_1:.4g} cell-updates/s; ratio {cups_b / cups_1:.2f}")
+    # the batch's device idle share over a short window
+    _, wall = timed(lambda: mesh.run_batch_shared(cfg, batch,
+                                                  N_PROFILE_TICKS))
+    busy = device_busy_ms(lambda: mesh.run_batch_shared(cfg, batch,
+                                                        N_PROFILE_TICKS),
+                          N_PROFILE_TICKS)
+    wall_ms = wall * 1e3 / N_PROFILE_TICKS
+    idle = 1 - busy / wall_ms
+    log(f"batch B={BATCH} over {N_PROFILE_TICKS} ticks: wall {wall_ms:.3f} "
+        f"ms/tick, device busy {busy:.3f} ms/tick, idle share {idle:.3f}")
+    # world 0 of the batch is the single world, tick for tick
+    compare_leaves(f"batch world 0 vs single world at tick "
+                   f"{N_REF_TICKS + N_BENCH_TICKS}",
+                   transfer.world_to_numpy(world),
+                   transfer.world_to_numpy(mesh.world_at(batch, 0)))
+    m = batch.metrics
+    svc = {k: getattr(m, k).tolist() for k in (
+        "created_service", "completed_service", "errored_through")}
+    fleet = {k: int(v) for k, v in mesh.fleet_metrics(batch).items()}
+    log(f"batch world 0 at tick {N_REF_TICKS + N_BENCH_TICKS} equals the "
+        f"single world; fleet {fleet}; service trips per world {svc}; "
+        f"ordered_add launches {adds}")
+    if not bool(batch.vehicles.active.any(dim=1).all()):
+        raise AssertionError("a world of the batch has no vehicle left")
+    for name, t in (("veh_map", batch.veh_map), ("density", batch.density)):
+        if tuple(t.shape) != (BATCH, cfg.HEIGHT, cfg.WIDTH):
+            raise AssertionError(f"{name} shape {tuple(t.shape)}")
+    if not bool(torch.isfinite(batch.density).all()):
+        raise AssertionError("non-finite density")
+    REPORT["throughput"] = {
+        "ticks": N_BENCH_TICKS, "card": card, "batch": BATCH,
+        "batch_seconds": dt_b, "batch_steps_per_s": sps_b,
+        "batch_cell_updates_per_s": cups_b, "single_seconds": dt_1,
+        "single_steps_per_s": sps_1, "single_cell_updates_per_s": cups_1,
+        "batch_wall_ms_per_tick": wall_ms, "batch_busy_ms_per_tick": busy,
+        "batch_idle_share": idle, "service": svc, "fleet": fleet,
+        "ordered_add_launches": adds}
+
+
+def service_world(cfg, world):
+    """The world with pool slots 0 and 1 turned into food vehicles that
+    both serve one block and stand on two free block entrances (their
+    destinations), and that block's tank set so that the two deliveries'
+    f32 sum depends on their order.  Returns (world, the two pool slots,
+    block, the tank's start value, the loads in update order)."""
+    v, d, bs = world.vehicles, world.dests, world.blocks_static
+    DF = world.cost_field.shape[0]
+    dpos, dvalid, dkind = (t.cpu().numpy() for t in (d.pos, d.valid, d.kind))
+    taken = set(v.pos[v.active].cpu().numpy().tolist())
+    free = [i for i in range(DF) if dvalid[i] and dkind[i] == 0
+            and int(dpos[i]) not in taken]
+    d1, d2 = free[0], free[1]
+    b = int(np.nonzero((bs.valid & bs.needs_food).cpu().numpy())[0][0])
+    cap = float(bs.food_cap[b])
+    rng = np.random.default_rng(7)
+    f32 = np.float32
+    while True:
+        f, a, c = (f32(x) for x in rng.uniform(0, cap / 4, 3))
+        if f32(f32(f + a) + c) != f32(f32(f + c) + a):
+            break
+    slots = [0, 1]
+
+    def put(t, vals):
+        t = t.clone()
+        t[slots] = torch.tensor(vals, dtype=t.dtype, device=t.device)
+        return t
+    v = v.replace(
+        active=put(v.active, [True, True]), pos=put(v.pos, [int(dpos[d1]), int(dpos[d2])]), dest=put(v.dest,
+                                                              [d1, d2]),
+        kind=put(v.kind, [2, 2]), service_block=put(v.service_block, [b, b]),
+        service_phase=put(v.service_phase, [0, 0]),
+        load=put(v.load, [float(a), float(c)]),
+        heading=put(v.heading, [-1, -1]), parked=put(v.parked, [0, 0]),
+        current_speed=put(v.current_speed, [0, 0]),
+        base_speed=put(v.base_speed, [0, 0]))
+    food = world.blocks.food.clone()
+    food[b] = float(f)
+    return (world.replace(vehicles=v,
+                          blocks=world.blocks.replace(food=food)),
+            slots, b, f, (a, c))
+
+
+def phase_service(cfg, world, HE, mesh, tsim, transfer, keys):
+    """Duplicate service deliveries at full size: the card's batched run
+    against the plain version's run on the CPU."""
+    n = 2
+    w, slots, b, f, (a, c) = service_world(cfg, world)
+    HE.reset_launches()
+    batch = mesh.run_batch_shared(cfg, mesh.tile_dynamic(w, keys[:2]), n)
+    adds = HE.launches["ordered_add"]
+    card = transfer.world_to_numpy(mesh.world_at(batch, 0))
+    leaves = transfer.world_leaves(w)
+    t0 = time.perf_counter()
+    cpu = transfer.world_to_numpy(tsim.run_chunk(
+        cfg, transfer.world_from_leaves({k: t.cpu() for k, t in
+                                         leaves.items()}), n))
+    t_cpu = time.perf_counter() - t0
+    compare_leaves("service deliveries, card batch vs CPU plain", cpu, card)
+    got, ref = card["blocks.food"][b], cpu["blocks.food"][b]
+    if got.view(np.int32) != ref.view(np.int32):
+        raise AssertionError(f"tank {b}: card {got!r} != CPU {ref!r}")
+    if card["vehicles.service_phase"][slots].tolist() != [1, 1] or \
+            card["vehicles.load"][slots].tolist() != [0.0, 0.0]:
+        raise AssertionError("the two food vehicles did not both deliver")
+    f32 = np.float32
+    log(f"service deliveries: 2 food vehicles into tank {b} in one tick "
+        f"(start {f:.9g}, loads {a:.9g}, {c:.9g}; update order "
+        f"{f32(f32(f + a) + c):.9g}, the other order "
+        f"{f32(f32(f + c) + a):.9g}); after {n} ticks the card's batch "
+        f"equals the CPU plain run ({t_cpu:.1f} s), tank {got:.9g} bit for "
+        f"bit; ordered_add launches {adds}")
+    if adds != n:
+        raise AssertionError(f"ordered_add launched {adds} times, "
+                             f"expected {n}")
+    REPORT["service"] = {"block": b, "start": float(f),
+                         "loads": [float(a), float(c)], "tank": float(got),
+                         "cpu_seconds": t_cpu}
 
 
 def main():
@@ -283,14 +663,23 @@ def main():
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from trafficsimulation_tpu_torch import snapshot
+    import importlib
+    import pkgutil
+    import trafficsimulation_tpu_torch as pkg
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        importlib.import_module(info.name)
+    from trafficsimulation_tpu_torch import prng, snapshot
     from trafficsimulation_tpu_torch import sim as tsim
     from trafficsimulation_tpu_torch.core import transfer
     from trafficsimulation_tpu_torch.ops import build, engine
     from trafficsimulation_tpu_torch.ops import hopper_engine as HE
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    from trafficsimulation_tpu_torch.parallel import mesh
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "jaxlib", "trafficsimulation_tpu"))
+    if loaded:
+        raise AssertionError(f"the port loaded {loaded[:5]}")
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -305,16 +694,42 @@ def main():
 
     cfg0 = snapshot.config_from_json(
         str(np.load(snapshot.HEADLINE)["meta.cfg_json"]))
-    kern = phase_kernels(cfg0, HE, engine)
-    torch.cuda.empty_cache()
-    cfg, sim, launches = phase_headline(HE, snapshot, tsim, transfer)
-    phase_throughput(cfg, sim, card)
+    single = phase_kernels(cfg0, HE, engine, 0)
+    batched = phase_kernels(cfg0, HE, engine, BATCH)
+    phase_batch_one(cfg0, HE, engine)
+    floor = launch_floor_ms(HE)
+    log(f"one launch with no work: {floor:.4f} ms")
+    phase_ordered_add(HE)
+    cfg, world, ref, sim, l_single = phase_headline(HE, snapshot, tsim,
+                                                    transfer)
+    batch, l_batch = phase_batch(cfg, world, ref, HE, mesh, tsim, transfer,
+                                 prng)
+    phase_throughput(cfg, sim, batch, card, HE, mesh, transfer)
+    phase_service(cfg, world, HE, mesh, tsim, transfer,
+                  batch_keys(world.key, prng))
 
-    summary = {"kernels": [
-        {"name": k, "route": "cuda", "source": KERNELS[k][0],
-         "replaces": KERNELS[k][1], "launches": launches[k],
-         "max_abs_err": kern[k]["max_abs_err"], "ms": kern[k]["ms"],
-         "plain_ms": kern[k]["plain_ms"]} for k in KERNELS]}
+    summary = {"kernels": []}
+    for k in KERNELS:
+        path = SUMMARY_PATH.get(k, "batched")
+        m = single[k] if path == "single" else batched[k]
+        entry = {"name": k, "route": "cuda", "source": KERNELS[k][0],
+                 "replaces": KERNELS[k][1],
+                 "launches": (l_single if path == "single" else l_batch)[k],
+                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                 "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                 "device_ms": m["device_ms"],
+                 "path": path, "batch": BATCH if path == "batched" else 1,
+                 "launches_single_path": l_single[k],
+                 "launches_batched_path": l_batch[k]}
+        if k in single and path == "batched":
+            entry["single_world"] = {x: single[k][x] for x in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
+        summary["kernels"].append(entry)
+    REPORT["launch_floor_ms"] = floor
+    REPORT["seconds"] = time.perf_counter() - t_start
+    log(f"chip_smoke phases took {REPORT['seconds']:.1f} s")
     if args.out:
         REPORT["kernels"] = summary["kernels"]
         REPORT["card"] = card

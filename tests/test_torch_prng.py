@@ -51,3 +51,16 @@ def test_bernoulli_matches_jax():
     for p in (0.1, 0.9):
         assert [prng.bernoulli(k, p) for k in KEYS] == \
             [bool(jax.random.bernoulli(k, p)) for k in KEYS]
+
+
+def test_key_stacks_draw_per_key():
+    """A stack of keys [B, 2] draws what each key draws alone (the
+    per-world key chains of a batch)."""
+    ks = np.stack(KEYS[:7])
+    assert np.array_equal(prng.split(ks, 5),
+                          np.stack([prng.split(k, 5) for k in KEYS[:7]]))
+    assert np.array_equal(prng.bits(ks, (3, 2)),
+                          np.stack([prng.bits(k, (3, 2)) for k in KEYS[:7]]))
+    for fn in (prng.uniform, lambda k: prng.randint(k, 3, 10),
+               prng.bernoulli):
+        assert np.array_equal(fn(ks), np.array([fn(k) for k in KEYS[:7]]))

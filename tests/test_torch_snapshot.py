@@ -70,7 +70,7 @@ def test_init_states_match_jax(small_cfg, small_world):
 
 def test_shipped_snapshot_matches_its_config(small_world):
     assert os.path.getsize(snapshot.HEADLINE) < 1 << 20
-    cfg, world, ref = snapshot.load_snapshot()
+    cfg, world, ref = snapshot.load_snapshot(device="cpu")
     caps = cfg.capacities()
     assert (cfg.HEIGHT, cfg.WIDTH, cfg.MAX_FIELD_DESTS) == (256, 256, 608)
     assert world.cost_field is None
@@ -128,7 +128,7 @@ def test_port_runs_without_jax(tmp_path):
             importlib.import_module(info.name)
         from trafficsimulation_tpu_torch import snapshot, sim
         from trafficsimulation_tpu_torch.core.transfer import world_to_numpy
-        cfg, w, _ = snapshot.load_snapshot({str(path)!r})
+        cfg, w, _ = snapshot.load_snapshot({str(path)!r}, device="cpu")
         w = sim.run_chunk(cfg, snapshot.build_field(cfg, w), 3)
         np.savez({str(out)!r}, **world_to_numpy(w))
         assert not any(m.startswith("jax") for m in sys.modules
@@ -139,7 +139,7 @@ def test_port_runs_without_jax(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
 
-    cfg, w, _ = snapshot.load_snapshot(path)
+    cfg, w, _ = snapshot.load_snapshot(path, device="cpu")
     mine = world_to_numpy(tsim.run_chunk(cfg, snapshot.build_field(cfg, w),
                                          3))
     with np.load(out) as z:

@@ -6,11 +6,16 @@ D = 608), rebuilds the key stack on the card, warms up with one chunk,
 then profiles `run_chunk` over N ticks with `torch.profiler` (CPU and
 CUDA activities).  Prints the wall time per tick, the summed device
 kernel time per tick, the device idle share, and the top entries of
-`key_averages()` by device time.  Run from the repository root:
+`key_averages()` by device time.  With --batch B it profiles the
+shared-geometry batch of B rollouts of the same city instead
+(`parallel.mesh.run_batch_shared`; keys from a fixed seed).  Run from
+the repository root:
 
-    python3 tools/profile_torch_tick.py [--ticks 25] [--out DIR]
+    python3 tools/profile_torch_tick.py [--ticks 25] [--batch B] [--out DIR]
+                                        [--trace]
 
-With --out the full table and a chrome trace go to DIR.  Needs a CUDA
+With --out the full table goes to DIR, and with --trace also a chrome
+trace (40-65 MB for 25 ticks).  Needs a CUDA
 device; imports no JAX.
 """
 
@@ -29,6 +34,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=25)
+    ap.add_argument("--batch", type=int, default=0,
+                    help="profile a shared-geometry batch of this size")
+    ap.add_argument("--trace", action="store_true",
+                    help="also write a chrome trace to --out")
     ap.add_argument("--out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -37,21 +46,28 @@ def main():
     sys.path.insert(0, ROOT)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from trafficsimulation_tpu_torch import sim, snapshot
+    import numpy as np
+    from trafficsimulation_tpu_torch import prng, sim, snapshot
+    from trafficsimulation_tpu_torch.parallel import mesh
 
     cfg, world, _ = snapshot.load_snapshot(snapshot.HEADLINE, "cuda")
     world = snapshot.build_field(cfg, world)
-    world = sim.run_chunk(cfg, world, 10)          # warm-up, kernel build
+    run = sim.run_chunk
+    if args.batch:
+        keys = prng.split(np.array([0, 2026], np.uint32), args.batch)
+        world = mesh.tile_dynamic(world, keys)
+        run = mesh.run_batch_shared
+    world = run(cfg, world, 10)          # warm-up, kernel build
     torch.cuda.synchronize()
 
     n = args.ticks
     t0 = time.perf_counter()
-    world = sim.run_chunk(cfg, world, n)
+    world = run(cfg, world, n)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        world = sim.run_chunk(cfg, world, n)
+        world = run(cfg, world, n)
         torch.cuda.synchronize()
     ka = prof.key_averages()
     # device time = the kernels and copies themselves (the aten ops that
@@ -60,19 +76,24 @@ def main():
               if e.device_type == DeviceType.CUDA) / 1e6 / n
     syncs = sum(e.count for e in ka if e.key == "aten::_local_scalar_dense")
     launches = sum(e.count for e in ka if e.device_type == DeviceType.CUDA)
-    print(f"{n} ticks: wall {wall * 1e3:.3f} ms/tick (no profiler), device "
+    print(f"batch {max(args.batch, 1)}, {n} ticks: wall {wall * 1e3:.3f} "
+          f"ms/tick (no profiler), device "
           f"busy {dev * 1e3:.3f} ms/tick, device idle share "
           f"{1 - dev / wall:.3f}; per tick {launches / n:.0f} device "
           f"kernels/copies, {syncs / n:.1f} host syncs")
     table = ka.table(sort_by="self_device_time_total", row_limit=30)
     print(table)
     if args.out:
+        tag = f"_b{args.batch}" if args.batch else ""
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_table.txt"), "w") as f:
+        table_path = os.path.join(args.out, f"profile_table{tag}.txt")
+        with open(table_path, "w") as f:
             f.write(ka.table(sort_by="self_device_time_total", row_limit=200))
             f.write("\n")
             f.write(ka.table(sort_by="self_cpu_time_total", row_limit=60))
-        prof.export_chrome_trace(os.path.join(args.out, "profile_trace.json"))
+        if args.trace:
+            prof.export_chrome_trace(os.path.join(
+                args.out, f"profile_trace{tag}.json"))
     return 0
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from trafficsimulation_tpu.config import Config
+from ..config import Config
 
 from ..core.state import BlocksState, BlockStatic
 

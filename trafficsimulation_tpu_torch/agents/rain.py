@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from trafficsimulation_tpu.config import Config
+from ..config import Config
 
 from ..core.state import RainState
 
@@ -38,8 +38,8 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
 def step_rain(cfg: Config, H: int, W: int, rain: RainState,
               draws: torch.Tensor, force_spawn=None):
     """Advance clouds one tick.  `draws`: int64 [5] (spawn wanted, edge,
-    position as f32 bits, corner flip, radius).  Returns (rain',
-    rain_map [H, W] bool)."""
+    position as its f32 value times 2^23, corner flip, radius).  Returns
+    (rain', rain_map [H, W] bool)."""
     dev = rain.cx.device
     if not cfg.RAIN_ENABLED:
         return rain, torch.zeros((H, W), dtype=torch.bool, device=dev)
@@ -65,7 +65,7 @@ def step_rain(cfg: Config, H: int, W: int, rain: RainState,
     slot = torch.argmin(active.to(torch.int32))      # first inactive slot
     edge = draws[1]
     off = float(cfg.RAIN_SPAWN_OFFSET)
-    upos = draws[2].to(torch.int32).view(f32)
+    upos = draws[2].to(f32) * float(2.0 ** -23)       # exact
     x0 = torch.where(edge == 0, upos * W, torch.where(
         edge == 1, upos * W, torch.where(edge == 2, W - off, off)))
     y0 = torch.where(edge == 0, H - off,

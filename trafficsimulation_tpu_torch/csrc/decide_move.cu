@@ -13,12 +13,18 @@
 //               into the other working set
 //   finish      base-speed reset, stuck bookkeeping, flags
 //
-// K = VEHICLE_MAX_SPEED sub-rounds, 2K + 2 launches.  The destination
-// row select is one indexed load: byte (dest & 3) of sdir4[dest >> 2],
-// ND_NONE when dest >> 2 is past the stack.  Neighbour reads outside
-// the grid see the fills of the padded shifts they replace: blocked
-// (0xF) for the target byte, KINF for keys, false for arrivals and
-// sideswipe neighbours, true for the start-of-tick blocked byte.
+// K = VEHICLE_MAX_SPEED sub-rounds, 2K + 2 launches for a whole batch
+// of B worlds: blockIdx.y is the world.  Every per-world plane (the
+// packed stack, wavefronts, vehicle planes, masks, random planes,
+// outputs and the [20, H, W] scratch) advances by one world's size per
+// world; the geometry (intersection, dest_id) is shared.  B = 1 is the
+// single-world tick.  The destination row select is one indexed load:
+// byte (dest & 3) of sdir4[dest >> 2], ND_NONE when dest >> 2 is past
+// the stack.  Neighbour reads outside the grid see the fills of the
+// padded shifts they replace: blocked (0xF) for the target byte, KINF
+// for keys, false for arrivals and sideswipe neighbours, true for the
+// start-of-tick blocked byte.  Every neighbour index comes from `nbr`
+// on the world's own (y, x), so no read crosses into another world.
 #include "common.cuh"
 
 namespace tsim {
@@ -33,10 +39,12 @@ struct DMParams {
   float mal_chance, side_chance;
 };
 
-// scratch planes (int32 [20, H, W]): two working sets of 8 planes, then
-// the halt latch, the conflict keys, the intent info and the decide aux
+// scratch planes (int32 [B, 20, H, W]): per world two working sets of 8
+// planes, then the halt latch, the conflict keys, the intent info and
+// the decide aux
 enum { P_PA, P_PB, P_PC, P_PD, P_PE, P_PL, P_STEPS, P_MOVED, N_SET = 8 };
 constexpr int S_HALT = 16, S_KEY = 17, S_INFO = 18, S_AUX = 19;
+constexpr int N_SCRATCH = 20;
 
 constexpr uint32_t CF_CLEAR = ~(0xFFu << PD_CFKEY_SH);
 constexpr uint32_t CLEAR_A = ~((15u << PA_BASE_SH) | (15u << PA_CUR_SH) |
@@ -63,6 +71,39 @@ struct Inputs {
   const int* r_reroll;
   const int* r_prio;
 };
+
+struct Outputs {
+  int* pa;
+  int* pb;
+  int* pc;
+  int* pd;
+  int* pe;
+  float* pl;
+  int* flags;
+};
+
+// world b's view of the batch: per-world planes advance by b planes;
+// intersection and dest_id are shared
+__device__ __forceinline__ Inputs world_inputs(Inputs in, int b, long hw,
+                                               int D4) {
+  const long o = (long)b * hw;
+  in.sdir4 += o * D4;
+  in.wnd += o;
+  in.pa += o;
+  in.pb += o;
+  in.pc += o;
+  in.pd += o;
+  in.pe += o;
+  in.pl += o;
+  in.stop += o;
+  in.rain += o;
+  in.ped += o;
+  in.r_mal += o;
+  in.r_side += o;
+  in.r_reroll += o;
+  in.r_prio += o;
+  return in;
+}
 
 __device__ __forceinline__ int select_nd(const int* sdir4, int D4, int HW,
                                          int dest, int c) {
@@ -93,10 +134,12 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-__global__ void dm_decide(DMParams p, Inputs in, int* __restrict__ S) {
+__global__ void dm_decide(DMParams p, Inputs in0, int* __restrict__ S0) {
   const int HW = p.H * p.W;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= HW) return;
+  const Inputs in = world_inputs(in0, blockIdx.y, HW, p.D4);
+  int* S = S0 + (long)blockIdx.y * N_SCRATCH * HW;
   const int y = c / p.W, x = c % p.W;
   uint32_t pa = (uint32_t)in.pa[c], pb = (uint32_t)in.pb[c];
   uint32_t pd = (uint32_t)in.pd[c];
@@ -213,11 +256,13 @@ __global__ void dm_decide(DMParams p, Inputs in, int* __restrict__ S) {
 }
 
 // sub-round, phase 1: each mover publishes priority | direction
-__global__ void dm_intent(DMParams p, Inputs in, int* __restrict__ S,
+__global__ void dm_intent(DMParams p, Inputs in0, int* __restrict__ S0,
                           int set) {
   const int HW = p.H * p.W;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= HW) return;
+  const Inputs in = world_inputs(in0, blockIdx.y, HW, p.D4);
+  int* S = S0 + (long)blockIdx.y * N_SCRATCH * HW;
   const long hw = HW;
   const int* X = S + (long)set * N_SET * hw;
   const uint32_t pa = (uint32_t)X[P_PA * hw + c];
@@ -271,10 +316,11 @@ __device__ __forceinline__ int min_incoming(const int* key, int y, int x,
 }
 
 // sub-round, phase 2: resolve conflicts and move set -> set ^ 1
-__global__ void dm_commit(DMParams p, int* __restrict__ S, int set) {
+__global__ void dm_commit(DMParams p, int* __restrict__ S0, int set) {
   const int HW = p.H * p.W;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= HW) return;
+  int* S = S0 + (long)blockIdx.y * N_SCRATCH * HW;
   const long hw = HW;
   const int* X = S + (long)set * N_SET * hw;
   int* Y = S + (long)(set ^ 1) * N_SET * hw;
@@ -315,15 +361,16 @@ __global__ void dm_commit(DMParams p, int* __restrict__ S, int set) {
   if ((S[S_INFO * hw + c] & 1) && !won) S[S_HALT * hw + c] = 1;
 }
 
-__global__ void dm_finish(DMParams p, Inputs in, const int* __restrict__ S,
-                          int set, int* __restrict__ opa,
-                          int* __restrict__ opb, int* __restrict__ opc,
-                          int* __restrict__ opd, int* __restrict__ ope,
-                          float* __restrict__ opl, int* __restrict__ flags) {
+__global__ void dm_finish(DMParams p, Inputs in0,
+                          const int* __restrict__ S0, int set,
+                          Outputs out) {
   const int HW = p.H * p.W;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= HW) return;
   const long hw = HW;
+  const Inputs in = world_inputs(in0, blockIdx.y, HW, p.D4);
+  const int* S = S0 + (long)blockIdx.y * N_SCRATCH * hw;
+  const long o = (long)blockIdx.y * hw;
   const int* F = S + (long)set * N_SET * hw;
   const int y = c / p.W, x = c % p.W;
   uint32_t pa = (uint32_t)F[P_PA * hw + c], pb = (uint32_t)F[P_PB * hw + c];
@@ -361,13 +408,14 @@ __global__ void dm_finish(DMParams p, Inputs in, const int* __restrict__ S,
   pa = (pa & ~(1u << PA_STUCKF_SH)) | ((uint32_t)stuckf << PA_STUCKF_SH);
   pb = (pb & ~4095u) | (uint32_t)stuck_v;
 
-  opa[c] = (int)pa;
-  opb[c] = (int)pb;
-  opc[c] = F[P_PC * hw + c];
-  opd[c] = F[P_PD * hw + c];
-  ope[c] = F[P_PE * hw + c];
-  opl[c] = __int_as_float(F[P_PL * hw + c]);
-  flags[c] = ((aux >> 15) & 1) | (((aux >> 16) & 1) << 1) | (moved ? 4 : 0);
+  out.pa[o + c] = (int)pa;
+  out.pb[o + c] = (int)pb;
+  out.pc[o + c] = F[P_PC * hw + c];
+  out.pd[o + c] = F[P_PD * hw + c];
+  out.pe[o + c] = F[P_PE * hw + c];
+  out.pl[o + c] = __int_as_float(F[P_PL * hw + c]);
+  out.flags[o + c] =
+      ((aux >> 15) & 1) | (((aux >> 16) & 1) << 1) | (moved ? 4 : 0);
 }
 
 }  // namespace tsim
@@ -379,7 +427,8 @@ extern "C" int tsim_decide_move(
     const uint8_t* ped, const uint8_t* inter, const int* dest_id,
     const float* r_mal, const float* r_side, const int* r_reroll,
     const int* r_prio, int* opa, int* opb, int* opc, int* opd, int* ope,
-    float* opl, int* flags, int* scratch, int H, int W, void* stream) {
+    float* opl, int* flags, int* scratch, int B, int H, int W,
+    void* stream) {
   using namespace tsim;
   DMParams p;
   p.H = H;
@@ -405,16 +454,16 @@ extern "C" int tsim_decide_move(
   p.side_chance = fp[1];
   Inputs in{sdir4, wnd, pa, pb, pc, pd, pe, pl, stop, rain, ped, inter,
             dest_id, r_mal, r_side, r_reroll, r_prio};
+  Outputs out{opa, opb, opc, opd, ope, opl, flags};
   cudaStream_t s = (cudaStream_t)stream;
-  const int nb = blocks_for((long)H * W);
-  dm_decide<<<nb, THREADS, 0, s>>>(p, in, scratch);
+  const dim3 grid(blocks_for((long)H * W), B);
+  dm_decide<<<grid, THREADS, 0, s>>>(p, in, scratch);
   int set = 0;
   for (int r = 0; r < p.max_speed; ++r) {
-    dm_intent<<<nb, THREADS, 0, s>>>(p, in, scratch, set);
-    dm_commit<<<nb, THREADS, 0, s>>>(p, scratch, set);
+    dm_intent<<<grid, THREADS, 0, s>>>(p, in, scratch, set);
+    dm_commit<<<grid, THREADS, 0, s>>>(p, scratch, set);
     set ^= 1;
   }
-  dm_finish<<<nb, THREADS, 0, s>>>(p, in, scratch, set, opa, opb, opc, opd,
-                                   ope, opl, flags);
+  dm_finish<<<grid, THREADS, 0, s>>>(p, in, scratch, set, out);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // K4: row- and column-inclusive prefix sums of an int32 plane.
 //
 // Replaces pallas_engine.prefix_planes_pallas (_prefix_kernel).  One
-// launch of H + W blocks: block b < H scans row b, block H + x scans
-// column x.  Each block walks its line in tiles of THREADS elements:
+// launch of (H + W) x B blocks for a batch of B planes [B, H, W]: block
+// (b, w) with b < H scans row b of plane w, block (H + x, w) column x.  Each block walks its line in tiles of THREADS elements:
 // a warp-shuffle inclusive scan per warp, a scan of the warp totals by
 // warp 0, and a carry across tiles.  The sums wrap in 32 bits as the
 // JAX int32 adds do.
@@ -15,6 +15,10 @@ __global__ void prefix_kernel(const int* __restrict__ occ,
                               int* __restrict__ outv, int H, int W) {
   __shared__ uint32_t warp_tot[THREADS / 32];
   const int b = blockIdx.x;
+  const long plane = (long)blockIdx.y * H * W;
+  occ += plane;
+  outh += plane;
+  outv += plane;
   const int* src;
   int* dst;
   int n;
@@ -61,9 +65,9 @@ __global__ void prefix_kernel(const int* __restrict__ occ,
 }  // namespace tsim
 
 extern "C" int tsim_prefix_planes(const int* occ, int* outh, int* outv,
-                                  int H, int W, void* stream) {
-  tsim::prefix_kernel<<<H + W, tsim::THREADS, 0, (cudaStream_t)stream>>>(
-      occ, outh, outv, H, W);
+                                  int B, int H, int W, void* stream) {
+  tsim::prefix_kernel<<<dim3(H + W, B), tsim::THREADS, 0,
+                        (cudaStream_t)stream>>>(occ, outh, outv, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -2,11 +2,13 @@
 the phase commit (the JAX package's `lights/fsm.py`; see its docstring
 for the reference semantics of each controller).
 
-Only the run form of the reductions is ported: the queue counts come
-from two prefix-sum gathers per axis-aligned run (K4 builds the prefix
-planes), the stop map from a run diff-array and one `cumsum` per axis.
-The dense MXU reducers of the JAX package are a TPU trick and are not
-ported; the RL controllers raise until ROADMAP Queue 1 item 14.
+The queue counts come from two prefix-sum gathers per axis-aligned run
+(K4 builds the prefix planes), the stop map from a run diff-array and
+one `cumsum` per axis.  The dense forms (`build_dense_reducers`) turn
+both into one matrix product against a one-hot geometry matrix, which
+under vmap becomes one batched product for all worlds of a
+shared-geometry batch (`parallel/mesh.run_batch_shared`).  The RL
+controllers raise until ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from trafficsimulation_tpu.config import Config
+from ..config import Config
 
 from ..core.state import LightsState, LightStatic, GroupStatic, Grid
 from ..ops import hopper_engine as HE
@@ -57,16 +59,79 @@ def _prefix_planes(occupancy: torch.Tensor) -> torch.Tensor:
     return torch.cat([Ph.reshape(-1), Pv.reshape(-1)])
 
 
+def build_dense_reducers(cfg: Config, grid: Grid, ls: LightStatic,
+                         build_m: bool = True, build_a: bool = True):
+    """Dense one-hot matrices for the two per-tick geometry reductions,
+    built once per chunk from the static geometry (the JAX
+    `build_dense_reducers`):
+
+      M [HW, G*5+1] — M[c, g*5+b] = 1 iff cell c carries queue label
+        (g, b); the queue counts are occ @ M.
+      A [L, HW] bf16 — A[l, c] = 1 iff light l stops cell c (its own
+        cell and its assigned controlled roads); the stop map is
+        light_stop @ A > 0.5.
+
+    Exact: the operands are 0/1.  M is f32, so the counts are exact
+    integers below 2^24 on every device; the stop map only asks whether
+    a count is positive, which a bf16 product of 0/1 operands answers
+    exactly."""
+    H, W = grid.cell_type.shape
+    HW = H * W
+    G = int(cfg.capacities().max_groups)
+    L = ls.valid.shape[0]
+    dev = ls.valid.device
+    M = A = None
+    if build_m:
+        qg = grid.queue_group.reshape(-1).to(torch.int32)
+        qb = grid.queue_bucket.reshape(-1).to(torch.int32)
+        seg = torch.where(qg >= 0, qg * 5 + qb, G * 5)
+        M = (seg[:, None] == torch.arange(G * 5 + 1, dtype=torch.int32,
+                                          device=dev)[None, :]
+             ).to(torch.float32)
+    if build_a:
+        # column HW is the sink of the dropped writes
+        A = torch.zeros((L, HW + 1), dtype=torch.bfloat16, device=dev)
+        pc = torch.where(ls.assign_valid, ls.assign_road, HW).long()
+        A[torch.clamp(ls.assign_light, 0, L - 1).long(), pc] = 1
+        A[torch.arange(L, device=dev),
+          torch.where(ls.valid, ls.pos, HW).long()] = 1
+        A = A[:, :HW].contiguous()
+    return M, A
+
+
+def dense_reducer_modes(cfg: Config) -> tuple:
+    """(use_dense_M, use_dense_A), the JAX package's rule: each dense
+    matrix pays only while its per-tick read stays small (M at most 64
+    MB, A at most 192 MB in bf16) and the grid is at least 256x256."""
+    caps = cfg.capacities()
+    HW = cfg.HEIGHT * cfg.WIDTH
+    m_ok = HW >= 256 * 256 and \
+        (caps.max_groups * 5 + 1) * HW * 2 <= 64 * 1024 * 1024
+    a_ok = HW >= 256 * 256 and \
+        HW * caps.max_lights * 2 <= 192 * 1024 * 1024
+    return m_ok, a_ok
+
+
+def dense_reducers_profitable(cfg: Config) -> bool:
+    return any(dense_reducer_modes(cfg))
+
+
 def group_reductions(grid: Grid, occupancy: torch.Tensor, num_groups: int,
-                     gs: GroupStatic):
+                     gs: GroupStatic, dense_m: torch.Tensor = None):
     """Per-group (ns_in, ns_out, ew_in, ew_out) queue counts and the
-    intersection-occupied flag (bucket 4), from the run tables."""
+    intersection-occupied flag (bucket 4), from the run tables or, with
+    `dense_m`, as one matrix product."""
     G = num_groups
+    if dense_m is not None:
+        q = torch.matmul(occupancy.reshape(-1).to(torch.float32), dense_m)
+        q = q[:G * 5].to(torch.int32).reshape(G, 5)
+        return (q[:, NS_IN], q[:, NS_OUT], q[:, EW_IN], q[:, EW_OUT],
+                q[:, 4] > 0)
     P = _prefix_planes(occupancy)
     cnt = P[gs.run_hi.long()] - P[gs.run_lo.long()]
     seg = torch.where(gs.run_seg >= 0, gs.run_seg, G * 5).long()
     sums = torch.zeros((G * 5 + 1,), dtype=torch.int32,
-                       device=occupancy.device).index_add_(0, seg, cnt)
+                       device=occupancy.device).index_add(0, seg, cnt)
     q = sums[:G * 5].reshape(G, 5)
     return (q[:, NS_IN], q[:, NS_OUT], q[:, EW_IN], q[:, EW_OUT],
             q[:, 4] > 0)
@@ -203,15 +268,19 @@ def execute_phase_change(cfg: Config, ls: LightStatic, gs: GroupStatic,
         light_stop=light_stop)
 
 
-def build_stop_map(grid: Grid, ls: LightStatic,
-                   state: LightsState) -> torch.Tensor:
+def build_stop_map(grid: Grid, ls: LightStatic, state: LightsState,
+                   dense_a: torch.Tensor = None) -> torch.Tensor:
     """stop_map from per-light stop flags: each stopped run adds +1 / -1
     to a diff buffer and one cumsum per axis covers the run; cells owned
-    by another light's run keep OR semantics through the extras."""
+    by another light's run keep OR semantics through the extras.  With
+    `dense_a`, one product light_stop @ A instead."""
     H, W = grid.cell_type.shape
     HW = H * W
     L = ls.valid.shape[0]
     dev = ls.valid.device
+    if dense_a is not None:
+        cnt = torch.matmul(state.light_stop.to(torch.bfloat16), dense_a)
+        return (cnt > 0.5).reshape(H, W)
     NH = H * (W + 1)
     NV = (H + 1) * W
 
@@ -220,8 +289,10 @@ def build_stop_map(grid: Grid, ls: LightStatic,
     one = stopped.to(torch.int32)
     sink = NH + NV
     diff = torch.zeros((NH + NV + 1,), dtype=torch.int32, device=dev)
-    diff.index_add_(0, torch.where(stopped, ls.srun_lo, sink).long(), one)
-    diff.index_add_(0, torch.where(stopped, ls.srun_hi, sink).long(), -one)
+    diff = diff.index_add(0, torch.where(stopped, ls.srun_lo, sink).long(),
+                          one)
+    diff = diff.index_add(0, torch.where(stopped, ls.srun_hi, sink).long(),
+                          -one)
     cov_h = torch.cumsum(diff[:NH].reshape(H, W + 1), 1,
                          dtype=torch.int32)[:, :W]
     cov_v = torch.cumsum(diff[NH:NH + NV].reshape(H + 1, W), 0,
@@ -231,9 +302,9 @@ def build_stop_map(grid: Grid, ls: LightStatic,
     ex_ok = ls.sextra_cell >= 0
     ex_stop = ex_ok & state.light_stop[
         torch.clamp(ls.sextra_light, 0, L - 1).long()]
-    extra = torch.zeros((HW + 1,), dtype=torch.int32, device=dev)
-    extra.index_add_(0, torch.where(ex_stop, ls.sextra_cell, HW).long(),
-                     ex_stop.to(torch.int32))
+    extra = torch.zeros((HW + 1,), dtype=torch.int32, device=dev).index_add(
+        0, torch.where(ex_stop, ls.sextra_cell, HW).long(),
+        ex_stop.to(torch.int32))
     return stop | (extra[:HW] > 0).reshape(H, W)
 
 

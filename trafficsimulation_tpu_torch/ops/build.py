@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-The sources compile with `nvcc` for `sm_90a` into one shared library
-with a plain C interface, loaded with ctypes.  The library goes into
+The sources compile with `nvcc` for `sm_90a`, one `nvcc -c` per source,
+all started together, and link into one shared library with a plain C
+interface, loaded with ctypes.  The library goes into
 `trafficsimulation_tpu_torch/_build/`, named by a hash of the sources
 and flags, and is built at first use: `load()` on a machine without a
 build compiles it (a few seconds), later calls reuse it.
@@ -25,8 +26,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lib = None
 build_seconds = None      # wall time of the last build (None: reused)
@@ -37,12 +37,19 @@ I = ctypes.c_int
 _ARGTYPES = {
     # ip[16], fp[2], sdir4, D4, wnd, pa..pe, pl, stop, rain, ped, inter,
     # dest_id, r_mal, r_side, r_reroll, r_prio, out pa..pe, out pl,
-    # flags, scratch, H, W, stream
+    # flags, scratch, B, H, W, stream
     "tsim_decide_move": [P, P, P, I, P] + [P] * 6 + [P] * 4 + [P]
-    + [P] * 4 + [P] * 6 + [P, P, I, I, P],
+    + [P] * 4 + [P] * 6 + [P, P, I, I, I, P],
+    # K0, pen4, legal4, out, D, HW, tp2, stream
     "tsim_build_sdir": [P, P, P, P, I, I, I, P],
-    "tsim_build_wavefront": [P, P, P, P, P, I, I, I, P],
-    "tsim_prefix_planes": [P, P, P, I, I, P],
+    # K0, pen4b, legal4, out, D, HW, tp2, B, stream
+    "tsim_build_sdir_batched": [P, P, P, P, I, I, I, I, P],
+    # allowed, road, hard, out, scratch, k_ovt, B, H, W, stream
+    "tsim_build_wavefront": [P, P, P, P, P, I, I, I, I, P],
+    # occ, outh, outv, B, H, W, stream
+    "tsim_prefix_planes": [P, P, P, I, I, I, P],
+    # base, idx, vals, out, R, T, n, stream
+    "tsim_ordered_add": [P, P, P, P, I, I, I, P],
 }
 
 
@@ -79,15 +86,31 @@ def load():
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cu, _ = sources()
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               *map(str, cu)]
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for src, o in zip(cu, objs)]
+        logs = [f"== {src.name}\n{p.communicate()[0]}"
+                for src, p in zip(cu, procs)]
+        failed = [src.name for src, p in zip(cu, procs) if p.returncode]
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        if not failed:
+            res = subprocess.run(
+                [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            logs.append(f"== link\n{res.stdout}{res.stderr}")
+            if res.returncode:
+                failed.append("link")
         build_seconds = time.perf_counter() - t0
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+        build_log = "".join(logs)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
                                f"{build_log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))

@@ -20,8 +20,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from trafficsimulation_tpu import codes as C
-from trafficsimulation_tpu.config import Config
+from .. import codes as C
+from ..config import Config
 
 from .. import prng
 from ..agents.blocks import step_blocks, food_shortage, waste_surplus
@@ -145,8 +145,7 @@ def _to_i32(x64: torch.Tensor) -> torch.Tensor:
 def _scatter_cells(HW, pos, vals, dtype, device):
     """A flat plane of zeros with vals written at pos (pos == HW drops)."""
     z = torch.zeros((HW + 1,), dtype=dtype, device=device)
-    z[pos] = vals.to(dtype)
-    return z[:HW]
+    return z.index_put((pos,), vals.to(dtype))[:HW]
 
 
 def vehicles_to_planes(cfg: Config, v: Vehicles, H: int, W: int):
@@ -215,8 +214,7 @@ def planes_to_vehicles(cfg: Config, planes, V: int) -> Vehicles:
 
     def put(vals, fill, dtype):
         z = torch.full((V + 1,), fill, dtype=dtype, device=dev)
-        z[slot] = vals.to(dtype)
-        return z[:V]
+        return z.index_put((slot,), vals.to(dtype))[:V]
 
     i32t, bt = torch.int32, torch.bool
     dest = _fld(paf, PA_DEST_SH, 14)
@@ -319,8 +317,8 @@ def _hash32(x: torch.Tensor) -> torch.Tensor:
 
 
 # per-tick draw row (int64 [N_DRAWS]): the 4 tick_randoms seeds (u32),
-# then the rain draws: spawn wanted, edge, position (f32 bits), corner
-# flip, radius
+# then the rain draws: spawn wanted, edge, position (the f32 uniform
+# times 2^23, an exact integer), corner flip, radius
 N_DRAWS = 9
 D_SEEDS, D_RAIN = 0, 4
 
@@ -328,24 +326,27 @@ D_SEEDS, D_RAIN = 0, 4
 def tick_draws(cfg: Config, key: np.ndarray, n: int):
     """Walk the JAX key chain of n ticks on the host (`step_engine`:
     split(key, 6); `_post_move`: split(key); `step_rain`: split(k_rain,
-    5)).  Returns (draws int64 [n, N_DRAWS] numpy, final key)."""
-    out = np.zeros((n, N_DRAWS), np.int64)
+    5)).  `key` uint32 [2], or [B, 2] for the worlds of a batch (each
+    world its own chain, walked together).  Returns (draws int64
+    [..., n, N_DRAWS] numpy, final keys [..., 2])."""
     key = np.asarray(key, np.uint32)
+    out = np.zeros(key.shape[:-1] + (n, N_DRAWS), np.int64)
     for t in range(n):
         ks = prng.split(key, 6)
-        key, k_mal, k_rain = ks[0], ks[1], ks[5]
-        out[t, D_SEEDS:D_SEEDS + 4] = prng.bits(k_mal, (4,))
-        key = prng.split(key, 2)[0]
+        key, k_mal, k_rain = ks[..., 0, :], ks[..., 1, :], ks[..., 5, :]
+        out[..., t, D_SEEDS:D_SEEDS + 4] = prng.bits(k_mal, (4,))
+        key = prng.split(key, 2)[..., 0, :]
         if cfg.RAIN_ENABLED:
             kr = prng.split(k_rain, 5)
-            out[t, D_RAIN] = prng.uniform(kr[0]) < np.float32(
+            out[..., t, D_RAIN] = prng.uniform(kr[..., 0, :]) < np.float32(
                 cfg.RAIN_SPAWN_CHANCE)
-            out[t, D_RAIN + 1] = prng.randint(kr[1], 0, 4)
-            out[t, D_RAIN + 2] = np.float32(prng.uniform(kr[2])).view(
-                np.int32)
-            out[t, D_RAIN + 3] = prng.bernoulli(kr[3])
-            out[t, D_RAIN + 4] = prng.randint(kr[4], cfg.RAIN_RADIUS_MIN,
-                                              cfg.RAIN_RADIUS_MAX + 1)
+            out[..., t, D_RAIN + 1] = prng.randint(kr[..., 1, :], 0, 4)
+            # the uniform is a multiple of 2^-23: carried as that integer
+            out[..., t, D_RAIN + 2] = np.asarray(
+                prng.uniform(kr[..., 2, :]), np.float64) * (1 << 23)
+            out[..., t, D_RAIN + 3] = prng.bernoulli(kr[..., 3, :])
+            out[..., t, D_RAIN + 4] = prng.randint(
+                kr[..., 4, :], cfg.RAIN_RADIUS_MIN, cfg.RAIN_RADIUS_MAX + 1)
     return out, key
 
 
@@ -404,10 +405,13 @@ def routing_planes(cfg: Config, world, es: EngineState):
 
 
 def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
-                sdir=None, spawn_slots: torch.Tensor = None) -> EngineState:
+                sdir=None, spawn_slots: torch.Tensor = None,
+                dense: tuple = None) -> EngineState:
     """One tick on the plane representation (the JAX `step_engine`,
     dense routing, no pedestrians, FSM lights).  `draws`: this tick's
-    int64 [N_DRAWS] row from `tick_draws`; the caller advances the key."""
+    int64 [N_DRAWS] row from `tick_draws`; the caller advances the key.
+    `dense`: the (M, A) light-reduction matrices of
+    `fsm.build_dense_reducers`, or None for the sparse forms."""
     if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM in fsm.RL_ALGOS:
         raise NotImplementedError(
             "RL light controllers are not ported yet (ROADMAP Queue 1 "
@@ -428,14 +432,16 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
     present = (es.pa & 1) == 1
 
     # ---- lights (commit first so decide reads the fresh stop map) --------
+    dense_m, dense_a = dense if dense is not None else (None, None)
     red = fsm.group_reductions(grid, present, caps.max_groups,
-                               gs=world.groups_static)
+                               gs=world.groups_static, dense_m=dense_m)
     lights = fsm.run_controllers(cfg, grid, world.groups_static, es.lights,
                                  present, reductions=red[:4])
     lights = fsm.execute_phase_change(cfg, world.lights_static,
                                       world.groups_static, lights, red[4])
     lights = fsm.apply_light_overrides(lights, es.overrides.light_force)
-    stop_map = fsm.build_stop_map(grid, world.lights_static, lights)
+    stop_map = fsm.build_stop_map(grid, world.lights_static, lights,
+                                  dense_a=dense_a)
 
     # ---- decide + move (K1) ---------------------------------------------
     if sdir is None:
@@ -544,11 +550,12 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
         cfg.SERVICE_VEHICLE_MAX_LOAD_WASTE - pl_d,
         torch.clamp(surplus[sb], min=0.0)), zf)
     # duplicate block indices (two vehicles serving one block in a tick)
-    # add in no fixed order on the card: f32 rounding may differ there
-    food = torch.minimum(torch.clamp(bst.food.index_add(0, sb, give),
-                                     min=0.0), bs.food_cap)
-    waste = torch.minimum(torch.clamp(bst.waste.index_add(0, sb, -take),
-                                      min=0.0), bs.waste_cap)
+    # fold in update order, as XLA's scatter-add does: one ordered add
+    # for both tanks
+    tanks = HE.ordered_add(torch.stack([bst.food, bst.waste]),
+                           torch.stack([sb, sb]), torch.stack([give, -take]))
+    food = torch.minimum(torch.clamp(tanks[0], min=0.0), bs.food_cap)
+    waste = torch.minimum(torch.clamp(tanks[1], min=0.0), bs.waste_cap)
     bst = bst.replace(food=food, waste=waste)
     pl_d = pl_d - give + take
     parked_d = _bit(pa_d, PA_PARKED_SH) | arrive_blk
@@ -667,8 +674,8 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
     # ---- ONE combined scatter per plane: service rows + despawn clears +
     # spawns; the index sets are disjoint by construction (a spawn needs
     # its cell free, a row whose cell a spawn claims goes to the sink)
-    sp_mask = torch.zeros((HW + 1,), dtype=torch.bool, device=dev)
-    sp_mask[scell] = place
+    sp_mask = torch.zeros((HW + 1,), dtype=torch.bool,
+                          device=dev).index_put((scell,), place)
     claimed = sp_mask[:HW][dpos]
     row = torch.where((is_svc | despawn_d) & ~claimed, dpos, HW)
     zrow = torch.where(despawn_d & ~claimed, dpos, HW)

@@ -1,20 +1,37 @@
-"""The tick's four hand-written Hopper kernels, each beside its plain
-PyTorch version (the counterpart of the JAX package's
-`ops/pallas_engine.py`).
+"""The tick's hand-written Hopper kernels, each beside its plain PyTorch
+version (the counterpart of the JAX package's `ops/pallas_engine.py`).
 
-  K1 `decide_move`      <- pallas_engine.decide_move_pallas (+ _kernel,
-                           decide_move_core): every tick
-  K2 `build_sdir`       <- pallas_engine.build_sdir_pallas (_sdir_body):
-                           once per routing segment
-  K3 `build_wavefront`  <- pallas_engine.build_wavefront_pallas
-                           (wavefront_core): once per routing segment
-  K4 `prefix_planes`    <- pallas_engine.prefix_planes_pallas
-                           (_prefix_kernel): every tick
+  K1 `decide_move`         <- pallas_engine.decide_move_pallas (+ _kernel,
+                              decide_move_core): every tick
+  K2 `build_sdir`          <- pallas_engine.build_sdir_pallas (_sdir_body):
+                              once per routing segment of one world
+  K3 `build_wavefront`     <- pallas_engine.build_wavefront_pallas
+                              (wavefront_core): once per routing segment
+  K4 `prefix_planes`       <- pallas_engine.prefix_planes_pallas
+                              (_prefix_kernel): every tick
+  K5 `build_sdir_batched`  <- pallas_engine.build_sdir_pallas_batched
+                              (_sdir_kernel_batched): once per routing
+                              segment of a shared-geometry batch
+  `ordered_add`            the service FSM's f32 scatter-add into the
+                           block tanks, in update order (no TPU kernel:
+                           the JAX package leaves it to XLA's scatter)
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel (built from `csrc/` by `ops/build.py`)
 or raises.  There is no fallback from one to the other.  `launches`
 counts, per kernel, the wrapper calls that launched it.
+
+Batches.  K1, K3, K4 and `ordered_add` take a leading batch of worlds
+(`*_batched`; one launch per batch, the geometry shared); the
+single-world wrappers are the B = 1 call.  The single-world wrappers
+are `torch.autograd.Function`s with a `vmap` rule, the counterpart of
+the batching rules that `jax.vmap` finds for the Pallas kernels: under
+`torch.func.vmap` (the shared-geometry batch, `parallel/mesh.py`) each
+launches its batched kernel once for the whole batch.  A vmapped
+`build_sdir` whose key stack and legality planes are shared goes to
+K5, which reads the key stack once for the batch; any other batching
+of an input the kernel shares maps the single-world wrapper over the
+worlds, as JAX's `custom_vmap` rule for the sdir build does.
 
 Packed u32 planes are carried as int32 with the same bits: every right
 shift below is masked to the field it extracts, so the sign fill of the
@@ -27,8 +44,8 @@ import ctypes
 
 import torch
 
-from trafficsimulation_tpu import codes as C
-from trafficsimulation_tpu.config import Config
+from .. import codes as C
+from ..config import Config
 
 from .routing import _shift_plane
 
@@ -63,8 +80,8 @@ ND_NONE4 = 0x07070707
 KBIG = 1 << 19
 KINF = 0x7FFFFFFF
 
-launches = {"decide_move": 0, "build_sdir": 0, "build_wavefront": 0,
-            "prefix_planes": 0}
+launches = {"decide_move": 0, "build_sdir": 0, "build_sdir_batched": 0,
+            "build_wavefront": 0, "prefix_planes": 0, "ordered_add": 0}
 
 
 def reset_launches():
@@ -428,11 +445,51 @@ def wavefront_core(cfg: Config, allowed, is_road, hard) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+def decide_move_core_batched(cfg: Config, sdir4, wnd, planes, stop_map,
+                             rain_map, ped_block, intersection, dest_id,
+                             randoms):
+    """Plain version of the batched K1: `decide_move_core` per world;
+    every argument carries a leading B except the shared `intersection`
+    and `dest_id`.  Returns the 7 outputs, each [B, H, W]."""
+    outs = [decide_move_core(
+        cfg, sdir4[b], wnd[b], *(p[b] for p in planes), stop_map[b],
+        rain_map[b], ped_block[b], intersection, dest_id,
+        *(r[b] for r in randoms)) for b in range(planes[0].shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def wavefront_core_batched(cfg: Config, allowed, is_road, hard):
+    """Plain version of the batched K3: `wavefront_core` per world of
+    `hard` [B, H, W] over the shared geometry."""
+    return torch.stack([wavefront_core(cfg, allowed, is_road, h)
+                        for h in hard])
+
+
+def sdir_encode_batched(K0, pen4b, legal4, tp2: int) -> torch.Tensor:
+    """Plain version of K5: K2's encode per world over a shared key
+    stack, [B, ceil(D/4), H, W]."""
+    return torch.stack([sdir_encode(K0, p, legal4, tp2) for p in pen4b])
+
+
 def prefix_planes_plain(occ: torch.Tensor):
     """Plain version of K4: row- and column-inclusive prefix sums of an
-    int32 plane, (incH [H, W], incV [H, W])."""
-    return (torch.cumsum(occ, 1, dtype=torch.int32),
-            torch.cumsum(occ, 0, dtype=torch.int32))
+    int32 plane [..., H, W], (incH, incV)."""
+    return (torch.cumsum(occ, -1, dtype=torch.int32),
+            torch.cumsum(occ, -2, dtype=torch.int32))
+
+
+def ordered_add_plain(base, idx, vals) -> torch.Tensor:
+    """Plain version of `ordered_add`: per row r, base[r] with vals[r, i]
+    added at idx[r, i] (int64) in update order, as XLA's CPU scatter-add
+    folds duplicates; indices outside [0, T) are dropped.  The CPU
+    `index_add` adds a 1-D row in index order."""
+    T = base.shape[-1]
+    out = []
+    for b, i, v in zip(base.reshape(-1, T), idx.reshape(-1, idx.shape[-1]),
+                       vals.reshape(-1, vals.shape[-1])):
+        keep = (i >= 0) & (i < T)
+        out.append(b.index_add(0, i[keep], v[keep]))
+    return torch.stack(out).reshape(base.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -476,50 +533,42 @@ def _call(entry, *args):
                            f"({build.error_string(rc)})")
 
 
-def decide_move(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
-                ped_block, intersection, dest_id, randoms):
-    """K1, the whole per-tick vehicle decide + move.
+# ---- vmap rules ------------------------------------------------------------
 
-    Replaces `pallas_engine.decide_move_pallas` (`_kernel` ->
-    `decide_move_core`, ops/pallas_engine.py).  Source:
-    csrc/decide_move.cu.  On the H100 it is bound by launches and device
-    memory bytes, not arithmetic: ~30 int32 planes of 256 KB are read
-    and written per sub-round, far below the card's bandwidth, so the
-    12 dependent launches per tick set its time.  Design: one thread per
-    cell in phases with double-buffered planes in device memory (a
-    `decide` kernel, then per sub-round an `intent` kernel that
-    publishes each mover's conflict key and a `commit` kernel that
-    resolves every target's lowest key from neighbours up to two cells
-    away and pulls the winner's planes, then a `finish` kernel); the
-    destination-row select is one indexed load.  Fusing the sub-rounds
-    into one halo-tiled kernel (TILE_HALO >= 12 is exact) is later
-    speed work."""
-    pa, pb, pc, pd, pe, pl = planes
-    r_mal, r_side, r_reroll, r_prio = randoms
-    if not _on_cuda(pa):
-        return decide_move_core(cfg, sdir4, wnd, pa, pb, pc, pd, pe, pl,
-                                stop_map, rain_map, ped_block, intersection,
-                                dest_id, r_mal, r_side, r_reroll, r_prio)
-    H, W = pa.shape
-    dev = pa.device
-    i32t, f32t, bt = torch.int32, torch.float32, torch.bool
-    _check("sdir4", sdir4, i32t, (sdir4.shape[0], H, W), dev)
-    for name, t, dt in (("wnd", wnd, i32t), ("pa", pa, i32t),
-                        ("pb", pb, i32t), ("pc", pc, i32t),
-                        ("pd", pd, i32t), ("pe", pe, i32t),
-                        ("pl", pl, f32t), ("stop_map", stop_map, bt),
-                        ("rain_map", rain_map, bt),
-                        ("ped_block", ped_block, bt),
-                        ("intersection", intersection, bt),
-                        ("dest_id", dest_id, i32t), ("r_mal", r_mal, f32t),
-                        ("r_side", r_side, f32t),
-                        ("r_reroll", r_reroll, i32t),
-                        ("r_prio", r_prio, i32t)):
-        _check(name, t, dt, (H, W), dev)
-    outs = [torch.empty((H, W), dtype=i32t, device=dev) for _ in range(5)]
-    out_pl = torch.empty((H, W), dtype=f32t, device=dev)
-    flags = torch.empty((H, W), dtype=i32t, device=dev)
-    scratch = torch.empty((20, H, W), dtype=i32t, device=dev)
+def _front(x, bdim, B):
+    """x with its batch dim first, or broadcast to B worlds when the
+    vmapped call shares it (contiguous either way)."""
+    if bdim is None:
+        return x.unsqueeze(0).expand(B, *x.shape).contiguous()
+    return x.movedim(bdim, 0).contiguous()
+
+
+def _map_worlds(fn, B, in_dims, args):
+    """fn mapped over the worlds of a vmapped call: each batched tensor
+    argument is indexed per world, the rest passed as is; the outputs
+    stacked along a new dim 0."""
+    outs = []
+    for b in range(B):
+        outs.append(fn(*[a.select(d, b) if d is not None else a
+                         for a, d in zip(args, in_dims)]))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+class _Kernel(torch.autograd.Function):
+    """A kernel wrapper as an autograd.Function: `forward` is the
+    single-world wrapper, `vmap` the rule under torch.func.vmap.  No
+    gradients."""
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+
+# ---- K1 --------------------------------------------------------------------
+
+def _dm_params(cfg: Config):
     ip = (ctypes.c_int * 16)(
         int(cfg.VEHICLE_MALFUNCTION_ACTIVE),
         int(cfg.VEHICLE_SIDESWIPE_COLLISION_ACTIVE),
@@ -538,30 +587,121 @@ def decide_move(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
     # the thresholds compare against f32 draws, as the JAX `<` does
     fp = (ctypes.c_float * 2)(cfg.VEHICLE_MALFUNCTION_CHANCE,
                               cfg.VEHICLE_SIDESWIPE_COLLISION_CHANCE)
+    return ip, fp
+
+
+def decide_move_batched(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
+                        ped_block, intersection, dest_id, randoms):
+    """K1 for a batch of B worlds: every argument carries a leading B
+    except the shared geometry `intersection` and `dest_id` [H, W].
+    Returns (pa, pb, pc, pd, pe, pl, flags), each [B, H, W].
+
+    Replaces `pallas_engine.decide_move_pallas` (`_kernel` ->
+    `decide_move_core`, ops/pallas_engine.py; batched by `jax.vmap`
+    through the Pallas batching rule).  Source: csrc/decide_move.cu.  On
+    the H100 it is bound by launches and device memory bytes, not
+    arithmetic: ~30 int32 planes of 256 KB per world are read and written
+    per sub-round, far below the card's bandwidth, so the 12 dependent
+    launches per tick set its time.  Design: one thread per cell and
+    world (blockIdx.y) in phases with double-buffered planes in device
+    memory (a `decide` kernel, then per sub-round an `intent` kernel that
+    publishes each mover's conflict key and a `commit` kernel that
+    resolves every target's lowest key from neighbours up to two cells
+    away and pulls the winner's planes, then a `finish` kernel); the
+    destination-row select is one indexed load.  Fusing the sub-rounds
+    into one halo-tiled kernel (TILE_HALO >= 12 is exact) is later speed
+    work."""
+    pa = planes[0]
+    r_mal, r_side, r_reroll, r_prio = randoms
+    if not _on_cuda(pa):
+        return decide_move_core_batched(cfg, sdir4, wnd, planes, stop_map,
+                                        rain_map, ped_block, intersection,
+                                        dest_id, randoms)
+    B, H, W = pa.shape
+    dev = pa.device
+    i32t, f32t, bt = torch.int32, torch.float32, torch.bool
+    _check("sdir4", sdir4, i32t, (B, sdir4.shape[1], H, W), dev)
+    for name, t, dt in (("wnd", wnd, i32t), ("pa", pa, i32t),
+                        ("pb", planes[1], i32t), ("pc", planes[2], i32t),
+                        ("pd", planes[3], i32t), ("pe", planes[4], i32t),
+                        ("pl", planes[5], f32t), ("stop_map", stop_map, bt),
+                        ("rain_map", rain_map, bt),
+                        ("ped_block", ped_block, bt),
+                        ("r_mal", r_mal, f32t), ("r_side", r_side, f32t),
+                        ("r_reroll", r_reroll, i32t),
+                        ("r_prio", r_prio, i32t)):
+        _check(name, t, dt, (B, H, W), dev)
+    _check("intersection", intersection, bt, (H, W), dev)
+    _check("dest_id", dest_id, i32t, (H, W), dev)
+    outs = [torch.empty((B, H, W), dtype=i32t, device=dev)
+            for _ in range(5)]
+    out_pl = torch.empty((B, H, W), dtype=f32t, device=dev)
+    flags = torch.empty((B, H, W), dtype=i32t, device=dev)
+    scratch = torch.empty((B, 20, H, W), dtype=i32t, device=dev)
+    ip, fp = _dm_params(cfg)
     _call("tsim_decide_move", ctypes.cast(ip, ctypes.c_void_p),
           ctypes.cast(fp, ctypes.c_void_p),
-          _ptr(sdir4), ctypes.c_int(sdir4.shape[0]), _ptr(wnd),
-          _ptr(pa), _ptr(pb), _ptr(pc), _ptr(pd), _ptr(pe), _ptr(pl),
+          _ptr(sdir4), ctypes.c_int(sdir4.shape[1]), _ptr(wnd),
+          *[_ptr(p) for p in planes],
           _ptr(stop_map), _ptr(rain_map), _ptr(ped_block),
           _ptr(intersection), _ptr(dest_id), _ptr(r_mal), _ptr(r_side),
           _ptr(r_reroll), _ptr(r_prio),
           *[_ptr(o) for o in outs], _ptr(out_pl), _ptr(flags),
-          _ptr(scratch), ctypes.c_int(H), ctypes.c_int(W), _stream(dev))
+          _ptr(scratch), ctypes.c_int(B), ctypes.c_int(H), ctypes.c_int(W),
+          _stream(dev))
     launches["decide_move"] += 1
     return (*outs, out_pl, flags)
 
 
-def build_sdir(K0, pen4, legal4, tp2: int):
-    """K2, the per-segment next-move stack [ceil(D/4), H, W] int32.
+# argument positions of _DecideMove after cfg: the per-world tensors and
+# the shared geometry
+_DM_SHARED = (11, 12)       # intersection, dest_id
 
-    Replaces `pallas_engine.build_sdir_pallas` (`_sdir_kernel` ->
-    `_sdir_body`, ops/pallas_engine.py).  Source: csrc/sdir.cu.  On the
-    H100 it is bound by device-memory bytes: it reads the [D, 4, H, W]
-    key stack once (637 MB at D = 608, 256^2) and writes the packed
-    stack once (40 MB), about 0.2 ms at 3.35 TB/s; its ~20 integer ops
-    per key are far below the card's rate.  Design: one thread per cell
-    walks a run of packed words, keeps pen/legal in registers and reads
-    K0 coalesced along W; each word is written once."""
+
+def _dm_batched(cfg, args):
+    (sdir4, wnd, pa, pb, pc, pd, pe, pl, stop_map, rain_map, ped_block,
+     intersection, dest_id, r_mal, r_side, r_reroll, r_prio) = args
+    return decide_move_batched(cfg, sdir4, wnd, (pa, pb, pc, pd, pe, pl),
+                               stop_map, rain_map, ped_block, intersection,
+                               dest_id, (r_mal, r_side, r_reroll, r_prio))
+
+
+class _DecideMove(_Kernel):
+    @staticmethod
+    def forward(cfg, *args):
+        if not _on_cuda(args[2]):
+            return decide_move_core(cfg, *args)
+        one = [a if i in _DM_SHARED else a.unsqueeze(0)
+               for i, a in enumerate(args)]
+        return tuple(o[0] for o in _dm_batched(cfg, one))
+
+    @staticmethod
+    def vmap(info, in_dims, cfg, *args):
+        dims = in_dims[1:]
+        B = info.batch_size
+        if any(dims[i] is not None for i in _DM_SHARED):
+            out = _map_worlds(lambda *a: _DecideMove.forward(cfg, *a), B,
+                              dims, args)
+        else:
+            out = _dm_batched(cfg, [
+                a if i in _DM_SHARED else _front(a, d, B)
+                for i, (a, d) in enumerate(zip(args, dims))])
+        return out, (0,) * 7
+
+
+def decide_move(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
+                ped_block, intersection, dest_id, randoms):
+    """K1 for one world (`decide_move_batched` with B = 1; under vmap one
+    batched launch).  Planes pa..pe and `wnd`, `r_prio` are int32 bit
+    patterns; masks bool; `pl`, `r_mal`, `r_side` f32; `r_reroll`,
+    `dest_id` int32.  Returns (pa, pb, pc, pd, pe, pl, flags int32)."""
+    return _DecideMove.apply(cfg, sdir4, wnd, *planes, stop_map, rain_map,
+                             ped_block, intersection, dest_id, *randoms)
+
+
+# ---- K2 / K5 ----------------------------------------------------------------
+
+def _sdir_single(K0, pen4, legal4, tp2: int):
     if not _on_cuda(K0):
         return sdir_encode(K0, pen4, legal4, tp2)
     D, _, H, W = K0.shape
@@ -577,51 +717,222 @@ def build_sdir(K0, pen4, legal4, tp2: int):
     return out
 
 
-def build_wavefront(cfg: Config, allowed, is_road, hard):
-    """K3, the per-segment overtake merge wavefronts, packed int32
-    [H, W].
+def build_sdir_batched(K0, pen4b, legal4, tp2: int):
+    """K5, the per-segment next-move stacks of B worlds that share the
+    key stack K0 [D, 4, H, W] and the legality planes legal4 [4, H, W]:
+    pen4b [B, 4, H, W] -> [B, ceil(D/4), H, W] int32.
+
+    Replaces `pallas_engine.build_sdir_pallas_batched`
+    (`_sdir_kernel_batched` -> `_sdir_body`, ops/pallas_engine.py).
+    Source: csrc/sdir.cu.  On the H100 its floor is device-memory bytes
+    (K0 read once: 637.5 MB at D = 608, 256^2; B packed stacks written:
+    39.8 MB each) with the integer encode (about 25 operations per key
+    and world) close behind.  Design: one thread per cell and 8 packed
+    words; the thread loads a destination row's four keys once and
+    encodes it for up to 16 worlds whose pen << 2 it keeps in
+    registers, so K0 leaves device memory once per segment for the
+    batch, not once per world."""
+    if not _on_cuda(K0):
+        return sdir_encode_batched(K0, pen4b, legal4, tp2)
+    D, _, H, W = K0.shape
+    B = pen4b.shape[0]
+    dev = K0.device
+    _check("K0", K0, torch.int32, (D, 4, H, W), dev)
+    _check("pen4b", pen4b, torch.int32, (B, 4, H, W), dev)
+    _check("legal4", legal4, torch.int32, (4, H, W), dev)
+    out = torch.empty((B, (D + 3) // 4, H, W), dtype=torch.int32,
+                      device=dev)
+    _call("tsim_build_sdir_batched", _ptr(K0), _ptr(pen4b), _ptr(legal4),
+          _ptr(out), ctypes.c_int(D), ctypes.c_int(H * W),
+          ctypes.c_int(int(tp2)), ctypes.c_int(B), _stream(dev))
+    launches["build_sdir_batched"] += 1
+    return out
+
+
+class _BuildSdir(_Kernel):
+    @staticmethod
+    def forward(K0, pen4, legal4, tp2):
+        return _sdir_single(K0, pen4, legal4, tp2)
+
+    @staticmethod
+    def vmap(info, in_dims, K0, pen4, legal4, tp2):
+        kd, pd, ld, _ = in_dims
+        if kd is None and ld is None and pd is not None:
+            out = build_sdir_batched(K0, pen4.movedim(pd, 0).contiguous(),
+                                     legal4, tp2)
+        else:
+            out = _map_worlds(lambda k, p, lg: _sdir_single(k, p, lg, tp2),
+                              info.batch_size, (kd, pd, ld),
+                              (K0, pen4, legal4))
+        return out, 0
+
+
+def build_sdir(K0, pen4, legal4, tp2: int):
+    """K2, the per-segment next-move stack [ceil(D/4), H, W] int32 of one
+    world; under vmap with K0 and legal4 shared, K5.
+
+    Replaces `pallas_engine.build_sdir_pallas` (`_sdir_kernel` ->
+    `_sdir_body`, ops/pallas_engine.py).  Source: csrc/sdir.cu.  On the
+    H100 it is bound by device-memory bytes: it reads the [D, 4, H, W]
+    key stack once (637 MB at D = 608, 256^2) and writes the packed
+    stack once (40 MB), about 0.2 ms at 3.35 TB/s; its ~20 integer ops
+    per key are far below the card's rate.  Design: one thread per cell
+    walks a run of packed words, keeps pen/legal in registers and reads
+    K0 coalesced along W; each word is written once."""
+    return _BuildSdir.apply(K0, pen4, legal4, tp2)
+
+
+# ---- K3 --------------------------------------------------------------------
+
+def build_wavefront_batched(cfg: Config, allowed, is_road, hard):
+    """K3 for B worlds: `allowed` u8 and `is_road` bool [H, W] shared,
+    `hard` bool [B, H, W] -> packed int32 [B, H, W].
 
     Replaces `pallas_engine.build_wavefront_pallas` (`_wavefront_kernel`
     -> `wavefront_core`, ops/pallas_engine.py).  Source:
     csrc/wavefront.cu.  On the H100 it is bound by launch latency: each
-    of its 8 launches moves ~1 MB.  Design: a seed kernel, one
-    ping-pong min-plus relax launch per step over the [4, H, W]
-    direction stack (VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS of them),
-    then one argmin-and-pack launch."""
+    of its 8 launches moves ~1 MB per world.  Design: a seed kernel, one
+    ping-pong min-plus relax launch per step over the [4, H, W] direction
+    stack of every world (VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS of
+    them), then one argmin-and-pack launch; blockIdx.y is the world."""
     if not _on_cuda(allowed):
-        return wavefront_core(cfg, allowed, is_road, hard)
+        return wavefront_core_batched(cfg, allowed, is_road, hard)
+    B = hard.shape[0]
     H, W = allowed.shape
     dev = allowed.device
     _check("allowed", allowed, torch.uint8, (H, W), dev)
     _check("is_road", is_road, torch.bool, (H, W), dev)
-    _check("hard", hard, torch.bool, (H, W), dev)
-    out = torch.empty((H, W), dtype=torch.int32, device=dev)
-    scratch = torch.empty((2, 4, H, W), dtype=torch.int32, device=dev)
+    _check("hard", hard, torch.bool, (B, H, W), dev)
+    out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    scratch = torch.empty((2, B, 4, H, W), dtype=torch.int32, device=dev)
     _call("tsim_build_wavefront", _ptr(allowed), _ptr(is_road), _ptr(hard),
           _ptr(out), _ptr(scratch),
           ctypes.c_int(cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS),
-          ctypes.c_int(H), ctypes.c_int(W), _stream(dev))
+          ctypes.c_int(B), ctypes.c_int(H), ctypes.c_int(W), _stream(dev))
     launches["build_wavefront"] += 1
     return out
 
 
-def prefix_planes(occ):
-    """K4, row- and column-inclusive prefix sums of an int32 plane.
+class _BuildWavefront(_Kernel):
+    @staticmethod
+    def forward(cfg, allowed, is_road, hard):
+        if not _on_cuda(allowed):
+            return wavefront_core(cfg, allowed, is_road, hard)
+        return build_wavefront_batched(cfg, allowed, is_road,
+                                       hard.unsqueeze(0))[0]
+
+    @staticmethod
+    def vmap(info, in_dims, cfg, allowed, is_road, hard):
+        _, ad, rd, hd = in_dims
+        B = info.batch_size
+        if ad is None and rd is None:
+            out = build_wavefront_batched(cfg, allowed, is_road,
+                                          _front(hard, hd, B))
+        else:
+            out = _map_worlds(
+                lambda a, r, h: _BuildWavefront.forward(cfg, a, r, h), B,
+                (ad, rd, hd), (allowed, is_road, hard))
+        return out, 0
+
+
+def build_wavefront(cfg: Config, allowed, is_road, hard):
+    """K3 for one world, the per-segment overtake merge wavefronts,
+    packed int32 [H, W] (`build_wavefront_batched` with B = 1; under vmap
+    one batched launch)."""
+    return _BuildWavefront.apply(cfg, allowed, is_road, hard)
+
+
+# ---- K4 --------------------------------------------------------------------
+
+def prefix_planes_batched(occ):
+    """K4 for B planes: occ int32 [B, H, W] -> row- and column-inclusive
+    prefix sums (incH, incV), each [B, H, W].
 
     Replaces `pallas_engine.prefix_planes_pallas` (`_prefix_kernel`,
     ops/pallas_engine.py).  Source: csrc/prefix.cu.  On the H100 it is
-    bound by launch latency (a 256 KB plane in, two out).  Design: one
-    launch of H + W blocks, one per row and one per column, each a
-    warp-shuffle scan in exact int32 with a carry across 256-element
-    tiles."""
+    bound by launch latency (a 256 KB plane in, two out, per world).
+    Design: one launch of (H + W) x B blocks, one per row and one per
+    column of each plane, each a warp-shuffle scan in exact int32 with a
+    carry across 256-element tiles."""
     if not _on_cuda(occ):
         return prefix_planes_plain(occ)
-    H, W = occ.shape
+    B, H, W = occ.shape
     dev = occ.device
-    _check("occ", occ, torch.int32, (H, W), dev)
-    outh = torch.empty((H, W), dtype=torch.int32, device=dev)
-    outv = torch.empty((H, W), dtype=torch.int32, device=dev)
+    _check("occ", occ, torch.int32, (B, H, W), dev)
+    outh = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    outv = torch.empty((B, H, W), dtype=torch.int32, device=dev)
     _call("tsim_prefix_planes", _ptr(occ), _ptr(outh), _ptr(outv),
-          ctypes.c_int(H), ctypes.c_int(W), _stream(dev))
+          ctypes.c_int(B), ctypes.c_int(H), ctypes.c_int(W), _stream(dev))
     launches["prefix_planes"] += 1
     return outh, outv
+
+
+class _PrefixPlanes(_Kernel):
+    @staticmethod
+    def forward(occ):
+        if not _on_cuda(occ):
+            return prefix_planes_plain(occ)
+        h, v = prefix_planes_batched(occ.unsqueeze(0))
+        return h[0], v[0]
+
+    @staticmethod
+    def vmap(info, in_dims, occ):
+        return prefix_planes_batched(_front(occ, in_dims[0],
+                                            info.batch_size)), (0, 0)
+
+
+def prefix_planes(occ):
+    """K4 for one plane [H, W] (`prefix_planes_batched` with B = 1; under
+    vmap one batched launch)."""
+    return _PrefixPlanes.apply(occ)
+
+
+# ---- ordered scatter-add --------------------------------------------------
+
+def ordered_add_rows(base, idx, vals):
+    """`ordered_add` over R rows: base f32 [R, T], idx int64 [R, n],
+    vals f32 [R, n] -> f32 [R, T], each row base with vals added at idx
+    in update order (indices outside [0, T) dropped).
+
+    No TPU kernel: the JAX package adds with XLA's scatter
+    (`food.at[sb].add(give)`, ops/engine.py `_post_move`), which on the
+    CPU folds duplicates in update order; an atomic scatter on the card
+    would not.  Source: csrc/ordered_add.cu.  Bound by launch latency.
+    Design: one thread per target walks the row's updates in order."""
+    if not _on_cuda(base):
+        return ordered_add_plain(base, idx, vals)
+    R, T = base.shape
+    n = idx.shape[1]
+    dev = base.device
+    _check("base", base, torch.float32, (R, T), dev)
+    _check("idx", idx, torch.int64, (R, n), dev)
+    _check("vals", vals, torch.float32, (R, n), dev)
+    out = torch.empty_like(base)
+    if R == 0 or T == 0:
+        return out
+    _call("tsim_ordered_add", _ptr(base), _ptr(idx), _ptr(vals), _ptr(out),
+          ctypes.c_int(R), ctypes.c_int(T), ctypes.c_int(n), _stream(dev))
+    launches["ordered_add"] += 1
+    return out
+
+
+class _OrderedAdd(_Kernel):
+    @staticmethod
+    def forward(base, idx, vals):
+        return ordered_add_rows(base, idx, vals)
+
+    @staticmethod
+    def vmap(info, in_dims, base, idx, vals):
+        B = info.batch_size
+        b, i, v = (_front(x, d, B) for x, d in zip((base, idx, vals),
+                                                   in_dims))
+        out = ordered_add_rows(b.reshape(-1, b.shape[-1]),
+                               i.reshape(-1, i.shape[-1]),
+                               v.reshape(-1, v.shape[-1]))
+        return out.reshape(b.shape), 0
+
+
+def ordered_add(base, idx, vals):
+    """base [R, T] f32 plus vals [R, n] at idx [R, n] in update order
+    (`ordered_add_rows`; under vmap one launch for all worlds' rows)."""
+    return _OrderedAdd.apply(base, idx, vals)

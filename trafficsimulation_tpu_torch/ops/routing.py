@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from trafficsimulation_tpu import codes as C
-from trafficsimulation_tpu.config import Config
+from .. import codes as C
+from ..config import Config
 
 INF = 1e9
 

@@ -14,6 +14,10 @@ module covers exactly the calls the tick makes:
 A key is a numpy uint32 array of shape (2,), as `jax.random.PRNGKey`
 returns it.  numpy has a real uint32, so the wrapping adds, rotations and
 xors below are the threefry2x32 hash of `jax/_src/prng.py` verbatim.
+
+Every function also takes a stack of keys [..., 2] and then draws for
+each key at once, as `jax.vmap` of the same call would (the per-world key
+chains of a batch of worlds, `ops/engine.tick_draws`).
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ def threefry2x32(key: np.ndarray, x0: np.ndarray, x1: np.ndarray):
     """The threefry2x32 block function on counter pairs (x0, x1), 20
     rounds with the key schedule injected every 4 (`_threefry2x32_
     lowering`)."""
-    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    key = np.asarray(key, np.uint32)
+    k0, k1 = key[..., 0, None], key[..., 1, None]
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x = [np.asarray(x0, np.uint32) + ks[0], np.asarray(x1, np.uint32) + ks[1]]
     for i in range(5):
@@ -52,43 +57,45 @@ def _counters(n: int):
 
 
 def split(key: np.ndarray, n: int = 2) -> np.ndarray:
-    """`jax.random.split(key, n)` -> uint32 [n, 2] (the fold-like split
-    of the partitionable threefry)."""
+    """`jax.random.split(key, n)` -> uint32 [..., n, 2] (the fold-like
+    split of the partitionable threefry)."""
     hi, lo = _counters(n)
     b0, b1 = threefry2x32(key, hi, lo)
-    return np.stack([b0, b1], axis=1)
+    return np.stack([b0, b1], axis=-1)
 
 
 def bits(key: np.ndarray, shape=()) -> np.ndarray:
-    """`jax.random.bits(key, shape, uint32)`."""
+    """`jax.random.bits(key, shape, uint32)` -> [..., *shape]."""
     n = int(np.prod(shape, dtype=np.int64))
     hi, lo = _counters(n)
     b0, b1 = threefry2x32(key, hi, lo)
-    return (b0 ^ b1).reshape(shape)
+    return (b0 ^ b1).reshape(np.shape(key)[:-1] + tuple(shape))
 
 
-def uniform(key: np.ndarray) -> np.float32:
-    """`jax.random.uniform(key)`: a scalar f32 in [0, 1) from the top 23
-    bits as a mantissa."""
+def uniform(key: np.ndarray):
+    """`jax.random.uniform(key)`: a scalar f32 in [0, 1) per key from the
+    top 23 bits as a mantissa."""
     b = bits(key, (1,))
     f = ((b >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
-    return np.maximum(np.float32(0.0), f[0] - np.float32(1.0))
+    return np.maximum(np.float32(0.0), f[..., 0] - np.float32(1.0))[()]
 
 
-def randint(key: np.ndarray, minval: int, maxval: int) -> np.int32:
-    """`jax.random.randint(key, (), minval, maxval)` for int32: two u32
-    draws reduced modulo the span (`_randint`)."""
+def randint(key: np.ndarray, minval: int, maxval: int):
+    """`jax.random.randint(key, (), minval, maxval)` for int32 per key:
+    two u32 draws reduced modulo the span (`_randint`)."""
     k = split(key, 2)
-    hi, lo = bits(k[0], (1,)), bits(k[1], (1,))
+    hi, lo = bits(k[..., 0, :], (1,)), bits(k[..., 1, :], (1,))
     if maxval <= minval:
-        return np.int32(minval)
+        return np.full(np.shape(key)[:-1], minval, np.int32)[()]
     span = np.uint32(maxval - minval)
     mult = np.uint32((1 << 16) % int(span))
     mult = (np.asarray([mult], np.uint32) * mult) % span
     off = ((hi % span) * mult + (lo % span)) % span
-    return np.int32(minval + int(off[0]))
+    return (np.int64(minval) + off[..., 0]).astype(np.int32)[()]
 
 
-def bernoulli(key: np.ndarray, p: float = 0.5) -> bool:
-    """`jax.random.bernoulli(key, p)` (mode 'low'): uniform < p in f32."""
-    return bool(uniform(key) < np.float32(p))
+def bernoulli(key: np.ndarray, p: float = 0.5):
+    """`jax.random.bernoulli(key, p)` (mode 'low'): uniform < p in f32;
+    a bool for one key, a bool array for a stack of keys."""
+    out = np.asarray(uniform(key) < np.float32(p))
+    return bool(out) if out.ndim == 0 else out

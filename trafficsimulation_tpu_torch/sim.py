@@ -8,7 +8,9 @@ then once per PATHFINDING_COOLDOWN ticks, compacts the free pool slots
 once per segment, and runs `engine.step_engine` per tick (K4 inside the
 light reductions, K1 for decide + move).  The whole chunk's random draws
 come from JAX's key chain walked on the host up front (`tick_draws`), so
-no tick waits for the host.
+no tick waits for the host.  `advance` is the device part of the chunk,
+a function of tensors only: `parallel/mesh.run_batch_shared` runs it
+under `torch.func.vmap` for a batch of worlds.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from trafficsimulation_tpu.config import Config
+from .config import Config
 
 from .core.state import Metrics, Vehicles, World
+from .lights import fsm
 from .ops import engine
 
 
@@ -104,18 +107,41 @@ def step_world(cfg: Config, world: World) -> World:
         key=_key_tensor(key, es.pa.device)))
 
 
-def run_chunk(cfg: Config, world: World, n: int) -> World:
-    """Advance n ticks (the JAX `run_chunk` without the megakernel and
-    dense-reducer options)."""
+def reducer_matrices(cfg: Config, world: World):
+    """The dense light-reduction matrices (M, A) that pay at this size
+    (`fsm.dense_reducer_modes`), built once per chunk from the geometry
+    (None where the sparse form stays)."""
+    m_ok, a_ok = fsm.dense_reducer_modes(cfg)
+    return fsm.build_dense_reducers(cfg, world.grid, world.lights_static,
+                                    build_m=m_ok, build_a=a_ok)
+
+
+def run_chunk(cfg: Config, world: World, n: int,
+              dense_reducers: bool = False) -> World:
+    """Advance n ticks (the JAX `run_chunk` without the megakernel
+    option).  `dense_reducers`: run the per-tick light reductions as
+    dense matrix products (`fsm.build_dense_reducers`), as the JAX
+    `run_batch_shared` does at 256^2."""
     if world.cost_field is None:
         raise ValueError("world.cost_field is not built "
                          "(snapshot.build_field)")
     dev = world.grid.is_road.device
+    draws_np, key = engine.tick_draws(cfg, _key_np(world.key), n)
+    dense = reducer_matrices(cfg, world) if dense_reducers else None
+    end = advance(cfg, world, n, torch.from_numpy(draws_np).to(dev), dense)
+    return end.replace(key=_key_tensor(key, dev))
+
+
+def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
+            dense=None) -> World:
+    """The device part of `run_chunk`: n ticks with this chunk's draws
+    (int64 [n, N_DRAWS], `engine.tick_draws`); the key is left as it
+    was.  `dense`: the (M, A) reducer matrices or None.  A function of
+    tensors only, with no host sync, so that it runs under vmap."""
+    dev = world.grid.is_road.device
     es = _enter_engine(cfg, world)
     R = max(1, cfg.PATHFINDING_COOLDOWN) if cfg.PATHFINDING_CACHE else 1
     S = cfg.capacities().max_spawns_per_tick
-    draws_np, key = engine.tick_draws(cfg, _key_np(world.key), n)
-    draws = torch.from_numpy(draws_np).to(dev)
     sidx = torch.arange(S, device=dev)
 
     def seg(e, t0, length):
@@ -128,7 +154,7 @@ def run_chunk(cfg: Config, world: World, n: int) -> World:
         for i in range(length):
             sl = slots0[(cur + sidx).long()]
             e2 = engine.step_engine(cfg, world, e, draws[t0 + i], sdir=sdir,
-                                    spawn_slots=sl)
+                                    spawn_slots=sl, dense=dense)
             cur = cur + (e2.dem_cursor - e.dem_cursor)
             e = e2
         return e
@@ -138,7 +164,7 @@ def run_chunk(cfg: Config, world: World, n: int) -> World:
         length = min(R, n - t)
         es = seg(es, t, length)
         t += length
-    return _exit_engine(cfg, world, es.replace(key=_key_tensor(key, dev)))
+    return _exit_engine(cfg, world, es)
 
 
 class TrafficSim:

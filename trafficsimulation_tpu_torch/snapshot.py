@@ -24,7 +24,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from trafficsimulation_tpu.config import Config
+from .config import Config
 
 from .core.state import World
 from .core.transfer import world_from_numpy
@@ -41,8 +41,9 @@ def config_from_json(text: str) -> Config:
     return Config(**kw)
 
 
-def load_snapshot(path=HEADLINE, device="cpu"):
-    """(cfg, world without cost_field, reference) from a snapshot file.
+def load_snapshot(path=HEADLINE, device="cuda"):
+    """(cfg, world without cost_field, reference) from a snapshot file,
+    the world on `device` (the card unless the caller asks otherwise).
     `reference`: {"field_sha256", "field_row_sums", "field_shape",
     "ticks", "end": {leaf path: numpy array}} (entries absent from the
     file are missing)."""
