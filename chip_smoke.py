@@ -18,32 +18,48 @@ Phases (any failure raises and the script exits nonzero):
      kernel's B = 1 call must equal the single-world kernel; median
      times of kernel and plain version, the bound of each kernel (bytes
      over 3.35 TB/s or operations over 67 T/s, the larger), and for K4
-     the two `torch.cumsum` calls that compute the same function;
+     the two `torch.cumsum` calls that compute the same function; then
+     K6 at config #5's shapes (1024^2; the windowed stack, 108 words,
+     and the dense stack, 36 words; dest planes holding -1 and rows past
+     the stack);
   3. the service FSM's ordered scatter-add on a case whose f32 sum
      depends on the order: the card must give the CPU's update-order
      result bit for bit;
-  4. the headline world (BASELINE config #2, 10k vehicles) from the
-     shipped snapshot: the key stack is rebuilt on the card and must hash
-     to the JAX package's sha256, then `TrafficSim.step(23)` must
-     reproduce the JAX end state stored in the snapshot (integer leaves
-     exactly, f32 leaves within rtol 1e-6), with K1 23, K2 5, K3 5, K4 23
+  4. generation: the headline world (BASELINE config #2) generated on
+     the card from seed 0 (`sim.init_world`, `measure_and_shrink`,
+     `inject_vehicles(..., 10_000)`) must equal the shipped snapshot of
+     JAX's world on every leaf, and its key stack must hash to JAX's
+     sha256;
+  5. the headline from that world: `TrafficSim.step(23)` must reproduce
+     the JAX end state stored in the snapshot (integer leaves exactly,
+     f32 leaves within rtol 1e-6), with K1 23, K2 5, K3 5, K4 23
      launches on that path;
-  5. the shared-geometry batch: `tile_dynamic` of the same world for 16
-     keys (key 0 the snapshot's own), `run_batch_shared(..., 23)`: world
+  6. the shared-geometry batch: `tile_dynamic` of the same world for 16
+     keys (key 0 the world's own), `run_batch_shared(..., 23)`: world
      0 must equal JAX's end state, worlds 1 and 15 the single-world
      `run_chunk(23)` with their keys; launches K5 5, K1 23, K3 5, K4 23
      for the whole batch and K2 0;
-  6. throughput in this one process: `run_batch_shared(..., 200)` from
+  7. throughput in this one process: `run_batch_shared(..., 200)` from
      tick 23 (after the demand-window check) and the single-world
      `step(200)` from tick 23; steps/s and cell-updates/s of both, the
      batch's device idle share from `torch.profiler`; world 0 of the
      batch must then equal the single world at tick 223;
-  7. service deliveries at full size: two food vehicles serving one
+  8. service deliveries at full size: two food vehicles serving one
      block, parked on two block entrances of the headline world, deliver
      into the same tank in the first tick, with loads whose f32 sum
      depends on the order; world 0 of a B = 2 batch on the card must
      equal the plain version's run of the same world on the CPU (the
-     tank bit for bit).
+     tank bit for bit);
+  9. hierarchical routing held to JAX: config #5 cut to 512^2
+     (`init_world_hier` from seed 0, 25k vehicles) must match the JAX
+     digest shipped in `trafficsimulation_tpu_torch/data/` on every leaf
+     (sha256), at init and after `run_chunk(20)`; launches K6 240, K2 4,
+     K3 4, K4 20, K1 0;
+ 10. config #5 at full size: 1024^2, 100k vehicles, built on the card
+     with the seconds of each stage; 20 ticks (launches checked as in
+     9), then 20 more timed (steps/s, cell-updates/s), the device idle
+     share over 10 ticks, and K2, K3, K4 on that world's inputs against
+     their plain versions.
 
 The line before the last is the kernels' JSON summary, the one before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -89,10 +105,18 @@ KERNELS = {
                       "trafficsimulation_tpu/ops/pallas_engine.py:520"),
     "build_sdir_batched": ("trafficsimulation_tpu_torch/csrc/sdir.cu",
                            "trafficsimulation_tpu/ops/pallas_engine.py:889"),
+    "select_rows": ("trafficsimulation_tpu_torch/csrc/select_rows.cu",
+                    "trafficsimulation_tpu/ops/pallas_engine.py:581"),
 }
-# which run's launch count the summary reports: K2 runs on the
-# single-world path only, the others on this slice's batched path
-SUMMARY_PATH = {"build_sdir": "single"}
+# which run's launch count the summary reports: K2 on the single-world
+# path, K6 on config #5's, the others on the batched path
+SUMMARY_PATH = {"build_sdir": "single", "select_rows": "config5"}
+CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
+               ROUTING_HIER=True, INTERNAL_POPULATION_TRAFFIC_PER_DAY=100_000,
+               PASSING_POPULATION_TRAFFIC_PER_DAY=20_000)
+CONFIG5_VEHICLES = 100_000
+N_HIER_TICKS = 20
+PHASES = ("kernels", "ordered_add", "headline", "hier_digest", "config5")
 
 
 def log(*a):
@@ -122,20 +146,29 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10):
     """Summed device time of the kernels one call of fn launches, from
     torch.profiler (a CUDA-event interval around one call also holds the
-    host's time in the wrapper, which is larger for small kernels)."""
+    host's time in the wrapper, which is larger for small kernels); None
+    when three profiles in a row record no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    for _ in range(3):      # a profile after a long one may come back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3 / reps
+        if ms > 0:
+            return ms
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -325,7 +358,7 @@ def phase_kernels(cfg, HE, engine, B):
                      "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
                      "bytes": nbytes, "ops": ops}
         log(f"kernel {name} (B={B or 1}): bit-equal to plain; median "
-            f"{ms:.4f} ms (device {dms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"{ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.4f} ms, "
             f"bound {bms:.4f} ms "
             f"({by})" + (f", library {lib_ms:.4f} ms" if lib_ms else ""))
         del got, ref
@@ -349,6 +382,41 @@ def phase_batch_one(cfg, HE, engine):
         "(K5 at B=1 equals K2)")
     del cases0, cases1
     torch.cuda.empty_cache()
+
+
+def phase_select_rows(HE):
+    """K6 against its plain version at config #5's shapes: the windowed
+    stack (9 * 48 planes, 108 words) and the dense stack (144 rows, 36
+    words) at 1024^2, dest planes with -1 and rows past the stack."""
+    H = W = CONFIG5["WIDTH"]
+    HW = H * W
+    r = Inputs(1)
+    out = {}
+    for name, D4 in (("local", 108), ("dense", 36)):
+        sdir4 = r.bits(D4, H, W)
+        dest = r.rint(-5, 4 * D4 + 8, H, W)
+        got = HE.select_rows(sdir4, dest)
+        ref = HE.select_dest_rows(sdir4, dest)
+        err = compare(f"select_rows ({name}, D4={D4})", (got,), (ref,))
+        torch.cuda.synchronize()
+        ms = median_ms(lambda: HE.select_rows(sdir4, dest))
+        dms = device_ms(lambda: HE.select_rows(sdir4, dest))
+        plain_ms = median_ms(lambda: HE.select_dest_rows(sdir4, dest))
+        # dest in, the result out, one word per cell whose row exists
+        hits = int(((dest >> 2) >= 0).logical_and((dest >> 2) < D4).sum())
+        nbytes, ops = HW * 8 + hits * 4, HW * 8
+        bms, by = bound(nbytes, ops)
+        out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None, "bytes": nbytes, "ops": ops,
+                     "shape": f"sdir4 [{D4}, {H}, {W}], dest [{H}, {W}]"}
+        log(f"kernel select_rows ({name} stack, D4={D4}, {H}x{W}): "
+            f"bit-equal to plain; median {ms:.4f} ms (device "
+            f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by})")
+        del sdir4, dest, got, ref
+    torch.cuda.empty_cache()
+    return out
 
 
 def launch_floor_ms(HE) -> float:
@@ -404,31 +472,49 @@ def check_launches(name, launches, need):
                                  f"{launches[k]} times, expected {n}")
 
 
-def phase_headline(HE, snapshot, tsim, transfer):
-    """Rebuild the key stack, run 23 ticks, hold them against JAX."""
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    cfg, world, ref = snapshot.load_snapshot(snapshot.HEADLINE, dev)
-    log(f"snapshot: D={cfg.MAX_FIELD_DESTS} V="
-        f"{int(world.vehicles.active.sum())} active "
-        f"({time.perf_counter() - t0:.1f} s)")
-
+def phase_generation(snapshot, tsim, transfer, prng, Config):
+    """Generate the headline world on the card and hold it to the
+    snapshot of JAX's world, every leaf, and its key stack to JAX's
+    sha256.  Returns (cfg, world on the card, reference)."""
+    cfg_snap, snap, ref = snapshot.load_snapshot(snapshot.HEADLINE, "cpu")
+    cfg = Config(**snapshot.HEADLINE_CFG)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    world = snapshot.build_field(cfg, world)
+    world = tsim.init_world(cfg, prng.PRNGKey(snapshot.HEADLINE_SEED),
+                            "cuda")
+    cfg, world = tsim.measure_and_shrink(cfg, world)
+    world = tsim.inject_vehicles(cfg, world, snapshot.HEADLINE_VEHICLES)
     torch.cuda.synchronize()
-    t_field = time.perf_counter() - t0
+    t_gen = time.perf_counter() - t0
+    if cfg != cfg_snap:
+        raise AssertionError(f"shrunk config differs from the snapshot's: "
+                             f"{cfg.CAP_OVERRIDES}, {cfg.MAX_FIELD_DESTS} "
+                             f"vs {cfg_snap.CAP_OVERRIDES}, "
+                             f"{cfg_snap.MAX_FIELD_DESTS}")
     sha = snapshot.field_sha256(world.cost_field)
-    log(f"key stack {tuple(world.cost_field.shape)} rebuilt on the card in "
-        f"{t_field:.2f} s; sha256 {sha}")
     if sha != ref["field_sha256"]:
         rows = snapshot.field_row_sums(world.cost_field)
         bad = np.nonzero(rows != ref["field_row_sums"])[0]
         raise AssertionError(f"key stack sha256 differs from JAX's "
                              f"({ref['field_sha256']}); rows differing: "
                              f"{bad[:20].tolist()} ({len(bad)} in all)")
-    REPORT["field_build_s"] = t_field
+    snap_np = transfer.world_to_numpy(snap)
+    n = compare_leaves("generated headline world vs the JAX snapshot",
+                       snap_np, transfer.world_to_numpy(world.replace(
+                           cost_field=None)))
+    log(f"generation: the headline world from seed "
+        f"{snapshot.HEADLINE_SEED} generated on the card in {t_gen:.2f} s "
+        f"(init_world + measure_and_shrink + inject_vehicles) equals JAX's "
+        f"snapshot on all {len(snap_np)} leaves ({n} integer/bool "
+        f"exact); key stack "
+        f"{tuple(world.cost_field.shape)} sha256 {sha} equals JAX's")
+    REPORT["generation_s"] = t_gen
+    return cfg, world, ref
 
+
+def phase_headline(HE, tsim, transfer, cfg, world, ref):
+    """Run 23 ticks of the generated headline world, hold them to
+    JAX."""
     sim = tsim.TrafficSim.from_world(cfg, world)
     HE.reset_launches()
     torch.cuda.synchronize()
@@ -450,8 +536,9 @@ def phase_headline(HE, snapshot, tsim, transfer):
         "completed_internal", "completed_through", "stuck", "raining")}))
     check_launches("single-world path", launches, {
         "decide_move": N_REF_TICKS, "prefix_planes": N_REF_TICKS,
-        "build_sdir": 5, "build_wavefront": 5, "build_sdir_batched": 0})
-    return cfg, world, ref, sim, launches
+        "build_sdir": 5, "build_wavefront": 5, "build_sdir_batched": 0,
+        "select_rows": 0})
+    return sim, launches
 
 
 def batch_keys(world_key: torch.Tensor, prng) -> np.ndarray:
@@ -478,7 +565,7 @@ def phase_batch(cfg, world, ref, HE, mesh, tsim, transfer, prng):
     check_launches("batched path", launches, {
         "build_sdir_batched": 5, "decide_move": N_REF_TICKS,
         "build_wavefront": 5, "prefix_planes": N_REF_TICKS,
-        "build_sdir": 0})
+        "build_sdir": 0, "select_rows": 0})
     compare_leaves("batch world 0 vs JAX", ref["end"],
                    transfer.world_to_numpy(mesh.world_at(batch, 0)))
     log(f"batch world 0 after {N_REF_TICKS} ticks equals JAX's end state")
@@ -508,6 +595,26 @@ def device_busy_ms(fn, n_ticks) -> float:
     ka = prof.key_averages()
     return sum(e.self_device_time_total for e in ka
                if e.device_type == DeviceType.CUDA) / 1e3 / n_ticks
+
+
+def profile_ticks(fn, n_ticks, top: int = 8):
+    """(device busy ms per tick, kernel launches per tick, the `top`
+    kernels by device time: (name, ms per tick, launches per tick)) of
+    fn() under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / n_ticks
+    launches = sum(e.count for e in ev) / n_ticks
+    return busy, launches, [(e.key[:60], e.self_device_time_total / 1e3
+                             / n_ticks, e.count / n_ticks)
+                            for e in ev[:top]]
 
 
 def timed(fn):
@@ -653,9 +760,237 @@ def phase_service(cfg, world, HE, mesh, tsim, transfer, keys):
                          "cpu_seconds": t_cpu}
 
 
+def hier_launches(cfg, n_ticks: int) -> dict:
+    """Kernel launches of an n-tick `run_chunk` under hierarchical
+    routing: K6 twice per select, one select to decide and one per
+    movement sub-round; K2 and K3 once per routing segment; K4 every
+    tick; no K1."""
+    segs = -(-n_ticks // max(1, cfg.PATHFINDING_COOLDOWN))
+    return {"select_rows": 2 * (1 + cfg.VEHICLE_MAX_SPEED) * n_ticks,
+            "build_sdir": segs, "build_wavefront": segs,
+            "prefix_planes": n_ticks, "decide_move": 0,
+            "build_sdir_batched": 0}
+
+
+def check_digest(name, digest: dict, leaves: dict):
+    """Every leaf's dtype, shape and sha256 against the JAX digest; an
+    f32 leaf whose bytes differ must still match its float64 sum, sum of
+    magnitudes and maximum within FLOAT_RTOL.  Returns (exact, near)."""
+    import hashlib
+    bad, exact, near = [], 0, []
+    if set(digest) != set(leaves):
+        raise AssertionError(f"{name}: leaf sets differ: "
+                             f"{sorted(set(digest) ^ set(leaves))}")
+    for k, d in digest.items():
+        a = np.asarray(leaves[k])
+        if str(a.dtype) != d["dtype"] or list(a.shape) != d["shape"]:
+            bad.append((k, str(a.dtype), a.shape))
+            continue
+        if hashlib.sha256(a.tobytes()).hexdigest() == d["sha256"]:
+            exact += 1
+            continue
+        if "sum" in d:
+            v = a.astype(np.float64)
+            got = (v.sum(), np.abs(v).sum(), v.max() if v.size else 0.0)
+            if np.allclose(got, (d["sum"], d["abs_sum"], d["max"]),
+                           rtol=FLOAT_RTOL, atol=0.0):
+                near.append(k)
+                continue
+        bad.append((k, "sha256"))
+    if bad:
+        raise AssertionError(f"{name}: leaves differ from the JAX digest: "
+                             f"{bad}")
+    return exact, near
+
+
+def phase_hier_digest(HE, tsim, transfer, prng, snapshot, Config):
+    """Config #5 cut to 512^2 against JAX's digest: the world as built,
+    and after `run_chunk(20)`."""
+    with open(snapshot.HIER_DIGEST) as f:
+        dig = json.load(f)
+    cfg = Config(**dig["base_cfg"])
+    timings = {}
+    t0 = time.perf_counter()
+    cfg3, world = tsim.init_world_hier(cfg, prng.PRNGKey(dig["seed"]),
+                                       "cuda", timings)
+    world = tsim.inject_vehicles(cfg3, world, dig["n_vehicles"])
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    for k, v in dig["cfg"].items():
+        want = (tuple(tuple(p) for p in v) if k == "CAP_OVERRIDES" else v)
+        if getattr(cfg3, k) != want:
+            raise AssertionError(f"hier config {k}: {getattr(cfg3, k)} "
+                                 f"vs JAX's {want}")
+    ex0, near0 = check_digest("hier world (512^2) at init", dig["init"],
+                              transfer.world_to_numpy(world))
+    HE.reset_launches()
+    end, t_run = timed(lambda: tsim.run_chunk(cfg3, world, dig["ticks"]))
+    launches = dict(HE.launches)
+    check_launches("hier path (512^2)", launches,
+                   hier_launches(cfg3, dig["ticks"]))
+    ex1, near1 = check_digest(f"hier world (512^2) after {dig['ticks']} "
+                              "ticks", dig["end"],
+                              transfer.world_to_numpy(end))
+    log(f"hier 512^2 held to JAX: built in {t_init:.2f} s "
+        f"({ {k: round(v, 2) for k, v in timings.items()} }), "
+        f"{cfg3.MAX_FIELD_DESTS} dense rows, local stack "
+        f"{tuple(world.local_sdir4.shape)}; init {ex0}/{len(dig['init'])} "
+        f"leaves bit-equal (f32 within rtol: {near0}); run_chunk("
+        f"{dig['ticks']}) in {t_run:.2f} s, {ex1}/{len(dig['end'])} leaves "
+        f"bit-equal (f32 within rtol: {near1}); launches {launches}")
+    REPORT["hier512"] = {"init_s": t_init, "timings": timings,
+                         "run_s": t_run, "launches": launches,
+                         "near": near0 + near1}
+    del world, end
+    torch.cuda.empty_cache()
+
+
+def config5_kernels(HE, engine, cfg, world, es) -> dict:
+    """K2, K3 and K4 on the config #5 world's own inputs against their
+    plain versions; medians, device times and bounds."""
+    g = world.grid
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    HW = H * W
+    present = (es.pa & 1) == 1
+    density = engine.density_map(present, g.is_road,
+                                 cfg.VEHICLE_AWARENESS_RANGE)
+    soft2, hard = engine.soft_penalties(cfg, es.pa, es.stop_map, density)
+    legal, pen_m, _ = engine._entry_costs(cfg, g.allowed_dirs, g.is_road,
+                                          soft2, hard)
+    pen4 = torch.stack(pen_m).contiguous()
+    legal4 = torch.stack([lg.to(torch.int32) for lg in legal]).contiguous()
+    tp2 = int(round(2 * cfg.VEHICLE_TURN_PENALTY))
+    K0 = world.cost_field
+    D = K0.shape[0]
+    D4 = (D + 3) // 4
+    occ = present.to(torch.int32)
+
+    def cumsums():
+        return (torch.cumsum(occ, -1, dtype=torch.int32),
+                torch.cumsum(occ, -2, dtype=torch.int32))
+    cases = {
+        "build_sdir": (lambda: (HE.build_sdir(K0, pen4, legal4, tp2),),
+                       lambda: (HE.sdir_encode(K0, pen4, legal4, tp2),),
+                       D * 4 * HW * 4 + 8 * HW * 4 + D4 * HW * 4,
+                       D * HW * 31, f"K0 [{D}, 4, {H}, {W}]", None),
+        "build_wavefront": (
+            lambda: (HE.build_wavefront(cfg, g.allowed_dirs, g.is_road,
+                                        hard),),
+            lambda: (HE.wavefront_core(cfg, g.allowed_dirs, g.is_road,
+                                       hard),),
+            HW * 7, HW * 32 * cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS,
+            f"[{H}, {W}]", None),
+        "prefix_planes": (lambda: HE.prefix_planes(occ),
+                          lambda: HE.prefix_planes_plain(occ), HW * 12,
+                          HW * 2, f"[{H}, {W}]", cumsums),
+    }
+    out = {}
+    for name, (kern, plain, nbytes, ops, shape, lib) in cases.items():
+        ref = plain()
+        err = compare(f"{name} (config #5)", kern(), ref)
+        ms = median_ms(kern, reps=10)
+        dms = device_ms(kern, reps=5)
+        plain_ms = median_ms(plain, reps=3, warmup=1)
+        bms, by = bound(nbytes, ops)
+        lib_ms = None
+        if lib is not None:
+            compare(f"{name} library call (config #5)", lib(), ref)
+            lib_ms = median_ms(lib, reps=10)
+        out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib_ms, "bytes": nbytes, "ops": ops,
+                     "shape": shape}
+        log(f"kernel {name} at config #5 ({shape}): bit-equal to plain; "
+            f"median {ms:.4f} ms (device {fmt_ms(dms)}), plain "
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+            + (f", library {lib_ms:.4f} ms" if lib_ms else ""))
+        del ref
+    return out
+
+
+def phase_config5(HE, engine, tsim, card, prng, Config):
+    """BASELINE config #5 at full size on the card: build, 20 ticks with
+    the launch counts of the path, then 20 timed ticks and an idle-share
+    window."""
+    cfg = Config(**CONFIG5)
+    timings = {}
+    t0 = time.perf_counter()
+    cfg3, world = tsim.init_world_hier(cfg, prng.PRNGKey(0), "cuda",
+                                       timings)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    world, t_inj = timed(lambda: tsim.inject_vehicles(cfg3, world,
+                                                      CONFIG5_VEHICLES))
+    n0 = int(world.vehicles.active.sum())
+    bs = world.blocks_static
+    unroutable = int((bs.valid & (bs.dest < 0)).sum())
+    log(f"config #5 built on the card in {t_build:.2f} s (stages "
+        f"{ {k: round(v, 2) for k, v in timings.items()} }); "
+        f"{cfg3.MAX_FIELD_DESTS} dense rows, local stack "
+        f"{tuple(world.local_sdir4.shape)}, {int(world.dests.valid.sum())} "
+        f"destinations, {unroutable} unroutable blocks; {n0} vehicles "
+        f"injected in {t_inj:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if n0 != CONFIG5_VEHICLES or unroutable:
+        raise AssertionError(f"config #5: {n0} vehicles, {unroutable} "
+                             "unroutable blocks")
+    HE.reset_launches()
+    w20, t20 = timed(lambda: tsim.run_chunk(cfg3, world, N_HIER_TICKS))
+    launches = dict(HE.launches)
+    check_launches("config #5 path", launches,
+                   hier_launches(cfg3, N_HIER_TICKS))
+    w40, t_timed = timed(lambda: tsim.run_chunk(cfg3, w20, N_HIER_TICKS))
+    sps = N_HIER_TICKS / t_timed
+    active = int(w40.vehicles.active.sum())
+    n_prof = 10
+    _, wall = timed(lambda: tsim.run_chunk(cfg3, w40, n_prof))
+    busy, per_tick, top = profile_ticks(
+        lambda: tsim.run_chunk(cfg3, w40, n_prof), n_prof)
+    wall_ms = wall * 1e3 / n_prof
+    idle = 1 - busy / wall_ms
+    log("config #5 device time per tick by kernel (top 8; name, ms, "
+        "launches): " + json.dumps([(k, round(m, 4), round(c, 1))
+                                    for k, m, c in top]))
+    moved = int((w40.vehicles.pos != world.vehicles.pos).sum())
+    if not bool(torch.isfinite(w40.density).all()) or moved == 0:
+        raise AssertionError(f"config #5: non-finite density or no vehicle "
+                             f"moved ({moved})")
+    segs = -(-N_HIER_TICKS // cfg3.PATHFINDING_COOLDOWN)
+    log(f"config #5 ({card}): run_chunk({N_HIER_TICKS}) in {t20:.3f} s, "
+        f"launches {launches} (per tick: K6 "
+        f"{launches['select_rows'] / N_HIER_TICKS:g}, K4 "
+        f"{launches['prefix_planes'] / N_HIER_TICKS:g}; per routing segment: "
+        f"K2 {launches['build_sdir'] / segs:g}, K3 "
+        f"{launches['build_wavefront'] / segs:g}); {N_HIER_TICKS} more ticks "
+        f"in {t_timed:.3f} s "
+        f"= {sps:.2f} steps/s = {sps * cfg3.HEIGHT * cfg3.WIDTH:.4g} "
+        f"cell-updates/s; {active} active vehicles, {moved} moved since "
+        f"injection; over {n_prof} ticks wall {wall_ms:.3f} ms/tick, device "
+        f"busy {busy:.3f} ms/tick in {per_tick:.0f} launches, idle share "
+        f"{idle:.3f}")
+    es = tsim._enter_engine(cfg3, w40)
+    kern = config5_kernels(HE, engine, cfg3, w40, es)
+    REPORT["config5"] = {
+        "card": card, "build_s": t_build, "timings": timings,
+        "inject_s": t_inj, "dense_rows": cfg3.MAX_FIELD_DESTS,
+        "local_words": int(world.local_sdir4.shape[0]),
+        "first_ticks_s": t20, "ticks": N_HIER_TICKS, "timed_s": t_timed,
+        "steps_per_s": sps,
+        "cell_updates_per_s": sps * cfg3.HEIGHT * cfg3.WIDTH,
+        "active_vehicles": active, "wall_ms_per_tick": wall_ms,
+        "busy_ms_per_tick": busy, "idle_share": idle, "launches": launches,
+        "device_launches_per_tick": per_tick, "top_kernels": top,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "kernels": kern}
+    return launches, kern
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the build log and report")
+    ap.add_argument("--only", nargs="+", choices=PHASES,
+                    help="run only these groups of phases (development; "
+                    "no contract line is printed)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -670,6 +1005,7 @@ def main():
         importlib.import_module(info.name)
     from trafficsimulation_tpu_torch import prng, snapshot
     from trafficsimulation_tpu_torch import sim as tsim
+    from trafficsimulation_tpu_torch.config import Config
     from trafficsimulation_tpu_torch.core import transfer
     from trafficsimulation_tpu_torch.ops import build, engine
     from trafficsimulation_tpu_torch.ops import hopper_engine as HE
@@ -678,11 +1014,13 @@ def main():
                     ("jax", "jaxlib", "trafficsimulation_tpu"))
     if loaded:
         raise AssertionError(f"the port loaded {loaded[:5]}")
+    run = set(args.only or PHASES)
 
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+        f"CUDA {torch.version.cuda}, numpy {np.__version__}, python "
+        f"{sys.version.split()[0]}")
     t0 = time.perf_counter()
     build.load()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
@@ -692,44 +1030,89 @@ def main():
         with open(os.path.join(args.out, "chip_smoke_nvcc.log"), "w") as f:
             f.write(build.build_log)
 
-    cfg0 = snapshot.config_from_json(
-        str(np.load(snapshot.HEADLINE)["meta.cfg_json"]))
-    single = phase_kernels(cfg0, HE, engine, 0)
-    batched = phase_kernels(cfg0, HE, engine, BATCH)
-    phase_batch_one(cfg0, HE, engine)
-    floor = launch_floor_ms(HE)
-    log(f"one launch with no work: {floor:.4f} ms")
-    phase_ordered_add(HE)
-    cfg, world, ref, sim, l_single = phase_headline(HE, snapshot, tsim,
-                                                    transfer)
-    batch, l_batch = phase_batch(cfg, world, ref, HE, mesh, tsim, transfer,
-                                 prng)
-    phase_throughput(cfg, sim, batch, card, HE, mesh, transfer)
-    phase_service(cfg, world, HE, mesh, tsim, transfer,
-                  batch_keys(world.key, prng))
+    def stamp(name):
+        REPORT.setdefault("phase_end_s", {})[name] = \
+            time.perf_counter() - t_start
+        log(f"[{time.perf_counter() - t_start:.1f} s] {name} done")
 
+    if "kernels" in run:
+        cfg0 = snapshot.config_from_json(
+            str(np.load(snapshot.HEADLINE)["meta.cfg_json"]))
+        single = phase_kernels(cfg0, HE, engine, 0)
+        batched = phase_kernels(cfg0, HE, engine, BATCH)
+        phase_batch_one(cfg0, HE, engine)
+        k6 = phase_select_rows(HE)
+        floor = launch_floor_ms(HE)
+        log(f"one launch with no work: {floor:.4f} ms")
+        REPORT["launch_floor_ms"] = floor
+        stamp("kernels")
+    if "ordered_add" in run:
+        phase_ordered_add(HE)
+    if "headline" in run:
+        cfg, world, ref = phase_generation(snapshot, tsim, transfer, prng,
+                                           Config)
+        stamp("generation")
+        sim, l_single = phase_headline(HE, tsim, transfer, cfg, world, ref)
+        batch, l_batch = phase_batch(cfg, world, ref, HE, mesh, tsim,
+                                     transfer, prng)
+        phase_throughput(cfg, sim, batch, card, HE, mesh, transfer)
+        phase_service(cfg, world, HE, mesh, tsim, transfer,
+                      batch_keys(world.key, prng))
+        del sim, batch, world
+        torch.cuda.empty_cache()
+        stamp("headline")
+    if "hier_digest" in run:
+        phase_hier_digest(HE, tsim, transfer, prng, snapshot, Config)
+        stamp("hier_digest")
+    if "config5" in run:
+        l_c5, k_c5 = phase_config5(HE, engine, tsim, card, prng, Config)
+        stamp("config5")
+    REPORT["seconds"] = time.perf_counter() - t_start
+    log(f"chip_smoke phases took {REPORT['seconds']:.1f} s")
+    if run != set(PHASES):
+        if args.out:
+            with open(os.path.join(args.out, "chip_smoke_report.json"),
+                      "w") as f:
+                json.dump(REPORT, f, indent=1)
+        log(f"partial run ({sorted(run)}): no contract line")
+        return 0
+
+    launch_paths = {"single": l_single, "batched": l_batch,
+                    "config5": l_c5}
     summary = {"kernels": []}
     for k in KERNELS:
         path = SUMMARY_PATH.get(k, "batched")
-        m = single[k] if path == "single" else batched[k]
+        if k == "select_rows":
+            m = k6["local"]
+        else:
+            m = single[k] if path == "single" else batched[k]
         entry = {"name": k, "route": "cuda", "source": KERNELS[k][0],
                  "replaces": KERNELS[k][1],
-                 "launches": (l_single if path == "single" else l_batch)[k],
+                 "launches": launch_paths[path][k],
                  "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                  "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                  "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                  "device_ms": m["device_ms"],
-                 "path": path, "batch": BATCH if path == "batched" else 1,
+                 "path": path,
+                 "batch": BATCH if path == "batched" else 1,
+                 "shape": m.get("shape", f"{cfg0.HEIGHT}x{cfg0.WIDTH}, "
+                                f"D = {cfg0.MAX_FIELD_DESTS}"),
                  "launches_single_path": l_single[k],
-                 "launches_batched_path": l_batch[k]}
+                 "launches_batched_path": l_batch[k],
+                 "launches_config5_path": l_c5[k]}
         if k in single and path == "batched":
             entry["single_world"] = {x: single[k][x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}
+        if k == "select_rows":
+            entry["dense_stack"] = {x: k6["dense"][x] for x in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "shape")}
+        if k in k_c5:
+            entry["config5"] = {x: k_c5[k][x] for x in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")}
         summary["kernels"].append(entry)
-    REPORT["launch_floor_ms"] = floor
-    REPORT["seconds"] = time.perf_counter() - t_start
-    log(f"chip_smoke phases took {REPORT['seconds']:.1f} s")
     if args.out:
         REPORT["kernels"] = summary["kernels"]
         REPORT["card"] = card

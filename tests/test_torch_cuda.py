@@ -242,3 +242,37 @@ def test_ordered_add_is_update_order(gen):
     # a fold in another order gives another f32 result here
     assert want[0, 0] != np.float32(1.0) + np.float32(
         np.float32(1e8) - np.float32(1e8)) + np.float32(1.5)
+
+
+@pytest.mark.parametrize("D4,shape", [(27, (64, 96)), (5, (37, 300))])
+def test_select_rows_kernel_matches_plain(gen, D4, shape):
+    """K6 against `select_dest_rows`: dest planes holding negative rows
+    (-1 from `hier_rows`) and rows past the stack."""
+    H, W = shape
+    sdir4 = _rint(gen, -2**31, 2**31, D4, H, W)
+    dest = _rint(gen, -6, 4 * D4 + 9, H, W)
+    n0 = HE.launches["select_rows"]
+    got = HE.select_rows(sdir4, dest)
+    assert HE.launches["select_rows"] == n0 + 1
+    _same((got,), (HE.select_dest_rows(sdir4, dest),))
+    assert bool(((got == 7) | (dest >> 2 < D4) & (dest >= 0)).all())
+
+
+def test_hier_select_launches_k6_twice(gen):
+    """`hier_select` on the card: two K6 launches, the same bytes as the
+    plain selects."""
+    from trafficsimulation_tpu_torch.ops import hier
+    cfg = Config(WIDTH=64, HEIGHT=64, ROUTING_HIER=True, HIER_TILE=16,
+                 HIER_LMAX=8)
+    hp = hier.hier_params(cfg)
+    local4 = _rint(gen, -2**31, 2**31, 9 * hp.lmax // 4, 64, 64)
+    dense4 = _rint(gen, -2**31, 2**31, 3, 64, 64)
+    dest = _rint(gen, 0, hp.direct_base + 8, 64, 64)
+    n0 = HE.launches["select_rows"]
+    got = hier.hier_select(cfg, dense4, local4, dest)
+    assert HE.launches["select_rows"] == n0 + 2
+    p, r = hier.hier_rows(cfg, dest)
+    nd_loc = HE.select_dest_rows(local4, p)
+    ref = torch.where((p >= 0) & ((nd_loc & 7) != 7), nd_loc,
+                      HE.select_dest_rows(dense4, r))
+    _same((got,), (ref,))

@@ -142,10 +142,6 @@ def test_traffic_sim_stats_keys(small_cfg, small_world):
     port = tsim.TrafficSim.from_world(small_cfg,
                                       world_from_numpy(leaves, "cpu"))
 
-    class _JaxSim(jsim.TrafficSim):
-        def __init__(self, cfg, world):
-            self.cfg, self.world = cfg, world
-
     ref = _JaxSim(small_cfg, small_world).stats()
     got = port.stats()
     assert ref.keys() == got.keys()
@@ -153,9 +149,44 @@ def test_traffic_sim_stats_keys(small_cfg, small_world):
         assert ref[k] == pytest.approx(got[k]), k
 
 
+class _JaxSim(jsim.TrafficSim):
+    def __init__(self, cfg, world):
+        self.cfg, self.world = cfg, world
+
+
 def test_step_raises_when_demand_runs_out():
-    world = crossroad_world(CROSS)      # 48 trips < 2 * spawn window
+    """The crossroad's 48 trips are fewer than two spawn windows, so
+    `step(3)` first regenerates the trip table as the JAX sim does
+    (`_maybe_extend_demand`, eager, from the current day with a key split
+    off the world's); a step longer than the pre-generated days raises."""
+    world = crossroad_world(CROSS)
     port = tsim.TrafficSim.from_world(
         CROSS, world_from_numpy(world_to_leaves(world), "cpu"))
-    with pytest.raises(NotImplementedError, match="generate_days"):
-        port.step(3)
+    with pytest.raises(ValueError, match="demand window"):
+        port.step(CROSS.DEMAND_PREGEN_DAYS * 86400
+                  // CROSS.TIME_PER_STEP_IN_SECONDS)
+    ref = _JaxSim(CROSS, world)
+    ref._maybe_extend_demand(3)
+    port._maybe_extend_demand(3)
+    got = world_to_numpy(port.world)
+    want = world_to_leaves(ref.world)
+    assert_leaves_match({k: v for k, v in want.items()
+                         if k.startswith("demand.") or k == "key"}, got)
+    assert not np.array_equal(want["demand.depart_tick"],
+                              world_to_leaves(world)["demand.depart_tick"])
+
+
+def test_traffic_sim_reset_matches_jax(small_cfg, small_world):
+    """`TrafficSim(cfg, seed=0)` generates and shrinks the world as the
+    JAX `TrafficSim.reset` does."""
+    import dataclasses
+    from trafficsimulation_tpu_torch.config import Config as TConfig
+    base = Config()
+    tcfg = TConfig(**{f.name: getattr(small_cfg, f.name)
+                      for f in dataclasses.fields(small_cfg)
+                      if getattr(small_cfg, f.name) != getattr(base, f.name)})
+    port = tsim.TrafficSim(tcfg, seed=0, device="cpu")
+    cfg2, ref = jsim.measure_and_shrink(small_cfg, small_world)
+    assert port.cfg.CAP_OVERRIDES == cfg2.CAP_OVERRIDES
+    assert_leaves_match(world_to_leaves(ref), world_to_numpy(port.world),
+                        skip=())

@@ -50,6 +50,8 @@ _ARGTYPES = {
     "tsim_prefix_planes": [P, P, P, I, I, I, P],
     # base, idx, vals, out, R, T, n, stream
     "tsim_ordered_add": [P, P, P, P, I, I, I, P],
+    # sdir4, dest, out, D4, HW, stream
+    "tsim_select_rows": [P, P, P, I, I, P],
 }
 
 

@@ -28,6 +28,7 @@ from ..agents.blocks import step_blocks, food_shortage, waste_surplus
 from ..agents.rain import step_rain
 from ..core.state import Overrides, Vehicles, _Struct
 from ..lights import fsm
+from . import hier
 from . import hopper_engine as HE
 from . import routing
 from .density import density_map
@@ -56,18 +57,18 @@ def field_to_keys(cfg: Config, F: torch.Tensor,
     """The stored key stack K0[d, m, c] = (q << 2) | m with q =
     round(2 * (F[d, m, c + delta_m] + 1 + road_penalty(c + delta_m)))
     clipped to [0, 65534], or KBIG when the candidate is unreachable (see
-    the JAX `field_to_keys`).  [D, 4, H, W] int32."""
+    the JAX `field_to_keys`).  [D, 4, H, W] int32; leading batch dims of
+    F [..., D, 4, H, W] and road_class [..., H, W] pass through."""
     enter_stat = 1.0 + routing.road_type_penalty(cfg, road_class)
-    D, _, H, W = F.shape
-    out = torch.empty((D, 4, H, W), dtype=torch.int32, device=F.device)
+    out = torch.empty(F.shape, dtype=torch.int32, device=F.device)
     for m in range(4):
-        fn = routing._shift_plane(F[:, m], m, routing.INF)
-        en = routing._shift_plane(enter_stat, m, routing.INF)
+        fn = routing._shift_plane(F[..., m, :, :], m, routing.INF)
+        en = routing._shift_plane(enter_stat, m, routing.INF)[..., None, :, :]
         Q = fn + en
         del fn
         v = torch.clamp(torch.round(Q * 2.0), 0, 65534).to(torch.int32)
         k = torch.where(Q >= routing.INF, KBIG, v)
-        out[:, m] = (k << 2) | m
+        out[..., m, :, :] = (k << 2) | m
     return out
 
 
@@ -408,18 +409,15 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
                 sdir=None, spawn_slots: torch.Tensor = None,
                 dense: tuple = None) -> EngineState:
     """One tick on the plane representation (the JAX `step_engine`,
-    dense routing, no pedestrians, FSM lights).  `draws`: this tick's
-    int64 [N_DRAWS] row from `tick_draws`; the caller advances the key.
-    `dense`: the (M, A) light-reduction matrices of
-    `fsm.build_dense_reducers`, or None for the sparse forms."""
+    dense or hierarchical routing, no pedestrians, FSM lights).
+    `draws`: this tick's int64 [N_DRAWS] row from `tick_draws`; the
+    caller advances the key.  `dense`: the (M, A) light-reduction
+    matrices of `fsm.build_dense_reducers`, or None for the sparse
+    forms."""
     if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM in fsm.RL_ALGOS:
         raise NotImplementedError(
             "RL light controllers are not ported yet (ROADMAP Queue 1 "
             "item 14)")
-    if cfg.ROUTING_HIER:
-        raise NotImplementedError(
-            "hierarchical routing is not ported yet (ROADMAP Queue 1 "
-            "item 13)")
     if cfg.PEDESTRIANS_ENABLED:
         raise NotImplementedError(
             "pedestrians are not ported yet (ROADMAP Queue 1 item 11)")
@@ -443,16 +441,24 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
     stop_map = fsm.build_stop_map(grid, world.lights_static, lights,
                                   dense_a=dense_a)
 
-    # ---- decide + move (K1) ---------------------------------------------
+    # ---- decide + move: K1, or under hierarchical routing the plain
+    # core with the hier select (K6), as the JAX package runs it --------
     if sdir is None:
         sdir = routing_planes(cfg, world, es)
     sdir4, wnd, density = sdir
     ped_bit = torch.zeros((H, W), dtype=torch.bool, device=es.pa.device)
     randoms = tick_randoms(cfg, draws[D_SEEDS:D_SEEDS + 4], H, W)
-    out = HE.decide_move(cfg, sdir4, wnd,
-                         (es.pa, es.pb, es.pc, es.pd, es.pe, es.pl),
-                         stop_map, es.rain_map, ped_bit, grid.intersection,
-                         grid.dest_id, randoms)
+    planes = (es.pa, es.pb, es.pc, es.pd, es.pe, es.pl)
+    if cfg.ROUTING_HIER:
+        out = HE.decide_move_core(
+            cfg, sdir4, wnd, *planes, stop_map, es.rain_map, ped_bit,
+            grid.intersection, grid.dest_id, *randoms,
+            select=lambda dest: hier.hier_select(
+                cfg, sdir4, world.local_sdir4, dest))
+    else:
+        out = HE.decide_move(cfg, sdir4, wnd, planes, stop_map, es.rain_map,
+                             ped_bit, grid.intersection, grid.dest_id,
+                             randoms)
     flags = out[6]
     events = ((flags & HE.FLAG_NEW_MAL).sum().to(torch.int32),
               ((flags & HE.FLAG_NEW_COL) >> 1).sum().to(torch.int32))

@@ -12,6 +12,9 @@ version (the counterpart of the JAX package's `ops/pallas_engine.py`).
   K5 `build_sdir_batched`  <- pallas_engine.build_sdir_pallas_batched
                               (_sdir_kernel_batched): once per routing
                               segment of a shared-geometry batch
+  K6 `select_rows`         <- pallas_engine.select_rows_pallas: every
+                              select of the tick under hierarchical
+                              routing (`ops/hier.hier_select`)
   `ordered_add`            the service FSM's f32 scatter-add into the
                            block tanks, in update order (no TPU kernel:
                            the JAX package leaves it to XLA's scatter)
@@ -81,7 +84,8 @@ KBIG = 1 << 19
 KINF = 0x7FFFFFFF
 
 launches = {"decide_move": 0, "build_sdir": 0, "build_sdir_batched": 0,
-            "build_wavefront": 0, "prefix_planes": 0, "ordered_add": 0}
+            "build_wavefront": 0, "prefix_planes": 0, "ordered_add": 0,
+            "select_rows": 0}
 
 
 def reset_launches():
@@ -143,18 +147,21 @@ def _resolve(nd, head1, allow=None, wnd=None, wkey=None):
 
 def decide_move_core(cfg: Config, sdir4, wnd, pa, pb, pc, pd, pe, pl,
                      stop_map, rain_map, ped_block, intersection, dest_id,
-                     r_mal, r_side, r_reroll, r_prio):
-    """Plain version of K1: the JAX `decide_move_core` with padded shifts
-    and the gather select.  Planes pa..pe and `wnd`, `r_prio` are int32
-    bit patterns; masks bool; `pl`, `r_mal`, `r_side` f32; `r_reroll`,
-    `dest_id` int32.  Returns (pa, pb, pc, pd, pe, pl, flags int32)."""
+                     r_mal, r_side, r_reroll, r_prio, select=None):
+    """Plain version of K1: the JAX `decide_move_core` with padded shifts.
+    Planes pa..pe and `wnd`, `r_prio` are int32 bit patterns; masks bool;
+    `pl`, `r_mal`, `r_side` f32; `r_reroll`, `dest_id` int32.  `select`
+    maps a dest plane to its next-move byte plane; None is the gather
+    select of `sdir4` (the dense path).  Returns (pa, pb, pc, pd, pe, pl,
+    flags int32)."""
     shift = _shift_plane
     H, W = pa.shape
     dev = pa.device
     present = (pa & 1) == 1
 
-    def select(dest):
-        return select_dest_rows(sdir4, dest)
+    if select is None:
+        def select(dest):
+            return select_dest_rows(sdir4, dest)
 
     # ---- decide -------------------------------------------------------------
     col0 = _bit(pa, PA_COL_SH)
@@ -885,6 +892,39 @@ def prefix_planes(occ):
     """K4 for one plane [H, W] (`prefix_planes_batched` with B = 1; under
     vmap one batched launch)."""
     return _PrefixPlanes.apply(occ)
+
+
+# ---- K6 --------------------------------------------------------------------
+
+class _SelectRows(_Kernel):
+    @staticmethod
+    def forward(sdir4, dest):
+        if not _on_cuda(sdir4):
+            return select_dest_rows(sdir4, dest)
+        D4, H, W = sdir4.shape
+        dev = sdir4.device
+        _check("sdir4", sdir4, torch.int32, (D4, H, W), dev)
+        _check("dest", dest, torch.int32, (H, W), dev)
+        out = torch.empty((H, W), dtype=torch.int32, device=dev)
+        _call("tsim_select_rows", _ptr(sdir4), _ptr(dest), _ptr(out),
+              ctypes.c_int(D4), ctypes.c_int(H * W), _stream(dev))
+        launches["select_rows"] += 1
+        return out
+
+
+def select_rows(sdir4, dest):
+    """K6, the destination-row select: nd[y, x] = byte dest & 3 of the
+    word sdir4[dest >> 2, y, x] (int32 [D4, H, W], `engine.pack_sdir4`
+    layout), 7 where dest >> 2 is outside [0, D4).  dest int32 [H, W] ->
+    int32 [H, W].
+
+    Replaces `pallas_engine.select_rows_pallas` (ops/pallas_engine.py).
+    Source: csrc/select_rows.cu.  On the H100 it is bound by device
+    memory: 12 bytes per cell (dest, one gathered word, the result),
+    12.6 MB at 1024^2; the gathered words of neighbouring cells lie on
+    different planes and do not coalesce.  Design: one thread per cell,
+    one indexed load, where the TPU kernel streamed the whole stack."""
+    return _SelectRows.apply(sdir4, dest)
 
 
 # ---- ordered scatter-add --------------------------------------------------

@@ -53,11 +53,19 @@ def compute_cost_fields(cfg: Config, allowed_dirs: torch.Tensor,
     [D, 4, H, W] f32.  Sweeps until no entry changes (or `max_iters`,
     3 * (H + W) by default), as the JAX `while_loop` does.
 
-    Two [D, 4, H, W] buffers ping-pong (637 MB each at D = 608, 256^2):
-    each sweep builds the candidates in the spare buffer in place, so
-    the peak stays near three copies of the field."""
-    H, W = allowed_dirs.shape
-    D = dest_pos.shape[0]
+    Leading batch dims are allowed: planes [..., H, W] and destinations
+    [..., D] give fields [..., D, 4, H, W], each batch entry its own
+    geometry (the windows of `gen/hier.build_local_stack`).  A converged
+    entry is a fixpoint that later sweeps leave unchanged, and an entry
+    still changing at `max_iters` stops there as it would alone, so the
+    batch gives each entry its own result.
+
+    Two field buffers ping-pong (637 MB each at D = 608, 256^2): each
+    sweep builds the candidates in the spare buffer in place, so the
+    peak stays near three copies of the field."""
+    H, W = allowed_dirs.shape[-2:]
+    lead = tuple(allowed_dirs.shape[:-2])
+    D = dest_pos.shape[-1]
     dev = allowed_dirs.device
     if max_iters is None:
         max_iters = 3 * (H + W)
@@ -70,39 +78,40 @@ def compute_cost_fields(cfg: Config, allowed_dirs: torch.Tensor,
     enter = 1.0 + road_type_penalty(cfg, road_class)
     bits = allowed_dirs.to(torch.int32)
 
-    dest_oh = torch.zeros((D, H * W), dtype=torch.bool, device=dev)
-    dest_oh[torch.arange(D, device=dev),
-            dest_pos.to(torch.int64).clamp(0, H * W - 1)] = dest_valid
-    F0 = torch.where(dest_oh.reshape(D, 1, H, W),
+    dest_oh = torch.zeros(lead + (D, H * W), dtype=torch.bool, device=dev)
+    pos = dest_pos.to(torch.int64).clamp(0, H * W - 1)
+    dest_oh.scatter_(-1, pos[..., None], dest_valid[..., None])
+    F0 = torch.where(dest_oh.reshape(lead + (D, 1, H, W)),
                      torch.tensor(0.0, device=dev),
-                     torch.tensor(INF, device=dev))       # [D, 1, H, W]
+                     torch.tensor(INF, device=dev))       # [..., D, 1, H, W]
 
     per_m = []
     for m in range(4):
-        en = _shift_plane(enter, m, INF)
+        en = _shift_plane(enter, m, INF)[..., None, :, :]
         legal = (bits & C.DIR_BITS[m]) != 0
         if use_contra:
             rd = _shift_plane(is_road, m, False)
             extra = torch.where(legal, torch.tensor(0.0, device=dev),
                                 torch.tensor(cp, device=dev))
-            per_m.append((en, extra, legal | rd))
+            per_m.append((en, extra[..., None, :, :],
+                           (legal | rd)[..., None, :, :]))
         else:
-            per_m.append((en, None, legal))
+            per_m.append((en, None, legal[..., None, :, :]))
 
-    F = F0.expand(D, 4, H, W).contiguous()
+    F = F0.expand(lead + (D, 4, H, W)).contiguous()
     spare = torch.empty_like(F)
     it = 0
     while it < max_iters:
         cand = spare
         for m in range(4):
             en, extra, ok = per_m[m]
-            c = cand[:, m]
-            c.copy_(_shift_plane(F[:, m], m, INF))
+            c = cand[..., m, :, :]
+            c.copy_(_shift_plane(F[..., m, :, :], m, INF))
             c.add_(en)
             if extra is not None:
                 c.add_(extra)
             c.masked_fill_(~ok, INF)
-        best = cand.amin(dim=1, keepdim=True)
+        best = cand.amin(dim=-3, keepdim=True)
         torch.minimum(cand, best + tp, out=cand)
         torch.minimum(cand, F0, out=cand)
         del best

@@ -7,9 +7,13 @@ host, bit for bit, and ships only the drawn values to the device.  This
 module covers exactly the calls the tick makes:
 
   * `split(key, n)`          (`ops/engine.py:679, 1025`, `agents/rain.py:32`)
-  * `bits(key, shape)`       (`ops/engine.py:603`, u32 draws)
-  * `uniform(key)`, `randint(key, lo, hi)`, `bernoulli(key, p)` on scalars
-    (`agents/rain.py:50-73`)
+  * `bits(key, shape)`       (`ops/engine.py:603`, `gen/zoning.py:227`)
+  * `uniform(key, shape)`, `randint(key, lo, hi, shape)`,
+    `bernoulli(key, p, shape)` (`agents/rain.py:50-73`,
+    `agents/demand.py:109-161`, `gen/subblocks.py:67-84`,
+    `gen/zoning.py:78`, `gen/bands.py`)
+  * `normal(key)` on scalars (`gen/bands.py:41,44`): sqrt(2) times XLA's
+    f32 `ErfInv` polynomial of a uniform draw in (-1, 1)
 
 A key is a numpy uint32 array of shape (2,), as `jax.random.PRNGKey`
 returns it.  numpy has a real uint32, so the wrapping adds, rotations and
@@ -56,6 +60,12 @@ def _counters(n: int):
     return (i >> np.uint64(32)).astype(np.uint32), i.astype(np.uint32)
 
 
+def PRNGKey(seed: int) -> np.ndarray:
+    """`jax.random.PRNGKey(seed)`: the 64-bit seed as (high, low) u32."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+
+
 def split(key: np.ndarray, n: int = 2) -> np.ndarray:
     """`jax.random.split(key, n)` -> uint32 [..., n, 2] (the fold-like
     split of the partitionable threefry)."""
@@ -72,30 +82,96 @@ def bits(key: np.ndarray, shape=()) -> np.ndarray:
     return (b0 ^ b1).reshape(np.shape(key)[:-1] + tuple(shape))
 
 
-def uniform(key: np.ndarray):
-    """`jax.random.uniform(key)`: a scalar f32 in [0, 1) per key from the
-    top 23 bits as a mantissa."""
-    b = bits(key, (1,))
+def _unit(b: np.ndarray) -> np.ndarray:
+    """u32 draws -> f32 in [0, 1) from the top 23 bits as a mantissa."""
     f = ((b >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
-    return np.maximum(np.float32(0.0), f[..., 0] - np.float32(1.0))[()]
+    return f - np.float32(1.0)
 
 
-def randint(key: np.ndarray, minval: int, maxval: int):
-    """`jax.random.randint(key, (), minval, maxval)` for int32 per key:
+def uniform(key: np.ndarray, shape=()):
+    """`jax.random.uniform(key, shape)`: f32 in [0, 1) per key and
+    entry."""
+    b = bits(key, (1,) if shape == () else shape)
+    if shape == ():
+        b = b[..., 0]
+    return np.maximum(np.float32(0.0), _unit(b))[()]
+
+
+def randint(key: np.ndarray, minval: int, maxval: int, shape=()):
+    """`jax.random.randint(key, shape, minval, maxval)` for int32 per key:
     two u32 draws reduced modulo the span (`_randint`)."""
     k = split(key, 2)
-    hi, lo = bits(k[..., 0, :], (1,)), bits(k[..., 1, :], (1,))
+    n = (1,) if shape == () else shape
+    hi, lo = bits(k[..., 0, :], n), bits(k[..., 1, :], n)
+    out_shape = np.shape(key)[:-1] + tuple(shape)
     if maxval <= minval:
-        return np.full(np.shape(key)[:-1], minval, np.int32)[()]
+        return np.full(out_shape, minval, np.int32)[()]
     span = np.uint32(maxval - minval)
     mult = np.uint32((1 << 16) % int(span))
     mult = (np.asarray([mult], np.uint32) * mult) % span
     off = ((hi % span) * mult + (lo % span)) % span
-    return (np.int64(minval) + off[..., 0]).astype(np.int32)[()]
+    return (np.int64(minval) + off).astype(np.int32).reshape(out_shape)[()]
 
 
-def bernoulli(key: np.ndarray, p: float = 0.5):
-    """`jax.random.bernoulli(key, p)` (mode 'low'): uniform < p in f32;
-    a bool for one key, a bool array for a stack of keys."""
-    out = np.asarray(uniform(key) < np.float32(p))
+def bernoulli(key: np.ndarray, p: float = 0.5, shape=()):
+    """`jax.random.bernoulli(key, p, shape)` (mode 'low'): uniform < p in
+    f32; a bool for one key and no shape, else a bool array."""
+    out = np.asarray(uniform(key, shape) < np.float32(p))
     return bool(out) if out.ndim == 0 else out
+
+
+# XLA's f32 ErfInv (Giles' single-precision approximation), coefficients
+# for w < 5 and w >= 5, highest degree first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _fma32(a, b, c):
+    """f32 a * b + c with one rounding (XLA's CPU contraction)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def erfinv32(x: np.ndarray) -> np.ndarray:
+    """XLA's f32 `ErfInv`: w = -log1p(-x*x); a degree-8 polynomial in
+    w - 2.5 (w < 5) or sqrt(w) - 3, evaluated by Horner steps that the
+    CPU backend contracts into fused multiply-adds; times x; +-inf at
+    |x| = 1."""
+    f32 = np.float32
+    x = np.asarray(x, f32)
+    w = (-np.log1p(-(x * x).astype(np.float64))).astype(f32)
+    lt = w < f32(5.0)
+    w = np.where(lt, w - f32(2.5), np.sqrt(w).astype(f32) - f32(3.0))
+    lo, hi = (np.asarray(c, f32) for c in (_ERFINV_LT5, _ERFINV_GE5))
+    p = np.where(lt, lo[0], hi[0]).astype(f32)
+    for i in range(1, 9):
+        p = _fma32(p, w, np.where(lt, lo[i], hi[i]).astype(f32))
+    out = (p * x).astype(f32)
+    return np.where(np.abs(x) == f32(1.0), x * np.finfo(f32).max, out)
+
+
+SQRT2 = np.float32(np.sqrt(2))
+
+
+def normal_erfinv(key: np.ndarray):
+    """erfinv(u) of `jax.random.normal(key)` = SQRT2 * erfinv(u), u
+    uniform on [nextafter(-1, 0), 1), f32 per key.  A caller that scales
+    the draw by a constant gets XLA's folded form from this: XLA merges
+    the two constant factors and fuses the add, mean + std * normal ->
+    fma(erfinv(u), SQRT2 * std, mean)."""
+    f32 = np.float32
+    b = bits(key, (1,))[..., 0]
+    lo = np.nextafter(f32(-1.0), f32(0.0))
+    span = f32(1.0) - lo                       # rounds to 2 in f32
+    u = np.maximum(lo, _fma32(_unit(b), span, lo))
+    return erfinv32(u)[()]
+
+
+def normal(key: np.ndarray):
+    """`jax.random.normal(key)` in f32 per key.  The log1p inside XLA's
+    ErfInv is XLA's own; numpy's differs from it in the last bit for
+    about 1% of draws."""
+    return (SQRT2 * normal_erfinv(key)).astype(np.float32)[()]

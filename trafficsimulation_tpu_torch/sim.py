@@ -1,28 +1,48 @@
-"""Top-level simulation: the plane-engine scan runner and the host-side
-`TrafficSim` (the JAX package's `sim.py`; its module docstring gives the
-tick order).
+"""Top-level simulation: world init, the plane-engine scan runner and the
+host-side `TrafficSim` (the JAX package's `sim.py`; its module docstring
+gives the tick order).
+
+`init_world` generates a world from a key (`gen/generate.py`, demand
+from `agents/demand.py`) on a device; `init_world_hier` builds the
+hierarchical-routing world of a `ROUTING_HIER` config (`gen/hier.py`,
+`ops/hier.py`).  `inject_vehicles` is the JAX bench's synthetic load.
 
 `run_chunk` advances a world n ticks: it packs the vehicle pool onto the
 planes once, rebuilds the routing planes (K2, K3) at the chunk start and
 then once per PATHFINDING_COOLDOWN ticks, compacts the free pool slots
 once per segment, and runs `engine.step_engine` per tick (K4 inside the
-light reductions, K1 for decide + move).  The whole chunk's random draws
-come from JAX's key chain walked on the host up front (`tick_draws`), so
-no tick waits for the host.  `advance` is the device part of the chunk,
-a function of tensors only: `parallel/mesh.run_batch_shared` runs it
-under `torch.func.vmap` for a batch of worlds.
+light reductions, K1 for decide + move, or the plain core with K6 under
+hierarchical routing).  The whole chunk's random draws come from JAX's
+key chain walked on the host up front (`tick_draws`), so no tick waits
+for the host.  `advance` is the device part of the chunk, a function of
+tensors only: `parallel/mesh.run_batch_shared` runs it under
+`torch.func.vmap` for a batch of worlds.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import time
+import warnings
+
 import numpy as np
 import torch
 
+from . import prng
 from .config import Config
 
-from .core.state import Metrics, Vehicles, World
+from .agents import demand as demand_mod
+from .agents.blocks import init_blocks_state
+from .agents.rain import init_rain_state
+from .core.state import (Metrics, Overrides, Pedestrians, Vehicles, World)
+from .gen import hier as ghier
+from .gen.generate import generate_city
 from .lights import fsm
 from .ops import engine
+from .ops.hier import RID_SPACE
+
+KBIG = engine.KBIG
 
 
 def init_vehicles(V: int, device) -> Vehicles:
@@ -54,6 +74,303 @@ def init_metrics(device) -> Metrics:
         collisions_total=z(), malfunctions_total=z(), daily_created=z(),
         daily_finished=z(), last_daily_difference=z(), daily_diff_sum=z(),
         days_completed=z(), day=z())
+
+
+def _nearest_exit_table(cfg: Config, dests, DF: int,
+                        rid: torch.Tensor = None) -> torch.Tensor:
+    """Per destination the nearest valid highway-exit destination
+    (Manhattan; the first on ties) among the first DF; its routing id
+    under hierarchical routing."""
+    W = cfg.WIDTH
+    dev = dests.pos.device
+    exit_ok = dests.valid & (dests.kind == 1) & (
+        torch.arange(dests.valid.shape[0], device=dev) < DF)
+    px, py = dests.pos % W, torch.div(dests.pos, W, rounding_mode="floor")
+    t = []
+    for r0 in range(0, px.shape[0], 4096):        # [4096, D] at a time
+        man = (px[r0:r0 + 4096, None] - px[None, :]).abs() \
+            + (py[r0:r0 + 4096, None] - py[None, :]).abs()
+        t.append(torch.argmin(torch.where(exit_ok[None, :], man, 2**30),
+                              dim=1))
+    t = torch.cat(t).to(torch.int32)
+    return t if rid is None else rid[t.long()]
+
+
+@functools.cache
+def trip_layout_cached(cfg: Config):
+    return demand_mod.trip_layout(cfg)
+
+
+def _key_array(key) -> np.ndarray:
+    return np.asarray(key, np.uint32).reshape(2)
+
+
+def init_world(cfg: Config, key, device="cuda") -> World:
+    """Generate a world from `key` (uint32 [2], `prng.PRNGKey`) on
+    `device`: the city, its key stack of the first MAX_FIELD_DESTS
+    destinations, DEMAND_PREGEN_DAYS days of demand and empty dynamic
+    state (the JAX `init_world`)."""
+    if cfg.ROUTING_HIER:
+        raise ValueError("cfg.ROUTING_HIER worlds are host-orchestrated: "
+                         "use init_world_hier(cfg, key)")
+    dev = torch.device(device)
+    caps = cfg.capacities()
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    key = _key_array(key)
+    kgen, kday = prng.split(key, 2)
+    grid, ls, gs, bs, dests, field = generate_city(cfg, kgen, dev)
+    DF = field.shape[0]
+    field = engine.field_to_keys(cfg, field, grid.road_class)
+    dem = demand_mod.generate_days(
+        cfg, trip_layout_cached(cfg), kday, 0, cfg.DEMAND_PREGEN_DAYS, -1,
+        bs.valid, bs.btype, bs.dest, bs.entrance, dests.valid, dests.kind,
+        dests.hw_pos, dests.hw_valid, DF)
+    z = torch.zeros((4, 1, 1), dtype=torch.int32, device=dev)
+    return World(
+        grid=grid, lights_static=ls, groups_static=gs, blocks_static=bs,
+        dests=dests, cost_field=field,
+        nearest_exit=_nearest_exit_table(cfg, dests, DF),
+        veh_map=torch.full((H, W), -1, dtype=torch.int32, device=dev),
+        stop_map=torch.zeros((H, W), dtype=torch.bool, device=dev),
+        rain_map=torch.zeros((H, W), dtype=torch.bool, device=dev),
+        stuck_map=torch.zeros((H, W), dtype=torch.int32, device=dev),
+        density=torch.zeros((H, W), dtype=torch.float32, device=dev),
+        vehicles=init_vehicles(caps.max_vehicles, dev),
+        lights=fsm.init_lights_state(cfg, caps.max_groups, caps.max_lights,
+                                     gs.valid),
+        blocks=init_blocks_state(bs),
+        rain=init_rain_state(cfg, dev),
+        demand=dem,
+        metrics=init_metrics(dev),
+        peds=Pedestrians(walk=z, cross=z.clone()),
+        ped_map=torch.zeros((H, W), dtype=torch.int32, device=dev),
+        overrides=Overrides(
+            light_force=torch.full((caps.max_lights,), -1, dtype=torch.int8,
+                                   device=dev),
+            spawn_rain=torch.zeros((), dtype=torch.bool, device=dev)),
+        tick=torch.zeros((), dtype=torch.int32, device=dev),
+        elapsed=torch.zeros((), dtype=torch.float32, device=dev),
+        key=_key_tensor(key, dev))
+
+
+def _stage(timings, name, t0):
+    """Record a set-up stage's seconds (device work included)."""
+    if timings is not None:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        timings[name] = time.perf_counter() - t0
+    return time.perf_counter()
+
+
+def init_world_hier(cfg: Config, key, device="cuda", timings=None):
+    """The world of a `ROUTING_HIER` config (the JAX `init_world_hier`):
+    generate and shrink a base world (a 4-row throwaway field), assign
+    routing ids on the host, remap every plane-facing id to its rid,
+    build the dense hub / direct key rows and the windowed static stack
+    on the device, regenerate demand against the rids, and the
+    nearest-exit table in rid space.  Returns (shrunk cfg, world).
+    `timings`: a dict that receives the seconds of each stage."""
+    assert cfg.ROUTING_HIER
+    key = _key_array(key)
+    t = time.perf_counter()
+    cfg_gen = dataclasses.replace(cfg, ROUTING_HIER=False, MAX_FIELD_DESTS=4)
+    world = init_world(cfg_gen, key, device)
+    t = _stage(timings, "generate", t)
+    cfg2, world = measure_and_shrink(cfg_gen, world)
+    grid, bs, dests = world.grid, world.blocks_static, world.dests
+    dev = grid.cell_type.device
+    pos = dests.pos.cpu().numpy()
+    assign = ghier.assign_hier_np(cfg, pos, dests.valid.cpu().numpy(),
+                                  dests.kind.cpu().numpy())
+    tabs = ghier.hier_tables_np(cfg, assign, pos, cfg.HEIGHT, cfg.WIDTH)
+    tabs = {k: torch.from_numpy(v).to(dev) for k, v in tabs.items()}
+    rid = torch.from_numpy(assign["rid"]).to(dev)
+    D = rid.shape[0]
+    lut = torch.cat([rid, torch.full((1,), -1, dtype=torch.int32,
+                                     device=dev)])
+
+    def remap(a):
+        return torch.where(a >= 0, lut[a.clamp(0, D).long()], -1)
+
+    grid = grid.replace(dest_id=remap(grid.dest_id))
+    bs = bs.replace(dest=remap(bs.dest), service_dest=remap(bs.service_dest))
+    dests = dests.replace(rid=rid)
+    cfg3 = dataclasses.replace(cfg2, ROUTING_HIER=True,
+                               HIER_TILE=cfg.HIER_TILE,
+                               HIER_LMAX=cfg.HIER_LMAX,
+                               MAX_FIELD_DESTS=int(tabs["dense_pos"].shape[0]))
+    t = _stage(timings, "shrink_and_assign", t)
+    field = ghier.build_dense_keys(cfg3, grid, tabs["dense_pos"],
+                                   tabs["dense_valid"])
+    t = _stage(timings, "dense_keys", t)
+    local4 = ghier.build_local_stack(cfg3, grid, tabs["tile_dest_wpos"],
+                                     tabs["tile_dest_valid"],
+                                     tabs["tile_coords"])
+    t = _stage(timings, "local_stack", t)
+    _, kday = prng.split(key, 2)
+    dem = demand_mod.generate_days(
+        cfg3, trip_layout_cached(cfg3), kday, 0, cfg.DEMAND_PREGEN_DAYS, -1,
+        bs.valid, bs.btype, bs.dest, bs.entrance, dests.valid, dests.kind,
+        dests.hw_pos, dests.hw_valid, RID_SPACE, dest_rid=rid)
+    world = world.replace(
+        grid=grid, blocks_static=bs, dests=dests, cost_field=field,
+        local_sdir4=local4,
+        nearest_exit=_nearest_exit_table(cfg3, dests, RID_SPACE, rid=rid),
+        demand=dem, metrics=init_metrics(dev))
+    _stage(timings, "demand", t)
+    return cfg3, world
+
+
+def _pow2(n: int, lo: int = 8) -> int:
+    """A measured size rounded up to a padded capacity: the next power of
+    two up to 256, else the next multiple of 64."""
+    n = max(int(n), lo)
+    if n <= 256:
+        return 1 << (n - 1).bit_length()
+    return ((n + 63) // 64) * 64
+
+
+def _count(t: torch.Tensor) -> int:
+    return int(t.sum())
+
+
+def assert_world_fits(cfg: Config, world: World) -> None:
+    """Raise when a padded table of a world (or a batch of worlds) is
+    completely full, the signature of truncation under shrunk
+    capacities; warn when the valid destinations reach the field's row
+    count (the JAX `assert_world_fits`)."""
+    sat = []
+    for name, arr in (("max_lights", world.lights_static.valid),
+                      ("max_groups", world.groups_static.valid),
+                      ("max_blocks", world.blocks_static.valid),
+                      ("max_dests", world.dests.valid),
+                      ("max_exits", world.dests.hw_valid)):
+        if bool(arr.reshape(-1, arr.shape[-1]).all(dim=-1).any()):
+            sat.append(name)
+    D_field = world.cost_field.shape[-4]
+    dv = world.dests.valid
+    n_valid = dv.reshape(-1, dv.shape[-1]).sum(dim=-1)
+    if world.local_sdir4 is None and bool((n_valid >= D_field).any()):
+        warnings.warn(
+            f"MAX_FIELD_DESTS partial coverage: {D_field} field rows, "
+            f"world has >= {int(n_valid.max())} valid dests: destinations "
+            "beyond the cap route via exit fallback and internal demand "
+            "to them is resampled (blocks_unroutable_no_field counts "
+            "them)", RuntimeWarning, stacklevel=2)
+    if sat:
+        raise RuntimeError(
+            f"capacity table(s) saturated for this world: {sat}: the "
+            "config's CAP_OVERRIDES are too small for this seed; "
+            "regenerate with default caps or re-measure per world")
+
+
+def measure_and_shrink(cfg: Config, world: World):
+    """(cfg2, world2): capacities measured from this world's tables
+    (rounded by `_pow2`) and every padded table sliced to them (the JAX
+    `measure_and_shrink`).  Valid for this world only."""
+    ls, gs, bs, dests = (world.lights_static, world.groups_static,
+                         world.blocks_static, world.dests)
+    caps = cfg.capacities()
+    g = world.grid
+    n_queue = min(_pow2(_count(gs.queue_qgroup >= 0) + 1),
+                  gs.queue_cells.shape[0])
+    n_runs = min(_pow2(_count(gs.run_seg >= 0) + 1), gs.run_seg.shape[0])
+    n_lights = min(_pow2(_count(ls.valid) + 1), caps.max_lights)
+    n_assign = min(_pow2(_count(ls.assign_valid) + 1),
+                   ls.assign_valid.shape[0])
+    n_sruns = min(_pow2(_count(ls.srun_light >= 0) + 1),
+                  ls.srun_light.shape[0])
+    n_groups = min(_pow2(max(int(g.group_id.max()), int(g.queue_group.max()),
+                             int(ls.group.max())) + 2), caps.max_groups)
+    n_blocks = min(_pow2(int(g.block_id.max()) + 2), caps.max_blocks)
+    n_valid_dests = _count(dests.valid)
+    n_dests = min(_pow2(n_valid_dests + 1), dests.valid.shape[0])
+    n_exits = min(_pow2(_count(dests.hw_valid) + 1),
+                  dests.hw_valid.shape[0])
+    DF = min(world.cost_field.shape[0],
+             max(32, (n_valid_dests + 32) // 32 * 32))
+    cfg2 = cfg.replace(CAP_OVERRIDES=(
+        ("max_lights", n_lights), ("max_groups", n_groups),
+        ("max_blocks", n_blocks), ("max_dests", n_dests),
+        ("max_exits", n_exits), ("max_entrances_hw", n_exits),
+        ("max_queue_cells", n_queue)), MAX_FIELD_DESTS=DF)
+
+    def cut(obj, n, names=None):
+        names = names or [f.name for f in dataclasses.fields(obj)]
+        return obj.replace(**{k: getattr(obj, k)[:n] for k in names})
+
+    lights = world.lights
+    group_fields = [f.name for f in dataclasses.fields(lights)
+                    if f.name != "light_stop"]
+    world2 = world.replace(
+        lights_static=cut(cut(cut(ls, n_lights, ["valid", "pos", "group",
+                                                 "axis"]),
+                              n_assign, ["assign_road", "assign_light",
+                                         "assign_valid", "sextra_cell",
+                                         "sextra_light"]),
+                          n_sruns, ["srun_lo", "srun_hi", "srun_light"]),
+        groups_static=cut(cut(cut(gs, n_groups, [
+            "valid", "neighbor", "intermediates", "bbox",
+            "intersection_size", "penalty_score"]), n_queue, [
+            "queue_cells", "queue_qgroup", "queue_qbucket"]), n_runs,
+            ["run_lo", "run_hi", "run_seg"]),
+        blocks_static=cut(bs, n_blocks),
+        dests=cut(cut(dests, n_dests, ["valid", "pos", "kind", "block"]),
+                  n_exits, ["hw_pos", "hw_valid"]),
+        cost_field=world.cost_field[:DF],
+        nearest_exit=world.nearest_exit[:n_dests],
+        lights=cut(cut(lights, n_lights, ["light_stop"]), n_groups,
+                   group_fields),
+        blocks=cut(world.blocks, n_blocks),
+        overrides=world.overrides.replace(
+            light_force=world.overrides.light_force[:n_lights]),
+        rl=None)
+    return cfg2, world2
+
+
+def inject_vehicles(cfg: Config, world: World, n: int) -> World:
+    """The JAX bench's synthetic load (`bench.inject_vehicles` with its
+    default seed 0): n vehicles on random free road cells from which some
+    field row is reachable, with random valid destinations, drawn by
+    numpy exactly as the bench draws them.  The reach mask is reduced on
+    the device; one bool plane comes back."""
+    rng = np.random.default_rng(0)
+    H, W = world.grid.is_road.shape
+    K = world.cost_field
+    dvalid = world.dests.valid.cpu().numpy()
+    if world.dests.rid is not None:
+        dids = np.nonzero(dvalid)[0]
+        rid = world.dests.rid.cpu().numpy()
+        best = torch.full((H, W), KBIG << 2, dtype=torch.int32,
+                          device=K.device)
+        for r0 in range(0, K.shape[0], 16):
+            best = torch.minimum(best, K[r0:r0 + 16].amin(dim=(0, 1)))
+    else:
+        dids = np.nonzero(dvalid[:K.shape[0]])[0]
+        rid = np.arange(dvalid.shape[0])
+        best = K[int(dids[0])].amin(dim=0)
+    reach = ((best >> 2) < KBIG).reshape(-1).cpu().numpy()
+    road = world.grid.is_road.reshape(-1).cpu().numpy()
+    occ_ok = world.veh_map.reshape(-1).cpu().numpy() < 0
+    cells = np.nonzero(reach & road & occ_ok)[0]
+    n = min(n, len(cells), world.vehicles.active.shape[0])
+    pos = rng.choice(cells, size=n, replace=False).astype(np.int32)
+    dest = rid[dids[rng.integers(0, len(dids), size=n)]].astype(np.int32)
+
+    dev = world.vehicles.active.device
+    v = world.vehicles
+
+    def put(t, vals):
+        t = t.clone()
+        t[:n] = torch.as_tensor(vals, dtype=t.dtype, device=dev)
+        return t
+    pos_t = torch.from_numpy(pos).to(dev)
+    v = v.replace(active=put(v.active, True), pos=put(v.pos, pos_t),
+                  dest=put(v.dest, torch.from_numpy(dest)),
+                  heading=put(v.heading, -1), kind=put(v.kind, 0))
+    vm = world.veh_map.reshape(-1).clone()
+    vm[pos_t.long()] = torch.arange(n, dtype=torch.int32, device=dev)
+    return world.replace(vehicles=v, veh_map=vm.reshape(H, W))
 
 
 def _enter_engine(cfg: Config, world: World) -> engine.EngineState:
@@ -168,49 +485,77 @@ def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
 
 
 class TrafficSim:
-    """Host-side wrapper: `step(n)` and `stats()` with the JAX
-    `TrafficSim`'s keys.  World generation is not ported yet, so a sim
-    starts from an existing world (`from_world`, e.g. a snapshot)."""
+    """Host-side wrapper: `reset`, `step(n)` and `stats()` with the JAX
+    `TrafficSim`'s keys.  `TrafficSim(cfg, seed=s)` generates its world
+    (`reset`) on `device`; `from_world` starts from an existing one."""
 
-    def __init__(self, cfg: Config, world: World):
+    def __init__(self, cfg: Config, world: World = None, seed: int = 0,
+                 device="cuda"):
         self.cfg = cfg
         self.world = world
+        if world is None:
+            self.reset(cfg, seed, device=device)
 
     @classmethod
     def from_world(cls, cfg: Config, world: World) -> "TrafficSim":
         return cls(cfg, world)
 
+    def reset(self, cfg: Config = None, seed: int = 0,
+              device=None) -> World:
+        """Regenerate the world from `seed` and re-measure its padded
+        capacities (`measure_and_shrink`), as the JAX `TrafficSim.reset`
+        does by default.  `device`: where the world lives (the current
+        world's device, else the card)."""
+        if cfg is not None:
+            self.cfg = cfg
+        if device is None:
+            device = (self.world.grid.is_road.device
+                      if self.world is not None else "cuda")
+        self.world = init_world(self.cfg, prng.PRNGKey(seed), device)
+        self.cfg, self.world = measure_and_shrink(self.cfg, self.world)
+        return self.world
+
     def step(self, n: int = 1) -> World:
-        self._check_demand(n)
+        self._maybe_extend_demand(n)
         self.world = (step_world(self.cfg, self.world) if n == 1
                       else run_chunk(self.cfg, self.world, n))
         return self.world
 
-    def _check_demand(self, n: int):
-        """The JAX sim regenerates the trip table when the spawn cursor
-        nears the end of its valid prefix or n ticks outrun its days
-        (`_maybe_extend_demand`).  Regeneration needs `demand.
-        generate_days`, not ported yet, so this raises instead of letting
-        spawning stop silently."""
+    def _maybe_extend_demand(self, n: int):
+        """Regenerate the trip table when the spawn cursor nears the end
+        of its valid prefix or the next n ticks outrun its days (the JAX
+        `_maybe_extend_demand`): from the current sim day, with trips
+        already past invalid, and a key split off the world's.  The JAX
+        sim runs this outside `jit`, so the times are unfused f32."""
         cfg = self.cfg
-        dem = self.world.demand
-        days_cover = cfg.DEMAND_PREGEN_DAYS * 86400 / cfg.TIME_PER_STEP_IN_SECONDS
+        w = self.world
+        dem = w.demand
+        dt = cfg.TIME_PER_STEP_IN_SECONDS
+        days_cover = cfg.DEMAND_PREGEN_DAYS * 86400 / dt
         if n >= days_cover:
             raise ValueError(f"step({n}) exceeds the {cfg.DEMAND_PREGEN_DAYS}"
-                             "-day pre-generated demand window")
+                             "-day pre-generated demand window; raise "
+                             "DEMAND_PREGEN_DAYS")
         valid = dem.valid.cpu().numpy()
         n_valid = int(valid.sum())
         S = cfg.capacities().max_spawns_per_tick
-        tick_end = int(self.world.tick) + n
+        tick_end = int(w.tick) + n
         last_cover = (int(dem.depart_tick.cpu().numpy()[valid].max())
                       if n_valid else -1)
         if int(dem.cursor) < n_valid - 2 * S and last_cover >= tick_end:
             return
-        raise NotImplementedError(
-            f"the trip table needs regenerating before tick {tick_end} "
-            f"(cursor {int(dem.cursor)} of {n_valid} valid trips, last "
-            f"departure tick {last_cover}); demand.generate_days is not "
-            "ported yet (ROADMAP Queue 1 item 10)")
+        off = (cfg.SIMULATION_STARTING_TIME_OF_DAY_HOURS * 3600
+               + cfg.SIMULATION_STARTING_TIME_OF_DAY_MINUTES * 60)
+        today = int((off + float(w.elapsed)) // 86400)
+        key, kd = prng.split(_key_np(w.key), 2)
+        DF = RID_SPACE if w.dests.rid is not None else w.cost_field.shape[0]
+        bs, d = w.blocks_static, w.dests
+        new = demand_mod.generate_days(
+            cfg, trip_layout_cached(cfg), kd, today, cfg.DEMAND_PREGEN_DAYS,
+            w.tick, bs.valid, bs.btype, bs.dest, bs.entrance, d.valid,
+            d.kind, d.hw_pos, d.hw_valid, DF, dest_rid=d.rid, fused=False)
+        self.world = w.replace(demand=new,
+                               key=_key_tensor(key, w.key.device))
 
     def stats(self) -> dict:
         """Dashboard statistics, the keys of the JAX `TrafficSim.stats`."""

@@ -1,13 +1,14 @@
-"""Start the port from a snapshot of a JAX world.
+"""A snapshot of a JAX world, the port's reference for the headline.
 
-World generation is not ported yet (ROADMAP Queue 1 item 10), so the
-headline world (BASELINE config #2: 256x256, 10k vehicles, D = 608
-field rows) ships as `data/headline256_seed0.npz`, written by
-`tools/make_torch_snapshot.py` with the JAX package.  It holds every
-leaf of the world except the 637 MB key stack `cost_field`, which
-`build_field` rebuilds on the device with the port's own value
-iteration, plus JAX's key-stack sha256 and its end state after a short
-`run_chunk` (keys `ref.*`) to check the port against.
+The headline world (BASELINE config #2: 256x256, 10k vehicles, D = 608
+field rows; `HEADLINE_CFG`, seed 0, `HEADLINE_VEHICLES` injected) ships
+as `data/headline256_seed0.npz`, written by `tools/make_torch_snapshot.py`
+with the JAX package.  It holds every leaf of the world except the
+637 MB key stack `cost_field` (which `build_field` rebuilds on the
+device with the port's own value iteration), JAX's key-stack sha256,
+and its end state after a short `run_chunk` (keys `ref.*`).  The port
+generates the same world itself (`sim.init_world`); the snapshot is what
+that world and its run are held to.
 
 npz layout: world leaves keyed by attribute path ("grid.cell_type");
 `meta.cfg_json` the `Config` keyword arguments; `meta.field_sha256`,
@@ -32,6 +33,13 @@ from .ops import routing
 from .ops.engine import field_to_keys
 
 HEADLINE = Path(__file__).resolve().parent / "data" / "headline256_seed0.npz"
+HEADLINE_CFG = dict(WIDTH=256, HEIGHT=256, MAX_VEHICLES=10_000,
+                    MAX_FIELD_DESTS=640)
+HEADLINE_SEED = 0
+HEADLINE_VEHICLES = 10_000
+# JAX's config #5 world cut to 512^2 (tools/make_torch_hier_digest.py)
+HIER_DIGEST = Path(__file__).resolve().parent / "data" / \
+    "config5_hier512_digest.json"
 
 
 def config_from_json(text: str) -> Config:
