@@ -59,7 +59,18 @@ Phases (any failure raises and the script exits nonzero):
      with the seconds of each stage; 20 ticks (launches checked as in
      9), then 20 more timed (steps/s, cell-updates/s), the device idle
      share over 10 ticks, and K2, K3, K4 on that world's inputs against
-     their plain versions.
+     their plain versions;
+ 11. the megakernel path (group `mega`, TSIM_MEGA_FORCE=1) from the
+     generated headline world: `TrafficSim.step(23)` must reproduce
+     JAX's end state as in 5, with K9 5 (four segments of 5 ticks and
+     one of 3), K2 5, K3 5 and no K1, K4 or ordered add; K9 against its
+     plain version on one segment of 5 ticks from tick 0 and one of 3
+     from tick 23 (every plane, light row, tank and stats row bit-equal
+     but the f32 duration sums, within rtol 1e-5), its median, device
+     time and bound; then 200 ticks of each path from tick 23 in this
+     one process (steps/s, cell-updates/s, wall and device-busy ms per
+     tick, idle share, launches per segment, K9's device ms per call)
+     and their end states held equal.
 
 The line before the last is the kernels' JSON summary, the one before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -107,16 +118,22 @@ KERNELS = {
                            "trafficsimulation_tpu/ops/pallas_engine.py:889"),
     "select_rows": ("trafficsimulation_tpu_torch/csrc/select_rows.cu",
                     "trafficsimulation_tpu/ops/pallas_engine.py:581"),
+    "mega": ("trafficsimulation_tpu_torch/csrc/megakernel.cu",
+             "trafficsimulation_tpu/ops/megakernel.py:1175"),
 }
 # which run's launch count the summary reports: K2 on the single-world
-# path, K6 on config #5's, the others on the batched path
-SUMMARY_PATH = {"build_sdir": "single", "select_rows": "config5"}
+# path, K6 on config #5's, K9 on the megakernel path, the others on the
+# batched path
+SUMMARY_PATH = {"build_sdir": "single", "select_rows": "config5",
+                "mega": "mega"}
+MEGA_DUR_COLS = [2, 3, 7]      # the stats rows' f32 duration sums
 CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
                ROUTING_HIER=True, INTERNAL_POPULATION_TRAFFIC_PER_DAY=100_000,
                PASSING_POPULATION_TRAFFIC_PER_DAY=20_000)
 CONFIG5_VEHICLES = 100_000
 N_HIER_TICKS = 20
-PHASES = ("kernels", "ordered_add", "headline", "hier_digest", "config5")
+PHASES = ("kernels", "ordered_add", "headline", "mega", "hier_digest",
+          "config5")
 
 
 def log(*a):
@@ -985,6 +1002,203 @@ def phase_config5(HE, engine, tsim, card, prng, Config):
     return launches, kern
 
 
+class mega_env:
+    """TSIM_MEGA_FORCE=1 (the megakernel path) or TSIM_NO_MEGAKERNEL=1
+    (the per-tick path) inside the block, the environment as it was
+    after."""
+
+    KEYS = ("TSIM_MEGA_FORCE", "TSIM_NO_MEGAKERNEL", "TSIM_MEGA_INTERPRET")
+
+    def __init__(self, mega: bool):
+        self.mega = mega
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k, None) for k in self.KEYS}
+        os.environ["TSIM_MEGA_FORCE" if self.mega
+                   else "TSIM_NO_MEGAKERNEL"] = "1"
+
+    def __exit__(self, *exc):
+        for k in self.KEYS:
+            os.environ.pop(k, None)
+            if self.saved[k] is not None:
+                os.environ[k] = self.saved[k]
+
+
+def compare_mega(name, got: dict, ref: dict, HE) -> float:
+    """K9's outputs against its plain version's: bit-equal but the
+    stats rows' f32 duration sums (rtol 1e-5, their order differs);
+    returns the max abs error."""
+    err = 0.0
+    for k in HE.MEGA_OUTPUTS:
+        g, r = got[k], ref[k]
+        if k == "stats":
+            keep = [c for c in range(g.shape[1]) if c not in MEGA_DUR_COLS]
+            compare(f"{name} stats", (g[:, keep],), (r[:, keep],))
+            if not torch.allclose(g[:, MEGA_DUR_COLS], r[:, MEGA_DUR_COLS],
+                                  rtol=1e-5, atol=0.0):
+                raise AssertionError(f"{name}: duration sums differ beyond "
+                                     f"rtol 1e-5: {g[:, MEGA_DUR_COLS]} vs "
+                                     f"{r[:, MEGA_DUR_COLS]}")
+        else:
+            compare(f"{name} {k}", (g,), (r,))
+        err = max(err, max_abs_err(g, r))
+    return err
+
+
+def mega_args(cfg, world, R, engine, megakernel, tsim):
+    """K9's inputs for the first R ticks from `world` (its next segment
+    as `run_chunk` would launch it)."""
+    es = tsim._enter_engine(cfg, world)
+    cs = megakernel.build_chunk_static(cfg, world)
+    draws, _ = engine.tick_draws(cfg, tsim._key_np(world.key), R)
+    args, _ = megakernel.segment_inputs(
+        cfg, world, es, cs, engine.routing_planes(cfg, world, es), R,
+        torch.from_numpy(draws).cuda())
+    return args
+
+
+def profile_path(fn, n_ticks, kernel_key=None):
+    """(device busy ms per tick, device kernels and copies per tick,
+    device ms per launch of the kernel whose name holds `kernel_key`) of
+    fn() under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / n_ticks
+    n = sum(e.count for e in ev) / n_ticks
+    k = None
+    if kernel_key:
+        hits = [e for e in ev if kernel_key in e.key]
+        if hits:
+            k = sum(e.self_device_time_total for e in hits) / 1e3 \
+                / sum(e.count for e in hits)
+    return busy, n, k
+
+
+def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
+    """The megakernel path: 23 ticks against JAX, K9 against its plain
+    version, and both paths timed in this process."""
+    from trafficsimulation_tpu_torch.ops import megakernel
+    HW = cfg.HEIGHT * cfg.WIDTH
+    R = cfg.PATHFINDING_COOLDOWN
+    out = {}
+
+    # (b) 23 ticks through run_chunk on the megakernel path, against JAX
+    sim = tsim.TrafficSim.from_world(cfg, world)
+    with mega_env(True):
+        if not megakernel.mega_ok(cfg, world):
+            raise AssertionError("the megakernel gate is closed")
+        HE.reset_launches()
+        _, t_ref = timed(lambda: sim.step(N_REF_TICKS))
+        launches = dict(HE.launches)
+    n_exact = compare_leaves("megakernel path end state vs JAX", ref["end"],
+                             transfer.world_to_numpy(sim.world))
+    segs = -(-N_REF_TICKS // R)
+    check_launches("megakernel path", launches, {
+        "mega": segs, "build_sdir": segs, "build_wavefront": segs,
+        "decide_move": 0, "prefix_planes": 0, "ordered_add": 0,
+        "build_sdir_batched": 0, "select_rows": 0})
+    log(f"megakernel path: step({N_REF_TICKS}) in {t_ref:.2f} s equals "
+        f"JAX's end state ({n_exact} integer/bool leaves exact, "
+        f"{len(ref['end']) - n_exact} f32 within rtol {FLOAT_RTOL}); "
+        f"launches {launches}")
+    w23 = sim.world
+
+    # (a) K9 against its plain version: 5 ticks from tick 0, 3 from 23
+    for name, w, r in (("R=5", world, R), ("R=3", w23, 3)):
+        args = mega_args(cfg, w, r, engine, megakernel, tsim)
+        got = HE.mega_segment(cfg, args)
+        torch.cuda.synchronize()
+        plain = megakernel.segment_plain(cfg, args)
+        err = compare_mega(f"K9 {name}", got, plain, HE)
+        compare_mega(f"K9 {name} rerun", HE.mega_segment(cfg, args), got, HE)
+        ms = median_ms(lambda: HE.mega_segment(cfg, args), reps=10)
+        dms = device_ms(lambda: HE.mega_segment(cfg, args), reps=5)
+        plain_ms = median_ms(lambda: megakernel.segment_plain(cfg, args),
+                             reps=3, warmup=1)
+        names = [n for n, _, _ in HE._MEGA_IN]
+        # each input read once, each output written once; at least one
+        # operation per cell, tick and phase (decide, 2 per sub-round,
+        # finish, the service and spawn stages)
+        nbytes = sum(args[n].numel() * args[n].element_size()
+                     for n in names) + sum(
+            t.numel() * t.element_size() for t in got.values())
+        ops = r * HW * (2 * cfg.VEHICLE_MAX_SPEED + 4)
+        bms, by = bound(nbytes, ops)
+        out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None, "bytes": nbytes, "ops": ops,
+                     "shape": f"{cfg.HEIGHT}x{cfg.WIDTH}, D4 = "
+                              f"{args['sdir4'].shape[0]}, R = {r}"}
+        log(f"kernel mega (K9, {name}): equal to plain (max abs err "
+            f"{err:g}, the duration sums), a rerun bit-equal; median "
+            f"{ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.2f} ms, "
+            f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+        del got, plain, args
+    torch.cuda.empty_cache()
+    import ctypes
+    from trafficsimulation_tpu_torch.ops import build
+    nb = ctypes.c_int(0)
+    rc = build.load().tsim_mega_grid(ctypes.cast(ctypes.pointer(nb),
+                                                 ctypes.c_void_p))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    if rc or nb.value < n_sm:
+        raise AssertionError(f"K9's cooperative grid: rc {rc}, {nb.value} "
+                             f"blocks on {n_sm} SMs")
+    log(f"K9's cooperative grid: {nb.value} blocks of 256 threads, "
+        f"{nb.value // n_sm} per SM on {n_sm} SMs")
+
+    # (c) both paths from tick 23, 200 ticks each, in this process
+    timing = {}
+    ends = {}
+    for path, mega in (("mega", True), ("per_tick", False)):
+        s = tsim.TrafficSim.from_world(cfg, w23)
+        with mega_env(mega):
+            HE.reset_launches()
+            _, dt_run = timed(lambda: s.step(N_BENCH_TICKS))
+            k9 = HE.launches["mega"]
+            ends[path] = transfer.world_to_numpy(s.world)
+            _, wall = timed(lambda: s.step(N_PROFILE_TICKS))
+            busy, per_tick, k9_dev = profile_path(
+                lambda: s.step(N_PROFILE_TICKS), N_PROFILE_TICKS,
+                "mega_kernel" if mega else None)
+        sps = N_BENCH_TICKS / dt_run
+        wall_ms = wall * 1e3 / N_PROFILE_TICKS
+        timing[path] = {
+            "steps_per_s": sps, "cell_updates_per_s": sps * HW,
+            "wall_ms_per_tick": dt_run * 1e3 / N_BENCH_TICKS,
+            "profile_wall_ms_per_tick": wall_ms,
+            "busy_ms_per_tick": busy, "idle_share": 1 - busy / wall_ms,
+            "launches_per_tick": per_tick,
+            "launches_per_segment": per_tick * R,
+            "k9_launches": k9, "k9_device_ms_per_call": k9_dev}
+        log(f"{path} path ({card}): {N_BENCH_TICKS} ticks in {dt_run:.3f} s "
+            f"= {sps:.2f} steps/s = {sps * HW:.4g} cell-updates/s, "
+            f"{dt_run * 1e3 / N_BENCH_TICKS:.3f} ms/tick; over "
+            f"{N_PROFILE_TICKS} ticks wall {wall_ms:.3f} ms/tick, device "
+            f"busy {busy:.3f} ms/tick, idle share {1 - busy / wall_ms:.3f}, "
+            f"{per_tick:.1f} device launches per tick = "
+            f"{per_tick * R:.0f} per segment"
+            + (f"; K9 {k9} launches, {fmt_ms(k9_dev)} device per call"
+               if mega else ""))
+        del s
+    compare_leaves(f"megakernel vs per-tick path at tick "
+                   f"{N_REF_TICKS + N_BENCH_TICKS}", ends["per_tick"],
+                   ends["mega"])
+    log(f"both paths agree at tick {N_REF_TICKS + N_BENCH_TICKS}; the "
+        f"megakernel path's steps/s / the per-tick path's: "
+        f"{timing['mega']['steps_per_s'] / timing['per_tick']['steps_per_s']:.2f}")
+    REPORT["mega"] = {"card": card, "ref_seconds": t_ref,
+                      "launches": launches, "kernel": out,
+                      "grid_blocks": nb.value, "timing": timing}
+    return launches, out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the build log and report")
@@ -1048,10 +1262,16 @@ def main():
         stamp("kernels")
     if "ordered_add" in run:
         phase_ordered_add(HE)
-    if "headline" in run:
+    if "headline" in run or "mega" in run:
         cfg, world, ref = phase_generation(snapshot, tsim, transfer, prng,
                                            Config)
         stamp("generation")
+    if "mega" in run:
+        l_mega, k9 = phase_mega(cfg, world, ref, card, HE, engine, tsim,
+                                transfer)
+        torch.cuda.empty_cache()
+        stamp("mega")
+    if "headline" in run:
         sim, l_single = phase_headline(HE, tsim, transfer, cfg, world, ref)
         batch, l_batch = phase_batch(cfg, world, ref, HE, mesh, tsim,
                                      transfer, prng)
@@ -1078,12 +1298,14 @@ def main():
         return 0
 
     launch_paths = {"single": l_single, "batched": l_batch,
-                    "config5": l_c5}
+                    "config5": l_c5, "mega": l_mega}
     summary = {"kernels": []}
     for k in KERNELS:
         path = SUMMARY_PATH.get(k, "batched")
         if k == "select_rows":
             m = k6["local"]
+        elif k == "mega":
+            m = k9["R=5"]
         else:
             m = single[k] if path == "single" else batched[k]
         entry = {"name": k, "route": "cuda", "source": KERNELS[k][0],
@@ -1099,7 +1321,8 @@ def main():
                                 f"D = {cfg0.MAX_FIELD_DESTS}"),
                  "launches_single_path": l_single[k],
                  "launches_batched_path": l_batch[k],
-                 "launches_config5_path": l_c5[k]}
+                 "launches_config5_path": l_c5[k],
+                 "launches_mega_path": l_mega[k]}
         if k in single and path == "batched":
             entry["single_world"] = {x: single[k][x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1108,6 +1331,10 @@ def main():
             entry["dense_stack"] = {x: k6["dense"][x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "shape")}
+        if k == "mega":
+            entry["partial_segment"] = {x: k9["R=3"][x] for x in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "shape")}
         if k in k_c5:
             entry["config5"] = {x: k_c5[k][x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

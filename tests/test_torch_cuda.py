@@ -276,3 +276,131 @@ def test_hier_select_launches_k6_twice(gen):
     ref = torch.where((p >= 0) & ((nd_loc & 7) != 7), nd_loc,
                       HE.select_dest_rows(dense4, r))
     _same((got,), (ref,))
+
+
+# ---- K9 ----------------------------------------------------------------
+
+MEGA_CFG = dict(WIDTH=64, HEIGHT=64, WALL_THICKNESS=6, SIDEWALK_RING_WIDTH=2,
+                MAX_FIELD_DESTS=32, MAX_VEHICLES=256,
+                INTERNAL_POPULATION_TRAFFIC_PER_DAY=60000,
+                PASSING_POPULATION_TRAFFIC_PER_DAY=20000,
+                RAIN_SPAWN_CHANCE=0.2)
+# stats columns that are f32 sums of non-integer order (the durations)
+MEGA_DUR_COLS = [2, 3, 7]
+
+
+def _mega_world(algo):
+    from trafficsimulation_tpu_torch import prng, sim
+    cfg = Config(**MEGA_CFG, TRAFFIC_LIGHT_AGENT_ALGORITHM=algo)
+    world = sim.init_world(cfg, prng.PRNGKey(3), "cuda")
+    cfg, world = sim.measure_and_shrink(cfg, world)
+    return cfg, sim.inject_vehicles(cfg, world, 120)
+
+
+def _same_mega(got, ref):
+    """K9's outputs against the plain version's: every plane, light row,
+    tank bit for bit; the stats rows too but for the duration sums."""
+    for k in HE.MEGA_OUTPUTS:
+        a, b = got[k], ref[k]
+        assert a.shape == b.shape and a.dtype == b.dtype, k
+        if k == "stats":
+            keep = [c for c in range(a.shape[1]) if c not in MEGA_DUR_COLS]
+            assert torch.equal(a[:, keep], b[:, keep])
+            assert torch.allclose(a[:, MEGA_DUR_COLS], b[:, MEGA_DUR_COLS],
+                                  rtol=1e-5, atol=0.0)
+        else:
+            _same((a,), (b,))
+
+
+@pytest.mark.parametrize("algo,R", [("QUEUE_ACTUATED", 5),
+                                    ("QUEUE_ACTUATED", 3),
+                                    ("FIXED_TIME", 5),
+                                    ("NEIGHBOR_PRESSURE_CONTROL", 5),
+                                    ("NEIGHBOR_GREEN_WAVE", 4)])
+def test_mega_kernel_matches_plain(gen, algo, R):
+    """One segment of R ticks: K9 against `segment_plain` on the same
+    inputs, from a world that has run a few ticks (lights switching,
+    vehicles moving, trips spawning)."""
+    from trafficsimulation_tpu_torch import sim
+    from trafficsimulation_tpu_torch.ops import megakernel
+    cfg, world = _mega_world(algo)
+    world = sim.run_chunk(cfg, world, 7)
+    es = sim._enter_engine(cfg, world)
+    cs = megakernel.build_chunk_static(cfg, world)
+    draws, _ = engine.tick_draws(cfg, sim._key_np(world.key), R)
+    args, _ = megakernel.segment_inputs(
+        cfg, world, es, cs, engine.routing_planes(cfg, world, es), R,
+        torch.from_numpy(draws).cuda())
+    n0 = HE.launches["mega"]
+    got = HE.mega_segment(cfg, args)
+    torch.cuda.synchronize()
+    assert HE.launches["mega"] == n0 + 1
+    _same_mega(got, megakernel.segment_plain(cfg, args))
+    # a second launch gives the same bits (reproducible reductions)
+    _same_mega(HE.mega_segment(cfg, args), got)
+
+
+def test_mega_run_chunk_matches_per_tick_on_card(gen, monkeypatch):
+    """`run_chunk(12)` on the card through K9 (TSIM_MEGA_FORCE) against
+    the per-tick path: 3 K9 launches, no K1 or K4."""
+    from trafficsimulation_tpu_torch import sim
+    from trafficsimulation_tpu_torch.core.transfer import world_to_numpy
+    from trafficsimulation_tpu_torch.ops import megakernel
+    cfg, world = _mega_world("QUEUE_ACTUATED")
+    monkeypatch.setenv("TSIM_NO_MEGAKERNEL", "1")
+    ref = world_to_numpy(sim.run_chunk(cfg, world, 12))
+    monkeypatch.delenv("TSIM_NO_MEGAKERNEL")
+    monkeypatch.setenv("TSIM_MEGA_FORCE", "1")
+    assert megakernel.mega_ok(cfg, world)
+    n0 = dict(HE.launches)
+    got = world_to_numpy(sim.run_chunk(cfg, world, 12))
+    assert HE.launches["mega"] == n0["mega"] + 3
+    assert HE.launches["decide_move"] == n0["decide_move"]
+    assert HE.launches["prefix_planes"] == n0["prefix_planes"]
+    for k, a in ref.items():
+        if k.startswith("metrics.sum_duration"):
+            assert np.allclose(a, got[k], rtol=1e-5, atol=0.0), k
+        else:
+            assert np.array_equal(a, got[k]), k
+
+
+def test_mega_rejects_what_it_does_not_take(gen):
+    from trafficsimulation_tpu_torch import sim
+    from trafficsimulation_tpu_torch.ops import megakernel
+    cfg, world = _mega_world("QUEUE_ACTUATED")
+    es = sim._enter_engine(cfg, world)
+    cs = megakernel.build_chunk_static(cfg, world)
+    draws, _ = engine.tick_draws(cfg, sim._key_np(world.key), 2)
+    args, _ = megakernel.segment_inputs(
+        cfg, world, es, cs, engine.routing_planes(cfg, world, es), 2,
+        torch.from_numpy(draws).cuda())
+    with pytest.raises(TypeError):
+        HE.mega_segment(cfg, {**args, "pb": args["pb"].to(torch.int64)})
+    with pytest.raises(ValueError):
+        HE.mega_segment(cfg, {**args, "pa": args["pa"].t()})
+
+
+def test_mega_batch_on_card_matches_single_worlds(gen, monkeypatch):
+    """`run_batch_shared` on the card through K9 (its vmap rule launches
+    once per world and segment) against each world's per-tick run."""
+    from trafficsimulation_tpu_torch import sim
+    from trafficsimulation_tpu_torch.core.transfer import world_to_numpy
+    from trafficsimulation_tpu_torch.parallel import mesh
+    cfg, world = _mega_world("QUEUE_ACTUATED")
+    keys = np.stack([sim._key_np(world.key), np.array([7, 9], np.uint32)])
+    monkeypatch.setenv("TSIM_MEGA_FORCE", "1")
+    n0 = HE.launches["mega"]
+    batch = mesh.run_batch_shared(cfg, mesh.tile_dynamic(world, keys), 7)
+    assert HE.launches["mega"] == n0 + 2 * 2
+    monkeypatch.delenv("TSIM_MEGA_FORCE")
+    monkeypatch.setenv("TSIM_NO_MEGAKERNEL", "1")
+    for b in range(2):
+        w = world.replace(key=torch.from_numpy(
+            keys[b].view(np.int32).copy()).cuda())
+        ref = world_to_numpy(sim.run_chunk(cfg, w, 7))
+        got = world_to_numpy(mesh.world_at(batch, b))
+        for k, a in ref.items():
+            if k.startswith("metrics.sum_duration"):
+                assert np.allclose(a, got[k], rtol=1e-5, atol=0.0), k
+            else:
+                assert np.array_equal(a, got[k]), k

@@ -100,18 +100,58 @@ def _put_service_vehicle(world, slot, flat, dest, heading, kind, block,
     return world.replace(vehicles=v, veh_map=vm.reshape(world.veh_map.shape))
 
 
+def _service_world():
+    W = CROSS.WIDTH
+    world = crossroad_world(CROSS)
+    world = _put_service_vehicle(world, 60, 15 * W + 2, 0, 1, 2, 0, 50.0)
+    return _put_service_vehicle(world, 61, 16 * W + 30, 1, 3, 3, 1, 0.0)
+
+
+@functools.cache
+def _service_run():
+    return _run_both(CROSS, _service_world(), N_TICKS)
+
+
 def test_run_chunk_service_vehicles_match_jax():
     """A food and a waste service vehicle bound for the crossroad's two
     block entrances: arrival, parking, the load transfer into the block
     tank (`food.index_add`), the service countdown and the next trip."""
-    W = CROSS.WIDTH
-    world = crossroad_world(CROSS)
-    world = _put_service_vehicle(world, 60, 15 * W + 2, 0, 1, 2, 0, 50.0)
-    world = _put_service_vehicle(world, 61, 16 * W + 30, 1, 3, 3, 1, 0.0)
-    _, ref, got = _run_both(CROSS, world, N_TICKS)
+    _, ref, got = _service_run()
     assert_leaves_match(ref, got)
     assert ref["vehicles.service_phase"][60] == 1
     assert ref["vehicles.load"][60] < 50.0          # food was delivered
+
+
+def _megakernel_run(monkeypatch, world):
+    """The port's `run_chunk` of a JAX world through the megakernel
+    branch (K9's plain version on the CPU)."""
+    from trafficsimulation_tpu_torch.ops import megakernel
+    monkeypatch.delenv("TSIM_NO_MEGAKERNEL", raising=False)
+    monkeypatch.setenv("TSIM_MEGA_INTERPRET", "1")
+    port = world_from_numpy(world_to_leaves(world), "cpu")
+    assert megakernel.mega_ok(CROSS, port)
+    return world_to_numpy(tsim.run_chunk(CROSS, port, N_TICKS))
+
+
+def test_megakernel_crossroad_matches_jax(monkeypatch):
+    """The megakernel path (4 segments of 5 ticks and one of 3) against
+    JAX's per-tick end state, which `tests/test_megakernel.py` holds
+    JAX's own megakernel to; the JAX run is the cached one above, so no
+    JAX compile is added."""
+    _, ref, _ = _crossroad_run()
+    assert_leaves_match(ref, _megakernel_run(monkeypatch,
+                                             crossroad_world(CROSS)))
+
+
+def test_megakernel_service_vehicles_match_jax(monkeypatch):
+    """The service tail of the megakernel path (in plane space: the
+    block tanks on their cells) against JAX's per-tick run of the
+    service-vehicle world."""
+    _, ref, _ = _service_run()
+    got = _megakernel_run(monkeypatch, _service_world())
+    assert_leaves_match(ref, got)
+    assert got["vehicles.service_phase"][60] == 1
+    assert got["vehicles.load"][60] < 50.0
 
 
 def test_run_chunk_small_world_matches_jax(small_cfg, small_world):

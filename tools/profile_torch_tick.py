@@ -13,10 +13,13 @@ function runs inside a profiler range), and the top entries of
 shared-geometry batch of B rollouts of the same city instead
 (`parallel.mesh.run_batch_shared`; keys from a fixed seed); with
 --config5 BASELINE config #5 (1024x1024, 100k vehicles, hierarchical
-routing), built on the card from seed 0 (about 70 s).  Run from the
-repository root:
+routing), built on the card from seed 0 (about 70 s); with --mega the
+headline on the megakernel path (TSIM_MEGA_FORCE=1: one K9 launch per
+routing segment; its layers are the segment schedule, the K9 call and
+the state rebuilt after it).  Run from the repository root:
 
-    python3 tools/profile_torch_tick.py [--ticks 25] [--batch B | --config5]
+    python3 tools/profile_torch_tick.py [--ticks 25]
+                                        [--batch B | --config5 | --mega]
                                         [--out DIR] [--trace]
 
 With --out the full table goes to DIR, and with --trace also a chrome
@@ -45,7 +48,7 @@ def annotate_layers() -> list:
     return the names."""
     from torch.profiler import record_function
     from trafficsimulation_tpu_torch.lights import fsm
-    from trafficsimulation_tpu_torch.ops import engine, hier
+    from trafficsimulation_tpu_torch.ops import engine, hier, megakernel
     from trafficsimulation_tpu_torch.ops import hopper_engine as HE
     layers = {
         "routing segment": [(engine, "routing_planes")],
@@ -54,7 +57,10 @@ def annotate_layers() -> list:
             "apply_light_overrides", "build_stop_map")],
         "decide + move": [(HE, "decide_move"), (HE, "decide_move_core")],
         "of which hier select (K6)": [(hier, "hier_select")],
-        "post-move": [(engine, "_post_move")]}
+        "post-move": [(engine, "_post_move")],
+        "segment schedule (mega)": [(megakernel, "prepare_segment")],
+        "segment kernel (K9)": [(HE, "mega_segment")],
+        "segment state (mega)": [(megakernel, "segment_state")]}
     for label, targets in layers.items():
         for mod, name in targets:
             def span(*a, _fn=getattr(mod, name), _label=label, **k):
@@ -71,6 +77,8 @@ def main():
                     help="profile a shared-geometry batch of this size")
     ap.add_argument("--config5", action="store_true",
                     help="profile BASELINE config #5 (1024^2, hier routing)")
+    ap.add_argument("--mega", action="store_true",
+                    help="profile the headline on the megakernel path")
     ap.add_argument("--trace", action="store_true",
                     help="also write a chrome trace to --out")
     ap.add_argument("--out")
@@ -87,6 +95,9 @@ def main():
     from trafficsimulation_tpu_torch.parallel import mesh
 
     layers = annotate_layers()
+    if args.mega:
+        os.environ.pop("TSIM_NO_MEGAKERNEL", None)
+        os.environ["TSIM_MEGA_FORCE"] = "1"
     if args.config5:
         cfg, world = sim.init_world_hier(Config(**CONFIG5), prng.PRNGKey(0))
         world = sim.inject_vehicles(cfg, world, CONFIG5["MAX_VEHICLES"])
@@ -119,7 +130,8 @@ def main():
     dev = sum(e.self_device_time_total for e in kern) / 1e6 / n
     syncs = sum(e.count for e in ka if e.key == "aten::_local_scalar_dense")
     launches = sum(e.count for e in kern)
-    what = "config #5" if args.config5 else f"batch {max(args.batch, 1)}"
+    what = ("config #5" if args.config5 else "megakernel path, batch 1"
+            if args.mega else f"batch {max(args.batch, 1)}")
     print(f"{what}, {n} ticks: wall {wall * 1e3:.3f} "
           f"ms/tick (no profiler), device "
           f"busy {dev * 1e3:.3f} ms/tick, device idle share "
@@ -134,7 +146,7 @@ def main():
     table = ka.table(sort_by="self_device_time_total", row_limit=30)
     print(table)
     if args.out:
-        tag = ("_config5" if args.config5
+        tag = ("_config5" if args.config5 else "_mega" if args.mega
                else f"_b{args.batch}" if args.batch else "")
         os.makedirs(args.out, exist_ok=True)
         table_path = os.path.join(args.out, f"profile_table{tag}.txt")

@@ -40,37 +40,23 @@ def step_rain(cfg: Config, H: int, W: int, rain: RainState,
     """Advance clouds one tick.  `draws`: int64 [5] (spawn wanted, edge,
     position as its f32 value times 2^23, corner flip, radius).  Returns
     (rain', rain_map [H, W] bool)."""
-    dev = rain.cx.device
-    if not cfg.RAIN_ENABLED:
-        return rain, torch.zeros((H, W), dtype=torch.bool, device=dev)
-    R = cfg.RAIN_OCCURRENCES_MAX
+    rain, maps = step_rain_ticks(cfg, H, W, rain, draws[None],
+                                 force_spawn=force_spawn)
+    return rain, maps[0]
+
+
+def _spawn_params(cfg: Config, H: int, W: int, draws: torch.Tensor):
+    """Per row of `draws` [n, 5] the cloud a spawn would place: start
+    (x0, y0), velocity (vx, vy) and radius, f32 [n] each."""
     f32 = torch.float32
-
-    cx = rain.cx + rain.vx
-    cy = rain.cy + rain.vy
-    exited = rain.active & (
-        (cx < -rain.radius) | (cx > W + rain.radius) |
-        (cy < -rain.radius) | (cy > H + rain.radius))
-    active = rain.active & ~exited
-    none_left = ~active.any()
-    cooldown = torch.where(
-        exited.any() & none_left,
-        cfg.RAIN_COOLDOWN // cfg.TIME_PER_STEP_IN_SECONDS,
-        torch.clamp(rain.cooldown - 1, min=0)).to(torch.int32)
-
-    want = draws[0] != 0
-    if force_spawn is not None:
-        want = want | force_spawn
-    can = (active.sum() < R) & (cooldown == 0) & want
-    slot = torch.argmin(active.to(torch.int32))      # first inactive slot
-    edge = draws[1]
+    edge = draws[:, 1]
     off = float(cfg.RAIN_SPAWN_OFFSET)
-    upos = draws[2].to(f32) * float(2.0 ** -23)       # exact
+    upos = draws[:, 2].to(f32) * float(2.0 ** -23)    # exact
     x0 = torch.where(edge == 0, upos * W, torch.where(
         edge == 1, upos * W, torch.where(edge == 2, W - off, off)))
     y0 = torch.where(edge == 0, H - off,
                      torch.where(edge == 1, off, upos * H))
-    flip = draws[3] != 0
+    flip = draws[:, 3] != 0
     xt = torch.where(edge == 0, torch.where(flip, 0.0, float(W)),
                      torch.where(edge == 1, torch.where(flip, 0.0, float(W)),
                                  torch.where(edge == 2, 0.0, float(W))))
@@ -79,27 +65,65 @@ def step_rain(cfg: Config, H: int, W: int, rain: RainState,
                                  torch.where(edge == 0, 0.0, float(H))))
     dx, dy = xt - x0, yt - y0
     ln = torch.clamp(torch.sqrt(_fma_f32(dx, dx, dy * dy)), min=1.0)
-    radius = draws[4].to(f32)
+    return x0, y0, dx / ln, dy / ln, draws[:, 4].to(f32)
 
-    # the slot's row as a mask: indexing with a device scalar would make
-    # the host wait for the device
-    sel = torch.arange(R, device=dev) == slot
-    do = sel & can & ~(active & sel).any()
-    active = active | do
-    cx = torch.where(do, x0, cx)
-    cy = torch.where(do, y0, cy)
-    vx = torch.where(do, dx / ln, rain.vx)
-    vy = torch.where(do, dy / ln, rain.vy)
-    rad = torch.where(do, radius, rain.radius)
 
+def step_rain_ticks(cfg: Config, H: int, W: int, rain: RainState,
+                    draws: torch.Tensor, force_spawn=None):
+    """Advance clouds n ticks, `draws` int64 [n, 5] (a row per tick, as
+    `step_rain` takes it); `force_spawn` applies to the first tick.
+    Returns (rain', the rain map after each tick, bool [n, H, W]).  The
+    spawn parameters depend on the draws alone and the disc raster on
+    each tick's clouds alone, so both run for all n ticks at once; only
+    the clouds' motion, exits and the spawn decision go tick by tick."""
+    dev = rain.cx.device
+    n = draws.shape[0]
+    if not cfg.RAIN_ENABLED:
+        return rain, torch.zeros((n, H, W), dtype=torch.bool, device=dev)
+    R = cfg.RAIN_OCCURRENCES_MAX
+    f32 = torch.float32
+    x0, y0, vx0, vy0, radius = _spawn_params(cfg, H, W, draws)
+    p_new = torch.stack([x0, y0])                 # [2, n]: (x, y) rows
+    v_new = torch.stack([vx0, vy0])
+    want = draws[:, 0] != 0
+    if force_spawn is not None:
+        want = torch.cat([want[:1] | force_spawn, want[1:]])
+    slots = torch.arange(R, device=dev)
+    lim = torch.tensor([[float(W)], [float(H)]], dtype=f32, device=dev)
+
+    active, rad, cooldown = rain.active, rain.radius, rain.cooldown
+    p = torch.stack([rain.cx, rain.cy])           # [2, R]
+    v = torch.stack([rain.vx, rain.vy])
+    seen_p, seen_r, seen_a = [], [], []
+    for t in range(n):
+        p = p + v
+        exited = active & ((p < -rad) | (p > lim + rad)).any(dim=0)
+        active = active & ~exited
+        cooldown = torch.where(
+            exited.any() & ~active.any(),
+            cfg.RAIN_COOLDOWN // cfg.TIME_PER_STEP_IN_SECONDS,
+            torch.clamp(cooldown - 1, min=0)).to(torch.int32)
+        # a free slot exists, so the first inactive slot is free; its row
+        # as a mask: indexing with a device scalar would make the host
+        # wait for the device
+        can = ~active.all() & (cooldown == 0) & want[t]
+        do = (slots == torch.argmin(active.to(torch.int32))) & can
+        active = active | do
+        p = torch.where(do, p_new[:, t:t + 1], p)
+        v = torch.where(do, v_new[:, t:t + 1], v)
+        rad = torch.where(do, radius[t], rad)
+        seen_p.append(p)
+        seen_r.append(rad)
+        seen_a.append(active)
+
+    sp = torch.floor(torch.stack(seen_p))                # [n, 2, R]
+    sr = torch.stack(seen_r)                             # [n, R]
     ys = torch.arange(H, dtype=f32, device=dev)[:, None]
     xs = torch.arange(W, dtype=f32, device=dev)[None, :]
-    icx = torch.floor(cx)
-    icy = torch.floor(cy)
-    ddx = xs[None] - icx[:, None, None]
-    ddy = ys[None] - icy[:, None, None]
-    d2 = ddx * ddx + ddy * ddy                           # [R, H, W]
-    covered = (d2 <= (rad * rad)[:, None, None]) & active[:, None, None]
-    rain_map = covered.any(dim=0)
-    return RainState(active=active, cx=cx, cy=cy, vx=vx, vy=vy, radius=rad,
-                     cooldown=cooldown), rain_map
+    ddx = xs - sp[:, 0, :, None, None]                   # [n, R, 1, W]
+    ddy = ys - sp[:, 1, :, None, None]                   # [n, R, H, 1]
+    d2 = ddx * ddx + ddy * ddy                           # [n, R, H, W]
+    covered = (d2 <= (sr * sr)[..., None, None]) \
+        & torch.stack(seen_a)[..., None, None]
+    return RainState(active=active, cx=p[0], cy=p[1], vx=v[0], vy=v[1],
+                     radius=rad, cooldown=cooldown), covered.any(dim=1)

@@ -2,85 +2,18 @@
 //
 // Replaces pallas_engine.decide_move_pallas (_kernel -> decide_move_core).
 // One thread per cell, in phases, with double-buffered planes in device
-// memory:
-//
-//   decide      start-of-tick faults, halts, speed, contraflow ladder;
-//               writes working set A, the halt latch and an aux word
-//   intent  x K publishes each mover's conflict key (priority | dir)
-//   commit  x K every cell takes the lowest key aimed at it (reading
-//               keys up to two cells away to know whether its own
-//               vehicle won elsewhere) and pulls the winner's planes
-//               into the other working set
-//   finish      base-speed reset, stuck bookkeeping, flags
-//
-// K = VEHICLE_MAX_SPEED sub-rounds, 2K + 2 launches for a whole batch
-// of B worlds: blockIdx.y is the world.  Every per-world plane (the
-// packed stack, wavefronts, vehicle planes, masks, random planes,
-// outputs and the [20, H, W] scratch) advances by one world's size per
-// world; the geometry (intersection, dest_id) is shared.  B = 1 is the
-// single-world tick.  The destination row select is one indexed load:
-// byte (dest & 3) of sdir4[dest >> 2], ND_NONE when dest >> 2 is past
-// the stack.  Neighbour reads outside the grid see the fills of the
-// padded shifts they replace: blocked (0xF) for the target byte, KINF
-// for keys, false for arrivals and sideswipe neighbours, true for the
-// start-of-tick blocked byte.  Every neighbour index comes from `nbr`
-// on the world's own (y, x), so no read crosses into another world.
-#include "common.cuh"
+// memory: one launch per phase body of decide_move.cuh (decide, K x
+// (intent, commit), finish), K = VEHICLE_MAX_SPEED sub-rounds, so 2K + 2
+// launches for a whole batch of B worlds: blockIdx.y is the world.
+// Every per-world plane (the packed stack, wavefronts, vehicle planes,
+// masks, random planes, outputs and the [20, H, W] scratch) advances by
+// one world's size per world; the geometry (intersection, dest_id) is
+// shared.  B = 1 is the single-world tick.  Every neighbour index comes
+// from `nbr` on the world's own (y, x), so no read crosses into another
+// world.
+#include "decide_move.cuh"
 
 namespace tsim {
-
-struct DMParams {
-  int H, W, D4;
-  int mal_active, side_active, rain_enabled, ovt_active, stuck_cf_enabled;
-  int mal_duration, side_duration, rain_reduction;
-  int stuck_cf_thresh, stuck_cf_thresh_inter;
-  int detour_duration, ovt_duration, detour_steps, ovt_steps;
-  int recompute_thresh, max_speed;
-  float mal_chance, side_chance;
-};
-
-// scratch planes (int32 [B, 20, H, W]): per world two working sets of 8
-// planes, then the halt latch, the conflict keys, the intent info and
-// the decide aux
-enum { P_PA, P_PB, P_PC, P_PD, P_PE, P_PL, P_STEPS, P_MOVED, N_SET = 8 };
-constexpr int S_HALT = 16, S_KEY = 17, S_INFO = 18, S_AUX = 19;
-constexpr int N_SCRATCH = 20;
-
-constexpr uint32_t CF_CLEAR = ~(0xFFu << PD_CFKEY_SH);
-constexpr uint32_t CLEAR_A = ~((15u << PA_BASE_SH) | (15u << PA_CUR_SH) |
-                               (1u << PA_COL_SH) | (1u << PA_MAL_SH));
-constexpr uint32_t HEAD_CLR = ~(7u << PA_HEAD_SH);
-constexpr uint32_t CFS_CLR = ~(31u << PD_CFSTEPS_SH);
-
-struct Inputs {
-  const int* sdir4;
-  const int* wnd;
-  const int* pa;  // start-of-tick planes (never written)
-  const int* pb;
-  const int* pc;
-  const int* pd;
-  const int* pe;
-  const float* pl;
-  const uint8_t* stop;
-  const uint8_t* rain;
-  const uint8_t* ped;
-  const uint8_t* inter;
-  const int* dest_id;
-  const float* r_mal;
-  const float* r_side;
-  const int* r_reroll;
-  const int* r_prio;
-};
-
-struct Outputs {
-  int* pa;
-  int* pb;
-  int* pc;
-  int* pd;
-  int* pe;
-  float* pl;
-  int* flags;
-};
 
 // world b's view of the batch: per-world planes advance by b planes;
 // intersection and dest_id are shared
@@ -105,260 +38,30 @@ __device__ __forceinline__ Inputs world_inputs(Inputs in, int b, long hw,
   return in;
 }
 
-__device__ __forceinline__ int select_nd(const int* sdir4, int D4, int HW,
-                                         int dest, int c) {
-  const int hi = dest >> 2;
-  const uint32_t w =
-      (hi >= 0 && hi < D4) ? (uint32_t)sdir4[(long)hi * HW + c] : ND_NONE4;
-  return (int)((w >> ((dest & 3) * 8)) & 0xFFu);
-}
-
-// pallas_engine._resolve: direction (7 = none) and contraflow flag
-__device__ __forceinline__ void resolve(int nd, int head1, bool use_allow,
-                                        bool allow, uint32_t wnd, int wkey,
-                                        int& dir, bool& contra) {
-  const int h = max(head1 - 1, 0);
-  const bool sok = (((nd >> (4 + h)) & 1) == 1) && head1 > 0;
-  dir = sok ? h : (nd & 7);
-  contra = !sok && (nd & 8);
-  if (use_allow) {
-    const int wi = (int)((wnd >> (wkey * 8)) & 0xFFu);
-    const int wdir = wi & 7;
-    const bool use_w = allow && wdir < 7;
-    if (use_w) dir = wdir;
-    contra = (use_w && (wi & 8)) || (!use_w && contra);
-  }
-}
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
-}
-
 __global__ void dm_decide(DMParams p, Inputs in0, int* __restrict__ S0) {
   const int HW = p.H * p.W;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= HW) return;
   const Inputs in = world_inputs(in0, blockIdx.y, HW, p.D4);
-  int* S = S0 + (long)blockIdx.y * N_SCRATCH * HW;
-  const int y = c / p.W, x = c % p.W;
-  uint32_t pa = (uint32_t)in.pa[c], pb = (uint32_t)in.pb[c];
-  uint32_t pd = (uint32_t)in.pd[c];
-  const bool present = pa & 1u;
-  const bool col0 = bit(pa, PA_COL_SH), mal0 = bit(pa, PA_MAL_SH);
-  const bool parked = bit(pa, PA_PARKED_SH), stuckf = bit(pa, PA_STUCKF_SH);
-  const int head1 = (int)fld(pa, PA_HEAD_SH, 3);
-  const int cur0 = (int)fld(pa, PA_CUR_SH, 4);
-
-  // stranded countdown
-  const bool stranded0 = col0 || mal0;
-  int st = (int)fld(pb, PB_STRAND_SH, 12);
-  if (present && stranded0) st -= 1;
-  const bool recovered = present && stranded0 && st <= 0;
-  bool col = col0 && !recovered, mal = mal0 && !recovered;
-  if (recovered) st = 0;
-  bool still = present && (col || mal);
-
-  bool new_mal = false;
-  if (p.mal_active) {
-    new_mal = present && !still && !parked && in.r_mal[c] < p.mal_chance;
-    mal = mal || new_mal;
-    if (new_mal) st = p.mal_duration;
-    still = still || new_mal;
-  }
-  bool new_col = false;
-  if (p.side_active) {
-    const int hk = max(head1 - 1, 0);
-    const int opp1 = ((hk + 2) & 3) + 1;
-    bool side_hit = false;
-    for (int m = 0; m < 4; ++m) {
-      const int n = nbr(y, x, m, p.H, p.W);
-      if (n < 0) continue;
-      const uint32_t q = (uint32_t)in.pa[n];
-      const bool nb_mov = (q & 1u) && fld(q, PA_CUR_SH, 4) > 0 &&
-                          !bit(q, PA_STUCKF_SH) && !bit(q, PA_PARKED_SH) &&
-                          !bit(q, PA_COL_SH) && !bit(q, PA_MAL_SH);
-      const int rel = (m - hk) & 3;
-      side_hit = side_hit || (nb_mov && (int)fld(q, PA_HEAD_SH, 3) == opp1 &&
-                              (rel == 1 || rel == 3));
-    }
-    const bool moving = present && cur0 > 0 && !stuckf && !parked && !still;
-    new_col = moving && head1 > 0 && side_hit && in.r_side[c] < p.side_chance;
-    col = col || new_col;
-    if (new_col) st = p.side_duration;
-    still = still || new_col;
-  }
-
-  const bool halted = still || (present && in.stop[c]) || parked;
-  int base = (int)fld(pa, PA_BASE_SH, 4);
-  if (present && base == 0) base = in.r_reroll[c];
-  int speed = base;
-  if (p.rain_enabled && in.rain[c]) speed = max(1, speed - p.rain_reduction);
-  if (halted) {
-    speed = 0;
-    base = 0;
-  }
-
-  const int dest14 = (int)fld(pa, PA_DEST_SH, 14);
-  const int nd0 = select_nd(in.sdir4, p.D4, HW, dest14, c);
-  int dir0;
-  bool contra0;
-  resolve(nd0, head1, false, false, 0u, 0, dir0, contra0);
-  const bool at_dest0 = present && in.dest_id[c] >= 0 &&
-                        dest14 == in.dest_id[c];
-
-  // contraflow ladder
-  int ct = max((int)fld(pb, PB_CONTRA_SH, 8) - 1, 0);
-  const uint32_t wnd = (uint32_t)in.wnd[c];
-  const int wkey0 = (int)fld(pd, PD_CFKEY_SH, 2);
-  const int wdir0 = (int)((wnd >> (wkey0 * 8)) & 7u);
-  const bool merged = present && ct > 0 && !bit(pd, PD_CFMODE_SH) &&
-                      wdir0 == 7 && dir0 < 7 && !contra0;
-  if (merged) {
-    ct = 0;
-    pd &= CF_CLEAR;
-  }
-  const bool allow_pre = present && !halted && ct > 0;
-  const bool blocked = present && !halted && !at_dest0 &&
-                       (dir0 == 7 || (contra0 && !allow_pre));
-  const bool overtake = p.ovt_active && blocked;
-  const int stuck_v = (int)fld(pb, PB_STUCK_SH, 12);
-  const int thresh = in.inter[c] ? p.stuck_cf_thresh_inter : p.stuck_cf_thresh;
-  const bool stuck_detour = p.stuck_cf_enabled && stuck_v >= thresh && present;
-  const bool newly = present && !halted && (overtake || stuck_detour) &&
-                     ct == 0;
-  if (newly) ct = stuck_detour ? p.detour_duration : p.ovt_duration;
-  const int key_new = head1 > 0 ? head1 - 1 : (dir0 < 4 ? dir0 : 0);
-  if (newly)
-    pd = (pd & CF_CLEAR) | ((uint32_t)key_new << PD_CFKEY_SH) |
-         ((uint32_t)stuck_detour << PD_CFMODE_SH);
-  const int wkey_dec = (int)fld(pd, PD_CFKEY_SH, 2);
-
-  pa = (pa & CLEAR_A) | ((uint32_t)base << PA_BASE_SH) |
-       ((uint32_t)(present ? speed : cur0) << PA_CUR_SH) |
-       ((uint32_t)col << PA_COL_SH) | ((uint32_t)mal << PA_MAL_SH);
-  pb = (uint32_t)clampi(stuck_v, 0, 4095) |
-       ((uint32_t)clampi(st, 0, 4095) << PB_STRAND_SH) |
-       ((uint32_t)clampi(ct, 0, 255) << PB_CONTRA_SH);
-
-  const long hw = HW;
-  S[P_PA * hw + c] = (int)pa;
-  S[P_PB * hw + c] = (int)pb;
-  S[P_PC * hw + c] = in.pc[c];
-  S[P_PD * hw + c] = (int)pd;
-  S[P_PE * hw + c] = in.pe[c];
-  S[P_PL * hw + c] = __float_as_int(in.pl[c]);
-  S[P_STEPS * hw + c] = present ? speed : 0;
-  S[P_MOVED * hw + c] = 0;
-  S[S_HALT * hw + c] = halted ? 1 : 0;
-  S[S_AUX * hw + c] = nd0 | (head1 << 8) | ((ct > 0) << 11) |
-                      (wkey_dec << 12) | (at_dest0 << 14) | (new_mal << 15) |
-                      (new_col << 16);
+  dm_decide_cell(p, in, S0 + (long)blockIdx.y * N_SCRATCH * HW, c,
+                 in.r_mal[c], in.r_side[c], in.r_reroll[c]);
 }
 
-// sub-round, phase 1: each mover publishes priority | direction
 __global__ void dm_intent(DMParams p, Inputs in0, int* __restrict__ S0,
                           int set) {
   const int HW = p.H * p.W;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= HW) return;
   const Inputs in = world_inputs(in0, blockIdx.y, HW, p.D4);
-  int* S = S0 + (long)blockIdx.y * N_SCRATCH * HW;
-  const long hw = HW;
-  const int* X = S + (long)set * N_SET * hw;
-  const uint32_t pa = (uint32_t)X[P_PA * hw + c];
-  if (!(pa & 1u)) {
-    S[S_KEY * hw + c] = KINF;
-    S[S_INFO * hw + c] = 0;
-    return;
-  }
-  const int y = c / p.W, x = c % p.W;
-  const uint32_t pb = (uint32_t)X[P_PB * hw + c];
-  const uint32_t pd = (uint32_t)X[P_PD * hw + c];
-  const int dest_c = (int)fld(pa, PA_DEST_SH, 14);
-  const int nd = select_nd(in.sdir4, p.D4, HW, dest_c, c);
-  const int h1 = (int)fld(pa, PA_HEAD_SH, 3);
-  const bool at_dest_c = in.dest_id[c] >= 0 && dest_c == in.dest_id[c];
-  const int csteps = (int)fld(pd, PD_CFSTEPS_SH, 5);
-  const int climit = bit(pd, PD_CFMODE_SH) ? p.detour_steps : p.ovt_steps;
-  const bool allow = fld(pb, PB_CONTRA_SH, 8) > 0 && csteps < climit;
-  int dir;
-  bool contra;
-  resolve(nd, h1, true, allow, (uint32_t)in.wnd[c],
-          (int)fld(pd, PD_CFKEY_SH, 2), dir, contra);
-  const bool can_dir = dir < 7 && (!contra || allow);
-  const bool want = S[S_HALT * hw + c] == 0 && X[P_STEPS * hw + c] > 0 &&
-                    !at_dest_c;
-  bool blocked_t = false;
-  if (dir < 4) {
-    const int t = nbr(y, x, dir, p.H, p.W);
-    blocked_t = t < 0 || in.stop[t] || (X[P_PA * hw + t] & 1) ||
-                (in.pa[t] & 1) || in.ped[t];
-  }
-  // directions 4..6 (possible only from malformed bytes) pass `can_dir`
-  // but, as in the reference, never send a key
-  const bool can = want && can_dir && !blocked_t && dir < 4;
-  const int prio = (int)(((uint32_t)in.r_prio[c] >> 4) & 0x0FFFFFF8u);
-  S[S_KEY * hw + c] = can ? (prio | dir) : KINF;
-  S[S_INFO * hw + c] = (want ? 1 : 0) | (contra ? 2 : 0);
+  dm_intent_cell(p, in, S0 + (long)blockIdx.y * N_SCRATCH * HW, set, c,
+                 in.r_prio[c]);
 }
 
-// lowest key aimed at cell (y, x), KINF when none
-__device__ __forceinline__ int min_incoming(const int* key, int y, int x,
-                                            int H, int W) {
-  int mk = KINF;
-  for (int m = 0; m < 4; ++m) {
-    const int s = nbr(y, x, opposite(m), H, W);
-    if (s < 0) continue;
-    const int k = key[s];
-    if (k != KINF && (k & 3) == m) mk = min(mk, k);
-  }
-  return mk;
-}
-
-// sub-round, phase 2: resolve conflicts and move set -> set ^ 1
 __global__ void dm_commit(DMParams p, int* __restrict__ S0, int set) {
   const int HW = p.H * p.W;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= HW) return;
-  int* S = S0 + (long)blockIdx.y * N_SCRATCH * HW;
-  const long hw = HW;
-  const int* X = S + (long)set * N_SET * hw;
-  int* Y = S + (long)(set ^ 1) * N_SET * hw;
-  const int* key = S + S_KEY * hw;
-  const int y = c / p.W, x = c % p.W;
-
-  const int kc = key[c];
-  bool won = false;
-  if (kc != KINF) {
-    const int t = nbr(y, x, kc & 3, p.H, p.W);
-    won = t >= 0 && min_incoming(key, t / p.W, t % p.W, p.H, p.W) == kc;
-  }
-  const int mk = min_incoming(key, y, x, p.H, p.W);
-  if (mk != KINF) {
-    const int m = mk & 3;
-    const int s = nbr(y, x, opposite(m), p.H, p.W);
-    const uint32_t spa = (uint32_t)X[P_PA * hw + s];
-    const uint32_t spc = (uint32_t)X[P_PC * hw + s];
-    uint32_t spd = (uint32_t)X[P_PD * hw + s];
-    if (S[S_INFO * hw + s] & 2)
-      spd = (spd & CFS_CLR) |
-            (min(fld(spd, PD_CFSTEPS_SH, 5) + 1u, 31u) << PD_CFSTEPS_SH);
-    Y[P_PA * hw + c] = (int)((spa & HEAD_CLR) |
-                             ((uint32_t)(m + 1) << PA_HEAD_SH));
-    Y[P_PB * hw + c] = X[P_PB * hw + s];
-    Y[P_PC * hw + c] =
-        (int)((min(fld(spc, PC_STEPS_SH, 12) + 1u, 4095u) << PC_STEPS_SH) |
-              (spc & ((1u << PC_STEPS_SH) - 1u)));
-    Y[P_PD * hw + c] = (int)spd;
-    Y[P_PE * hw + c] = X[P_PE * hw + s];
-    Y[P_PL * hw + c] = X[P_PL * hw + s];
-    Y[P_STEPS * hw + c] = X[P_STEPS * hw + s] - 1;
-    Y[P_MOVED * hw + c] = 1;
-  } else {
-    for (int q = 0; q < N_SET; ++q)
-      Y[q * hw + c] = won ? 0 : X[q * hw + c];
-  }
-  if ((S[S_INFO * hw + c] & 1) && !won) S[S_HALT * hw + c] = 1;
+  dm_commit_cell(p, S0 + (long)blockIdx.y * N_SCRATCH * HW, set, c);
 }
 
 __global__ void dm_finish(DMParams p, Inputs in0,
@@ -367,55 +70,10 @@ __global__ void dm_finish(DMParams p, Inputs in0,
   const int HW = p.H * p.W;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= HW) return;
-  const long hw = HW;
   const Inputs in = world_inputs(in0, blockIdx.y, HW, p.D4);
-  const int* S = S0 + (long)blockIdx.y * N_SCRATCH * hw;
-  const long o = (long)blockIdx.y * hw;
-  const int* F = S + (long)set * N_SET * hw;
-  const int y = c / p.W, x = c % p.W;
-  uint32_t pa = (uint32_t)F[P_PA * hw + c], pb = (uint32_t)F[P_PB * hw + c];
-  const bool moved = F[P_MOVED * hw + c] != 0;
-  const bool present = pa & 1u;
-  const int aux = S[S_AUX * hw + c];
-  const int nd0 = aux & 0xFF, head1 = (aux >> 8) & 7;
-  const bool ct_pos = (aux >> 11) & 1;
-  const int wkey_dec = (aux >> 12) & 3;
-  const bool at_dest0 = (aux >> 14) & 1;
-
-  // full stop resets the cruising speed when the first move was
-  // impossible given start-of-tick state
-  int dir0r;
-  bool contra0r;
-  resolve(nd0, head1, true, present && ct_pos, (uint32_t)in.wnd[c], wkey_dec,
-          dir0r, contra0r);
-  bool tgt_blocked0 = false;
-  if (dir0r < 4) {
-    const int t = nbr(y, x, dir0r, p.H, p.W);
-    tgt_blocked0 = t < 0 || in.stop[t] || (in.pa[t] & 1) || in.ped[t];
-  }
-  const bool allow0 = present && fld(pb, PB_CONTRA_SH, 8) > 0;
-  const bool fb0 = at_dest0 || dir0r == 7 || (contra0r && !allow0) ||
-                   tgt_blocked0;
-  if (present && !moved && fb0) pa &= ~(15u << PA_BASE_SH);
-
-  // stuck bookkeeping
-  int stuck_v = (int)fld(pb, PB_STUCK_SH, 12);
-  const bool stuck_inc = present && !moved && !(present && in.stop[c]);
-  stuck_v = (present && moved) ? 0
-                               : (stuck_inc ? min(stuck_v + 1, 4095) : stuck_v);
-  bool stuckf = bit(pa, PA_STUCKF_SH);
-  stuckf = !(present && moved) && (stuck_v > p.recompute_thresh || stuckf);
-  pa = (pa & ~(1u << PA_STUCKF_SH)) | ((uint32_t)stuckf << PA_STUCKF_SH);
-  pb = (pb & ~4095u) | (uint32_t)stuck_v;
-
-  out.pa[o + c] = (int)pa;
-  out.pb[o + c] = (int)pb;
-  out.pc[o + c] = F[P_PC * hw + c];
-  out.pd[o + c] = F[P_PD * hw + c];
-  out.pe[o + c] = F[P_PE * hw + c];
-  out.pl[o + c] = __int_as_float(F[P_PL * hw + c]);
-  out.flags[o + c] =
-      ((aux >> 15) & 1) | (((aux >> 16) & 1) << 1) | (moved ? 4 : 0);
+  const long o = (long)blockIdx.y * HW;
+  out.flags[o + c] = dm_finish_cell(
+      p, in, S0 + (long)blockIdx.y * N_SCRATCH * HW, set, c, out, o);
 }
 
 }  // namespace tsim
@@ -430,28 +88,7 @@ extern "C" int tsim_decide_move(
     float* opl, int* flags, int* scratch, int B, int H, int W,
     void* stream) {
   using namespace tsim;
-  DMParams p;
-  p.H = H;
-  p.W = W;
-  p.D4 = D4;
-  p.mal_active = ip[0];
-  p.side_active = ip[1];
-  p.rain_enabled = ip[2];
-  p.ovt_active = ip[3];
-  p.stuck_cf_enabled = ip[4];
-  p.mal_duration = ip[5];
-  p.side_duration = ip[6];
-  p.rain_reduction = ip[7];
-  p.stuck_cf_thresh = ip[8];
-  p.stuck_cf_thresh_inter = ip[9];
-  p.detour_duration = ip[10];
-  p.ovt_duration = ip[11];
-  p.detour_steps = ip[12];
-  p.ovt_steps = ip[13];
-  p.recompute_thresh = ip[14];
-  p.max_speed = ip[15];
-  p.mal_chance = fp[0];
-  p.side_chance = fp[1];
+  const DMParams p = dm_params(ip, fp, H, W, D4);
   Inputs in{sdir4, wnd, pa, pb, pc, pd, pe, pl, stop, rain, ped, inter,
             dest_id, r_mal, r_side, r_reroll, r_prio};
   Outputs out{opa, opb, opc, opd, ope, opl, flags};

@@ -15,6 +15,9 @@ version (the counterpart of the JAX package's `ops/pallas_engine.py`).
   K6 `select_rows`         <- pallas_engine.select_rows_pallas: every
                               select of the tick under hierarchical
                               routing (`ops/hier.hier_select`)
+  K9 `mega_segment`        <- megakernel.run_segment_mega (_mega_kernel):
+                              one launch per routing segment under the
+                              megakernel gate (`ops/megakernel.py`)
   `ordered_add`            the service FSM's f32 scatter-add into the
                            block tanks, in update order (no TPU kernel:
                            the JAX package leaves it to XLA's scatter)
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import codes as C
@@ -85,7 +89,7 @@ KINF = 0x7FFFFFFF
 
 launches = {"decide_move": 0, "build_sdir": 0, "build_sdir_batched": 0,
             "build_wavefront": 0, "prefix_planes": 0, "ordered_add": 0,
-            "select_rows": 0}
+            "select_rows": 0, "mega": 0}
 
 
 def reset_launches():
@@ -976,3 +980,159 @@ def ordered_add(base, idx, vals):
     """base [R, T] f32 plus vals [R, n] at idx [R, n] in update order
     (`ordered_add_rows`; under vmap one launch for all worlds' rows)."""
     return _OrderedAdd.apply(base, idx, vals)
+
+
+# ---- K9 --------------------------------------------------------------------
+
+# the kernel's inputs in its pointer order: (name, dtype, shape) with the
+# symbols H, W, D4, R, G, L, NQ (queue runs), NS (stop runs)
+_MEGA_IN = (
+    ("sdir4", "i", ("D4", "H", "W")), ("wnd", "i", ("H", "W")),
+    ("inter", "b", ("H", "W")), ("g_destid", "i", ("H", "W")),
+    ("g_destkind1", "i", ("H", "W")), ("g_nexit", "i", ("H", "W")),
+    ("g_exitcell", "i", ("H", "W")), ("b_mask", "i", ("H", "W")),
+    ("b_ok", "i", ("H", "W")), ("b_bid", "i", ("H", "W")),
+    ("b_svcdest", "i", ("H", "W")), ("b_needs", "i", ("H", "W")),
+    ("b_prod", "i", ("H", "W")), ("b_inner", "f", ("H", "W")),
+    ("b_fcap", "f", ("H", "W")), ("b_wcap", "f", ("H", "W")),
+    ("qrun", "i", ("NQ", 6)), ("srun", "i", ("NS", 5)),
+    ("l_group", "i", ("L",)), ("l_axis", "i", (1, "L")),
+    ("gg_valid", "i", (1, "G")), ("nbr", "i", ("G", 4)),
+    ("ticks", "i", ("R", 8)), ("elapsed", "f", ("R",)),
+    ("rain", "b", ("R", "H", "W")), ("spawn_pa", "i", ("R", "H", "W")),
+    ("spawn_pe", "i", ("R", "H", "W")), ("force", "i", ("L",)),
+    ("pa", "i", ("H", "W")), ("pb", "i", ("H", "W")),
+    ("pc", "i", ("H", "W")), ("pd", "i", ("H", "W")),
+    ("pe", "i", ("H", "W")), ("pl", "f", ("H", "W")),
+    ("food", "f", ("H", "W")), ("waste", "f", ("H", "W")),
+    ("frem", "f", ("H", "W")), ("wrem", "f", ("H", "W")),
+    ("li", "i", (9, "G")), ("lf", "f", (2, "G")), ("lstop", "b", ("L",)))
+_DT = {"i": torch.int32, "f": torch.float32, "b": torch.bool}
+MEGA_OUTPUTS = ("pa", "pb", "pc", "pd", "pe", "pl", "stop", "food", "waste",
+                "frem", "wrem", "li", "lf", "lstop", "stats")
+_ALGO_ID = {"DISABLED": 0, "FIXED_TIME": 1, "QUEUE_ACTUATED": 2,
+            "PRESSURE_CONTROL": 3, "NEIGHBOR_PRESSURE_CONTROL": 4,
+            "NEIGHBOR_GREEN_WAVE": 5}
+_N_SCRATCH_DM = 20        # K1's per-world scratch planes (decide_move.cuh)
+
+
+def _mega_params(cfg: Config, dims: dict):
+    ip_dm, fp_dm = _dm_params(cfg)
+    ip = (ctypes.c_int * 34)(
+        *ip_dm, *(dims[k] for k in ("H", "W", "D4", "R", "G", "L", "NQ",
+                                    "NS")),
+        _ALGO_ID[cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM],
+        cfg.TRAFFIC_LIGHT_GREEN_DURATION,
+        cfg.TRAFFIC_LIGHT_QUEUE_ACTUATED_MIN_GREEN,
+        cfg.TRAFFIC_LIGHT_QUEUE_ACTUATED_GAP,
+        cfg.TRAFFIC_LIGHT_QUEUE_ACTUATED_MAX_GREEN,
+        int(cfg.TRAFFIC_LIGHT_TRANSITION_DURATION_ENABLED),
+        int(cfg.TRAFFIC_LIGHT_TRANSITION_CLEARANCE_ENABLED),
+        cfg.SERVICE_VEHICLE_LOAD_TIME,
+        int(cfg.GRADUAL_CITY_BLOCK_RESOURCES),
+        cfg.VEHICLE_MIN_SPEED)
+    # f32 constants as the plain version rounds them
+    fp = (ctypes.c_float * 7)(
+        *fp_dm, float(cfg.TIME_PER_STEP_IN_SECONDS),
+        float(cfg.SERVICE_VEHICLE_MAX_LOAD_FOOD),
+        float(cfg.SERVICE_VEHICLE_MAX_LOAD_WASTE),
+        float(np.float32(1.0 / cfg.FOOD_CONSUMPTION_TICKS)),
+        float(np.float32(1.0 / cfg.WASTE_PRODUCTION_TICKS)))
+    return ip, fp
+
+
+def check_mega_inputs(a: dict) -> dict:
+    """Raise unless `a` holds every input K9 takes, each of its dtype,
+    shape and device, and contiguous; returns the dimensions."""
+    H, W = a["pa"].shape
+    dims = {"H": H, "W": W, "D4": a["sdir4"].shape[0],
+            "R": a["ticks"].shape[0], "G": a["li"].shape[1],
+            "L": a["lstop"].shape[0], "NQ": a["qrun"].shape[0],
+            "NS": a["srun"].shape[0]}
+    for name, dt, shape in _MEGA_IN:
+        _check(name, a[name], _DT[dt], [dims.get(s, s) for s in shape],
+               a["pa"].device)
+    return dims
+
+
+def _mega_kernel(cfg: Config, a: dict) -> dict:
+    """Launch K9 on the card: one cooperative launch for the R ticks."""
+    dims = check_mega_inputs(a)
+    H, W, R, G = dims["H"], dims["W"], dims["R"], dims["G"]
+    dev = a["pa"].device
+    i32t, f32t, u8 = torch.int32, torch.float32, torch.bool
+
+    def planes(n, dtype):
+        return [torch.empty((H, W), dtype=dtype, device=dev)
+                for _ in range(n)]
+    sets = [planes(5, i32t) + planes(1, f32t) for _ in range(2)]
+    stop = torch.empty((H, W), dtype=u8, device=dev)
+    tanks = planes(4, f32t)
+    li = [torch.empty((9, G), dtype=i32t, device=dev) for _ in range(2)]
+    lf = [torch.empty((2, G), dtype=f32t, device=dev) for _ in range(2)]
+    lstop = torch.empty_like(a["lstop"])
+    stats = torch.empty((R, 16), dtype=f32t, device=dev)
+    # at most 8 resident blocks of 256 threads per SM
+    nbmax = torch.cuda.get_device_properties(dev).multi_processor_count * 8
+    scratch = [torch.empty((_N_SCRATCH_DM, H, W), dtype=i32t, device=dev),
+               torch.zeros((G * 5,), dtype=i32t, device=dev),
+               torch.empty((G,), dtype=i32t, device=dev),
+               torch.zeros((H, W), dtype=u8, device=dev),
+               torch.empty((2 * nbmax * 6,), dtype=i32t, device=dev),
+               torch.empty((R * nbmax * 16,), dtype=i32t, device=dev),
+               torch.empty((R * nbmax * 4,), dtype=f32t, device=dev)]
+    bufs = [a[n] for n, _, _ in _MEGA_IN] + sets[0] + sets[1] + [
+        stop, *tanks, *li, *lf, lstop, stats, *scratch]
+    ptrs = (ctypes.c_void_p * len(bufs))(*[t.data_ptr() for t in bufs])
+    ip, fp = _mega_params(cfg, dims)
+    _call("tsim_mega_segment", ctypes.cast(ip, ctypes.c_void_p),
+          ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ptrs,
+                                                        ctypes.c_void_p),
+          ctypes.c_int(len(bufs)), ctypes.c_int(nbmax), _stream(dev))
+    launches["mega"] += 1
+    # tick t writes plane set t & 1 and light buffer (t + 1) & 1
+    fin = sets[(R - 1) & 1]
+    return dict(zip(MEGA_OUTPUTS, (*fin, stop, *tanks, li[R & 1],
+                                   lf[R & 1], lstop, stats)))
+
+
+class _MegaSegment(_Kernel):
+    @staticmethod
+    def forward(cfg, names, *tensors):
+        a = dict(zip(names, tensors))
+        if _on_cuda(a["pa"]):
+            out = _mega_kernel(cfg, a)
+        else:
+            from .megakernel import segment_plain
+            out = segment_plain(cfg, a)
+        return tuple(out[k] for k in MEGA_OUTPUTS)
+
+    @staticmethod
+    def vmap(info, in_dims, cfg, names, *tensors):
+        out = _map_worlds(
+            lambda *t: _MegaSegment.forward(cfg, names, *t),
+            info.batch_size, in_dims[2:], tensors)
+        return out, (0,) * len(MEGA_OUTPUTS)
+
+
+def mega_segment(cfg: Config, args: dict) -> dict:
+    """K9, one routing segment of R ticks on the card: `args` holds the
+    chunk tables (`megakernel.build_chunk_static`), the segment's next-move
+    stack and wavefronts, its streams and the carried state, as
+    `megakernel.segment_plain` takes them; returns its outputs
+    (`MEGA_OUTPUTS`).  Under vmap the worlds run one after another (a
+    batched K9 is later work).
+
+    Replaces `megakernel.run_segment_mega`'s `pallas_call` (`_mega_kernel`,
+    ops/megakernel.py).  Source: csrc/megakernel.cu.  On the H100 the
+    ticks' device-memory bytes bound it (per tick K1's ~30 int32 planes
+    per sub-round and the packed stack's gathered words; the 40 MB stack
+    and the ~10 MB of planes about fill the 50 MB L2), behind the grid
+    barriers' latency (18 per tick).  Design: one cooperative launch
+    sized to the card's resident blocks; each stage is a grid-stride loop
+    over runs, groups, lights or cells, separated by grid-wide barriers;
+    K1's phase bodies are shared device functions; reductions use
+    per-block partials in a fixed order, so a rerun gives the same bits."""
+    names = tuple(args)
+    outs = _MegaSegment.apply(cfg, names, *args.values())
+    return dict(zip(MEGA_OUTPUTS, outs))

@@ -12,10 +12,13 @@ planes once, rebuilds the routing planes (K2, K3) at the chunk start and
 then once per PATHFINDING_COOLDOWN ticks, compacts the free pool slots
 once per segment, and runs `engine.step_engine` per tick (K4 inside the
 light reductions, K1 for decide + move, or the plain core with K6 under
-hierarchical routing).  The whole chunk's random draws come from JAX's
-key chain walked on the host up front (`tick_draws`), so no tick waits
-for the host.  `advance` is the device part of the chunk, a function of
-tensors only: `parallel/mesh.run_batch_shared` runs it under
+hierarchical routing).  Under the megakernel gate (`ops/megakernel.
+mega_ok`: TSIM_MEGA_FORCE on the card, TSIM_MEGA_INTERPRET on either
+device) each routing segment is one K9 call instead
+(`megakernel.run_segment_mega`).  The whole chunk's random draws come
+from JAX's key chain walked on the host up front (`tick_draws`), so no
+tick waits for the host.  `advance` is the device part of the chunk, a
+function of tensors only: `parallel/mesh.run_batch_shared` runs it under
 `torch.func.vmap` for a batch of worlds.
 """
 
@@ -39,7 +42,7 @@ from .core.state import (Metrics, Overrides, Pedestrians, Vehicles, World)
 from .gen import hier as ghier
 from .gen.generate import generate_city
 from .lights import fsm
-from .ops import engine
+from .ops import engine, megakernel
 from .ops.hier import RID_SPACE
 
 KBIG = engine.KBIG
@@ -435,10 +438,10 @@ def reducer_matrices(cfg: Config, world: World):
 
 def run_chunk(cfg: Config, world: World, n: int,
               dense_reducers: bool = False) -> World:
-    """Advance n ticks (the JAX `run_chunk` without the megakernel
-    option).  `dense_reducers`: run the per-tick light reductions as
-    dense matrix products (`fsm.build_dense_reducers`), as the JAX
-    `run_batch_shared` does at 256^2."""
+    """Advance n ticks (the JAX `run_chunk`).  `dense_reducers`: run the
+    per-tick light reductions as dense matrix products
+    (`fsm.build_dense_reducers`), as the JAX `run_batch_shared` does at
+    256^2; the megakernel branch has no use for them."""
     if world.cost_field is None:
         raise ValueError("world.cost_field is not built "
                          "(snapshot.build_field)")
@@ -458,6 +461,15 @@ def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
     dev = world.grid.is_road.device
     es = _enter_engine(cfg, world)
     R = max(1, cfg.PATHFINDING_COOLDOWN) if cfg.PATHFINDING_CACHE else 1
+    if megakernel.mega_ok(cfg, world):
+        # one K9 launch per routing segment (the JAX `run_chunk` branch)
+        cs = megakernel.build_chunk_static(cfg, world)
+        for t in range(0, n, R):
+            length = min(R, n - t)
+            es = megakernel.run_segment_mega(
+                cfg, world, es, cs, engine.routing_planes(cfg, world, es),
+                length, draws[t:t + length])
+        return _exit_engine(cfg, world, es)
     S = cfg.capacities().max_spawns_per_tick
     sidx = torch.arange(S, device=dev)
 
