@@ -21,7 +21,8 @@ Phases (any failure raises and the script exits nonzero):
      the two `torch.cumsum` calls that compute the same function; then
      K6 at config #5's shapes (1024^2; the windowed stack, 108 words,
      and the dense stack, 36 words; dest planes holding -1 and rows past
-     the stack);
+     the stack); the rain clouds' tick loop (no TPU kernel) for 16
+     worlds over 200 ticks, bit-equal to its plain version;
   3. the service FSM's ordered scatter-add on a case whose f32 sum
      depends on the order: the card must give the CPU's update-order
      result bit for bit;
@@ -436,6 +437,56 @@ def phase_select_rows(HE):
     return out
 
 
+def phase_rain_ticks(HE):
+    """The rain clouds' tick loop (`rain_ticks`, no TPU kernel) for
+    B = 16 worlds of the headline's size over 200 ticks, clouds moving
+    fast enough to leave and be replaced, against its plain version per
+    world: every table, flag and cooldown bit-equal."""
+    from trafficsimulation_tpu_torch.agents import rain
+    from trafficsimulation_tpu_torch.config import Config
+    B, R, n, H, W = BATCH, 3, N_BENCH_TICKS, 256, 256
+    cfg = Config(WIDTH=W, HEIGHT=H)
+    r = Inputs(7)
+
+    def table(x, y, vx, vy, rad):
+        return torch.stack([x, y, vx, vy, -rad, -rad, W + rad, H + rad,
+                            rad], dim=-2).contiguous()
+    u = r.unif(5, B, R)
+    clouds = table(u[0] * (W + 200) - 100, u[1] * (H + 200) - 100,
+                   u[2] * 6 - 3, u[3] * 6 - 3,
+                   float(cfg.RAIN_RADIUS_MIN) + torch.floor(u[4] * 50))
+    draws = torch.stack([r.rint(0, 2, B * n), r.rint(0, 4, B * n),
+                         r.rint(0, 1 << 23, B * n), r.rint(0, 2, B * n),
+                         r.rint(cfg.RAIN_RADIUS_MIN, cfg.RAIN_RADIUS_MAX + 1,
+                                B * n)], dim=1).to(torch.int64)
+    spawn = table(*rain._spawn_params(cfg, H, W, draws)) \
+        .reshape(9, B, n).permute(1, 0, 2).contiguous()
+    want_cd = torch.where(r.bern(0.1, B, n), 0, -1).to(torch.int32)
+    args = (clouds, r.bern(0.7, B, R), r.rint(0, 3, B), spawn, want_cd)
+    cool = 30
+    got = HE.rain_ticks_batched(*args, cool)
+    ref = [torch.stack(o) for o in zip(*(rain.cloud_ticks_plain(
+        *(a[b] for a in args), cool) for b in range(B)))]
+    err = compare("rain_ticks", got, ref)
+    act = torch.cat([args[1][:, None], got[1]], dim=1)
+    spawns = int((~act[:, :-1] & act[:, 1:]).sum())
+    exits = int((act[:, :-1] & ~act[:, 1:]).sum())
+    if not (spawns and exits):
+        raise AssertionError(f"rain_ticks: the check saw {spawns} spawns "
+                             f"and {exits} exits")
+    ms = median_ms(lambda: HE.rain_ticks_batched(*args, cool))
+    plain_ms = median_ms(lambda: [rain.cloud_ticks_plain(
+        *(a[b] for a in args), cool) for b in range(B)], reps=3, warmup=1)
+    log(f"kernel rain_ticks (B={B}, {R} clouds, {n} ticks): bit-equal to "
+        f"plain (max abs err {err:g}; {exits} exits, {spawns} spawns into "
+        f"free slots); "
+        f"median {ms:.4f} ms, plain {plain_ms:.2f} ms (per world "
+        f"{n} x ~20 launches)")
+    REPORT["rain_ticks"] = {"max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "spawns": spawns,
+                            "exits": exits}
+
+
 def launch_floor_ms(HE) -> float:
     """One launch of the port's kernel with no work (K4 on a 1x1
     plane): the latency floor of any single launch."""
@@ -554,7 +605,7 @@ def phase_headline(HE, tsim, transfer, cfg, world, ref):
     check_launches("single-world path", launches, {
         "decide_move": N_REF_TICKS, "prefix_planes": N_REF_TICKS,
         "build_sdir": 5, "build_wavefront": 5, "build_sdir_batched": 0,
-        "select_rows": 0})
+        "rain_ticks": N_REF_TICKS, "select_rows": 0})
     return sim, launches
 
 
@@ -582,7 +633,7 @@ def phase_batch(cfg, world, ref, HE, mesh, tsim, transfer, prng):
     check_launches("batched path", launches, {
         "build_sdir_batched": 5, "decide_move": N_REF_TICKS,
         "build_wavefront": 5, "prefix_planes": N_REF_TICKS,
-        "build_sdir": 0, "select_rows": 0})
+        "rain_ticks": N_REF_TICKS, "build_sdir": 0, "select_rows": 0})
     compare_leaves("batch world 0 vs JAX", ref["end"],
                    transfer.world_to_numpy(mesh.world_at(batch, 0)))
     log(f"batch world 0 after {N_REF_TICKS} ticks equals JAX's end state")
@@ -786,7 +837,8 @@ def hier_launches(cfg, n_ticks: int) -> dict:
     return {"select_rows": 2 * (1 + cfg.VEHICLE_MAX_SPEED) * n_ticks,
             "build_sdir": segs, "build_wavefront": segs,
             "prefix_planes": n_ticks, "decide_move": 0,
-            "build_sdir_batched": 0}
+            "build_sdir_batched": 0,
+            "rain_ticks": n_ticks if cfg.RAIN_ENABLED else 0}
 
 
 def check_digest(name, digest: dict, leaves: dict):
@@ -872,10 +924,9 @@ def config5_kernels(HE, engine, cfg, world, es) -> dict:
     density = engine.density_map(present, g.is_road,
                                  cfg.VEHICLE_AWARENESS_RANGE)
     soft2, hard = engine.soft_penalties(cfg, es.pa, es.stop_map, density)
-    legal, pen_m, _ = engine._entry_costs(cfg, g.allowed_dirs, g.is_road,
-                                          soft2, hard)
-    pen4 = torch.stack(pen_m).contiguous()
-    legal4 = torch.stack([lg.to(torch.int32) for lg in legal]).contiguous()
+    legal4, pen4 = engine.entry_costs(cfg, g.allowed_dirs, g.is_road, soft2,
+                                      hard)
+    legal4, pen4 = legal4.contiguous(), pen4.contiguous()
     tp2 = int(round(2 * cfg.VEHICLE_TURN_PENALTY))
     K0 = world.cost_field
     D = K0.shape[0]
@@ -1101,8 +1152,8 @@ def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
     segs = -(-N_REF_TICKS // R)
     check_launches("megakernel path", launches, {
         "mega": segs, "build_sdir": segs, "build_wavefront": segs,
-        "decide_move": 0, "prefix_planes": 0, "ordered_add": 0,
-        "build_sdir_batched": 0, "select_rows": 0})
+        "rain_ticks": segs, "decide_move": 0, "prefix_planes": 0,
+        "ordered_add": 0, "build_sdir_batched": 0, "select_rows": 0})
     log(f"megakernel path: step({N_REF_TICKS}) in {t_ref:.2f} s equals "
         f"JAX's end state ({n_exact} integer/bool leaves exact, "
         f"{len(ref['end']) - n_exact} f32 within rtol {FLOAT_RTOL}); "
@@ -1256,6 +1307,7 @@ def main():
         batched = phase_kernels(cfg0, HE, engine, BATCH)
         phase_batch_one(cfg0, HE, engine)
         k6 = phase_select_rows(HE)
+        phase_rain_ticks(HE)
         floor = launch_floor_ms(HE)
         log(f"one launch with no work: {floor:.4f} ms")
         REPORT["launch_floor_ms"] = floor

@@ -404,3 +404,56 @@ def test_mega_batch_on_card_matches_single_worlds(gen, monkeypatch):
                 assert np.allclose(a, got[k], rtol=1e-5, atol=0.0), k
             else:
                 assert np.array_equal(a, got[k]), k
+
+
+def _cloud_inputs(g, B, R, n, H=16, W=20):
+    """B worlds' cloud tables anywhere on the map, moving up to 3 cells
+    a tick (so that clouds leave within the run), the spawn tables of n
+    random draw rows, random spawn requests and cooldowns."""
+    from trafficsimulation_tpu_torch.agents import rain
+    cfg = Config(WIDTH=W, HEIGHT=H, RAIN_RADIUS_MIN=2, RAIN_RADIUS_MAX=6)
+
+    def table(x, y, vx, vy, rad):
+        return torch.stack([x, y, vx, vy, -rad, -rad, W + rad, H + rad,
+                            rad], dim=-2)
+    u = torch.rand((5, B, R), generator=g, device="cuda")
+    clouds = table(u[0] * (W + 8) - 4, u[1] * (H + 8) - 4, u[2] * 6 - 3,
+                   u[3] * 6 - 3, 2 + torch.floor(u[4] * 4))
+    draws = torch.stack([_rint(g, 0, 2, B * n), _rint(g, 0, 4, B * n),
+                         _rint(g, 0, 1 << 23, B * n), _rint(g, 0, 2, B * n),
+                         _rint(g, 2, 7, B * n)], dim=1).to(torch.int64)
+    spawn = table(*rain._spawn_params(cfg, H, W, draws))     # [9, B * n]
+    spawn = spawn.reshape(9, B, n).permute(1, 0, 2).contiguous()
+    want_cd = torch.where(_bern(g, 0.4, B, n), 0, -1).to(torch.int32)
+    return (clouds.contiguous(), _bern(g, 0.7, B, R), _rint(g, 0, 3, B),
+            spawn, want_cd)
+
+
+@pytest.mark.parametrize("B,R,n", [(1, 3, 60), (5, 4, 57)])
+def test_rain_ticks_kernel_matches_plain(gen, B, R, n):
+    """The clouds' tick loop on the card against its plain version per
+    world, bit for bit, over runs with exits, cooldowns and respawns."""
+    from trafficsimulation_tpu_torch.agents.rain import cloud_ticks_plain
+    args = _cloud_inputs(gen, B, R, n)
+    got = HE.rain_ticks_batched(*args, 6)
+    for b in range(B):
+        ref = cloud_ticks_plain(*(a[b] for a in args), 6)
+        _same((got[0][b], got[1][b], got[2][b]), ref)
+    # a slot whose cloud did not just move took a spawn; an active one
+    # that went inactive or took a spawn lost its cloud off the map
+    tab = torch.cat([args[0][:, None], got[0]], dim=1)  # [B, n + 1, 9, R]
+    act = torch.cat([args[1][:, None], got[1]], dim=1)
+    spawned = (tab[:, 1:, :2] != tab[:, :-1, :2] + tab[:, :-1, 2:4]).any(2)
+    assert spawned.any()
+    assert (act[:, :-1] & (spawned | ~act[:, 1:])).any()
+    if B == 1:
+        one = HE.rain_ticks(*(a[0] for a in args), 6)
+        _same(one, (got[0][0], got[1][0], got[2][0]))
+
+
+def test_rain_ticks_vmap_launches_once(gen):
+    args = _cloud_inputs(gen, 4, 3, 9)
+    HE.reset_launches()
+    got = torch.func.vmap(lambda *a: HE.rain_ticks(*a, 6))(*args)
+    assert HE.launches["rain_ticks"] == 1
+    _same(got, HE.rain_ticks_batched(*args, 6))

@@ -76,13 +76,20 @@ def test_chunk_static_matches_jax(algo):
     cfg, jworld, pworld = _crossroad(algo, False)
     ref = jmk.build_chunk_static(cfg, jworld)
     got = megakernel.build_chunk_static(cfg, pworld)
-    for k, a in ref.items():
-        b = got[k]
-        a = np.stack([np.asarray(x) for x in a]) if k == "neigh" \
-            else np.asarray(a)
+    # the port's light stages gather (lights/fsm.py): JAX's row-form
+    # one-hots have no counterpart; every other table is equal
+    row_form = {"ogl", "l_hasgrp"} | (
+        {"neigh"} if algo == "NEIGHBOR_PRESSURE_CONTROL" else set())
+    assert set(ref) - set(got) == row_form
+    for k in set(ref) - row_form:
+        a, b = np.asarray(ref[k]), got[k]
         assert a.shape == b.shape, (k, a.shape, tuple(b.shape))
         assert np.array_equal(a, _np(b).astype(a.dtype)), k
-    assert ("neigh" in got) == (algo == "NEIGHBOR_PRESSURE_CONTROL")
+    # the kernel's light -> group table is JAX's light / group one-hot
+    ogl = np.asarray(ref["ogl"]).astype(np.int32)               # [G, L]
+    lg = _np(got["l_group"])
+    assert np.array_equal(ogl.any(axis=0), lg >= 0)
+    assert np.array_equal(ogl.argmax(axis=0)[lg >= 0], lg[lg >= 0])
     # the kernel's rectangles cover the same cells as the run matrices
     H, W = cfg.HEIGHT, cfg.WIDTH
     for name, mats in (("qrun", ("q_rmv", "q_cv", "q_rh", "q_cmh")),
@@ -332,3 +339,89 @@ def test_megakernel_batch_matches_single_worlds(monkeypatch):
             keys[b].view(np.int32).copy()))
         ref = _run(monkeypatch, cfg, single, 7, mega=False)
         assert_mega_matches(ref, world_to_numpy(mesh.world_at(batch, b)))
+
+
+def test_segment_rain_matches_jax_through_exits_and_respawns():
+    """`step_rain_ticks` over segments of 5 ticks (as `prepare_segment`
+    runs it) against JAX's jitted one-tick `step_rain` on the same key
+    chain, on a small map where clouds leave, the cooldown starts and new
+    clouds take the freed slots: every tick's rain map and the clouds at
+    each segment's end bit for bit."""
+    import jax
+    from trafficsimulation_tpu.agents.rain import step_rain as jstep
+    from trafficsimulation_tpu.core.state import RainState as JRain
+    from trafficsimulation_tpu_torch.agents.rain import step_rain_ticks
+    from trafficsimulation_tpu_torch.core.state import RainState
+    over = dict(WIDTH=24, HEIGHT=20, RAIN_SPAWN_CHANCE=0.6,
+                RAIN_RADIUS_MIN=2, RAIN_RADIUS_MAX=5, RAIN_COOLDOWN=48)
+    jcfg, cfg = JConfig(**over), Config(**over)
+    H, W, n, R = 20, 24, 60, 5
+    f = np.float32
+    # both clouds leave on the first tick, so the cooldown starts
+    start = dict(active=np.array([True, True, False]),
+                 cx=f([25.9, 3.25, 0.0]), cy=f([10.0, 22.9, 0.0]),
+                 vx=f([0.8, -0.6, 0.0]), vy=f([0.6, 0.8, 0.0]),
+                 radius=f([2.0, 3.0, 0.0]))
+    jrain = JRain(**{k: jnp.asarray(v) for k, v in start.items()},
+                  cooldown=jnp.int32(0))
+    prain = RainState(**{k: torch.from_numpy(v) for k, v in start.items()},
+                      cooldown=torch.tensor(0, dtype=torch.int32))
+    key = prng.PRNGKey(11)
+    draws, _ = engine.tick_draws(cfg, key, n)
+    rows = torch.from_numpy(draws[:, engine.D_RAIN:engine.D_RAIN + 5])
+    step = jax.jit(lambda r, k: jstep(jcfg, H, W, r, k))
+    jkey = jnp.asarray(key)
+    exits = spawns = cooldowns = 0
+    for s in range(0, n, R):
+        prain, maps = step_rain_ticks(cfg, H, W, prain, rows[s:s + R])
+        for t in range(R):
+            ks = jax.random.split(jkey, 6)
+            jkey = jax.random.split(ks[0], 2)[0]
+            before = np.asarray(jrain.active)
+            jrain, jmap = step(jrain, ks[5])
+            after = np.asarray(jrain.active)
+            exits += int((before & ~after).sum())
+            spawns += int((~before & after).sum())
+            cooldowns += int(jrain.cooldown > 0)
+            assert np.array_equal(np.asarray(jmap), maps[t].numpy()), s + t
+        for k in ("active", "cx", "cy", "vx", "vy", "radius", "cooldown"):
+            a, b = np.asarray(getattr(jrain, k)), getattr(prain, k).numpy()
+            assert a.dtype == b.dtype and np.array_equal(
+                a.view(np.int32) if a.dtype == f else a,
+                b.view(np.int32) if b.dtype == f else b), (s, k)
+    assert exits >= 3 and spawns >= 2 and cooldowns > 0, \
+        (exits, spawns, cooldowns)
+
+
+def test_rain_spawn_matches_jax_from_every_edge():
+    """A cloud spawned into an empty sky, from each edge with and without
+    the corner flip: the port's `step_rain` against JAX's jitted one on
+    the same key chain, position, velocity and radius bit for bit."""
+    import jax
+    from trafficsimulation_tpu.agents.rain import (init_rain_state as jinit,
+                                                   step_rain as jstep)
+    from trafficsimulation_tpu_torch.agents.rain import (init_rain_state,
+                                                         step_rain)
+    over = dict(WIDTH=40, HEIGHT=28, RAIN_SPAWN_CHANCE=0.7)
+    jcfg, cfg = JConfig(**over), Config(**over)
+    n = 64
+    key = prng.PRNGKey(5)
+    draws, _ = engine.tick_draws(cfg, key, n)
+    rows = torch.from_numpy(draws[:, engine.D_RAIN:engine.D_RAIN + 5])
+    step = jax.jit(lambda r, k: jstep(jcfg, 28, 40, r, k))
+    jkey, seen = jnp.asarray(key), set()
+    for t in range(n):
+        ks = jax.random.split(jkey, 6)
+        jkey = jax.random.split(ks[0], 2)[0]
+        jrain, jmap = step(jinit(jcfg), ks[5])
+        prain, pmap = step_rain(cfg, 28, 40, init_rain_state(cfg, "cpu"),
+                                rows[t])
+        assert np.array_equal(np.asarray(jmap), pmap.numpy()), t
+        for k in ("active", "cx", "cy", "vx", "vy", "radius"):
+            a, b = np.asarray(getattr(jrain, k)), getattr(prain, k).numpy()
+            assert np.array_equal(a.view(np.int32) if a.dtype.kind == "f"
+                                  else a, b.view(np.int32)
+                                  if b.dtype.kind == "f" else b), (t, k)
+        if bool(jrain.active[0]):
+            seen.add((int(rows[t, 1]), int(rows[t, 3])))
+    assert seen == {(e, f) for e in range(4) for f in range(2)}, seen

@@ -47,6 +47,7 @@ def annotate_layers() -> list:
     named after the layer (the modules look them up at call time), and
     return the names."""
     from torch.profiler import record_function
+    from trafficsimulation_tpu_torch import sim
     from trafficsimulation_tpu_torch.lights import fsm
     from trafficsimulation_tpu_torch.ops import engine, hier, megakernel
     from trafficsimulation_tpu_torch.ops import hopper_engine as HE
@@ -59,8 +60,12 @@ def annotate_layers() -> list:
         "of which hier select (K6)": [(hier, "hier_select")],
         "post-move": [(engine, "_post_move")],
         "segment schedule (mega)": [(megakernel, "prepare_segment")],
+        "of which rain (mega)": [(megakernel, "step_rain_ticks")],
         "segment kernel (K9)": [(HE, "mega_segment")],
-        "segment state (mega)": [(megakernel, "segment_state")]}
+        "segment state (mega)": [(megakernel, "segment_state")],
+        "of which metrics fold (mega)": [(megakernel, "fold_metrics")],
+        "chunk entry and exit": [(sim, "_enter_engine"), (sim, "_exit_engine"),
+                                 (megakernel, "build_chunk_static")]}
     for label, targets in layers.items():
         for mod, name in targets:
             def span(*a, _fn=getattr(mod, name), _label=label, **k):
@@ -137,12 +142,21 @@ def main():
           f"busy {dev * 1e3:.3f} ms/tick, device idle share "
           f"{1 - dev / wall:.3f}; per tick {launches / n:.0f} device "
           f"kernels/copies, {syncs / n:.1f} host syncs")
+    # device launches of each layer: the kernels and copies of every op
+    # that ran inside its ranges
+    def kernels(e):
+        return len(e.kernels) + sum(kernels(c) for c in e.cpu_children)
+    per_layer = dict.fromkeys(layers, 0)
+    for e in prof.events():
+        if e.name in per_layer and e.device_type == DeviceType.CPU:
+            per_layer[e.name] += kernels(e)
     print("layer: host ms/tick (under the profiler), device ms/tick, "
-          "calls/tick")
+          "calls/tick, device kernels/copies per tick")
     for e in ka:
         if e.key in layers and e.device_type == DeviceType.CPU:
             print(f"  {e.key}: {e.cpu_time_total / 1e3 / n:.3f}, "
-                  f"{e.device_time_total / 1e3 / n:.3f}, {e.count / n:g}")
+                  f"{e.device_time_total / 1e3 / n:.3f}, {e.count / n:g}, "
+                  f"{per_layer[e.key] / n:.1f}")
     table = ka.table(sort_by="self_device_time_total", row_limit=30)
     print(table)
     if args.out:

@@ -52,6 +52,9 @@ _ARGTYPES = {
     "tsim_ordered_add": [P, P, P, P, I, I, I, P],
     # sdir4, dest, out, D4, HW, stream
     "tsim_select_rows": [P, P, P, I, I, P],
+    # clouds, active, cooldown, spawn, want_cd, out seen, seen_a,
+    # cooldown, B, n, R, cool, stream
+    "tsim_rain_ticks": [P] * 8 + [I] * 4 + [P],
     # ip[34], fp[7], pointer table, its length, max blocks, stream
     "tsim_mega_segment": [P, P, P, I, I, P],
     # out: the cooperative grid K9 takes on this card

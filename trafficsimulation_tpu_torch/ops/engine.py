@@ -39,7 +39,6 @@ from .hopper_engine import (
     PD_BLOCK_SH, PD_CFKEY_SH, PD_CFMODE_SH, PD_CFSTEPS_SH, KBIG,
     i32, _bit, _fld, _u)
 
-from .routing import _shift_plane as nbr
 
 DEST_NONE = 16383
 SVC_BLOCK_NONE = 16383
@@ -82,22 +81,31 @@ def costs_u16_to_keys(q: torch.Tensor) -> torch.Tensor:
     return (k << 2) | m
 
 
-def _entry_costs(cfg: Config, allowed, is_road, soft2, hard):
-    """Per-direction (legal, pen_m, can_mv); see the JAX `_entry_costs`."""
+def _neighbors4(f: torch.Tensor, fill) -> torch.Tensor:
+    """[4, H, W]: the value at each cell's neighbour in direction m (N =
+    +y, E = +x, S, W; `routing._shift_plane`), `fill` outside the grid,
+    from one padded copy."""
+    H, W = f.shape[-2:]
+    p = torch.nn.functional.pad(f, (1, 1, 1, 1), value=fill)
+    return torch.stack([p[..., 2:, 1:W + 1], p[..., 1:H + 1, 2:],
+                        p[..., :H, 1:W + 1], p[..., 1:H + 1, :W]], dim=-3)
+
+
+def entry_costs(cfg: Config, allowed, is_road, soft2, hard):
+    """(legal4, pen4), int32 [4, H, W] each, the inputs of K2 (see the
+    JAX `_entry_costs`): per direction m, whether m is a legal move of
+    the cell (0/1) and the cost of entering the neighbour, or 1 << 17
+    where the move is blocked."""
     cp2 = int(round(2 * cfg.VEHICLE_CONTRAFLOW_PENALTY))
-    allowed = allowed.to(torch.int32)
-    legal = [(allowed & C.DIR_BITS[m]) != 0 for m in range(4)]
-    pen_m, can_mv = [], []
-    for m in range(4):
-        en = nbr(soft2, m, 60000)
-        hd = nbr(hard, m, True)
-        rd = nbr(is_road, m, False)
-        ok = (legal[m] | rd) & ~hd
-        can_mv.append(ok)
-        pen = en + torch.where(legal[m], 0, cp2).to(torch.int32)
-        pen_m.append(torch.where(ok, torch.clamp(pen, max=60000), 1 << 17)
-                     .to(torch.int32))
-    return legal, pen_m, can_mv
+    # C.DIR_BITS[m] == 1 << m
+    m = torch.arange(4, dtype=torch.int32, device=allowed.device)
+    legal4 = (allowed.to(torch.int32)[..., None, :, :] >> m[:, None, None]) & 1
+    legal = legal4 != 0
+    ok = (legal | _neighbors4(is_road.to(torch.int32), 0).bool()) \
+        & ~_neighbors4(hard.to(torch.int32), 1).bool()
+    pen = _neighbors4(soft2, 60000) + torch.where(legal, 0, cp2)
+    pen4 = torch.where(ok, torch.clamp(pen, max=60000), 1 << 17)
+    return legal4, pen4.to(torch.int32)
 
 
 def build_sdir(cfg: Config, K0, allowed, is_road, soft2, hard):
@@ -105,10 +113,8 @@ def build_sdir(cfg: Config, K0, allowed, is_road, soft2, hard):
     `build_sdir`): the entry costs here, the encode in K2."""
     tp2 = int(round(2 * cfg.VEHICLE_TURN_PENALTY)
               if cfg.VEHICLE_TURN_PENALTY_ENABLED else 0)
-    legal, pen_m, _ = _entry_costs(cfg, allowed, is_road, soft2, hard)
-    pen4 = torch.stack(pen_m).contiguous()
-    legal4 = torch.stack([_u(lg) for lg in legal]).contiguous()
-    return HE.build_sdir(K0, pen4, legal4, tp2)
+    legal4, pen4 = entry_costs(cfg, allowed, is_road, soft2, hard)
+    return HE.build_sdir(K0, pen4.contiguous(), legal4.contiguous(), tp2)
 
 
 def build_wavefront(cfg: Config, allowed, is_road, hard):

@@ -21,13 +21,16 @@ version (the counterpart of the JAX package's `ops/pallas_engine.py`).
   `ordered_add`            the service FSM's f32 scatter-add into the
                            block tanks, in update order (no TPU kernel:
                            the JAX package leaves it to XLA's scatter)
+  `rain_ticks`             the rain clouds' tick loop (no TPU kernel: the
+                           JAX package steps rain in XLA ops per tick)
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel (built from `csrc/` by `ops/build.py`)
 or raises.  There is no fallback from one to the other.  `launches`
 counts, per kernel, the wrapper calls that launched it.
 
-Batches.  K1, K3, K4 and `ordered_add` take a leading batch of worlds
+Batches.  K1, K3, K4, `ordered_add` and `rain_ticks` take a leading
+batch of worlds
 (`*_batched`; one launch per batch, the geometry shared); the
 single-world wrappers are the B = 1 call.  The single-world wrappers
 are `torch.autograd.Function`s with a `vmap` rule, the counterpart of
@@ -89,7 +92,7 @@ KINF = 0x7FFFFFFF
 
 launches = {"decide_move": 0, "build_sdir": 0, "build_sdir_batched": 0,
             "build_wavefront": 0, "prefix_planes": 0, "ordered_add": 0,
-            "select_rows": 0, "mega": 0}
+            "select_rows": 0, "mega": 0, "rain_ticks": 0}
 
 
 def reset_launches():
@@ -980,6 +983,71 @@ def ordered_add(base, idx, vals):
     """base [R, T] f32 plus vals [R, n] at idx [R, n] in update order
     (`ordered_add_rows`; under vmap one launch for all worlds' rows)."""
     return _OrderedAdd.apply(base, idx, vals)
+
+
+# ---- rain clouds -----------------------------------------------------------
+
+def rain_ticks_batched(clouds, active, cooldown, spawn, want_cd, cool: int):
+    """The clouds' tick loop of `agents/rain.step_rain_ticks` for B
+    worlds: clouds f32 [B, 9, R] (the cloud table), active bool [B, R],
+    cooldown int32 [B], spawn f32 [B, 9, n], want_cd int32 [B, n] ->
+    (the table after each tick f32 [B, n, 9, R], the active flags after
+    each tick bool [B, n, R], the final cooldown int32 [B]).
+
+    No TPU kernel: the JAX package steps rain with XLA ops per tick
+    (`agents/rain.step_rain`).  Source: csrc/rain.cu.  Bound by launch
+    latency (a few clouds per world).  Design: one thread per world
+    walks the ticks in order; one launch for a segment of ticks and a
+    batch of worlds, where the plain version issues ~20 ops a tick."""
+    if not _on_cuda(clouds):
+        from ..agents.rain import cloud_ticks_plain
+        outs = [cloud_ticks_plain(*w, cool) for w in zip(
+            clouds, active, cooldown, spawn, want_cd)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    B, _, R = clouds.shape
+    n = spawn.shape[-1]
+    dev = clouds.device
+    _check("clouds", clouds, torch.float32, (B, 9, R), dev)
+    _check("active", active, torch.bool, (B, R), dev)
+    _check("cooldown", cooldown, torch.int32, (B,), dev)
+    _check("spawn", spawn, torch.float32, (B, 9, n), dev)
+    _check("want_cd", want_cd, torch.int32, (B, n), dev)
+    seen = torch.empty((B, n, 9, R), dtype=torch.float32, device=dev)
+    seen_a = torch.empty((B, n, R), dtype=torch.bool, device=dev)
+    cd = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0 or n == 0:
+        return seen, seen_a, cooldown.clone()
+    _call("tsim_rain_ticks", _ptr(clouds), _ptr(active), _ptr(cooldown),
+          _ptr(spawn), _ptr(want_cd), _ptr(seen), _ptr(seen_a), _ptr(cd),
+          ctypes.c_int(B), ctypes.c_int(n), ctypes.c_int(R),
+          ctypes.c_int(cool), _stream(dev))
+    launches["rain_ticks"] += 1
+    return seen, seen_a, cd
+
+
+class _RainTicks(_Kernel):
+    @staticmethod
+    def forward(clouds, active, cooldown, spawn, want_cd, cool):
+        out = rain_ticks_batched(
+            clouds.contiguous()[None], active.contiguous()[None],
+            cooldown.reshape(1), spawn.contiguous()[None],
+            want_cd.contiguous()[None], cool)
+        return out[0][0], out[1][0], out[2][0]
+
+    @staticmethod
+    def vmap(info, in_dims, clouds, active, cooldown, spawn, want_cd, cool):
+        B = info.batch_size
+        args = [_front(x, d, B) for x, d in zip(
+            (clouds, active, cooldown, spawn, want_cd), in_dims[:5])]
+        return rain_ticks_batched(*args, cool), (0, 0, 0)
+
+
+def rain_ticks(clouds, active, cooldown, spawn, want_cd, cool: int):
+    """One world's clouds over n ticks (`rain_ticks_batched` with B = 1;
+    under vmap one launch for all worlds): clouds f32 [9, R], active
+    bool [R], cooldown int32 [], spawn f32 [9, n], want_cd int32 [n] ->
+    (f32 [n, 9, R], bool [n, R], int32 [])."""
+    return _RainTicks.apply(clouds, active, cooldown, spawn, want_cd, cool)
 
 
 # ---- K9 --------------------------------------------------------------------

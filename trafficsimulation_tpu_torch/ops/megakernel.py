@@ -14,24 +14,30 @@ the design and the reference semantics).
                         of `engine.tick_draws`), the rain maps (rain has
                         no feedback from traffic) and the spawn schedule
                         (the cursor never depends on the lattice)
-  `segment_plain`       the plain version of K9: the R ticks in torch ops
+  `segment_plain`       the plain version of K9: the R ticks in torch ops,
+                        its light stages those of the per-tick path
+                        (`lights/fsm.py`) on the group and light rows
   `run_segment_mega`    one segment: the schedule, one K9 call
                         (`hopper_engine.mega_segment`), and the engine
                         state rebuilt from its outputs with the metrics
                         folded tick by tick
   `mega_ok`             the gate of `sim.advance`'s megakernel branch
 
-The JAX kernel's reductions are int8 one-hot matrix products for the MXU.
-The plain version computes the same integers with f32 products (exact:
-0/1 operands, counts far below 2^24; torch on the card has no integer
+The JAX kernel's reductions are int8 one-hot matrix products for the MXU
+(Mosaic has no gather).  The plain version computes the queue counts and
+the stop paint with the same run matrices in f32 products (exact: 0/1
+operands, counts far below 2^24; torch on the card has no integer
 matmul), including the int8 wrap of each queue run's count
-(`_queue_reductions`).  The CUDA kernel (`csrc/megakernel.cu`) walks the
+(`_queue_reductions`); the controllers and the phase commit gather, as
+`lights/fsm.py` does, so JAX's light / group and neighbour one-hots have
+no counterpart here.  The CUDA kernel (`csrc/megakernel.cu`) walks the
 run rectangles instead.
 """
 
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -40,8 +46,8 @@ from .. import codes as C
 from ..config import Config
 
 from ..agents.rain import step_rain_ticks
-from ..core.state import Overrides
-from ..lights.fsm import FSM_ALGOS
+from ..core.state import LightsState, Overrides
+from ..lights import fsm
 from . import engine
 from . import hopper_engine as HE
 from .hopper_engine import (PA_KIND_SH, PA_PARKED_SH, PA_DEST_SH,
@@ -70,7 +76,6 @@ LF_NSP, LF_EWP = range(2)
 # columns of the kernel's per-tick scalar table `ticks` (int32 [R, 8])
 TK_SEED, TK_TICK, TK_SVC0, TK_FDUE, TK_WDUE = 0, 4, 5, 6, 7
 
-NEIGHBOR_ALGOS = ("NEIGHBOR_PRESSURE_CONTROL", "NEIGHBOR_GREEN_WAVE")
 _BIG = 1 << 30
 
 
@@ -117,9 +122,11 @@ def _rect_table(valid, is_h, y, x0, x1, x, y0, y1, *extra):
 
 def build_chunk_static(cfg: Config, world) -> dict:
     """Every geometry-derived input of the segment kernel that is fixed
-    for a chunk (the JAX `build_chunk_static`; its keys and values, plus
-    the kernel's rectangle tables `qrun` [R, 6] and `srun` [S, 5], the
-    light -> group table `l_group`, the group neighbours `nbr` and the
+    for a chunk (the JAX `build_chunk_static`; its keys and values but
+    the one-hots that only its row-form light stages read, `ogl`,
+    `l_hasgrp` and `neigh`, plus the kernel's rectangle tables `qrun`
+    [R, 6] and `srun` [S, 5], the light -> group table `l_group` (-1 for
+    a light without a group), the group neighbours `nbr` and the
     intersection mask `inter`).  The block planes put each block's values
     at its service-arrival cell; two blocks sharing a cell leave the
     last block's values there, as XLA's CPU scatter does."""
@@ -181,9 +188,7 @@ def build_chunk_static(cfg: Config, world) -> dict:
     srun = _rect_table(s_valid & (s_light < L), sis_h, sy, sx0, sx1, sx,
                        sy0, sy1, s_light)
 
-    # ---- light / group tables ------------------------------------------
     l_hasgrp = ls.valid & (ls.group >= 0)
-    ogl = _i8((ls.group[None, :] == gid[:, None]) & l_hasgrp[None, :])
 
     # ---- static planes -------------------------------------------------
     Dall = dests.pos.shape[0]
@@ -216,7 +221,7 @@ def build_chunk_static(cfg: Config, world) -> dict:
     f32 = torch.float32
     cs = dict(
         q_cv=q_cv, q_rmv=q_rmv, q_rh=q_rh, q_cmh=q_cmh, q_og=q_og, bq=bq,
-        s_rmv=s_rmv, s_cv=s_cv, s_rh=s_rh, s_cmh=s_cmh, s_ol=s_ol, ogl=ogl,
+        s_rmv=s_rmv, s_cv=s_cv, s_rh=s_rh, s_cmh=s_cmh, s_ol=s_ol,
         g_inter=grid.intersection.to(i32t),
         g_destid=grid.dest_id,
         g_destkind1=plane(sink, dests.kind == 1, 0),
@@ -233,7 +238,6 @@ def build_chunk_static(cfg: Config, world) -> dict:
         b_wcap=bplane(bs.waste_cap, 0.0, f32),
         l_valid=ls.valid.to(i32t)[None],
         l_axis=ls.axis.to(i32t)[None],
-        l_hasgrp=l_hasgrp.to(i32t)[None],
         gg_valid=gs.valid.to(i32t)[None],
         bcell=bcell, has_home=has_home, bhome=bhome,
         svc0=torch.where((svc_target[0] >= 0) & (svc_target[0] < DF),
@@ -244,10 +248,6 @@ def build_chunk_static(cfg: Config, world) -> dict:
         nbr=gs.neighbor.to(i32t).contiguous(),
         inter=grid.intersection.contiguous(),
     )
-    if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM in NEIGHBOR_ALGOS:
-        nb = gs.neighbor.T                                  # [4, G]
-        cs["neigh"] = ((nb[:, :, None] == gid[None, None, :])
-                       & (nb >= 0)[:, :, None]).to(f32)     # [4, G, G]
     return cs
 
 
@@ -300,17 +300,23 @@ def prepare_segment(cfg: Config, world, es, R: int,
                         R)
     if not cfg.ENABLE_TRAFFIC:
         first = torch.full_like(first, R)
-    off = torch.zeros((), dtype=torch.int64, device=dev)
+    # stop[t, w]: the first trip from w on that is not yet due at tick t
+    # (R * S past the window), so a tick's run is one gather
+    ticks = torch.arange(R, device=dev)[:, None]
+    stop = torch.where(first[None, :] > ticks, win[None, :], R * S)
+    stop = torch.cat([stop.flip(1).cummin(1).values.flip(1),
+                      torch.full((R, 1), R * S, dtype=stop.dtype,
+                                 device=dev)], dim=1)        # [R, R*S + 1]
+    off = torch.zeros((1,), dtype=torch.int64, device=dev)
     offs, counts = [], []
     for t in range(R):
-        stop = torch.where((win >= off) & (first > t), win, R * S).min()
-        n = torch.clamp(stop - off, max=S)
+        n = torch.clamp(stop[t].gather(0, off) - off, max=S)
         offs.append(off)
         counts.append(n)
         off = off + n
     sidx = torch.arange(S, device=dev)
-    pos = torch.stack(offs)[:, None] + sidx[None, :]           # [R, S]
-    due = sidx[None, :] < torch.stack(counts)[:, None]
+    pos = torch.cat(offs)[:, None] + sidx[None, :]             # [R, S]
+    due = sidx[None, :] < torch.cat(counts)[:, None]
     jj = j[pos]
     slots = slots0[pos]
     can = due & (slots >= 0)
@@ -351,17 +357,12 @@ def prepare_segment(cfg: Config, world, es, R: int,
         spawn_pe=spe.reshape(R, HW + 1)[:, :HW].reshape(R, H, W)
         .contiguous(),
         created=created.to(i32t), drop_static=drop_static.to(i32t),
-        final_cursor=es.dem_cursor + off.to(i32t))
+        final_cursor=es.dem_cursor + off[0].to(i32t))
 
 
 # ---------------------------------------------------------------------------
 # The plain version of K9
 # ---------------------------------------------------------------------------
-
-
-def _apply_phase_rows(cur, pend, want, phase):
-    ok = want & (phase != cur) & (pend == -1)
-    return torch.where(ok, phase, pend).to(torch.int32)
 
 
 def _dot(row: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
@@ -370,108 +371,13 @@ def _dot(row: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     return torch.matmul(row.to(torch.float32), mat)
 
 
-def _controllers_rows(cfg: Config, li: list, lf: list, gvalid, q,
-                      neigh=None):
-    """`fsm.run_controllers` on group rows (the JAX `_controllers_rows`).
-    `li` / `lf`: lists of int32 / f32 rows [G]; `q` the (ns_in, ns_out,
-    ew_in, ew_out) rows; `neigh` the four [G, G] neighbour one-hots."""
-    algo = cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM
-    active = gvalid & (li[LI_PEND] == -1)
-    li, lf = list(li), list(lf)
-    if algo == "DISABLED":
-        return li, lf
-    if algo == "FIXED_TIME":
-        timer = torch.where(active, li[LI_FTT] + 1, li[LI_FTT])
-        li[LI_FTT] = timer
-        li[LI_PEND] = _apply_phase_rows(li[LI_CUR], li[LI_PEND],
-                                        active & (timer == 1), li[LI_FT])
-        flip = active & (timer >= cfg.TRAFFIC_LIGHT_GREEN_DURATION)
-        li[LI_FT] = torch.where(flip, 1 - li[LI_FT], li[LI_FT])
-        li[LI_FTT] = torch.where(flip, 0, li[LI_FTT])
-        return li, lf
-    ns_in, ns_out, ew_in, ew_out = q
-    if algo == "QUEUE_ACTUATED":
-        timer = torch.where(active, li[LI_QT] + 1, li[LI_QT])
-        cur_is_ns = li[LI_CUR] == 0
-        cur_q = torch.where(cur_is_ns, ns_in, ew_in)
-        opp_q = torch.where(cur_is_ns, ew_in, ns_in)
-        first = active & (timer == 1)
-        grew = active & (cur_q > li[LI_LASTARR])
-        last_arrival = torch.where(first | grew, cur_q, li[LI_LASTARR])
-        gap = torch.where(first | grew, 0, torch.where(
-            active, li[LI_GAP] + 1, li[LI_GAP]))
-        switch = active & \
-            (timer >= cfg.TRAFFIC_LIGHT_QUEUE_ACTUATED_MIN_GREEN) & (
-                (gap >= cfg.TRAFFIC_LIGHT_QUEUE_ACTUATED_GAP) |
-                (timer >= cfg.TRAFFIC_LIGHT_QUEUE_ACTUATED_MAX_GREEN) |
-                ((opp_q > cur_q) & (cur_q == 0)))
-        li[LI_QT] = torch.where(switch, 0, timer)
-        li[LI_GAP] = gap
-        li[LI_LASTARR] = last_arrival
-        li[LI_PEND] = _apply_phase_rows(li[LI_CUR], li[LI_PEND], switch,
-                                        1 - li[LI_CUR])
-        return li, lf
-    if algo in ("PRESSURE_CONTROL", "NEIGHBOR_PRESSURE_CONTROL"):
-        ns_p = (ns_in - ns_out).to(torch.float32)
-        ew_p = (ew_in - ew_out).to(torch.float32)
-        if algo == "NEIGHBOR_PRESSURE_CONTROL":
-            for d in range(4):
-                if d in (0, 2):
-                    ns_p = ns_p - _dot(lf[LF_NSP], neigh[d].T)
-                else:
-                    ew_p = ew_p - _dot(lf[LF_EWP], neigh[d].T)
-        lf[LF_NSP] = torch.where(active, ns_p, lf[LF_NSP])
-        lf[LF_EWP] = torch.where(active, ew_p, lf[LF_EWP])
-        li[LI_PEND] = _apply_phase_rows(li[LI_CUR], li[LI_PEND], active,
-                                        torch.where(ns_p > ew_p, 0, 1))
-        return li, lf
-    if algo == "NEIGHBOR_GREEN_WAVE":
-        favor_ns = torch.zeros_like(active)
-        favor_ew = torch.zeros_like(active)
-        for d in range(4):
-            if d in (0, 2):
-                favor_ns = favor_ns | (_dot(li[LI_CUR] == 0, neigh[d].T)
-                                       > 0.5)
-            else:
-                favor_ew = favor_ew | (_dot(li[LI_CUR] == 1, neigh[d].T)
-                                       > 0.5)
-        phase = torch.where(favor_ns & ~favor_ew, 0, torch.where(
-            favor_ew & ~favor_ns, 1, torch.where(ns_in > ew_in, 0, 1)))
-        li[LI_PEND] = _apply_phase_rows(li[LI_CUR], li[LI_PEND], active,
-                                        phase)
-        return li, lf
-    raise ValueError(f"the megakernel does not run algorithm {algo!r}")
-
-
-def _phase_change_rows(cfg: Config, li: list, lstop, occ_g, gvalid, ogl,
-                       l_axis, l_hasgrp):
-    """`fsm.execute_phase_change` on rows (the JAX `_phase_change_rows`):
-    group values reach the lights through the [G, L] one-hot `ogl`."""
-    has_pending = gvalid & (li[LI_PEND] >= 0)
-    in_transition = torch.zeros_like(has_pending)
-    trans = li[LI_TRANS]
-    if cfg.TRAFFIC_LIGHT_TRANSITION_DURATION_ENABLED:
-        in_transition = has_pending & (trans > 0)
-        trans = torch.where(in_transition, trans - 1, trans)
-    blocked_clear = torch.zeros_like(has_pending)
-    if cfg.TRAFFIC_LIGHT_TRANSITION_CLEARANCE_ENABLED:
-        blocked_clear = has_pending & ~in_transition & occ_g
-    all_red = in_transition | blocked_clear
-    commit = has_pending & ~all_red
-
-    l_all_red = l_hasgrp & (_dot(all_red, ogl) != 0)
-    l_commit = l_hasgrp & (_dot(commit, ogl) != 0)
-    commit_phase = _dot(torch.where(commit, li[LI_PEND], 0), ogl)
-    go = (l_axis >= 0) & (l_axis == commit_phase)
-    stop = (l_axis >= 0) & (l_axis != commit_phase)
-    lstop = torch.where(l_all_red, True, lstop)
-    lstop = torch.where(l_commit & go, False, lstop)
-    lstop = torch.where(l_commit & stop, True, lstop)
-    li = list(li)
-    li[LI_TRANS] = trans
-    li[LI_CUR] = torch.where(commit, li[LI_PEND], li[LI_CUR])
-    li[LI_PEND] = torch.where(commit, -1, li[LI_PEND])
-    return li, lstop
+def _light_tables(a: dict):
+    """The group and light tables `fsm.run_controllers` and
+    `fsm.execute_phase_change` read, from K9's inputs."""
+    gs = SimpleNamespace(valid=a["gg_valid"][0] != 0, neighbor=a["nbr"])
+    ls = SimpleNamespace(valid=a["l_valid"][0] != 0, group=a["l_group"],
+                         axis=a["l_axis"][0])
+    return gs, ls
 
 
 def _queue_reductions(occ, m: dict):
@@ -531,12 +437,9 @@ def segment_plain(cfg: Config, a: dict) -> dict:
     f32 = torch.float32
     dev = a["pa"].device
     m = {k: a[k].to(f32) for k in ("q_cv", "q_rmv", "q_rh", "q_cmh", "q_og",
-                                   "s_rmv", "s_cv", "s_rh", "s_cmh", "s_ol",
-                                   "ogl")}
+                                   "s_rmv", "s_cv", "s_rh", "s_cmh", "s_ol")}
     m["bq_i"] = a["bq"].to(torch.int32)
-    neigh = a.get("neigh")
-    gvalid = a["gg_valid"][0] != 0
-    l_axis, l_hasgrp = a["l_axis"][0], a["l_hasgrp"][0] != 0
+    gs, ls = _light_tables(a)
     inter, destid = a["g_inter"] != 0, a["g_destid"]
     b_mask, b_ok = a["b_mask"] != 0, a["b_ok"] != 0
     b_needs, b_prod = a["b_needs"] != 0, a["b_prod"] != 0
@@ -550,19 +453,21 @@ def segment_plain(cfg: Config, a: dict) -> dict:
 
     pa, pb, pc, pd, pe, pl = (a[k] for k in PLANES)
     food, waste, frem, wrem = (a[k] for k in TANKS)
-    li = list(a["li"])
-    lf = list(a["lf"])
-    lstop = a["lstop"]
+    li, lf = a["li"], a["lf"]
+    lights = LightsState(**{f: li[k] for k, f in enumerate(LI_FIELDS)},
+                         ns_pressure=lf[LF_NSP], ew_pressure=lf[LF_EWP],
+                         rl_timer=torch.zeros_like(li[LI_CUR]),
+                         light_stop=a["lstop"])
     stats = []
     for t in range(R):
         # ---- lights -------------------------------------------------------
         q = _queue_reductions(pa & 1, m)
-        li, lf = _controllers_rows(cfg, li, lf, gvalid, q[:4], neigh)
-        li, lstop = _phase_change_rows(cfg, li, lstop, q[4], gvalid,
-                                       m["ogl"], l_axis, l_hasgrp)
+        lights = fsm.run_controllers(cfg, None, gs, lights, None,
+                                     reductions=q[:4])
+        lights = fsm.execute_phase_change(cfg, ls, gs, lights, q[4])
         if t == 0:   # host overrides hold for the segment's first tick
-            lstop = (lstop & (a["force"] != 0)) | (a["force"] == 1)
-        stop_map = _stop_map_paint(lstop, m)
+            lights = fsm.apply_light_overrides(lights, a["force"])
+        stop_map = _stop_map_paint(lights.light_stop, m)
 
         # ---- decide + move ------------------------------------------------
         seeds = ticks[t, TK_SEED:TK_SEED + 4].to(torch.int64) & 0xFFFFFFFF
@@ -706,8 +611,9 @@ def segment_plain(cfg: Config, a: dict) -> dict:
 
     return dict(pa=pa, pb=pb, pc=pc, pd=pd, pe=pe, pl=pl, stop=stop_map,
                 food=food, waste=waste, frem=frem, wrem=wrem,
-                li=torch.stack(li), lf=torch.stack(lf), lstop=lstop,
-                stats=torch.stack(stats))
+                li=torch.stack([getattr(lights, f) for f in LI_FIELDS]),
+                lf=torch.stack([lights.ns_pressure, lights.ew_pressure]),
+                lstop=lights.light_stop, stats=torch.stack(stats))
 
 
 # ---------------------------------------------------------------------------
@@ -729,7 +635,7 @@ def mega_ok(cfg: Config, world) -> bool:
         return False
     if not cfg.USE_PALLAS_ENGINE:
         return False
-    if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM not in FSM_ALGOS:
+    if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM not in fsm.FSM_ALGOS:
         return False
     if cfg.PEDESTRIANS_ENABLED or cfg.VEHICLE_STUCK_DESPAWN_ENABLED:
         return False
@@ -891,9 +797,12 @@ def fold_metrics(cfg: Config, m, stats: torch.Tensor, seg: dict):
         days_completed=m.days_completed + rolled.sum(dtype=i32t),
         daily_created=daily[-1, 0], daily_finished=daily[-1, 1],
         day=new_day[-1])
-    # the f32 duration sums in the per-tick order
-    dur_i, dur_t = m.sum_duration_internal, m.sum_duration_through
-    for t in range(R):
-        dur_i = dur_i + stats[t, ST_DUR_I]
-        dur_t = dur_t + stats[t, ST_DUR_T] + stats[t, ST_DUR_SVC]
-    return m.replace(sum_duration_internal=dur_i, sum_duration_through=dur_t)
+    # the f32 duration sums in the per-tick order: the carried sums, then
+    # per tick the rows (internal, through) and (0, service); a cumsum
+    # along the outer dimension adds in row order on either device
+    d = stats[:, [ST_DUR_I, ST_DUR_T, ST_DUR_SVC, ST_DUR_SVC]]
+    d[:, 2] = 0.0
+    dur = torch.cat([torch.stack([m.sum_duration_internal,
+                                  m.sum_duration_through])[None],
+                     d.reshape(2 * R, 2)]).cumsum(0)[-1]
+    return m.replace(sum_duration_internal=dur[0], sum_duration_through=dur[1])
