@@ -71,7 +71,28 @@ Phases (any failure raises and the script exits nonzero):
      time and bound; then 200 ticks of each path from tick 23 in this
      one process (steps/s, cell-updates/s, wall and device-busy ms per
      tick, idle share, launches per segment, K9's device ms per call)
-     and their end states held equal.
+     and their end states held equal;
+ 12. the halo-tiled decide + move (group `tiled`, K7, on no path of the
+     JAX package or the port): K1's arguments on the first tick of the
+     generated headline world (D4 = 152), captured from a one-tick
+     `run_chunk`; K7 at tiles (64, 64) and (16, 32) must equal its plain
+     version and K1 bit for bit, in one launch per call; medians, device
+     times, and the bound (K1's bytes and operations times the
+     window-to-interior ratio);
+ 13. the framebuffer (group `render`): the port's `TrafficSim.render` of
+     its 23-tick headline end state must hash to the sha256 of JAX's
+     `render_frame` of that end state (`data/headline256_frame_digest.
+     json`); K8 (`render_planes`, on no path) on that state against its
+     plain version, bit-equal; in group `config5`, K8 on config #5's
+     1024^2 state and the config #5 frame time as the JAX bench takes it
+     (one warm-up, then the mean of 5 synchronized frames);
+ 14. the host bridge (group `bridge`): `BridgeState` over the generated
+     headline world on the card; one group's axis lights forced to stop
+     and flushed must stop on the next tick and the override must clear,
+     the group forced to go must have no light stopped a tick later; the
+     bridge's 20-tick chunk with its kernel launches checked; an
+     ordinary and a food service vehicle spawned; the `/state` and
+     `/metrics` dicts; the frame shows the spawned vehicles.
 
 The line before the last is the kernels' JSON summary, the one before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -121,12 +142,27 @@ KERNELS = {
                     "trafficsimulation_tpu/ops/pallas_engine.py:581"),
     "mega": ("trafficsimulation_tpu_torch/csrc/megakernel.cu",
              "trafficsimulation_tpu/ops/megakernel.py:1175"),
+    "decide_move_tiled": ("trafficsimulation_tpu_torch/csrc/decide_tiled.cu",
+                          "trafficsimulation_tpu/ops/pallas_engine.py:699"),
+    "render": ("trafficsimulation_tpu_torch/csrc/render.cu",
+               "trafficsimulation_tpu/ops/pallas_render.py:85"),
+    # no TPU kernel: the JAX package runs these in XLA ops
+    "ordered_add": ("trafficsimulation_tpu_torch/csrc/ordered_add.cu",
+                    "none (XLA scatter-add, trafficsimulation_tpu/ops/"
+                    "engine.py:923)"),
+    "rain_ticks": ("trafficsimulation_tpu_torch/csrc/rain.cu",
+                   "none (XLA ops per tick, trafficsimulation_tpu/agents/"
+                   "rain.py:26)"),
 }
 # which run's launch count the summary reports: K2 on the single-world
 # path, K6 on config #5's, K9 on the megakernel path, the others on the
 # batched path
 SUMMARY_PATH = {"build_sdir": "single", "select_rows": "config5",
-                "mega": "mega"}
+                "mega": "mega", "decide_move_tiled": "single",
+                "render": "single"}
+# on no path of the JAX package or the port (0 launches on every path);
+# chip_smoke.py drives them directly
+OFF_PATH = ("decide_move_tiled", "render")
 MEGA_DUR_COLS = [2, 3, 7]      # the stats rows' f32 duration sums
 CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
                ROUTING_HIER=True, INTERNAL_POPULATION_TRAFFIC_PER_DAY=100_000,
@@ -134,7 +170,8 @@ CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
 CONFIG5_VEHICLES = 100_000
 N_HIER_TICKS = 20
 PHASES = ("kernels", "ordered_add", "headline", "mega", "hier_digest",
-          "config5")
+          "config5", "tiled", "render", "bridge")
+TILES = ((64, 64), (16, 32))     # K7's tilings of the headline grid
 
 
 def log(*a):
@@ -213,6 +250,33 @@ def bound(nbytes: float, ops: float):
     """(bound_ms, bound_by): the least time for these bytes and ops."""
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def measure(name, kern, plain, nbytes, ops, shape, lib=None, reps=20,
+            plain_reps=3) -> dict:
+    """One kernel against its plain version on the same inputs (bit-equal
+    or raise), its median and device time, the plain version's median,
+    the bound, and the library call's median where there is one."""
+    got = kern()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = compare(name, got, ref)
+    if lib is not None:
+        compare(f"{name} library call", lib(), ref)
+    del got, ref
+    ms = median_ms(kern, reps=reps)
+    dms = device_ms(kern)
+    plain_ms = median_ms(plain, reps=plain_reps, warmup=1)
+    lib_ms = median_ms(lib, reps=reps) if lib is not None else None
+    bms, by = bound(nbytes, ops)
+    log(f"kernel {name} ({shape}): bit-equal to plain; median {ms:.4f} ms "
+        f"(device {fmt_ms(dms)}), plain {plain_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)"
+        + (f", library {lib_ms:.4f} ms" if lib_ms else ""))
+    return {"max_abs_err": err, "ms": ms, "device_ms": dms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "bytes": nbytes, "ops": ops,
+            "shape": shape}
 
 
 class Inputs:
@@ -357,29 +421,11 @@ def phase_kernels(cfg, HE, engine, B):
     bounds."""
     out = {}
     cases = kernel_cases(cfg, HE, engine, B)
+    shape = f"{cfg.HEIGHT}x{cfg.WIDTH}, D = {cfg.MAX_FIELD_DESTS}"
     for name, (kern, plain, nbytes, ops, lib) in cases.items():
-        got = kern()
-        ref = plain()
-        err = compare(f"{name} (B={B or 1})", got, ref)
-        torch.cuda.synchronize()
-        ms = median_ms(kern)
-        dms = device_ms(kern)
         heavy = name in ("build_sdir", "build_sdir_batched") or B
-        plain_ms = median_ms(plain, reps=5 if heavy else 20,
-                             warmup=1 if heavy else 3)
-        bms, by = bound(nbytes, ops)
-        lib_ms = median_ms(lib) if lib is not None else None
-        if lib is not None:
-            compare(f"{name} library call", lib(), ref)
-        out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
-                     "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-                     "bytes": nbytes, "ops": ops}
-        log(f"kernel {name} (B={B or 1}): bit-equal to plain; median "
-            f"{ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.4f} ms, "
-            f"bound {bms:.4f} ms "
-            f"({by})" + (f", library {lib_ms:.4f} ms" if lib_ms else ""))
-        del got, ref
+        out[name] = measure(f"{name} (B={B or 1})", kern, plain, nbytes,
+                            ops, shape, lib, plain_reps=5 if heavy else 20)
     del cases
     torch.cuda.empty_cache()
     return out
@@ -413,26 +459,15 @@ def phase_select_rows(HE):
     for name, D4 in (("local", 108), ("dense", 36)):
         sdir4 = r.bits(D4, H, W)
         dest = r.rint(-5, 4 * D4 + 8, H, W)
-        got = HE.select_rows(sdir4, dest)
-        ref = HE.select_dest_rows(sdir4, dest)
-        err = compare(f"select_rows ({name}, D4={D4})", (got,), (ref,))
-        torch.cuda.synchronize()
-        ms = median_ms(lambda: HE.select_rows(sdir4, dest))
-        dms = device_ms(lambda: HE.select_rows(sdir4, dest))
-        plain_ms = median_ms(lambda: HE.select_dest_rows(sdir4, dest))
         # dest in, the result out, one word per cell whose row exists
         hits = int(((dest >> 2) >= 0).logical_and((dest >> 2) < D4).sum())
-        nbytes, ops = HW * 8 + hits * 4, HW * 8
-        bms, by = bound(nbytes, ops)
-        out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
-                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                     "library_ms": None, "bytes": nbytes, "ops": ops,
-                     "shape": f"sdir4 [{D4}, {H}, {W}], dest [{H}, {W}]"}
-        log(f"kernel select_rows ({name} stack, D4={D4}, {H}x{W}): "
-            f"bit-equal to plain; median {ms:.4f} ms (device "
-            f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({by})")
-        del sdir4, dest, got, ref
+        out[name] = measure(
+            f"select_rows ({name} stack)",
+            lambda: (HE.select_rows(sdir4, dest),),
+            lambda: (HE.select_dest_rows(sdir4, dest),),
+            HW * 8 + hits * 4, HW * 8,
+            f"sdir4 [{D4}, {H}, {W}], dest [{H}, {W}]", plain_reps=20)
+        del sdir4, dest
     torch.cuda.empty_cache()
     return out
 
@@ -482,9 +517,18 @@ def phase_rain_ticks(HE):
         f"free slots); "
         f"median {ms:.4f} ms, plain {plain_ms:.2f} ms (per world "
         f"{n} x ~20 launches)")
-    REPORT["rain_ticks"] = {"max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms, "spawns": spawns,
-                            "exits": exits}
+    # every input read once, every output written once; ~40 operations
+    # per cloud and tick
+    nbytes = sum(a.numel() * a.element_size() for a in args) + sum(
+        t.numel() * t.element_size() for t in got)
+    bms, by = bound(nbytes, B * R * n * 40)
+    dms = device_ms(lambda: HE.rain_ticks_batched(*args, cool))
+    REPORT["rain_ticks"] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
+                            "plain_ms": plain_ms, "bound_ms": bms,
+                            "bound_by": by, "library_ms": None,
+                            "spawns": spawns, "exits": exits,
+                            "shape": f"B = {B}, {R} clouds, {n} ticks"}
+    return REPORT["rain_ticks"]
 
 
 def launch_floor_ms(HE) -> float:
@@ -513,6 +557,12 @@ def phase_ordered_add(HE):
                              f"update-order fold {want}")
     log(f"ordered scatter-add: card == CPU update order bit for bit "
         f"({got.tolist()})")
+    b, i, v = base.cuda(), idx.cuda(), vals.cuda()
+    # base and out [2, 3] f32, idx i64 and vals f32 [2, 6]; one add each
+    return measure("ordered_add", lambda: (HE.ordered_add(b, i, v),),
+                   lambda: (HE.ordered_add_plain(b, i, v),),
+                   2 * 3 * 4 * 2 + 2 * 6 * 12, 12, "[2, 3] += [2, 6]",
+                   lib=None)
 
 
 def compare_leaves(name, ref: dict, got: dict):
@@ -932,6 +982,9 @@ def config5_kernels(HE, engine, cfg, world, es) -> dict:
     D = K0.shape[0]
     D4 = (D + 3) // 4
     occ = present.to(torch.int32)
+    from trafficsimulation_tpu_torch.ops import render as R
+    k8_args = (g.cell_type, world.stop_map, world.rain_map,
+               R.vehicle_classes(world.vehicles, H, W))
 
     def cumsums():
         return (torch.cumsum(occ, -1, dtype=torch.int32),
@@ -951,29 +1004,16 @@ def config5_kernels(HE, engine, cfg, world, es) -> dict:
         "prefix_planes": (lambda: HE.prefix_planes(occ),
                           lambda: HE.prefix_planes_plain(occ), HW * 12,
                           HW * 2, f"[{H}, {W}]", cumsums),
+        # K8 on the world's state (on no path): 7 bytes a pixel, as in
+        # phase_render
+        "render": (lambda: (R.render_planes(*k8_args),),
+                   lambda: (R.render_planes_plain(*k8_args),), HW * 7,
+                   HW * 15, f"[3, {H}, {W}]", None),
     }
-    out = {}
-    for name, (kern, plain, nbytes, ops, shape, lib) in cases.items():
-        ref = plain()
-        err = compare(f"{name} (config #5)", kern(), ref)
-        ms = median_ms(kern, reps=10)
-        dms = device_ms(kern, reps=5)
-        plain_ms = median_ms(plain, reps=3, warmup=1)
-        bms, by = bound(nbytes, ops)
-        lib_ms = None
-        if lib is not None:
-            compare(f"{name} library call (config #5)", lib(), ref)
-            lib_ms = median_ms(lib, reps=10)
-        out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
-                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                     "library_ms": lib_ms, "bytes": nbytes, "ops": ops,
-                     "shape": shape}
-        log(f"kernel {name} at config #5 ({shape}): bit-equal to plain; "
-            f"median {ms:.4f} ms (device {fmt_ms(dms)}), plain "
-            f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
-            + (f", library {lib_ms:.4f} ms" if lib_ms else ""))
-        del ref
-    return out
+    return {name: measure(f"{name} at config #5", kern, plain, nbytes, ops,
+                          shape, lib, reps=10)
+            for name, (kern, plain, nbytes, ops, shape, lib)
+            in cases.items()}
 
 
 def phase_config5(HE, engine, tsim, card, prng, Config):
@@ -1038,6 +1078,21 @@ def phase_config5(HE, engine, tsim, card, prng, Config):
         f"{idle:.3f}")
     es = tsim._enter_engine(cfg3, w40)
     kern = config5_kernels(HE, engine, cfg3, w40, es)
+    # the framebuffer as the JAX bench times it: one warm-up, then the
+    # mean of 5 synchronized frames
+    sim5 = tsim.TrafficSim.from_world(cfg3, w40)
+    fb, _ = timed(sim5.render)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fb = sim5.render()
+        torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t0) / 5 * 1e3
+    if tuple(fb.shape) != (cfg3.HEIGHT, cfg3.WIDTH, 3) or \
+            fb.dtype != torch.uint8:
+        raise AssertionError(f"config #5 frame {fb.dtype} {tuple(fb.shape)}")
+    log(f"config #5 framebuffer ({card}): render_frame at "
+        f"{cfg3.HEIGHT}x{cfg3.WIDTH} {render_ms:.3f} ms (mean of 5)")
+    del fb, sim5
     REPORT["config5"] = {
         "card": card, "build_s": t_build, "timings": timings,
         "inject_s": t_inj, "dense_rows": cfg3.MAX_FIELD_DESTS,
@@ -1049,7 +1104,7 @@ def phase_config5(HE, engine, tsim, card, prng, Config):
         "busy_ms_per_tick": busy, "idle_share": idle, "launches": launches,
         "device_launches_per_tick": per_tick, "top_kernels": top,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "kernels": kern}
+        "render_ms": render_ms, "kernels": kern}
     return launches, kern
 
 
@@ -1250,6 +1305,188 @@ def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
     return launches, out
 
 
+def k1_tick_inputs(cfg, world, HE, tsim):
+    """K1's arguments (cfg, sdir4, wnd, planes, stop, rain, ped,
+    intersection, dest_id, randoms) on the first tick of `world` on the
+    per-tick path, captured from a one-tick `run_chunk`."""
+    seen = []
+    orig = HE.decide_move
+
+    def spy(*a):
+        seen.append(a)
+        return orig(*a)
+    HE.decide_move = spy
+    try:
+        with mega_env(False):
+            tsim.run_chunk(cfg, world, 1)
+    finally:
+        HE.decide_move = orig
+    if len(seen) != 1:
+        raise AssertionError(f"one tick called K1 {len(seen)} times")
+    return seen[0]
+
+
+def phase_tiled(cfg, world, HE, tsim):
+    """K7 on the headline's first-tick inputs at the tilings TILES:
+    bit-equal to its plain version and to K1, one launch per call."""
+    kcfg, *a = k1_tick_inputs(cfg, world, HE, tsim)
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    HW = H * W
+    P = HE.TILE_HALO
+    k1 = HE.decide_move(kcfg, *a)
+    present = int((a[2][0] & 1).sum())
+    # K1's bytes and operations as in kernel_cases (one world)
+    k1_bytes = HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4) + present * 4 + HW * 5
+    k1_ops = HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2)
+    k1_ms = median_ms(lambda: HE.decide_move(kcfg, *a))
+    out = {}
+    for th, tw in TILES:
+        n0 = HE.launches["decide_move_tiled"]
+        got = HE.decide_move_tiled(kcfg, *a, th, tw)
+        if HE.launches["decide_move_tiled"] != n0 + 1:
+            raise AssertionError("decide_move_tiled: not one launch")
+        compare(f"decide_move_tiled {th}x{tw} vs K1", got, k1)
+        del got
+        ratio = (th + 2 * P) * (tw + 2 * P) / (th * tw)
+        out[f"{th}x{tw}"] = m = measure(
+            f"decide_move_tiled {th}x{tw}",
+            lambda: HE.decide_move_tiled(kcfg, *a, th, tw),
+            lambda: HE.decide_move_tiled_plain(kcfg, *a, th, tw),
+            k1_bytes * ratio, k1_ops * ratio,
+            f"{H}x{W}, D4 = {a[0].shape[0]}, tiles {th}x{tw}, "
+            f"{(H // th) * (W // tw)} windows", reps=10)
+        m["window_ratio"] = ratio
+    log(f"K7 equals K1 on the headline's first tick ({present} vehicles) "
+        f"at tiles {TILES}; K1 on the same inputs {k1_ms:.4f} ms")
+    REPORT["tiled"] = {"k1_ms": k1_ms, **out}
+    return out
+
+
+def phase_render(cfg, world, HE, tsim, snapshot):
+    """The port's frame of its 23-tick headline end state against JAX's
+    digest, and K8 on that state against its plain version."""
+    import hashlib
+    from trafficsimulation_tpu_torch.ops import render as R
+    sim = tsim.TrafficSim.from_world(cfg, world)
+    with mega_env(False):
+        sim.step(N_REF_TICKS)
+    frame, t_frame = timed(sim.render)
+    with open(snapshot.HEADLINE_FRAME) as f:
+        want = json.load(f)
+    if frame.device.type != "cuda" or list(frame.shape) != want["shape"] \
+            or frame.dtype != torch.uint8:
+        raise AssertionError(f"frame {frame.dtype} {tuple(frame.shape)} on "
+                             f"{frame.device}")
+    sha = hashlib.sha256(frame.cpu().numpy().tobytes()).hexdigest()
+    if sha != want["sha256"]:
+        sums = frame.reshape(-1, 3).long().sum(0).tolist()
+        raise AssertionError(f"headline frame sha256 {sha} is not JAX's "
+                             f"{want['sha256']} (channel sums {sums} vs "
+                             f"{want['channel_sums']})")
+    frame_ms = median_ms(sim.render, reps=10)
+    w = sim.world
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    vst = R.vehicle_classes(w.vehicles, H, W)
+    args = (w.grid.cell_type, w.stop_map, w.rain_map, vst)
+    # 4 bytes read and 3 written a pixel; per channel a palette select,
+    # the two stop recolors, the rain mix and the vehicle overlay
+    k8 = measure("render (K8)", lambda: (R.render_planes(*args),),
+                 lambda: (R.render_planes_plain(*args),), 7 * H * W,
+                 15 * H * W, f"[3, {H}, {W}]")
+    log(f"render: the port's frame of its {N_REF_TICKS}-tick end state "
+        f"equals JAX's (sha256 {sha}; {int(w.rain_map.sum())} rain cells, "
+        f"{int((w.veh_map >= 0).sum())} vehicles); render_frame "
+        f"{frame_ms:.4f} ms at {H}x{W} (first call {t_frame * 1e3:.1f} ms)")
+    REPORT["render"] = {"frame_sha256": sha, "frame_ms": frame_ms,
+                        "k8_256": k8}
+    return k8
+
+
+def phase_bridge(cfg, world, HE, tsim, card):
+    """The host bridge over the headline world on the card: forced
+    lights through the overrides, the stepping loop's chunk, spawns, the
+    /state and /metrics dicts and the frame."""
+    from trafficsimulation_tpu_torch import codes as C
+    from trafficsimulation_tpu_torch.bridge.server import BridgeState
+    sim = tsim.TrafficSim.from_world(cfg, world)
+    bridge = BridgeState(sim)
+    ls = world.lights_static
+    groups = sorted(set(ls.group[ls.valid & (ls.axis == 0)].tolist()))
+    g = groups[0]
+    ids = bridge.axis_lights(g, 0)
+    if len(ids) == 0 or not set(ids) <= set(bridge.group_lights(g)):
+        raise AssertionError(f"group {g}: axis lights {ids}")
+    bridge.force_lights(ids, stop=True)
+    bridge.flush_into_world()
+    lf = sim.world.overrides.light_force
+    idx = torch.as_tensor(ids, device=lf.device)
+    if lf.device.type != "cuda" or not bool((lf[idx] == 1).all()):
+        raise AssertionError("bridge: the flushed overrides are not on the "
+                             "card")
+    ticks = 20        # the bridge loop's ticks_per_frame
+    HE.reset_launches()
+    with mega_env(False):
+        _, t1 = timed(lambda: sim.step(1))
+        stop = sim.world.lights.light_stop
+        if not bool(stop[idx].all()):
+            raise AssertionError("bridge: forced axis lights not stopped")
+        if bool((sim.world.overrides.light_force != -1).any()):
+            raise AssertionError("bridge: overrides not cleared")
+        grp = torch.as_tensor(bridge.group_lights(g), device=lf.device)
+        bridge.force_lights(bridge.group_lights(g), stop=False)
+        bridge.flush_into_world()
+        _, t2 = timed(lambda: sim.step(1))
+        if bool(sim.world.lights.light_stop[grp].any()):
+            raise AssertionError("bridge: forced go left a light stopped")
+        _, t_chunk = timed(lambda: sim.step(ticks - 2))
+        t_chunk += t1 + t2
+    launches = dict(HE.launches)
+    # each step call rebuilds the routing planes at its start, then once
+    # per PATHFINDING_COOLDOWN ticks
+    segs = sum(-(-n // cfg.PATHFINDING_COOLDOWN) for n in (1, 1, ticks - 2))
+    check_launches("bridge loop", launches, {
+        "decide_move": ticks, "prefix_planes": ticks, "rain_ticks": ticks,
+        "build_sdir": segs, "build_wavefront": segs, "select_rows": 0,
+        "mega": 0})
+    # spawns: a vehicle on a free road cell bound for destination 0, a
+    # food service vehicle on a free highway entrance
+    vm = sim.world.veh_map.reshape(-1)
+    road = torch.nonzero(world.grid.is_road.reshape(-1) & (vm < 0))
+    start = int(road[len(road) // 2])
+    n0 = sim.num_active_vehicles()
+    if not sim.spawn_vehicle(start, 0):
+        raise AssertionError("bridge: spawn refused")
+    hw = [int(p) for p in world.dests.hw_pos[world.dests.hw_valid].tolist()
+          if int(sim.world.veh_map.reshape(-1)[p]) < 0]
+    if not sim.spawn_vehicle(hw[0], -1, kind=2):
+        raise AssertionError("bridge: service spawn refused")
+    if sim.num_active_vehicles() != n0 + 2:
+        raise AssertionError("bridge: spawns not in the pool")
+    state = bridge.state()
+    metrics = sim.stats()
+    if state["tick"] != ticks or metrics["tick"] != ticks or \
+            state["active_vehicles"] != n0 + 2:
+        raise AssertionError(f"bridge: /state {state}")
+    json.dumps(metrics)
+    frame, t_frame = timed(sim.render)
+    f = frame.reshape(-1, 3)
+    if tuple(f[start].tolist()) != tuple(C.COLOR_VEHICLE.tolist()) or \
+            tuple(f[hw[0]].tolist()) != tuple(
+                C.COLOR_SERVICE_VEHICLE.tolist()):
+        raise AssertionError("bridge: the frame does not show the spawns")
+    log(f"bridge ({card}): axis lights {ids.tolist()} of group {g} forced, "
+        f"flushed and stopped on the next tick, the group forced to go; "
+        f"{ticks} ticks in {t_chunk * 1e3:.1f} ms with launches {launches}; "
+        f"spawned at "
+        f"{start} and a food vehicle at {hw[0]}; /state {state}; /metrics "
+        f"{len(metrics)} keys; frame {tuple(frame.shape)} in "
+        f"{t_frame * 1e3:.2f} ms")
+    REPORT["bridge"] = {"chunk_s": t_chunk, "ticks": ticks,
+                        "launches": launches, "state": state,
+                        "frame_ms": t_frame * 1e3}
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the build log and report")
@@ -1307,17 +1544,28 @@ def main():
         batched = phase_kernels(cfg0, HE, engine, BATCH)
         phase_batch_one(cfg0, HE, engine)
         k6 = phase_select_rows(HE)
-        phase_rain_ticks(HE)
+        k_rain = phase_rain_ticks(HE)
         floor = launch_floor_ms(HE)
         log(f"one launch with no work: {floor:.4f} ms")
         REPORT["launch_floor_ms"] = floor
         stamp("kernels")
     if "ordered_add" in run:
-        phase_ordered_add(HE)
-    if "headline" in run or "mega" in run:
+        k_add = phase_ordered_add(HE)
+    if run & {"headline", "mega", "tiled", "render", "bridge"}:
         cfg, world, ref = phase_generation(snapshot, tsim, transfer, prng,
                                            Config)
         stamp("generation")
+    if "tiled" in run:
+        k7 = phase_tiled(cfg, world, HE, tsim)
+        torch.cuda.empty_cache()
+        stamp("tiled")
+    if "render" in run:
+        k8 = phase_render(cfg, world, HE, tsim, snapshot)
+        torch.cuda.empty_cache()
+        stamp("render")
+    if "bridge" in run:
+        l_bridge = phase_bridge(cfg, world, HE, tsim, card)
+        stamp("bridge")
     if "mega" in run:
         l_mega, k9 = phase_mega(cfg, world, ref, card, HE, engine, tsim,
                                 transfer)
@@ -1350,7 +1598,7 @@ def main():
         return 0
 
     launch_paths = {"single": l_single, "batched": l_batch,
-                    "config5": l_c5, "mega": l_mega}
+                    "config5": l_c5, "mega": l_mega, "bridge": l_bridge}
     summary = {"kernels": []}
     for k in KERNELS:
         path = SUMMARY_PATH.get(k, "batched")
@@ -1358,6 +1606,14 @@ def main():
             m = k6["local"]
         elif k == "mega":
             m = k9["R=5"]
+        elif k == "decide_move_tiled":
+            m = k7[f"{TILES[0][0]}x{TILES[0][1]}"]
+        elif k == "render":
+            m = k_c5["render"]
+        elif k == "ordered_add":
+            m = k_add
+        elif k == "rain_ticks":
+            m = k_rain
         else:
             m = single[k] if path == "single" else batched[k]
         entry = {"name": k, "route": "cuda", "source": KERNELS[k][0],
@@ -1374,7 +1630,9 @@ def main():
                  "launches_single_path": l_single[k],
                  "launches_batched_path": l_batch[k],
                  "launches_config5_path": l_c5[k],
-                 "launches_mega_path": l_mega[k]}
+                 "launches_mega_path": l_mega[k],
+                 "launches_bridge_path": l_bridge[k],
+                 "on_path": k not in OFF_PATH}
         if k in single and path == "batched":
             entry["single_world"] = {x: single[k][x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1387,7 +1645,16 @@ def main():
             entry["partial_segment"] = {x: k9["R=3"][x] for x in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "shape")}
-        if k in k_c5:
+        if k == "decide_move_tiled":
+            t1 = f"{TILES[1][0]}x{TILES[1][1]}"
+            entry["tiles_" + t1] = {x: k7[t1][x] for x in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "shape")}
+        if k == "render":
+            entry["headline_256"] = {x: k8[x] for x in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "shape")}
+        if k in k_c5 and k != "render":
             entry["config5"] = {x: k_c5[k][x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape")}

@@ -457,3 +457,68 @@ def test_rain_ticks_vmap_launches_once(gen):
     got = torch.func.vmap(lambda *a: HE.rain_ticks(*a, 6))(*args)
     assert HE.launches["rain_ticks"] == 1
     _same(got, HE.rain_ticks_batched(*args, 6))
+
+
+def _one_world(g, H, W, D):
+    sdir4, wnd, planes, masks, inter, dest, randoms = _dm_inputs(g, 1, H, W,
+                                                                 D)
+    return (sdir4[0], wnd[0], tuple(p[0] for p in planes),
+            *(m[0] for m in masks), inter, dest,
+            tuple(r[0] for r in randoms))
+
+
+@pytest.mark.parametrize("shape,tiles", [((64, 96), ((16, 32), (32, 48))),
+                                         ((256, 256), ((64, 64), (16, 32)))])
+def test_decide_move_tiled_matches_plain_and_k1(gen, shape, tiles):
+    """K7 at two tilings against its plain version and against K1 on the
+    same inputs, one launch per call."""
+    H, W = shape
+    cfg = Config(WIDTH=W, HEIGHT=H, VEHICLE_MALFUNCTION_CHANCE=0.01,
+                 VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3)
+    args = _one_world(gen, H, W, 10)
+    k1 = HE.decide_move(cfg, *args)
+    for th, tw in tiles:
+        n0 = HE.launches["decide_move_tiled"]
+        got = HE.decide_move_tiled(cfg, *args, th, tw)
+        assert HE.launches["decide_move_tiled"] == n0 + 1
+        _same(got, HE.decide_move_tiled_plain(cfg, *args, th, tw))
+        _same(got, k1)
+
+
+@pytest.mark.parametrize("shape", [(37, 300), (1024, 1024)])
+def test_render_kernel_matches_plain(gen, shape):
+    from trafficsimulation_tpu_torch.ops import render as R
+    H, W = shape
+    cell = _rint(gen, 0, 20, H, W).to(torch.uint8)
+    stop, rain = _bern(gen, 0.3, H, W), _bern(gen, 0.3, H, W)
+    vstate = _rint(gen, 0, 7, H, W).to(torch.uint8)
+    n0 = HE.launches["render"]
+    got = R.render_planes(cell, stop, rain, vstate)
+    assert HE.launches["render"] == n0 + 1
+    _same((got,), (R.render_planes_plain(cell, stop, rain, vstate),))
+
+
+def test_tiled_and_render_reject_what_they_do_not_take(gen):
+    from trafficsimulation_tpu_torch.ops import render as R
+    H, W = 64, 96
+    cfg = Config(WIDTH=W, HEIGHT=H)
+    args = list(_one_world(gen, H, W, 8))
+    with pytest.raises(ValueError):          # 24 does not divide 64
+        HE.decide_move_tiled(cfg, *args, 24, 32)
+    bad = list(args)
+    bad[1] = args[1].to(torch.int64)         # wnd
+    with pytest.raises(TypeError):
+        HE.decide_move_tiled(cfg, *bad, 16, 32)
+    bad = list(args)
+    bad[7] = args[7][:32]                    # dest_id
+    with pytest.raises(ValueError):
+        HE.decide_move_tiled(cfg, *bad, 16, 32)
+    cell = _rint(gen, 0, 18, H, W).to(torch.uint8)
+    stop = _bern(gen, 0.3, H, W)
+    vstate = torch.zeros((H, W), dtype=torch.uint8, device="cuda")
+    with pytest.raises(TypeError):
+        R.render_planes(cell.to(torch.int32), stop, stop, vstate)
+    with pytest.raises(ValueError):
+        R.render_planes(cell, stop[:, :10], stop, vstate)
+    with pytest.raises(ValueError):
+        R.render_planes(cell, stop, stop, vstate.t())

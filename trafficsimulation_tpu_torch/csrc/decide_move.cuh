@@ -16,10 +16,11 @@
 // as values (K1 reads them from planes, K9 hashes them from the tick's
 // seeds).  The destination row select is one indexed load: byte
 // (dest & 3) of sdir4[dest >> 2], ND_NONE when dest >> 2 is past the
-// stack.  Neighbour reads outside the grid see the fills of the padded
-// shifts they replace: blocked (0xF) for the target byte, KINF for keys,
-// false for arrivals and sideswipe neighbours, true for the
-// start-of-tick blocked byte.
+// stack; the phase bodies take it as a functor (`GridSelect` on the
+// whole grid, K7's window select in decide_tiled.cu).  Neighbour reads
+// outside the grid see the fills of the padded shifts they replace:
+// blocked (0xF) for the target byte, KINF for keys, false for arrivals
+// and sideswipe neighbours, true for the start-of-tick blocked byte.
 #pragma once
 
 #include "common.cuh"
@@ -116,6 +117,15 @@ __device__ __forceinline__ int select_nd(const int* sdir4, int D4, int HW,
   return (int)((w >> ((dest & 3) * 8)) & 0xFFu);
 }
 
+// the select of a whole grid: row `dest` of the stack at cell c
+struct GridSelect {
+  __device__ __forceinline__ int operator()(const DMParams& p,
+                                            const Inputs& in, int dest,
+                                            int c, int y, int x) const {
+    return select_nd(in.sdir4, p.D4, p.H * p.W, dest, c);
+  }
+};
+
 // pallas_engine._resolve: direction (7 = none) and contraflow flag
 __device__ __forceinline__ void resolve(int nd, int head1, bool use_allow,
                                         bool allow, uint32_t wnd, int wkey,
@@ -137,10 +147,12 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
+template <class Select = GridSelect>
 __device__ __forceinline__ void dm_decide_cell(const DMParams& p,
                                                const Inputs& in, int* S,
                                                int c, float r_mal,
-                                               float r_side, int r_reroll) {
+                                               float r_side, int r_reroll,
+                                               const Select& sel = Select()) {
   const int HW = p.H * p.W;
   const int y = c / p.W, x = c % p.W;
   uint32_t pa = (uint32_t)in.pa[c], pb = (uint32_t)in.pb[c];
@@ -201,7 +213,7 @@ __device__ __forceinline__ void dm_decide_cell(const DMParams& p,
   }
 
   const int dest14 = (int)fld(pa, PA_DEST_SH, 14);
-  const int nd0 = select_nd(in.sdir4, p.D4, HW, dest14, c);
+  const int nd0 = sel(p, in, dest14, c, y, x);
   int dir0;
   bool contra0;
   resolve(nd0, head1, false, false, 0u, 0, dir0, contra0);
@@ -258,9 +270,11 @@ __device__ __forceinline__ void dm_decide_cell(const DMParams& p,
 }
 
 // sub-round, phase 1: each mover publishes priority | direction
+template <class Select = GridSelect>
 __device__ __forceinline__ void dm_intent_cell(const DMParams& p,
                                                const Inputs& in, int* S,
-                                               int set, int c, int r_prio) {
+                                               int set, int c, int r_prio,
+                                               const Select& sel = Select()) {
   const int HW = p.H * p.W;
   const long hw = HW;
   const int* X = S + (long)set * N_SET * hw;
@@ -274,7 +288,7 @@ __device__ __forceinline__ void dm_intent_cell(const DMParams& p,
   const uint32_t pb = (uint32_t)X[P_PB * hw + c];
   const uint32_t pd = (uint32_t)X[P_PD * hw + c];
   const int dest_c = (int)fld(pa, PA_DEST_SH, 14);
-  const int nd = select_nd(in.sdir4, p.D4, HW, dest_c, c);
+  const int nd = sel(p, in, dest_c, c, y, x);
   const int h1 = (int)fld(pa, PA_HEAD_SH, 3);
   const bool at_dest_c = in.dest_id[c] >= 0 && dest_c == in.dest_id[c];
   const int csteps = (int)fld(pd, PD_CFSTEPS_SH, 5);

@@ -40,6 +40,13 @@ _ARGTYPES = {
     # flags, scratch, B, H, W, stream
     "tsim_decide_move": [P, P, P, I, P] + [P] * 6 + [P] * 4 + [P]
     + [P] * 4 + [P] * 6 + [P, P, I, I, I, P],
+    # the arguments of tsim_decide_move up to the out planes, then flags,
+    # window planes (4-byte, 1-byte), scratch, H, W, th, tw, halo, stream
+    "tsim_decide_tiled": [P, P, P, I, P] + [P] * 6 + [P] * 4 + [P]
+    + [P] * 4 + [P] * 6 + [P] * 4 + [I] * 5 + [P],
+    # colour table, cell, stop, rain, vehicle classes, out, HW, the light
+    # and controlled-road codes, stream
+    "tsim_render_planes": [P] * 6 + [I] * 3 + [P],
     # K0, pen4, legal4, out, D, HW, tp2, stream
     "tsim_build_sdir": [P, P, P, P, I, I, I, P],
     # K0, pen4b, legal4, out, D, HW, tp2, B, stream

@@ -15,6 +15,10 @@ version (the counterpart of the JAX package's `ops/pallas_engine.py`).
   K6 `select_rows`         <- pallas_engine.select_rows_pallas: every
                               select of the tick under hierarchical
                               routing (`ops/hier.hier_select`)
+  K7 `decide_move_tiled`   <- pallas_engine.decide_move_tiled: K1's
+                              function over halo-tiled windows; on no
+                              path (`step_engine` never picks it, as
+                              JAX's `pick_tile` never returns a tile)
   K9 `mega_segment`        <- megakernel.run_segment_mega (_mega_kernel):
                               one launch per routing segment under the
                               megakernel gate (`ops/megakernel.py`)
@@ -92,7 +96,8 @@ KINF = 0x7FFFFFFF
 
 launches = {"decide_move": 0, "build_sdir": 0, "build_sdir_batched": 0,
             "build_wavefront": 0, "prefix_planes": 0, "ordered_add": 0,
-            "select_rows": 0, "mega": 0, "rain_ticks": 0}
+            "select_rows": 0, "mega": 0, "rain_ticks": 0,
+            "decide_move_tiled": 0, "render": 0}
 
 
 def reset_launches():
@@ -582,6 +587,9 @@ class _Kernel(torch.autograd.Function):
 
 # ---- K1 --------------------------------------------------------------------
 
+_N_SCRATCH_DM = 20        # K1's per-world scratch planes (decide_move.cuh)
+
+
 def _dm_params(cfg: Config):
     ip = (ctypes.c_int * 16)(
         int(cfg.VEHICLE_MALFUNCTION_ACTIVE),
@@ -711,6 +719,140 @@ def decide_move(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
     `dest_id` int32.  Returns (pa, pb, pc, pd, pe, pl, flags int32)."""
     return _DecideMove.apply(cfg, sdir4, wnd, *planes, stop_map, rain_map,
                              ped_block, intersection, dest_id, *randoms)
+
+
+# ---- K7 --------------------------------------------------------------------
+
+# Contamination depth of one tick at a window edge: the decide phase
+# reads neighbours 1 away; each movement sub-round 3 (a mover's key
+# depends on its target's occupancy, a cell's commit on keys 2 away):
+# 1 + 5 x 3 = 16 at VEHICLE_MAX_SPEED = 5, so the ring is just enough.
+TILE_HALO = 16
+
+
+def pick_tile(cfg: Config, D: int):
+    """Largest [th, tw] tile whose window fits the Mosaic scoped-vmem
+    budget of the JAX package's tiled kernel, or None (JAX's
+    `pallas_engine.pick_tile`, copied as it is: ~1060 bytes per window
+    cell, a 15 MB budget and a halo ratio under 1.6; None at every
+    shape the repo runs)."""
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    P = TILE_HALO
+    for th, tw in ((128, 128), (128, 64), (64, 64)):
+        if H % th or W % tw:
+            continue
+        win = (th + 2 * P) * (tw + 2 * P)
+        need = 1060 * win + D * win
+        if need < 15 * 1024 * 1024 and win < 1.6 * th * tw:
+            return th, tw
+    return None
+
+
+def _check_tiling(H: int, W: int, th: int, tw: int):
+    if th <= 0 or tw <= 0 or H % th or W % tw:
+        raise ValueError(f"tile ({th}, {tw}) does not divide the grid "
+                         f"({H}, {W})")
+
+
+def decide_move_tiled_plain(cfg: Config, sdir4, wnd, planes, stop_map,
+                            rain_map, ped_block, intersection, dest_id,
+                            randoms, th: int, tw: int):
+    """Plain version of K7, JAX's structure: every plane padded by
+    TILE_HALO with JAX's fills (nothing present, stop 1, no roads or
+    destinations, draws that never fire), `decide_move_core` on each
+    [th + 2P, tw + 2P] window, the interiors assembled."""
+    H, W = planes[0].shape
+    _check_tiling(H, W, th, tw)
+    P = TILE_HALO
+
+    def pad(x, fill):
+        out = torch.full((*x.shape[:-2], H + 2 * P, W + 2 * P), fill,
+                         dtype=x.dtype, device=x.device)
+        out[..., P:P + H, P:P + W] = x
+        return out
+    r_mal, r_side, r_reroll, r_prio = randoms
+    padded = (pad(sdir4, ND_NONE4), pad(wnd, ND_NONE4),
+              *(pad(p, 0) for p in planes[:5]), pad(planes[5], 0.0),
+              pad(stop_map, True), pad(rain_map, False),
+              pad(ped_block, False), pad(intersection, False),
+              pad(dest_id, -1), pad(r_mal, 1.0), pad(r_side, 1.0),
+              pad(r_reroll, 1), pad(r_prio, 0))
+    outs = [torch.empty_like(p) for p in planes] + [
+        torch.empty_like(planes[0])]
+    for y in range(0, H, th):
+        for x in range(0, W, tw):
+            win = [t[..., y:y + th + 2 * P, x:x + tw + 2 * P]
+                   for t in padded]
+            res = decide_move_core(cfg, *win)
+            for o, v in zip(outs, res):
+                o[y:y + th, x:x + tw] = v[P:P + th, P:P + tw]
+    return tuple(outs)
+
+
+def decide_move_tiled(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
+                      ped_block, intersection, dest_id, randoms,
+                      th: int, tw: int):
+    """K7, K1's decide + move for one world over [th, tw] tiles, each
+    run on its window with a TILE_HALO ring (th | H and tw | W).  Takes
+    K1's single-world arguments and returns its outputs, bit-equal.
+
+    Replaces `pallas_engine.decide_move_tiled` (its `pallas_call`,
+    ops/pallas_engine.py).  Source: csrc/decide_tiled.cu.  On no path:
+    `engine.step_engine` runs K1 (dense) or the plain core with K6
+    (hierarchical), as JAX's gate (`pick_tile`) never picks the tiled
+    kernel.  On the H100 it is bound by device-memory bytes: K1's planes
+    read once per window, so (th + 2P)(tw + 2P) / (th tw) times K1's
+    bytes.  Design: one launch, one CTA per tile; the CTA copies its
+    window (JAX's pad fills outside the grid) into device memory and
+    runs K1's phase bodies over it with `__syncthreads()` between the
+    2K + 2 phases; the row select reads the whole grid's stack at the
+    cell's global coordinate; only the interior is written."""
+    pa = planes[0]
+    H, W = pa.shape
+    _check_tiling(H, W, th, tw)
+    if not _on_cuda(pa):
+        return decide_move_tiled_plain(cfg, sdir4, wnd, planes, stop_map,
+                                       rain_map, ped_block, intersection,
+                                       dest_id, randoms, th, tw)
+    dev = pa.device
+    r_mal, r_side, r_reroll, r_prio = randoms
+    i32t, f32t, bt = torch.int32, torch.float32, torch.bool
+    D4 = sdir4.shape[0]
+    _check("sdir4", sdir4, i32t, (D4, H, W), dev)
+    for name, t, dt in (("wnd", wnd, i32t), ("pa", pa, i32t),
+                        ("pb", planes[1], i32t), ("pc", planes[2], i32t),
+                        ("pd", planes[3], i32t), ("pe", planes[4], i32t),
+                        ("pl", planes[5], f32t), ("stop_map", stop_map, bt),
+                        ("rain_map", rain_map, bt),
+                        ("ped_block", ped_block, bt),
+                        ("intersection", intersection, bt),
+                        ("dest_id", dest_id, i32t),
+                        ("r_mal", r_mal, f32t), ("r_side", r_side, f32t),
+                        ("r_reroll", r_reroll, i32t),
+                        ("r_prio", r_prio, i32t)):
+        _check(name, t, dt, (H, W), dev)
+    P = TILE_HALO
+    T = (H // th) * (W // tw)
+    n = (th + 2 * P) * (tw + 2 * P)
+    outs = [torch.empty((H, W), dtype=i32t, device=dev) for _ in range(5)]
+    out_pl = torch.empty((H, W), dtype=f32t, device=dev)
+    flags = torch.empty((H, W), dtype=i32t, device=dev)
+    win32 = torch.empty((T, 12, n), dtype=i32t, device=dev)
+    win8 = torch.empty((T, 4, n), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((T, _N_SCRATCH_DM, n), dtype=i32t, device=dev)
+    ip, fp = _dm_params(cfg)
+    _call("tsim_decide_tiled", ctypes.cast(ip, ctypes.c_void_p),
+          ctypes.cast(fp, ctypes.c_void_p), _ptr(sdir4), ctypes.c_int(D4),
+          _ptr(wnd), *[_ptr(p) for p in planes],
+          _ptr(stop_map), _ptr(rain_map), _ptr(ped_block),
+          _ptr(intersection), _ptr(dest_id), _ptr(r_mal), _ptr(r_side),
+          _ptr(r_reroll), _ptr(r_prio),
+          *[_ptr(o) for o in outs], _ptr(out_pl), _ptr(flags),
+          _ptr(win32), _ptr(win8), _ptr(scratch), ctypes.c_int(H),
+          ctypes.c_int(W), ctypes.c_int(th), ctypes.c_int(tw),
+          ctypes.c_int(P), _stream(dev))
+    launches["decide_move_tiled"] += 1
+    return (*outs, out_pl, flags)
 
 
 # ---- K2 / K5 ----------------------------------------------------------------
@@ -1081,7 +1223,6 @@ MEGA_OUTPUTS = ("pa", "pb", "pc", "pd", "pe", "pl", "stop", "food", "waste",
 _ALGO_ID = {"DISABLED": 0, "FIXED_TIME": 1, "QUEUE_ACTUATED": 2,
             "PRESSURE_CONTROL": 3, "NEIGHBOR_PRESSURE_CONTROL": 4,
             "NEIGHBOR_GREEN_WAVE": 5}
-_N_SCRATCH_DM = 20        # K1's per-world scratch planes (decide_move.cuh)
 
 
 def _mega_params(cfg: Config, dims: dict):

@@ -497,9 +497,10 @@ def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
 
 
 class TrafficSim:
-    """Host-side wrapper: `reset`, `step(n)` and `stats()` with the JAX
-    `TrafficSim`'s keys.  `TrafficSim(cfg, seed=s)` generates its world
-    (`reset`) on `device`; `from_world` starts from an existing one."""
+    """Host-side wrapper: `reset`, `step(n)`, `stats()` with the JAX
+    `TrafficSim`'s keys, `render()` and the query and spawn API.
+    `TrafficSim(cfg, seed=s)` generates its world (`reset`) on `device`;
+    `from_world` starts from an existing one."""
 
     def __init__(self, cfg: Config, world: World = None, seed: int = 0,
                  device="cuda"):
@@ -568,6 +569,74 @@ class TrafficSim:
             d.kind, d.hw_pos, d.hw_valid, DF, dest_rid=d.rid, fused=False)
         self.world = w.replace(demand=new,
                                key=_key_tensor(key, w.key.device))
+
+    # -- reference-parity query API (the JAX `TrafficSim`'s) ---------------
+    def get_traffic_lights(self) -> np.ndarray:
+        """Flat positions of the valid traffic lights."""
+        ls = self.world.lights_static
+        return ls.pos[ls.valid].cpu().numpy()
+
+    def num_active_vehicles(self) -> int:
+        return int(self.world.vehicles.active.sum())
+
+    def spawn_vehicle(self, origin_flat: int, dest_id: int,
+                      kind: int = 0) -> bool:
+        """Manual spawn (the bridge's `/create_vehicle` and
+        `/create_service_vehicle`): the first free pool slot at
+        `origin_flat`, bound for `dest_id`; a service vehicle (kind 2
+        food, 3 waste) targets the neediest routable block instead.
+        False when the cell is occupied or no slot is free.  Host edits
+        of one slot and one `veh_map` cell, on the world's device."""
+        w = self.world
+        if int(w.veh_map.reshape(-1)[origin_flat]) >= 0:
+            return False
+        free = torch.nonzero(~w.vehicles.active).reshape(-1)
+        if free.numel() == 0:
+            return False
+        slot = int(free[0])
+        sb = -1
+        if kind >= 2:
+            bs, bst = w.blocks_static, w.blocks
+            DF = (RID_SPACE if w.dests.rid is not None
+                  else w.cost_field.shape[0])
+            sd, ed = bs.service_dest.cpu().numpy(), bs.dest.cpu().numpy()
+            tgt = np.where((sd >= 0) & (sd < DF), sd, ed)
+            valid = bs.valid.cpu().numpy() & (tgt >= 0) & (tgt < DF)
+            if kind == 2:
+                urg = bs.food_cap.cpu().numpy() - bst.food.cpu().numpy()
+            else:
+                urg = bst.waste.cpu().numpy()
+            sb = int(np.argmax(np.where(valid, urg, -1)))
+            dest_id = int(tgt[sb])
+        load = (self.cfg.SERVICE_VEHICLE_MAX_LOAD_FOOD if kind == 2
+                else 0.0)
+        v = w.vehicles
+        edits = dict(active=True, pos=origin_flat, heading=-1, dest=dest_id,
+                     base_speed=0, kind=kind, parked=False,
+                     depart_time=w.elapsed, steps_traveled=0,
+                     service_phase=0, load=load, service_block=sb)
+        changed = {}
+        for name, val in edits.items():
+            t = getattr(v, name).clone()
+            t[slot] = val
+            changed[name] = t
+        veh_map = w.veh_map.clone()
+        veh_map.reshape(-1)[origin_flat] = slot
+        self.world = w.replace(vehicles=v.replace(**changed),
+                               veh_map=veh_map)
+        return True
+
+    def render(self) -> torch.Tensor:
+        """The RGB framebuffer u8 [H, W, 3] on the world's device
+        (`ops/render.render_frame`; no pending-phase overlay, as in
+        JAX)."""
+        from .ops.render import render_frame
+        w = self.world
+        return render_frame(w.grid, w.stop_map, w.rain_map, w.veh_map,
+                            w.vehicles,
+                            pending_mask=torch.zeros_like(w.stop_map),
+                            level=self.cfg.AGENT_PORTRAYAL_LEVEL,
+                            dummy_overlay=self.cfg.USE_DUMMY_AGENTS)
 
     def stats(self) -> dict:
         """Dashboard statistics, the keys of the JAX `TrafficSim.stats`."""

@@ -37,6 +37,10 @@ HEADLINE_CFG = dict(WIDTH=256, HEIGHT=256, MAX_VEHICLES=10_000,
                     MAX_FIELD_DESTS=640)
 HEADLINE_SEED = 0
 HEADLINE_VEHICLES = 10_000
+# the sha256 of JAX's framebuffer of the headline end state
+# (tools/make_torch_frame_digest.py)
+HEADLINE_FRAME = Path(__file__).resolve().parent / "data" / \
+    "headline256_frame_digest.json"
 # JAX's config #5 world cut to 512^2 (tools/make_torch_hier_digest.py)
 HIER_DIGEST = Path(__file__).resolve().parent / "data" / \
     "config5_hier512_digest.json"
