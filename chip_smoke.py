@@ -25,7 +25,10 @@ Phases (any failure raises and the script exits nonzero):
      worlds over 200 ticks, bit-equal to its plain version;
   3. the service FSM's ordered scatter-add on a case whose f32 sum
      depends on the order: the card must give the CPU's update-order
-     result bit for bit;
+     result bit for bit; then on its inputs of the generated headline
+     world's first tick (and, in group `config5`, of config #5's),
+     captured from a one-tick `run_chunk`, against its plain version
+     with its median, device time and bound;
   4. generation: the headline world (BASELINE config #2) generated on
      the card from seed 0 (`sim.init_world`, `measure_and_shrink`,
      `inject_vehicles(..., 10_000)`) must equal the shipped snapshot of
@@ -77,8 +80,8 @@ Phases (any failure raises and the script exits nonzero):
      generated headline world (D4 = 152), captured from a one-tick
      `run_chunk`; K7 at tiles (64, 64) and (16, 32) must equal its plain
      version and K1 bit for bit, in one launch per call; medians, device
-     times, and the bound (K1's bytes and operations times the
-     window-to-interior ratio);
+     times, and the bound (K1's bytes and operations: the function's,
+     at every tiling; the windows' bytes are reported beside it);
  13. the framebuffer (group `render`): the port's `TrafficSim.render` of
      its 23-tick headline end state must hash to the sha256 of JAX's
      `render_frame` of that end state (`data/headline256_frame_digest.
@@ -89,8 +92,9 @@ Phases (any failure raises and the script exits nonzero):
  14. the host bridge (group `bridge`): `BridgeState` over the generated
      headline world on the card; one group's axis lights forced to stop
      and flushed must stop on the next tick and the override must clear,
-     the group forced to go must have no light stopped a tick later; the
-     bridge's 20-tick chunk with its kernel launches checked; an
+     the group forced to go must have no light stopped a tick later;
+     three chunks of the stepping loop's body (flush, `step(20)`,
+     stats), timed, with their kernel launches checked; an
      ordinary and a food service vehicle spawned; the `/state` and
      `/metrics` dicts; the frame shows the spawned vehicles.
 
@@ -557,12 +561,6 @@ def phase_ordered_add(HE):
                              f"update-order fold {want}")
     log(f"ordered scatter-add: card == CPU update order bit for bit "
         f"({got.tolist()})")
-    b, i, v = base.cuda(), idx.cuda(), vals.cuda()
-    # base and out [2, 3] f32, idx i64 and vals f32 [2, 6]; one add each
-    return measure("ordered_add", lambda: (HE.ordered_add(b, i, v),),
-                   lambda: (HE.ordered_add_plain(b, i, v),),
-                   2 * 3 * 4 * 2 + 2 * 6 * 12, 12, "[2, 3] += [2, 6]",
-                   lib=None)
 
 
 def compare_leaves(name, ref: dict, got: dict):
@@ -1078,6 +1076,8 @@ def phase_config5(HE, engine, tsim, card, prng, Config):
         f"{idle:.3f}")
     es = tsim._enter_engine(cfg3, w40)
     kern = config5_kernels(HE, engine, cfg3, w40, es)
+    kern["ordered_add"] = ordered_add_tick(cfg3, w40, HE, tsim,
+                                           "config #5")
     # the framebuffer as the JAX bench times it: one warm-up, then the
     # mean of 5 synchronized frames
     sim5 = tsim.TrafficSim.from_world(cfg3, w40)
@@ -1305,31 +1305,49 @@ def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
     return launches, out
 
 
-def k1_tick_inputs(cfg, world, HE, tsim):
-    """K1's arguments (cfg, sdir4, wnd, planes, stop, rain, ped,
-    intersection, dest_id, randoms) on the first tick of `world` on the
-    per-tick path, captured from a one-tick `run_chunk`."""
+def tick_inputs(cfg, world, HE, tsim, name: str):
+    """The arguments of the wrapper `HE.<name>` on the first tick of
+    `world` on the per-tick path, captured from a one-tick `run_chunk`
+    (the wrapper must be called once in that tick)."""
     seen = []
-    orig = HE.decide_move
+    orig = getattr(HE, name)
 
     def spy(*a):
         seen.append(a)
         return orig(*a)
-    HE.decide_move = spy
+    setattr(HE, name, spy)
     try:
         with mega_env(False):
             tsim.run_chunk(cfg, world, 1)
     finally:
-        HE.decide_move = orig
+        setattr(HE, name, orig)
     if len(seen) != 1:
-        raise AssertionError(f"one tick called K1 {len(seen)} times")
+        raise AssertionError(f"one tick called {name} {len(seen)} times")
     return seen[0]
+
+
+def ordered_add_tick(cfg, world, HE, tsim, label: str) -> dict:
+    """The service FSM's ordered add on its inputs of the first tick of
+    `world` (both tanks of every block, one update per destination)
+    against its plain version.  No library call: torch's CUDA
+    scatter-add folds duplicates in atomic order, not update order."""
+    b, i, v = tick_inputs(cfg, world, HE, tsim, "ordered_add")
+    R, T = b.shape
+    n = i.shape[1]
+    adds = int(((i >= 0) & (i < T)).sum())
+    # base read and out written f32 [R, T]; idx i64 and vals f32 [R, n];
+    # one add per update in range
+    return measure(f"ordered_add at {label}",
+                   lambda: (HE.ordered_add(b, i, v),),
+                   lambda: (HE.ordered_add_plain(b, i, v),),
+                   R * T * 4 * 2 + R * n * 12, adds,
+                   f"[{R}, {T}] += [{R}, {n}] ({label})", lib=None)
 
 
 def phase_tiled(cfg, world, HE, tsim):
     """K7 on the headline's first-tick inputs at the tilings TILES:
     bit-equal to its plain version and to K1, one launch per call."""
-    kcfg, *a = k1_tick_inputs(cfg, world, HE, tsim)
+    kcfg, *a = tick_inputs(cfg, world, HE, tsim, "decide_move")
     H, W = cfg.HEIGHT, cfg.WIDTH
     HW = H * W
     P = HE.TILE_HALO
@@ -1347,15 +1365,19 @@ def phase_tiled(cfg, world, HE, tsim):
             raise AssertionError("decide_move_tiled: not one launch")
         compare(f"decide_move_tiled {th}x{tw} vs K1", got, k1)
         del got
+        # the bound is the function's (K1's bytes and operations) at
+        # every tiling; the window's halo re-reads are this design's
+        # traffic, reported beside it
         ratio = (th + 2 * P) * (tw + 2 * P) / (th * tw)
         out[f"{th}x{tw}"] = m = measure(
             f"decide_move_tiled {th}x{tw}",
             lambda: HE.decide_move_tiled(kcfg, *a, th, tw),
             lambda: HE.decide_move_tiled_plain(kcfg, *a, th, tw),
-            k1_bytes * ratio, k1_ops * ratio,
+            k1_bytes, k1_ops,
             f"{H}x{W}, D4 = {a[0].shape[0]}, tiles {th}x{tw}, "
             f"{(H // th) * (W // tw)} windows", reps=10)
         m["window_ratio"] = ratio
+        m["window_bytes"] = k1_bytes * ratio
     log(f"K7 equals K1 on the headline's first tick ({present} vehicles) "
         f"at tiles {TILES}; K1 on the same inputs {k1_ms:.4f} ms")
     REPORT["tiled"] = {"k1_ms": k1_ms, **out}
@@ -1424,9 +1446,9 @@ def phase_bridge(cfg, world, HE, tsim, card):
         raise AssertionError("bridge: the flushed overrides are not on the "
                              "card")
     ticks = 20        # the bridge loop's ticks_per_frame
-    HE.reset_launches()
+    n_chunks = 3
     with mega_env(False):
-        _, t1 = timed(lambda: sim.step(1))
+        sim.step(1)
         stop = sim.world.lights.light_stop
         if not bool(stop[idx].all()):
             raise AssertionError("bridge: forced axis lights not stopped")
@@ -1435,21 +1457,30 @@ def phase_bridge(cfg, world, HE, tsim, card):
         grp = torch.as_tensor(bridge.group_lights(g), device=lf.device)
         bridge.force_lights(bridge.group_lights(g), stop=False)
         bridge.flush_into_world()
-        _, t2 = timed(lambda: sim.step(1))
+        sim.step(1)
         if bool(sim.world.lights.light_stop[grp].any()):
             raise AssertionError("bridge: forced go left a light stopped")
-        _, t_chunk = timed(lambda: sim.step(ticks - 2))
-        t_chunk += t1 + t2
+
+        def chunk():
+            # the body of `launch`'s stepping loop (no overrides pending)
+            bridge.flush_into_world()
+            sim.step(ticks)
+            return sim.stats()
+        HE.reset_launches()
+        t_chunks = [timed(chunk)[1] for _ in range(n_chunks)]
     launches = dict(HE.launches)
     # each step call rebuilds the routing planes at its start, then once
     # per PATHFINDING_COOLDOWN ticks
-    segs = sum(-(-n // cfg.PATHFINDING_COOLDOWN) for n in (1, 1, ticks - 2))
+    segs = n_chunks * -(-ticks // cfg.PATHFINDING_COOLDOWN)
     check_launches("bridge loop", launches, {
-        "decide_move": ticks, "prefix_planes": ticks, "rain_ticks": ticks,
-        "build_sdir": segs, "build_wavefront": segs, "select_rows": 0,
-        "mega": 0})
+        "decide_move": n_chunks * ticks, "prefix_planes": n_chunks * ticks,
+        "rain_ticks": n_chunks * ticks, "build_sdir": segs,
+        "build_wavefront": segs, "select_rows": 0, "mega": 0})
+    t_chunk = statistics.median(t_chunks)
+    launches = {k: v // n_chunks for k, v in launches.items()}
     # spawns: a vehicle on a free road cell bound for destination 0, a
-    # food service vehicle on a free highway entrance
+    # food service vehicle on a free highway entrance (the bridge's
+    # /create_service_vehicle), else on another free road cell
     vm = sim.world.veh_map.reshape(-1)
     road = torch.nonzero(world.grid.is_road.reshape(-1) & (vm < 0))
     start = int(road[len(road) // 2])
@@ -1458,13 +1489,15 @@ def phase_bridge(cfg, world, HE, tsim, card):
         raise AssertionError("bridge: spawn refused")
     hw = [int(p) for p in world.dests.hw_pos[world.dests.hw_valid].tolist()
           if int(sim.world.veh_map.reshape(-1)[p]) < 0]
+    hw.append(int(road[len(road) // 3]))
     if not sim.spawn_vehicle(hw[0], -1, kind=2):
         raise AssertionError("bridge: service spawn refused")
     if sim.num_active_vehicles() != n0 + 2:
         raise AssertionError("bridge: spawns not in the pool")
     state = bridge.state()
     metrics = sim.stats()
-    if state["tick"] != ticks or metrics["tick"] != ticks or \
+    n_ticks = 2 + n_chunks * ticks
+    if state["tick"] != n_ticks or metrics["tick"] != n_ticks or \
             state["active_vehicles"] != n0 + 2:
         raise AssertionError(f"bridge: /state {state}")
     json.dumps(metrics)
@@ -1476,12 +1509,15 @@ def phase_bridge(cfg, world, HE, tsim, card):
         raise AssertionError("bridge: the frame does not show the spawns")
     log(f"bridge ({card}): axis lights {ids.tolist()} of group {g} forced, "
         f"flushed and stopped on the next tick, the group forced to go; "
-        f"{ticks} ticks in {t_chunk * 1e3:.1f} ms with launches {launches}; "
+        f"the loop's chunk (flush, step({ticks}), stats) in "
+        f"{[round(t * 1e3, 3) for t in t_chunks]} ms (median "
+        f"{t_chunk * 1e3:.3f} ms) with launches per chunk {launches}; "
         f"spawned at "
         f"{start} and a food vehicle at {hw[0]}; /state {state}; /metrics "
         f"{len(metrics)} keys; frame {tuple(frame.shape)} in "
         f"{t_frame * 1e3:.2f} ms")
-    REPORT["bridge"] = {"chunk_s": t_chunk, "ticks": ticks,
+    REPORT["bridge"] = {"chunk_s": t_chunk, "chunks_s": t_chunks,
+                        "ticks": ticks,
                         "launches": launches, "state": state,
                         "frame_ms": t_frame * 1e3}
     return launches
@@ -1550,11 +1586,16 @@ def main():
         REPORT["launch_floor_ms"] = floor
         stamp("kernels")
     if "ordered_add" in run:
-        k_add = phase_ordered_add(HE)
-    if run & {"headline", "mega", "tiled", "render", "bridge"}:
+        phase_ordered_add(HE)
+    if run & {"ordered_add", "headline", "mega", "tiled", "render",
+              "bridge"}:
         cfg, world, ref = phase_generation(snapshot, tsim, transfer, prng,
                                            Config)
         stamp("generation")
+    if "ordered_add" in run:
+        k_add = ordered_add_tick(cfg, world, HE, tsim, "the headline")
+        REPORT["ordered_add"] = k_add
+        stamp("ordered_add")
     if "tiled" in run:
         k7 = phase_tiled(cfg, world, HE, tsim)
         torch.cuda.empty_cache()

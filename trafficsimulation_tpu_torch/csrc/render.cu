@@ -9,10 +9,11 @@
 //
 // Bound on the H100: device-memory bytes, 4 read and 3 written a pixel
 // (7.3 MB at 1024^2, about 2.2 us at 3.35 TB/s).  Design: one thread per
-// pixel; the 18-entry palette and the seven override colours sit in
-// __constant__ memory (uploaded when they change), read as a broadcast;
-// each channel plane is written by consecutive threads at consecutive
-// bytes.
+// pixel; the 18-entry palette and the seven override colours come as
+// one by-value kernel argument, which one thread per block copies into
+// shared memory at constant offsets (a data-dependent index into the
+// argument itself would make nvcc copy it to each thread's stack); each
+// channel plane is written by consecutive threads at consecutive bytes.
 #include <cstring>
 
 #include "common.cuh"
@@ -24,14 +25,25 @@ constexpr int N_CELL_TYPES = 18;
 // light stop, controlled-road stop, vehicle, service vehicle, parked,
 // malfunction, collision
 constexpr int N_COLOURS = N_CELL_TYPES + 7;
-__constant__ uint8_t c_colours[N_COLOURS * 3];
+constexpr int N_COLOUR_WORDS = (N_COLOURS * 3 + 3) / 4;
+struct Colours {
+  uint32_t w[N_COLOUR_WORDS];
+};
 
-__global__ void render_planes(const uint8_t* __restrict__ cell,
+__global__ void render_planes(const Colours colours,
+                              const uint8_t* __restrict__ cell,
                               const uint8_t* __restrict__ stop,
                               const uint8_t* __restrict__ rain,
                               const uint8_t* __restrict__ vstate,
                               uint8_t* __restrict__ out, int HW,
                               int light_code, int ctrl_code) {
+  __shared__ uint32_t table_w[N_COLOUR_WORDS];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < N_COLOUR_WORDS; ++i) table_w[i] = colours.w[i];
+  }
+  __syncthreads();
+  const uint8_t* table = reinterpret_cast<const uint8_t*>(table_w);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= HW) return;
   const int code = cell[c];
@@ -42,10 +54,10 @@ __global__ void render_planes(const uint8_t* __restrict__ cell,
   if (code == light_code && st) k = N_CELL_TYPES;
   if (code == ctrl_code && st) k = N_CELL_TYPES + 1;
   for (int ch = 0; ch < 3; ++ch) {
-    float base = k >= 0 ? (float)c_colours[k * 3 + ch] : 0.0f;
+    float base = k >= 0 ? (float)table[k * 3 + ch] : 0.0f;
     if (rn) base = 0.5f * base + 0.5f * 128.0f;
     if (vs >= 1 && vs <= 5)
-      base = (float)c_colours[(N_CELL_TYPES + 1 + vs) * 3 + ch];
+      base = (float)table[(N_CELL_TYPES + 1 + vs) * 3 + ch];
     out[(long)ch * HW + c] = (uint8_t)(int)base;
   }
 }
@@ -60,21 +72,10 @@ extern "C" int tsim_render_planes(const uint8_t* colours, const uint8_t* cell,
                                   void* stream) {
   using namespace tsim;
   cudaStream_t s = (cudaStream_t)stream;
-  // the table goes to constant memory when it or the device changes
-  static uint8_t uploaded[N_COLOURS * 3];
-  static int uploaded_on = -1;
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return (int)rc;
-  if (dev != uploaded_on || memcmp(uploaded, colours, sizeof uploaded)) {
-    rc = cudaMemcpyToSymbolAsync(c_colours, colours, sizeof uploaded, 0,
-                                 cudaMemcpyHostToDevice, s);
-    if (rc != cudaSuccess) return (int)rc;
-    memcpy(uploaded, colours, sizeof uploaded);
-    uploaded_on = dev;
-  }
+  Colours table = {};
+  memcpy(table.w, colours, N_COLOURS * 3);
   if (HW > 0)
     render_planes<<<blocks_for(HW), THREADS, 0, s>>>(
-        cell, stop, rain, vstate, out, HW, light_code, ctrl_code);
+        table, cell, stop, rain, vstate, out, HW, light_code, ctrl_code);
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,6 @@ caller of the JAX package uses it, and neither does the port's path;
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -105,13 +104,12 @@ def render_frame(grid, stop_map, rain_map, veh_map, vehicles,
 # K8: the planar framebuffer pass
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=4)
-def _colour_table(palette: bytes) -> np.ndarray:
-    """The kernel's colour table, u8 [25, 3]: the 18 palette entries
-    (`palette`, C.PALETTE's bytes), then light stop, controlled-road
-    stop, and the five vehicle classes (csrc/render.cu)."""
+def _colour_table() -> np.ndarray:
+    """The kernel's colour table, u8 [25, 3]: the 18 palette entries,
+    then light stop, controlled-road stop, and the five vehicle classes
+    (csrc/render.cu)."""
     return np.ascontiguousarray(np.concatenate([
-        np.frombuffer(palette, np.uint8).reshape(-1, 3),
+        np.asarray(C.PALETTE, np.uint8),
         np.stack([C.COLOR_TRAFFIC_LIGHT_STOP, C.COLOR_CONTROLLED_ROAD_STOP,
                   C.COLOR_VEHICLE, C.COLOR_SERVICE_VEHICLE,
                   C.COLOR_VEHICLE_PARKED, C.COLOR_VEHICLE_MALFUNCTION,
@@ -174,8 +172,8 @@ def render_planes(cell, stop, rain, vstate) -> torch.Tensor:
     ops/pallas_render.py).  Source: csrc/render.cu.  On the H100 it is
     bound by device-memory bytes: 4 bytes read and 3 written a pixel
     (7.3 MB at 1024^2, about 2.2 us at 3.35 TB/s).  Design: one thread
-    per pixel, the colour table in constant memory, the three channel
-    planes written coalesced."""
+    per pixel, the colour table a by-value kernel argument staged in
+    shared memory, the three channel planes written coalesced."""
     if not _on_cuda(cell):
         return render_planes_plain(cell, stop, rain, vstate)
     H, W = cell.shape
@@ -185,7 +183,7 @@ def render_planes(cell, stop, rain, vstate) -> torch.Tensor:
     _check("rain", rain, torch.bool, (H, W), dev)
     _check("vstate", vstate, torch.uint8, (H, W), dev)
     out = torch.empty((3, H, W), dtype=torch.uint8, device=dev)
-    table = _colour_table(np.asarray(C.PALETTE, np.uint8).tobytes())
+    table = _colour_table()
     _call("tsim_render_planes", table.ctypes.data_as(ctypes.c_void_p),
           _ptr(cell), _ptr(stop), _ptr(rain), _ptr(vstate), _ptr(out),
           ctypes.c_int(H * W), ctypes.c_int(C.TRAFFIC_LIGHT),
