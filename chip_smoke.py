@@ -57,13 +57,15 @@ Phases (any failure raises and the script exits nonzero):
   9. hierarchical routing held to JAX: config #5 cut to 512^2
      (`init_world_hier` from seed 0, 25k vehicles) must match the JAX
      digest shipped in `trafficsimulation_tpu_torch/data/` on every leaf
-     (sha256), at init and after `run_chunk(20)`; launches K6 240, K2 4,
-     K3 4, K4 20, K1 0;
+     (sha256), at init and after `run_chunk(20)`; launches K1 20 (K1-hier,
+     the hierarchical select inside K1), K6 0, K2 4, K3 4, K4 20, and the
+     plain decide core never called;
  10. config #5 at full size: 1024^2, 100k vehicles, built on the card
      with the seconds of each stage; 20 ticks (launches checked as in
      9), then 20 more timed (steps/s, cell-updates/s), the device idle
-     share over 10 ticks, and K2, K3, K4 on that world's inputs against
-     their plain versions;
+     share over 10 ticks, and K1-hier, K2, K3, K4 on that world's inputs
+     (K1-hier's those of its first tick, captured from a one-tick
+     `run_chunk`) against their plain versions;
  11. the megakernel path (group `mega`, TSIM_MEGA_FORCE=1) from the
      generated headline world: `TrafficSim.step(23)` must reproduce
      JAX's end state as in 5, with K9 5 (four segments of 5 ticks and
@@ -164,9 +166,9 @@ KERNELS = {
 SUMMARY_PATH = {"build_sdir": "single", "select_rows": "config5",
                 "mega": "mega", "decide_move_tiled": "single",
                 "render": "single"}
-# on no path of the JAX package or the port (0 launches on every path);
-# chip_smoke.py drives them directly
-OFF_PATH = ("decide_move_tiled", "render")
+# on no path of the port (0 launches on every path); chip_smoke.py drives
+# them directly.  K6 serves the plain version of K1-hier's select.
+OFF_PATH = ("decide_move_tiled", "render", "select_rows")
 MEGA_DUR_COLS = [2, 3, 7]      # the stats rows' f32 duration sums
 CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
                ROUTING_HIER=True, INTERNAL_POPULATION_TRAFFIC_PER_DAY=100_000,
@@ -878,15 +880,33 @@ def phase_service(cfg, world, HE, mesh, tsim, transfer, keys):
 
 def hier_launches(cfg, n_ticks: int) -> dict:
     """Kernel launches of an n-tick `run_chunk` under hierarchical
-    routing: K6 twice per select, one select to decide and one per
-    movement sub-round; K2 and K3 once per routing segment; K4 every
-    tick; no K1."""
+    routing: K1 (K1-hier) and K4 every tick; K2 and K3 once per routing
+    segment; no K6 (the selects run inside K1-hier)."""
     segs = -(-n_ticks // max(1, cfg.PATHFINDING_COOLDOWN))
-    return {"select_rows": 2 * (1 + cfg.VEHICLE_MAX_SPEED) * n_ticks,
-            "build_sdir": segs, "build_wavefront": segs,
-            "prefix_planes": n_ticks, "decide_move": 0,
+    return {"select_rows": 0, "build_sdir": segs, "build_wavefront": segs,
+            "prefix_planes": n_ticks, "decide_move": n_ticks,
             "build_sdir_batched": 0,
             "rain_ticks": n_ticks if cfg.RAIN_ENABLED else 0}
+
+
+class no_plain_core:
+    """Inside the block, any call of the plain decide core
+    (`HE.decide_move_core`) raises: on a card path K1 or K1-hier runs
+    the tick's decide + move, never the plain version."""
+
+    def __init__(self, HE):
+        self.HE = HE
+
+    def __enter__(self):
+        self.orig = self.HE.decide_move_core
+
+        def spy(*a, **k):
+            raise AssertionError("the plain decide_move_core ran on a card "
+                                 "path")
+        self.HE.decide_move_core = spy
+
+    def __exit__(self, *exc):
+        self.HE.decide_move_core = self.orig
 
 
 def check_digest(name, digest: dict, leaves: dict):
@@ -941,7 +961,9 @@ def phase_hier_digest(HE, tsim, transfer, prng, snapshot, Config):
     ex0, near0 = check_digest("hier world (512^2) at init", dig["init"],
                               transfer.world_to_numpy(world))
     HE.reset_launches()
-    end, t_run = timed(lambda: tsim.run_chunk(cfg3, world, dig["ticks"]))
+    with no_plain_core(HE):
+        end, t_run = timed(lambda: tsim.run_chunk(cfg3, world,
+                                                  dig["ticks"]))
     launches = dict(HE.launches)
     check_launches("hier path (512^2)", launches,
                    hier_launches(cfg3, dig["ticks"]))
@@ -1041,17 +1063,19 @@ def phase_config5(HE, engine, tsim, card, prng, Config):
         raise AssertionError(f"config #5: {n0} vehicles, {unroutable} "
                              "unroutable blocks")
     HE.reset_launches()
-    w20, t20 = timed(lambda: tsim.run_chunk(cfg3, world, N_HIER_TICKS))
-    launches = dict(HE.launches)
-    check_launches("config #5 path", launches,
-                   hier_launches(cfg3, N_HIER_TICKS))
-    w40, t_timed = timed(lambda: tsim.run_chunk(cfg3, w20, N_HIER_TICKS))
-    sps = N_HIER_TICKS / t_timed
-    active = int(w40.vehicles.active.sum())
-    n_prof = 10
-    _, wall = timed(lambda: tsim.run_chunk(cfg3, w40, n_prof))
-    busy, per_tick, top = profile_ticks(
-        lambda: tsim.run_chunk(cfg3, w40, n_prof), n_prof)
+    with no_plain_core(HE):
+        w20, t20 = timed(lambda: tsim.run_chunk(cfg3, world, N_HIER_TICKS))
+        launches = dict(HE.launches)
+        check_launches("config #5 path", launches,
+                       hier_launches(cfg3, N_HIER_TICKS))
+        w40, t_timed = timed(lambda: tsim.run_chunk(cfg3, w20,
+                                                    N_HIER_TICKS))
+        sps = N_HIER_TICKS / t_timed
+        active = int(w40.vehicles.active.sum())
+        n_prof = 10
+        _, wall = timed(lambda: tsim.run_chunk(cfg3, w40, n_prof))
+        busy, per_tick, top = profile_ticks(
+            lambda: tsim.run_chunk(cfg3, w40, n_prof), n_prof)
     wall_ms = wall * 1e3 / n_prof
     idle = 1 - busy / wall_ms
     log("config #5 device time per tick by kernel (top 8; name, ms, "
@@ -1063,7 +1087,8 @@ def phase_config5(HE, engine, tsim, card, prng, Config):
                              f"moved ({moved})")
     segs = -(-N_HIER_TICKS // cfg3.PATHFINDING_COOLDOWN)
     log(f"config #5 ({card}): run_chunk({N_HIER_TICKS}) in {t20:.3f} s, "
-        f"launches {launches} (per tick: K6 "
+        f"launches {launches} (per tick: K1-hier "
+        f"{launches['decide_move'] / N_HIER_TICKS:g}, K6 "
         f"{launches['select_rows'] / N_HIER_TICKS:g}, K4 "
         f"{launches['prefix_planes'] / N_HIER_TICKS:g}; per routing segment: "
         f"K2 {launches['build_sdir'] / segs:g}, K3 "
@@ -1075,7 +1100,8 @@ def phase_config5(HE, engine, tsim, card, prng, Config):
         f"busy {busy:.3f} ms/tick in {per_tick:.0f} launches, idle share "
         f"{idle:.3f}")
     es = tsim._enter_engine(cfg3, w40)
-    kern = config5_kernels(HE, engine, cfg3, w40, es)
+    kern = {"decide_move": k1_hier_tick(cfg3, world, HE, tsim)}
+    kern.update(config5_kernels(HE, engine, cfg3, w40, es))
     kern["ordered_add"] = ordered_add_tick(cfg3, w40, HE, tsim,
                                            "config #5")
     # the framebuffer as the JAX bench times it: one warm-up, then the
@@ -1306,15 +1332,16 @@ def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
 
 
 def tick_inputs(cfg, world, HE, tsim, name: str):
-    """The arguments of the wrapper `HE.<name>` on the first tick of
-    `world` on the per-tick path, captured from a one-tick `run_chunk`
-    (the wrapper must be called once in that tick)."""
+    """The positional and keyword arguments of the wrapper `HE.<name>` on
+    the first tick of `world` on the per-tick path, captured from a
+    one-tick `run_chunk` (the wrapper must be called once in that
+    tick)."""
     seen = []
     orig = getattr(HE, name)
 
-    def spy(*a):
-        seen.append(a)
-        return orig(*a)
+    def spy(*a, **k):
+        seen.append((a, k))
+        return orig(*a, **k)
     setattr(HE, name, spy)
     try:
         with mega_env(False):
@@ -1331,7 +1358,7 @@ def ordered_add_tick(cfg, world, HE, tsim, label: str) -> dict:
     `world` (both tanks of every block, one update per destination)
     against its plain version.  No library call: torch's CUDA
     scatter-add folds duplicates in atomic order, not update order."""
-    b, i, v = tick_inputs(cfg, world, HE, tsim, "ordered_add")
+    (b, i, v), _ = tick_inputs(cfg, world, HE, tsim, "ordered_add")
     R, T = b.shape
     n = i.shape[1]
     adds = int(((i >= 0) & (i < T)).sum())
@@ -1344,10 +1371,49 @@ def ordered_add_tick(cfg, world, HE, tsim, label: str) -> dict:
                    f"[{R}, {T}] += [{R}, {n}] ({label})", lib=None)
 
 
+def k1_hier_tick(cfg, world, HE, tsim) -> dict:
+    """K1-hier on its inputs of the first tick of the config #5 world,
+    captured from a one-tick `run_chunk`, against its plain version (the
+    plain decide core with `hier_select`, two K6 launches per select)."""
+    from trafficsimulation_tpu_torch.ops import hier
+    (kcfg, *a), kw = tick_inputs(cfg, world, HE, tsim, "decide_move")
+    local4, consts = kw["hier"]
+    sdir4, wnd, planes, stop, rain, ped, inter, dest_id, randoms = a
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    HW = H * W
+    present = (planes[0] & 1) == 1
+    p, _ = hier.hier_rows(kcfg, (planes[0] >> 18) & ((1 << 14) - 1))
+    n_veh = int(present.sum())
+    n_win = int((present & (p >= 0)).sum())
+    # K1's bytes and operations as in kernel_cases (one world), its one
+    # stack word per vehicle now a word of the dense stack per vehicle
+    # and one of the windowed stack per vehicle whose cell lies in its
+    # destination's window
+    nbytes = HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4) + HW * 5 \
+        + 4 * (n_veh + n_win)
+    ops = HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2)
+
+    def plain():
+        return HE.decide_move_core(
+            kcfg, sdir4, wnd, *planes, stop, rain, ped, inter, dest_id,
+            *randoms,
+            select=lambda d: hier.hier_select(kcfg, sdir4, local4, d))
+    m = measure("decide_move (K1-hier) at config #5",
+                lambda: HE.decide_move(kcfg, *a, hier=(local4, consts)),
+                plain, nbytes, ops,
+                f"{H}x{W}, dense D4 = {sdir4.shape[0]}, windowed D4 = "
+                f"{local4.shape[0]}, {n_veh} vehicles ({n_win} in their "
+                f"destination's window)", reps=10)
+    m.update(vehicles=n_veh, in_window=n_win)
+    return m
+
+
 def phase_tiled(cfg, world, HE, tsim):
     """K7 on the headline's first-tick inputs at the tilings TILES:
     bit-equal to its plain version and to K1, one launch per call."""
-    kcfg, *a = tick_inputs(cfg, world, HE, tsim, "decide_move")
+    (kcfg, *a), kw = tick_inputs(cfg, world, HE, tsim, "decide_move")
+    if kw.get("hier") is not None:
+        raise AssertionError("the headline tick ran K1-hier")
     H, W = cfg.HEIGHT, cfg.WIDTH
     HW = H * W
     P = HE.TILE_HALO
@@ -1697,8 +1763,8 @@ def main():
                 "shape")}
         if k in k_c5 and k != "render":
             entry["config5"] = {x: k_c5[k][x] for x in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "shape")}
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "shape")}
         summary["kernels"].append(entry)
     if args.out:
         REPORT["kernels"] = summary["kernels"]

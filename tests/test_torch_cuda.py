@@ -278,6 +278,127 @@ def test_hier_select_launches_k6_twice(gen):
     _same((got,), (ref,))
 
 
+
+def _hier_inputs(g, cfg, n_direct=6):
+    """K1-hier's arguments at `cfg` (64^2, 16-cell tiles): dense (hub and
+    direct) and windowed stacks whose bytes mostly lack the contraflow
+    bit; a tenth of the cells hold a vehicle with no faults, stuck count
+    or allowance (about half of them move), whose rid is windowed or not,
+    direct, past the dense stack or DEST_NONE."""
+    from trafficsimulation_tpu_torch.ops import hier
+    hp = hier.hier_params(cfg)
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    nd = hp.nr + n_direct
+    dense = _rint(g, 0, 256, nd, H, W) & torch.where(
+        _bern(g, 0.8, nd, H, W), 0xF7, 0xFF).to(torch.int32)
+    dense4 = engine.pack_sdir4(dense.to(torch.uint8))
+    LD4 = 9 * hp.lmax // 4
+    local4 = _rint(g, -2**31, 2**31, LD4, H, W) & torch.where(
+        _bern(g, 0.8, LD4, H, W), -0x08080809, -1).to(torch.int32)
+    wb = _rint(g, 0, 16, 4, H, W)
+    wnd = wb[0] | (wb[1] << 8) | (wb[2] << 16) | (wb[3] << 24)
+    u = torch.rand((H, W), generator=g, device="cuda")
+    base = hp.direct_base
+    rid = torch.where(u < 0.6, _rint(g, 0, base, H, W), torch.where(
+        u < 0.8, _rint(g, base, base + n_direct, H, W), torch.where(
+            u < 0.9, _rint(g, base + n_direct, 16383, H, W), 16383)))
+    planes = [_rint(g, -2**31, 2**31, H, W) for _ in range(5)] + [
+        torch.rand((H, W), generator=g, device="cuda")]
+    planes[0] = (planes[0] & ((1 << 14) - 2)) | _bern(g, 0.1, H, W) | \
+        (rid << 18)
+    planes[1] &= 0x00FFF000
+    masks = tuple(_bern(g, p, H, W) for p in (0.02, 0.1, 0.02, 0.1))
+    dest_id = torch.where(_bern(g, 0.05, H, W), rid, -1)
+    randoms = (torch.rand((H, W), generator=g, device="cuda"),
+               torch.rand((H, W), generator=g, device="cuda"),
+               _rint(g, 1, 6, H, W), _rint(g, -2**31, 2**31, H, W))
+    return dense4, local4, wnd, tuple(planes), masks, dest_id, randoms
+
+
+@pytest.mark.parametrize("speed", [2, 5])
+def test_decide_move_hier_matches_plain(gen, speed):
+    """K1-hier against the plain core with `hier_select` (K6 twice per
+    select), one launch and no K6, at K = 2 and 5 sub-rounds."""
+    from trafficsimulation_tpu_torch.ops import hier
+    cfg = Config(WIDTH=64, HEIGHT=64, ROUTING_HIER=True, HIER_TILE=16,
+                 HIER_LMAX=8, VEHICLE_MAX_SPEED=speed,
+                 VEHICLE_MALFUNCTION_CHANCE=0.01,
+                 VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3)
+    dense4, local4, wnd, planes, masks, dest_id, randoms = _hier_inputs(
+        gen, cfg)
+    n0 = dict(HE.launches)
+    got = HE.decide_move(cfg, dense4, wnd, planes, *masks, dest_id, randoms,
+                         hier=(local4, hier.kernel_consts(cfg)))
+    assert HE.launches["decide_move"] == n0["decide_move"] + 1
+    assert HE.launches["select_rows"] == n0["select_rows"]
+    ref = HE.decide_move_core(
+        cfg, dense4, wnd, *planes, *masks, dest_id, *randoms,
+        select=lambda d: hier.hier_select(cfg, dense4, local4, d))
+    _same(got, ref)
+    moved = (got[6] & HE.FLAG_MOVED) != 0
+    assert int(moved.sum()) > 0.4 * int((planes[0] & 1).sum())
+
+
+def test_decide_move_hier_rejects_what_it_does_not_take(gen):
+    from trafficsimulation_tpu_torch.ops import hier
+    cfg = Config(WIDTH=64, HEIGHT=64, ROUTING_HIER=True, HIER_TILE=16,
+                 HIER_LMAX=8)
+    dense4, local4, wnd, planes, masks, dest_id, randoms = _hier_inputs(
+        gen, cfg)
+    consts = hier.kernel_consts(cfg)
+    with pytest.raises(ValueError):
+        HE.decide_move(cfg, dense4, wnd, planes, *masks, dest_id, randoms,
+                       hier=(local4[:, :32], consts))
+    with pytest.raises(TypeError):
+        HE.decide_move(cfg, dense4, wnd, planes, *masks, dest_id, randoms,
+                       hier=(local4.to(torch.int64), consts))
+    with pytest.raises(ValueError):
+        HE.decide_move(cfg, dense4, wnd, planes, *masks, dest_id, randoms,
+                       hier=(local4, consts[:9]))
+
+
+def test_hier_run_chunk_on_card_launches_k1_hier(gen):
+    """A ROUTING_HIER `run_chunk` on the card: K1 once and K6 never per
+    tick, and the same world as the CPU plain run."""
+    from trafficsimulation_tpu_torch import prng, sim
+    from trafficsimulation_tpu_torch.core import transfer
+    cfg = Config(WIDTH=64, HEIGHT=64, WALL_THICKNESS=6,
+                 SIDEWALK_RING_WIDTH=2, MAX_VEHICLES=256, ROUTING_HIER=True,
+                 HIER_TILE=16, HIER_LMAX=8,
+                 INTERNAL_POPULATION_TRAFFIC_PER_DAY=2000,
+                 PASSING_POPULATION_TRAFFIC_PER_DAY=500)
+    cfg, world = sim.init_world_hier(cfg, prng.PRNGKey(0), "cpu")
+    world = sim.inject_vehicles(cfg, world, 200)
+    n = 7
+    ref = transfer.world_to_numpy(sim.run_chunk(cfg, world, n))
+    card = transfer.world_from_numpy(transfer.world_to_numpy(world), "cuda")
+    n0 = dict(HE.launches)
+    got = transfer.world_to_numpy(sim.run_chunk(cfg, card, n))
+    assert HE.launches["decide_move"] == n0["decide_move"] + n
+    assert HE.launches["select_rows"] == n0["select_rows"]
+    for k, a in ref.items():
+        if k.startswith("metrics.sum_duration"):
+            assert np.allclose(a, got[k], rtol=1e-5, atol=0.0), k
+        else:
+            assert np.array_equal(a, got[k]), k
+    assert (ref["vehicles.pos"] != transfer.world_to_numpy(world)[
+        "vehicles.pos"]).any()
+
+
+@pytest.mark.parametrize("shape", [(37, 300), (256, 256), (16, 256, 256),
+                                   (1024, 1024)])
+def test_prefix_kernel_at_path_shapes(gen, shape):
+    """K4 at an odd width and at the path's shapes (one world, B = 16,
+    config #5), on 0/1 occupancy and on full-range int32 planes whose
+    sums wrap."""
+    kern = HE.prefix_planes_batched if len(shape) == 3 else HE.prefix_planes
+    for occ in (_bern(gen, 0.3, *shape).to(torch.int32),
+                _rint(gen, -2**31, 2**31, *shape)):
+        n0 = HE.launches["prefix_planes"]
+        got = kern(occ)
+        assert HE.launches["prefix_planes"] == n0 + 1
+        _same(got, HE.prefix_planes_plain(occ))
+
 # ---- K9 ----------------------------------------------------------------
 
 MEGA_CFG = dict(WIDTH=64, HEIGHT=64, WALL_THICKNESS=6, SIDEWALK_RING_WIDTH=2,

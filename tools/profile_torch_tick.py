@@ -6,8 +6,8 @@ D = 608), rebuilds the key stack on the card, warms up with one chunk,
 then profiles `run_chunk` over N ticks with `torch.profiler` (CPU and
 CUDA activities).  Prints the wall time per tick, the summed device
 kernel time per tick, the device idle share, the host and device time
-per tick of each layer (routing segment, lights, decide + move and, under
-hierarchical routing, its K6 selects, post-move: each layer's entry
+per tick of each layer (routing segment, lights, decide + move: K1, or
+K1-hier under hierarchical routing, post-move: each layer's entry
 function runs inside a profiler range), and the top entries of
 `key_averages()` by device time.  With --batch B it profiles the
 shared-geometry batch of B rollouts of the same city instead
@@ -42,6 +42,20 @@ CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
                PASSING_POPULATION_TRAFFIC_PER_DAY=20_000)
 
 
+class _Op(torch.autograd.Function):
+    """fn(*args) as an op: torch.profiler links a kernel to the layer
+    whose range ran it through the op that launched it, and K4's
+    single-plane wrapper launches through ctypes outside any op."""
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+
 def annotate_layers() -> list:
     """Run each layer's entry functions inside a `torch.profiler` range
     named after the layer (the modules look them up at call time), and
@@ -49,15 +63,14 @@ def annotate_layers() -> list:
     from torch.profiler import record_function
     from trafficsimulation_tpu_torch import sim
     from trafficsimulation_tpu_torch.lights import fsm
-    from trafficsimulation_tpu_torch.ops import engine, hier, megakernel
+    from trafficsimulation_tpu_torch.ops import engine, megakernel
     from trafficsimulation_tpu_torch.ops import hopper_engine as HE
     layers = {
         "routing segment": [(engine, "routing_planes")],
         "lights": [(fsm, f) for f in (
             "group_reductions", "run_controllers", "execute_phase_change",
             "apply_light_overrides", "build_stop_map")],
-        "decide + move": [(HE, "decide_move"), (HE, "decide_move_core")],
-        "of which hier select (K6)": [(hier, "hier_select")],
+        "decide + move": [(HE, "decide_move")],
         "post-move": [(engine, "_post_move")],
         "segment schedule (mega)": [(megakernel, "prepare_segment")],
         "of which rain (mega)": [(megakernel, "step_rain_ticks")],
@@ -72,6 +85,8 @@ def annotate_layers() -> list:
                 with record_function(_label):
                     return _fn(*a, **k)
             setattr(mod, name, span)
+    launch = HE._prefix_launch
+    HE._prefix_launch = lambda occ, B: _Op.apply(launch, occ, B)
     return list(layers)
 
 

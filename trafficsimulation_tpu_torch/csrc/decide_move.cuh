@@ -17,10 +17,11 @@
 // seeds).  The destination row select is one indexed load: byte
 // (dest & 3) of sdir4[dest >> 2], ND_NONE when dest >> 2 is past the
 // stack; the phase bodies take it as a functor (`GridSelect` on the
-// whole grid, K7's window select in decide_tiled.cu).  Neighbour reads
-// outside the grid see the fills of the padded shifts they replace:
-// blocked (0xF) for the target byte, KINF for keys, false for arrivals
-// and sideswipe neighbours, true for the start-of-tick blocked byte.
+// whole grid, `HierSelect` under hierarchical routing, K7's window
+// select in decide_tiled.cu).  Neighbour reads outside the grid see the
+// fills of the padded shifts they replace: blocked (0xF) for the target
+// byte, KINF for keys, false for arrivals and sideswipe neighbours, true
+// for the start-of-tick blocked byte.
 #pragma once
 
 #include "common.cuh"
@@ -123,6 +124,53 @@ struct GridSelect {
                                             const Inputs& in, int dest,
                                             int c, int y, int x) const {
     return select_nd(in.sdir4, p.D4, p.H * p.W, dest, c);
+  }
+};
+
+// The hierarchical routing constants, in the order of the Python side's
+// `ops/hier.kernel_consts`.  floor(x / d) is (x * m) >> s for the
+// divisions by LMAX and by the tile columns (m = 1 for a power of two);
+// the host checks the multipliers exact over every rid, as
+// `hier._magic_div` does, so the kernel divides nothing.
+struct HierConsts {
+  int ts_sh, lmax, lmax_m, lmax_sh, ntx, ntx_m, ntx_sh;
+  int direct_base, nrx, nr;
+};
+
+// The select under hierarchical routing, `ops/hier.hier_select` at one
+// cell: the windowed byte where the cell's tile lies in the destination's
+// 3x3 tile window and the byte offers a move, else the dense row's (the
+// region's hub for a tiled rid, its own row for a direct one).  `in.sdir4`
+// and `p.D4` are the dense stack; a row past either stack reads ND_NONE.
+// One gathered word from each stack.
+struct HierSelect {
+  const int* local4;
+  int local_d4;
+  HierConsts h;
+
+  __device__ __forceinline__ int operator()(const DMParams& p,
+                                            const Inputs& in, int dest,
+                                            int c, int y, int x) const {
+    const int HW = p.H * p.W;
+    int loc = -1, r;
+    if (dest < h.direct_base) {
+      const int td = (dest * h.lmax_m) >> h.lmax_sh;
+      const int l = dest - td * h.lmax;
+      const int ty = (td * h.ntx_m) >> h.ntx_sh;
+      const int tx = td - ty * h.ntx;
+      const int dy = ty - (y >> h.ts_sh), dx = tx - (x >> h.ts_sh);
+      if (abs(dy) <= 1 && abs(dx) <= 1)
+        loc = ((dy + 1) * 3 + (dx + 1)) * h.lmax + l;
+      r = (ty >> 1) * h.nrx + (tx >> 1);
+    } else {
+      r = h.nr + (dest - h.direct_base);
+    }
+    const int nd_den = select_nd(in.sdir4, p.D4, HW, r, c);
+    if (loc >= 0) {
+      const int nd_loc = select_nd(local4, local_d4, HW, loc, c);
+      if ((nd_loc & 7) != 7) return nd_loc;
+    }
+    return nd_den;
   }
 };
 

@@ -40,6 +40,10 @@ _ARGTYPES = {
     # flags, scratch, B, H, W, stream
     "tsim_decide_move": [P, P, P, I, P] + [P] * 6 + [P] * 4 + [P]
     + [P] * 4 + [P] * 6 + [P, P, I, I, I, P],
+    # ip[16], fp[2], hier constants[10], local4, LD4, then the arguments
+    # of tsim_decide_move from sdir4 to scratch, H, W, stream
+    "tsim_decide_move_hier": [P, P, P, P, I, P, I, P] + [P] * 6 + [P] * 4
+    + [P] + [P] * 4 + [P] * 6 + [P, P, I, I, P],
     # the arguments of tsim_decide_move up to the out planes, then flags,
     # window planes (4-byte, 1-byte), scratch, H, W, th, tw, halo, stream
     "tsim_decide_tiled": [P, P, P, I, P] + [P] * 6 + [P] * 4 + [P]

@@ -447,24 +447,19 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
     stop_map = fsm.build_stop_map(grid, world.lights_static, lights,
                                   dense_a=dense_a)
 
-    # ---- decide + move: K1, or under hierarchical routing the plain
-    # core with the hier select (K6), as the JAX package runs it --------
+    # ---- decide + move: K1, or under hierarchical routing K1-hier (the
+    # windowed and the dense stack, selected in the kernel) --------------
     if sdir is None:
         sdir = routing_planes(cfg, world, es)
     sdir4, wnd, density = sdir
     ped_bit = torch.zeros((H, W), dtype=torch.bool, device=es.pa.device)
     randoms = tick_randoms(cfg, draws[D_SEEDS:D_SEEDS + 4], H, W)
     planes = (es.pa, es.pb, es.pc, es.pd, es.pe, es.pl)
-    if cfg.ROUTING_HIER:
-        out = HE.decide_move_core(
-            cfg, sdir4, wnd, *planes, stop_map, es.rain_map, ped_bit,
-            grid.intersection, grid.dest_id, *randoms,
-            select=lambda dest: hier.hier_select(
-                cfg, sdir4, world.local_sdir4, dest))
-    else:
-        out = HE.decide_move(cfg, sdir4, wnd, planes, stop_map, es.rain_map,
-                             ped_bit, grid.intersection, grid.dest_id,
-                             randoms)
+    out = HE.decide_move(
+        cfg, sdir4, wnd, planes, stop_map, es.rain_map, ped_bit,
+        grid.intersection, grid.dest_id, randoms,
+        hier=((world.local_sdir4, hier.kernel_consts(cfg))
+              if cfg.ROUTING_HIER else None))
     flags = out[6]
     events = ((flags & HE.FLAG_NEW_MAL).sum().to(torch.int32),
               ((flags & HE.FLAG_NEW_COL) >> 1).sum().to(torch.int32))

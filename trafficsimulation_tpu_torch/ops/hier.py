@@ -8,8 +8,10 @@ hub row per 2x2-tile region in the dense, dynamically rebuilt stack;
 exits and overflow destinations get dense rows of their own ("direct"
 rids >= NT * LMAX).  A cell takes the windowed byte where its tile lies
 in the destination's window and the byte offers a move, else the dense
-row's.  Both selects launch K6 (`hopper_engine.select_rows`) on the
-card.
+row's.  On the card the tick's selects run inside K1-hier
+(`hopper_engine.decide_move` with `hier=(local4, kernel_consts(cfg))`);
+`hier_select` is their plain version, two K6 launches
+(`hopper_engine.select_rows`) on a card.
 """
 
 from __future__ import annotations
@@ -61,17 +63,38 @@ def hier_params(cfg: Config) -> HierParams:
                       nry=nry, nrx=nrx, nr=nry * nrx)
 
 
-def _magic_div(x: torch.Tensor, d: int, xmax: int) -> torch.Tensor:
-    """floor(x / d) for 0 <= x <= xmax as one int32 multiply and shift
-    (the JAX form; exactness is checked over the whole range)."""
+@functools.lru_cache(maxsize=32)
+def _magic(d: int, xmax: int) -> tuple:
+    """(m, sh) with floor(x / d) == (x * m) >> sh for 0 <= x <= xmax in
+    int32 (m = 1 for a power of two), checked over the whole range (the
+    JAX `_magic_div`)."""
     if d & (d - 1) == 0:
-        return x >> (d.bit_length() - 1)
+        return 1, d.bit_length() - 1
     sh = 20
     m = -(-(1 << sh) // d)
     if xmax * (m * d - (1 << sh)) >= (1 << sh) or xmax * m >= (1 << 31):
         raise ValueError(f"no exact int32 magic division by {d} up to "
                          f"{xmax}")
+    return m, sh
+
+
+def _magic_div(x: torch.Tensor, d: int, xmax: int) -> torch.Tensor:
+    """floor(x / d) for 0 <= x <= xmax as one int32 multiply and shift."""
+    m, sh = _magic(d, xmax)
     return (x * m) >> sh
+
+
+@functools.lru_cache(maxsize=32)
+def kernel_consts(cfg: Config) -> tuple:
+    """The constants of K1-hier's row select (`HierConsts` in
+    csrc/decide_move.cuh), in its order: (ts_sh, lmax, lmax_m, lmax_sh,
+    ntx, ntx_m, ntx_sh, direct_base, nrx, nr); each division by LMAX or
+    by the tile columns is the multiplier and shift of `_magic`, so the
+    kernel computes `hier_rows` without dividing."""
+    hp = hier_params(cfg)
+    return (hp.ts_sh, hp.lmax, *_magic(hp.lmax, hp.direct_base - 1),
+            hp.ntx, *_magic(hp.ntx, hp.nt - 1), hp.direct_base, hp.nrx,
+            hp.nr)
 
 
 def hier_rows(cfg: Config, dest: torch.Tensor):
@@ -102,7 +125,8 @@ def hier_select(cfg: Config, dense4: torch.Tensor, local4: torch.Tensor,
                 dest: torch.Tensor) -> torch.Tensor:
     """The next-move byte plane under hierarchical routing: the exact
     windowed byte where it exists and offers a move, else the dense
-    (hub or direct) row's.  Two K6 launches on the card."""
+    (hub or direct) row's.  Two K6 launches on the card; K1-hier's
+    `HierSelect` computes the same at one cell."""
     p, r = hier_rows(cfg, dest)
     nd_loc = HE.select_rows(local4, p)
     nd_den = HE.select_rows(dense4, r)

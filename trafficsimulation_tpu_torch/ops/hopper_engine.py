@@ -2,7 +2,10 @@
 version (the counterpart of the JAX package's `ops/pallas_engine.py`).
 
   K1 `decide_move`         <- pallas_engine.decide_move_pallas (+ _kernel,
-                              decide_move_core): every tick
+                              decide_move_core): every tick; under
+                              hierarchical routing K1-hier
+                              (`decide_move(..., hier=)`, the hier
+                              select in the kernel)
   K2 `build_sdir`          <- pallas_engine.build_sdir_pallas (_sdir_body):
                               once per routing segment of one world
   K3 `build_wavefront`     <- pallas_engine.build_wavefront_pallas
@@ -12,9 +15,9 @@ version (the counterpart of the JAX package's `ops/pallas_engine.py`).
   K5 `build_sdir_batched`  <- pallas_engine.build_sdir_pallas_batched
                               (_sdir_kernel_batched): once per routing
                               segment of a shared-geometry batch
-  K6 `select_rows`         <- pallas_engine.select_rows_pallas: every
-                              select of the tick under hierarchical
-                              routing (`ops/hier.hier_select`)
+  K6 `select_rows`         <- pallas_engine.select_rows_pallas: the
+                              selects of `ops/hier.hier_select`, the
+                              plain version of K1-hier's; on no path
   K7 `decide_move_tiled`   <- pallas_engine.decide_move_tiled: K1's
                               function over halo-tiled windows; on no
                               path (`step_engine` never picks it, as
@@ -544,12 +547,16 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _call(entry, *args):
-    from . import build
-    rc = getattr(build.load(), entry)(*args)
+def _check_rc(entry, rc):
     if rc != 0:
+        from . import build
         raise RuntimeError(f"{entry}: CUDA error {rc} "
                            f"({build.error_string(rc)})")
+
+
+def _call(entry, *args):
+    from . import build
+    _check_rc(entry, getattr(build.load(), entry)(*args))
 
 
 # ---- vmap rules ------------------------------------------------------------
@@ -712,13 +719,94 @@ class _DecideMove(_Kernel):
 
 
 def decide_move(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
-                ped_block, intersection, dest_id, randoms):
+                ped_block, intersection, dest_id, randoms, hier=None):
     """K1 for one world (`decide_move_batched` with B = 1; under vmap one
     batched launch).  Planes pa..pe and `wnd`, `r_prio` are int32 bit
     patterns; masks bool; `pl`, `r_mal`, `r_side` f32; `r_reroll`,
-    `dest_id` int32.  Returns (pa, pb, pc, pd, pe, pl, flags int32)."""
+    `dest_id` int32.  Returns (pa, pb, pc, pd, pe, pl, flags int32).
+
+    `hier`: (local4, consts) under hierarchical routing, the windowed
+    stack [9 LMAX / 4, H, W] and `ops/hier.kernel_consts(cfg)`; `sdir4`
+    is then the dense (hub and direct) stack and the call is K1-hier, K1
+    with the hierarchical select (`ops/hier.hier_select`) at each cell.
+    Its plain version is `decide_move_core` with `hier_select` as the
+    select.  K1-hier replaces what the JAX package runs for such worlds
+    (ops/engine.py, the ROUTING_HIER branch of `step_engine`):
+    `decide_move_core` in XLA ops with `hier_select`, two
+    `select_rows_pallas` calls (K6) per select.  Source:
+    csrc/decide_move.cu, `HierSelect` in csrc/decide_move.cuh.  On the
+    H100 it is bound, like K1, by the latency of its 2K + 2 dependent
+    launches and by device-memory bytes (K1's planes, plus one gathered
+    word of each stack per select).  Design: K1's launches and phase
+    bodies with the select functor `HierSelect`, which decodes the rid
+    with host-checked magic divisions and makes one gathered load from
+    each stack.  One world only (no vmap rule): the hierarchical config
+    is never batched; the batched K1 and K9 select with `GridSelect`."""
+    if hier is not None:
+        local4, consts = hier
+        return _DecideMoveHier.apply(cfg, tuple(consts), sdir4, wnd,
+                                     *planes, stop_map, rain_map, ped_block,
+                                     intersection, dest_id, *randoms, local4)
     return _DecideMove.apply(cfg, sdir4, wnd, *planes, stop_map, rain_map,
                              ped_block, intersection, dest_id, *randoms)
+
+
+class _DecideMoveHier(_Kernel):
+    """K1-hier (`decide_move` with `hier=`)."""
+
+    @staticmethod
+    def forward(cfg, consts, sdir4, wnd, pa, pb, pc, pd, pe, pl, stop_map,
+                rain_map, ped_block, intersection, dest_id, r_mal, r_side,
+                r_reroll, r_prio, local4):
+        planes = (pa, pb, pc, pd, pe, pl)
+        if not _on_cuda(pa):
+            from . import hier
+
+            def select(dest):
+                return hier.hier_select(cfg, sdir4, local4, dest)
+            return decide_move_core(cfg, sdir4, wnd, *planes, stop_map,
+                                    rain_map, ped_block, intersection,
+                                    dest_id, r_mal, r_side, r_reroll, r_prio,
+                                    select=select)
+        H, W = pa.shape
+        dev = pa.device
+        i32t, f32t, bt = torch.int32, torch.float32, torch.bool
+        D4, LD4 = sdir4.shape[0], local4.shape[0]
+        _check("sdir4", sdir4, i32t, (D4, H, W), dev)
+        _check("local4", local4, i32t, (LD4, H, W), dev)
+        for name, t, dt in (("wnd", wnd, i32t), ("pa", pa, i32t),
+                            ("pb", pb, i32t), ("pc", pc, i32t),
+                            ("pd", pd, i32t), ("pe", pe, i32t),
+                            ("pl", pl, f32t), ("stop_map", stop_map, bt),
+                            ("rain_map", rain_map, bt),
+                            ("ped_block", ped_block, bt),
+                            ("intersection", intersection, bt),
+                            ("dest_id", dest_id, i32t),
+                            ("r_mal", r_mal, f32t), ("r_side", r_side, f32t),
+                            ("r_reroll", r_reroll, i32t),
+                            ("r_prio", r_prio, i32t)):
+            _check(name, t, dt, (H, W), dev)
+        if len(consts) != 10:
+            raise ValueError(f"hier constants: {len(consts)}, kernel takes "
+                             "10")
+        outs = [torch.empty((H, W), dtype=i32t, device=dev)
+                for _ in range(5)]
+        out_pl = torch.empty((H, W), dtype=f32t, device=dev)
+        flags = torch.empty((H, W), dtype=i32t, device=dev)
+        scratch = torch.empty((_N_SCRATCH_DM, H, W), dtype=i32t, device=dev)
+        ip, fp = _dm_params(cfg)
+        hc = (ctypes.c_int * 10)(*consts)
+        _call("tsim_decide_move_hier", ctypes.cast(ip, ctypes.c_void_p),
+              ctypes.cast(fp, ctypes.c_void_p),
+              ctypes.cast(hc, ctypes.c_void_p), _ptr(local4),
+              ctypes.c_int(LD4), _ptr(sdir4), ctypes.c_int(D4), _ptr(wnd),
+              *[_ptr(p) for p in planes], _ptr(stop_map), _ptr(rain_map),
+              _ptr(ped_block), _ptr(intersection), _ptr(dest_id),
+              _ptr(r_mal), _ptr(r_side), _ptr(r_reroll), _ptr(r_prio),
+              *[_ptr(o) for o in outs], _ptr(out_pl), _ptr(flags),
+              _ptr(scratch), ctypes.c_int(H), ctypes.c_int(W), _stream(dev))
+        launches["decide_move"] += 1
+        return (*outs, out_pl, flags)
 
 
 # ---- K7 --------------------------------------------------------------------
@@ -798,15 +886,15 @@ def decide_move_tiled(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
 
     Replaces `pallas_engine.decide_move_tiled` (its `pallas_call`,
     ops/pallas_engine.py).  Source: csrc/decide_tiled.cu.  On no path:
-    `engine.step_engine` runs K1 (dense) or the plain core with K6
-    (hierarchical), as JAX's gate (`pick_tile`) never picks the tiled
-    kernel.  On the H100 it is bound by device-memory bytes: K1's planes
-    read once per window, so (th + 2P)(tw + 2P) / (th tw) times K1's
-    bytes.  Design: one launch, one CTA per tile; the CTA copies its
-    window (JAX's pad fills outside the grid) into device memory and
-    runs K1's phase bodies over it with `__syncthreads()` between the
-    2K + 2 phases; the row select reads the whole grid's stack at the
-    cell's global coordinate; only the interior is written."""
+    `engine.step_engine` runs K1 (dense) or K1-hier (hierarchical), as
+    JAX's gate (`pick_tile`) never picks the tiled kernel.  On the H100
+    it is bound by device-memory bytes: K1's planes read once per
+    window, so (th + 2P)(tw + 2P) / (th tw) times K1's bytes.  Design:
+    one launch, one CTA per tile; the CTA copies its window (JAX's pad
+    fills outside the grid) into device memory and runs K1's phase
+    bodies over it with `__syncthreads()` between the 2K + 2 phases; the
+    row select reads the whole grid's stack at the cell's global
+    coordinate; only the interior is written."""
     pa = planes[0]
     H, W = pa.shape
     _check_tiling(H, W, th, tw)
@@ -1000,36 +1088,64 @@ def build_wavefront(cfg: Config, allowed, is_road, hard):
 
 # ---- K4 --------------------------------------------------------------------
 
+_prefix_entry = None       # tsim_prefix_planes, resolved at first launch
+
+
+def _prefix_launch(occ, B: int):
+    """One K4 launch over the B planes of `occ` [(B,) H, W] (int32,
+    contiguous, on the card): (incH, incV), views of one allocation."""
+    global _prefix_entry
+    if _prefix_entry is None:
+        from . import build
+        _prefix_entry = build.load().tsim_prefix_planes
+    H, W = occ.shape[-2:]
+    out = torch.empty((2, *occ.shape), dtype=torch.int32, device=occ.device)
+    ptr = out.data_ptr()
+    _check_rc("tsim_prefix_planes", _prefix_entry(
+        occ.data_ptr(), ptr, ptr + occ.numel() * 4, B, H, W,
+        torch._C._cuda_getCurrentRawStream(occ.device.index)))
+    launches["prefix_planes"] += 1
+    return out.unbind(0)
+
+
 def prefix_planes_batched(occ):
     """K4 for B planes: occ int32 [B, H, W] -> row- and column-inclusive
     prefix sums (incH, incV), each [B, H, W].
 
     Replaces `pallas_engine.prefix_planes_pallas` (`_prefix_kernel`,
     ops/pallas_engine.py).  Source: csrc/prefix.cu.  On the H100 it is
-    bound by launch latency (a 256 KB plane in, two out, per world).
-    Design: one launch of (H + W) x B blocks, one per row and one per
-    column of each plane, each a warp-shuffle scan in exact int32 with a
-    carry across 256-element tiles."""
+    bound by device-memory bytes (a plane in, two out: 12.6 MB at
+    1024^2) and, for one 256^2 plane, by the latency of its one launch
+    and this wrapper's host work.  Design: one launch; one warp scans a
+    row with vector loads in flight and warp shuffles; a block scans a
+    band of 8 columns in 32 row segments (whole-sector loads, segment
+    totals scanned in shared memory); exact int32 with wrap-around.  The
+    wrapper allocates both outputs at once and resolves the entry point
+    once."""
     if not _on_cuda(occ):
         return prefix_planes_plain(occ)
-    B, H, W = occ.shape
-    dev = occ.device
-    _check("occ", occ, torch.int32, (B, H, W), dev)
-    outh = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    outv = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    _call("tsim_prefix_planes", _ptr(occ), _ptr(outh), _ptr(outv),
-          ctypes.c_int(B), ctypes.c_int(H), ctypes.c_int(W), _stream(dev))
-    launches["prefix_planes"] += 1
-    return outh, outv
+    if occ.dim() != 3:
+        raise ValueError(f"occ: shape {tuple(occ.shape)}, kernel takes "
+                         "[B, H, W]")
+    _check("occ", occ, torch.int32, occ.shape, occ.device)
+    return _prefix_launch(occ, occ.shape[0])
+
+
+def _prefix_single(occ):
+    if not _on_cuda(occ):
+        return prefix_planes_plain(occ)
+    if occ.dim() != 2:
+        raise ValueError(f"occ: shape {tuple(occ.shape)}, kernel takes "
+                         "[H, W]")
+    if occ.dtype != torch.int32 or not occ.is_contiguous():
+        _check("occ", occ, torch.int32, occ.shape, occ.device)
+    return _prefix_launch(occ, 1)
 
 
 class _PrefixPlanes(_Kernel):
     @staticmethod
     def forward(occ):
-        if not _on_cuda(occ):
-            return prefix_planes_plain(occ)
-        h, v = prefix_planes_batched(occ.unsqueeze(0))
-        return h[0], v[0]
+        return _prefix_single(occ)
 
     @staticmethod
     def vmap(info, in_dims, occ):
@@ -1038,9 +1154,11 @@ class _PrefixPlanes(_Kernel):
 
 
 def prefix_planes(occ):
-    """K4 for one plane [H, W] (`prefix_planes_batched` with B = 1; under
-    vmap one batched launch)."""
-    return _PrefixPlanes.apply(occ)
+    """K4 for one plane [H, W] (one launch; under vmap one batched
+    launch, through `_PrefixPlanes`'s rule)."""
+    if torch._C._are_functorch_transforms_active():
+        return _PrefixPlanes.apply(occ)
+    return _prefix_single(occ)
 
 
 # ---- K6 --------------------------------------------------------------------
@@ -1072,7 +1190,10 @@ def select_rows(sdir4, dest):
     memory: 12 bytes per cell (dest, one gathered word, the result),
     12.6 MB at 1024^2; the gathered words of neighbouring cells lie on
     different planes and do not coalesce.  Design: one thread per cell,
-    one indexed load, where the TPU kernel streamed the whole stack."""
+    one indexed load, where the TPU kernel streamed the whole stack.  On
+    no path: under hierarchical routing the tick's selects run inside
+    K1-hier (`decide_move(..., hier=)`); `ops/hier.hier_select`, its
+    plain version, calls this."""
     return _SelectRows.apply(sdir4, dest)
 
 
