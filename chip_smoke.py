@@ -17,18 +17,25 @@ Phases (any failure raises and the script exits nonzero):
      K3, K4 for B = 16 worlds; outputs must be bit-equal; each batched
      kernel's B = 1 call must equal the single-world kernel; median
      times of kernel and plain version, the bound of each kernel (bytes
-     over 3.35 TB/s or operations over 67 T/s, the larger), and for K4
+     over 3.35 TB/s or operations over 67 T/s, the larger), the device
+     kernels one call runs (K1: one cooperative launch), and for K4
      the two `torch.cumsum` calls that compute the same function; then
      K6 at config #5's shapes (1024^2; the windowed stack, 108 words,
      and the dense stack, 36 words; dest planes holding -1 and rows past
      the stack); the rain clouds' tick loop (no TPU kernel) for 16
      worlds over 200 ticks, bit-equal to its plain version;
   3. the service FSM's ordered scatter-add on a case whose f32 sum
-     depends on the order: the card must give the CPU's update-order
+     depends on the order, and on signed zeros, subnormals, runs of
+     +-0 and dropped indices: the card must give the CPU's update-order
      result bit for bit; then on its inputs of the generated headline
      world's first tick (and, in group `config5`, of config #5's),
      captured from a one-tick `run_chunk`, against its plain version
-     with its median, device time and bound;
+     with its median, device time and bound, beside the PyTorch calls
+     that could compute it (`index_put_` with accumulate, deterministic
+     `index_add_`; `library_ms` only where one gives the same bits on
+     every case); and the rain clouds' loop (`rain_ticks`) at the shape
+     the per-tick path launches it with, on the headline's first-tick
+     inputs;
   4. generation: the headline world (BASELINE config #2) generated on
      the card from seed 0 (`sim.init_world`, `measure_and_shrink`,
      `inject_vehicles(..., 10_000)`) must equal the shipped snapshot of
@@ -80,7 +87,8 @@ Phases (any failure raises and the script exits nonzero):
  12. the halo-tiled decide + move (group `tiled`, K7, on no path of the
      JAX package or the port): K1's arguments on the first tick of the
      generated headline world (D4 = 152), captured from a one-tick
-     `run_chunk`; K7 at tiles (64, 64) and (16, 32) must equal its plain
+     `run_chunk`; K1 on them against its plain version (median, device
+     time, bound); K7 at tiles (64, 64) and (16, 32) must equal its plain
      version and K1 bit for bit, in one launch per call; medians, device
      times, and the bound (K1's bytes and operations: the function's,
      at every tiling; the windows' bytes are reported beside it);
@@ -178,6 +186,9 @@ N_HIER_TICKS = 20
 PHASES = ("kernels", "ordered_add", "headline", "mega", "hier_digest",
           "config5", "tiled", "render", "bridge")
 TILES = ((64, 64), (16, 32))     # K7's tilings of the headline grid
+# the numbers of a kernel's other shapes in the summary line
+SUB_KEYS = ("max_abs_err", "ms", "device_ms", "kernels_per_call",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
 
 
 def log(*a):
@@ -207,11 +218,12 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10):
-    """Summed device time of the kernels one call of fn launches, from
-    torch.profiler (a CUDA-event interval around one call also holds the
-    host's time in the wrapper, which is larger for small kernels); None
-    when three profiles in a row record no device time."""
+def device_profile(fn, reps: int = 10):
+    """(summed device time of the kernels one call of fn launches, device
+    kernels a call), from torch.profiler (a CUDA-event interval around
+    one call also holds the host's time in the wrapper, which is larger
+    for small kernels); (None, None) when three profiles in a row record
+    no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -224,8 +236,14 @@ def device_ms(fn, reps: int = 10):
         ms = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA) / 1e3 / reps
         if ms > 0:
-            return ms
-    return None
+            n = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+            return ms, n / reps
+    return None, None
+
+
+def device_ms(fn, reps: int = 10):
+    return device_profile(fn, reps)[0]
 
 
 def fmt_ms(ms) -> str:
@@ -271,18 +289,19 @@ def measure(name, kern, plain, nbytes, ops, shape, lib=None, reps=20,
         compare(f"{name} library call", lib(), ref)
     del got, ref
     ms = median_ms(kern, reps=reps)
-    dms = device_ms(kern)
+    dms, nk = device_profile(kern)
     plain_ms = median_ms(plain, reps=plain_reps, warmup=1)
     lib_ms = median_ms(lib, reps=reps) if lib is not None else None
     bms, by = bound(nbytes, ops)
     log(f"kernel {name} ({shape}): bit-equal to plain; median {ms:.4f} ms "
-        f"(device {fmt_ms(dms)}), plain {plain_ms:.4f} ms, bound "
-        f"{bms:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)"
+        f"(device {fmt_ms(dms)} in {nk} kernels a call), plain "
+        f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+        f"{nbytes / 1e6:.2f} MB)"
         + (f", library {lib_ms:.4f} ms" if lib_ms else ""))
     return {"max_abs_err": err, "ms": ms, "device_ms": dms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms, "bytes": nbytes, "ops": ops,
-            "shape": shape}
+            "kernels_per_call": nk, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms, "bytes": nbytes,
+            "ops": ops, "shape": shape}
 
 
 class Inputs:
@@ -563,6 +582,83 @@ def phase_ordered_add(HE):
                              f"update-order fold {want}")
     log(f"ordered scatter-add: card == CPU update order bit for bit "
         f"({got.tolist()})")
+    for name, (b, i, v) in ordered_add_cases().items():
+        compare(f"ordered_add ({name})",
+                (HE.ordered_add(b.cuda(), i.cuda(), v.cuda()).cpu(),),
+                (HE.ordered_add_plain(b, i, v),))
+    log(f"ordered scatter-add: card == CPU on {sorted(ordered_add_cases())}")
+
+
+def ordered_add_cases() -> dict:
+    """{name: (base, idx, vals) on the CPU}: the signed zeros that decide
+    a bare -0 base (+0 and -0 updates, cancellation to +0), runs of
+    thousands of +-0 with a few nonzero updates, subnormal sums, indices
+    outside [0, T), and the fold order of the 1e8 case."""
+    nz = -0.0
+    base = torch.tensor([[nz, nz, nz, 0.0, nz, 2.0, nz, 1e-39]])
+    idx = torch.tensor([[0, 1, 1, 2, 3, 4, 4, 5, 5, 6, 6, 6, 7, 7, 9, -1,
+                         0]])
+    vals = torch.tensor([[0.0, nz, 0.0, nz, 0.0, 7.0, -7.0, -2.0, nz, 0.0,
+                          1e-40, -1e-40, -2e-39, 5e-40, 3.0, 4.0, nz]])
+    g = torch.Generator().manual_seed(11)
+    n = 6000
+    zi = torch.randint(0, 3, (2, n), generator=g)
+    zv = torch.where(torch.rand((2, n), generator=g) < 0.5, 0.0, nz)
+    zv[0, [10, 3000, 5999]] = torch.tensor([0.1, -3.7, 1e-3])
+    zi[0, [10, 3000, 5999]] = 1
+    return {"signed zeros, subnormals, dropped": (base, idx, vals),
+            "zero runs": (torch.tensor([[nz, nz, 0.0], [1.0, nz, nz]]), zi,
+                          zv),
+            "fold order": (torch.tensor([[1.0, 0.0, 5.0]]),
+                           torch.tensor([[0, 0, 0, 2, 1, 0]]),
+                           torch.tensor([[1e8, 1.0, -1e8, 2.0, 7.0,
+                                          0.5]]))}
+
+
+def ordered_add_library(b, i, v, ref, HE) -> dict:
+    """The PyTorch calls that could compute the ordered add, on the rows
+    flattened with a sink slot per row for the dropped indices:
+    `index_put_(..., accumulate=True)` and `index_add_` under
+    `torch.use_deterministic_algorithms(True)`.  Each one's median on
+    these inputs, and whether it gives the plain version's bits here and
+    on `ordered_add_cases()`: only then is it the same function."""
+    def flat(b, i, v):
+        R, T = b.shape
+        rows = torch.arange(R, device=b.device)[:, None] * (T + 1)
+        keep = (i >= 0) & (i < T)
+        fi = (rows + torch.where(keep, i, T)).reshape(-1)
+        fb = torch.cat([b, torch.zeros_like(b[:, :1])], 1).reshape(-1)
+        return fb, fi, v.reshape(-1)
+
+    def put(fb, fi, fv):
+        return fb.index_put_((fi,), fv, accumulate=True)
+
+    def add_det(fb, fi, fv):
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            return fb.index_add_(0, fi, fv)
+        finally:
+            torch.use_deterministic_algorithms(was)
+
+    cases = {"path": (b, i, v, ref)}
+    for name, (cb, ci, cv) in ordered_add_cases().items():
+        cases[name] = (cb.cuda(), ci.cuda(), cv.cuda(),
+                       HE.ordered_add_plain(cb, ci, cv).cuda())
+    out = {}
+    for lname, fn in (("index_put_ accumulate", put),
+                      ("index_add_ deterministic", add_det)):
+        differs = []
+        for name, (cb, ci, cv, cref) in cases.items():
+            fb, fi, fv = flat(cb, ci, cv)
+            got = fn(fb, fi, fv).reshape(cb.shape[0], -1)[:, :-1]
+            n = int((got.view(torch.int32) != cref.view(torch.int32)).sum())
+            if n:
+                differs.append(f"{name}: {n} of {cref.numel()} targets")
+        fb, fi, fv = flat(b, i, v)
+        out[lname] = {"ms": median_ms(lambda: fn(fb, fi, fv)),
+                      "same_function": not differs, "differs": differs}
+    return out
 
 
 def compare_leaves(name, ref: dict, got: dict):
@@ -1356,19 +1452,45 @@ def tick_inputs(cfg, world, HE, tsim, name: str):
 def ordered_add_tick(cfg, world, HE, tsim, label: str) -> dict:
     """The service FSM's ordered add on its inputs of the first tick of
     `world` (both tanks of every block, one update per destination)
-    against its plain version.  No library call: torch's CUDA
-    scatter-add folds duplicates in atomic order, not update order."""
+    against its plain version, and the PyTorch calls that could compute
+    it (`ordered_add_library`); `library_ms` is the fastest of those that
+    give the same bits, None when neither does."""
     (b, i, v), _ = tick_inputs(cfg, world, HE, tsim, "ordered_add")
     R, T = b.shape
     n = i.shape[1]
     adds = int(((i >= 0) & (i < T)).sum())
+    nonzero = int((((i >= 0) & (i < T)) & (v != 0)).sum())
     # base read and out written f32 [R, T]; idx i64 and vals f32 [R, n];
     # one add per update in range
-    return measure(f"ordered_add at {label}",
-                   lambda: (HE.ordered_add(b, i, v),),
-                   lambda: (HE.ordered_add_plain(b, i, v),),
-                   R * T * 4 * 2 + R * n * 12, adds,
-                   f"[{R}, {T}] += [{R}, {n}] ({label})", lib=None)
+    m = measure(f"ordered_add at {label}",
+                lambda: (HE.ordered_add(b, i, v),),
+                lambda: (HE.ordered_add_plain(b, i, v),),
+                R * T * 4 * 2 + R * n * 12, adds,
+                f"[{R}, {T}] += [{R}, {n}] ({label})", lib=None)
+    lib = ordered_add_library(b, i, v, HE.ordered_add_plain(b, i, v), HE)
+    same = [x["ms"] for x in lib.values() if x["same_function"]]
+    m.update(library_ms=min(same) if same else None, library=lib,
+             nonzero_updates=nonzero)
+    log(f"ordered_add at {label}: {nonzero} nonzero of {adds} updates; "
+        f"library calls {json.dumps(lib)}")
+    return m
+
+
+def rain_tick_path(cfg, world, HE, tsim) -> dict:
+    """`rain_ticks` at the shape the per-tick path launches it with (one
+    world, one tick, the world's clouds), on its inputs of the first tick
+    of `world`, against its plain version."""
+    from trafficsimulation_tpu_torch.agents import rain
+    a, _ = tick_inputs(cfg, world, HE, tsim, "rain_ticks")
+    clouds, active, cooldown, spawn, want_cd, cool = a
+    R, n = clouds.shape[1], spawn.shape[1]
+    out = HE.rain_ticks(*a)
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (clouds, active, cooldown, spawn, want_cd, *out))
+    return measure(
+        "rain_ticks on the path", lambda: HE.rain_ticks(*a),
+        lambda: rain.cloud_ticks_plain(*a), nbytes, R * n * 40,
+        f"1 world, {n} tick, {R} clouds ({int(active.sum())} active)")
 
 
 def k1_hier_tick(cfg, world, HE, tsim) -> dict:
@@ -1422,7 +1544,13 @@ def phase_tiled(cfg, world, HE, tsim):
     # K1's bytes and operations as in kernel_cases (one world)
     k1_bytes = HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4) + present * 4 + HW * 5
     k1_ops = HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2)
-    k1_ms = median_ms(lambda: HE.decide_move(kcfg, *a))
+    k1m = measure("decide_move at the headline's first tick",
+                  lambda: HE.decide_move(kcfg, *a),
+                  lambda: HE.decide_move_core(kcfg, a[0], a[1], *a[2],
+                                              *a[3:8], *a[8]),
+                  k1_bytes, k1_ops,
+                  f"{H}x{W}, D4 = {a[0].shape[0]}, {present} vehicles")
+    k1_ms = k1m["ms"]
     out = {}
     for th, tw in TILES:
         n0 = HE.launches["decide_move_tiled"]
@@ -1446,7 +1574,7 @@ def phase_tiled(cfg, world, HE, tsim):
         m["window_bytes"] = k1_bytes * ratio
     log(f"K7 equals K1 on the headline's first tick ({present} vehicles) "
         f"at tiles {TILES}; K1 on the same inputs {k1_ms:.4f} ms")
-    REPORT["tiled"] = {"k1_ms": k1_ms, **out}
+    REPORT["tiled"] = {"k1_ms": k1_ms, "k1": k1m, **out}
     return out
 
 
@@ -1661,6 +1789,8 @@ def main():
     if "ordered_add" in run:
         k_add = ordered_add_tick(cfg, world, HE, tsim, "the headline")
         REPORT["ordered_add"] = k_add
+        k_rain_path = rain_tick_path(cfg, world, HE, tsim)
+        REPORT["rain_ticks_path"] = k_rain_path
         stamp("ordered_add")
     if "tiled" in run:
         k7 = phase_tiled(cfg, world, HE, tsim)
@@ -1720,7 +1850,7 @@ def main():
         elif k == "ordered_add":
             m = k_add
         elif k == "rain_ticks":
-            m = k_rain
+            m = k_rain_path
         else:
             m = single[k] if path == "single" else batched[k]
         entry = {"name": k, "route": "cuda", "source": KERNELS[k][0],
@@ -1730,6 +1860,7 @@ def main():
                  "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                  "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                  "device_ms": m["device_ms"],
+                 "kernels_per_call": m.get("kernels_per_call"),
                  "path": path,
                  "batch": BATCH if path == "batched" else 1,
                  "shape": m.get("shape", f"{cfg0.HEIGHT}x{cfg0.WIDTH}, "
@@ -1741,9 +1872,7 @@ def main():
                  "launches_bridge_path": l_bridge[k],
                  "on_path": k not in OFF_PATH}
         if k in single and path == "batched":
-            entry["single_world"] = {x: single[k][x] for x in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}
+            entry["single_world"] = {x: single[k][x] for x in SUB_KEYS}
         if k == "select_rows":
             entry["dense_stack"] = {x: k6["dense"][x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1757,14 +1886,21 @@ def main():
             entry["tiles_" + t1] = {x: k7[t1][x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "shape")}
+        if k == "decide_move":
+            entry["headline_first_tick"] = {x: REPORT["tiled"]["k1"].get(x)
+                                            for x in SUB_KEYS}
+        if k == "ordered_add":
+            entry["library"] = k_add["library"]
+        if k == "rain_ticks":
+            entry["batch_200_ticks"] = {x: k_rain.get(x) for x in SUB_KEYS}
         if k == "render":
             entry["headline_256"] = {x: k8[x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "shape")}
         if k in k_c5 and k != "render":
-            entry["config5"] = {x: k_c5[k][x] for x in (
-                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "shape")}
+            entry["config5"] = {x: k_c5[k][x] for x in SUB_KEYS}
+            if k == "ordered_add":
+                entry["config5"]["library"] = k_c5[k]["library"]
         summary["kernels"].append(entry)
     if args.out:
         REPORT["kernels"] = summary["kernels"]

@@ -643,3 +643,139 @@ def test_tiled_and_render_reject_what_they_do_not_take(gen):
         R.render_planes(cell, stop[:, :10], stop, vstate)
     with pytest.raises(ValueError):
         R.render_planes(cell, stop, stop, vstate.t())
+
+
+def _moving_worlds(g, B, H, W, D):
+    """K1's arguments for B worlds in which a tenth of the cells hold a
+    vehicle without faults, stuck count or allowance and most sdir bytes
+    lack the contraflow bit, so most vehicles move, several cells a tick
+    at K = 5 sub-rounds."""
+    nd = _rint(g, 0, 256, B, D, H, W) & torch.where(
+        _bern(g, 0.8, B, D, H, W), 0xF7, 0xFF).to(torch.int32)
+    sdir4 = torch.stack([engine.pack_sdir4(x.to(torch.uint8)) for x in nd])
+    del nd
+    wb = _rint(g, 0, 16, B, 4, H, W)
+    wnd = wb[:, 0] | (wb[:, 1] << 8) | (wb[:, 2] << 16) | (wb[:, 3] << 24)
+    planes = [_rint(g, -2**31, 2**31, B, H, W) for _ in range(5)] + [
+        torch.rand((B, H, W), generator=g, device="cuda")]
+    planes[0] = (planes[0] & ((1 << 14) - 2)) | _bern(g, 0.1, B, H, W) | \
+        (_rint(g, 0, D, B, H, W) << 18)
+    planes[1] &= 0x00FFF000
+    masks = tuple(_bern(g, p, B, H, W) for p in (0.02, 0.1, 0.02))
+    inter = _bern(g, 0.1, H, W)
+    dest_id = torch.where(_bern(g, 0.05, H, W), _rint(g, 0, D, H, W), -1)
+    randoms = (torch.rand((B, H, W), generator=g, device="cuda"),
+               torch.rand((B, H, W), generator=g, device="cuda"),
+               _rint(g, 1, 6, B, H, W), _rint(g, -2**31, 2**31, B, H, W))
+    return sdir4, wnd, tuple(planes), masks, inter, dest_id, randoms
+
+
+# K1's forms at a ragged shape (a partial 32 x 8 tile at the grid's edge)
+# and at about 1M cells, where a thread owns several cells
+_K1_SHAPES = {("one", "small"): (1, 37, 300), ("one", "1M"): (1, 1024, 1024),
+              ("batch", "small"): (3, 37, 300),
+              ("batch", "1M"): (16, 256, 256),
+              ("hier", "small"): (1, 40, 304),
+              ("hier", "1M"): (1, 1024, 1024)}
+
+
+def _k1_call(g, form, size, speed):
+    """(kernel call, plain call, vehicles) of one K1 form."""
+    from trafficsimulation_tpu_torch.ops import hier
+    B, H, W = _K1_SHAPES[(form, size)]
+    if form == "hier":
+        kw = dict(HIER_TILE=8, HIER_LMAX=8) if size == "small" else {}
+        cfg = Config(WIDTH=W, HEIGHT=H, ROUTING_HIER=True,
+                     VEHICLE_MAX_SPEED=speed,
+                     VEHICLE_MALFUNCTION_CHANCE=0.01,
+                     VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3, **kw)
+        dense4, local4, wnd, planes, masks, dest_id, randoms = \
+            _hier_inputs(g, cfg)
+        consts = hier.kernel_consts(cfg)
+        return (lambda: HE.decide_move(cfg, dense4, wnd, planes, *masks,
+                                       dest_id, randoms,
+                                       hier=(local4, consts)),
+                lambda: HE.decide_move_core(
+                    cfg, dense4, wnd, *planes, *masks, dest_id, *randoms,
+                    select=lambda d: hier.hier_select(cfg, dense4, local4,
+                                                      d)),
+                int((planes[0] & 1).sum()))
+    cfg = Config(WIDTH=W, HEIGHT=H, VEHICLE_MAX_SPEED=speed,
+                 VEHICLE_MALFUNCTION_CHANCE=0.01,
+                 VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3)
+    sdir4, wnd, planes, masks, inter, dest, randoms = _moving_worlds(
+        g, B, H, W, 10)
+    n_veh = int((planes[0] & 1).sum())
+    if form == "batch":
+        return (lambda: HE.decide_move_batched(cfg, sdir4, wnd, planes,
+                                               *masks, inter, dest, randoms),
+                lambda: HE.decide_move_core_batched(cfg, sdir4, wnd, planes,
+                                                    *masks, inter, dest,
+                                                    randoms), n_veh)
+    one = (sdir4[0], wnd[0], tuple(p[0] for p in planes),
+           *(m[0] for m in masks), inter, dest, tuple(r[0] for r in randoms))
+    return (lambda: HE.decide_move(cfg, *one),
+            lambda: HE.decide_move_core(cfg, one[0], one[1], *one[2],
+                                        *one[3:8], *one[8]), n_veh)
+
+
+@pytest.mark.parametrize("size", ["small", "1M"])
+@pytest.mark.parametrize("speed", [2, 5])
+@pytest.mark.parametrize("form", ["one", "batch", "hier"])
+def test_decide_move_one_launch_matches_plain(gen, form, speed, size):
+    """K1's cooperative launch in each form against its plain version, at
+    K = 2 and 5 sub-rounds, with most vehicles moving: one wrapper call,
+    bit-equal."""
+    kern, plain, n_veh = _k1_call(gen, form, size, speed)
+    n0 = dict(HE.launches)
+    got = kern()
+    assert HE.launches["decide_move"] == n0["decide_move"] + 1
+    assert HE.launches["select_rows"] == n0["select_rows"]
+    _same(got, plain())
+    moved = int(((got[6] & HE.FLAG_MOVED) != 0).sum())
+    assert moved > 0.3 * n_veh
+
+
+@pytest.mark.parametrize("form", ["one", "batch", "hier"])
+def test_decide_move_runs_one_device_kernel(gen, form):
+    """Each K1 call runs exactly one kernel on the device (the profiler's
+    count), the cooperative one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    kern, _, _ = _k1_call(gen, form, "small", 5)
+    kern()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kern()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "dm_coop" in names[0], names
+
+
+@pytest.mark.parametrize("name", ["order", "zero_runs", "signed_zero_bases",
+                                  "cancel", "rows32", "config5", "dropped",
+                                  "subnormal", "beyond_shared_memory"])
+def test_ordered_add_kernel_matches_plain(gen, name):
+    """The order-keeping compaction against the plain version on the
+    CPU test's adversarial cases (tests/test_torch_ordered_add.py),
+    subnormals and dropped indices included, and on rows whose work area
+    exceeds shared memory (device memory, the same algorithm)."""
+    from test_torch_ordered_add import _case
+    if name == "beyond_shared_memory":
+        rng = np.random.default_rng(5)
+        R, T, n = 3, 5184, 40000
+        base = rng.normal(0, 30, (R, T)).astype(np.float32)
+        base[:, ::7] = -0.0
+        idx = rng.integers(-3, T + 3, (R, n))
+        idx[:, ::2] = 0
+        vals = np.where(rng.random((R, n)) < 0.7,
+                        np.where(rng.random((R, n)) < 0.5, 0.0, -0.0),
+                        rng.normal(0, 1e3, (R, n))).astype(np.float32)
+    else:
+        base, idx, vals = _case(name)
+    cpu = [torch.from_numpy(x) for x in (base, idx, vals)]
+    n0 = HE.launches["ordered_add"]
+    got = HE.ordered_add(*[x.cuda() for x in cpu])
+    assert HE.launches["ordered_add"] == n0 + 1
+    _same((got.cpu(),), (HE.ordered_add_plain(*cpu),))

@@ -44,8 +44,9 @@ CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
 
 class _Op(torch.autograd.Function):
     """fn(*args) as an op: torch.profiler links a kernel to the layer
-    whose range ran it through the op that launched it, and K4's
-    single-plane wrapper launches through ctypes outside any op."""
+    whose range ran it through the op that launched it, and the lean
+    wrappers of K1, K4 and the ordered add launch through ctypes outside
+    any op."""
 
     @staticmethod
     def forward(fn, *args):
@@ -85,8 +86,9 @@ def annotate_layers() -> list:
                 with record_function(_label):
                     return _fn(*a, **k)
             setattr(mod, name, span)
-    launch = HE._prefix_launch
-    HE._prefix_launch = lambda occ, B: _Op.apply(launch, occ, B)
+    for name in ("_prefix_launch", "_dm_launch", "ordered_add_rows"):
+        setattr(HE, name, lambda *a, _fn=getattr(HE, name): _Op.apply(_fn,
+                                                                     *a))
     return list(layers)
 
 

@@ -1,6 +1,8 @@
-// K1's phase bodies, one cell each, shared by K1 (decide_move.cu, one
-// launch per phase) and K9 (megakernel.cu, one grid-wide barrier per
-// phase).
+// K1's phase bodies, one cell each, run by K9 (megakernel.cu, one
+// grid-wide barrier per phase) and K7 (decide_tiled.cu).  K1 itself
+// (decide_move.cu) runs the decide through `dm_decide_core` and has its
+// own intent, commit and finish on a smaller working set, with the same
+// rules.
 //
 //   decide      start-of-tick faults, halts, speed, contraflow ladder;
 //               writes working set A, the halt latch and an aux word
@@ -13,8 +15,8 @@
 //
 // Every function works on one world: `in` points at that world's planes
 // and `S` at its [20, H, W] scratch.  The random draws of a cell arrive
-// as values (K1 reads them from planes, K9 hashes them from the tick's
-// seeds).  The destination row select is one indexed load: byte
+// as values (K1 and K7 read them from planes, K9 hashes them from the
+// tick's seeds).  The destination row select is one indexed load: byte
 // (dest & 3) of sdir4[dest >> 2], ND_NONE when dest >> 2 is past the
 // stack; the phase bodies take it as a functor (`GridSelect` on the
 // whole grid, `HierSelect` under hierarchical routing, K7's window
@@ -195,17 +197,63 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-template <class Select = GridSelect>
-__device__ __forceinline__ void dm_decide_cell(const DMParams& p,
-                                               const Inputs& in, int* S,
-                                               int c, float r_mal,
-                                               float r_side, int r_reroll,
-                                               const Select& sel = Select()) {
-  const int HW = p.H * p.W;
-  const int y = c / p.W, x = c % p.W;
-  uint32_t pa = (uint32_t)in.pa[c], pb = (uint32_t)in.pb[c];
-  uint32_t pd = (uint32_t)in.pd[c];
-  const bool present = pa & 1u;
+// what the decide phase computes for one cell: the new pa, pb, pd words,
+// the steps this tick (0 for an empty cell), the halt latch and the aux
+// word (nd0 | head1 << 8 | (ct > 0) << 11 | wkey << 12 | at_dest0 << 14 |
+// new_mal << 15 | new_col << 16)
+struct Decided {
+  uint32_t pa, pb, pd;
+  int steps;
+  bool halted;
+  int aux;
+};
+
+// how the decide phase reads its inputs: every read where the phase
+// body makes it (K9, K7), or for K1's cooperative kernel, whose inputs
+// no phase writes, through the read-only path and either all up front
+// (a cell that holds a vehicle: one round trip before the select) or
+// only the cell's own pa, pb, pd words (an empty cell: every other
+// value is used only where a vehicle stands, and its aux word's nd0 is
+// then 7, read by no later phase; the random draws go unused too)
+enum DecideMode { DM_PLAIN, DM_VEHICLE, DM_EMPTY };
+
+template <int kMode, class T>
+__device__ __forceinline__ T ld_in(const T* q) {
+  if constexpr (kMode == DM_PLAIN)
+    return *q;
+  else
+    return __ldg(q);
+}
+
+// The decide phase at cell c = (y, x).
+template <class Select, int kMode = DM_PLAIN>
+__device__ __forceinline__ Decided dm_decide_core(const DMParams& p,
+                                                  const Inputs& in, int c,
+                                                  int y, int x, float r_mal,
+                                                  float r_side, int r_reroll,
+                                                  const Select& sel) {
+  constexpr bool kSkipEmpty = kMode != DM_PLAIN;
+  constexpr bool kAhead = kMode == DM_VEHICLE;
+  uint32_t pa = (uint32_t)ld_in<kMode>(in.pa + c);
+  uint32_t pb = (uint32_t)ld_in<kMode>(in.pb + c);
+  uint32_t pd = (uint32_t)ld_in<kMode>(in.pd + c);
+  uint32_t nb_pa[4] = {0u, 0u, 0u, 0u};
+  bool stop_c = false, rain_c = false, inter_c = false;
+  int dest_c = -1;
+  uint32_t wnd_c = 0u;
+  if constexpr (kAhead) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int n = nbr(y, x, m, p.H, p.W);
+      nb_pa[m] = n >= 0 ? (uint32_t)__ldg(in.pa + n) : 0u;
+    }
+    stop_c = __ldg(in.stop + c);
+    rain_c = __ldg(in.rain + c);
+    inter_c = __ldg(in.inter + c);
+    dest_c = __ldg(in.dest_id + c);
+    wnd_c = (uint32_t)__ldg(in.wnd + c);
+  }
+  const bool present = kMode != DM_EMPTY && (pa & 1u);
   const bool col0 = bit(pa, PA_COL_SH), mal0 = bit(pa, PA_MAL_SH);
   const bool parked = bit(pa, PA_PARKED_SH), stuckf = bit(pa, PA_STUCKF_SH);
   const int head1 = (int)fld(pa, PA_HEAD_SH, 3);
@@ -228,14 +276,14 @@ __device__ __forceinline__ void dm_decide_cell(const DMParams& p,
     still = still || new_mal;
   }
   bool new_col = false;
-  if (p.side_active) {
+  if (p.side_active && (!kSkipEmpty || present)) {
     const int hk = max(head1 - 1, 0);
     const int opp1 = ((hk + 2) & 3) + 1;
     bool side_hit = false;
     for (int m = 0; m < 4; ++m) {
       const int n = nbr(y, x, m, p.H, p.W);
       if (n < 0) continue;
-      const uint32_t q = (uint32_t)in.pa[n];
+      const uint32_t q = kAhead ? nb_pa[m] : (uint32_t)in.pa[n];
       const bool nb_mov = (q & 1u) && fld(q, PA_CUR_SH, 4) > 0 &&
                           !bit(q, PA_STUCKF_SH) && !bit(q, PA_PARKED_SH) &&
                           !bit(q, PA_COL_SH) && !bit(q, PA_MAL_SH);
@@ -250,27 +298,32 @@ __device__ __forceinline__ void dm_decide_cell(const DMParams& p,
     still = still || new_col;
   }
 
-  const bool halted = still || (present && in.stop[c]) || parked;
+  const bool halted =
+      still || (present && (kAhead ? stop_c : in.stop[c])) || parked;
   int base = (int)fld(pa, PA_BASE_SH, 4);
   if (present && base == 0) base = r_reroll;
   int speed = base;
-  if (p.rain_enabled && in.rain[c]) speed = max(1, speed - p.rain_reduction);
+  if (p.rain_enabled && (!kSkipEmpty || present) &&
+      (kAhead ? rain_c : in.rain[c]))
+    speed = max(1, speed - p.rain_reduction);
   if (halted) {
     speed = 0;
     base = 0;
   }
 
   const int dest14 = (int)fld(pa, PA_DEST_SH, 14);
-  const int nd0 = sel(p, in, dest14, c, y, x);
+  const int nd0 =
+      (!kSkipEmpty || present) ? sel(p, in, dest14, c, y, x) : 7;
   int dir0;
   bool contra0;
   resolve(nd0, head1, false, false, 0u, 0, dir0, contra0);
-  const bool at_dest0 = present && in.dest_id[c] >= 0 &&
-                        dest14 == in.dest_id[c];
+  const bool at_dest0 = present && (kAhead ? dest_c : in.dest_id[c]) >= 0 &&
+                        dest14 == (kAhead ? dest_c : in.dest_id[c]);
 
   // contraflow ladder
   int ct = max((int)fld(pb, PB_CONTRA_SH, 8) - 1, 0);
-  const uint32_t wnd = (uint32_t)in.wnd[c];
+  const uint32_t wnd =
+      !kSkipEmpty ? (uint32_t)in.wnd[c] : (present ? wnd_c : 0u);
   const int wkey0 = (int)fld(pd, PD_CFKEY_SH, 2);
   const int wdir0 = (int)((wnd >> (wkey0 * 8)) & 7u);
   const bool merged = present && ct > 0 && !bit(pd, PD_CFMODE_SH) &&
@@ -284,7 +337,10 @@ __device__ __forceinline__ void dm_decide_cell(const DMParams& p,
                        (dir0 == 7 || (contra0 && !allow_pre));
   const bool overtake = p.ovt_active && blocked;
   const int stuck_v = (int)fld(pb, PB_STUCK_SH, 12);
-  const int thresh = in.inter[c] ? p.stuck_cf_thresh_inter : p.stuck_cf_thresh;
+  const int thresh = (!kSkipEmpty || present) &&
+                             (kAhead ? inter_c : in.inter[c])
+                         ? p.stuck_cf_thresh_inter
+                         : p.stuck_cf_thresh;
   const bool stuck_detour = p.stuck_cf_enabled && stuck_v >= thresh && present;
   const bool newly = present && !halted && (overtake || stuck_detour) &&
                      ct == 0;
@@ -301,20 +357,30 @@ __device__ __forceinline__ void dm_decide_cell(const DMParams& p,
   pb = (uint32_t)clampi(stuck_v, 0, 4095) |
        ((uint32_t)clampi(st, 0, 4095) << PB_STRAND_SH) |
        ((uint32_t)clampi(ct, 0, 255) << PB_CONTRA_SH);
+  return Decided{pa, pb, pd, present ? speed : 0, halted,
+                 nd0 | (head1 << 8) | ((ct > 0) << 11) | (wkey_dec << 12) |
+                     (at_dest0 << 14) | (new_mal << 15) | (new_col << 16)};
+}
 
-  const long hw = HW;
-  S[P_PA * hw + c] = (int)pa;
-  S[P_PB * hw + c] = (int)pb;
+template <class Select = GridSelect>
+__device__ __forceinline__ void dm_decide_cell(const DMParams& p,
+                                               const Inputs& in, int* S,
+                                               int c, float r_mal,
+                                               float r_side, int r_reroll,
+                                               const Select& sel = Select()) {
+  const Decided d = dm_decide_core(p, in, c, c / p.W, c % p.W, r_mal,
+                                   r_side, r_reroll, sel);
+  const long hw = p.H * p.W;
+  S[P_PA * hw + c] = (int)d.pa;
+  S[P_PB * hw + c] = (int)d.pb;
   S[P_PC * hw + c] = in.pc[c];
-  S[P_PD * hw + c] = (int)pd;
+  S[P_PD * hw + c] = (int)d.pd;
   S[P_PE * hw + c] = in.pe[c];
   S[P_PL * hw + c] = __float_as_int(in.pl[c]);
-  S[P_STEPS * hw + c] = present ? speed : 0;
+  S[P_STEPS * hw + c] = d.steps;
   S[P_MOVED * hw + c] = 0;
-  S[S_HALT * hw + c] = halted ? 1 : 0;
-  S[S_AUX * hw + c] = nd0 | (head1 << 8) | ((ct > 0) << 11) |
-                      (wkey_dec << 12) | (at_dest0 << 14) | (new_mal << 15) |
-                      (new_col << 16);
+  S[S_HALT * hw + c] = d.halted ? 1 : 0;
+  S[S_AUX * hw + c] = d.aux;
 }
 
 // sub-round, phase 1: each mover publishes priority | direction

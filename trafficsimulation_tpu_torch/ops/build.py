@@ -59,8 +59,8 @@ _ARGTYPES = {
     "tsim_build_wavefront": [P, P, P, P, P, I, I, I, I, P],
     # occ, outh, outv, B, H, W, stream
     "tsim_prefix_planes": [P, P, P, I, I, I, P],
-    # base, idx, vals, out, R, T, n, stream
-    "tsim_ordered_add": [P, P, P, P, I, I, I, P],
+    # base, idx, vals, out, work area (or null), R, T, n, stream
+    "tsim_ordered_add": [P, P, P, P, P, I, I, I, P],
     # sdir4, dest, out, D4, HW, stream
     "tsim_select_rows": [P, P, P, I, I, P],
     # clouds, active, cooldown, spawn, want_cd, out seen, seen_a,
@@ -138,6 +138,8 @@ def load():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.tsim_ordered_add_work.argtypes = [I, I]
+    lib.tsim_ordered_add_work.restype = ctypes.c_long
     lib.tsim_error_string.argtypes = [I]
     lib.tsim_error_string.restype = ctypes.c_char_p
     _lib = lib

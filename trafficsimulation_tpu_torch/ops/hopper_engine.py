@@ -559,6 +559,19 @@ def _call(entry, *args):
     _check_rc(entry, getattr(build.load(), entry)(*args))
 
 
+_entries = {}             # kernel entry points, resolved at first launch
+
+
+def _entry(name: str):
+    """The kernel library's entry point `name`, resolved once (the lean
+    wrappers call it with Python ints for pointers)."""
+    fn = _entries.get(name)
+    if fn is None:
+        from . import build
+        fn = _entries[name] = getattr(build.load(), name)
+    return fn
+
+
 # ---- vmap rules ------------------------------------------------------------
 
 def _front(x, bdim, B):
@@ -594,9 +607,9 @@ class _Kernel(torch.autograd.Function):
 
 # ---- K1 --------------------------------------------------------------------
 
-_N_SCRATCH_DM = 20        # K1's per-world scratch planes (decide_move.cuh)
-
-
+_N_SCRATCH_DM = 20        # K7's and K9's per-world scratch planes
+_N_WORK_K1 = 8            # K1's int32 working planes per world, then a
+                          # byte per cell (decide_move.cu)
 def _dm_params(cfg: Config):
     ip = (ctypes.c_int * 16)(
         int(cfg.VEHICLE_MALFUNCTION_ACTIVE),
@@ -619,6 +632,82 @@ def _dm_params(cfg: Config):
     return ip, fp
 
 
+_dm_last = [None, None]   # the last Config K1 ran with, and its params
+
+
+def _dm_params_of(cfg: Config):
+    """`_dm_params(cfg)`, kept for the last Config object (hashing a
+    Config costs more than building the arrays)."""
+    if _dm_last[0] is not cfg:
+        _dm_last[:] = [cfg, _dm_params(cfg)]
+    return _dm_last[1]
+
+
+def _dm_check(sdir4, wnd, planes, masks, intersection, dest_id, randoms,
+              local4=None):
+    """Raise unless K1's arguments are what its kernel takes: int32 /
+    f32 / bool, contiguous, on one card; the per-world tensors of one
+    shape [(B,) H, W], the stacks [(B,) D4, H, W], the geometry
+    [H, W]."""
+    pa = planes[0]
+    dev, shape = pa.device, tuple(pa.shape)
+    i32t, f32t, bt = torch.int32, torch.float32, torch.bool
+    _check("sdir4", sdir4, i32t, (*shape[:-2], sdir4.shape[-3], *shape[-2:]),
+           dev)
+    if local4 is not None:
+        _check("local4", local4, i32t, (local4.shape[0], *shape), dev)
+    for name, t, dt in (("wnd", wnd, i32t), ("pa", pa, i32t),
+                        ("pb", planes[1], i32t), ("pc", planes[2], i32t),
+                        ("pd", planes[3], i32t), ("pe", planes[4], i32t),
+                        ("pl", planes[5], f32t), ("stop_map", masks[0], bt),
+                        ("rain_map", masks[1], bt),
+                        ("ped_block", masks[2], bt),
+                        ("r_mal", randoms[0], f32t),
+                        ("r_side", randoms[1], f32t),
+                        ("r_reroll", randoms[2], i32t),
+                        ("r_prio", randoms[3], i32t)):
+        _check(name, t, dt, shape, dev)
+    _check("intersection", intersection, bt, shape[-2:], dev)
+    _check("dest_id", dest_id, i32t, shape[-2:], dev)
+
+
+def _dm_launch(cfg: Config, sdir4, wnd, planes, masks, intersection,
+               dest_id, randoms, hier=None):
+    """One K1 launch over checked tensors on the card, [H, W] or
+    [B, H, W] per world (K1-hier with `hier` = (local4, its 10 constants),
+    one world): (pa, pb, pc, pd, pe, pl, flags), views of one
+    allocation."""
+    pa = planes[0]
+    H, W = pa.shape[-2:]
+    B = pa.shape[0] if pa.dim() == 3 else 1
+    dev = pa.device
+    out = torch.empty((7, *pa.shape), dtype=torch.int32, device=dev)
+    n = B * H * W
+    work = torch.empty(n * _N_WORK_K1 + (n + 3) // 4, dtype=torch.int32,
+                       device=dev)
+    o, step = out.data_ptr(), pa.numel() * 4
+    ip, fp = _dm_params_of(cfg)
+    args = (sdir4.data_ptr(), sdir4.shape[-3], wnd.data_ptr(),
+            *[p.data_ptr() for p in planes],
+            *[m.data_ptr() for m in masks], intersection.data_ptr(),
+            dest_id.data_ptr(), *[r.data_ptr() for r in randoms],
+            *[o + k * step for k in range(7)], work.data_ptr())
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if hier is None:
+        entry = "tsim_decide_move"
+        rc = _entry(entry)(ip, fp, *args, B, H, W, stream)
+    else:
+        local4, consts = hier
+        entry = "tsim_decide_move_hier"
+        rc = _entry(entry)(ip, fp, (ctypes.c_int * 10)(*consts),
+                           local4.data_ptr(), local4.shape[0], *args, H, W,
+                           stream)
+    _check_rc(entry, rc)
+    launches["decide_move"] += 1
+    outs = out.unbind(0)
+    return (*outs[:5], outs[5].view(torch.float32), outs[6])
+
+
 def decide_move_batched(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
                         ped_block, intersection, dest_id, randoms):
     """K1 for a batch of B worlds: every argument carries a leading B
@@ -628,58 +717,27 @@ def decide_move_batched(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
     Replaces `pallas_engine.decide_move_pallas` (`_kernel` ->
     `decide_move_core`, ops/pallas_engine.py; batched by `jax.vmap`
     through the Pallas batching rule).  Source: csrc/decide_move.cu.  On
-    the H100 it is bound by launches and device memory bytes, not
-    arithmetic: ~30 int32 planes of 256 KB per world are read and written
-    per sub-round, far below the card's bandwidth, so the 12 dependent
-    launches per tick set its time.  Design: one thread per cell and
-    world (blockIdx.y) in phases with double-buffered planes in device
-    memory (a `decide` kernel, then per sub-round an `intent` kernel that
-    publishes each mover's conflict key and a `commit` kernel that
-    resolves every target's lowest key from neighbours up to two cells
-    away and pulls the winner's planes, then a `finish` kernel); the
-    destination-row select is one indexed load.  Fusing the sub-rounds
-    into one halo-tiled kernel (TILE_HALO >= 12 is exact) is later speed
-    work."""
-    pa = planes[0]
-    r_mal, r_side, r_reroll, r_prio = randoms
-    if not _on_cuda(pa):
+    the H100 the function is bound by device-memory bytes (~80 B a
+    cell); the phase chain of a tick (decide, K x (intent, commit),
+    finish) by its dependent steps.  Design: one cooperative launch, a
+    persistent grid whose blocks own fixed 32 x 8 tiles of cells in every
+    phase, grid barriers between the phases; what only a cell itself
+    reads (the decide aux word, halt, moved, presence, the intent it
+    last published) stays in one register per cell, and the phases
+    write a cell's working planes, keys and info words only where they
+    change.  The wrapper makes one allocation for the seven outputs and
+    resolves the entry point once."""
+    masks = (stop_map, rain_map, ped_block)
+    if not _on_cuda(planes[0]):
         return decide_move_core_batched(cfg, sdir4, wnd, planes, stop_map,
                                         rain_map, ped_block, intersection,
                                         dest_id, randoms)
-    B, H, W = pa.shape
-    dev = pa.device
-    i32t, f32t, bt = torch.int32, torch.float32, torch.bool
-    _check("sdir4", sdir4, i32t, (B, sdir4.shape[1], H, W), dev)
-    for name, t, dt in (("wnd", wnd, i32t), ("pa", pa, i32t),
-                        ("pb", planes[1], i32t), ("pc", planes[2], i32t),
-                        ("pd", planes[3], i32t), ("pe", planes[4], i32t),
-                        ("pl", planes[5], f32t), ("stop_map", stop_map, bt),
-                        ("rain_map", rain_map, bt),
-                        ("ped_block", ped_block, bt),
-                        ("r_mal", r_mal, f32t), ("r_side", r_side, f32t),
-                        ("r_reroll", r_reroll, i32t),
-                        ("r_prio", r_prio, i32t)):
-        _check(name, t, dt, (B, H, W), dev)
-    _check("intersection", intersection, bt, (H, W), dev)
-    _check("dest_id", dest_id, i32t, (H, W), dev)
-    outs = [torch.empty((B, H, W), dtype=i32t, device=dev)
-            for _ in range(5)]
-    out_pl = torch.empty((B, H, W), dtype=f32t, device=dev)
-    flags = torch.empty((B, H, W), dtype=i32t, device=dev)
-    scratch = torch.empty((B, 20, H, W), dtype=i32t, device=dev)
-    ip, fp = _dm_params(cfg)
-    _call("tsim_decide_move", ctypes.cast(ip, ctypes.c_void_p),
-          ctypes.cast(fp, ctypes.c_void_p),
-          _ptr(sdir4), ctypes.c_int(sdir4.shape[1]), _ptr(wnd),
-          *[_ptr(p) for p in planes],
-          _ptr(stop_map), _ptr(rain_map), _ptr(ped_block),
-          _ptr(intersection), _ptr(dest_id), _ptr(r_mal), _ptr(r_side),
-          _ptr(r_reroll), _ptr(r_prio),
-          *[_ptr(o) for o in outs], _ptr(out_pl), _ptr(flags),
-          _ptr(scratch), ctypes.c_int(B), ctypes.c_int(H), ctypes.c_int(W),
-          _stream(dev))
-    launches["decide_move"] += 1
-    return (*outs, out_pl, flags)
+    if planes[0].dim() != 3:
+        raise ValueError(f"pa: shape {tuple(planes[0].shape)}, kernel "
+                         "takes [B, H, W]")
+    _dm_check(sdir4, wnd, planes, masks, intersection, dest_id, randoms)
+    return _dm_launch(cfg, sdir4, wnd, planes, masks, intersection, dest_id,
+                      randoms)
 
 
 # argument positions of _DecideMove after cfg: the per-world tensors and
@@ -695,14 +753,25 @@ def _dm_batched(cfg, args):
                                dest_id, (r_mal, r_side, r_reroll, r_prio))
 
 
+def _dm_single(cfg, sdir4, wnd, planes, stop_map, rain_map, ped_block,
+               intersection, dest_id, randoms):
+    masks = (stop_map, rain_map, ped_block)
+    if not _on_cuda(planes[0]):
+        return decide_move_core(cfg, sdir4, wnd, *planes, *masks,
+                                intersection, dest_id, *randoms)
+    if planes[0].dim() != 2:
+        raise ValueError(f"pa: shape {tuple(planes[0].shape)}, kernel "
+                         "takes [H, W]")
+    _dm_check(sdir4, wnd, planes, masks, intersection, dest_id, randoms)
+    return _dm_launch(cfg, sdir4, wnd, planes, masks, intersection, dest_id,
+                      randoms)
+
+
 class _DecideMove(_Kernel):
     @staticmethod
     def forward(cfg, *args):
-        if not _on_cuda(args[2]):
-            return decide_move_core(cfg, *args)
-        one = [a if i in _DM_SHARED else a.unsqueeze(0)
-               for i, a in enumerate(args)]
-        return tuple(o[0] for o in _dm_batched(cfg, one))
+        return _dm_single(cfg, args[0], args[1], args[2:8], *args[8:13],
+                          args[13:])
 
     @staticmethod
     def vmap(info, in_dims, cfg, *args):
@@ -718,10 +787,33 @@ class _DecideMove(_Kernel):
         return out, (0,) * 7
 
 
+def _dm_hier(cfg, consts, sdir4, wnd, planes, stop_map, rain_map,
+             ped_block, intersection, dest_id, randoms, local4):
+    masks = (stop_map, rain_map, ped_block)
+    if not _on_cuda(planes[0]):
+        from . import hier
+
+        def select(dest):
+            return hier.hier_select(cfg, sdir4, local4, dest)
+        return decide_move_core(cfg, sdir4, wnd, *planes, *masks,
+                                intersection, dest_id, *randoms,
+                                select=select)
+    if planes[0].dim() != 2:
+        raise ValueError(f"pa: shape {tuple(planes[0].shape)}, kernel "
+                         "takes [H, W]")
+    if len(consts) != 10:
+        raise ValueError(f"hier constants: {len(consts)}, kernel takes 10")
+    _dm_check(sdir4, wnd, planes, masks, intersection, dest_id, randoms,
+              local4)
+    return _dm_launch(cfg, sdir4, wnd, planes, masks, intersection, dest_id,
+                      randoms, (local4, consts))
+
+
 def decide_move(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
                 ped_block, intersection, dest_id, randoms, hier=None):
     """K1 for one world (`decide_move_batched` with B = 1; under vmap one
-    batched launch).  Planes pa..pe and `wnd`, `r_prio` are int32 bit
+    batched launch through `_DecideMove`'s rule; no autograd.Function
+    otherwise).  Planes pa..pe and `wnd`, `r_prio` are int32 bit
     patterns; masks bool; `pl`, `r_mal`, `r_side` f32; `r_reroll`,
     `dest_id` int32.  Returns (pa, pb, pc, pd, pe, pl, flags int32).
 
@@ -735,78 +827,24 @@ def decide_move(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
     `decide_move_core` in XLA ops with `hier_select`, two
     `select_rows_pallas` calls (K6) per select.  Source:
     csrc/decide_move.cu, `HierSelect` in csrc/decide_move.cuh.  On the
-    H100 it is bound, like K1, by the latency of its 2K + 2 dependent
-    launches and by device-memory bytes (K1's planes, plus one gathered
-    word of each stack per select).  Design: K1's launches and phase
-    bodies with the select functor `HierSelect`, which decodes the rid
-    with host-checked magic divisions and makes one gathered load from
-    each stack.  One world only (no vmap rule): the hierarchical config
-    is never batched; the batched K1 and K9 select with `GridSelect`."""
+    H100 it is bound, like K1, by device-memory bytes (K1's planes, plus
+    one gathered word of each stack per select) and by its phase chain.
+    Design: K1's cooperative launch and phase bodies with the select
+    functor `HierSelect`, which decodes the rid with host-checked magic
+    divisions and makes one gathered load from each stack.  One world
+    only (no vmap rule): the hierarchical config is never batched; the
+    batched K1 and K9 select with `GridSelect`."""
     if hier is not None:
         local4, consts = hier
-        return _DecideMoveHier.apply(cfg, tuple(consts), sdir4, wnd,
-                                     *planes, stop_map, rain_map, ped_block,
-                                     intersection, dest_id, *randoms, local4)
-    return _DecideMove.apply(cfg, sdir4, wnd, *planes, stop_map, rain_map,
-                             ped_block, intersection, dest_id, *randoms)
-
-
-class _DecideMoveHier(_Kernel):
-    """K1-hier (`decide_move` with `hier=`)."""
-
-    @staticmethod
-    def forward(cfg, consts, sdir4, wnd, pa, pb, pc, pd, pe, pl, stop_map,
-                rain_map, ped_block, intersection, dest_id, r_mal, r_side,
-                r_reroll, r_prio, local4):
-        planes = (pa, pb, pc, pd, pe, pl)
-        if not _on_cuda(pa):
-            from . import hier
-
-            def select(dest):
-                return hier.hier_select(cfg, sdir4, local4, dest)
-            return decide_move_core(cfg, sdir4, wnd, *planes, stop_map,
-                                    rain_map, ped_block, intersection,
-                                    dest_id, r_mal, r_side, r_reroll, r_prio,
-                                    select=select)
-        H, W = pa.shape
-        dev = pa.device
-        i32t, f32t, bt = torch.int32, torch.float32, torch.bool
-        D4, LD4 = sdir4.shape[0], local4.shape[0]
-        _check("sdir4", sdir4, i32t, (D4, H, W), dev)
-        _check("local4", local4, i32t, (LD4, H, W), dev)
-        for name, t, dt in (("wnd", wnd, i32t), ("pa", pa, i32t),
-                            ("pb", pb, i32t), ("pc", pc, i32t),
-                            ("pd", pd, i32t), ("pe", pe, i32t),
-                            ("pl", pl, f32t), ("stop_map", stop_map, bt),
-                            ("rain_map", rain_map, bt),
-                            ("ped_block", ped_block, bt),
-                            ("intersection", intersection, bt),
-                            ("dest_id", dest_id, i32t),
-                            ("r_mal", r_mal, f32t), ("r_side", r_side, f32t),
-                            ("r_reroll", r_reroll, i32t),
-                            ("r_prio", r_prio, i32t)):
-            _check(name, t, dt, (H, W), dev)
-        if len(consts) != 10:
-            raise ValueError(f"hier constants: {len(consts)}, kernel takes "
-                             "10")
-        outs = [torch.empty((H, W), dtype=i32t, device=dev)
-                for _ in range(5)]
-        out_pl = torch.empty((H, W), dtype=f32t, device=dev)
-        flags = torch.empty((H, W), dtype=i32t, device=dev)
-        scratch = torch.empty((_N_SCRATCH_DM, H, W), dtype=i32t, device=dev)
-        ip, fp = _dm_params(cfg)
-        hc = (ctypes.c_int * 10)(*consts)
-        _call("tsim_decide_move_hier", ctypes.cast(ip, ctypes.c_void_p),
-              ctypes.cast(fp, ctypes.c_void_p),
-              ctypes.cast(hc, ctypes.c_void_p), _ptr(local4),
-              ctypes.c_int(LD4), _ptr(sdir4), ctypes.c_int(D4), _ptr(wnd),
-              *[_ptr(p) for p in planes], _ptr(stop_map), _ptr(rain_map),
-              _ptr(ped_block), _ptr(intersection), _ptr(dest_id),
-              _ptr(r_mal), _ptr(r_side), _ptr(r_reroll), _ptr(r_prio),
-              *[_ptr(o) for o in outs], _ptr(out_pl), _ptr(flags),
-              _ptr(scratch), ctypes.c_int(H), ctypes.c_int(W), _stream(dev))
-        launches["decide_move"] += 1
-        return (*outs, out_pl, flags)
+        return _dm_hier(cfg, tuple(consts), sdir4, wnd, planes, stop_map,
+                        rain_map, ped_block, intersection, dest_id, randoms,
+                        local4)
+    if torch._C._are_functorch_transforms_active():
+        return _DecideMove.apply(cfg, sdir4, wnd, *planes, stop_map,
+                                 rain_map, ped_block, intersection, dest_id,
+                                 *randoms)
+    return _dm_single(cfg, sdir4, wnd, planes, stop_map, rain_map,
+                      ped_block, intersection, dest_id, randoms)
 
 
 # ---- K7 --------------------------------------------------------------------
@@ -1088,20 +1126,13 @@ def build_wavefront(cfg: Config, allowed, is_road, hard):
 
 # ---- K4 --------------------------------------------------------------------
 
-_prefix_entry = None       # tsim_prefix_planes, resolved at first launch
-
-
 def _prefix_launch(occ, B: int):
     """One K4 launch over the B planes of `occ` [(B,) H, W] (int32,
     contiguous, on the card): (incH, incV), views of one allocation."""
-    global _prefix_entry
-    if _prefix_entry is None:
-        from . import build
-        _prefix_entry = build.load().tsim_prefix_planes
     H, W = occ.shape[-2:]
     out = torch.empty((2, *occ.shape), dtype=torch.int32, device=occ.device)
     ptr = out.data_ptr()
-    _check_rc("tsim_prefix_planes", _prefix_entry(
+    _check_rc("tsim_prefix_planes", _entry("tsim_prefix_planes")(
         occ.data_ptr(), ptr, ptr + occ.numel() * 4, B, H, W,
         torch._C._cuda_getCurrentRawStream(occ.device.index)))
     launches["prefix_planes"] += 1
@@ -1207,8 +1238,13 @@ def ordered_add_rows(base, idx, vals):
     No TPU kernel: the JAX package adds with XLA's scatter
     (`food.at[sb].add(give)`, ops/engine.py `_post_move`), which on the
     CPU folds duplicates in update order; an atomic scatter on the card
-    would not.  Source: csrc/ordered_add.cu.  Bound by launch latency.
-    Design: one thread per target walks the row's updates in order."""
+    would not.  Source: csrc/ordered_add.cu.  Bound by latency.  Design:
+    O(n + T) per row in one block: an order-keeping compaction of the
+    nonzero updates (a +-0 update changes a fold only where it turns a
+    -0 base with no nonzero update into +0), a scan of the per-target
+    counts, a stable placement into per-target runs, then one thread per
+    target folds its run; rows too large for shared memory use a work
+    area in device memory."""
     if not _on_cuda(base):
         return ordered_add_plain(base, idx, vals)
     R, T = base.shape
@@ -1220,8 +1256,14 @@ def ordered_add_rows(base, idx, vals):
     out = torch.empty_like(base)
     if R == 0 or T == 0:
         return out
-    _call("tsim_ordered_add", _ptr(base), _ptr(idx), _ptr(vals), _ptr(out),
-          ctypes.c_int(R), ctypes.c_int(T), ctypes.c_int(n), _stream(dev))
+    # a row's work area in device memory, where shared memory is too small
+    per_row = _entry("tsim_ordered_add_work")(T, n)
+    work = (torch.empty(R * per_row, dtype=torch.uint8, device=dev)
+            if per_row else None)
+    _check_rc("tsim_ordered_add", _entry("tsim_ordered_add")(
+        base.data_ptr(), idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
+        work.data_ptr() if per_row else None, R, T, n,
+        torch._C._cuda_getCurrentRawStream(dev.index)))
     launches["ordered_add"] += 1
     return out
 
@@ -1244,8 +1286,11 @@ class _OrderedAdd(_Kernel):
 
 def ordered_add(base, idx, vals):
     """base [R, T] f32 plus vals [R, n] at idx [R, n] in update order
-    (`ordered_add_rows`; under vmap one launch for all worlds' rows)."""
-    return _OrderedAdd.apply(base, idx, vals)
+    (`ordered_add_rows`; under vmap one launch for all worlds' rows
+    through `_OrderedAdd`'s rule, no autograd.Function otherwise)."""
+    if torch._C._are_functorch_transforms_active():
+        return _OrderedAdd.apply(base, idx, vals)
+    return ordered_add_rows(base, idx, vals)
 
 
 # ---- rain clouds -----------------------------------------------------------
