@@ -17,16 +17,22 @@ Phases (any failure raises and the script exits nonzero):
      K3, K4 for B = 16 worlds; outputs must be bit-equal; each batched
      kernel's B = 1 call must equal the single-world kernel; median
      times of kernel and plain version, the bound of each kernel (bytes
-     over 3.35 TB/s or operations over 67 T/s, the larger), the device
+     over 3.35 TB/s or, the larger, the operations: for the integer
+     kernels the ALU-only ones over the ALU rate, 64 lanes an SM at its
+     max SM clock, or all of them over twice that rate, adds issuing as
+     IMAD on the FMA pipe too; for the f32 ones over 67 T/s), the device
      kernels one call runs (K1: one cooperative launch), and for K4
-     the two `torch.cumsum` calls that compute the same function; then
+     the two `torch.cumsum` calls that compute the same function; K5's
+     registers (ptxas) and SASS instructions per key row and world
+     (`tools/sass_count.py`); then
      K6 at config #5's shapes (1024^2; the windowed stack, 108 words,
      and the dense stack, 36 words; dest planes holding -1 and rows past
      the stack); the rain clouds' tick loop (no TPU kernel) for 16
      worlds over 200 ticks, bit-equal to its plain version;
   3. the service FSM's ordered scatter-add on a case whose f32 sum
-     depends on the order, and on signed zeros, subnormals, runs of
-     +-0 and dropped indices: the card must give the CPU's update-order
+     depends on the order, and on signed zeros, subnormals and sums
+     that flush to zero, runs of +-0 and dropped indices: the card must
+     give the CPU's update-order
      result bit for bit; then on its inputs of the generated headline
      world's first tick (and, in group `config5`, of config #5's),
      captured from a one-tick `run_chunk`, against its plain version
@@ -35,7 +41,7 @@ Phases (any failure raises and the script exits nonzero):
      `index_add_`; `library_ms` only where one gives the same bits on
      every case); and the rain clouds' loop (`rain_ticks`) at the shape
      the per-tick path launches it with, on the headline's first-tick
-     inputs;
+     inputs, beside one launch with no work;
   4. generation: the headline world (BASELINE config #2) generated on
      the card from seed 0 (`sim.init_world`, `measure_and_shrink`,
      `inject_vehicles(..., 10_000)`) must equal the shipped snapshot of
@@ -135,38 +141,64 @@ BATCH = 16
 FLOAT_RTOL = 1e-6
 REPORT = {}
 
-# H100 SXM peaks (the bound of each kernel): device memory bytes/s, and
-# 32-bit operations/s outside the tensor cores (the f32 rate)
+# H100 SXM peaks (the bound of each kernel): device memory bytes/s; the
+# FP32 rate of the data sheet (an FMA counted as two flops on 128 FP32
+# lanes an SM), for the kernels whose work is f32 arithmetic; and for the
+# integer kernels the ALU rate: 64 INT32 (ALU) lanes an SM (Hopper white
+# paper) x the SMs x the SM clock `nvidia-smi --query-gpu=clocks.max.sm`
+# reports, set in main() (about 16.7e12 at 132 SMs and 1980 MHz).  Only
+# the ALU pipe runs compares, mins, selects, logic and byte permutes; an
+# integer add or move may also issue as IMAD on the FMA pipe beside it,
+# so an integer kernel's ops take at least max(ALU-only ops / ALU rate,
+# all ops / twice the ALU rate)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = 67e12
+PEAK_F32 = 67e12
+ALU_LANES = 64
+PEAK_ALU = None
+# K2's and K5's operations per key row, cell and world: 4 adds (the keys)
+# and 1 for the straight bound's add may go to the FMA pipe; 3 mins, 1 to
+# take the argmin, 1 for the bound's min, 4 compares, 1 unreachable select
+# and 1 to place the byte run on the ALU pipe only
+SDIR_OPS = 16
+SDIR_ALU_OPS = 11
 
 KERNELS = {
-    # name: (source, TPU kernel it replaces: file:line of its pallas_call)
+    # name: (source, TPU kernel it replaces: file:line of its pallas_call,
+    # the type of its arithmetic, which sets its op bound)
     "decide_move": ("trafficsimulation_tpu_torch/csrc/decide_move.cu",
-                    "trafficsimulation_tpu/ops/pallas_engine.py:1026"),
+                    "trafficsimulation_tpu/ops/pallas_engine.py:1026",
+                    "int32"),
     "build_sdir": ("trafficsimulation_tpu_torch/csrc/sdir.cu",
-                   "trafficsimulation_tpu/ops/pallas_engine.py:844"),
+                   "trafficsimulation_tpu/ops/pallas_engine.py:844",
+                   "int32"),
     "build_wavefront": ("trafficsimulation_tpu_torch/csrc/wavefront.cu",
-                        "trafficsimulation_tpu/ops/pallas_engine.py:466"),
+                        "trafficsimulation_tpu/ops/pallas_engine.py:466",
+                        "int32"),
     "prefix_planes": ("trafficsimulation_tpu_torch/csrc/prefix.cu",
-                      "trafficsimulation_tpu/ops/pallas_engine.py:520"),
+                      "trafficsimulation_tpu/ops/pallas_engine.py:520",
+                      "int32"),
     "build_sdir_batched": ("trafficsimulation_tpu_torch/csrc/sdir.cu",
-                           "trafficsimulation_tpu/ops/pallas_engine.py:889"),
+                           "trafficsimulation_tpu/ops/pallas_engine.py:889",
+                           "int32"),
     "select_rows": ("trafficsimulation_tpu_torch/csrc/select_rows.cu",
-                    "trafficsimulation_tpu/ops/pallas_engine.py:581"),
+                    "trafficsimulation_tpu/ops/pallas_engine.py:581",
+                    "int32"),
     "mega": ("trafficsimulation_tpu_torch/csrc/megakernel.cu",
-             "trafficsimulation_tpu/ops/megakernel.py:1175"),
+             "trafficsimulation_tpu/ops/megakernel.py:1175",
+             "int32"),
     "decide_move_tiled": ("trafficsimulation_tpu_torch/csrc/decide_tiled.cu",
-                          "trafficsimulation_tpu/ops/pallas_engine.py:699"),
+                          "trafficsimulation_tpu/ops/pallas_engine.py:699",
+                          "int32"),
     "render": ("trafficsimulation_tpu_torch/csrc/render.cu",
-               "trafficsimulation_tpu/ops/pallas_render.py:85"),
+               "trafficsimulation_tpu/ops/pallas_render.py:85",
+               "f32"),
     # no TPU kernel: the JAX package runs these in XLA ops
     "ordered_add": ("trafficsimulation_tpu_torch/csrc/ordered_add.cu",
                     "none (XLA scatter-add, trafficsimulation_tpu/ops/"
-                    "engine.py:923)"),
+                    "engine.py:923)", "f32"),
     "rain_ticks": ("trafficsimulation_tpu_torch/csrc/rain.cu",
                    "none (XLA ops per tick, trafficsimulation_tpu/agents/"
-                   "rain.py:26)"),
+                   "rain.py:26)", "f32"),
 }
 # which run's launch count the summary reports: K2 on the single-world
 # path, K6 on config #5's, K9 on the megakernel path, the others on the
@@ -270,17 +302,42 @@ def compare(name, got, ref):
     return err
 
 
-def bound(nbytes: float, ops: float):
-    """(bound_ms, bound_by): the least time for these bytes and ops."""
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+def alu_rate():
+    """(ALU-pipe integer operations/s, SMs, max SM clock in MHz) of card
+    0."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * ALU_LANES * mhz * 1e6, sms, mhz
+
+
+def ops_ms(ops, kernel: str) -> float:
+    """The least time of a kernel's operations: for an f32 kernel ops
+    (a count) at PEAK_F32; for an integer one ops = (ALU-only ops, all
+    ops), the larger of the ALU-only ops on the ALU pipe and all ops on
+    the ALU and FMA pipes together."""
+    if KERNELS[kernel][2] == "f32":
+        return ops / PEAK_F32 * 1e3
+    alu, total = ops
+    return max(alu / PEAK_ALU, total / (2 * PEAK_ALU)) * 1e3
+
+
+def bound(nbytes: float, ops, kernel: str):
+    """(bound_ms, bound_by): the least time for these bytes and `kernel`'s
+    ops (ops_ms)."""
+    tb = nbytes / PEAK_BYTES * 1e3
+    to = ops_ms(ops, kernel)
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def measure(name, kern, plain, nbytes, ops, shape, lib=None, reps=20,
             plain_reps=3) -> dict:
-    """One kernel against its plain version on the same inputs (bit-equal
-    or raise), its median and device time, the plain version's median,
-    the bound, and the library call's median where there is one."""
+    """One kernel (the KERNELS entry `name` begins with) against its plain
+    version on the same inputs (bit-equal or raise), its median and
+    device time, the plain version's median, the bound (bound), and the
+    library call's median where there is one."""
     got = kern()
     torch.cuda.synchronize()
     ref = plain()
@@ -292,16 +349,19 @@ def measure(name, kern, plain, nbytes, ops, shape, lib=None, reps=20,
     dms, nk = device_profile(kern)
     plain_ms = median_ms(plain, reps=plain_reps, warmup=1)
     lib_ms = median_ms(lib, reps=reps) if lib is not None else None
-    bms, by = bound(nbytes, ops)
+    kernel = name.split()[0]
+    bms, by = bound(nbytes, ops, kernel)
+    to = ops_ms(ops, kernel)
     log(f"kernel {name} ({shape}): bit-equal to plain; median {ms:.4f} ms "
         f"(device {fmt_ms(dms)} in {nk} kernels a call), plain "
         f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
-        f"{nbytes / 1e6:.2f} MB)"
+        f"{nbytes / 1e6:.2f} MB, {to:.4f} ms of {KERNELS[kernel][2]} ops)"
         + (f", library {lib_ms:.4f} ms" if lib_ms else ""))
     return {"max_abs_err": err, "ms": ms, "device_ms": dms,
             "kernels_per_call": nk, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": lib_ms, "bytes": nbytes,
-            "ops": ops, "shape": shape}
+            "ops": ops, "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+            "ops_ms": to, "shape": shape}
 
 
 class Inputs:
@@ -359,10 +419,10 @@ def kernel_cases(cfg, HE, engine, B):
     # per world: 5 i32 + 1 f32 planes, wnd, 3 masks, 4 random planes in;
     # 6 planes and flags out; one packed sdir word per vehicle; the
     # geometry (intersection, dest_id) once.  Operations: at least one
-    # per cell, world and phase (2 K + 2 phases).
+    # compare (ALU only) per cell, world and phase (2 K + 2 phases).
     k1_bytes = nb * HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4) + present * 4 \
         + HW * 5
-    k1_ops = nb * HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2)
+    k1_ops = (nb * HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2),) * 2
     if B:
         cases["decide_move"] = (
             lambda: HE.decide_move_batched(kcfg, sdir4, wnd, planes, *masks,
@@ -383,7 +443,8 @@ def kernel_cases(cfg, HE, engine, B):
 
     # K2 / K5: key stack with unreachable (KBIG) rows and hard-blocked
     # (2^17) pens.  Bytes: K0 once, pen (per world) and legal, the packed
-    # stacks out; 31 integer operations per key row, cell and world.
+    # stacks out.  Operations: the function's need per key row, cell and
+    # world (SDIR_OPS, SDIR_ALU_OPS of them on the ALU pipe only).
     q = r.rint(0, 60000, D, 4, H, W)
     q = torch.where(r.bern(0.15, D, 4, H, W), 65535, q)
     K0 = engine.costs_u16_to_keys(q)
@@ -394,7 +455,7 @@ def kernel_cases(cfg, HE, engine, B):
     tp2 = int(round(2 * cfg.VEHICLE_TURN_PENALTY))
     sd_bytes = D * 4 * HW * 4 + nb * 4 * HW * 4 + 4 * HW * 4 \
         + nb * D4 * HW * 4
-    sd_ops = D * HW * nb * 31
+    sd_ops = (D * HW * nb * SDIR_ALU_OPS, D * HW * nb * SDIR_OPS)
     if B:
         cases["build_sdir_batched"] = (
             lambda: (HE.build_sdir_batched(K0, pen4, legal4, tp2),),
@@ -408,12 +469,13 @@ def kernel_cases(cfg, HE, engine, B):
 
     # K3: random geometry.  Bytes: allowed and road once, hard in and the
     # packed word out per world; operations: per relax step, direction
-    # and neighbour a select and a min.
+    # and neighbour a select and a min (ALU only).
     allowed = r.rint(0, 16, H, W).to(torch.uint8)
     road = r.bern(0.5, H, W)
     hard = r.bern(0.1, nb, H, W) & road
     k3_bytes = 2 * HW + nb * HW * 5
-    k3_ops = nb * HW * 4 * 4 * 2 * cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS
+    k3_ops = (nb * HW * 4 * 4 * 2
+              * cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS,) * 2
     if B:
         cases["build_wavefront"] = (
             lambda: (HE.build_wavefront_batched(cfg, allowed, road, hard),),
@@ -426,10 +488,10 @@ def kernel_cases(cfg, HE, engine, B):
             k3_bytes, k3_ops, None)
 
     # K4: random occupancy.  Bytes: one plane in, two out; one add per
-    # element and scan.
+    # element and scan (either pipe).
     occ = r.bern(0.3, *lead, H, W).to(torch.int32)
     k4_bytes = nb * HW * 12
-    k4_ops = nb * HW * 2
+    k4_ops = (0, nb * HW * 2)
 
     def cumsums():
         return (torch.cumsum(occ, -1, dtype=torch.int32),
@@ -484,13 +546,15 @@ def phase_select_rows(HE):
     for name, D4 in (("local", 108), ("dense", 36)):
         sdir4 = r.bits(D4, H, W)
         dest = r.rint(-5, 4 * D4 + 8, H, W)
-        # dest in, the result out, one word per cell whose row exists
+        # dest in, the result out, one word per cell whose row exists;
+        # 8 operations a cell (the row's range compares, the shifts and
+        # the byte extract), counted as ALU only
         hits = int(((dest >> 2) >= 0).logical_and((dest >> 2) < D4).sum())
         out[name] = measure(
             f"select_rows ({name} stack)",
             lambda: (HE.select_rows(sdir4, dest),),
             lambda: (HE.select_dest_rows(sdir4, dest),),
-            HW * 8 + hits * 4, HW * 8,
+            HW * 8 + hits * 4, (HW * 8,) * 2,
             f"sdir4 [{D4}, {H}, {W}], dest [{H}, {W}]", plain_reps=20)
         del sdir4, dest
     torch.cuda.empty_cache()
@@ -546,7 +610,7 @@ def phase_rain_ticks(HE):
     # per cloud and tick
     nbytes = sum(a.numel() * a.element_size() for a in args) + sum(
         t.numel() * t.element_size() for t in got)
-    bms, by = bound(nbytes, B * R * n * 40)
+    bms, by = bound(nbytes, B * R * n * 40, "rain_ticks")
     dms = device_ms(lambda: HE.rain_ticks_batched(*args, cool))
     REPORT["rain_ticks"] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
                             "plain_ms": plain_ms, "bound_ms": bms,
@@ -554,6 +618,56 @@ def phase_rain_ticks(HE):
                             "spawns": spawns, "exits": exits,
                             "shape": f"B = {B}, {R} clouds, {n} ticks"}
     return REPORT["rain_ticks"]
+
+
+def k5_code(build, out_dir, key_worlds: int) -> dict:
+    """K5's code at B = 16 (`sdir_batched_kernel<4, 4>`): ptxas's
+    registers and spills from the build log, and from its SASS
+    (`tools/sass_count.py`) the instructions of its word loop (4 key rows
+    x 4 worlds a thread) outside the copy loop nested in it (the cp.async
+    copies, whose ragged path never runs at 256^2), per key row and world,
+    in all, in arithmetic, and of that on the FMA pipe (IMAD); and the
+    floor of that code over `key_worlds` key rows, cells and worlds: the
+    larger of its ALU-pipe instructions at the ALU rate and all its
+    instructions at the SM's issue rate (4 warp instructions a clock,
+    twice the ALU rate).  The SASS goes to DIR/k5_sass.txt with --out."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import sass_count
+    name = "sdir_batched_kernelILi4ELi4E"
+    info = (sass_count.ptxas_info(build.build_log, name)
+            if build.build_log else {})
+    fn, insns, labels = sass_count.function_sass(build.library_path, name)
+    loop = sass_count.loops(insns, labels)[0]
+    rows_worlds = 4 * 4
+    k2_info = (sass_count.ptxas_info(build.build_log, "11sdir_kernel")
+               if build.build_log else {})
+    fma = loop["own_opcodes"].get("IMAD", 0)
+    alu_pipe = loop["own_alu"] - fma
+    floor = max(alu_pipe / PEAK_ALU, loop["own"] / (2 * PEAK_ALU)) \
+        * key_worlds / rows_worlds * 1e3
+    out = {"ptxas": info, "k2_ptxas": k2_info,
+           "loop_instructions": loop["instructions"],
+           "copy_loop_instructions": loop["instructions"] - loop["own"],
+           "per_key_world": loop["own"] / rows_worlds,
+           "alu_per_key_world": loop["own_alu"] / rows_worlds,
+           "fma_pipe_per_key_world": fma / rows_worlds,
+           "alu_pipe_per_key_world": alu_pipe / rows_worlds,
+           "code_floor_ms": floor, "opcodes": loop["own_opcodes"]}
+    if out_dir:
+        with open(os.path.join(out_dir, "k5_sass.txt"), "w") as f:
+            f.write("\n".join(f"/*{a:04x}*/ {i}" for a, i in insns))
+    log(f"K5 code (B = 16): {info.get('registers', 'not measured')} "
+        f"registers, spills {info.get('spill_stores', 'not measured')} B; "
+        f"word loop {loop['instructions']} SASS instructions, "
+        f"{loop['own']} outside its copy loop (the cp.async copies, "
+        f"{out['copy_loop_instructions']} static) = "
+        f"{out['per_key_world']:.2f} per key row and world "
+        f"({out['alu_per_key_world']:.2f} arithmetic: "
+        f"{out['alu_pipe_per_key_world']:.2f} on the ALU pipe, "
+        f"{out['fma_pipe_per_key_world']:.2f} IMAD on the FMA pipe); the "
+        f"code's pipe floor {floor:.4f} ms; opcodes "
+        f"{json.dumps(out['opcodes'])}")
+    return out
 
 
 def launch_floor_ms(HE) -> float:
@@ -592,8 +706,9 @@ def phase_ordered_add(HE):
 def ordered_add_cases() -> dict:
     """{name: (base, idx, vals) on the CPU}: the signed zeros that decide
     a bare -0 base (+0 and -0 updates, cancellation to +0), runs of
-    thousands of +-0 with a few nonzero updates, subnormal sums, indices
-    outside [0, T), and the fold order of the 1e8 case."""
+    thousands of +-0 with a few nonzero updates, subnormal sums, sums
+    that flush to -0 before +0 or -0 updates (XLA's flush to zero),
+    indices outside [0, T), and the fold order of the 1e8 case."""
     nz = -0.0
     base = torch.tensor([[nz, nz, nz, 0.0, nz, 2.0, nz, 1e-39]])
     idx = torch.tensor([[0, 1, 1, 2, 3, 4, 4, 5, 5, 6, 6, 6, 7, 7, 9, -1,
@@ -606,7 +721,16 @@ def ordered_add_cases() -> dict:
     zv = torch.where(torch.rand((2, n), generator=g) < 0.5, 0.0, nz)
     zv[0, [10, 3000, 5999]] = torch.tensor([0.1, -3.7, 1e-3])
     zi[0, [10, 3000, 5999]] = 1
+    # flush to zero: tiny sums that flush to -0 or +0, then +0, -0 or a
+    # subnormal update; bases that only zero updates reach flush, a
+    # subnormal base that no update reaches keeps its bits
+    a, b = 1.5e-38, 1.4e-38
+    fb = torch.tensor([[-a, -a, -a, -a, a, nz, 2e-39, -2e-39, 3e-39, -a]])
+    fi = torch.tensor([[0, 1, 2, 3, 4, 5, 7, 8, 0, 1, 2, 3, 5, 9, 9, 9, 9]])
+    fv = torch.tensor([[b, b, 0.0, b, -b, -1e-40, nz, 0.0, 0.0, nz, b,
+                        1e-40, 1e-40, b, 0.0, 1.0, -1.0]])
     return {"signed zeros, subnormals, dropped": (base, idx, vals),
+            "flush to zero": (fb, fi, fv),
             "zero runs": (torch.tensor([[nz, nz, 0.0], [1.0, nz, nz]]), zi,
                           zv),
             "fold order": (torch.tensor([[1.0, 0.0, 5.0]]),
@@ -1109,17 +1233,19 @@ def config5_kernels(HE, engine, cfg, world, es) -> dict:
         "build_sdir": (lambda: (HE.build_sdir(K0, pen4, legal4, tp2),),
                        lambda: (HE.sdir_encode(K0, pen4, legal4, tp2),),
                        D * 4 * HW * 4 + 8 * HW * 4 + D4 * HW * 4,
-                       D * HW * 31, f"K0 [{D}, 4, {H}, {W}]", None),
+                       (D * HW * SDIR_ALU_OPS, D * HW * SDIR_OPS),
+                       f"K0 [{D}, 4, {H}, {W}]", None),
         "build_wavefront": (
             lambda: (HE.build_wavefront(cfg, g.allowed_dirs, g.is_road,
                                         hard),),
             lambda: (HE.wavefront_core(cfg, g.allowed_dirs, g.is_road,
                                        hard),),
-            HW * 7, HW * 32 * cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS,
+            HW * 7,
+            (HW * 32 * cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS,) * 2,
             f"[{H}, {W}]", None),
         "prefix_planes": (lambda: HE.prefix_planes(occ),
                           lambda: HE.prefix_planes_plain(occ), HW * 12,
-                          HW * 2, f"[{H}, {W}]", cumsums),
+                          (0, HW * 2), f"[{H}, {W}]", cumsums),
         # K8 on the world's state (on no path): 7 bytes a pixel, as in
         # phase_render
         "render": (lambda: (R.render_planes(*k8_args),),
@@ -1356,8 +1482,8 @@ def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
         nbytes = sum(args[n].numel() * args[n].element_size()
                      for n in names) + sum(
             t.numel() * t.element_size() for t in got.values())
-        ops = r * HW * (2 * cfg.VEHICLE_MAX_SPEED + 4)
-        bms, by = bound(nbytes, ops)
+        ops = (r * HW * (2 * cfg.VEHICLE_MAX_SPEED + 4),) * 2
+        bms, by = bound(nbytes, ops, "mega")
         out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                      "library_ms": None, "bytes": nbytes, "ops": ops,
@@ -1487,10 +1613,15 @@ def rain_tick_path(cfg, world, HE, tsim) -> dict:
     out = HE.rain_ticks(*a)
     nbytes = sum(t.numel() * t.element_size() for t in
                  (clouds, active, cooldown, spawn, want_cd, *out))
-    return measure(
+    m = measure(
         "rain_ticks on the path", lambda: HE.rain_ticks(*a),
         lambda: rain.cloud_ticks_plain(*a), nbytes, R * n * 40,
         f"1 world, {n} tick, {R} clouds ({int(active.sum())} active)")
+    # the wrapper's floor: one launch with no work, in the same phase
+    m["empty_launch_ms"] = launch_floor_ms(HE)
+    log(f"rain_ticks on the path: wrapper {m['ms']:.4f} ms, one launch "
+        f"with no work {m['empty_launch_ms']:.4f} ms")
+    return m
 
 
 def k1_hier_tick(cfg, world, HE, tsim) -> dict:
@@ -1513,7 +1644,7 @@ def k1_hier_tick(cfg, world, HE, tsim) -> dict:
     # destination's window
     nbytes = HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4) + HW * 5 \
         + 4 * (n_veh + n_win)
-    ops = HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2)
+    ops = (HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2),) * 2
 
     def plain():
         return HE.decide_move_core(
@@ -1543,7 +1674,7 @@ def phase_tiled(cfg, world, HE, tsim):
     present = int((a[2][0] & 1).sum())
     # K1's bytes and operations as in kernel_cases (one world)
     k1_bytes = HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4) + present * 4 + HW * 5
-    k1_ops = HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2)
+    k1_ops = (HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2),) * 2
     k1m = measure("decide_move at the headline's first tick",
                   lambda: HE.decide_move(kcfg, *a),
                   lambda: HE.decide_move_core(kcfg, a[0], a[1], *a[2],
@@ -1750,6 +1881,14 @@ def main():
 
     t_start = time.perf_counter()
     card = card_line()
+    global PEAK_ALU
+    PEAK_ALU, sms, mhz = alu_rate()
+    log(f"ALU rate for the integer kernels' bounds: {sms} SMs x "
+        f"{ALU_LANES} lanes x {mhz:g} MHz = {PEAK_ALU / 1e12:.2f} T/s, "
+        f"{2 * PEAK_ALU / 1e12:.2f} T/s with the FMA pipe's IMAD (FP32 "
+        f"{PEAK_F32 / 1e12:g} T/s, bytes {PEAK_BYTES / 1e12:g} TB/s)")
+    REPORT["peaks"] = {"alu": PEAK_ALU, "f32": PEAK_F32,
+                       "bytes": PEAK_BYTES, "sms": sms, "max_sm_mhz": mhz}
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, numpy {np.__version__}, python "
         f"{sys.version.split()[0]}")
@@ -1772,6 +1911,9 @@ def main():
             str(np.load(snapshot.HEADLINE)["meta.cfg_json"]))
         single = phase_kernels(cfg0, HE, engine, 0)
         batched = phase_kernels(cfg0, HE, engine, BATCH)
+        batched["build_sdir_batched"]["code"] = k5_code(
+            build, args.out, batched["build_sdir_batched"]["ops"][1]
+            // SDIR_OPS)
         phase_batch_one(cfg0, HE, engine)
         k6 = phase_select_rows(HE)
         k_rain = phase_rain_ticks(HE)
@@ -1889,6 +2031,11 @@ def main():
         if k == "decide_move":
             entry["headline_first_tick"] = {x: REPORT["tiled"]["k1"].get(x)
                                             for x in SUB_KEYS}
+        if k == "build_sdir_batched":
+            entry["code"] = {x: m["code"][x] for x in (
+                "ptxas", "per_key_world", "alu_per_key_world")}
+        if k == "rain_ticks":
+            entry["empty_launch_ms"] = m["empty_launch_ms"]
         if k == "ordered_add":
             entry["library"] = k_add["library"]
         if k == "rain_ticks":

@@ -169,12 +169,62 @@ def test_sdir_batched_kernel_matches_plain(gen, D):
 
 
 def test_sdir_batched_kernel_large_batch(gen):
-    """B = 19 runs as two register groups of worlds (16 + 3)."""
+    """B = 19 runs as two blocks of worlds (16 + 3)."""
     H, W, D, B = 16, 40, 9, 19
     K0 = engine.costs_u16_to_keys(_rint(gen, 0, 65536, D, 4, H, W))
     pen4b = _rint(gen, 0, 3000, B, 4, H, W)
     legal4 = _bern(gen, 0.6, 4, H, W).to(torch.int32)
     _same((HE.build_sdir_batched(K0, pen4b, legal4, 20),),
+          (HE.sdir_encode_batched(K0, pen4b, legal4, 20),))
+
+
+def _k5_inputs(g, D, B, H, W):
+    """A key stack with unreachable rows, small costs (ties between moves,
+    keys at the straight bound), costs near KBIG (bounds at the cap), and
+    pens at 1 << 17."""
+    x = torch.where(_bern(g, 0.5, D, 4, H, W), _rint(g, 0, 8, D, 4, H, W),
+                    _rint(g, 0, 60000, D, 4, H, W))
+    x = torch.where(_bern(g, 0.1, D, 4, H, W), HE.KBIG, x)
+    x = torch.where(_bern(g, 0.05, D, 4, H, W),
+                    HE.KBIG - _rint(g, 1, 6, D, 4, H, W), x)
+    x[D // 2] = HE.KBIG
+    m = torch.arange(4, dtype=torch.int32, device="cuda").reshape(1, 4, 1, 1)
+    K0 = (x << 2) | m
+    pen4b = torch.where(_bern(g, 0.5, B, 4, H, W), _rint(g, 0, 4, B, 4, H, W),
+                        _rint(g, 0, 3000, B, 4, H, W))
+    pen4b = torch.where(_bern(g, 0.1, B, 4, H, W), 1 << 17, pen4b)
+    return K0, pen4b, _bern(g, 0.6, 4, H, W).to(torch.int32)
+
+
+@pytest.mark.parametrize("D,tp2,shape", [(10, 20, (17, 130)),
+                                         (7, 0, (16, 136)),
+                                         (170, 3, (8, 64))])
+@pytest.mark.parametrize("B", [1, 2, 3, 5, 16, 17])
+def test_sdir_batched_kernel_every_batch_form(gen, B, D, tp2, shape):
+    """K5's forms (1, 2 or 4 worlds a thread, 1, 2 or 4 groups a block,
+    a second block of worlds past 16) against its plain version: ragged
+    D (rows past D, two runs of words at D = 170), cells not a multiple
+    of 4 (the 4-byte copies), tp2 = 0, ties, keys at the bound and near
+    KBIG; at B = 1 also against K2."""
+    K0, pen4b, legal4 = _k5_inputs(gen, D, B, *shape)
+    n0 = HE.launches["build_sdir_batched"]
+    got = HE.build_sdir_batched(K0, pen4b, legal4, tp2)
+    assert HE.launches["build_sdir_batched"] == n0 + 1
+    _same((got,), (HE.sdir_encode_batched(K0, pen4b, legal4, tp2),))
+    if B == 1:
+        _same((got[0],), (HE.build_sdir(K0, pen4b[0], legal4, tp2),))
+
+
+def test_sdir_batched_kernel_unaligned_keys(gen):
+    """A K0 view that starts 4 bytes past a 16-byte boundary (HW a
+    multiple of 4) takes the 4-byte copies and gives the same stack."""
+    D, B, H, W = 9, 3, 16, 136
+    K0, pen4b, legal4 = _k5_inputs(gen, D, B, H, W)
+    flat = torch.empty(K0.numel() + 1, dtype=torch.int32, device="cuda")
+    K0u = flat[1:].view(K0.shape)
+    K0u.copy_(K0)
+    assert K0u.is_contiguous() and K0u.data_ptr() % 16 == 4
+    _same((HE.build_sdir_batched(K0u, pen4b, legal4, 20),),
           (HE.sdir_encode_batched(K0, pen4b, legal4, 20),))
 
 
@@ -572,6 +622,22 @@ def test_rain_ticks_kernel_matches_plain(gen, B, R, n):
         _same(one, (got[0][0], got[1][0], got[2][0]))
 
 
+def test_rain_ticks_outside_vmap_is_one_lean_launch(gen, monkeypatch):
+    """Outside vmap `rain_ticks` launches once, bit-equal to its plain
+    version, and takes no autograd.Function."""
+    from trafficsimulation_tpu_torch.agents.rain import cloud_ticks_plain
+
+    def no_function(*a):
+        raise AssertionError("rain_ticks went through _RainTicks")
+    monkeypatch.setattr(HE._RainTicks, "apply", no_function)
+    for n in (1, 23):
+        args = [a[0] for a in _cloud_inputs(gen, 1, 3, n)]
+        HE.reset_launches()
+        got = HE.rain_ticks(*args, 6)
+        assert HE.launches["rain_ticks"] == 1
+        _same(got, cloud_ticks_plain(*args, 6))
+
+
 def test_rain_ticks_vmap_launches_once(gen):
     args = _cloud_inputs(gen, 4, 3, 9)
     HE.reset_launches()
@@ -755,11 +821,13 @@ def test_decide_move_runs_one_device_kernel(gen, form):
 
 @pytest.mark.parametrize("name", ["order", "zero_runs", "signed_zero_bases",
                                   "cancel", "rows32", "config5", "dropped",
-                                  "subnormal", "beyond_shared_memory"])
+                                  "subnormal", "flushed_negative_zero",
+                                  "beyond_shared_memory"])
 def test_ordered_add_kernel_matches_plain(gen, name):
     """The order-keeping compaction against the plain version on the
     CPU test's adversarial cases (tests/test_torch_ordered_add.py),
-    subnormals and dropped indices included, and on rows whose work area
+    subnormals, sums that flush to -0 and dropped indices included, and
+    on rows whose work area
     exceeds shared memory (device memory, the same algorithm)."""
     from test_torch_ordered_add import _case
     if name == "beyond_shared_memory":

@@ -1,20 +1,23 @@
 """The port's ordered scatter-add (`hopper_engine.ordered_add`) against
 JAX's `b.at[i].add(v)`, bit for bit, on the CPU.
 
-The card's kernel (csrc/ordered_add.cu) drops the +-0 updates, groups the
-rest by target in update order and folds each run from the stored value,
-then turns a -0 result with no nonzero update and some +0 update into
-+0.  `_emulate` is that algorithm in numpy, step for step (compaction,
-counts and +0 marks, run starts, the stable placement 32 updates at a
-time, the folds, the zero rule); the plain version `ordered_add_plain`
-(torch's CPU `index_add` in index order) and the emulation are held to
-JAX's jitted scatter-add on every case, which also checks the exactness
-argument the kernel rests on.  Indices here lie in [0, T), as at the
-JAX call site, which clips them (trafficsimulation_tpu/ops/engine.py,
-`_post_move`); JAX's `.at[]` wraps a negative index where the port drops
-it, so dropped indices are held between the emulation and the plain
-version only.  XLA's CPU runtime flushes subnormal results to zero and
-the port does not: a strict xfail pins that divergence.  The cases
+XLA's CPU runtime adds with subnormals flushed to zero (a subnormal
+operand or result becomes a zero of its sign), and the port does too.
+The card's kernel (csrc/ordered_add.cu) drops the zero updates (+-0 and
+subnormals), groups the rest by target in update order and folds each
+run from the stored value with a flushing add; a target that only zero
+updates reach ends at its base flushed; a result of -0 with a +0 update
+after the target's last nonzero update turns into +0.  `_emulate` is
+that algorithm in numpy, step for step (compaction, counts, the last
+nonzero and +0 positions and the zero marks, run starts, the stable
+placement 32 updates at a time, the folds, the zero rule); the plain
+version `ordered_add_plain` (a flushing fold, the k-th update of every
+target at a step) and the emulation are held to JAX's jitted scatter-add
+on every case, which also checks the exactness argument the kernel rests
+on.  Indices here lie in [0, T), as at the JAX call site, which clips
+them (trafficsimulation_tpu/ops/engine.py, `_post_move`); JAX's `.at[]`
+wraps a negative index where the port drops it, so dropped indices are
+held between the emulation and the plain version only.  The cases
 (`_case`) also serve the card's test of the kernel
 (tests/test_torch_cuda.py), which runs where there is no JAX, so JAX is
 imported where it is called."""
@@ -30,6 +33,18 @@ from trafficsimulation_tpu_torch.ops import hopper_engine as HE
 F32 = np.float32
 
 
+def _ftz(x):
+    """f32 x flushed: a subnormal becomes a zero of its sign."""
+    x = F32(x)
+    b = x.view(np.uint32)
+    return np.uint32(b & 0x80000000).view(F32) if not b & 0x7F800000 else x
+
+
+def _add_ftz(a, b):
+    """add.rn.ftz.f32: operands and result flushed."""
+    return _ftz(F32(_ftz(a) + _ftz(b)))
+
+
 def _emulate(base, idx, vals):
     """The kernel's algorithm over rows: base [R, T], idx [R, n], vals
     [R, n] (numpy) -> [R, T] f32."""
@@ -37,18 +52,25 @@ def _emulate(base, idx, vals):
     out = np.empty_like(base)
     for r in range(R):
         # 1: order-keeping compaction of the in-range nonzero updates,
-        # counts per target, +0 marks
+        # counts per target, the last nonzero and +0 positions, the marks
+        # of zero updates
         bits = vals[r].view(np.uint32)
-        keep, plus0 = [], np.zeros(T, bool)
+        keep = []
         count = np.zeros(T, np.int64)
+        last_nz = np.full(T, -1)
+        last_p0 = np.full(T, -1)
+        zmark = np.zeros(T, bool)
         for i, t in enumerate(idx[r]):
             if not 0 <= t < T:
                 continue
-            if bits[i] & 0x7FFFFFFF:
+            if bits[i] & 0x7F800000:
                 keep.append((int(t), vals[r, i]))
                 count[t] += 1
-            elif bits[i] == 0:
-                plus0[t] = True
+                last_nz[t] = max(last_nz[t], i)
+            else:
+                zmark[t] = True
+                if not bits[i] >> 31:
+                    last_p0[t] = max(last_p0[t], i)
         # 2: run starts (exclusive scan)
         start = np.concatenate([[0], np.cumsum(count)])
         cur = start[:-1].copy()
@@ -62,13 +84,14 @@ def _emulate(base, idx, vals):
                 placed[cur[t] + tg[:lane].count(t)] = v
             for t in set(tg):
                 cur[t] += tg.count(t)
-        # 4: the folds, then the zero rule
+        # 4: the flushing folds, then the zero rule
         for t in range(T):
             acc = base[r, t]
             for k in range(start[t], start[t + 1]):
-                acc = F32(acc + placed[k])
-            if start[t] == start[t + 1] and plus0[t] and \
-                    acc.view(np.uint32) == 0x80000000:
+                acc = _add_ftz(acc, placed[k])
+            if start[t] == start[t + 1] and zmark[t]:
+                acc = _add_ftz(acc, F32(-0.0))
+            if acc.view(np.uint32) == 0x80000000 and last_p0[t] > last_nz[t]:
                 acc = F32(0.0)
             out[r, t] = acc
     return out
@@ -156,6 +179,17 @@ def _case(name):
         idx = rng.integers(-40, 70, (3, 500))
         vals = np.where(rng.random((3, 500)) < 0.5, F32(0.0),
                         rng.normal(0, 10, (3, 500))).astype(F32)
+    elif name == "flushed_negative_zero":
+        # sums whose tiny result flushes to -0 (or +0), then +0, -0 or a
+        # subnormal update after it or before it; bases that only zero
+        # updates reach flush, a base that none reaches keeps its bits
+        a, b = 1.5e-38, 1.4e-38
+        base = np.array([[-a, -a, -a, -a, a, -0.0, 2e-39, -2e-39, 3e-39,
+                          -a]], F32)
+        idx = np.array([[0, 1, 2, 3, 4, 5, 7, 8, 0, 1, 2, 3, 5, 9, 9, 9,
+                         9]])
+        vals = np.array([[b, b, 0.0, b, -b, -1e-40, -0.0, 0.0, 0.0, -0.0,
+                          b, 1e-40, 1e-40, b, 0.0, 1.0, -1.0]], F32)
     elif name == "subnormal":
         base = np.array([[-0.0, -0.0, 1e-39, -1e-45]], F32)
         idx = np.array([[0, 0, 1, 1, 2, 2, 3, 3]])
@@ -167,10 +201,9 @@ def _case(name):
 
 
 CASES = ("order", "zero_runs", "signed_zero_bases", "cancel", "rows32",
-         "config5")
-# held between the port's versions only: JAX wraps negative indices and
-# flushes subnormals
-PORT_CASES = CASES + ("dropped", "subnormal")
+         "config5", "subnormal", "flushed_negative_zero")
+# held between the port's versions only: JAX wraps negative indices
+PORT_CASES = CASES + ("dropped",)
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -184,8 +217,7 @@ def test_matches_jax_scatter_add(name, impl):
 
 @pytest.mark.parametrize("name", PORT_CASES)
 def test_emulation_matches_plain(name):
-    """Also with indices outside [0, T) (dropped by both) and subnormal
-    values (kept by both)."""
+    """Also with indices outside [0, T) (dropped by both)."""
     base, idx, vals = _case(name)
     assert np.array_equal(_bits(_emulate(base, idx, vals)),
                           _bits(_plain(base, idx, vals)))
@@ -206,9 +238,29 @@ def test_zero_updates_change_only_a_bare_negative_zero():
         assert _bits(F32(y + -y)) == _bits(pz)
 
 
-@pytest.mark.xfail(strict=True, reason="known divergence: XLA's CPU "
-                   "runtime flushes the subnormal sum to zero, the port "
-                   "keeps it (ROADMAP Queue 3)")
+def test_flush_facts_the_zero_rule_rests_on():
+    """Under a flush of subnormal operands and results (`_add_ftz`, as
+    add.rn.ftz.f32 and XLA's CPU runtime add): a subnormal update acts
+    as a zero of its sign; a sum of nonzero values can be -0 (a tiny
+    negative result) and +0 (a tiny positive one); +-0 updates after it
+    act as without a flush (only -0 + +0 changes it, to +0); -0 + y
+    equals +0 + y for every nonzero y; a base that a -0 update reaches
+    flushes."""
+    pz, nz = F32(0.0), F32(-0.0)
+    a, b = F32(1.5e-38), F32(1.4e-38)
+    for acc in (F32(3.5), F32(-2e-3), pz, nz):
+        assert _bits(_add_ftz(acc, F32(1e-40))) == _bits(_add_ftz(acc, pz))
+        assert _bits(_add_ftz(acc, F32(-1e-40))) == _bits(_add_ftz(acc, nz))
+    assert _bits(_add_ftz(-a, b)) == _bits(nz)
+    assert _bits(_add_ftz(a, -b)) == _bits(pz)
+    assert _bits(_add_ftz(_add_ftz(-a, b), pz)) == _bits(pz)
+    assert _bits(_add_ftz(_add_ftz(-a, b), nz)) == _bits(nz)
+    for y in (F32(1.0), F32(-7e-30), F32(-a)):
+        assert _bits(_add_ftz(nz, y)) == _bits(_add_ftz(pz, y))
+    assert _bits(_add_ftz(F32(2e-39), nz)) == _bits(pz)
+    assert _bits(_add_ftz(F32(-2e-39), nz)) == _bits(nz)
+
+
 def test_subnormal_sum_matches_jax():
     base = np.array([[-0.0]], F32)
     idx = np.array([[0, 0]])

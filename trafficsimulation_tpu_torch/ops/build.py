@@ -5,7 +5,9 @@ all started together, and link into one shared library with a plain C
 interface, loaded with ctypes.  The library goes into
 `trafficsimulation_tpu_torch/_build/`, named by a hash of the sources
 and flags, and is built at first use: `load()` on a machine without a
-build compiles it (a few seconds), later calls reuse it.
+build compiles it (a few seconds), later calls reuse it.  nvcc's output
+(`-Xptxas=-v`: registers, stack and spills of each kernel) is kept
+beside it as `libtsim_<hash>.log`.
 
 `-fmad=false` keeps nvcc from contracting f32 multiply-adds inside the
 kernels, so their float compares see the values the plain versions
@@ -30,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 build_seconds = None      # wall time of the last build (None: reused)
-build_log = ""            # nvcc's output of the last build (ptxas -v)
+build_log = ""            # nvcc's output of the library's build (ptxas -v)
+library_path = None       # the loaded library's file
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -99,7 +102,7 @@ def _digest() -> str:
 
 def load():
     """The loaded kernel library, built first if needed."""
-    global _lib, build_seconds, build_log
+    global _lib, build_seconds, build_log, library_path
     if _lib is not None:
         return _lib
     so = BUILD_DIR / f"libtsim_{_digest()}.so"
@@ -132,8 +135,12 @@ def load():
         if failed:
             raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
                                f"{build_log}")
+        so.with_suffix(".log").write_text(build_log)
         os.replace(tmp, so)
+    elif so.with_suffix(".log").exists():
+        build_log = so.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(so))
+    library_path = so
     for name, argtypes in _ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -40,7 +40,9 @@ Batches.  K1, K3, K4, `ordered_add` and `rain_ticks` take a leading
 batch of worlds
 (`*_batched`; one launch per batch, the geometry shared); the
 single-world wrappers are the B = 1 call.  The single-world wrappers
-are `torch.autograd.Function`s with a `vmap` rule, the counterpart of
+have a `torch.autograd.Function` with a `vmap` rule (K1, K4,
+`ordered_add` and `rain_ticks` take it only while a functorch transform
+is active, and otherwise launch directly), the counterpart of
 the batching rules that `jax.vmap` finds for the Pallas kernels: under
 `torch.func.vmap` (the shared-geometry batch, `parallel/mesh.py`) each
 launches its batched kernel once for the whole batch.  A vmapped
@@ -500,18 +502,50 @@ def prefix_planes_plain(occ: torch.Tensor):
             torch.cumsum(occ, -2, dtype=torch.int32))
 
 
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """f32 x with every subnormal value replaced by a zero of its sign,
+    as a flush-to-zero / denormals-are-zero unit reads or writes it."""
+    b = x.view(torch.int32)
+    return torch.where((b & 0x7F800000) == 0, b & -(1 << 31),
+                       b).view(torch.float32)
+
+
 def ordered_add_plain(base, idx, vals) -> torch.Tensor:
     """Plain version of `ordered_add`: per row r, base[r] with vals[r, i]
     added at idx[r, i] (int64) in update order, as XLA's CPU scatter-add
-    folds duplicates; indices outside [0, T) are dropped.  The CPU
-    `index_add` adds a 1-D row in index order."""
+    folds duplicates; indices outside [0, T) are dropped.  XLA's CPU
+    runtime adds with subnormals flushed to zero (inputs and results, the
+    sign kept), so this folds step by step: step k adds the k-th update
+    of every target at once, flushing both operands and the sum.  A
+    target that no update reaches keeps its base bits."""
     T = base.shape[-1]
-    out = []
-    for b, i, v in zip(base.reshape(-1, T), idx.reshape(-1, idx.shape[-1]),
-                       vals.reshape(-1, vals.shape[-1])):
-        keep = (i >= 0) & (i < T)
-        out.append(b.index_add(0, i[keep], v[keep]))
-    return torch.stack(out).reshape(base.shape)
+    b = base.reshape(-1, T)
+    R = b.shape[0]
+    i = idx.reshape(-1, idx.shape[-1])
+    v = vals.reshape(-1, vals.shape[-1])
+    keep = (i >= 0) & (i < T)
+    rows = torch.arange(R, device=base.device)[:, None]
+    tgt = (rows * T + i)[keep]                      # in update order
+    val = flush_subnormal(v[keep].contiguous())
+    acc = b.reshape(-1).clone()
+    touched = torch.zeros_like(acc, dtype=torch.bool)
+    touched[tgt] = True
+    acc = torch.where(touched, flush_subnormal(acc), acc)
+    # each update's rank among the updates of its target, in update order
+    order = torch.sort(tgt, stable=True).indices
+    tgt, val = tgt[order], val[order]
+    counts = torch.bincount(tgt, minlength=acc.numel())
+    first = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(tgt.numel(), device=base.device) - first[tgt]
+    by_rank = torch.sort(rank, stable=True).indices
+    sizes = torch.bincount(rank).tolist() if rank.numel() else []
+    at = 0
+    for size in sizes:
+        sel = by_rank[at:at + size]
+        t = tgt[sel]
+        acc[t] = flush_subnormal(acc[t] + val[sel])
+        at += size
+    return acc.reshape(base.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -1006,14 +1040,16 @@ def build_sdir_batched(K0, pen4b, legal4, tp2: int):
 
     Replaces `pallas_engine.build_sdir_pallas_batched`
     (`_sdir_kernel_batched` -> `_sdir_body`, ops/pallas_engine.py).
-    Source: csrc/sdir.cu.  On the H100 its floor is device-memory bytes
-    (K0 read once: 637.5 MB at D = 608, 256^2; B packed stacks written:
-    39.8 MB each) with the integer encode (about 25 operations per key
-    and world) close behind.  Design: one thread per cell and 8 packed
-    words; the thread loads a destination row's four keys once and
-    encodes it for up to 16 worlds whose pen << 2 it keeps in
-    registers, so K0 leaves device memory once per segment for the
-    batch, not once per world."""
+    Source: csrc/sdir.cu.  On the H100 at B = 16 its floor is the
+    integer encode (about 16 operations per key row, cell and world at
+    the INT32 rate), with device-memory bytes close behind (K0 read
+    once: 637.5 MB at D = 608, 256^2; B packed stacks written: 39.8 MB
+    each).  Design: a block stages each packed word's key rows of its
+    cells into a shared-memory ring with cp.async ahead of use; its
+    threads take 4 worlds each (4 threads share a cell at B = 16), so K0
+    leaves device memory once per segment for up to 16 worlds; per key
+    row and world, DPX min and add-min, one byte permute for the argmin
+    and its contra bit, and byte permutes to pack."""
     if not _on_cuda(K0):
         return sdir_encode_batched(K0, pen4b, legal4, tp2)
     D, _, H, W = K0.shape
@@ -1238,13 +1274,15 @@ def ordered_add_rows(base, idx, vals):
     No TPU kernel: the JAX package adds with XLA's scatter
     (`food.at[sb].add(give)`, ops/engine.py `_post_move`), which on the
     CPU folds duplicates in update order; an atomic scatter on the card
-    would not.  Source: csrc/ordered_add.cu.  Bound by latency.  Design:
-    O(n + T) per row in one block: an order-keeping compaction of the
-    nonzero updates (a +-0 update changes a fold only where it turns a
-    -0 base with no nonzero update into +0), a scan of the per-target
-    counts, a stable placement into per-target runs, then one thread per
-    target folds its run; rows too large for shared memory use a work
-    area in device memory."""
+    would not.  Subnormals flush to zero as on XLA's CPU runtime.
+    Source: csrc/ordered_add.cu.  Bound by latency.  Design: O(n + T)
+    per row in one block: an order-keeping compaction of the nonzero
+    updates (a +-0 or subnormal update changes a fold only where it ends
+    at -0 with a +0 update after its last nonzero one: then it is +0), a
+    scan of the per-target counts, a stable placement into per-target
+    runs, then one thread per target folds its run with a flushing add;
+    rows too large for shared memory use a work area in device
+    memory."""
     if not _on_cuda(base):
         return ordered_add_plain(base, idx, vals)
     R, T = base.shape
@@ -1333,14 +1371,54 @@ def rain_ticks_batched(clouds, active, cooldown, spawn, want_cd, cool: int):
     return seen, seen_a, cd
 
 
+def _rain_single(clouds, active, cooldown, spawn, want_cd, cool: int):
+    """One world's clouds over n ticks, one launch with no copies: the
+    lean form of `rain_ticks_batched` at B = 1 (a comparison per check,
+    the entry point resolved once, Python ints for pointers)."""
+    if not _on_cuda(clouds):
+        from ..agents.rain import cloud_ticks_plain
+        return cloud_ticks_plain(clouds, active, cooldown, spawn, want_cd,
+                                 cool)
+    R = clouds.shape[-1]
+    n = spawn.shape[-1]
+    dev = clouds.device
+    if not (clouds.dtype == torch.float32 and active.dtype == torch.bool
+            and cooldown.dtype == torch.int32
+            and spawn.dtype == torch.float32
+            and want_cd.dtype == torch.int32
+            and clouds.shape == (9, R) and active.shape == (R,)
+            and cooldown.shape == () and spawn.shape == (9, n)
+            and want_cd.shape == (n,)
+            and active.device == dev and cooldown.device == dev
+            and spawn.device == dev and want_cd.device == dev
+            and clouds.is_contiguous() and active.is_contiguous()
+            and spawn.is_contiguous() and want_cd.is_contiguous()):
+        # the precise error
+        _check("clouds", clouds, torch.float32, (9, R), dev)
+        _check("active", active, torch.bool, (R,), dev)
+        _check("cooldown", cooldown, torch.int32, (), dev)
+        _check("spawn", spawn, torch.float32, (9, n), dev)
+        _check("want_cd", want_cd, torch.int32, (n,), dev)
+    seen = torch.empty((n, 9, R), dtype=torch.float32, device=dev)
+    seen_a = torch.empty((n, R), dtype=torch.bool, device=dev)
+    if n == 0:
+        return seen, seen_a, cooldown.clone()
+    cd = torch.empty((), dtype=torch.int32, device=dev)
+    _check_rc("tsim_rain_ticks", _entry("tsim_rain_ticks")(
+        clouds.data_ptr(), active.data_ptr(), cooldown.data_ptr(),
+        spawn.data_ptr(), want_cd.data_ptr(), seen.data_ptr(),
+        seen_a.data_ptr(), cd.data_ptr(), 1, n, R, cool,
+        torch._C._cuda_getCurrentRawStream(dev.index)))
+    launches["rain_ticks"] += 1
+    return seen, seen_a, cd
+
+
 class _RainTicks(_Kernel):
     @staticmethod
     def forward(clouds, active, cooldown, spawn, want_cd, cool):
-        out = rain_ticks_batched(
-            clouds.contiguous()[None], active.contiguous()[None],
-            cooldown.reshape(1), spawn.contiguous()[None],
-            want_cd.contiguous()[None], cool)
-        return out[0][0], out[1][0], out[2][0]
+        return _rain_single(clouds.contiguous(), active.contiguous(),
+                            cooldown, spawn.contiguous(),
+                            want_cd.contiguous(), cool)
 
     @staticmethod
     def vmap(info, in_dims, clouds, active, cooldown, spawn, want_cd, cool):
@@ -1351,11 +1429,15 @@ class _RainTicks(_Kernel):
 
 
 def rain_ticks(clouds, active, cooldown, spawn, want_cd, cool: int):
-    """One world's clouds over n ticks (`rain_ticks_batched` with B = 1;
-    under vmap one launch for all worlds): clouds f32 [9, R], active
-    bool [R], cooldown int32 [], spawn f32 [9, n], want_cd int32 [n] ->
-    (f32 [n, 9, R], bool [n, R], int32 [])."""
-    return _RainTicks.apply(clouds, active, cooldown, spawn, want_cd, cool)
+    """One world's clouds over n ticks (`rain_ticks_batched` with B = 1):
+    clouds f32 [9, R], active bool [R], cooldown int32 [], spawn f32 [9,
+    n], want_cd int32 [n] -> (f32 [n, 9, R], bool [n, R], int32 []).
+    One launch through the lean `_rain_single`; under vmap one launch for
+    all worlds, through `_RainTicks`'s rule."""
+    if torch._C._are_functorch_transforms_active():
+        return _RainTicks.apply(clouds, active, cooldown, spawn, want_cd,
+                                cool)
+    return _rain_single(clouds, active, cooldown, spawn, want_cd, cool)
 
 
 # ---- K9 --------------------------------------------------------------------
