@@ -86,7 +86,11 @@ Phases (any failure raises and the script exits nonzero):
      plain version on one segment of 5 ticks from tick 0 and one of 3
      from tick 23 (every plane, light row, tank and stats row bit-equal
      but the f32 duration sums, within rtol 1e-5), its median, device
-     time and bound; then 200 ticks of each path from tick 23 in this
+     time and bound; its grid, registers and shared memory (ptxas), and
+     its grid barriers a tick under every FSM controller (counted by the
+     kernel; each controller's segment held to the plain version), with
+     nothing but K9's kernel in the profile of its calls (no memset);
+     then 200 ticks of each path from tick 23 in this
      one process (steps/s, cell-updates/s, wall and device-busy ms per
      tick, idle share, launches per segment, K9's device ms per call)
      and their end states held equal;
@@ -210,6 +214,8 @@ SUMMARY_PATH = {"build_sdir": "single", "select_rows": "config5",
 # them directly.  K6 serves the plain version of K1-hier's select.
 OFF_PATH = ("decide_move_tiled", "render", "select_rows")
 MEGA_DUR_COLS = [2, 3, 7]      # the stats rows' f32 duration sums
+# the kernels whose call is one device kernel (the profiler's count)
+ONE_KERNEL = ("decide_move", "build_wavefront", "prefix_planes", "mega")
 CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
                ROUTING_HIER=True, INTERNAL_POPULATION_TRAFFIC_PER_DAY=100_000,
                PASSING_POPULATION_TRAFFIC_PER_DAY=20_000)
@@ -350,6 +356,8 @@ def measure(name, kern, plain, nbytes, ops, shape, lib=None, reps=20,
     plain_ms = median_ms(plain, reps=plain_reps, warmup=1)
     lib_ms = median_ms(lib, reps=reps) if lib is not None else None
     kernel = name.split()[0]
+    if kernel in ONE_KERNEL and nk is not None and nk > 1:
+        raise AssertionError(f"{name}: {nk} device kernels a call, not one")
     bms, by = bound(nbytes, ops, kernel)
     to = ops_ms(ops, kernel)
     log(f"kernel {name} ({shape}): bit-equal to plain; median {ms:.4f} ms "
@@ -1434,6 +1442,66 @@ def profile_path(fn, n_ticks, kernel_key=None):
     return busy, n, k
 
 
+def k9_code(cfg, world, HE, engine, megakernel, tsim) -> dict:
+    """K9's grid, ptxas's registers and shared memory, and its grid
+    barriers a tick under every FSM controller (counted by the kernel),
+    each controller's segment from the headline world held to the plain
+    version; one device kernel a call and no memset (the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from trafficsimulation_tpu_torch.lights import fsm
+    from trafficsimulation_tpu_torch.ops import build
+    R = cfg.PATHFINDING_COOLDOWN
+    grid, cpt = HE.mega_grid(torch.device("cuda"), cfg.HEIGHT, cfg.WIDTH)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import sass_count
+    ptxas = (sass_count.ptxas_info(build.build_log, "mega_kernel")
+             if build.build_log else {})
+    barriers = {}
+    for algo in fsm.FSM_ALGOS:
+        c = cfg.replace(TRAFFIC_LIGHT_AGENT_ALGORITHM=algo)
+        args = mega_args(c, world, R, engine, megakernel, tsim)
+        HE.mega_syncs()
+        got = HE.mega_segment(c, args)
+        n = HE.mega_syncs()
+        compare_mega(f"K9 {algo}", got, megakernel.segment_plain(c, args),
+                     HE)
+        barriers[algo] = (n - 1) / R
+    args = mega_args(cfg, world, R, engine, megakernel, tsim)
+    HE.mega_segment(cfg, args)
+    torch.cuda.synchronize()
+    # the profiler here may drop events, never add them: three calls
+    # must show nothing but K9's kernel, at most three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                HE.mega_segment(cfg, args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    if not names or len(names) > 3 or any("mega_kernel" not in n
+                                          for n in names):
+        raise AssertionError(f"K9 ran {names} in three calls, not one "
+                             f"kernel a call")
+    G = args["li"].shape[1]
+    own = megakernel.light_owners(
+        args["lown"], G, args["qrun"].shape[0], args["lstop"].shape[0],
+        args["srun"].shape[0], args["srun"], cfg.HEIGHT, cfg.WIDTH, grid)
+    log(f"K9's cooperative grid: {grid} blocks of 256 threads, {cpt} tiles "
+        f"of 32 x 8 a block, on {n_sm} SMs; ptxas: {ptxas}; grid barriers "
+        f"a tick (and one a segment) by controller, each segment equal to "
+        f"plain: {barriers}; the profiler sees only {names[0][:40]} "
+        f"({len(names)} of 3 calls), no memset; {G} groups, "
+        f"{len(own['shared_stop_cells'])} stop "
+        f"cells shared by two owners")
+    return {"grid": grid, "tiles_a_block": cpt, "ptxas": ptxas,
+            "barriers_a_tick": barriers, "device_kernels": names,
+            "shared_stop_cells": len(own["shared_stop_cells"])}
+
+
 def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
     """The megakernel path: 23 ticks against JAX, K9 against its plain
     version, and both paths timed in this process."""
@@ -1495,17 +1563,8 @@ def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
             f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
         del got, plain, args
     torch.cuda.empty_cache()
-    import ctypes
-    from trafficsimulation_tpu_torch.ops import build
-    nb = ctypes.c_int(0)
-    rc = build.load().tsim_mega_grid(ctypes.cast(ctypes.pointer(nb),
-                                                 ctypes.c_void_p))
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    if rc or nb.value < n_sm:
-        raise AssertionError(f"K9's cooperative grid: rc {rc}, {nb.value} "
-                             f"blocks on {n_sm} SMs")
-    log(f"K9's cooperative grid: {nb.value} blocks of 256 threads, "
-        f"{nb.value // n_sm} per SM on {n_sm} SMs")
+    code = k9_code(cfg, world, HE, engine, megakernel, tsim)
+    out["R=5"]["code"] = code
 
     # (c) both paths from tick 23, 200 ticks each, in this process
     timing = {}
@@ -1549,7 +1608,7 @@ def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
         f"{timing['mega']['steps_per_s'] / timing['per_tick']['steps_per_s']:.2f}")
     REPORT["mega"] = {"card": card, "ref_seconds": t_ref,
                       "launches": launches, "kernel": out,
-                      "grid_blocks": nb.value, "timing": timing}
+                      "grid_blocks": code["grid"], "timing": timing}
     return launches, out
 
 
@@ -2023,6 +2082,8 @@ def main():
             entry["partial_segment"] = {x: k9["R=3"][x] for x in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "shape")}
+            entry["code"] = {x: k9["R=5"]["code"][x] for x in (
+                "grid", "ptxas", "barriers_a_tick")}
         if k == "decide_move_tiled":
             t1 = f"{TILES[1][0]}x{TILES[1][1]}"
             entry["tiles_" + t1] = {x: k7[t1][x] for x in (

@@ -242,6 +242,49 @@ def test_wavefront_batched_matches_plain(gen, B):
         _same((HE.build_wavefront(cfg, allowed, road, hard[b]),), (ref,))
 
 
+@pytest.mark.parametrize("shape", [(256, 256), (16, 256, 256), (1024, 1024)])
+def test_wavefront_kernel_at_path_shapes(gen, shape):
+    """K3 at the path's shapes (one world, B = 16, config #5's 1024^2)
+    against its plain version, dense hard blockers, in one launch a call
+    (chip_smoke.py counts its device kernels with the profiler)."""
+    H, W = shape[-2:]
+    cfg = Config(WIDTH=W, HEIGHT=H)
+    allowed = _rint(gen, 0, 16, H, W).to(torch.uint8)
+    road = _bern(gen, 0.6, H, W)
+    hard = _bern(gen, 0.15, *shape) & road
+    if len(shape) == 3:
+        kern = lambda: HE.build_wavefront_batched(cfg, allowed, road, hard)
+        plain = lambda: HE.wavefront_core_batched(cfg, allowed, road, hard)
+    else:
+        kern = lambda: HE.build_wavefront(cfg, allowed, road, hard)
+        plain = lambda: HE.wavefront_core(cfg, allowed, road, hard)
+    n0 = HE.launches["build_wavefront"]
+    got = kern()
+    assert HE.launches["build_wavefront"] == n0 + 1
+    _same((got,), (plain(),))
+    assert (got != 0x07070707).any()
+
+
+def test_wavefront_takes_at_most_its_compiled_steps(gen):
+    """K3 at the most relax steps it was compiled for equals its plain
+    version; one step more raises before any launch."""
+    H, W = 70, 90
+    allowed = _rint(gen, 0, 16, H, W).to(torch.uint8)
+    road = _bern(gen, 0.6, H, W)
+    hard = _bern(gen, 0.1, H, W) & road
+    k = HE.WAVEFRONT_KMAX
+    cfg = Config(WIDTH=W, HEIGHT=H, VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS=k)
+    _same((HE.build_wavefront(cfg, allowed, road, hard),),
+          (HE.wavefront_core(cfg, allowed, road, hard),))
+    over = cfg.replace(VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS=k + 1)
+    n0 = HE.launches["build_wavefront"]
+    with pytest.raises(ValueError):
+        HE.build_wavefront(over, allowed, road, hard)
+    with pytest.raises(ValueError):
+        HE.build_wavefront_batched(over, allowed, road, hard[None])
+    assert HE.launches["build_wavefront"] == n0
+
+
 @pytest.mark.parametrize("B", [1, 4])
 def test_prefix_batched_matches_plain(gen, B):
     occ = _rint(gen, 0, 3, B, 300, 520)
@@ -483,32 +526,121 @@ def _same_mega(got, ref):
             _same((a,), (b,))
 
 
-@pytest.mark.parametrize("algo,R", [("QUEUE_ACTUATED", 5),
-                                    ("QUEUE_ACTUATED", 3),
-                                    ("FIXED_TIME", 5),
-                                    ("NEIGHBOR_PRESSURE_CONTROL", 5),
-                                    ("NEIGHBOR_GREEN_WAVE", 4)])
-def test_mega_kernel_matches_plain(gen, algo, R):
-    """One segment of R ticks: K9 against `segment_plain` on the same
-    inputs, from a world that has run a few ticks (lights switching,
-    vehicles moving, trips spawning)."""
+def _mega_args(cfg, world, R):
+    """K9's inputs for the next R ticks of `world`, as `run_chunk`
+    launches them on the megakernel path."""
     from trafficsimulation_tpu_torch import sim
     from trafficsimulation_tpu_torch.ops import megakernel
-    cfg, world = _mega_world(algo)
-    world = sim.run_chunk(cfg, world, 7)
     es = sim._enter_engine(cfg, world)
     cs = megakernel.build_chunk_static(cfg, world)
     draws, _ = engine.tick_draws(cfg, sim._key_np(world.key), R)
     args, _ = megakernel.segment_inputs(
         cfg, world, es, cs, engine.routing_planes(cfg, world, es), R,
         torch.from_numpy(draws).cuda())
-    n0 = HE.launches["mega"]
-    got = HE.mega_segment(cfg, args)
-    torch.cuda.synchronize()
-    assert HE.launches["mega"] == n0 + 1
-    _same_mega(got, megakernel.segment_plain(cfg, args))
-    # a second launch gives the same bits (reproducible reductions)
-    _same_mega(HE.mega_segment(cfg, args), got)
+    return args
+
+
+@pytest.mark.parametrize("algo", ["DISABLED", "FIXED_TIME", "QUEUE_ACTUATED",
+                                  "PRESSURE_CONTROL",
+                                  "NEIGHBOR_PRESSURE_CONTROL",
+                                  "NEIGHBOR_GREEN_WAVE"])
+def test_mega_kernel_matches_plain(gen, algo):
+    """Segments of R = 1 ... 5 ticks: K9 against `segment_plain` on the
+    same inputs, from a world that has run a few ticks (lights switching,
+    vehicles moving, trips spawning), under every FSM controller; a
+    second launch gives the same bits."""
+    from trafficsimulation_tpu_torch import sim
+    from trafficsimulation_tpu_torch.ops import megakernel
+    cfg, world = _mega_world(algo)
+    world = sim.run_chunk(cfg, world, 7)
+    for R in range(1, 6):
+        args = _mega_args(cfg, world, R)
+        n0 = HE.launches["mega"]
+        got = HE.mega_segment(cfg, args)
+        torch.cuda.synchronize()
+        assert HE.launches["mega"] == n0 + 1
+        _same_mega(got, megakernel.segment_plain(cfg, args))
+        # a second launch gives the same bits (reproducible reductions)
+        _same_mega(HE.mega_segment(cfg, args), got)
+
+
+def test_mega_stop_runs_of_two_groups_share_a_cell(gen):
+    """A stop run copied to a light of another group: two owners clear
+    and paint one cell; K9 equals its plain version over 5 ticks whose
+    lights switch."""
+    from trafficsimulation_tpu_torch import sim
+    from trafficsimulation_tpu_torch.ops import megakernel
+    cfg, world = _mega_world("FIXED_TIME")
+    cfg = cfg.replace(TRAFFIC_LIGHT_GREEN_DURATION=2)
+    world = sim.run_chunk(cfg, world, 3)
+    args = _mega_args(cfg, world, 5)
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    G = args["li"].shape[1]
+    lg = args["l_group"].cpu()
+    srun = args["srun"].cpu()
+    r0 = next(r for r in range(srun.shape[0])
+              if srun[r, 0] != 0 and lg[srun[r, 4]] >= 0)
+    g0 = int(lg[srun[r0, 4]])
+    grid, _ = HE.mega_grid(world.grid.is_road.device, H, W)
+    l1 = next(i for i in range(lg.shape[0])
+              if lg[i] >= 0 and int(lg[i]) % grid != g0 % grid)
+    extra = srun[r0].clone()
+    extra[4] = l1
+    a = dict(args)
+    a["srun"] = torch.cat([srun, extra[None]]).cuda().contiguous()
+    for k in ("s_rmv", "s_rh"):               # [H, S]
+        a[k] = torch.cat([args[k], args[k][:, r0:r0 + 1]], 1).contiguous()
+    for k in ("s_cv", "s_cmh"):               # [S, W]
+        a[k] = torch.cat([args[k], args[k][r0:r0 + 1]], 0).contiguous()
+    col = torch.zeros_like(args["s_ol"][:, :1])
+    col[l1, 0] = 1
+    a["s_ol"] = torch.cat([args["s_ol"], col], 1).contiguous()
+    a["lown"] = megakernel.light_owner_table(args["qrun"], a["srun"],
+                                             args["l_group"], G)
+    own = megakernel.light_owners(a["lown"], G, a["qrun"].shape[0],
+                                  lg.shape[0], a["srun"].shape[0], a["srun"],
+                                  H, W, grid)
+    assert len(own["shared_stop_cells"]) > 0
+    got = HE.mega_segment(cfg, a)
+    _same_mega(got, megakernel.segment_plain(cfg, a))
+
+
+def test_mega_scratch_per_shape_and_fresh_outputs(gen):
+    """Calls at two shapes in one process, back and forth: each equals
+    its plain version, and the outputs of two successive calls share no
+    storage (the first call's still hold its results)."""
+    from trafficsimulation_tpu_torch import prng, sim
+    from trafficsimulation_tpu_torch.ops import megakernel
+    cfg_a, world_a = _mega_world("QUEUE_ACTUATED")
+    cfg_b = Config(**{**MEGA_CFG, "WIDTH": 96},
+                   TRAFFIC_LIGHT_AGENT_ALGORITHM="QUEUE_ACTUATED")
+    world_b = sim.init_world(cfg_b, prng.PRNGKey(5), "cuda")
+    cfg_b, world_b = sim.measure_and_shrink(cfg_b, world_b)
+    world_b = sim.inject_vehicles(cfg_b, world_b, 150)
+    a5 = _mega_args(cfg_a, world_a, 5)
+    b3 = _mega_args(cfg_b, world_b, 3)
+    a4 = _mega_args(cfg_a, sim.run_chunk(cfg_a, world_a, 2), 4)
+    outs = []
+    for cfg, args in ((cfg_a, a5), (cfg_b, b3), (cfg_a, a4), (cfg_a, a5)):
+        outs.append((cfg, args, HE.mega_segment(cfg, args)))
+    ptrs = [{t.untyped_storage().data_ptr() for t in o.values()}
+            for _, _, o in outs]
+    for i in range(len(ptrs) - 1):
+        assert not ptrs[i] & ptrs[i + 1]
+    for cfg, args, got in outs:
+        _same_mega(got, megakernel.segment_plain(cfg, args))
+
+
+def test_mega_counts_its_barriers(gen):
+    """K9 passes 2K + 3 grid barriers a tick and one more a segment (the
+    kernel counts them), at R = 5 and R = 2."""
+    cfg, world = _mega_world("QUEUE_ACTUATED")
+    for R in (5, 2):
+        args = _mega_args(cfg, world, R)
+        HE.mega_segment(cfg, args)
+        HE.mega_syncs()
+        HE.mega_segment(cfg, args)
+        assert HE.mega_syncs() == 1 + R * (2 * cfg.VEHICLE_MAX_SPEED + 3)
 
 
 def test_mega_run_chunk_matches_per_tick_on_card(gen, monkeypatch):
@@ -545,10 +677,20 @@ def test_mega_rejects_what_it_does_not_take(gen):
     args, _ = megakernel.segment_inputs(
         cfg, world, es, cs, engine.routing_planes(cfg, world, es), 2,
         torch.from_numpy(draws).cuda())
-    with pytest.raises(TypeError):
-        HE.mega_segment(cfg, {**args, "pb": args["pb"].to(torch.int64)})
-    with pytest.raises(ValueError):
-        HE.mega_segment(cfg, {**args, "pa": args["pa"].t()})
+    # before any launch at this shape, and after one (its cached
+    # signature)
+    for _ in range(2):
+        n0 = HE.launches["mega"]
+        with pytest.raises(TypeError):
+            HE.mega_segment(cfg, {**args, "pb": args["pb"].to(torch.int64)})
+        with pytest.raises(ValueError):
+            HE.mega_segment(cfg, {**args, "pa": args["pa"].t()})
+        with pytest.raises(ValueError):
+            HE.mega_segment(cfg, {**args, "wnd": args["wnd"].cpu()})
+        with pytest.raises(ValueError):
+            HE.mega_segment(cfg, {**args, "lown": args["lown"][1:]})
+        assert HE.launches["mega"] == n0
+        HE.mega_segment(cfg, args)
 
 
 def test_mega_batch_on_card_matches_single_worlds(gen, monkeypatch):

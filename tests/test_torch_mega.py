@@ -206,6 +206,93 @@ def test_megakernel_path_matches_per_tick(monkeypatch, algo):
     assert not np.array_equal(start["vehicles.pos"], ref["vehicles.pos"])
 
 
+def _owners_brute(cs, G, H, W, nb):
+    """Who owns each light-stage item when block j takes the groups j,
+    j + nb, ... with their runs and lights (light l of no group with
+    pseudo-group l mod (G + 1); no block takes a run that covers no
+    cell: -1), and
+    the stop cells that runs of two owners share, from the chunk tables
+    alone."""
+    qrun, srun = _np(cs["qrun"]), _np(cs["srun"])
+    lg = _np(cs["l_group"])
+    lgrp = np.where((lg >= 0) & (lg < G), lg, np.arange(len(lg)) % (G + 1))
+    q_own = np.where(qrun[:, 0] != 0, qrun[:, 4] % nb, -1)
+    l_own = lgrp % nb
+    s_ok = srun[:, 0] != 0
+    s_own = np.where(s_ok, lgrp[np.clip(srun[:, 4], 0, len(lg) - 1)] % nb,
+                     -1)
+    seen = {}
+    for r in np.nonzero(s_ok)[0]:
+        o, coord, a0, a1 = srun[r, :4]
+        cells = ([y * W + coord for y in range(a0, min(a1, H))] if o == 1
+                 else [coord * W + x for x in range(a0, min(a1, W))])
+        for c in cells:
+            seen.setdefault(c, set()).add(int(s_own[r]))
+    shared = sorted(c for c, v in seen.items() if len(v) > 1)
+    return q_own, l_own, s_own, np.array(shared, np.int64)
+
+
+def _with_shared_stop_run(cs, G):
+    """The chunk tables with one more stop run: a copy of a grouped
+    light's run, painted by a light of another group (None where the
+    world has one group), and the two groups."""
+    srun, lg = cs["srun"].clone(), cs["l_group"]
+    r0 = next(r for r in range(srun.shape[0])
+              if srun[r, 0] != 0 and lg[srun[r, 4]] >= 0)
+    g0 = int(lg[srun[r0, 4]])
+    l1 = [i for i in range(lg.shape[0]) if lg[i] >= 0 and lg[i] != g0]
+    if not l1:
+        return None, None
+    extra = srun[r0].clone()
+    extra[4] = l1[0]
+    srun = torch.cat([srun, extra[None]])
+    lown = megakernel.light_owner_table(cs["qrun"], srun, lg, G)
+    return {**cs, "srun": srun, "lown": lown}, (g0, int(lg[l1[0]]))
+
+
+@pytest.mark.parametrize("which", ["crossroad", "generated"])
+def test_light_owner_table_gives_each_item_one_owner(which):
+    """K9's owner table (`light_owner_table`, built with the chunk
+    tables): every queue run, light and stop run is listed once, under
+    its group (a stop run under its light's), the ungrouped lights spread
+    by index, the runs that cover no cell under no block; the
+    stop cells that runs of two owners share are the ones `light_owners`
+    lists, on the world and on the world with a stop run that two groups
+    share."""
+    if which == "crossroad":
+        cfg, _, world = _crossroad("QUEUE_ACTUATED", False)
+    else:
+        cfg, world = _mega_world("QUEUE_ACTUATED")
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    G = world.lights.current_phase.shape[-1]
+    cs = megakernel.build_chunk_static(cfg, world)
+    cs2, groups = _with_shared_stop_run(cs, G)
+    for tables in (cs, cs2):
+        if tables is None:
+            continue
+        NQ, NS = tables["qrun"].shape[0], tables["srun"].shape[0]
+        L = tables["l_group"].shape[0]
+        assert tables["lown"].dtype == torch.int32
+        assert tables["lown"].shape == (3 * (G + 3) + NQ + L + NS,)
+        for nb in (1, 2, 3, 7, 64):
+            got = megakernel.light_owners(tables["lown"], G, NQ, L, NS,
+                                          tables["srun"], H, W, nb)
+            q_own, l_own, s_own, shared = _owners_brute(tables, G, H, W, nb)
+            for name in ("queue_run", "light", "stop_run"):
+                assert (got[name + "_listed"] == 1).all(), name
+            assert np.array_equal(got["group"], np.arange(G) % nb)
+            assert np.array_equal(got["queue_run"], q_own)
+            assert np.array_equal(got["light"], l_own)
+            assert np.array_equal(got["stop_run"], s_own)
+            assert np.array_equal(got["shared_stop_cells"], shared)
+            if tables is cs2 and groups[0] % nb != groups[1] % nb:
+                # the copied run's cells are shared by two owners
+                o, coord, a0, a1 = _np(tables["srun"][-1, :4])
+                c = coord * W + a0 if o == 2 else a0 * W + coord
+                assert c in set(got["shared_stop_cells"].tolist())
+    assert which == "crossroad" or cs2 is not None
+
+
 def test_gate_follows_the_jax_rules(monkeypatch):
     """The gate's fallbacks: off without an opt-in, off under
     TSIM_NO_MEGAKERNEL, off for pedestrians, stuck-despawn, hierarchical

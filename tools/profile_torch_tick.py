@@ -45,9 +45,9 @@ CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
 class _Op(torch.autograd.Function):
     """fn(*args) as an op: torch.profiler links a kernel to the layer
     whose range ran it through the op that launched it, and the lean
-    wrappers of K1, K4, the ordered add and `rain_ticks`, and K5 from
-    the vmap rule of `build_sdir`, launch through ctypes outside any
-    op."""
+    wrappers of K1, K3, K4, K9, the ordered add and `rain_ticks`, and K5
+    from the vmap rule of `build_sdir`, launch through ctypes outside
+    any op."""
 
     @staticmethod
     def forward(fn, *args):
@@ -88,7 +88,8 @@ def annotate_layers() -> list:
                     return _fn(*a, **k)
             setattr(mod, name, span)
     for name in ("_prefix_launch", "_dm_launch", "ordered_add_rows",
-                 "_rain_single", "build_sdir_batched"):
+                 "_rain_single", "build_sdir_batched", "_wavefront_launch",
+                 "_mega_launch"):
         setattr(HE, name, lambda *a, _fn=getattr(HE, name): _Op.apply(_fn,
                                                                      *a))
     return list(layers)

@@ -47,7 +47,8 @@
 //    want and contraflow bits, and "occupied by an arrival") and read a
 //    key word only where that byte says a key aims at them.
 // Each skip leaves every output bit as the phase bodies of
-// decide_move.cuh compute it, which K9 and K7 still run.
+// decide_move.cuh compute it, which K7 still runs.  The phases live in
+// coop.cuh, which K9 (megakernel.cu) shares.
 #include <cooperative_groups.h>
 
 #include "decide_move.cuh"
@@ -55,31 +56,6 @@
 namespace cg = cooperative_groups;
 
 namespace tsim {
-
-// K1's working planes per world: the vehicle planes, the steps left and
-// the keys (int32), then, after every world's, one `pub` byte per cell
-enum { W_PA, W_PB, W_PC, W_PD, W_PE, W_PL, W_STEPS, W_KEY, N_WORK };
-// the pub byte: bits 0..1 the key's direction, 2 a key (else KINF), 3
-// want, 4 contraflow (the intent's info word is bits 3..4), 5 occupied
-// by a vehicle that arrived this tick
-constexpr uint32_t PUB_KEY = 4u, PUB_WANT = 8u, PUB_CONTRA = 16u,
-                   PUB_ARR = 32u, PUB_INTENT = 31u;
-
-// the per-cell state word: the decide aux word in bits 0..16, then
-constexpr uint32_t C_AUX = 0x1FFFFu;
-constexpr uint32_t C_HALT = 1u << 17, C_MOVED = 1u << 18,
-                   C_FRESH = 1u << 19, C_PRESENT = 1u << 20,
-                   C_NEVER = 1u << 21;
-// the pub byte the cell last wrote (bits 22..27)
-constexpr int C_PUB = 22;
-constexpr uint32_t C_PUB_MASK = 63u << C_PUB;
-// a key won at this cell in this sub-round (bit 28), from direction m
-// (bits 29..30); a vehicle left the cell (bit 31)
-constexpr uint32_t C_PULL = 1u << 28;
-constexpr int C_PULL_M = 29;
-constexpr uint32_t C_VAC = 1u << 31;
-
-constexpr int TILE_W = 32, TILE_H = THREADS / TILE_W;
 
 #ifdef TSIM_K1_MARKS
 // the phase timeline of tools/k1_phase_times.py: thread 0 of block 0
@@ -102,292 +78,12 @@ __device__ __forceinline__ unsigned long long k1_now() {
   } while (0)
 #endif
 
-// most tiles a block owns (2 x 4 bytes of shared memory per cell)
-constexpr int MAX_CPT = 64;
+}  // namespace tsim
 
-// where a block's tile lies: world b (-1 past the last tile), origin
-struct TileOrigin {
-  int b, y0, x0;
-};
+#define COOP_MARK(i, code) K1_MARK(i)
+#include "coop.cuh"
 
-// the block's cell q (tile q / THREADS, lane q % THREADS): world b, flat
-// index c, (y, x); false past the grid's edge
-__device__ __forceinline__ bool slot_cell(const DMParams& p,
-                                          const TileOrigin* org, int q,
-                                          int& b, int& c, int& y, int& x) {
-  const TileOrigin o = org[q / THREADS];
-  const int i = q % THREADS;
-  b = o.b;
-  y = o.y0 + i / TILE_W;
-  x = o.x0 + i % TILE_W;
-  c = y * p.W + x;
-  return b >= 0 && y < p.H && x < p.W;
-}
-
-// world b's working planes, and its pub bytes
-struct Work {
-  int* S;
-  uint8_t* pub;
-  long hw;
-  __device__ __forceinline__ Work(int* S0, int B, int b, const DMParams& p)
-      : hw((long)p.H * p.W) {
-    S = S0 + (long)b * N_WORK * hw;
-    pub = (uint8_t*)(S0 + (long)B * N_WORK * hw) + (long)b * hw;
-  }
-  __device__ __forceinline__ int* plane(int k) const { return S + k * hw; }
-};
-
-// world b's view of the inputs the decide core reads
-__device__ __forceinline__ Inputs world_inputs(Inputs in, int b, long hw,
-                                               int D4) {
-  const long o = (long)b * hw;
-  in.sdir4 += o * D4;
-  in.wnd += o;
-  in.pa += o;
-  in.pb += o;
-  in.pc += o;
-  in.pd += o;
-  in.pe += o;
-  in.pl += o;
-  in.stop += o;
-  in.rain += o;
-  in.ped += o;
-  in.r_mal += o;
-  in.r_side += o;
-  in.r_reroll += o;
-  in.r_prio += o;
-  return in;
-}
-
-// the decide phase at a cell that holds a vehicle: its planes, and its
-// state word
-template <class Select>
-__device__ __forceinline__ uint32_t coop_decide(const DMParams& p,
-                                                const Inputs& in,
-                                                const Work& w, int c, int y,
-                                                int x, const Select& sel) {
-  const int pc = __ldg(in.pc + c), pe = __ldg(in.pe + c);
-  const int pl = __float_as_int(__ldg(in.pl + c));
-  const Decided d = dm_decide_core<Select, DM_VEHICLE>(
-      p, in, c, y, x, __ldg(in.r_mal + c), __ldg(in.r_side + c),
-      __ldg(in.r_reroll + c), sel);
-  w.plane(W_PA)[c] = (int)d.pa;
-  w.plane(W_PB)[c] = (int)d.pb;
-  w.plane(W_PC)[c] = pc;
-  w.plane(W_PD)[c] = (int)d.pd;
-  w.plane(W_PE)[c] = pe;
-  w.plane(W_PL)[c] = pl;
-  w.plane(W_STEPS)[c] = d.steps;
-  return (uint32_t)d.aux | (d.halted ? C_HALT : 0u) | C_FRESH | C_PRESENT |
-         C_NEVER;
-}
-
-// the intent of the vehicle at cell c whose state word is s
-// (dm_intent_cell's rule): publishes its key and pub byte where they
-// change
-template <class Select>
-__device__ __forceinline__ uint32_t coop_intent(const DMParams& p,
-                                                const Inputs& in,
-                                                const Work& w, int c, int y,
-                                                int x, uint32_t s,
-                                                const Select& sel) {
-  // every load that needs no other first, then the select, then the
-  // target's
-  const uint32_t pa = (uint32_t)w.plane(W_PA)[c];
-  const uint32_t pb = (uint32_t)w.plane(W_PB)[c];
-  const uint32_t pd = (uint32_t)w.plane(W_PD)[c];
-  const int steps = w.plane(W_STEPS)[c];
-  const int did = __ldg(in.dest_id + c);
-  const uint32_t wnd = (uint32_t)__ldg(in.wnd + c);
-  const uint32_t prio = ((uint32_t)__ldg(in.r_prio + c) >> 4) & 0x0FFFFFF8u;
-  const int dest_c = (int)fld(pa, PA_DEST_SH, 14);
-  const int nd = sel(p, in, dest_c, c, y, x);
-  const int h1 = (int)fld(pa, PA_HEAD_SH, 3);
-  const bool at_dest_c = did >= 0 && dest_c == did;
-  const int csteps = (int)fld(pd, PD_CFSTEPS_SH, 5);
-  const int climit = bit(pd, PD_CFMODE_SH) ? p.detour_steps : p.ovt_steps;
-  const bool allow = fld(pb, PB_CONTRA_SH, 8) > 0 && csteps < climit;
-  int dir;
-  bool contra;
-  resolve(nd, h1, true, allow, wnd, (int)fld(pd, PD_CFKEY_SH, 2), dir,
-          contra);
-  const bool can_dir = dir < 7 && (!contra || allow);
-  const bool want = !(s & C_HALT) && steps > 0 && !at_dest_c;
-  bool blocked_t = false;
-  if (dir < 4) {
-    const int t = nbr(y, x, dir, p.H, p.W);
-    if (t >= 0) {
-      const bool t_stop = __ldg(in.stop + t), t_ped = __ldg(in.ped + t);
-      const uint32_t t_pub = w.pub[t], t_pa = (uint32_t)__ldg(in.pa + t);
-      blocked_t = t_stop || (t_pub & PUB_ARR) || (t_pa & 1u) || t_ped;
-    } else {
-      blocked_t = true;
-    }
-  }
-  // directions 4..6 (possible only from malformed bytes) pass `can_dir`
-  // but, as in the reference, never send a key
-  const bool can = want && can_dir && !blocked_t && dir < 4;
-  const uint32_t old = (s & C_PUB_MASK) >> C_PUB;
-  const uint32_t pub = (can ? PUB_KEY | (uint32_t)dir : 0u) |
-                       (want ? PUB_WANT : 0u) | (contra ? PUB_CONTRA : 0u) |
-                       (old & PUB_ARR);
-  if (pub != old) {
-    if (can) w.plane(W_KEY)[c] = (int)prio | dir;
-    w.pub[c] = (uint8_t)pub;
-    s = (s & ~C_PUB_MASK) | (pub << C_PUB);
-  }
-  return s & ~C_FRESH;
-}
-
-// the lowest key aimed at (y, x) (min_incoming), read through the pub
-// bytes: a key word only where a neighbour's byte says it aims here
-__device__ __forceinline__ int coop_min_incoming(const DMParams& p,
-                                                 const Work& w, int y,
-                                                 int x) {
-  int n[4];
-  uint32_t b[4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    n[m] = nbr(y, x, opposite(m), p.H, p.W);
-    b[m] = n[m] >= 0 ? w.pub[n[m]] : 0u;
-  }
-  int mk = KINF;
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-    if ((b[m] & PUB_KEY) && (int)(b[m] & 3u) == m)
-      mk = min(mk, w.plane(W_KEY)[n[m]]);
-  return mk;
-}
-
-// the commit at a cell with a key or an incoming key (dm_commit_cell's
-// rule): resolve its own key; a vehicle that won leaves the cell, a key
-// won here moves its vehicle in
-__device__ __forceinline__ uint32_t coop_commit(const DMParams& p,
-                                                const Work& w, int c, int y,
-                                                int x, uint32_t s) {
-  const uint32_t pub = (s & C_PUB_MASK) >> C_PUB;
-  bool won = false;
-  if (pub & PUB_KEY) {
-    const int kc = w.plane(W_KEY)[c];
-    const int ty = y + dir_dy((int)(pub & 3u));
-    const int tx = x + dir_dx((int)(pub & 3u));
-    won = ty >= 0 && ty < p.H && tx >= 0 && tx < p.W &&
-          coop_min_incoming(p, w, ty, tx) == kc;
-  }
-  if (s & C_PULL) {
-    const int m = (int)((s >> C_PULL_M) & 3u);
-    const int src = nbr(y, x, opposite(m), p.H, p.W);
-    const uint32_t spa = (uint32_t)w.plane(W_PA)[src];
-    const uint32_t spc = (uint32_t)w.plane(W_PC)[src];
-    uint32_t spd = (uint32_t)w.plane(W_PD)[src];
-    if (w.pub[src] & PUB_CONTRA)
-      spd = (spd & CFS_CLR) |
-            (min(fld(spd, PD_CFSTEPS_SH, 5) + 1u, 31u) << PD_CFSTEPS_SH);
-    w.plane(W_PA)[c] =
-        (int)((spa & HEAD_CLR) | ((uint32_t)(m + 1) << PA_HEAD_SH));
-    w.plane(W_PB)[c] = w.plane(W_PB)[src];
-    w.plane(W_PC)[c] =
-        (int)((min(fld(spc, PC_STEPS_SH, 12) + 1u, 4095u) << PC_STEPS_SH) |
-              (spc & ((1u << PC_STEPS_SH) - 1u)));
-    w.plane(W_PD)[c] = (int)spd;
-    w.plane(W_PE)[c] = w.plane(W_PE)[src];
-    w.plane(W_PL)[c] = w.plane(W_PL)[src];
-    w.plane(W_STEPS)[c] = w.plane(W_STEPS)[src] - 1;
-    // an empty cell has published nothing: its byte becomes "arrived"
-    w.pub[c] = (uint8_t)PUB_ARR;
-    s = (s & ~(C_PUB_MASK | C_PULL | (3u << C_PULL_M))) | C_MOVED |
-        C_PRESENT | C_FRESH | (PUB_ARR << C_PUB);
-  } else if (won) {
-    // the planes left behind are zero (no write: the finish knows);
-    // the pub byte keeps what neighbours read in this sub-round
-    if (pub & PUB_ARR) w.pub[c] = (uint8_t)(pub & PUB_INTENT);
-    s = (s & ~(C_MOVED | C_PRESENT | (PUB_ARR << C_PUB))) | C_VAC;
-  }
-  // the info word's `want` without the win: halted from now on
-  if ((pub & PUB_WANT) && !won) s |= C_HALT;
-  return s;
-}
-
-// writes the cell's final planes at out.*[o + c] and returns its flags
-// (dm_finish_cell's rule on the cell's last planes: those a vehicle
-// stands on, zero where one left, the decide's where none ever stood;
-// the start-of-tick move check only where it can reset the speed)
-template <class Select>
-__device__ __forceinline__ int coop_finish(const DMParams& p,
-                                           const Inputs& in, const Work& w,
-                                           int c, int y, int x, uint32_t s,
-                                           const Outputs& out, long o,
-                                           const Select& sel) {
-  const bool moved = s & C_MOVED;
-  const bool present = s & C_PRESENT;
-  const int aux = (int)(s & C_AUX);
-  uint32_t pa = 0, pb = 0;
-  int pc = 0, pd = 0, pe = 0, pl = 0;
-  // a vehicle that has not moved may lose its speed: the inputs of that
-  // check with its planes
-  const bool check = present && !moved;
-  const bool stop_c = check && __ldg(in.stop + c);
-  const uint32_t wnd = check ? (uint32_t)__ldg(in.wnd + c) : 0u;
-  if (present) {
-    pa = (uint32_t)w.plane(W_PA)[c];
-    pb = (uint32_t)w.plane(W_PB)[c];
-    pc = w.plane(W_PC)[c];
-    pd = w.plane(W_PD)[c];
-    pe = w.plane(W_PE)[c];
-    pl = w.plane(W_PL)[c];
-  } else if (!(s & C_VAC)) {
-    const Decided d =
-        dm_decide_core<Select, DM_EMPTY>(p, in, c, y, x, 0.0f, 0.0f, 0, sel);
-    pa = d.pa;
-    pb = d.pb;
-    pc = __ldg(in.pc + c);
-    pd = (int)d.pd;
-    pe = __ldg(in.pe + c);
-    pl = __float_as_int(__ldg(in.pl + c));
-  }
-  if (check) {
-    const int nd0 = aux & 0xFF, head1 = (aux >> 8) & 7;
-    const bool ct_pos = (aux >> 11) & 1;
-    const int wkey_dec = (aux >> 12) & 3;
-    const bool at_dest0 = (aux >> 14) & 1;
-    int dir0r;
-    bool contra0r;
-    resolve(nd0, head1, true, ct_pos, wnd, wkey_dec, dir0r, contra0r);
-    bool tgt_blocked0 = false;
-    if (dir0r < 4) {
-      const int t = nbr(y, x, dir0r, p.H, p.W);
-      if (t >= 0) {
-        const bool t_stop = __ldg(in.stop + t), t_ped = __ldg(in.ped + t);
-        const uint32_t t_pa = (uint32_t)__ldg(in.pa + t);
-        tgt_blocked0 = t_stop || (t_pa & 1u) || t_ped;
-      } else {
-        tgt_blocked0 = true;
-      }
-    }
-    const bool allow0 = fld(pb, PB_CONTRA_SH, 8) > 0;
-    const bool fb0 = at_dest0 || dir0r == 7 || (contra0r && !allow0) ||
-                     tgt_blocked0;
-    if (fb0) pa &= ~(15u << PA_BASE_SH);
-  }
-
-  // stuck bookkeeping
-  int stuck_v = (int)fld(pb, PB_STUCK_SH, 12);
-  const bool stuck_inc = check && !stop_c;
-  stuck_v = (present && moved) ? 0
-                               : (stuck_inc ? min(stuck_v + 1, 4095) : stuck_v);
-  bool stuckf = bit(pa, PA_STUCKF_SH);
-  stuckf = !(present && moved) && (stuck_v > p.recompute_thresh || stuckf);
-  pa = (pa & ~(1u << PA_STUCKF_SH)) | ((uint32_t)stuckf << PA_STUCKF_SH);
-  pb = (pb & ~4095u) | (uint32_t)stuck_v;
-
-  out.pa[o + c] = (int)pa;
-  out.pb[o + c] = (int)pb;
-  out.pc[o + c] = pc;
-  out.pd[o + c] = pd;
-  out.pe[o + c] = pe;
-  out.pl[o + c] = __int_as_float(pl);
-  return ((aux >> 15) & 1) | (((aux >> 16) & 1) << 1) | (moved ? 4 : 0);
-}
+namespace tsim {
 
 // One tick of B worlds; each block owns `cpt` tiles.  Dynamic shared
 // memory: the state words and the work list, cpt * THREADS each.
@@ -402,123 +98,9 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ int nlist;
   const int tid = threadIdx.x, nslot = cpt * THREADS;
   const long hw = (long)p.H * p.W;
-  const int tx = (p.W + TILE_W - 1) / TILE_W;
-  const int per_world = tx * ((p.H + TILE_H - 1) / TILE_H);
-  if (tid < cpt) {
-    const int tile = blockIdx.x + tid * gridDim.x;
-    const int b = tile / per_world, r = tile - b * per_world;
-    org[tid] = TileOrigin{tile < B * per_world ? b : -1,
-                          (r / tx) * TILE_H, (r % tx) * TILE_W};
-  }
-  if (tid == 0) nlist = 0;
-  K1_MARK(0);
-  __syncthreads();
-
-  // decide: every cell's pub byte cleared and state word set, the
-  // vehicles listed
-  for (int q = tid; q < nslot; q += THREADS) {
-    int b, c, y, x;
-    st[q] = 0;
-    if (!slot_cell(p, org, q, b, c, y, x)) continue;
-    const long g = (long)b * hw + c;
-    const uint32_t pa = (uint32_t)__ldg(in0.pa + g);
-    Work(S0, B, b, p).pub[c] = 0;
-    if (pa & 1) {
-      list[atomicAdd(&nlist, 1)] = q;
-    } else {
-      // an empty cell: halted when its parked bit is set
-      const bool never = __ldg(in0.stop + g) || __ldg(in0.ped + g);
-      st[q] = (bit(pa, PA_PARKED_SH) ? C_HALT : 0u) | (never ? C_NEVER : 0u);
-    }
-  }
-  __syncthreads();
-  K1_MARK(1);
-  for (int j = tid; j < nlist; j += THREADS) {
-    const int q = list[j];
-    int b, c, y, x;
-    slot_cell(p, org, q, b, c, y, x);
-    st[q] = coop_decide(p, world_inputs(in0, b, hw, p.D4),
-                        Work(S0, B, b, p), c, y, x, sel);
-  }
-  K1_MARK(2);
-  grid.sync();
-  K1_MARK(3);
-
-  for (int r = 0; r < p.max_speed; ++r) {
-    // intent: a vehicle new on its cell (decided or arrived since the
-    // last intent) listed.  Any other vehicle did not move in the last
-    // commit, so either it wanted to and is halted now (its key and want
-    // withdrawn; its contraflow bit, of its planes and cell alone, stays)
-    // or it did not want to, which nothing it reads has changed since.
-    // An empty cell withdraws what it published.
-    __syncthreads();
-    if (tid == 0) nlist = 0;
-    __syncthreads();
-    for (int q = tid; q < nslot; q += THREADS) {
-      const uint32_t s = st[q];
-      int b, c, y, x;
-      if (!slot_cell(p, org, q, b, c, y, x)) continue;
-      const uint32_t pub = (s & C_PUB_MASK) >> C_PUB;
-      uint32_t now = pub;
-      if (s & C_FRESH)
-        list[atomicAdd(&nlist, 1)] = q;
-      else if (!(s & C_PRESENT))
-        now = 0;
-      else if (s & C_HALT)
-        now = pub & (PUB_CONTRA | PUB_ARR);
-      if (now != pub) {
-        Work(S0, B, b, p).pub[c] = (uint8_t)now;
-        st[q] = (s & ~C_PUB_MASK) | (now << C_PUB);
-      }
-    }
-    __syncthreads();
-    K1_MARK(4 + 6 * r);
-    for (int j = tid; j < nlist; j += THREADS) {
-      const int q = list[j];
-      int b, c, y, x;
-      slot_cell(p, org, q, b, c, y, x);
-      st[q] = coop_intent(p, world_inputs(in0, b, hw, p.D4),
-                          Work(S0, B, b, p), c, y, x, st[q], sel);
-    }
-    K1_MARK(5 + 6 * r);
-    grid.sync();
-    K1_MARK(6 + 6 * r);
-
-    // commit: incoming keys found at every cell that can be a target (a
-    // key aims only at a cell that is empty now and was at the start of
-    // the tick, and neither stopped nor blocked by pedestrians); the
-    // cells with a key or an incoming key listed
-    if (tid == 0) nlist = 0;
-    __syncthreads();
-    for (int q = tid; q < nslot; q += THREADS) {
-      uint32_t s = st[q];
-      int b, c, y, x;
-      if (!slot_cell(p, org, q, b, c, y, x)) continue;
-      if (!(s & (C_PRESENT | C_NEVER))) {
-        const int mk = coop_min_incoming(p, Work(S0, B, b, p), y, x);
-        if (mk != KINF) s |= C_PULL | ((uint32_t)(mk & 3) << C_PULL_M);
-      }
-      if (s & (C_PULL | (PUB_KEY << C_PUB))) {
-        list[atomicAdd(&nlist, 1)] = q;
-        st[q] = s;
-      } else if (s & (PUB_WANT << C_PUB)) {
-        st[q] = s | C_HALT;   // wanted to move, published no key
-      }
-    }
-    __syncthreads();
-    K1_MARK(7 + 6 * r);
-    for (int j = tid; j < nlist; j += THREADS) {
-      const int q = list[j];
-      int b, c, y, x;
-      slot_cell(p, org, q, b, c, y, x);
-      st[q] = coop_commit(p, Work(S0, B, b, p), c, y, x, st[q]);
-    }
-    K1_MARK(8 + 6 * r);
-    // the next intent reads the neighbours' committed bytes; the finish
-    // reads only the block's own cells
-    if (r + 1 < p.max_speed) grid.sync();
-    K1_MARK(9 + 6 * r);
-  }
+  coop_tiles(p, B, cpt, org);
+  coop_move(p, in0, S0, B, cpt, org, st, list, nlist, sel, PlaneDraws(),
+            grid);
   __syncthreads();
 
   for (int q = tid; q < nslot; q += THREADS) {
@@ -533,11 +115,6 @@ __global__ void __launch_bounds__(THREADS)
   K1_MARK(40);
   if (threadIdx.x == 0) atomicMax(&k1_marks[41], k1_now());
 #endif
-}
-
-// shared memory of a block that owns cpt tiles
-inline size_t coop_smem(int cpt) {
-  return (size_t)cpt * THREADS * 2 * sizeof(uint32_t);
 }
 
 // resident blocks of THREADS on the current card for `cpt` tiles a

@@ -1,8 +1,7 @@
-// K1's phase bodies, one cell each, run by K9 (megakernel.cu, one
-// grid-wide barrier per phase) and K7 (decide_tiled.cu).  K1 itself
-// (decide_move.cu) runs the decide through `dm_decide_core` and has its
-// own intent, commit and finish on a smaller working set, with the same
-// rules.
+// K1's phase bodies, one cell each, run by K7 (decide_tiled.cu).  K1
+// (decide_move.cu) and K9 (megakernel.cu) run the decide through
+// `dm_decide_core` and the cooperative intent, commit and finish of
+// coop.cuh on a smaller working set, with the same rules.
 //
 //   decide      start-of-tick faults, halts, speed, contraflow ladder;
 //               writes working set A, the halt latch and an aux word
@@ -217,12 +216,27 @@ struct Decided {
 // then 7, read by no later phase; the random draws go unused too)
 enum DecideMode { DM_PLAIN, DM_VEHICLE, DM_EMPTY };
 
+// A load of a tick input by K1's cooperative phases (coop.cuh): through
+// the read-only data path, since no phase of K1's launch writes one.  A
+// launch that wrote them in an earlier stage (K9: the last tick's planes
+// and the painted stop plane) defines TSIM_COHERENT_LOADS before
+// including this header, and its loads are plain: the read-only path
+// is not coherent with the launch's own writes.
+template <class T>
+__device__ __forceinline__ T ld_tick(const T* q) {
+#ifdef TSIM_COHERENT_LOADS
+  return *q;
+#else
+  return __ldg(q);
+#endif
+}
+
 template <int kMode, class T>
 __device__ __forceinline__ T ld_in(const T* q) {
   if constexpr (kMode == DM_PLAIN)
     return *q;
   else
-    return __ldg(q);
+    return ld_tick(q);
 }
 
 // The decide phase at cell c = (y, x).
@@ -245,13 +259,13 @@ __device__ __forceinline__ Decided dm_decide_core(const DMParams& p,
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const int n = nbr(y, x, m, p.H, p.W);
-      nb_pa[m] = n >= 0 ? (uint32_t)__ldg(in.pa + n) : 0u;
+      nb_pa[m] = n >= 0 ? (uint32_t)ld_tick(in.pa + n) : 0u;
     }
-    stop_c = __ldg(in.stop + c);
-    rain_c = __ldg(in.rain + c);
-    inter_c = __ldg(in.inter + c);
-    dest_c = __ldg(in.dest_id + c);
-    wnd_c = (uint32_t)__ldg(in.wnd + c);
+    stop_c = ld_tick(in.stop + c);
+    rain_c = ld_tick(in.rain + c);
+    inter_c = ld_tick(in.inter + c);
+    dest_c = ld_tick(in.dest_id + c);
+    wnd_c = (uint32_t)ld_tick(in.wnd + c);
   }
   const bool present = kMode != DM_EMPTY && (pa & 1u);
   const bool col0 = bit(pa, PA_COL_SH), mal0 = bit(pa, PA_MAL_SH);

@@ -3,42 +3,62 @@
 // Replaces megakernel.run_segment_mega's pallas_call (_mega_kernel,
 // trafficsimulation_tpu/ops/megakernel.py).  The TPU kernel walks
 // grid=(R,) in order with every plane and the 40 MB packed stack in
-// VMEM.  Here one cooperative launch holds every resident block of the
-// card; each tick is a sequence of stages, each a grid-stride loop over
-// queue runs, groups, lights, stop runs or cells, separated by grid-wide
-// barriers:
-//
-//    1 queue counts (one thread per run; each run's count wraps to int8
-//      as the JAX kernel's `_i8(cnt * bq)` does) and the stop plane
-//      cleared
-//    2 per group: the FSM controller and the phase change, reading the
-//      light rows of the last tick and writing the other buffer
-//    3 per light: all-red, commit and the first tick's host overrides
-//    4 per stop run: paint the stop plane
-//    5 decide, then K x (intent, commit), then finish: K1's phase bodies
-//      (decide_move.cuh), with the cell's random draws hashed from the
-//      tick's seeds (engine.tick_randoms)
-//    6 the service FSM and despawns, with the neediest block from the
-//      tanks before the transfers
-//    7 spawns from the schedule, with the neediest block after the
-//      transfers, the block tanks and the tick's stats
-//
+// VMEM.  Here one cooperative launch holds a persistent grid of resident
+// blocks; on the H100 a tick is bound by its chain of dependent phases
+// and the grid-wide barriers between them, not by bytes (the planes and
+// the stack sit in the 50 MB L2).  Design:
+//  - fixed owners: block j owns the 32 x 8 cell tiles j, j + grid, ...
+//    (K1's `coop_tiles`) for every per-cell stage of every tick, and the
+//    light groups j, j + grid, ... with their queue runs, lights and
+//    stop runs (lights of no group spread over the pseudo-groups by
+//    index), as the host table `lown` lists them
+//    (megakernel.light_owner_table);
+//  - per tick, 2K + 3 grid barriers (K = VEHICLE_MAX_SPEED sub-rounds):
+//      lights   per block: queue counts (a warp per run, a lane per
+//               cell; each run's count wraps to int8 as the JAX kernel's
+//               `_i8(cnt * bq)` does), the groups' controllers and phase
+//               commits, the lights, the stop paint (a warp per run);
+//               and the block's part of the first neediest-block
+//               reduction, which reads only the tick's starting tanks
+//      barrier
+//      decide + move: K1's cooperative phases (coop.cuh: per-cell state
+//               words and work lists in shared memory, one working set
+//               written only where a vehicle stands, the `pub` byte),
+//               the random draws hashed from the tick's seeds
+//               (engine.tick_randoms); 2K barriers
+//      finish, service FSM and despawns on the block's own cells (the
+//               neediest block from the tanks before the transfers), and
+//               the block's part of the second reduction
+//      barrier
+//      spawns from the schedule (the neediest block after the
+//               transfers), the block tanks, the tick's stats, and the
+//               block's stop runs cleared for the next tick's paint
+//      barrier
+//    A group reads its neighbours' light rows (NEIGHBOR_* controllers)
+//    from the last tick's buffers, which the light rows double-buffer,
+//    so no group waits for another within a tick.  Stop runs of two
+//    owners may share a cell: each clears its runs after the second
+//    barrier and paints them after the third, so clears and paints never
+//    meet.  The prologue copies the carried tanks to the block's cells
+//    and zeroes the stop plane before one more barrier.
 // The plane state lives in device memory: tick t reads the planes of
 // tick t - 1 (the inputs for t = 0) and its finish writes plane set
 // t & 1, which the post-move stages then update cell by cell.  Both
 // reductions that are not integer sums are reproducible: the neediest
 // block is a total order (value, then the lowest block id), and the
-// stats rows are per-thread sums in grid-stride order, folded per block
-// in a fixed tree and over blocks in block order at the end.  The f32
-// duration sums are therefore in another order than the plain
-// version's; every other stat is an integer.
+// stats rows are per-thread sums over the thread's cells in a fixed
+// order, folded per block in a fixed tree and over blocks in block order
+// at the end.  The f32 duration sums are therefore in another order than
+// the plain version's; every other stat is an integer.  The wrapper
+// keeps the scratch per shape; the kernel zeroes at entry what it needs
+// zeroed (queue counts, the stop plane).
 #include <cooperative_groups.h>
 
 #include <cmath>
 
+// the tick's planes and the stop plane are written by this launch
+#define TSIM_COHERENT_LOADS
 #include "decide_move.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace tsim {
 
@@ -103,23 +123,79 @@ struct MegaArgs {
   const int* li0;
   const float* lf0;
   const uint8_t* lstop0;
+  // the owners of the light stages, per pseudo-group g <= G + 1 (G + 1:
+  // the runs that cover no cell, which no block takes): offsets qoff,
+  // loff, soff [G + 3] each, then the queue runs, lights and stop runs
+  // in group order [NQ], [L], [NS]
+  const int* lown;
   int* setp[2][5];  // plane sets written by even / odd ticks
   float* setl[2];
   uint8_t* stop;
   float* tank[4];
-  int* li[2];
+  int* li[2];       // light rows written by odd / even ticks
   float* lf[2];
   uint8_t* lstop;
   float* stats;  // [R, 16]
-  int* S;        // K1's scratch [20, H, W]
-  int* qcnt;     // [G * 5], zero on entry and after every tick
+  int* work;     // K1's working set [8, H, W] int32, then [H, W] pub bytes
+  int* qcnt;     // [G * 5], zeroed at entry and after every tick's read
   int* gflag;    // [G]: all_red | commit << 1 | commit phase << 2
   const uint8_t* ped;  // a zero plane
   int* am;       // [2, nbmax, AM_WORDS] neediest-block partials
   int* st_i;     // [R, nbmax, 16]
   float* st_f;   // [R, nbmax, 4]
 };
-constexpr int N_PTRS = 28 + 5 + 1 + 4 + 3 + 12 + 1 + 4 + 2 + 2 + 2 + 7;
+constexpr int N_PTRS = 28 + 5 + 1 + 4 + 3 + 1 + 12 + 1 + 4 + 2 + 2 + 2 + 7;
+
+// the grid barriers of the launches since the count was last read
+// (thread 0 of block 0 counts; tsim_mega_syncs)
+__device__ int k9_syncs;
+
+// the stage timeline of tools/k9_phase_times.py: thread 0 of block 0
+// appends (stage code, global timer) once its block has finished a stage
+// or passed a barrier (a code below 0 marks nothing); k9_end is the last
+// block's end
+#ifdef TSIM_K9_MARKS
+constexpr int K9_MAX_MARKS = 512;
+enum { K9_ENTRY, K9_PROLOGUE, K9_QUEUE, K9_GROUPS, K9_LIGHTS, K9_PAINT,
+       K9_NEED, K9_DECIDE, K9_INTENT, K9_COMMIT, K9_FINISH_SERVICE,
+       K9_SPAWN, K9_STATS, K9_BARRIER, K9_FOLD };
+__device__ unsigned long long k9_times[K9_MAX_MARKS];
+__device__ int k9_codes[K9_MAX_MARKS];
+__device__ int k9_n;
+__device__ unsigned long long k9_end;
+__device__ __forceinline__ unsigned long long k9_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define K9_MARK(code)                                                 \
+  do {                                                                \
+    __syncthreads();                                                  \
+    if ((code) >= 0 && blockIdx.x == 0 && threadIdx.x == 0 &&         \
+        k9_n < K9_MAX_MARKS) {                                        \
+      k9_codes[k9_n] = (code);                                        \
+      k9_times[k9_n++] = k9_now();                                    \
+    }                                                                 \
+  } while (0)
+#else
+#define K9_MARK(code) \
+  do {                \
+  } while (0)
+#endif
+#define K9_SYNC(grid)                                            \
+  do {                                                           \
+    grid.sync();                                                 \
+    if (blockIdx.x == 0 && threadIdx.x == 0) k9_syncs += 1;      \
+    K9_MARK(K9_BARRIER);                                         \
+  } while (0)
+
+}  // namespace tsim
+
+#define COOP_MARK(i, code) K9_MARK(code)
+#define COOP_SYNC(grid) K9_SYNC(grid)
+#include "coop.cuh"
+
+namespace tsim {
 
 __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   x = (x ^ (x >> 16)) * 0x7FEB352Du;
@@ -230,20 +306,43 @@ __device__ __forceinline__ void need_cell(const MegaArgs& A, int c,
   if (better(cw, w)) w = cw;
 }
 
+
+// K9's draws: engine.tick_randoms at cell c, hashed from the tick's seeds
+struct HashDraws {
+  uint32_t s0, s1, s2, s3;
+  int min_speed, span;
+  __device__ __forceinline__ float mal(const Inputs&, int c) const {
+    return unit24(s0, c);
+  }
+  __device__ __forceinline__ float side(const Inputs&, int c) const {
+    return unit24(s1, c);
+  }
+  __device__ __forceinline__ int reroll(const Inputs&, int c) const {
+    return min_speed + min(span - 1, (int)(unit24(s2, c) * (float)span));
+  }
+  __device__ __forceinline__ int prio(const Inputs&, int c) const {
+    return (int)hash32((uint32_t)c + s3);
+  }
+};
+
 // ---- lights ------------------------------------------------------------
 
+// group g's controller and phase commit: reads the light rows of the
+// last tick (`li`, `lf`; its neighbours' too) and its queue counts
+// (zeroed for the next tick), writes its rows of the next buffers
 __device__ void group_step(const MegaParams& P, const MegaArgs& A, int g,
-                           int rd) {
+                           const int* li, const float* lf, int* lo,
+                           float* lfo) {
   const int G = P.G;
-  const int* li = A.li[rd];
-  const float* lf = A.lf[rd];
   int v[N_LI];
   for (int k = 0; k < N_LI; ++k) v[k] = li[k * G + g];
   float nsp = lf[g], ewp = lf[G + g];
   const bool gvalid = A.gvalid[g] != 0;
   const bool active = gvalid && v[LI_PEND] == -1;
-  const int* q = A.qcnt + g * 5;
+  int* q = A.qcnt + g * 5;
   const int ns_in = q[0], ns_out = q[1], ew_in = q[2], ew_out = q[3];
+  const int n_inter = q[4];
+  for (int k = 0; k < 5; ++k) q[k] = 0;
   const int pend0 = v[LI_PEND], cur = v[LI_CUR];
   // _apply_phase: register a request unless it matches current or pending
   auto request = [&](bool want, int phase) {
@@ -325,7 +424,7 @@ __device__ void group_step(const MegaParams& P, const MegaArgs& A, int g,
     in_tr = has_pending && v[LI_TRANS] > 0;
     if (in_tr) v[LI_TRANS] -= 1;
   }
-  const bool blocked = P.clear_en && has_pending && !in_tr && q[4] > 0;
+  const bool blocked = P.clear_en && has_pending && !in_tr && n_inter > 0;
   const bool all_red = in_tr || blocked;
   const bool commit = has_pending && !all_red;
   A.gflag[g] = (all_red ? 1 : 0) | (commit ? 2 : 0) |
@@ -334,16 +433,18 @@ __device__ void group_step(const MegaParams& P, const MegaArgs& A, int g,
     v[LI_CUR] = v[LI_PEND];
     v[LI_PEND] = -1;
   }
-  int* lo = A.li[rd ^ 1];
   for (int k = 0; k < N_LI; ++k) lo[k * G + g] = v[k];
-  A.lf[rd ^ 1][g] = nsp;
-  A.lf[rd ^ 1][G + g] = ewp;
+  lfo[g] = nsp;
+  lfo[G + g] = ewp;
 }
 
+// light l's stop flag: all-red, commit and the first tick's host
+// overrides, from its last flag in `lstop`
 __device__ __forceinline__ void light_step(const MegaParams& P,
                                            const MegaArgs& A, int l,
-                                           bool first_tick) {
-  int ls = A.lstop[l];
+                                           bool first_tick,
+                                           const uint8_t* lstop) {
+  int ls = lstop[l];
   const int g = A.l_group[l];
   if (g >= 0 && g < P.G) {
     const int f = A.gflag[g];
@@ -533,197 +634,267 @@ __device__ void store_stats(const Acc& acc, int* pi, float* pf,
   }
 }
 
+// the run rectangle q (orientation, coordinate, span [a0, a1)): its
+// length inside the grid, and the flat index of its cell k
+__device__ __forceinline__ int run_len(const int* q, int H, int W) {
+  return q[0] == 0 ? 0 : min(q[3], q[0] == 1 ? H : W) - q[2];
+}
+__device__ __forceinline__ int run_cell(const int* q, int k, int W) {
+  return q[0] == 1 ? (q[2] + k) * W + q[1] : q[1] * W + q[2] + k;
+}
+
+// the stop runs idx[i0 .. i1) (rows of `tab`), a warp per run and a
+// lane per cell: the plane's cells set to v where `lstop` is null or the
+// run's light (column 4) is stopped
+__device__ __forceinline__ void fill_runs(uint8_t* plane, const int* tab,
+                                          const int* idx, int i0, int i1,
+                                          const uint8_t* lstop, int H, int W,
+                                          uint8_t v) {
+  const int lane = threadIdx.x & 31;
+  for (int i = i0 + (int)(threadIdx.x >> 5); i < i1; i += NWARP) {
+    const int* q = tab + idx[i] * 5;
+    if (lstop != nullptr && (q[0] == 0 || !lstop[q[4]])) continue;
+    const int n = run_len(q, H, W);
+    for (int k = lane; k < n; k += 32) plane[run_cell(q, k, W)] = v;
+  }
+}
+
+// The R ticks; block j owns `cpt` tiles and the pseudo-groups j, j +
+// grid, ...  Dynamic shared memory: K1's state words and work list.
 __global__ void __launch_bounds__(THREADS)
-    mega_kernel(const MegaParams P, const MegaArgs A) {
+    mega_kernel(const MegaParams P, const MegaArgs A, int cpt) {
   cg::grid_group grid = cg::this_grid();
+  extern __shared__ uint32_t st[];
+  int* list = (int*)(st + cpt * THREADS);
+  __shared__ TileOrigin org[MAX_CPT];
+  __shared__ int nlist;
   __shared__ Best sh_best[2][NWARP];
   __shared__ Need sh_need;
   __shared__ int sh_i[N_STATS][NWARP];
   __shared__ float sh_f[3][NWARP];
-  const int H = P.dm.H, W = P.dm.W;
+  const int H = P.dm.H, W = P.dm.W, G = P.G;
   const int HW = H * W;
-  const int nth = gridDim.x * blockDim.x;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int tid = threadIdx.x, nslot = cpt * THREADS;
+  const int nb = gridDim.x;
+  const int* qoff = A.lown;
+  const int* loff = qoff + G + 3;
+  const int* soff = loff + G + 3;
+  const int* qidx = soff + G + 3;
+  const int* lidx = qidx + P.NQ;
+  const int* sidx = lidx + P.L;
+  const Work work(A.work, 1, 0, P.dm);
+  K9_MARK(K9_ENTRY);
 
-  // the carried tanks and light rows into their working buffers
-  for (int c = tid; c < HW; c += nth)
+  // the carried tanks to the block's cells, its groups' queue counts
+  // zeroed, the stop plane zeroed
+  coop_tiles(P.dm, 1, cpt, org);
+  __syncthreads();
+  for (int q = tid; q < nslot; q += THREADS) {
+    int b, c, y, x;
+    if (!slot_cell(P.dm, org, q, b, c, y, x)) continue;
     for (int k = 0; k < 4; ++k) A.tank[k][c] = A.tank0[k][c];
-  for (int i = tid; i < N_LI * P.G; i += nth) A.li[0][i] = A.li0[i];
-  for (int i = tid; i < 2 * P.G; i += nth) A.lf[0][i] = A.lf0[i];
-  for (int i = tid; i < P.L; i += nth) A.lstop[i] = A.lstop0[i];
-  grid.sync();
+  }
+  for (int g = blockIdx.x + tid * nb; g < G; g += THREADS * nb)
+    for (int k = 0; k < 5; ++k) A.qcnt[g * 5 + k] = 0;
+  for (int c = blockIdx.x * THREADS + tid; c < HW; c += nb * THREADS)
+    A.stop[c] = 0;
+  K9_MARK(K9_PROLOGUE);
+  K9_SYNC(grid);
 
   for (int t = 0; t < P.R; ++t) {
     const int* tk = A.ticks + t * 8;
     const long toff = (long)t * HW;
-    const int rd = t & 1;
-    Inputs in;
-    in.sdir4 = A.sdir4;
-    in.wnd = A.wnd;
-    if (t == 0) {
-      in.pa = A.p0[0];
-      in.pb = A.p0[1];
-      in.pc = A.p0[2];
-      in.pd = A.p0[3];
-      in.pe = A.p0[4];
-      in.pl = A.pl0;
-    } else {
-      int* const* s = A.setp[(t - 1) & 1];
-      in.pa = s[0];
-      in.pb = s[1];
-      in.pc = s[2];
-      in.pd = s[3];
-      in.pe = s[4];
-      in.pl = A.setl[(t - 1) & 1];
+    // the tick's inputs: the planes of tick t - 1 (the carried planes
+    // at t = 0); no random planes (K9 hashes its draws)
+    const int* const* pin = A.p0;
+    const float* plin = A.pl0;
+    if (t > 0) {
+      pin = A.setp[(t - 1) & 1];
+      plin = A.setl[(t - 1) & 1];
     }
-    in.stop = A.stop;
-    in.rain = A.rain + toff;
-    in.ped = A.ped;
-    in.inter = A.inter;
-    in.dest_id = A.destid;
-    in.r_mal = in.r_side = nullptr;
-    in.r_reroll = in.r_prio = nullptr;
+    const Inputs in{A.sdir4, A.wnd, pin[0], pin[1], pin[2], pin[3], pin[4],
+                    plin, A.stop, A.rain + toff, A.ped, A.inter, A.destid,
+                    nullptr, nullptr, nullptr, nullptr};
     int* const* dp = A.setp[t & 1];
     float* dpl = A.setl[t & 1];
     const Outputs out{dp[0], dp[1], dp[2], dp[3], dp[4], dpl, nullptr};
 
-    // 1: queue counts per run (int8 wrap), the stop plane cleared
-    for (int r = tid; r < P.NQ; r += nth) {
-      const int* q = A.qrun + r * 6;
-      if (q[0] == 0) continue;
-      int cnt = 0;
-      if (q[0] == 1)
-        for (int y = q[2]; y < min(q[3], H); ++y)
-          cnt += in.pa[y * W + q[1]] & 1;
-      else
-        for (int x = q[2]; x < min(q[3], W); ++x)
-          cnt += in.pa[q[1] * W + x] & 1;
-      const int w8 = ((cnt + 128) & 255) - 128;
-      if (w8) atomicAdd(&A.qcnt[q[4] * 5 + q[5]], w8);
+    // lights, on the block's groups: queue counts, a warp per run and a
+    // lane per cell
+    for (int g = blockIdx.x; g <= G; g += nb)
+      for (int i = qoff[g] + (tid >> 5); i < qoff[g + 1]; i += NWARP) {
+        const int* q = A.qrun + qidx[i] * 6;
+        const int n = run_len(q, H, W);
+        if (n <= 0) continue;
+        int cnt = 0;
+        for (int k = tid & 31; k < n; k += 32)
+          cnt += in.pa[run_cell(q, k, W)] & 1;
+        cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
+        const int w8 = ((cnt + 128) & 255) - 128;
+        if ((tid & 31) == 0 && w8) atomicAdd(&A.qcnt[q[4] * 5 + q[5]], w8);
+      }
+    __syncthreads();
+    K9_MARK(K9_QUEUE);
+    // the controllers and phase commits (tick t reads the light rows of
+    // tick t - 1 and writes buffer (t + 1) & 1)
+    {
+      const int* li = t == 0 ? A.li0 : A.li[t & 1];
+      const float* lf = t == 0 ? A.lf0 : A.lf[t & 1];
+      for (int g = blockIdx.x + tid * nb; g < G; g += THREADS * nb)
+        group_step(P, A, g, li, lf, A.li[(t + 1) & 1], A.lf[(t + 1) & 1]);
     }
-    for (int c = tid; c < HW; c += nth) A.stop[c] = 0;
-    grid.sync();
-
-    // 2: per group, the controller and the phase commit
-    for (int g = tid; g < P.G; g += nth) group_step(P, A, g, rd);
-    grid.sync();
-
-    // 3: per light
-    for (int l = tid; l < P.L; l += nth) light_step(P, A, l, t == 0);
-    grid.sync();
-
-    // 4: paint the stopped lights' runs
-    for (int s = tid; s < P.NS; s += nth) {
-      const int* q = A.srun + s * 5;
-      if (q[0] == 0 || !A.lstop[q[4]]) continue;
-      if (q[0] == 1)
-        for (int y = q[2]; y < min(q[3], H); ++y) A.stop[y * W + q[1]] = 1;
-      else
-        for (int x = q[2]; x < min(q[3], W); ++x) A.stop[q[1] * W + x] = 1;
+    __syncthreads();
+    K9_MARK(K9_GROUPS);
+    // the lights, then the stopped lights' runs painted
+    for (int g = blockIdx.x; g <= G; g += nb)
+      for (int i = loff[g] + tid; i < loff[g + 1]; i += THREADS)
+        light_step(P, A, lidx[i], t == 0, t == 0 ? A.lstop0 : A.lstop);
+    __syncthreads();
+    K9_MARK(K9_LIGHTS);
+    for (int g = blockIdx.x; g <= G; g += nb)
+      fill_runs(A.stop, A.srun, sidx, soff[g], soff[g + 1], A.lstop, H, W, 1);
+    K9_MARK(K9_PAINT);
+    // the block's candidates for the neediest blocks before the transfers
+    {
+      Best bf = best_init(), bw = best_init();
+      for (int q = tid; q < nslot; q += THREADS) {
+        int b, c, y, x;
+        if (!slot_cell(P.dm, org, q, b, c, y, x)) continue;
+        need_cell(A, c, A.tank[0][c], A.tank[1][c], bf, bw);
+      }
+      block_best(bf, bw, sh_best);
+      if (tid == 0) store_best(A.am + blockIdx.x * AM_WORDS, bf, bw);
     }
-    grid.sync();
+    K9_MARK(K9_NEED);
+    K9_SYNC(grid);
 
-    // 5: decide + move
-    const uint32_t s0 = (uint32_t)tk[0], s1 = (uint32_t)tk[1];
-    const uint32_t s2 = (uint32_t)tk[2], s3 = (uint32_t)tk[3];
-    const int span = P.dm.max_speed - P.min_speed + 1;
-    for (int c = tid; c < HW; c += nth) {
-      const int reroll =
-          P.min_speed + min(span - 1, (int)(unit24(s2, c) * (float)span));
-      dm_decide_cell(P.dm, in, A.S, c, unit24(s0, c), unit24(s1, c), reroll);
-    }
-    grid.sync();
-    int set = 0;
-    for (int r = 0; r < P.dm.max_speed; ++r) {
-      for (int c = tid; c < HW; c += nth)
-        dm_intent_cell(P.dm, in, A.S, set, c,
-                       (int)hash32((uint32_t)c + s3));
-      grid.sync();
-      for (int c = tid; c < HW; c += nth) dm_commit_cell(P.dm, A.S, set, c);
-      grid.sync();
-      set ^= 1;
-    }
+    // decide + move
+    const Need need1 = reduce_need(A.am, nb, tk[5], sh_best, &sh_need);
+    const HashDraws dr{(uint32_t)tk[0], (uint32_t)tk[1], (uint32_t)tk[2],
+                       (uint32_t)tk[3], P.min_speed,
+                       P.dm.max_speed - P.min_speed + 1};
+    coop_move<GridSelect, HashDraws, true>(P.dm, in, A.work, 1, cpt, org,
+                                           st, list, nlist, GridSelect(), dr,
+                                           grid);
+    __syncthreads();
+
+    // finish, service FSM and despawns on the block's cells, against the
+    // tanks before the transfers
     Acc acc;
     for (int k = 0; k < N_STATS; ++k) acc.n[k] = 0;
     for (int k = 0; k < 3; ++k) acc.dur[k] = 0.0f;
-    Best bf = best_init(), bw = best_init();
-    for (int c = tid; c < HW; c += nth) {
-      const int flags = dm_finish_cell(P.dm, in, A.S, set, c, out, 0);
-      acc.n[ST_NEW_MAL] += flags & 1;
-      acc.n[ST_NEW_COL] += (flags >> 1) & 1;
-      need_cell(A, c, A.tank[0][c], A.tank[1][c], bf, bw);
-    }
-    block_best(bf, bw, sh_best);
-    if (threadIdx.x == 0)
-      store_best(A.am + blockIdx.x * AM_WORDS, bf, bw);
-    grid.sync();
-
-    // 6: service FSM and despawns, against the tanks before transfers
-    const Need need1 = reduce_need(A.am, gridDim.x, tk[5], sh_best, &sh_need);
     const float elapsed = A.elapsed[t];
-    bf = best_init();
-    bw = best_init();
-    for (int c = tid; c < HW; c += nth) {
-      service_cell(P, A, dp, dpl, c, elapsed, need1, acc);
-      need_cell(A, c, A.tank[0][c], A.tank[1][c], bf, bw);
+    {
+      Best bf = best_init(), bw = best_init();
+      for (int q = tid; q < nslot; q += THREADS) {
+        int b, c, y, x;
+        if (!slot_cell(P.dm, org, q, b, c, y, x)) continue;
+        const int flags =
+            coop_finish(P.dm, in, work, c, y, x, st[q], out, 0, GridSelect());
+        acc.n[ST_NEW_MAL] += flags & 1;
+        acc.n[ST_NEW_COL] += (flags >> 1) & 1;
+        service_cell(P, A, dp, dpl, c, elapsed, need1, acc);
+        need_cell(A, c, A.tank[0][c], A.tank[1][c], bf, bw);
+      }
+      block_best(bf, bw, sh_best);
+      if (tid == 0)
+        store_best(A.am + (P.nbmax + blockIdx.x) * AM_WORDS, bf, bw);
     }
-    block_best(bf, bw, sh_best);
-    if (threadIdx.x == 0)
-      store_best(A.am + (P.nbmax + blockIdx.x) * AM_WORDS, bf, bw);
-    grid.sync();
+    K9_MARK(K9_FINISH_SERVICE);
+    K9_SYNC(grid);
 
-    // 7: spawns against the tanks after transfers, block tanks, stats
-    const Need need2 = reduce_need(A.am + P.nbmax * AM_WORDS, gridDim.x,
-                                   tk[5], sh_best, &sh_need);
-    for (int c = tid; c < HW; c += nth)
+    // spawns against the tanks after the transfers, block tanks, stats;
+    // the block's stop runs cleared for the next tick's paint
+    const Need need2 =
+        reduce_need(A.am + P.nbmax * AM_WORDS, nb, tk[5], sh_best, &sh_need);
+    for (int q = tid; q < nslot; q += THREADS) {
+      int b, c, y, x;
+      if (!slot_cell(P.dm, org, q, b, c, y, x)) continue;
       spawn_cell(P, A, dp, dpl, c, toff, tk, need2, acc);
+    }
+    K9_MARK(K9_SPAWN);
     const long prow = (long)t * P.nbmax + blockIdx.x;
     store_stats(acc, A.st_i + prow * N_STATS, A.st_f + prow * 4, sh_i, sh_f);
-    for (int i = tid; i < P.G * 5; i += nth) A.qcnt[i] = 0;
-    grid.sync();
+    if (t + 1 < P.R)
+      for (int g = blockIdx.x; g <= G; g += nb)
+        fill_runs(A.stop, A.srun, sidx, soff[g], soff[g + 1], nullptr, H, W,
+                  0);
+    K9_MARK(K9_STATS);
+    K9_SYNC(grid);
   }
 
   // the stats rows: block partials in block order
   if (blockIdx.x == 0)
-    for (int i = threadIdx.x; i < P.R * N_STATS; i += blockDim.x) {
+    for (int i = tid; i < P.R * N_STATS; i += THREADS) {
       const int t = i / N_STATS, k = i % N_STATS;
       const int fk = k == ST_DUR_I ? 0 : k == ST_DUR_T ? 1
                    : k == ST_DUR_SVC ? 2 : -1;
       float v;
       if (fk >= 0) {
         v = 0.0f;
-        for (int b = 0; b < (int)gridDim.x; ++b)
+        for (int b = 0; b < nb; ++b)
           v += A.st_f[((long)t * P.nbmax + b) * 4 + fk];
       } else {
         int s = 0;
-        for (int b = 0; b < (int)gridDim.x; ++b)
+        for (int b = 0; b < nb; ++b)
           s += A.st_i[((long)t * P.nbmax + b) * N_STATS + k];
         v = (float)s;
       }
       A.stats[i] = v;
     }
+#ifdef TSIM_K9_MARKS
+  K9_MARK(K9_FOLD);
+  if (tid == 0) atomicMax(&k9_end, k9_now());
+#endif
 }
 
-// the cooperative grid of this card: every resident block of THREADS
-static cudaError_t mega_blocks(int* nb) {
-  int dev = 0, nsm = 0, per_sm = 0;
+// the largest dynamic shared memory the kernel takes, set once per
+// device
+static cudaError_t mega_attr() {
+  static bool done[8];
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 8 && done[dev])) return e;
+  e = cudaFuncSetAttribute(mega_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)coop_smem(MAX_CPT));
+  if (e == cudaSuccess && dev < 8) done[dev] = true;
+  return e;
+}
+
+// the cooperative grid of an H x W world on this card: the fewest tiles
+// a block (a power of two) whose resident grid holds every tile
+static cudaError_t mega_grid(int H, int W, int* grid, int* cpt) {
+  int dev = 0, nsm = 0;
+  cudaError_t e = mega_attr();
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_kernel,
-                                                      THREADS, 0);
-  *nb = per_sm * nsm;
-  return e;
+  if (e != cudaSuccess) return e;
+  const long ntiles =
+      (long)((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
+  for (int c = 1; c <= MAX_CPT; c *= 2) {
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mega_kernel, THREADS, coop_smem(c));
+    if (e != cudaSuccess) return e;
+    const long n = (long)per_sm * nsm;
+    if (n * c < ntiles) continue;
+    *grid = (int)(n < ntiles ? n : ntiles);
+    *cpt = c;
+    return cudaSuccess;
+  }
+  return cudaErrorCooperativeLaunchTooLarge;
 }
 
 }  // namespace tsim
 
 extern "C" int tsim_mega_segment(const int* ip, const float* fp,
-                                 void* const* ptr, int nptr, int nbmax,
-                                 void* stream) {
+                                 void* const* ptr, int nptr, int grid,
+                                 int cpt, void* stream) {
   using namespace tsim;
-  if (nptr != N_PTRS) return (int)cudaErrorInvalidValue;
+  if (nptr != N_PTRS || grid < 1 || cpt < 1 || cpt > MAX_CPT)
+    return (int)cudaErrorInvalidValue;
   MegaParams P;
   P.dm = dm_params(ip, fp, ip[16], ip[17], ip[18]);
   P.R = ip[19];
@@ -741,7 +912,7 @@ extern "C" int tsim_mega_segment(const int* ip, const float* fp,
   P.load_time = ip[31];
   P.gradual = ip[32];
   P.min_speed = ip[33];
-  P.nbmax = nbmax;
+  P.nbmax = grid;
   P.dt = fp[2];
   P.max_food = fp[3];
   P.max_waste = fp[4];
@@ -787,6 +958,7 @@ extern "C" int tsim_mega_segment(const int* ip, const float* fp,
   A.li0 = I();
   A.lf0 = F();
   A.lstop0 = U();
+  A.lown = I();
   for (int s = 0; s < 2; ++s) {
     for (int k = 0; k < 5; ++k) A.setp[s][k] = (int*)ptr[i++];
     A.setl[s] = (float*)ptr[i++];
@@ -799,7 +971,7 @@ extern "C" int tsim_mega_segment(const int* ip, const float* fp,
   A.lf[1] = (float*)ptr[i++];
   A.lstop = (uint8_t*)ptr[i++];
   A.stats = (float*)ptr[i++];
-  A.S = (int*)ptr[i++];
+  A.work = (int*)ptr[i++];
   A.qcnt = (int*)ptr[i++];
   A.gflag = (int*)ptr[i++];
   A.ped = (const uint8_t*)ptr[i++];
@@ -808,20 +980,50 @@ extern "C" int tsim_mega_segment(const int* ip, const float* fp,
   A.st_f = (float*)ptr[i++];
   if (i != N_PTRS) return (int)cudaErrorInvalidValue;
 
-  int nb = 0;
-  cudaError_t e = mega_blocks(&nb);
+  cudaError_t e = mega_attr();
   if (e != cudaSuccess) return (int)e;
-  if (nb < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  nb = min(nb, nbmax);
-  void* args[] = {(void*)&P, (void*)&A};
-  e = cudaLaunchCooperativeKernel((const void*)mega_kernel, dim3(nb),
-                                  dim3(THREADS), args, 0,
+  void* args[] = {(void*)&P, (void*)&A, (void*)&cpt};
+  e = cudaLaunchCooperativeKernel((const void*)mega_kernel, dim3(grid),
+                                  dim3(THREADS), args, coop_smem(cpt),
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// the grid the launch above takes on this card (blocks of THREADS)
-extern "C" int tsim_mega_grid(int* nb) {
-  return (int)tsim::mega_blocks(nb);
+// the grid and the tiles a block (out[0], out[1]) the launch above takes
+// for an H x W world on this card
+extern "C" int tsim_mega_grid(int H, int W, int* out) {
+  return (int)tsim::mega_grid(H, W, out, out + 1);
 }
+
+// the grid barriers K9's launches have passed since the last call
+// (*n), counted by block 0; then zeroed
+extern "C" int tsim_mega_syncs(int* n) {
+  const int zero = 0;
+  cudaError_t e = cudaMemcpyFromSymbol(n, tsim::k9_syncs, sizeof(int));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(tsim::k9_syncs, &zero, sizeof(int));
+  return (int)e;
+}
+
+#ifdef TSIM_K9_MARKS
+// the marks of the last call: n (return value, or -1 on an error), codes
+// and times [K9_MAX_MARKS], the last block's end; then cleared
+extern "C" int tsim_k9_marks(int* codes, unsigned long long* times,
+                             unsigned long long* end) {
+  using namespace tsim;
+  int n = 0;
+  const unsigned long long zero = 0;
+  if (cudaMemcpyFromSymbol(&n, k9_n, sizeof(int)) != cudaSuccess ||
+      cudaMemcpyFromSymbol(codes, k9_codes, sizeof(k9_codes)) !=
+          cudaSuccess ||
+      cudaMemcpyFromSymbol(times, k9_times, sizeof(k9_times)) !=
+          cudaSuccess ||
+      cudaMemcpyFromSymbol(end, k9_end, sizeof(zero)) != cudaSuccess ||
+      cudaMemcpyToSymbol(k9_n, &zero, sizeof(int)) != cudaSuccess ||
+      cudaMemcpyToSymbol(k9_end, &zero, sizeof(zero)) != cudaSuccess)
+    return -1;
+  return n;
+}
+#endif
+

@@ -58,8 +58,8 @@ _ARGTYPES = {
     "tsim_build_sdir": [P, P, P, P, I, I, I, P],
     # K0, pen4b, legal4, out, D, HW, tp2, B, stream
     "tsim_build_sdir_batched": [P, P, P, P, I, I, I, I, P],
-    # allowed, road, hard, out, scratch, k_ovt, B, H, W, stream
-    "tsim_build_wavefront": [P, P, P, P, P, I, I, I, I, P],
+    # allowed, road, hard, out, k_ovt, B, H, W, stream
+    "tsim_build_wavefront": [P, P, P, P, I, I, I, I, P],
     # occ, outh, outv, B, H, W, stream
     "tsim_prefix_planes": [P, P, P, I, I, I, P],
     # base, idx, vals, out, work area (or null), R, T, n, stream
@@ -69,10 +69,14 @@ _ARGTYPES = {
     # clouds, active, cooldown, spawn, want_cd, out seen, seen_a,
     # cooldown, B, n, R, cool, stream
     "tsim_rain_ticks": [P] * 8 + [I] * 4 + [P],
-    # ip[34], fp[7], pointer table, its length, max blocks, stream
-    "tsim_mega_segment": [P, P, P, I, I, P],
-    # out: the cooperative grid K9 takes on this card
-    "tsim_mega_grid": [P],
+    # ip[34], fp[7], pointer table, its length, grid, tiles a block,
+    # stream
+    "tsim_mega_segment": [P, P, P, I, I, I, P],
+    # H, W, out[2]: the cooperative grid K9 takes on this card and the
+    # tiles a block
+    "tsim_mega_grid": [I, I, P],
+    # out: K9's grid barriers since the last call
+    "tsim_mega_syncs": [P],
 }
 
 

@@ -641,9 +641,11 @@ class _Kernel(torch.autograd.Function):
 
 # ---- K1 --------------------------------------------------------------------
 
-_N_SCRATCH_DM = 20        # K7's and K9's per-world scratch planes
-_N_WORK_K1 = 8            # K1's int32 working planes per world, then a
-                          # byte per cell (decide_move.cu)
+_N_SCRATCH_DM = 20        # K7's scratch planes per tile
+_N_WORK_K1 = 8            # K1's and K9's int32 working planes per world,
+                          # then a byte per cell (csrc/coop.cuh)
+
+
 def _dm_params(cfg: Config):
     ip = (ctypes.c_int * 16)(
         int(cfg.VEHICLE_MALFUNCTION_ACTIVE),
@@ -1102,17 +1104,42 @@ def build_sdir(K0, pen4, legal4, tp2: int):
 
 # ---- K3 --------------------------------------------------------------------
 
+WAVEFRONT_KMAX = 8        # the most relax steps K3 takes (csrc WF_KMAX)
+
+
+def _wavefront_launch(k_ovt: int, allowed, is_road, hard, B: int):
+    """One K3 launch over the B worlds of `hard` ([B, H, W] or [H, W] for
+    B = 1; every tensor checked by the caller): the packed planes, shaped
+    as `hard`."""
+    if not 0 <= k_ovt <= WAVEFRONT_KMAX:
+        raise ValueError(f"K3 takes at most {WAVEFRONT_KMAX} relax steps "
+                         f"(VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS = {k_ovt})")
+    H, W = allowed.shape
+    out = torch.empty(hard.shape, dtype=torch.int32, device=hard.device)
+    _check_rc("tsim_build_wavefront", _entry("tsim_build_wavefront")(
+        allowed.data_ptr(), is_road.data_ptr(), hard.data_ptr(),
+        out.data_ptr(), k_ovt, B, H, W,
+        torch._C._cuda_getCurrentRawStream(hard.device.index)))
+    launches["build_wavefront"] += 1
+    return out
+
+
 def build_wavefront_batched(cfg: Config, allowed, is_road, hard):
     """K3 for B worlds: `allowed` u8 and `is_road` bool [H, W] shared,
     `hard` bool [B, H, W] -> packed int32 [B, H, W].
 
     Replaces `pallas_engine.build_wavefront_pallas` (`_wavefront_kernel`
     -> `wavefront_core`, ops/pallas_engine.py).  Source:
-    csrc/wavefront.cu.  On the H100 it is bound by launch latency: each
-    of its 8 launches moves ~1 MB per world.  Design: a seed kernel, one
-    ping-pong min-plus relax launch per step over the [4, H, W] direction
-    stack of every world (VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS of
-    them), then one argmin-and-pack launch; blockIdx.y is the world."""
+    csrc/wavefront.cu.  On the H100 the function is tiny (~5 bytes a
+    cell and world; a select and a min per relax step, direction and
+    neighbour), so launches and memory round trips bound a step-by-step
+    kernel.  Design: one launch a call, a block per tile (32 wide; 32
+    high, or 16 where 32 would leave SMs idle) and world; the tile and a
+    halo of K_OVT + 1 cells staged in shared memory as geometry bytes,
+    the relax steps on the four directions' values in 16-bit lanes in
+    shared memory (DPX min-of-three and add-min), then the argmin and
+    one int32 store per cell.  K_OVT (VEHICLE_MAX_CONTRAFLOW_OVERTAKE_
+    STEPS) may be at most WAVEFRONT_KMAX."""
     if not _on_cuda(allowed):
         return wavefront_core_batched(cfg, allowed, is_road, hard)
     B = hard.shape[0]
@@ -1121,23 +1148,33 @@ def build_wavefront_batched(cfg: Config, allowed, is_road, hard):
     _check("allowed", allowed, torch.uint8, (H, W), dev)
     _check("is_road", is_road, torch.bool, (H, W), dev)
     _check("hard", hard, torch.bool, (B, H, W), dev)
-    out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    scratch = torch.empty((2, B, 4, H, W), dtype=torch.int32, device=dev)
-    _call("tsim_build_wavefront", _ptr(allowed), _ptr(is_road), _ptr(hard),
-          _ptr(out), _ptr(scratch),
-          ctypes.c_int(cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS),
-          ctypes.c_int(B), ctypes.c_int(H), ctypes.c_int(W), _stream(dev))
-    launches["build_wavefront"] += 1
-    return out
+    return _wavefront_launch(cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS,
+                             allowed, is_road, hard, B)
+
+
+def _wavefront_single(cfg: Config, allowed, is_road, hard):
+    if not _on_cuda(allowed):
+        return wavefront_core(cfg, allowed, is_road, hard)
+    dev = allowed.device
+    shape = allowed.shape
+    if not (allowed.dtype == torch.uint8 and is_road.dtype == torch.bool
+            and hard.dtype == torch.bool and len(shape) == 2
+            and is_road.shape == shape and hard.shape == shape
+            and is_road.device == dev and hard.device == dev
+            and allowed.is_contiguous() and is_road.is_contiguous()
+            and hard.is_contiguous()):
+        # the precise error
+        _check("allowed", allowed, torch.uint8, shape[-2:], dev)
+        _check("is_road", is_road, torch.bool, shape[-2:], dev)
+        _check("hard", hard, torch.bool, shape[-2:], dev)
+    return _wavefront_launch(cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS,
+                             allowed, is_road, hard, 1)
 
 
 class _BuildWavefront(_Kernel):
     @staticmethod
     def forward(cfg, allowed, is_road, hard):
-        if not _on_cuda(allowed):
-            return wavefront_core(cfg, allowed, is_road, hard)
-        return build_wavefront_batched(cfg, allowed, is_road,
-                                       hard.unsqueeze(0))[0]
+        return _wavefront_single(cfg, allowed, is_road, hard)
 
     @staticmethod
     def vmap(info, in_dims, cfg, allowed, is_road, hard):
@@ -1148,16 +1185,19 @@ class _BuildWavefront(_Kernel):
                                           _front(hard, hd, B))
         else:
             out = _map_worlds(
-                lambda a, r, h: _BuildWavefront.forward(cfg, a, r, h), B,
+                lambda a, r, h: _wavefront_single(cfg, a, r, h), B,
                 (ad, rd, hd), (allowed, is_road, hard))
         return out, 0
 
 
 def build_wavefront(cfg: Config, allowed, is_road, hard):
     """K3 for one world, the per-segment overtake merge wavefronts,
-    packed int32 [H, W] (`build_wavefront_batched` with B = 1; under vmap
-    one batched launch)."""
-    return _BuildWavefront.apply(cfg, allowed, is_road, hard)
+    packed int32 [H, W] (`build_wavefront_batched` with B = 1: one lean
+    launch; under vmap one batched launch, through `_BuildWavefront`'s
+    rule)."""
+    if torch._C._are_functorch_transforms_active():
+        return _BuildWavefront.apply(cfg, allowed, is_road, hard)
+    return _wavefront_single(cfg, allowed, is_road, hard)
 
 
 # ---- K4 --------------------------------------------------------------------
@@ -1464,7 +1504,8 @@ _MEGA_IN = (
     ("pe", "i", ("H", "W")), ("pl", "f", ("H", "W")),
     ("food", "f", ("H", "W")), ("waste", "f", ("H", "W")),
     ("frem", "f", ("H", "W")), ("wrem", "f", ("H", "W")),
-    ("li", "i", (9, "G")), ("lf", "f", (2, "G")), ("lstop", "b", ("L",)))
+    ("li", "i", (9, "G")), ("lf", "f", (2, "G")), ("lstop", "b", ("L",)),
+    ("lown", "i", ("NOWN",)))
 _DT = {"i": torch.int32, "f": torch.float32, "b": torch.bool}
 MEGA_OUTPUTS = ("pa", "pb", "pc", "pd", "pe", "pl", "stop", "food", "waste",
                 "frem", "wrem", "li", "lf", "lstop", "stats")
@@ -1501,67 +1542,155 @@ def _mega_params(cfg: Config, dims: dict):
 def check_mega_inputs(a: dict) -> dict:
     """Raise unless `a` holds every input K9 takes, each of its dtype,
     shape and device, and contiguous; returns the dimensions."""
-    H, W = a["pa"].shape
-    dims = {"H": H, "W": W, "D4": a["sdir4"].shape[0],
-            "R": a["ticks"].shape[0], "G": a["li"].shape[1],
-            "L": a["lstop"].shape[0], "NQ": a["qrun"].shape[0],
-            "NS": a["srun"].shape[0]}
+    dims = _mega_dims(a)
     for name, dt, shape in _MEGA_IN:
         _check(name, a[name], _DT[dt], [dims.get(s, s) for s in shape],
                a["pa"].device)
     return dims
 
 
-def _mega_kernel(cfg: Config, a: dict) -> dict:
-    """Launch K9 on the card: one cooperative launch for the R ticks."""
-    dims = check_mega_inputs(a)
-    H, W, R, G = dims["H"], dims["W"], dims["R"], dims["G"]
-    dev = a["pa"].device
-    i32t, f32t, u8 = torch.int32, torch.float32, torch.bool
+def _mega_dims(a: dict) -> dict:
+    H, W = a["pa"].shape
+    G, L = a["li"].shape[1], a["lstop"].shape[0]
+    NQ, NS = a["qrun"].shape[0], a["srun"].shape[0]
+    return {"H": H, "W": W, "D4": a["sdir4"].shape[0],
+            "R": a["ticks"].shape[0], "G": G, "L": L, "NQ": NQ, "NS": NS,
+            "NOWN": 3 * (G + 3) + NQ + L + NS}
 
-    def planes(n, dtype):
-        return [torch.empty((H, W), dtype=dtype, device=dev)
-                for _ in range(n)]
-    sets = [planes(5, i32t) + planes(1, f32t) for _ in range(2)]
-    stop = torch.empty((H, W), dtype=u8, device=dev)
-    tanks = planes(4, f32t)
-    li = [torch.empty((9, G), dtype=i32t, device=dev) for _ in range(2)]
-    lf = [torch.empty((2, G), dtype=f32t, device=dev) for _ in range(2)]
-    lstop = torch.empty_like(a["lstop"])
+
+class _MegaShape:
+    """K9's launch state for one device and shape, kept between calls:
+    the cooperative grid and tiles a block, the scratch (the plane set,
+    light rows and the K1 working set that are not returned, the queue
+    counts, group flags, a zero pedestrian plane, the reduction
+    partials), the inputs' signature and the pointer table."""
+
+    def __init__(self, dev, dims: dict):
+        H, W, R, G = dims["H"], dims["W"], dims["R"], dims["G"]
+        HW = H * W
+        i32t, f32t = torch.int32, torch.float32
+        self.grid, self.cpt = mega_grid(dev, H, W)
+        nb = self.grid
+        self.set_ = [*torch.empty((5, H, W), dtype=i32t,
+                                  device=dev).unbind(0),
+                     torch.empty((H, W), dtype=f32t, device=dev)]
+        self.li = torch.empty((9, G), dtype=i32t, device=dev)
+        self.lf = torch.empty((2, G), dtype=f32t, device=dev)
+        self.scratch = [
+            torch.empty((_N_WORK_K1 * HW + (HW + 3) // 4,), dtype=i32t,
+                        device=dev),
+            torch.empty((G * 5,), dtype=i32t, device=dev),
+            torch.empty((G,), dtype=i32t, device=dev),
+            torch.zeros((H, W), dtype=torch.uint8, device=dev),
+            torch.empty((2 * nb * 6,), dtype=i32t, device=dev),
+            torch.empty((R * nb * 16,), dtype=i32t, device=dev),
+            torch.empty((R * nb * 4,), dtype=f32t, device=dev)]
+        self.sig = tuple((name, _DT[dt], tuple(dims.get(x, x)
+                                                for x in shape))
+                         for name, dt, shape in _MEGA_IN)
+        # the inputs, then 2 plane sets of 6, the stop plane, 4 tanks,
+        # 2 + 2 light-row buffers, lstop, stats and the 7 scratch buffers
+        self.ptrs = (ctypes.c_void_p * (len(_MEGA_IN) + 30))()
+        self.set_ptrs = [t.data_ptr() for t in self.set_]
+        self.scratch_ptrs = [t.data_ptr() for t in self.scratch]
+
+
+_mega_cache = {}          # (device index, dims) -> _MegaShape
+_mega_last = [None, None, None]   # the last Config, dims and its params
+
+
+def _mega_kernel(cfg: Config, a: dict) -> dict:
+    """Launch K9 on the card: one cooperative launch for the R ticks.
+    The scratch and the parameters are kept per shape and per Config
+    (so calls of one shape run on one stream, as the path's do); the
+    outputs are new tensors at every call."""
+    dev = a["pa"].device
+    dims = _mega_dims(a)
+    key = (dev.index, *dims.values())
+    sh = _mega_cache.get(key)
+    if sh is None:
+        check_mega_inputs(a)
+        sh = _mega_cache[key] = _MegaShape(dev, dims)
+    idx = dev.index
+    ins = []
+    for name, dt, shape in sh.sig:
+        t = a[name]
+        if (t.dtype != dt or t.shape != shape or t.get_device() != idx
+                or not t.is_contiguous()):
+            _check(name, t, dt, shape, dev)
+        ins.append(t.data_ptr())
+    if _mega_last[0] is not cfg or _mega_last[1] != key:
+        _mega_last[:] = [cfg, key, _mega_params(cfg, dims)]
+    p5, f5, stop, li, lf, lstop, stats = _mega_launch(
+        sh, ins, _mega_last[2], dims, dev)
+    pa_, pb, pc, pd, pe = p5.unbind(0)
+    pl, food, waste, frem, wrem = f5.unbind(0)
+    return dict(zip(MEGA_OUTPUTS, (pa_, pb, pc, pd, pe, pl, stop, food,
+                                   waste, frem, wrem, li, lf, lstop, stats)))
+
+
+def _mega_launch(sh, ins, params, dims: dict, dev):
+    """The one K9 launch: new outputs (the plane set [5, H, W] int32, pl
+    and the 4 tanks [5, H, W] f32, stop, li, lf, lstop, stats), the
+    pointer table of the inputs `ins` (pointers), the outputs and the
+    shape's scratch `sh`, then the kernel."""
+    H, W, R, G = dims["H"], dims["W"], dims["R"], dims["G"]
+    i32t, f32t = torch.int32, torch.float32
+    p5 = torch.empty((5, H, W), dtype=i32t, device=dev)
+    f5 = torch.empty((5, H, W), dtype=f32t, device=dev)
+    stop = torch.empty((H, W), dtype=torch.bool, device=dev)
+    li = torch.empty((9, G), dtype=i32t, device=dev)
+    lf = torch.empty((2, G), dtype=f32t, device=dev)
+    lstop = torch.empty((dims["L"],), dtype=torch.bool, device=dev)
     stats = torch.empty((R, 16), dtype=f32t, device=dev)
-    # at most 8 resident blocks of 256 threads per SM
-    nbmax = torch.cuda.get_device_properties(dev).multi_processor_count * 8
-    scratch = [torch.empty((_N_SCRATCH_DM, H, W), dtype=i32t, device=dev),
-               torch.zeros((G * 5,), dtype=i32t, device=dev),
-               torch.empty((G,), dtype=i32t, device=dev),
-               torch.zeros((H, W), dtype=u8, device=dev),
-               torch.empty((2 * nbmax * 6,), dtype=i32t, device=dev),
-               torch.empty((R * nbmax * 16,), dtype=i32t, device=dev),
-               torch.empty((R * nbmax * 4,), dtype=f32t, device=dev)]
-    bufs = [a[n] for n, _, _ in _MEGA_IN] + sets[0] + sets[1] + [
-        stop, *tanks, *li, *lf, lstop, stats, *scratch]
-    ptrs = (ctypes.c_void_p * len(bufs))(*[t.data_ptr() for t in bufs])
-    ip, fp = _mega_params(cfg, dims)
-    _call("tsim_mega_segment", ctypes.cast(ip, ctypes.c_void_p),
-          ctypes.cast(fp, ctypes.c_void_p), ctypes.cast(ptrs,
-                                                        ctypes.c_void_p),
-          ctypes.c_int(len(bufs)), ctypes.c_int(nbmax), _stream(dev))
+    # tick t writes plane set t & 1 and light buffer (t + 1) & 1: the
+    # last tick's go to the outputs, the others to the scratch
+    p0, fp0 = p5.data_ptr(), f5.data_ptr()
+    plane = H * W * 4
+    fin = [p0 + k * plane for k in range(5)] + [fp0]
+    sets = [fin, sh.set_ptrs] if R & 1 else [sh.set_ptrs, fin]
+    lis = [li.data_ptr(), sh.li.data_ptr()]
+    lfs = [lf.data_ptr(), sh.lf.data_ptr()]
+    if R & 1:
+        lis.reverse()
+        lfs.reverse()
+    sh.ptrs[:] = (ins + sets[0] + sets[1]
+                  + [stop.data_ptr()] + [fp0 + k * plane for k in (1, 2, 3, 4)]
+                  + lis + lfs + [lstop.data_ptr(), stats.data_ptr()]
+                  + sh.scratch_ptrs)
+    ip, fp = params
+    _check_rc("tsim_mega_segment", _entry("tsim_mega_segment")(
+        ctypes.addressof(ip), ctypes.addressof(fp),
+        ctypes.addressof(sh.ptrs), len(sh.ptrs), sh.grid, sh.cpt,
+        torch._C._cuda_getCurrentRawStream(dev.index)))
     launches["mega"] += 1
-    # tick t writes plane set t & 1 and light buffer (t + 1) & 1
-    fin = sets[(R - 1) & 1]
-    return dict(zip(MEGA_OUTPUTS, (*fin, stop, *tanks, li[R & 1],
-                                   lf[R & 1], lstop, stats)))
+    return p5, f5, stop, li, lf, lstop, stats
+
+
+def mega_grid(dev, H: int, W: int):
+    """(blocks, tiles a block) of K9's cooperative grid for an H x W
+    world on the card `dev`."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(dev):
+        _check_rc("tsim_mega_grid", _entry("tsim_mega_grid")(
+            H, W, ctypes.addressof(out)))
+    return out[0], out[1]
+
+
+def mega_syncs() -> int:
+    """The grid barriers K9's launches have passed since the last call
+    (the kernel counts them; synchronises the card)."""
+    n = ctypes.c_int(0)
+    torch.cuda.synchronize()
+    _check_rc("tsim_mega_syncs",
+              _entry("tsim_mega_syncs")(ctypes.addressof(n)))
+    return n.value
 
 
 class _MegaSegment(_Kernel):
     @staticmethod
     def forward(cfg, names, *tensors):
-        a = dict(zip(names, tensors))
-        if _on_cuda(a["pa"]):
-            out = _mega_kernel(cfg, a)
-        else:
-            from .megakernel import segment_plain
-            out = segment_plain(cfg, a)
+        out = _mega_single(cfg, dict(zip(names, tensors)))
         return tuple(out[k] for k in MEGA_OUTPUTS)
 
     @staticmethod
@@ -1572,24 +1701,35 @@ class _MegaSegment(_Kernel):
         return out, (0,) * len(MEGA_OUTPUTS)
 
 
+def _mega_single(cfg: Config, a: dict) -> dict:
+    if _on_cuda(a["pa"]):
+        return _mega_kernel(cfg, a)
+    from .megakernel import segment_plain
+    return segment_plain(cfg, a)
+
+
 def mega_segment(cfg: Config, args: dict) -> dict:
     """K9, one routing segment of R ticks on the card: `args` holds the
     chunk tables (`megakernel.build_chunk_static`), the segment's next-move
     stack and wavefronts, its streams and the carried state, as
     `megakernel.segment_plain` takes them; returns its outputs
-    (`MEGA_OUTPUTS`).  Under vmap the worlds run one after another (a
-    batched K9 is later work).
+    (`MEGA_OUTPUTS`).  One lean launch; under vmap the worlds run one
+    after another (a batched K9 is later work).
 
     Replaces `megakernel.run_segment_mega`'s `pallas_call` (`_mega_kernel`,
-    ops/megakernel.py).  Source: csrc/megakernel.cu.  On the H100 the
-    ticks' device-memory bytes bound it (per tick K1's ~30 int32 planes
-    per sub-round and the packed stack's gathered words; the 40 MB stack
-    and the ~10 MB of planes about fill the 50 MB L2), behind the grid
-    barriers' latency (18 per tick).  Design: one cooperative launch
-    sized to the card's resident blocks; each stage is a grid-stride loop
-    over runs, groups, lights or cells, separated by grid-wide barriers;
-    K1's phase bodies are shared device functions; reductions use
-    per-block partials in a fixed order, so a rerun gives the same bits."""
-    names = tuple(args)
-    outs = _MegaSegment.apply(cfg, names, *args.values())
-    return dict(zip(MEGA_OUTPUTS, outs))
+    ops/megakernel.py).  Source: csrc/megakernel.cu.  On the H100 a tick
+    is bound by its chain of dependent phases and the grid barriers
+    between them (the planes and the packed stack sit in the 50 MB L2),
+    then by this wrapper's host work.  Design: one cooperative launch;
+    blocks own fixed cell tiles (K1's cooperative decide + move, shared
+    through csrc/coop.cuh) and whole light groups with their runs
+    (`megakernel.light_owner_table`), so a tick takes 2K + 3 grid
+    barriers (K = VEHICLE_MAX_SPEED); reductions use per-block partials
+    in a fixed order, so a rerun gives the same bits.  The wrapper keeps
+    the scratch, the pointer table and the grid per shape, and the
+    parameters per Config; the kernel zeroes what it needs zeroed."""
+    if torch._C._are_functorch_transforms_active():
+        names = tuple(args)
+        outs = _MegaSegment.apply(cfg, names, *args.values())
+        return dict(zip(MEGA_OUTPUTS, outs))
+    return _mega_single(cfg, args)

@@ -7,8 +7,10 @@ the design and the reference semantics).
                         matrices of the queue counts and the stop paint
                         (JAX's form, which the plain version multiplies
                         in f32), the same runs as rectangles (the
-                        kernel's form), the light / group tables and the
-                        static planes of the plane-space service tail
+                        kernel's form) with the kernel's owner table of
+                        its light stages (`light_owner_table`), the
+                        light / group tables and the static planes of
+                        the plane-space service tail
   `prepare_segment`     what the segment's ticks take from outside the
                         lattice: the random seeds and rain draws (rows
                         of `engine.tick_draws`), the rain maps (rain has
@@ -244,11 +246,84 @@ def build_chunk_static(cfg: Config, world) -> dict:
                          svc_target[0], bs.dest[0]).to(i32t),
         # the kernel's forms
         qrun=qrun, srun=srun,
+        lown=light_owner_table(qrun, srun, torch.where(
+            l_hasgrp, ls.group, -1).to(i32t), G),
         l_group=torch.where(l_hasgrp, ls.group, -1).to(i32t).contiguous(),
         nbr=gs.neighbor.to(i32t).contiguous(),
         inter=grid.intersection.contiguous(),
     )
     return cs
+
+
+def light_owner_table(qrun, srun, l_group, G: int) -> torch.Tensor:
+    """K9's owner table of its light stages, int32: the queue runs, the
+    lights and the stop runs grouped by pseudo-group, as offsets `qoff`,
+    `loff`, `soff` [G + 3] each, then the run, light and stop-run indices
+    in group order [NQ], [L], [NS].  Pseudo-group g < G is a light group
+    (a stop run belongs to its light's group); a light of no group l goes
+    with pseudo-group l mod (G + 1), so that such lights spread over the
+    blocks; G + 1 holds the runs that cover no cell (orientation 0),
+    which no block takes.  The kernel's block j takes the pseudo-groups
+    j, j + grid, ... up to G, so each group's counts, controller, lights
+    and paint stay in one block (`light_owners`)."""
+    dev = qrun.device
+    L = l_group.shape[0]
+    lgrp = torch.where((l_group >= 0) & (l_group < G), l_group,
+                       torch.arange(L, device=dev) % (G + 1))
+    qg = qrun[:, 4]
+    qgrp = torch.where((qrun[:, 0] != 0) & (qg >= 0) & (qg < G), qg, G + 1)
+    sl = srun[:, 4]
+    sok = (srun[:, 0] != 0) & (sl >= 0) & (sl < L)
+    sgrp = torch.where(sok, lgrp[torch.clamp(sl, 0, max(L - 1, 0)).long()]
+                       if L else torch.full_like(sl, G), G + 1)
+    offs, idxs = [], []
+    for grp in (qgrp, lgrp, sgrp):
+        grp = grp.long()
+        cnt = torch.zeros((G + 2,), dtype=torch.int64, device=dev) \
+            .scatter_add_(0, grp, torch.ones_like(grp))
+        offs.append(torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)]))
+        idxs.append(torch.sort(grp, stable=True).indices)
+    return torch.cat(offs + idxs).to(torch.int32)
+
+
+def light_owners(lown: torch.Tensor, G: int, NQ: int, L: int, NS: int,
+                 srun: torch.Tensor, H: int, W: int, nb: int) -> dict:
+    """Who owns what in K9's light stages with `nb` blocks: the owning
+    block of each group (g % nb), queue run, light and stop run (each
+    item's pseudo-group % nb; -1 for a run that covers no cell), read
+    from the owner table, with the times each item is listed; and the
+    stop cells (flat indices) that runs of two owners share, which the
+    kernel clears and paints in separate stages."""
+    t = lown.cpu().numpy().astype(np.int64)
+    n = G + 3
+    qoff, loff, soff = t[:n], t[n:2 * n], t[2 * n:3 * n]
+    qidx = t[3 * n:3 * n + NQ]
+    lidx = t[3 * n + NQ:3 * n + NQ + L]
+    sidx = t[3 * n + NQ + L:3 * n + NQ + L + NS]
+    out = {"group": np.arange(G) % nb}
+    for name, off, idx, size in (("queue_run", qoff, qidx, NQ),
+                                 ("light", loff, lidx, L),
+                                 ("stop_run", soff, sidx, NS)):
+        own = np.full(size, -1)
+        cnt = np.zeros(size, np.int64)
+        for g in range(G + 2):
+            items = idx[off[g]:off[g + 1]]
+            own[items] = g % nb if g <= G else -1
+            np.add.at(cnt, items, 1)
+        out[name] = own
+        out[name + "_listed"] = cnt
+    cells = {}
+    for r, (orient, coord, a0, a1, _) in enumerate(srun.cpu().numpy()):
+        if orient == 0:
+            continue
+        flat = ([y * W + coord for y in range(a0, min(a1, H))]
+                if orient == 1 else
+                [coord * W + x for x in range(a0, min(a1, W))])
+        for c in flat:
+            cells.setdefault(c, set()).add(int(out["stop_run"][r]))
+    out["shared_stop_cells"] = np.array(
+        sorted(c for c, o in cells.items() if len(o) > 1), np.int64)
+    return out
 
 
 # ---------------------------------------------------------------------------
