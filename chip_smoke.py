@@ -109,7 +109,23 @@ Phases (any failure raises and the script exits nonzero):
      plain version, bit-equal; in group `config5`, K8 on config #5's
      1024^2 state and the config #5 frame time as the JAX bench takes it
      (one warm-up, then the mean of 5 synchronized frames);
- 14. the host bridge (group `bridge`): `BridgeState` over the generated
+ 14. a batch of cities (group `config4`, BASELINE config #4 letter for
+     letter, `bench.py` `bench_config4`): 1024 worlds of 64^2, each from
+     its own key of `split(PRNGKey(0), 1024)`, generated on the card by
+     `init_world_batch` (`generate_all_sec` and the seconds by stage);
+     worlds 0-3 held to the JAX digest shipped in
+     `trafficsimulation_tpu_torch/data/` (`tools/make_torch_batch_digest.
+     py`) on every leaf at init and after the first 50 ticks of
+     `run_chunk_batch` (`sim.advance` under vmap, the bench's
+     `jax.vmap(run_chunk)`); K1 50 (one launch a tick, its world groups
+     inside the launch, the plan printed), K4 50, K2 10 (the batched K2
+     over the worlds' own key stacks), K3 10, K5 0, and no kernel
+     mapping the worlds one by one (`_map_worlds`); then 3 timed chunks
+     of 50 ticks (median: cell-updates/s = 1024 x 4096 x steps/s,
+     steps/s per world), launches and device busy time a tick, the idle
+     share and the bench's cap diagnostics; K1, K2 and K3's per-world
+     forms against their plain versions at B = 1024 and B = 3;
+ 15. the host bridge (group `bridge`): `BridgeState` over the generated
      headline world on the card; one group's axis lights forced to stop
      and flushed must stop on the next tick and the override must clear,
      the group forced to go must have no light stopped a tick later;
@@ -203,26 +219,58 @@ KERNELS = {
     "rain_ticks": ("trafficsimulation_tpu_torch/csrc/rain.cu",
                    "none (XLA ops per tick, trafficsimulation_tpu/agents/"
                    "rain.py:26)", "f32"),
+    # the per-world-geometry forms (config #4's batch of cities): K1 with
+    # its geometry one plane a world, K2 over the worlds' own key stacks,
+    # K3 with its geometry one plane a world
+    "decide_move_worlds": ("trafficsimulation_tpu_torch/csrc/decide_move.cu",
+                           "trafficsimulation_tpu/ops/pallas_engine.py:1026",
+                           "int32"),
+    "build_sdir_stacks": ("trafficsimulation_tpu_torch/csrc/sdir.cu",
+                          "trafficsimulation_tpu/ops/pallas_engine.py:844",
+                          "int32"),
+    "build_wavefront_worlds": ("trafficsimulation_tpu_torch/csrc/"
+                               "wavefront.cu",
+                               "trafficsimulation_tpu/ops/pallas_engine.py:"
+                               "466", "int32"),
 }
+# the launch counter (`HE.launches`) of each summary entry
+COUNTER = {"decide_move_worlds": "decide_move",
+           "build_sdir_stacks": "build_sdir",
+           "build_wavefront_worlds": "build_wavefront"}
 # which run's launch count the summary reports: K2 on the single-world
 # path, K6 on config #5's, K9 on the megakernel path, the others on the
 # batched path
 SUMMARY_PATH = {"build_sdir": "single", "select_rows": "config5",
                 "mega": "mega", "decide_move_tiled": "single",
-                "render": "single"}
+                "render": "single", "decide_move_worlds": "config4",
+                "build_sdir_stacks": "config4",
+                "build_wavefront_worlds": "config4"}
 # on no path of the port (0 launches on every path); chip_smoke.py drives
 # them directly.  K6 serves the plain version of K1-hier's select.
 OFF_PATH = ("decide_move_tiled", "render", "select_rows")
 MEGA_DUR_COLS = [2, 3, 7]      # the stats rows' f32 duration sums
 # the kernels whose call is one device kernel (the profiler's count)
-ONE_KERNEL = ("decide_move", "build_wavefront", "prefix_planes", "mega")
+ONE_KERNEL = ("decide_move", "build_wavefront", "prefix_planes", "mega",
+              "decide_move_worlds", "build_sdir_stacks",
+              "build_wavefront_worlds")
 CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
                ROUTING_HIER=True, INTERNAL_POPULATION_TRAFFIC_PER_DAY=100_000,
                PASSING_POPULATION_TRAFFIC_PER_DAY=20_000)
 CONFIG5_VEHICLES = 100_000
 N_HIER_TICKS = 20
+# BASELINE config #4 (`bench.py` `bench_config4`), letter for letter
+CONFIG4 = dict(WIDTH=64, HEIGHT=64, WALL_THICKNESS=6, SIDEWALK_RING_WIDTH=2,
+               MAX_FIELD_DESTS=32, MAX_VEHICLES=256,
+               INTERNAL_POPULATION_TRAFFIC_PER_DAY=2000,
+               PASSING_POPULATION_TRAFFIC_PER_DAY=500)
+CONFIG4_WORLDS = 1024
+CONFIG4_TICKS = 50
+CONFIG4_REPEATS = 3
+CONFIG4_ODD_B = 3
+CONFIG4_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
+                              "config4_batch_digest.json")
 PHASES = ("kernels", "ordered_add", "headline", "mega", "hier_digest",
-          "config5", "tiled", "render", "bridge")
+          "config4", "config5", "tiled", "render", "bridge")
 TILES = ((64, 64), (16, 32))     # K7's tilings of the headline grid
 # the numbers of a kernel's other shapes in the summary line
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "kernels_per_call",
@@ -261,12 +309,15 @@ def device_profile(fn, reps: int = 10):
     kernels a call), from torch.profiler (a CUDA-event interval around
     one call also holds the host's time in the wrapper, which is larger
     for small kernels); (None, None) when three profiles in a row record
-    no device time."""
+    no device time.  A profile after a long one may come back empty, or
+    with some calls' kernels missing (a count a call that is not whole):
+    it is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # a profile after a long one may come back empty
+    best = (None, None)
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -276,8 +327,10 @@ def device_profile(fn, reps: int = 10):
         if ms > 0:
             n = sum(1 for e in prof.events()
                     if e.device_type == DeviceType.CUDA)
-            return ms, n / reps
-    return None, None
+            best = (ms, n / reps)
+            if n % reps == 0:
+                break
+    return best
 
 
 def device_ms(fn, reps: int = 10):
@@ -1364,6 +1417,223 @@ def phase_config5(HE, engine, tsim, card, prng, Config):
     return launches, kern
 
 
+class no_map_worlds:
+    """Inside the block, a kernel whose vmap rule maps the worlds one by
+    one (`HE._map_worlds`) raises: on config #4's path K1, K2 and K3
+    launch once for the whole batch."""
+
+    def __init__(self, HE):
+        self.HE = HE
+
+    def __enter__(self):
+        self.orig = self.HE._map_worlds
+
+        def spy(*a, **k):
+            raise AssertionError("a kernel mapped the worlds one by one")
+        self.HE._map_worlds = spy
+
+    def __exit__(self, *exc):
+        self.HE._map_worlds = self.orig
+
+
+def config4_kernels(HE, engine, cfg, B) -> dict:
+    """K1, K2 and K3's per-world-geometry forms for B worlds at config
+    #4's shapes (seeded random inputs, each world with its own geometry
+    and key stack) against their plain versions."""
+    H, W, D = cfg.HEIGHT, cfg.WIDTH, cfg.MAX_FIELD_DESTS
+    HW = H * W
+    D4 = (D + 3) // 4
+    if D % 4:
+        raise AssertionError("config #4's stack packs whole words")
+    r = Inputs(4)
+    shape = f"B = {B}, {H}x{W}, D = {D}"
+    heavy = dict(reps=10, plain_reps=1 if B > 16 else 3)
+    out = {}
+
+    kcfg = cfg.replace(VEHICLE_MALFUNCTION_CHANCE=0.01,
+                       VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3)
+    # the stacks of all worlds packed at once: D is a multiple of 4, so
+    # word g of the [B * D] rows is word g % D4 of world g // D4
+    sdir4 = engine.pack_sdir4(r.rint(0, 256, B * D, H, W).to(
+        torch.uint8)).reshape(B, D4, H, W)
+    wb = r.rint(0, 16, B, 4, H, W)
+    wnd = wb[:, 0] | (wb[:, 1] << 8) | (wb[:, 2] << 16) | (wb[:, 3] << 24)
+    del wb
+    planes = tuple(r.bits(B, H, W) for _ in range(5)) + (r.unif(B, H, W),)
+    masks = (r.bern(0.15, B, H, W), r.bern(0.1, B, H, W),
+             r.bern(0.02, B, H, W))
+    inter = r.bern(0.1, B, H, W)
+    dest = r.rint(-1, D, B, H, W)
+    randoms = (r.unif(B, H, W), r.unif(B, H, W), r.rint(1, 6, B, H, W),
+               r.bits(B, H, W))
+    present = int((planes[0] & 1).sum())
+    # as the shared-geometry K1, with the geometry (5 bytes a cell) one
+    # plane a world
+    k1_bytes = B * HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4 + 5) + present * 4
+    k1_ops = (B * HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2),) * 2
+    out["decide_move_worlds"] = measure(
+        f"decide_move_worlds (B={B})",
+        lambda: HE.decide_move_batched(kcfg, sdir4, wnd, planes, *masks,
+                                       inter, dest, randoms),
+        lambda: HE.decide_move_core_batched(kcfg, sdir4, wnd, planes,
+                                            *masks, inter, dest, randoms),
+        k1_bytes, k1_ops, shape, **heavy)
+    del sdir4, wnd, planes, masks, inter, dest, randoms
+
+    # K2 over B key stacks, each with unreachable rows; the bytes: every
+    # world's K0, pen and legal planes in, its packed stack out
+    q = r.rint(0, 60000, B, D, 4, H, W)
+    q = torch.where(r.bern(0.15, B, D, 4, H, W), 65535, q)
+    K0 = engine.costs_u16_to_keys(q)
+    del q
+    pen4 = torch.where(r.bern(0.1, B, 4, H, W), 1 << 17,
+                       r.rint(0, 3000, B, 4, H, W))
+    legal4 = r.bern(0.6, B, 4, H, W).to(torch.int32)
+    tp2 = int(round(2 * cfg.VEHICLE_TURN_PENALTY))
+    sd_bytes = B * (D * 4 * HW * 4 + 2 * 4 * HW * 4 + D4 * HW * 4)
+    sd_ops = (D * HW * B * SDIR_ALU_OPS, D * HW * B * SDIR_OPS)
+    out["build_sdir_stacks"] = measure(
+        f"build_sdir_stacks (B={B})",
+        lambda: (HE.build_sdir_stacks(K0, pen4, legal4, tp2),),
+        lambda: (HE.sdir_encode_batched(K0, pen4, legal4, tp2),),
+        sd_bytes, sd_ops, shape, **heavy)
+    del K0, pen4, legal4
+
+    # K3 with allowed and road one plane a world
+    allowed = r.rint(0, 16, B, H, W).to(torch.uint8)
+    road = r.bern(0.5, B, H, W)
+    hard = r.bern(0.1, B, H, W) & road
+    k3_bytes = B * HW * (2 + 5)
+    k3_ops = (B * HW * 4 * 4 * 2
+              * cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS,) * 2
+    out["build_wavefront_worlds"] = measure(
+        f"build_wavefront_worlds (B={B})",
+        lambda: (HE.build_wavefront_batched(cfg, allowed, road, hard),),
+        lambda: (HE.wavefront_core_batched(cfg, allowed, road, hard),),
+        k3_bytes, k3_ops, shape, **heavy)
+    torch.cuda.empty_cache()
+    return out
+
+
+def cap_diagnostics(world) -> dict:
+    """The JAX bench's no-silent-caps counters (`bench._cap_diagnostics`)
+    over a batch of cities."""
+    bs = world.blocks_static
+    DF = world.cost_field.shape[-4]
+    unroutable = bs.valid & ((bs.dest < 0) | (bs.dest >= DF))
+    m = world.metrics
+    act = world.vehicles.active
+    dv = world.dests.valid
+    return {
+        "field_rows": int(DF),
+        "n_valid_dests_max_per_world": int(
+            dv.reshape(-1, dv.shape[-1]).sum(-1).max()),
+        "blocks_unroutable_no_field": int(unroutable.sum()),
+        "worlds_with_unroutable_blocks": int(
+            unroutable.reshape(-1, unroutable.shape[-1]).any(-1).sum()),
+        "vehicle_pool": int(act.shape[-1]),
+        "pool_peak_active": int(act.sum(-1).max()),
+        "errored_dropped_or_stuck": int(m.errored_internal.sum()
+                                        + m.errored_through.sum())}
+
+
+def phase_config4(HE, engine, tsim, mesh, transfer, card, prng, Config):
+    """BASELINE config #4 on the card: 1024 cities of 64^2 generated as
+    one batch, held to the JAX digest at init and after the first 50
+    ticks, the launch counts of the path, then timed chunks and the
+    kernels' per-world forms."""
+    cfg = Config(**CONFIG4)
+    n, HW = CONFIG4_WORLDS, cfg.HEIGHT * cfg.WIDTH
+    with open(os.path.join(ROOT, CONFIG4_DIGEST)) as f:
+        digest = json.load(f)
+    plan = HE.dm_plan(n, cfg.HEIGHT, cfg.WIDTH)
+    log(f"config #4: K1's plan for {n} worlds of {cfg.HEIGHT}x{cfg.WIDTH}: "
+        f"{plan} (world groups walked in turn inside one launch)")
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    worlds, t_gen = timed(lambda: mesh.init_world_batch(
+        cfg, prng.PRNGKey(0), n, timings=timings))
+    log(f"config #4 ({card}): {n} worlds generated on the card in "
+        f"{t_gen:.2f} s, generate_all_sec {timings['generate_all_sec']:.2f} "
+        f"(stages {({k: round(v, 3) for k, v in timings.items()})}); "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for b in range(digest["worlds"]):
+        exact, near = check_digest(
+            f"config #4 world {b} at init", digest["init"][b],
+            transfer.world_to_numpy(mesh.world_at(worlds, b)))
+    log(f"config #4 worlds 0-{digest['worlds'] - 1} at init equal JAX's "
+        f"digest ({exact} leaves each, {len(near)} f32 within rtol)")
+    R = max(1, cfg.PATHFINDING_COOLDOWN)
+    segs = -(-CONFIG4_TICKS // R)
+    need = {"decide_move": CONFIG4_TICKS, "prefix_planes": CONFIG4_TICKS,
+            "build_sdir": segs, "build_wavefront": segs,
+            "build_sdir_batched": 0, "select_rows": 0, "mega": 0,
+            "rain_ticks": CONFIG4_TICKS if cfg.RAIN_ENABLED else 0}
+    HE.reset_launches()
+    with no_map_worlds(HE), no_plain_core(HE):
+        w, t_first = timed(lambda: mesh.run_chunk_batch(cfg, worlds,
+                                                        CONFIG4_TICKS))
+    launches = dict(HE.launches)
+    check_launches("config #4 path", launches, need)
+    for b in range(digest["worlds"]):
+        check_digest(f"config #4 world {b} after {CONFIG4_TICKS} ticks",
+                     digest[f"chunk{CONFIG4_TICKS}"][b],
+                     transfer.world_to_numpy(mesh.world_at(w, b)))
+    active = [int(a) for a in w.vehicles.active.sum(-1)]
+    if active[:digest["worlds"]] != digest[f"chunk{CONFIG4_TICKS}_active"]:
+        raise AssertionError(f"config #4 active vehicles {active[:4]}")
+    log(f"config #4 worlds 0-{digest['worlds'] - 1} after {CONFIG4_TICKS} "
+        f"ticks equal JAX's digest; first chunk {t_first:.3f} s; launches "
+        f"{launches} (K1 {launches['decide_move'] / CONFIG4_TICKS:g} a tick "
+        f"for all {n} worlds in {plan['groups']} world groups, K2 and K3 "
+        f"{launches['build_sdir'] / segs:g} and "
+        f"{launches['build_wavefront'] / segs:g} a segment, no per-world "
+        f"map); {sum(active)} active vehicles")
+    del worlds
+    # the kernels before the long profile below (a profile after a long
+    # one may come back empty)
+    kern = {f"B={b}": config4_kernels(HE, engine, cfg, b)
+            for b in (n, CONFIG4_ODD_B)}
+    times = []
+    for _ in range(CONFIG4_REPEATS):
+        w, dt = timed(lambda w=w: mesh.run_chunk_batch(cfg, w,
+                                                       CONFIG4_TICKS))
+        times.append(dt)
+    dt = statistics.median(times)
+    sps = CONFIG4_TICKS / dt
+    cups = n * HW * sps
+    busy, per_tick, top = profile_ticks(
+        lambda: mesh.run_chunk_batch(cfg, w, CONFIG4_TICKS), CONFIG4_TICKS)
+    wall_ms = dt * 1e3 / CONFIG4_TICKS
+    idle = 1 - busy / wall_ms
+    caps = cap_diagnostics(w)
+    log("config #4 device time per tick by kernel (top 8; name, ms, "
+        "launches): " + json.dumps([(k, round(m, 4), round(c, 1))
+                                    for k, m, c in top]))
+    log(f"config #4 ({card}): {CONFIG4_REPEATS} timed chunks of "
+        f"{CONFIG4_TICKS} ticks {[round(t, 3) for t in times]} s, median "
+        f"{dt:.3f} s = {sps:.2f} steps/s per world = {cups:.4g} "
+        f"cell-updates/s ({n} x {HW} cells); wall {wall_ms:.3f} ms/tick, "
+        f"device busy {busy:.3f} ms/tick in {per_tick:.1f} launches, idle "
+        f"share {idle:.3f}; caps {caps}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not bool(torch.isfinite(w.density).all()):
+        raise AssertionError("config #4: non-finite density")
+    del w
+    torch.cuda.empty_cache()
+    REPORT["config4"] = {
+        "card": card, "worlds": n, "generate_s": t_gen, "timings": timings,
+        "k1_plan": plan, "first_chunk_s": t_first, "launches": launches,
+        "chunk_s": times, "steps_per_s_per_world": sps,
+        "cell_updates_per_s": cups, "wall_ms_per_tick": wall_ms,
+        "busy_ms_per_tick": busy, "idle_share": idle,
+        "device_launches_per_tick": per_tick, "top_kernels": top,
+        "caps": caps, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "kernels": kern}
+    return launches, kern
+
+
 class mega_env:
     """TSIM_MEGA_FORCE=1 (the megakernel path) or TSIM_NO_MEGAKERNEL=1
     (the per-tick path) inside the block, the environment as it was
@@ -2022,6 +2292,10 @@ def main():
     if "hier_digest" in run:
         phase_hier_digest(HE, tsim, transfer, prng, snapshot, Config)
         stamp("hier_digest")
+    if "config4" in run:
+        l_c4, k_c4 = phase_config4(HE, engine, tsim, mesh, transfer, card,
+                                   prng, Config)
+        stamp("config4")
     if "config5" in run:
         l_c5, k_c5 = phase_config5(HE, engine, tsim, card, prng, Config)
         stamp("config5")
@@ -2036,11 +2310,15 @@ def main():
         return 0
 
     launch_paths = {"single": l_single, "batched": l_batch,
-                    "config5": l_c5, "mega": l_mega, "bridge": l_bridge}
+                    "config5": l_c5, "mega": l_mega, "bridge": l_bridge,
+                    "config4": l_c4}
     summary = {"kernels": []}
     for k in KERNELS:
         path = SUMMARY_PATH.get(k, "batched")
-        if k == "select_rows":
+        ctr = COUNTER.get(k, k)
+        if path == "config4":
+            m = k_c4[f"B={CONFIG4_WORLDS}"][k]
+        elif k == "select_rows":
             m = k6["local"]
         elif k == "mega":
             m = k9["R=5"]
@@ -2056,22 +2334,27 @@ def main():
             m = single[k] if path == "single" else batched[k]
         entry = {"name": k, "route": "cuda", "source": KERNELS[k][0],
                  "replaces": KERNELS[k][1],
-                 "launches": launch_paths[path][k],
+                 "launches": launch_paths[path][ctr],
                  "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                  "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                  "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                  "device_ms": m["device_ms"],
                  "kernels_per_call": m.get("kernels_per_call"),
                  "path": path,
-                 "batch": BATCH if path == "batched" else 1,
+                 "batch": {"batched": BATCH, "config4": CONFIG4_WORLDS}.get(
+                     path, 1),
                  "shape": m.get("shape", f"{cfg0.HEIGHT}x{cfg0.WIDTH}, "
                                 f"D = {cfg0.MAX_FIELD_DESTS}"),
-                 "launches_single_path": l_single[k],
-                 "launches_batched_path": l_batch[k],
-                 "launches_config5_path": l_c5[k],
-                 "launches_mega_path": l_mega[k],
-                 "launches_bridge_path": l_bridge[k],
+                 "launches_single_path": l_single[ctr],
+                 "launches_batched_path": l_batch[ctr],
+                 "launches_config5_path": l_c5[ctr],
+                 "launches_mega_path": l_mega[ctr],
+                 "launches_bridge_path": l_bridge[ctr],
+                 "launches_config4_path": l_c4[ctr],
                  "on_path": k not in OFF_PATH}
+        if path == "config4":
+            entry["odd_batch"] = {x: k_c4[f"B={CONFIG4_ODD_B}"][k][x]
+                                  for x in SUB_KEYS}
         if k in single and path == "batched":
             entry["single_world"] = {x: single[k][x] for x in SUB_KEYS}
         if k == "select_rows":

@@ -989,3 +989,132 @@ def test_ordered_add_kernel_matches_plain(gen, name):
     got = HE.ordered_add(*[x.cuda() for x in cpu])
     assert HE.launches["ordered_add"] == n0 + 1
     _same((got.cpu(),), (HE.ordered_add_plain(*cpu),))
+
+
+# ---- per-world geometry (a batch of different cities, config #4) ------------
+
+def _geo_batch(g, B, H, W):
+    return (_rint(g, 0, 16, B, H, W).to(torch.uint8), _bern(g, 0.5, B, H, W),
+            _bern(g, 0.1, B, H, W))
+
+
+@pytest.mark.parametrize("mix", ["both", "inter", "dest"])
+def test_decide_move_per_world_geometry_matches_plain(gen, mix):
+    """K1 with intersection and dest_id one plane a world: one launch,
+    each world equal to its plain version; under vmap with the geometry
+    batched, or one of its planes shared, one launch and no per-world
+    map."""
+    B, H, W, D = 3, 37, 300, 10
+    cfg = Config(WIDTH=W, HEIGHT=H, VEHICLE_MALFUNCTION_CHANCE=0.01,
+                 VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3)
+    sdir4, wnd, planes, masks, _, _, randoms = _dm_inputs(gen, B, H, W, D)
+    inter = _bern(gen, 0.1, B, H, W)
+    dest = _rint(gen, -1, D, B, H, W)
+    gd = {"both": (0, 0), "inter": (0, None), "dest": (None, 0)}[mix]
+    if mix == "inter":
+        dest = dest[0]
+    elif mix == "dest":
+        inter = inter[0]
+    ref = HE.decide_move_core_batched(cfg, sdir4, wnd, planes, *masks,
+                                      inter, dest, randoms)
+    n0 = HE.launches["decide_move"]
+    if mix == "both":
+        got = HE.decide_move_batched(cfg, sdir4, wnd, planes, *masks, inter,
+                                     dest, randoms)
+        assert HE.launches["decide_move"] == n0 + 1
+        _same(got, ref)
+    vm = torch.func.vmap(lambda *a: HE.decide_move(
+        cfg, a[0], a[1], a[2:8], *a[8:13], a[13:]),
+        in_dims=(0,) * 11 + gd + (0,) * 4)(
+        sdir4, wnd, *planes, *masks, inter, dest, *randoms)
+    assert HE.launches["decide_move"] == n0 + 1 + (mix == "both")
+    _same(vm, ref)
+
+
+def test_decide_move_world_groups_in_one_launch(gen):
+    """A batch with more tiles than one resident grid (1024 worlds of
+    64^2, config #4's shape) runs as world groups in one launch: equal
+    to the same worlds launched in batches that fit one grid, and world
+    by world to the plain version on a few worlds."""
+    B, H, W, D = 1024, 64, 64, 8
+    plan = HE.dm_plan(B, H, W)
+    assert plan["groups"] > 1, plan
+    assert HE.dm_plan(16, H, W)["groups"] == 1
+    cfg = Config(WIDTH=W, HEIGHT=H, VEHICLE_MALFUNCTION_CHANCE=0.01,
+                 VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3)
+    sdir4, wnd, planes, masks, _, _, randoms = _dm_inputs(gen, B, H, W, D)
+    inter = _bern(gen, 0.1, B, H, W)
+    dest = _rint(gen, -1, D, B, H, W)
+    n0 = HE.launches["decide_move"]
+    got = HE.decide_move_batched(cfg, sdir4, wnd, planes, *masks, inter,
+                                 dest, randoms)
+    assert HE.launches["decide_move"] == n0 + 1
+    step = 128
+    assert HE.dm_plan(step, H, W)["groups"] == 1
+    for b0 in range(0, B, step):
+        s = slice(b0, b0 + step)
+        part = HE.decide_move_batched(
+            cfg, sdir4[s], wnd[s], tuple(p[s] for p in planes),
+            *(m[s] for m in masks), inter[s], dest[s],
+            tuple(r[s] for r in randoms))
+        _same([o[s] for o in got], part)
+    for b in (0, 527, B - 1):
+        ref = HE.decide_move_core(
+            cfg, sdir4[b], wnd[b], *(p[b] for p in planes),
+            *(m[b] for m in masks), inter[b], dest[b],
+            *(r[b] for r in randoms))
+        _same([o[b] for o in got], ref)
+
+
+@pytest.mark.parametrize("D", [8, 10])
+def test_sdir_stacks_kernel_matches_plain(gen, D):
+    """K2 over a batch of key stacks (one K0 and one set of legal planes
+    a world, or either shared): one launch, equal to the plain version;
+    under vmap with K0 batched, K2 once and K5 not at all."""
+    H, W, B = 33, 270, 3
+    q = _rint(gen, 0, 60000, B, D, 4, H, W)
+    q = torch.where(_bern(gen, 0.15, B, D, 4, H, W), 65535, q)
+    K0 = engine.costs_u16_to_keys(q)
+    pen4b = torch.where(_bern(gen, 0.1, B, 4, H, W), 1 << 17,
+                        _rint(gen, 0, 3000, B, 4, H, W))
+    legal4 = _bern(gen, 0.6, B, 4, H, W).to(torch.int32)
+    for k0, lg in ((K0, legal4), (K0[1], legal4), (K0, legal4[2])):
+        n0 = dict(HE.launches)
+        got = HE.build_sdir_stacks(k0, pen4b, lg, 20)
+        assert HE.launches["build_sdir"] == n0["build_sdir"] + 1
+        _same((got,), (HE.sdir_encode_batched(k0, pen4b, lg, 20),))
+    n0 = dict(HE.launches)
+    vm = torch.func.vmap(HE.build_sdir, in_dims=(0, 0, 0, None))(
+        K0, pen4b, legal4, 20)
+    assert HE.launches["build_sdir"] == n0["build_sdir"] + 1
+    assert HE.launches["build_sdir_batched"] == n0["build_sdir_batched"]
+    _same((vm,), (HE.sdir_encode_batched(K0, pen4b, legal4, 20),))
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 300), (1024, 64, 64)])
+def test_wavefront_per_world_geometry_matches_plain(gen, shape):
+    """K3 with allowed and is_road one plane a world: one launch, equal
+    to the plain version (at config #4's batch too, on a few worlds);
+    under vmap with the geometry batched, one launch."""
+    B, H, W = shape
+    cfg = Config(WIDTH=W, HEIGHT=H)
+    allowed, road, hard = _geo_batch(gen, B, H, W)
+    hard = hard & road
+    n0 = HE.launches["build_wavefront"]
+    got = HE.build_wavefront_batched(cfg, allowed, road, hard)
+    assert HE.launches["build_wavefront"] == n0 + 1
+    for b in ((0, 1, 2) if B == 3 else (0, 511, B - 1)):
+        _same((got[b],), (HE.wavefront_core(cfg, allowed[b], road[b],
+                                            hard[b]),))
+    vm = torch.func.vmap(lambda a, r, h: HE.build_wavefront(cfg, a, r, h))(
+        allowed, road, hard)
+    assert HE.launches["build_wavefront"] == n0 + 2
+    _same((vm,), (got,))
+    # one geometry plane shared beside a batched one: the vmap rule
+    # broadcasts it, one launch
+    mixed = torch.func.vmap(
+        lambda a, r, h: HE.build_wavefront(cfg, a, r, h),
+        in_dims=(None, 0, 0))(allowed[0], road, hard)
+    assert HE.launches["build_wavefront"] == n0 + 3
+    _same((mixed,), (HE.wavefront_core_batched(cfg, allowed[0], road,
+                                               hard),))

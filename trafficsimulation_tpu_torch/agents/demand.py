@@ -96,35 +96,33 @@ def trip_layout(cfg: Config) -> TripLayout:
         size=len(kind))
 
 
-def _draw(key, n: int, device) -> torch.Tensor:
-    return torch.from_numpy(prng.uniform(key, (n,))).to(device)
-
-
-def _weighted_pick(key, weights: torch.Tensor, n: int):
-    """n indices ~ weights (cumsum + searchsorted): (idx i32 [n], ok)."""
+def _weighted_pick(u: torch.Tensor, weights: torch.Tensor, n: int):
+    """n indices ~ weights (cumsum + searchsorted) from n uniforms u:
+    (idx i32 [n], ok)."""
     cum = torch.cumsum(weights.to(F32), 0)
     total = cum[-1]
-    u = _draw(key, n, weights.device) * total
-    idx = torch.searchsorted(cum, u, right=True)
+    idx = torch.searchsorted(cum, u * total, right=True)
     idx = idx.clamp(0, weights.shape[0] - 1).to(I32)
     return idx, (total > 0).expand(n)
 
 
-def generate_day(cfg: Config, layout: TripLayout, key, day: int,
-                 current_tick, blk_valid, blk_btype, blk_dest, blk_entrance,
-                 dest_valid, dest_kind, entrance_pos, entrance_valid,
-                 n_field_dests: int, dest_rid=None,
-                 fused: bool = True) -> Demand:
-    """One day's trip table, sorted by departure tick with invalid trips
-    last (the JAX `generate_day`).  `dest_rid`: the routing-id column of
-    hierarchical routing; through trips then store the exit's rid.
-    `fused`: the f32 of the jitted JAX call (see the module docstring)."""
-    dev = blk_valid.device
+# a day's draws from its key (`day_draws`): the departure ticks, then
+# the uniforms of the origin block, destination block, highway entrance
+# and exit picks
+DAY_DRAWS = ("depart_tick", "u_origin", "u_dest", "u_entrance", "u_exit")
+
+
+def day_draws(cfg: Config, layout: TripLayout, key, day: int,
+              fused: bool = True) -> dict:
+    """The host part of `generate_day`: what its key draws (numpy, the
+    `DAY_DRAWS`), the departure ticks computed in f32 as XLA does; a
+    stack of keys [..., 2] gives each draw its leading dims."""
     T = layout.size
     dt = cfg.TIME_PER_STEP_IN_SECONDS
     off = (cfg.SIMULATION_STARTING_TIME_OF_DAY_HOURS * 3600
            + cfg.SIMULATION_STARTING_TIME_OF_DAY_MINUTES * 60)
-    kt, ko, kd, ke, kx = prng.split(np.asarray(key, np.uint32), 5)
+    kt, ko, kd, ke, kx = np.moveaxis(
+        prng.split(np.asarray(key, np.uint32), 5), -2, 0)
 
     # departure times on the host: f32 as XLA computes them
     f32 = np.float32
@@ -141,7 +139,30 @@ def generate_day(cfg: Config, layout: TripLayout, key, day: int,
     # jitted, XLA divides by the constant dt as a multiply by its f32
     # reciprocal; eagerly, dt is an operand and the division is exact
     tdt = t * f32(1.0 / dt) if fused else t / f32(dt)
-    depart_tick = torch.from_numpy(np.ceil(tdt).astype(np.int32)).to(dev)
+    return dict(depart_tick=np.ceil(tdt).astype(np.int32),
+                u_origin=prng.uniform(ko, (T,)), u_dest=prng.uniform(kd, (T,)),
+                u_entrance=prng.uniform(ke, (T,)),
+                u_exit=prng.uniform(kx, (T,)))
+
+
+def generate_day(cfg: Config, layout: TripLayout, key, day: int,
+                 current_tick, blk_valid, blk_btype, blk_dest, blk_entrance,
+                 dest_valid, dest_kind, entrance_pos, entrance_valid,
+                 n_field_dests: int, dest_rid=None,
+                 fused: bool = True) -> Demand:
+    """One day's trip table, sorted by departure tick with invalid trips
+    last (the JAX `generate_day`).  `dest_rid`: the routing-id column of
+    hierarchical routing; through trips then store the exit's rid.
+    `fused`: the f32 of the jitted JAX call (see the module docstring).
+    `key` is the day's key, or its draws (`day_draws`) as tensors on the
+    block tables' device: the rest is a function of tensors, which runs
+    under vmap."""
+    dev = blk_valid.device
+    T = layout.size
+    if not isinstance(key, dict):
+        key = {k: torch.from_numpy(v).to(dev) for k, v in
+               day_draws(cfg, layout, key, day, fused).items()}
+    depart_tick = key["depart_tick"]
     valid = depart_tick > current_tick
     kind = torch.from_numpy(layout.kind).to(dev)
 
@@ -152,24 +173,24 @@ def generate_day(cfg: Config, layout: TripLayout, key, day: int,
                                      .to(F32), 0) for tc in type_rows])
     totals = cums[:, -1]
 
-    def pick_block(key, codes: np.ndarray):
+    def pick_block(u, codes: np.ndarray):
         row = np.zeros(T, np.int64)
         for i, tc in enumerate(type_rows):
             row = np.where(codes == tc, i, row)
         row = torch.from_numpy(row).to(dev)
         tot = totals[row]
-        r = _draw(key, T, dev) * tot
+        r = u * tot
         idx_by_row = torch.stack([torch.searchsorted(cums[i], r, right=True)
                                   for i in range(len(type_rows))])
         idx = idx_by_row.gather(0, row[None])[0]
         return idx.clamp(0, B - 1).to(I32), tot > 0
 
-    ob, ob_ok = pick_block(ko, layout.o_code)
-    db, db_ok = pick_block(kd, layout.d_code)
-    ent_idx, ent_ok = _weighted_pick(ke, entrance_valid, T)
+    ob, ob_ok = pick_block(key["u_origin"], layout.o_code)
+    db, db_ok = pick_block(key["u_dest"], layout.d_code)
+    ent_idx, ent_ok = _weighted_pick(key["u_entrance"], entrance_valid, T)
     exit_w = dest_valid & (dest_kind == 1) & (
         torch.arange(dest_valid.shape[0], device=dev) < n_field_dests)
-    exd, exd_ok = _weighted_pick(kx, exit_w, T)
+    exd, exd_ok = _weighted_pick(key["u_exit"], exit_w, T)
 
     origin = torch.where(kind == KIND_INTERNAL, blk_entrance[ob.long()],
                          entrance_pos[ent_idx.clamp(
@@ -195,8 +216,13 @@ def generate_days(cfg: Config, layout: TripLayout, key, start_day: int,
                   entrance_valid, n_field_dests: int,
                   dest_rid=None, fused: bool = True) -> Demand:
     """`n_days` consecutive day tables, re-sorted so that every invalid
-    trip lands at the end (the spawn cursor walks the valid prefix)."""
-    keys = prng.split(np.asarray(key, np.uint32), n_days)
+    trip lands at the end (the spawn cursor walks the valid prefix).
+    `key` is the key, or the days' draws (`days_draws`) as tensors: a
+    function of tensors then, which runs under vmap."""
+    if isinstance(key, dict):
+        keys = [{k: v[i] for k, v in key.items()} for i in range(n_days)]
+    else:
+        keys = prng.split(np.asarray(key, np.uint32), n_days)
     days = [generate_day(cfg, layout, keys[i], start_day + i, current_tick,
                          blk_valid, blk_btype, blk_dest, blk_entrance,
                          dest_valid, dest_kind, entrance_pos, entrance_valid,
@@ -218,3 +244,13 @@ def generate_days(cfg: Config, layout: TripLayout, key, start_day: int,
                   cursor=torch.zeros((), dtype=I32, device=dev),
                   day=torch.tensor(start_day + n_days - 1, dtype=I32,
                                    device=dev))
+
+
+def days_draws(cfg: Config, layout: TripLayout, key, start_day: int,
+               n_days: int, fused: bool = True) -> dict:
+    """The host part of `generate_days`: each day's `day_draws`, stacked
+    [n_days, T] (numpy); a stack of keys [B, 2] gives [B, n_days, T]."""
+    keys = prng.split(np.asarray(key, np.uint32), n_days)
+    days = [day_draws(cfg, layout, keys[..., i, :], start_day + i, fused)
+            for i in range(n_days)]
+    return {k: np.stack([d[k] for d in days], axis=-2) for k in DAY_DRAWS}

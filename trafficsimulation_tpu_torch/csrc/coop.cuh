@@ -93,11 +93,16 @@ struct Work {
   __device__ __forceinline__ int* plane(int k) const { return S + k * hw; }
 };
 
-// world b's view of the inputs the decide core reads
+// world b's view of the inputs the decide core reads (the geometry
+// advances only where it is one plane a world, p.geo)
 __device__ __forceinline__ Inputs world_inputs(Inputs in, int b, long hw,
-                                               int D4) {
+                                               const DMParams& p) {
   const long o = (long)b * hw;
-  in.sdir4 += o * D4;
+  in.sdir4 += o * p.D4;
+  if (p.geo) {
+    in.inter += o;
+    in.dest_id += o;
+  }
   in.wnd += o;
   in.pa += o;
   in.pb += o;
@@ -366,15 +371,16 @@ struct PlaneDraws {
 
 
 // the tiles of block blockIdx.x: tile blockIdx.x + k * gridDim.x for
-// k < cpt, in B worlds of H x W (call with every thread, then sync)
+// k < cpt, in the B worlds b0 .. b0 + B - 1 of H x W (call with every
+// thread, then sync)
 __device__ __forceinline__ void coop_tiles(const DMParams& p, int B, int cpt,
-                                           TileOrigin* org) {
+                                           TileOrigin* org, int b0 = 0) {
   const int tx = (p.W + TILE_W - 1) / TILE_W;
   const int per_world = tx * ((p.H + TILE_H - 1) / TILE_H);
   if ((int)threadIdx.x < cpt) {
     const int tile = blockIdx.x + threadIdx.x * gridDim.x;
     const int b = tile / per_world, r = tile - b * per_world;
-    org[threadIdx.x] = TileOrigin{tile < B * per_world ? b : -1,
+    org[threadIdx.x] = TileOrigin{tile < B * per_world ? b0 + b : -1,
                                   (r / tx) * TILE_H, (r % tx) * TILE_W};
   }
 }
@@ -433,7 +439,7 @@ __device__ __forceinline__ void coop_move(const DMParams& p,
     if constexpr (kOneWorld)
       st[q] = coop_decide(p, in0, Work(S0, 1, 0, p), c, y, x, sel, dr);
     else
-      st[q] = coop_decide(p, world_inputs(in0, b, hw, p.D4),
+      st[q] = coop_decide(p, world_inputs(in0, b, hw, p),
                           Work(S0, B, b, p), c, y, x, sel, dr);
   }
   COOP_MARK(2, K9_DECIDE);
@@ -477,7 +483,7 @@ __device__ __forceinline__ void coop_move(const DMParams& p,
         st[q] = coop_intent(p, in0, Work(S0, 1, 0, p), c, y, x, st[q], sel,
                             dr);
       else
-        st[q] = coop_intent(p, world_inputs(in0, b, hw, p.D4),
+        st[q] = coop_intent(p, world_inputs(in0, b, hw, p),
                             Work(S0, B, b, p), c, y, x, st[q], sel, dr);
     }
     COOP_MARK(5 + 6 * r, K9_INTENT);

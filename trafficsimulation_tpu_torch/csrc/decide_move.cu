@@ -7,9 +7,16 @@
 // VEHICLE_MAX_SPEED sub-rounds), separated by grid-wide barriers.  Every
 // per-world plane (the packed stack, wavefronts, vehicle planes, masks,
 // random planes, outputs and K1's working planes) advances by one
-// world's size per world; the geometry (intersection, dest_id) is
-// shared.  Every neighbour index comes from `nbr` on the world's own
-// (y, x), so no read crosses into another world.
+// world's size per world; the geometry (intersection, dest_id) is shared
+// by the batch or, for a batch of different cities (config #4), one
+// plane a world (`DMParams::geo`).  Every neighbour index comes from
+// `nbr` on the world's own (y, x), so no read crosses into another world.
+// A batch with more tiles than one resident grid holds (at most
+// MAX_CPT tiles a block: the state words and work list take 8 bytes of
+// shared memory a cell) runs as world groups inside the one launch: the
+// grid walks group after group, each with its own 2K barriers, and no
+// barrier between groups, since a group reads and writes only its own
+// worlds' planes.
 //
 // K1-hier (`tsim_decide_move_hier`) is the same launch for one world
 // under hierarchical routing, the row select `HierSelect` in place of
@@ -85,12 +92,13 @@ __device__ __forceinline__ unsigned long long k1_now() {
 
 namespace tsim {
 
-// One tick of B worlds; each block owns `cpt` tiles.  Dynamic shared
-// memory: the state words and the work list, cpt * THREADS each.
+// One tick of B worlds, `wpg` worlds a group; each block owns `cpt`
+// tiles of a group.  Dynamic shared memory: the state words and the work
+// list, cpt * THREADS each.
 template <class Select>
 __global__ void __launch_bounds__(THREADS)
     dm_coop(DMParams p, Inputs in0, Outputs out, int* S0, int B, int cpt,
-            Select sel) {
+            int wpg, Select sel) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ uint32_t st[];
   int* list = (int*)(st + cpt * THREADS);
@@ -98,18 +106,21 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ int nlist;
   const int tid = threadIdx.x, nslot = cpt * THREADS;
   const long hw = (long)p.H * p.W;
-  coop_tiles(p, B, cpt, org);
-  coop_move(p, in0, S0, B, cpt, org, st, list, nlist, sel, PlaneDraws(),
-            grid);
-  __syncthreads();
+  for (int b0 = 0; b0 < B; b0 += wpg) {
+    __syncthreads();          // the last group's finish read `org`
+    coop_tiles(p, min(wpg, B - b0), cpt, org, b0);
+    coop_move(p, in0, S0, B, cpt, org, st, list, nlist, sel, PlaneDraws(),
+              grid);
+    __syncthreads();
 
-  for (int q = tid; q < nslot; q += THREADS) {
-    int b, c, y, x;
-    if (!slot_cell(p, org, q, b, c, y, x)) continue;
-    const long o = (long)b * hw;
-    out.flags[o + c] = coop_finish(p, world_inputs(in0, b, hw, p.D4),
-                                   Work(S0, B, b, p), c, y, x, st[q], out, o,
-                                   sel);
+    for (int q = tid; q < nslot; q += THREADS) {
+      int b, c, y, x;
+      if (!slot_cell(p, org, q, b, c, y, x)) continue;
+      const long o = (long)b * hw;
+      out.flags[o + c] = coop_finish(p, world_inputs(in0, b, hw, p),
+                                     Work(S0, B, b, p), c, y, x, st[q], out,
+                                     o, sel);
+    }
   }
 #ifdef TSIM_K1_MARKS
   K1_MARK(40);
@@ -148,33 +159,67 @@ cudaError_t coop_blocks(int cpt, int* nb) {
   return cudaSuccess;
 }
 
+// K1's plan for B worlds of H x W on the current card: `cpt` tiles a
+// block, `nb` resident blocks, `wpg` worlds a group.  One group where a
+// resident grid holds every tile (the fewest tiles a block, a power of
+// two, that does); else as few groups as the largest resident grid
+// allows, of equal size, each on the fewest tiles a block that hold it.
+template <class Select>
+cudaError_t dm_plan(int B, int H, int W, int* cpt, int* nb, int* wpg) {
+  const long per_world =
+      (long)((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
+  long best = 0;
+  for (int c = 1; c <= MAX_CPT; c *= 2) {
+    int n = 0;
+    cudaError_t e = coop_blocks<Select>(c, &n);
+    if (e != cudaSuccess) return e;
+    if ((long)n * c >= (long)B * per_world) {
+      *cpt = c;
+      *nb = n;
+      *wpg = B;
+      return cudaSuccess;
+    }
+    best = (long)n * c > best ? (long)n * c : best;
+  }
+  const long fit = best / per_world;   // whole worlds in the largest grid
+  if (fit < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const long groups = (B + fit - 1) / fit;
+  *wpg = (int)((B + groups - 1) / groups);
+  for (int c = 1; c <= MAX_CPT; c *= 2) {
+    int n = 0;
+    cudaError_t e = coop_blocks<Select>(c, &n);
+    if (e != cudaSuccess) return e;
+    if ((long)n * c >= (long)*wpg * per_world) {
+      *cpt = c;
+      *nb = n;
+      return cudaSuccess;
+    }
+  }
+  return cudaErrorCooperativeLaunchTooLarge;
+}
+
 // one cooperative launch for the tick of B worlds, selecting rows with
-// `sel`: the fewest tiles a block (a power of two) whose resident grid
-// holds every tile
+// `sel` (`dm_plan`'s tiles a block and world groups)
 template <class Select>
 int launch_dm(const DMParams& p, const Inputs& in, const Outputs& out,
               int* scratch, int B, cudaStream_t s, const Select& sel) {
-  const long ntiles = (long)B * ((p.W + TILE_W - 1) / TILE_W) *
-                      ((p.H + TILE_H - 1) / TILE_H);
-  if (ntiles == 0) return 0;
-  for (int cpt = 1; cpt <= MAX_CPT; cpt *= 2) {
-    int nb = 0;
-    cudaError_t e = coop_blocks<Select>(cpt, &nb);
-    if (e != cudaSuccess) return (int)e;
-    if ((long)nb * cpt < ntiles) continue;
-    DMParams pp = p;
-    Inputs ii = in;
-    Outputs oo = out;
-    Select ss = sel;
-    const int grid = nb < ntiles ? nb : (int)ntiles;
-    void* args[] = {&pp, &ii, &oo, &scratch, &B, &cpt, &ss};
-    e = cudaLaunchCooperativeKernel((const void*)dm_coop<Select>,
-                                    dim3(grid), dim3(THREADS), args,
-                                    coop_smem(cpt), s);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
-  }
-  return (int)cudaErrorCooperativeLaunchTooLarge;
+  const long per_world =
+      (long)((p.W + TILE_W - 1) / TILE_W) * ((p.H + TILE_H - 1) / TILE_H);
+  if (B <= 0 || per_world == 0) return 0;
+  int cpt = 0, nb = 0, wpg = 0;
+  cudaError_t e = dm_plan<Select>(B, p.H, p.W, &cpt, &nb, &wpg);
+  if (e != cudaSuccess) return (int)e;
+  const long ntiles = (long)wpg * per_world;
+  DMParams pp = p;
+  Inputs ii = in;
+  Outputs oo = out;
+  Select ss = sel;
+  const int grid = nb < ntiles ? nb : (int)ntiles;
+  void* args[] = {&pp, &ii, &oo, &scratch, &B, &cpt, &wpg, &ss};
+  e = cudaLaunchCooperativeKernel((const void*)dm_coop<Select>, dim3(grid),
+                                  dim3(THREADS), args, coop_smem(cpt), s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tsim
@@ -197,15 +242,35 @@ extern "C" int tsim_decide_move(
     const uint8_t* ped, const uint8_t* inter, const int* dest_id,
     const float* r_mal, const float* r_side, const int* r_reroll,
     const int* r_prio, int* opa, int* opb, int* opc, int* opd, int* ope,
-    float* opl, int* flags, int* scratch, int B, int H, int W,
+    float* opl, int* flags, int* scratch, int B, int H, int W, int geo,
     void* stream) {
   using namespace tsim;
-  return launch_dm(dm_params(ip, fp, H, W, D4),
+  if (geo & ~1) return (int)cudaErrorInvalidValue;
+  DMParams p = dm_params(ip, fp, H, W, D4);
+  p.geo = geo;
+  return launch_dm(p,
                    Inputs{sdir4, wnd, pa, pb, pc, pd, pe, pl, stop, rain,
                           ped, inter, dest_id, r_mal, r_side, r_reroll,
                           r_prio},
                    Outputs{opa, opb, opc, opd, ope, opl, flags}, scratch, B,
                    (cudaStream_t)stream, GridSelect());
+}
+
+// K1's plan for B worlds of H x W on the current card (`dm_plan`):
+// out = {tiles a block, blocks of the grid, worlds a group, groups}
+extern "C" int tsim_dm_plan(int B, int H, int W, int* out) {
+  using namespace tsim;
+  int cpt = 0, nb = 0, wpg = 0;
+  cudaError_t e = dm_plan<GridSelect>(B, H, W, &cpt, &nb, &wpg);
+  if (e != cudaSuccess) return (int)e;
+  const long per_world =
+      (long)((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
+  const long ntiles = (long)wpg * per_world;
+  out[0] = cpt;
+  out[1] = nb < ntiles ? nb : (int)ntiles;
+  out[2] = wpg;
+  out[3] = (B + wpg - 1) / wpg;
+  return 0;
 }
 
 // K1-hier: one world under hierarchical routing.  `sdir4` [D4, H, W] is

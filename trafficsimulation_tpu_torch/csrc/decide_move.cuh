@@ -31,6 +31,7 @@ namespace tsim {
 
 struct DMParams {
   int H, W, D4;
+  int geo;  // 1: intersection and dest_id one plane a world, 0: shared
   int mal_active, side_active, rain_enabled, ovt_active, stuck_cf_enabled;
   int mal_duration, side_duration, rain_reduction;
   int stuck_cf_thresh, stuck_cf_thresh_inter;
@@ -47,6 +48,7 @@ inline DMParams dm_params(const int* ip, const float* fp, int H, int W,
   p.H = H;
   p.W = W;
   p.D4 = D4;
+  p.geo = 0;
   p.mal_active = ip[0];
   p.side_active = ip[1];
   p.rain_enabled = ip[2];

@@ -8,10 +8,13 @@
 // may continue straight within 2 * TURN_PENALTY of the best; 7 when the
 // best is unreachable (>= KBIG).  Rows past D decode to 7.
 //
-// K2 (one world) is bound by device-memory bytes: K0 is read once,
-// coalesced along W (one thread per cell), the packed stack written once.
-// Each thread walks a run of WORDS_PER_THREAD packed words with pen /
-// legal in registers.
+// K2 is bound by device-memory bytes: K0 is read once, coalesced along
+// W (one thread per cell), the packed stack written once.  Each thread
+// walks a run of WORDS_PER_THREAD packed words with pen / legal in
+// registers.  One launch takes a batch of B worlds (blockIdx.z is the
+// world), each with its own pen4 and stack; K0 and legal4 are one a
+// world or shared (a world stride of 0), so config #4's batch of cities,
+// each with its own key stack, is one launch a segment.
 //
 // K5 (replaces pallas_engine.build_sdir_pallas_batched,
 // _sdir_kernel_batched) encodes the same stack for B worlds that share
@@ -67,10 +70,16 @@ __device__ __forceinline__ uint32_t sdir_enc(const int* k, const int* ps,
 __global__ void sdir_kernel(const int* __restrict__ k0,
                             const int* __restrict__ pen4,
                             const int* __restrict__ legal4,
-                            int* __restrict__ out, int D, int HW, int tp2) {
+                            int* __restrict__ out, int D, int HW, int tp2,
+                            long k0_ws, long legal_ws) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= HW) return;
   const int D4 = (D + 3) / 4;
+  const long b = blockIdx.z;
+  k0 += b * k0_ws;
+  legal4 += b * legal_ws;
+  pen4 += b * 4 * HW;
+  out += b * D4 * HW;
   const int g0 = blockIdx.y * WORDS_PER_THREAD;
   const int g1 = min(g0 + WORDS_PER_THREAD, D4);
   int pshift[4], hbit[4];
@@ -287,14 +296,22 @@ void launch_sdir_batched(const int* k0, const int* pen4b, const int* legal4,
 
 }  // namespace tsim
 
+// K2 for B worlds: pen4 [B, 4, HW] -> out [B, D4, HW]; K0 [(B,) D, 4, HW]
+// and legal4 [(B,) 4, HW] one a world (k0_w, legal_w = 1) or shared (0)
 extern "C" int tsim_build_sdir(const int* k0, const int* pen4,
                                const int* legal4, int* out, int D, int HW,
-                               int tp2, void* stream) {
+                               int tp2, int B, int k0_w, int legal_w,
+                               void* stream) {
   using namespace tsim;
+  if (B > 65535 || (k0_w & ~1) || (legal_w & ~1))
+    return (int)cudaErrorInvalidValue;
+  if (D <= 0 || B <= 0 || HW <= 0) return 0;
   const int D4 = (D + 3) / 4;
-  dim3 grid(blocks_for(HW), (D4 + WORDS_PER_THREAD - 1) / WORDS_PER_THREAD);
-  sdir_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(k0, pen4, legal4,
-                                                          out, D, HW, tp2);
+  dim3 grid(blocks_for(HW), (D4 + WORDS_PER_THREAD - 1) / WORDS_PER_THREAD,
+            B);
+  sdir_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      k0, pen4, legal4, out, D, HW, tp2, k0_w * (long)D * 4 * HW,
+      legal_w * 4L * HW);
   return (int)cudaGetLastError();
 }
 

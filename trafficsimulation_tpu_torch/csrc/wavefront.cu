@@ -7,7 +7,10 @@
 // H100 the function is tiny (a select and a min per step, direction and
 // neighbour; ~5 bytes a cell and world), so launches and device-memory
 // round trips bound a kernel that runs it step by step.  Design: ONE
-// launch a call, a block per (tile, world) (blockIdx.y is the world):
+// launch a call, a block per (tile, world) (blockIdx.y is the world;
+// the geometry `allowed` and `road` is one plane for every world, or
+// one a world where the call passes geo_w = 1: config #4's batch of
+// cities):
 //  - the block stages its TH x 32 output tile plus a halo of
 //    K_OVT + 1 cells of `allowed`, `road` and `hard` into one geometry
 //    byte per cell in shared memory (the grid-edge fills of the padded
@@ -54,7 +57,7 @@ __global__ void __launch_bounds__(THREADS)
     wf_tiled(const uint8_t* __restrict__ allowed,
              const uint8_t* __restrict__ road,
              const uint8_t* __restrict__ hard0, int* __restrict__ out0,
-             int k_ovt, int H, int W, int tiles_x) {
+             int k_ovt, int H, int W, int tiles_x, int geo_w) {
   constexpr int RN_MAX = WF_RW_MAX * (TH + 2 * WF_HALO_MAX);
   __shared__ uint2 wv[2][RN_MAX];
   __shared__ uint8_t geo[RN_MAX];
@@ -66,6 +69,10 @@ __global__ void __launch_bounds__(THREADS)
   const int ox = (blockIdx.x - tile_y * tiles_x) * WF_TW - halo;
   const long HW = (long)H * W;
   const uint8_t* hard = hard0 + (long)blockIdx.y * HW;
+  if (geo_w) {
+    allowed += (long)blockIdx.y * HW;
+    road += (long)blockIdx.y * HW;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int NWARP = THREADS / 32;
   // region offsets of the neighbours in directions N (+y), E, S, W
@@ -189,24 +196,25 @@ __global__ void __launch_bounds__(THREADS)
 template <int TH>
 static cudaError_t wf_launch(const uint8_t* allowed, const uint8_t* road,
                              const uint8_t* hard, int* out, int k_ovt, int B,
-                             int H, int W, cudaStream_t s) {
+                             int H, int W, int geo_w, cudaStream_t s) {
   const int tiles_x = (W + WF_TW - 1) / WF_TW;
   const long tiles = (long)tiles_x * ((H + TH - 1) / TH);
   wf_tiled<TH><<<dim3((unsigned)tiles, B), THREADS, 0, s>>>(
-      allowed, road, hard, out, k_ovt, H, W, tiles_x);
+      allowed, road, hard, out, k_ovt, H, W, tiles_x, geo_w);
   return cudaGetLastError();
 }
 
 }  // namespace tsim
 
 // one launch for B worlds: 32 x 32 tiles, or 32 x 16 where those would
-// leave SMs idle (one world at 256^2)
+// leave SMs idle (one world at 256^2); `allowed` and `road` are shared
+// (geo_w = 0) or [B, H, W] (geo_w = 1)
 extern "C" int tsim_build_wavefront(const uint8_t* allowed,
                                     const uint8_t* road, const uint8_t* hard,
                                     int* out, int k_ovt, int B, int H, int W,
-                                    void* stream) {
+                                    int geo_w, void* stream) {
   using namespace tsim;
-  if (k_ovt < 0 || k_ovt > WF_KMAX || B > 65535)
+  if (k_ovt < 0 || k_ovt > WF_KMAX || B > 65535 || (geo_w != 0 && geo_w != 1))
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || W <= 0) return 0;
   static int nsm = 0;
@@ -221,7 +229,8 @@ extern "C" int tsim_build_wavefront(const uint8_t* allowed,
       (long)B * ((W + WF_TW - 1) / WF_TW) * ((H + 31) / 32);
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(tiles32 < nsm
-                   ? wf_launch<16>(allowed, road, hard, out, k_ovt, B, H, W, s)
+                   ? wf_launch<16>(allowed, road, hard, out, k_ovt, B, H, W,
+                                   geo_w, s)
                    : wf_launch<32>(allowed, road, hard, out, k_ovt, B, H, W,
-                                   s));
+                                   geo_w, s));
 }

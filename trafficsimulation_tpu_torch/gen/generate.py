@@ -3,8 +3,11 @@
 zoning, dead ends, R2 upgrades, entrances, lights and groups, the
 destination table and the cost field of its first MAX_FIELD_DESTS rows.
 
-The band scans run on the host (`gen/bands.py`); every plane stage runs
-on `device` (the card unless the caller asks for the CPU)."""
+The band scans and every other draw from the key run on the host
+(`city_draws`); every plane stage runs on `device` (the card unless the
+caller asks for the CPU) as a function of those draws and nothing else
+(`city_from_draws`), so that a batch of cities runs it once under
+`torch.func.vmap` (`sim.init_worlds`)."""
 
 from __future__ import annotations
 
@@ -18,10 +21,11 @@ from ..core.state import (BlockStatic, DestStatic, Grid, GroupStatic,
                           LightStatic)
 from ..ops.labels import nonzero_fixed, set_last
 from ..ops.routing import compute_cost_fields
-from .bands import ensure_minimum_highways, sample_axis_bands
+from .bands import (Bands, ensure_minimum_highways_batch, per_coord_tables,
+                    sample_axis_bands_batch)
 from .lights import build_lights_and_groups
 from .raster import rasterize
-from .subblocks import carve_subblock_roads
+from .subblocks import carve_subblock_roads, subblock_draws
 from .zoning import (_isin, add_entrance_directions, apply_zoning,
                      eliminate_dead_ends, place_entrances,
                      place_service_cells, prune_intersection_dirs,
@@ -43,36 +47,102 @@ def _routing_road_class(cell, orig_type, ring_corner):
     return base.to(U8)
 
 
+def city_draws(cfg: Config, key) -> dict:
+    """The host part of `generate_city`: everything the city draws from
+    its uint32 [2] key, as numpy arrays: both axes' band lists (`hb_*`,
+    `vb_*`) and their per-coordinate tables (`ht_*`, `vt_*`), the zoning
+    uniforms, the entrance tie-break salt and, with CARVE_SUBBLOCK_ROADS,
+    the sub-block draws (`sb_*`).  A stack of keys [B, 2] gives every
+    array a leading B: the worlds' draws side by side."""
+    keys = np.asarray(key, np.uint32)
+    one = keys.ndim == 1
+    keys = keys.reshape(-1, 2)
+    caps = cfg.capacities()
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    kh, kv, khm, kvm, kz, kent = np.moveaxis(prng.split(keys, 6), -2, 0)
+
+    hbands = sample_axis_bands_batch(kh, cfg, cfg.interior_y_min,
+                                     cfg.interior_y_max, True,
+                                     caps.max_bands)
+    vbands = sample_axis_bands_batch(kv, cfg, cfg.interior_x_min,
+                                     cfg.interior_x_max, False,
+                                     caps.max_bands)
+    inset = cfg.interior_x_min + cfg.HIGHWAY_OFFSET
+    hbands = ensure_minimum_highways_batch(khm, cfg, hbands, H, inset)
+    vbands = ensure_minimum_highways_batch(kvm, cfg, vbands, W, inset)
+    out = {}
+    for tag, bands, n in (("h", hbands, H), ("v", vbands, W)):
+        for f in ("start", "end", "valid"):
+            out[f"{tag}b_{f}"] = getattr(bands, f)
+        for k, v in per_coord_tables(bands, n).items():
+            out[f"{tag}t_{k}"] = v
+    if cfg.CARVE_SUBBLOCK_ROADS:
+        kz, ksb = np.moveaxis(prng.split(kz, 2), -2, 0)
+        out.update({f"sb_{k}": v for k, v in
+                    subblock_draws(ksb, caps.max_blocks).items()})
+    out["zone_u"] = prng.uniform(kz, (caps.max_blocks,))
+    out["ent_salt"] = np.asarray(prng.bits(kent, ()), np.int64)
+    return {k: np.asarray(v)[0] if one else np.asarray(v)
+            for k, v in out.items()}
+
+
+def draws_to(draws: dict, device) -> dict:
+    """The draws of `city_draws` as tensors on `device`."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in draws.items()}
+
+
 def generate_city(cfg: Config, key, device="cuda"):
     """(grid, lights_static, groups_static, blocks_static, dests,
     cost_field f32 [DF, 4, H, W]) from a uint32 [2] key."""
     dev = torch.device(device)
+    city = city_from_draws(cfg, draws_to(city_draws(cfg, key), dev))
+    return (*city, city_cost_field(cfg, city[0], city[4]))
+
+
+def city_cost_field(cfg: Config, grid: Grid, dests: DestStatic):
+    """The cost field of the city's first MAX_FIELD_DESTS destinations,
+    f32 [..., DF, 4, H, W] (leading batch dims allowed)."""
+    caps = cfg.capacities()
+    DF = min(caps.max_dests, cfg.MAX_FIELD_DESTS or caps.max_dests)
+    return compute_cost_fields(cfg, grid.allowed_dirs, grid.road_class,
+                               dests.pos[..., :DF], dests.valid[..., :DF],
+                               is_road=grid.is_road)
+
+
+def city_from_draws(cfg: Config, draws: dict):
+    """The device part of `generate_city` without the cost field: (grid,
+    lights_static, groups_static, blocks_static, dests) from the tensors
+    of `city_draws`, on their device.  A function of tensors, which runs
+    under vmap."""
+    dev = draws["zone_u"].device
     caps = cfg.capacities()
     H, W = cfg.HEIGHT, cfg.WIDTH
     HW = H * W
-    kh, kv, khm, kvm, kz, kent = prng.split(np.asarray(key, np.uint32), 6)
 
-    hbands = sample_axis_bands(kh, cfg, cfg.interior_y_min,
-                               cfg.interior_y_max, True, caps.max_bands)
-    vbands = sample_axis_bands(kv, cfg, cfg.interior_x_min,
-                               cfg.interior_x_max, False, caps.max_bands)
-    inset = cfg.interior_x_min + cfg.HIGHWAY_OFFSET
-    hbands = ensure_minimum_highways(khm, cfg, hbands, H, inset)
-    vbands = ensure_minimum_highways(kvm, cfg, vbands, W, inset)
+    def bands(tag):
+        return Bands(start=draws[f"{tag}b_start"], end=draws[f"{tag}b_end"],
+                     rclass=None, dir=None, valid=draws[f"{tag}b_valid"])
 
-    ras = rasterize(cfg, hbands, vbands, dev)
+    def tables(tag):
+        return {k[3:]: v for k, v in draws.items()
+                if k.startswith(f"{tag}t_")}
+    hbands, vbands = bands("h"), bands("v")
+
+    ras = rasterize(cfg, tables("h"), tables("v"), dev)
     cell, allowed = ras["cell_type"], ras["allowed_dirs"]
     if cfg.CARVE_SUBBLOCK_ROADS:
-        kz, ksb = prng.split(kz, 2)
-        cell, allowed = carve_subblock_roads(cfg, ksb, cell, allowed,
-                                             caps.max_blocks)
+        cell, allowed = carve_subblock_roads(
+            cfg, {k[3:]: v for k, v in draws.items() if k.startswith("sb_")},
+            cell, allowed, caps.max_blocks)
     cell, block_ids, btype, inner_count, bvalid = apply_zoning(
-        kz, cfg, cell, caps.max_blocks)
+        draws["zone_u"], cfg, cell, caps.max_blocks)
     cell, allowed = eliminate_dead_ends(cell, allowed)
     cell, allowed, _ = upgrade_r2_to_intersections(
         cfg, cell, allowed, ras["horiz_band"], ras["ring_corner"])
     cell, allowed, entrance_flat = place_entrances(
-        cfg, cell, allowed, block_ids, btype, caps.max_blocks, key=kent)
+        cfg, cell, allowed, block_ids, btype, caps.max_blocks,
+        key=draws["ent_salt"])
     allowed = prune_intersection_dirs(cell, allowed)
     allowed = add_entrance_directions(cell, allowed)
 
@@ -176,9 +246,4 @@ def generate_city(cfg: Config, key, device="cuda"):
         needs_food=needs_food & blk_valid,
         produces_waste=produces_waste & blk_valid)
 
-    DF = min(caps.max_dests, cfg.MAX_FIELD_DESTS or caps.max_dests)
-    cost_field = compute_cost_fields(cfg, allowed, road_class,
-                                     dest_pos[:DF], dest_valid[:DF],
-                                     is_road=is_road)
-    return grid, lights_static, groups_static, blocks_static, dests, \
-        cost_field
+    return grid, lights_static, groups_static, blocks_static, dests

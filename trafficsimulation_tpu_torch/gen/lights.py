@@ -387,8 +387,9 @@ def build_lights_and_groups(cfg: Config, caps: Capacities, cell, allowed,
     ccx = torch.div(gminx + gmaxx, 2, rounding_mode="floor").clamp(0, W - 1)
     ccy = torch.div(gminy + gmaxy, 2, rounding_mode="floor").clamp(0, H - 1)
     M_INTER = 8
-    neighbor = torch.full((G, 4), -1, dtype=I32, device=dev)
+    neighbor = []
     intermediates = torch.full((G, M_INTER), -1, dtype=I32, device=dev)
+    slots = torch.arange(M_INTER, device=dev)
     gids = torch.arange(G, dtype=I32, device=dev)
     gidl = gids.long()
     if hbands is not None and vbands is not None:
@@ -420,18 +421,20 @@ def build_lights_and_groups(cfg: Config, caps: Capacities, cell, allowed,
                 blocks = nb_ext[g.clamp(0, G - 1).long()] >= my_ext
             found = torch.where(fresh & blocks, g, found)
             put = fresh & ~blocks & (icnt < M_INTER)
-            slot = icnt.clamp(0, M_INTER - 1).long()
-            inters[gidl, slot] = torch.where(put, g, inters[gidl, slot])
+            # inters[g, icnt[g]] = g where put, out of place
+            at = (slots == icnt.clamp(0, M_INTER - 1)[:, None]) & put[:, None]
+            inters = torch.where(at, g[:, None], inters)
             icnt = icnt + put.to(I32)
             last = torch.where(inb & (g >= 0), g, last)
-        neighbor[:, d] = torch.where(g_valid, found, -1)
+        neighbor.append(torch.where(g_valid, found, -1))
         for k in range(M_INTER):
             cand = inters[:, k]
             has = g_valid & (cand >= 0)
             free = torch.argmax((intermediates < 0).to(I32), dim=1)
-            cur = intermediates[gidl, free]
-            intermediates[gidl, free] = torch.where(has & (cur < 0), cand,
-                                                    cur)
+            cur = intermediates.gather(1, free[:, None])[:, 0]
+            at = (slots == free[:, None]) & (has & (cur < 0))[:, None]
+            intermediates = torch.where(at, cand[:, None], intermediates)
+    neighbor = torch.stack(neighbor, dim=1)
 
     return dict(
         cell_type=cell,

@@ -29,10 +29,13 @@ def _table(t: dict, key: str, device) -> torch.Tensor:
 def rasterize(cfg: Config, hbands: Bands, vbands: Bands, device) -> dict:
     """cell_type u8 [H, W], allowed_dirs u8, road_class u8, intersection,
     interior, ring_corner and horiz_band bool planes, and the band tables
-    (ht, vt)."""
+    (ht, vt).  `hbands` and `vbands` may also be their per-coordinate
+    tables (`per_coord_tables`) as tensors: a function of tensors then,
+    which runs under vmap."""
     H, W = cfg.HEIGHT, cfg.WIDTH
-    ht = per_coord_tables(hbands, H)   # indexed by y
-    vt = per_coord_tables(vbands, W)   # indexed by x
+    # indexed by y and by x
+    ht = hbands if isinstance(hbands, dict) else per_coord_tables(hbands, H)
+    vt = vbands if isinstance(vbands, dict) else per_coord_tables(vbands, W)
     ys = torch.arange(H, dtype=torch.int32, device=device)[:, None]
     xs = torch.arange(W, dtype=torch.int32, device=device)[None, :]
 

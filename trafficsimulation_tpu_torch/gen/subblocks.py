@@ -7,6 +7,7 @@ one step at a time."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import codes as C
@@ -18,6 +19,22 @@ from .raster import shift_from
 from .zoning import _isin
 
 I32 = torch.int32
+
+
+SUBBLOCK_DRAWS = ("carve", "px", "py", "hd", "vd", "leg")
+
+
+def subblock_draws(key, max_blocks: int) -> dict:
+    """What `carve_subblock_roads` draws from its key (numpy [B] each,
+    with a leading dim for a stack of keys): the carve, x and y uniforms
+    and the three coin flips."""
+    ks = np.moveaxis(prng.split(key, 6), -2, 0)
+    B = max_blocks
+    return dict(carve=prng.uniform(ks[0], (B,)), px=prng.uniform(ks[1], (B,)),
+                py=prng.uniform(ks[2], (B,)),
+                hd=prng.bernoulli(ks[3], 0.5, (B,)),
+                vd=prng.bernoulli(ks[4], 0.5, (B,)),
+                leg=prng.bernoulli(ks[5], 0.5, (B,)))
 
 
 def carve_subblock_roads(cfg: Config, key, cell, allowed, max_blocks: int):
@@ -43,26 +60,23 @@ def carve_subblock_roads(cfg: Config, key, cell, allowed, max_blocks: int):
     maxy = seg_max(torch.where(inb, ys, -1), seg, B + 1, -1)[:B]
     big_enough = (roots >= 0) & (maxx - minx + 1 >= sp * 2 + 1) & \
         (maxy - miny + 1 >= sp * 2 + 1)
-    k_ch, k_px, k_py, k_hd, k_vd, k_leg = prng.split(key, 6)
+    # the key, or its draws (`subblock_draws`) as tensors
+    dr = key if isinstance(key, dict) else {
+        k: torch.from_numpy(v).to(dev)
+        for k, v in subblock_draws(key, B).items()}
 
-    def draw(x):
-        return torch.from_numpy(x).to(dev)
+    carve = big_enough & (dr["carve"] < torch.tensor(cfg.SUBBLOCK_CHANGE,
+                                                     dtype=torch.float32))
 
-    carve = big_enough & (draw(prng.uniform(k_ch, (B,)))
-                          < torch.tensor(cfg.SUBBLOCK_CHANGE,
-                                         dtype=torch.float32))
-
-    def rint(k, lo, hi):
+    def rint(u, lo, hi):
         span = torch.clamp(hi - lo + 1, min=1).to(torch.float32)
-        return lo + torch.floor(draw(prng.uniform(k, (B,))) * span).to(I32)
+        return lo + torch.floor(u * span).to(I32)
 
-    px = rint(k_px, minx + sp, maxx - sp).clamp(0, W - 1)
-    py = rint(k_py, miny + sp, maxy - sp).clamp(0, H - 1)
-    hd = torch.where(draw(prng.bernoulli(k_hd, 0.5, (B,))), C.E_IDX,
-                     C.W_IDX).to(I32)
-    vd = torch.where(draw(prng.bernoulli(k_vd, 0.5, (B,))), C.N_IDX,
-                     C.S_IDX).to(I32)
-    inbound_vert = draw(prng.bernoulli(k_leg, 0.5, (B,)))
+    px = rint(dr["px"], minx + sp, maxx - sp).clamp(0, W - 1)
+    py = rint(dr["py"], miny + sp, maxy - sp).clamp(0, H - 1)
+    hd = torch.where(dr["hd"], C.E_IDX, C.W_IDX).to(I32)
+    vd = torch.where(dr["vd"], C.N_IDX, C.S_IDX).to(I32)
+    inbound_vert = dr["leg"]
 
     dxs = torch.as_tensor(C.DIR_DX, device=dev)
     dys = torch.as_tensor(C.DIR_DY, device=dev)

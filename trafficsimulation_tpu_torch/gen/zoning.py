@@ -13,8 +13,8 @@ from .. import prng
 from ..config import Config
 from ..ops.engine import _hash32, _M32
 from ..ops.labels import (BIG, compact_labels, connected_components,
-                          connected_components_keyed, seg_max, seg_min,
-                          seg_sum, set_last)
+                          any_set, connected_components_keyed, seg_max,
+                          seg_min, seg_sum, set_last)
 from .raster import shift_from
 
 U8 = torch.uint8
@@ -22,7 +22,10 @@ I32 = torch.int32
 
 
 def _isin(x: torch.Tensor, codes) -> torch.Tensor:
-    return torch.isin(x, torch.tensor(codes, dtype=x.dtype, device=x.device))
+    """`torch.isin(x, codes)` by a compare per code (vmap has a rule for
+    that, and none for `isin`)."""
+    codes = torch.tensor(codes, dtype=x.dtype, device=x.device).reshape(-1)
+    return (x[..., None] == codes).any(dim=-1)
 
 
 def _flat_xy(H: int, W: int, device):
@@ -39,7 +42,8 @@ def zone_cum(cfg: Config) -> np.ndarray:
 def apply_zoning(key, cfg: Config, cell: torch.Tensor, max_blocks: int):
     """Flood-fill `Nothing` regions into typed blocks: (cell, block_id
     map i32 [H, W], block_type u8 [B], inner_count i32 [B], valid
-    [B])."""
+    [B]).  `key` is the key, or its draw (f32 uniforms [B]) as a
+    tensor."""
     H, W = cell.shape
     dev = cell.device
     labels = connected_components(cell == C.NOTHING)
@@ -60,7 +64,8 @@ def apply_zoning(key, cfg: Config, cell: torch.Tensor, max_blocks: int):
     codes = torch.tensor([C.NAME_TO_TYPE[n] for n in names], dtype=U8,
                          device=dev)
     cum = torch.from_numpy(zone_cum(cfg)).to(dev)
-    u = torch.from_numpy(prng.uniform(key, (max_blocks,))).to(dev)
+    u = (key if isinstance(key, torch.Tensor) else
+         torch.from_numpy(prng.uniform(key, (max_blocks,))).to(dev))
     draw = (u[:, None] >= cum[None, :]).sum(dim=1)
     btype = codes[draw.clamp(0, len(names) - 1)]
     btype = torch.where(small, C.EMPTY, btype)
@@ -78,7 +83,7 @@ def eliminate_dead_ends(cell: torch.Tensor, allowed: torch.Tensor):
         roady = _isin(cell, C.ROAD_LIKE)
         deg = sum(shift_from(roady, d).to(I32) for d in range(4))
         dead = _isin(cell, C.REMOVABLE_DEAD_END) & (deg < 2)
-        if not bool(dead.any()):
+        if not any_set(dead):
             return cell, allowed
         cell = torch.where(dead, C.SIDEWALK, cell)
         allowed = torch.where(dead, 0, allowed)
@@ -130,8 +135,8 @@ def place_entrances(cfg: Config, cell, allowed, block_ids, btype,
     """One BlockEntrance per typed block at the middle of its longest
     road-touching perimeter run, (x, y)-ordered; ties between runs broken
     by a hash of the run root salted from `key` (the JAX
-    `place_entrances`).  Returns (cell, allowed, entrance_flat [B]
-    i32)."""
+    `place_entrances`; `key` may be the salt, its u32 draw, as an int64
+    tensor).  Returns (cell, allowed, entrance_flat [B] i32)."""
     H, W = cell.shape
     HW = H * W
     dev = cell.device
@@ -173,7 +178,8 @@ def place_entrances(cfg: Config, cell, allowed, block_ids, btype,
     best_len = seg_max(my_len, bseg, max_blocks + 1, 0)
     is_best_len = cand_flat & (my_len == best_len[bseg]) & (my_len > 0)
     if key is not None:
-        salt = int(prng.bits(key, ()))
+        salt = (key if isinstance(key, torch.Tensor)
+                else int(prng.bits(key, ())))
         tiekey = (_hash32((flat_runs.to(torch.int64) & _M32) ^ salt)
                   >> 2).to(I32)
     else:
@@ -186,8 +192,7 @@ def place_entrances(cfg: Config, cell, allowed, block_ids, btype,
     # (run, x, y); the pairs are unique, so the order is total
     runkey = torch.where(cand_flat, my_run, HW).to(torch.int64)
     order = torch.argsort(runkey * HW + (xs * H + ys).to(torch.int64))
-    rank = torch.empty(HW, dtype=I32, device=dev)
-    rank[order] = flat
+    rank = torch.argsort(order).to(I32)         # rank[order] = flat
     run_rank0 = seg_min(torch.where(cand_flat, rank, BIG), rseg, HW + 1, BIG)
     pos = rank - run_rank0[my_run]
     at_mid = in_best & (pos == torch.div(my_len, 2, rounding_mode="floor"))

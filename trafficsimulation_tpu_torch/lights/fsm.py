@@ -130,8 +130,10 @@ def group_reductions(grid: Grid, occupancy: torch.Tensor, num_groups: int,
     P = _prefix_planes(occupancy)
     cnt = P[gs.run_hi.long()] - P[gs.run_lo.long()]
     seg = torch.where(gs.run_seg >= 0, gs.run_seg, G * 5).long()
+    # scatter_add, not index_add: vmap batches it in one op where each
+    # world has its own runs (index_add's rule loops over the worlds)
     sums = torch.zeros((G * 5 + 1,), dtype=torch.int32,
-                       device=occupancy.device).index_add(0, seg, cnt)
+                       device=occupancy.device).scatter_add(0, seg, cnt)
     q = sums[:G * 5].reshape(G, 5)
     return (q[:, NS_IN], q[:, NS_OUT], q[:, EW_IN], q[:, EW_OUT],
             q[:, 4] > 0)
@@ -289,10 +291,11 @@ def build_stop_map(grid: Grid, ls: LightStatic, state: LightsState,
     one = stopped.to(torch.int32)
     sink = NH + NV
     diff = torch.zeros((NH + NV + 1,), dtype=torch.int32, device=dev)
-    diff = diff.index_add(0, torch.where(stopped, ls.srun_lo, sink).long(),
-                          one)
-    diff = diff.index_add(0, torch.where(stopped, ls.srun_hi, sink).long(),
-                          -one)
+    # scatter_add for vmap, as in `group_reductions` (exact in any order)
+    diff = diff.scatter_add(0, torch.where(stopped, ls.srun_lo, sink).long(),
+                            one)
+    diff = diff.scatter_add(0, torch.where(stopped, ls.srun_hi, sink).long(),
+                            -one)
     cov_h = torch.cumsum(diff[:NH].reshape(H, W + 1), 1,
                          dtype=torch.int32)[:, :W]
     cov_v = torch.cumsum(diff[NH:NH + NV].reshape(H + 1, W), 0,
@@ -302,7 +305,8 @@ def build_stop_map(grid: Grid, ls: LightStatic, state: LightsState,
     ex_ok = ls.sextra_cell >= 0
     ex_stop = ex_ok & state.light_stop[
         torch.clamp(ls.sextra_light, 0, L - 1).long()]
-    extra = torch.zeros((HW + 1,), dtype=torch.int32, device=dev).index_add(
+    extra = torch.zeros((HW + 1,), dtype=torch.int32,
+                        device=dev).scatter_add(
         0, torch.where(ex_stop, ls.sextra_cell, HW).long(),
         ex_stop.to(torch.int32))
     return stop | (extra[:HW] > 0).reshape(H, W)

@@ -40,9 +40,12 @@ I = ctypes.c_int
 _ARGTYPES = {
     # ip[16], fp[2], sdir4, D4, wnd, pa..pe, pl, stop, rain, ped, inter,
     # dest_id, r_mal, r_side, r_reroll, r_prio, out pa..pe, out pl,
-    # flags, scratch, B, H, W, stream
+    # flags, scratch, B, H, W, inter and dest_id per world (0/1), stream
     "tsim_decide_move": [P, P, P, I, P] + [P] * 6 + [P] * 4 + [P]
-    + [P] * 4 + [P] * 6 + [P, P, I, I, I, P],
+    + [P] * 4 + [P] * 6 + [P, P, I, I, I, I, P],
+    # B, H, W, out[3]: K1's cooperative plan for B worlds on this card
+    # (tiles a block, blocks, world groups)
+    "tsim_dm_plan": [I, I, I, P],
     # ip[16], fp[2], hier constants[10], local4, LD4, then the arguments
     # of tsim_decide_move from sdir4 to scratch, H, W, stream
     "tsim_decide_move_hier": [P, P, P, P, I, P, I, P] + [P] * 6 + [P] * 4
@@ -54,12 +57,14 @@ _ARGTYPES = {
     # colour table, cell, stop, rain, vehicle classes, out, HW, the light
     # and controlled-road codes, stream
     "tsim_render_planes": [P] * 6 + [I] * 3 + [P],
-    # K0, pen4, legal4, out, D, HW, tp2, stream
-    "tsim_build_sdir": [P, P, P, P, I, I, I, P],
+    # K0, pen4, legal4, out, D, HW, tp2, B, K0 and legal4 per world (0/1),
+    # stream
+    "tsim_build_sdir": [P, P, P, P, I, I, I, I, I, I, P],
     # K0, pen4b, legal4, out, D, HW, tp2, B, stream
     "tsim_build_sdir_batched": [P, P, P, P, I, I, I, I, P],
-    # allowed, road, hard, out, k_ovt, B, H, W, stream
-    "tsim_build_wavefront": [P, P, P, P, I, I, I, I, P],
+    # allowed, road, hard, out, k_ovt, B, H, W, geometry per world (0/1),
+    # stream
+    "tsim_build_wavefront": [P, P, P, P, I, I, I, I, I, P],
     # occ, outh, outv, B, H, W, stream
     "tsim_prefix_planes": [P, P, P, I, I, I, P],
     # base, idx, vals, out, work area (or null), R, T, n, stream

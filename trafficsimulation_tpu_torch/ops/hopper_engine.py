@@ -36,20 +36,22 @@ tensors it launches its kernel (built from `csrc/` by `ops/build.py`)
 or raises.  There is no fallback from one to the other.  `launches`
 counts, per kernel, the wrapper calls that launched it.
 
-Batches.  K1, K3, K4, `ordered_add` and `rain_ticks` take a leading
-batch of worlds
-(`*_batched`; one launch per batch, the geometry shared); the
-single-world wrappers are the B = 1 call.  The single-world wrappers
-have a `torch.autograd.Function` with a `vmap` rule (K1, K4,
-`ordered_add` and `rain_ticks` take it only while a functorch transform
-is active, and otherwise launch directly), the counterpart of
-the batching rules that `jax.vmap` finds for the Pallas kernels: under
-`torch.func.vmap` (the shared-geometry batch, `parallel/mesh.py`) each
-launches its batched kernel once for the whole batch.  A vmapped
-`build_sdir` whose key stack and legality planes are shared goes to
-K5, which reads the key stack once for the batch; any other batching
-of an input the kernel shares maps the single-world wrapper over the
-worlds, as JAX's `custom_vmap` rule for the sdir build does.
+Batches.  K1, K2 (`build_sdir_stacks`), K3, K4, `ordered_add` and
+`rain_ticks` take a leading batch of worlds (`*_batched`; one launch per
+batch); the geometry that K1, K2 and K3 read (intersection and dest_id,
+the key stack and legality planes, allowed and is_road) is either shared
+by the batch or one plane a world (config #4's batch of different
+cities).  The single-world wrappers are the B = 1 call.  They have a
+`torch.autograd.Function` with a `vmap` rule (K1, K3, K4, `ordered_add`
+and `rain_ticks` take it only while a functorch transform is active, and
+otherwise launch directly), the counterpart of the batching rules that
+`jax.vmap` finds for the Pallas kernels: under `torch.func.vmap` (the
+world batches of `parallel/mesh.py`) each launches its batched kernel
+once for the whole batch, whichever of its arguments are batched.  A
+vmapped `build_sdir` whose key stack and legality planes are shared goes
+to K5, which reads the key stack once for the batch; any other goes to
+the batched K2.  Only K9's rule maps the single-world wrapper over the
+worlds (`_map_worlds`).
 
 Packed u32 planes are carried as int32 with the same bits: every right
 shift below is masked to the field it extracts, so the sign fill of the
@@ -397,16 +399,17 @@ def sdir_encode(K0: torch.Tensor, pen4: torch.Tensor, legal4: torch.Tensor,
     hbit = [torch.where(legal[h], 1 << (4 + h), 0).to(torch.int32)
             for h in range(4)]
     pshift = [pen4[m] << 2 for m in range(4)]
-    out = torch.zeros((D4, H, W), dtype=torch.int32, device=dev)
+    words = []
     GB = 32                                     # words per block
     for g0 in range(0, D4, GB):
         g1 = min(D4, g0 + GB)
         word = torch.zeros((g1 - g0, H, W), dtype=torch.int32, device=dev)
         for k in range(4):
             rows = torch.arange(4 * g0 + k, 4 * g1, 4, device=dev)
-            enc = torch.full((g1 - g0, H, W), 7, dtype=torch.int32,
-                             device=dev)
             rows = rows[rows < D]
+            # rows past D decode to 7 (out of place, so that vmap runs it)
+            enc = torch.full((g1 - g0 - rows.numel(), H, W), 7,
+                             dtype=torch.int32, device=dev)
             if rows.numel():
                 blk = K0[rows]
                 keys = [blk[:, m] + pshift[m] for m in range(4)]
@@ -420,10 +423,10 @@ def sdir_encode(K0: torch.Tensor, pen4: torch.Tensor, legal4: torch.Tensor,
                 for h in range(4):
                     e = e | torch.where(keys[h] <= bnd2, hbit[h], 0)
                 e = torch.where(best >= KBIG, 7, e)
-                enc[:rows.numel()] = e
+                enc = torch.cat([e.to(torch.int32), enc])
             word = word | (enc << (8 * k))
-        out[g0:g1] = word
-    return out
+        words.append(word)
+    return torch.cat(words)
 
 
 def wavefront_core(cfg: Config, allowed, is_road, hard) -> torch.Tensor:
@@ -469,30 +472,43 @@ def wavefront_core(cfg: Config, allowed, is_road, hard) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+def _bdim(t, dims: int):
+    """vmap's in_dim of `t`: 0 where it carries a batch dim ahead of its
+    `dims` trailing dims, None where the batch shares it."""
+    return 0 if t.dim() > dims else None
+
+
 def decide_move_core_batched(cfg: Config, sdir4, wnd, planes, stop_map,
                              rain_map, ped_block, intersection, dest_id,
                              randoms):
-    """Plain version of the batched K1: `decide_move_core` per world;
-    every argument carries a leading B except the shared `intersection`
-    and `dest_id`.  Returns the 7 outputs, each [B, H, W]."""
-    outs = [decide_move_core(
-        cfg, sdir4[b], wnd[b], *(p[b] for p in planes), stop_map[b],
-        rain_map[b], ped_block[b], intersection, dest_id,
-        *(r[b] for r in randoms)) for b in range(planes[0].shape[0])]
-    return tuple(torch.stack(o) for o in zip(*outs))
+    """Plain version of the batched K1: `decide_move_core` on every world
+    (under `torch.func.vmap`); every argument carries a leading B, and
+    the geometry `intersection` and `dest_id` is [B, H, W] or shared
+    [H, W].  Returns the 7 outputs, each [B, H, W]."""
+    dims = ((0,) * 11 + (_bdim(intersection, 2), _bdim(dest_id, 2))
+            + (0,) * 4)
+    return torch.func.vmap(lambda *a: decide_move_core(cfg, *a),
+                           in_dims=dims)(
+        sdir4, wnd, *planes, stop_map, rain_map, ped_block, intersection,
+        dest_id, *randoms)
 
 
 def wavefront_core_batched(cfg: Config, allowed, is_road, hard):
-    """Plain version of the batched K3: `wavefront_core` per world of
-    `hard` [B, H, W] over the shared geometry."""
-    return torch.stack([wavefront_core(cfg, allowed, is_road, h)
-                        for h in hard])
+    """Plain version of the batched K3: `wavefront_core` on every world
+    of `hard` [B, H, W] (under vmap); the geometry `allowed` and
+    `is_road` is [B, H, W] or shared [H, W]."""
+    return torch.func.vmap(lambda *a: wavefront_core(cfg, *a), in_dims=(
+        _bdim(allowed, 2), _bdim(is_road, 2), 0))(allowed, is_road, hard)
 
 
 def sdir_encode_batched(K0, pen4b, legal4, tp2: int) -> torch.Tensor:
-    """Plain version of K5: K2's encode per world over a shared key
-    stack, [B, ceil(D/4), H, W]."""
-    return torch.stack([sdir_encode(K0, p, legal4, tp2) for p in pen4b])
+    """Plain version of K5 and of the batched K2: K2's encode on every
+    world of pen4b [B, 4, H, W] (under vmap), over the key stack K0
+    [B, D, 4, H, W] or shared [D, 4, H, W] and the legality planes
+    legal4 [B, 4, H, W] or shared [4, H, W]; [B, ceil(D/4), H, W]."""
+    return torch.func.vmap(lambda k, p, lg: sdir_encode(k, p, lg, tp2),
+                           in_dims=(_bdim(K0, 4), 0, _bdim(legal4, 3)))(
+        K0, pen4b, legal4)
 
 
 def prefix_planes_plain(occ: torch.Tensor):
@@ -684,7 +700,7 @@ def _dm_check(sdir4, wnd, planes, masks, intersection, dest_id, randoms,
     """Raise unless K1's arguments are what its kernel takes: int32 /
     f32 / bool, contiguous, on one card; the per-world tensors of one
     shape [(B,) H, W], the stacks [(B,) D4, H, W], the geometry
-    [H, W]."""
+    `intersection` and `dest_id` both [H, W] or both [B, H, W]."""
     pa = planes[0]
     dev, shape = pa.device, tuple(pa.shape)
     i32t, f32t, bt = torch.int32, torch.float32, torch.bool
@@ -703,16 +719,17 @@ def _dm_check(sdir4, wnd, planes, masks, intersection, dest_id, randoms,
                         ("r_reroll", randoms[2], i32t),
                         ("r_prio", randoms[3], i32t)):
         _check(name, t, dt, shape, dev)
-    _check("intersection", intersection, bt, shape[-2:], dev)
-    _check("dest_id", dest_id, i32t, shape[-2:], dev)
+    geo = shape if intersection.dim() == 3 else shape[-2:]
+    _check("intersection", intersection, bt, geo, dev)
+    _check("dest_id", dest_id, i32t, geo, dev)
 
 
 def _dm_launch(cfg: Config, sdir4, wnd, planes, masks, intersection,
                dest_id, randoms, hier=None):
     """One K1 launch over checked tensors on the card, [H, W] or
-    [B, H, W] per world (K1-hier with `hier` = (local4, its 10 constants),
-    one world): (pa, pb, pc, pd, pe, pl, flags), views of one
-    allocation."""
+    [B, H, W] per world, the geometry shared or one plane a world
+    (K1-hier with `hier` = (local4, its 10 constants), one world): (pa,
+    pb, pc, pd, pe, pl, flags), views of one allocation."""
     pa = planes[0]
     H, W = pa.shape[-2:]
     B = pa.shape[0] if pa.dim() == 3 else 1
@@ -731,7 +748,8 @@ def _dm_launch(cfg: Config, sdir4, wnd, planes, masks, intersection,
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     if hier is None:
         entry = "tsim_decide_move"
-        rc = _entry(entry)(ip, fp, *args, B, H, W, stream)
+        rc = _entry(entry)(ip, fp, *args, B, H, W,
+                           int(intersection.dim() == 3), stream)
     else:
         local4, consts = hier
         entry = "tsim_decide_move_hier"
@@ -746,8 +764,11 @@ def _dm_launch(cfg: Config, sdir4, wnd, planes, masks, intersection,
 
 def decide_move_batched(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
                         ped_block, intersection, dest_id, randoms):
-    """K1 for a batch of B worlds: every argument carries a leading B
-    except the shared geometry `intersection` and `dest_id` [H, W].
+    """K1 for a batch of B worlds: every argument carries a leading B;
+    the geometry `intersection` and `dest_id` is both shared [H, W] or
+    both one plane a world [B, H, W] (a batch of different cities,
+    config #4; the vmap rule broadcasts a shared one beside a batched
+    one).
     Returns (pa, pb, pc, pd, pe, pl, flags), each [B, H, W].
 
     Replaces `pallas_engine.decide_move_pallas` (`_kernel` ->
@@ -761,8 +782,10 @@ def decide_move_batched(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
     reads (the decide aux word, halt, moved, presence, the intent it
     last published) stays in one register per cell, and the phases
     write a cell's working planes, keys and info words only where they
-    change.  The wrapper makes one allocation for the seven outputs and
-    resolves the entry point once."""
+    change.  A batch with more tiles than one resident grid holds runs
+    as world groups, one after another inside the same launch
+    (`dm_plan`).  The wrapper makes one allocation for the seven outputs
+    and resolves the entry point once."""
     masks = (stop_map, rain_map, ped_block)
     if not _on_cuda(planes[0]):
         return decide_move_core_batched(cfg, sdir4, wnd, planes, stop_map,
@@ -776,8 +799,20 @@ def decide_move_batched(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
                       randoms)
 
 
-# argument positions of _DecideMove after cfg: the per-world tensors and
-# the shared geometry
+def dm_plan(B: int, H: int, W: int, device=None) -> dict:
+    """K1's cooperative plan for B worlds of H x W on the card: tiles a
+    block, blocks of the grid, worlds a group and world groups (one
+    launch walks the groups in turn)."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        _check_rc("tsim_dm_plan", _entry("tsim_dm_plan")(
+            B, H, W, ctypes.addressof(out)))
+    return dict(zip(("tiles_per_block", "blocks", "worlds_per_group",
+                     "groups"), out))
+
+
+# argument positions of _DecideMove after cfg: the geometry, which a
+# batch may share
 _DM_SHARED = (11, 12)       # intersection, dest_id
 
 
@@ -813,13 +848,11 @@ class _DecideMove(_Kernel):
     def vmap(info, in_dims, cfg, *args):
         dims = in_dims[1:]
         B = info.batch_size
-        if any(dims[i] is not None for i in _DM_SHARED):
-            out = _map_worlds(lambda *a: _DecideMove.forward(cfg, *a), B,
-                              dims, args)
-        else:
-            out = _dm_batched(cfg, [
-                a if i in _DM_SHARED else _front(a, d, B)
-                for i, (a, d) in enumerate(zip(args, dims))])
+        # the geometry stays shared only where the batch shares all of it
+        geo_shared = all(dims[i] is None for i in _DM_SHARED)
+        out = _dm_batched(cfg, [
+            a if i in _DM_SHARED and geo_shared else _front(a, d, B)
+            for i, (a, d) in enumerate(zip(args, dims))])
         return out, (0,) * 7
 
 
@@ -1030,7 +1063,42 @@ def _sdir_single(K0, pen4, legal4, tp2: int):
     out = torch.empty(((D + 3) // 4, H, W), dtype=torch.int32, device=dev)
     _call("tsim_build_sdir", _ptr(K0), _ptr(pen4), _ptr(legal4), _ptr(out),
           ctypes.c_int(D), ctypes.c_int(H * W), ctypes.c_int(int(tp2)),
-          _stream(dev))
+          ctypes.c_int(1), ctypes.c_int(0), ctypes.c_int(0), _stream(dev))
+    launches["build_sdir"] += 1
+    return out
+
+
+def build_sdir_stacks(K0, pen4b, legal4, tp2: int):
+    """K2 for B worlds, each with its own next-move stack: pen4b [B, 4,
+    H, W] over the key stacks K0 [B, D, 4, H, W] (or one shared [D, 4, H,
+    W]) and the legality planes legal4 [B, 4, H, W] (or shared [4, H,
+    W]) -> [B, ceil(D/4), H, W] int32.
+
+    Replaces `pallas_engine.build_sdir_pallas` under `jax.vmap` with the
+    key stack batched (config #4's cities: the Pallas batching rule makes
+    the batch one grid dimension of one `pallas_call`).  Source:
+    csrc/sdir.cu (`sdir_kernel`, blockIdx.z the world).  On the H100 it
+    is bound by device-memory bytes: every world's key stack read once
+    (2 MB a world at config #4: D = 32, 64^2) and its packed stack
+    written once.  Design: K2's one thread per cell and run of packed
+    words, with a grid dimension for the world and per-world strides
+    (0 where an input is shared); K5's sharing of one K0 across the
+    worlds of a thread does not apply when every world has its own."""
+    if not _on_cuda(pen4b):
+        return sdir_encode_batched(K0, pen4b, legal4, tp2)
+    B, _, H, W = pen4b.shape
+    D = K0.shape[-4]
+    dev = pen4b.device
+    k0_w, legal_w = int(K0.dim() == 5), int(legal4.dim() == 4)
+    _check("K0", K0, torch.int32, (B,) * k0_w + (D, 4, H, W), dev)
+    _check("pen4b", pen4b, torch.int32, (B, 4, H, W), dev)
+    _check("legal4", legal4, torch.int32, (B,) * legal_w + (4, H, W), dev)
+    out = torch.empty((B, (D + 3) // 4, H, W), dtype=torch.int32,
+                      device=dev)
+    _check_rc("tsim_build_sdir", _entry("tsim_build_sdir")(
+        K0.data_ptr(), pen4b.data_ptr(), legal4.data_ptr(), out.data_ptr(),
+        D, H * W, int(tp2), B, k0_w, legal_w,
+        torch._C._cuda_getCurrentRawStream(dev.index)))
     launches["build_sdir"] += 1
     return out
 
@@ -1077,19 +1145,21 @@ class _BuildSdir(_Kernel):
     @staticmethod
     def vmap(info, in_dims, K0, pen4, legal4, tp2):
         kd, pd, ld, _ = in_dims
-        if kd is None and ld is None and pd is not None:
-            out = build_sdir_batched(K0, pen4.movedim(pd, 0).contiguous(),
-                                     legal4, tp2)
+        B = info.batch_size
+        if kd is None and ld is None:
+            out = build_sdir_batched(K0, _front(pen4, pd, B), legal4, tp2)
         else:
-            out = _map_worlds(lambda k, p, lg: _sdir_single(k, p, lg, tp2),
-                              info.batch_size, (kd, pd, ld),
-                              (K0, pen4, legal4))
+            out = build_sdir_stacks(
+                K0 if kd is None else _front(K0, kd, B), _front(pen4, pd, B),
+                legal4 if ld is None else _front(legal4, ld, B), tp2)
         return out, 0
 
 
 def build_sdir(K0, pen4, legal4, tp2: int):
     """K2, the per-segment next-move stack [ceil(D/4), H, W] int32 of one
-    world; under vmap with K0 and legal4 shared, K5.
+    world; under vmap with K0 and legal4 shared, K5, and otherwise the
+    batched K2 (`build_sdir_stacks`): one launch for the batch either
+    way.
 
     Replaces `pallas_engine.build_sdir_pallas` (`_sdir_kernel` ->
     `_sdir_body`, ops/pallas_engine.py).  Source: csrc/sdir.cu.  On the
@@ -1107,26 +1177,29 @@ def build_sdir(K0, pen4, legal4, tp2: int):
 WAVEFRONT_KMAX = 8        # the most relax steps K3 takes (csrc WF_KMAX)
 
 
-def _wavefront_launch(k_ovt: int, allowed, is_road, hard, B: int):
+def _wavefront_launch(k_ovt: int, allowed, is_road, hard, B: int,
+                      geo: int = 0):
     """One K3 launch over the B worlds of `hard` ([B, H, W] or [H, W] for
-    B = 1; every tensor checked by the caller): the packed planes, shaped
-    as `hard`."""
+    B = 1; every tensor checked by the caller), the geometry shared
+    (geo = 0) or [B, H, W] (geo = 1): the packed planes, shaped as
+    `hard`."""
     if not 0 <= k_ovt <= WAVEFRONT_KMAX:
         raise ValueError(f"K3 takes at most {WAVEFRONT_KMAX} relax steps "
                          f"(VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS = {k_ovt})")
-    H, W = allowed.shape
+    H, W = hard.shape[-2:]
     out = torch.empty(hard.shape, dtype=torch.int32, device=hard.device)
     _check_rc("tsim_build_wavefront", _entry("tsim_build_wavefront")(
         allowed.data_ptr(), is_road.data_ptr(), hard.data_ptr(),
-        out.data_ptr(), k_ovt, B, H, W,
+        out.data_ptr(), k_ovt, B, H, W, geo,
         torch._C._cuda_getCurrentRawStream(hard.device.index)))
     launches["build_wavefront"] += 1
     return out
 
 
 def build_wavefront_batched(cfg: Config, allowed, is_road, hard):
-    """K3 for B worlds: `allowed` u8 and `is_road` bool [H, W] shared,
-    `hard` bool [B, H, W] -> packed int32 [B, H, W].
+    """K3 for B worlds: `allowed` u8 and `is_road` bool, both shared
+    [H, W] or both one plane a world [B, H, W] (a batch of different
+    cities, config #4), `hard` bool [B, H, W] -> packed int32 [B, H, W].
 
     Replaces `pallas_engine.build_wavefront_pallas` (`_wavefront_kernel`
     -> `wavefront_core`, ops/pallas_engine.py).  Source:
@@ -1139,17 +1212,18 @@ def build_wavefront_batched(cfg: Config, allowed, is_road, hard):
     the relax steps on the four directions' values in 16-bit lanes in
     shared memory (DPX min-of-three and add-min), then the argmin and
     one int32 store per cell.  K_OVT (VEHICLE_MAX_CONTRAFLOW_OVERTAKE_
-    STEPS) may be at most WAVEFRONT_KMAX."""
-    if not _on_cuda(allowed):
+    STEPS) may be at most WAVEFRONT_KMAX.  The geometry's world stride
+    is a launch argument: 0 where the batch shares it."""
+    if not _on_cuda(hard):
         return wavefront_core_batched(cfg, allowed, is_road, hard)
-    B = hard.shape[0]
-    H, W = allowed.shape
-    dev = allowed.device
-    _check("allowed", allowed, torch.uint8, (H, W), dev)
-    _check("is_road", is_road, torch.bool, (H, W), dev)
+    B, H, W = hard.shape
+    dev = hard.device
+    geo = int(allowed.dim() == 3)
+    _check("allowed", allowed, torch.uint8, (B,) * geo + (H, W), dev)
+    _check("is_road", is_road, torch.bool, (B,) * geo + (H, W), dev)
     _check("hard", hard, torch.bool, (B, H, W), dev)
     return _wavefront_launch(cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS,
-                             allowed, is_road, hard, B)
+                             allowed, is_road, hard, B, geo)
 
 
 def _wavefront_single(cfg: Config, allowed, is_road, hard):
@@ -1184,9 +1258,9 @@ class _BuildWavefront(_Kernel):
             out = build_wavefront_batched(cfg, allowed, is_road,
                                           _front(hard, hd, B))
         else:
-            out = _map_worlds(
-                lambda a, r, h: _wavefront_single(cfg, a, r, h), B,
-                (ad, rd, hd), (allowed, is_road, hard))
+            out = build_wavefront_batched(cfg, _front(allowed, ad, B),
+                                          _front(is_road, rd, B),
+                                          _front(hard, hd, B))
         return out, 0
 
 

@@ -10,6 +10,12 @@ labels are those of the JAX `while_loop`, which tests after every sweep.
 
 Also here: the fixed-size `nonzero`, segment reductions and the
 last-write-wins scatter that the generation modules share.
+
+Each runs under `torch.func.vmap` (`sim.init_worlds` generates a batch
+of cities that way): no output's shape depends on the data, and the two
+host tests, a fixpoint's and the dead-end loop's, read the whole batch
+(`all_equal`, `any_set`).  A stable loop that runs on until every world
+of the batch is stable leaves each world as it would leave it alone.
 """
 
 from __future__ import annotations
@@ -22,15 +28,38 @@ BIG = 2**30
 CHECK_EVERY = 4
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or under torch.func.vmap the tensor of the whole batch that
+    `t` is one world of (every vmap level unwrapped, its batch dim
+    first)."""
+    F = torch._C._functorch
+    while F.is_batchedtensor(t):
+        t = F.get_unwrapped(t).movedim(F.maybe_get_bdim(t), 0)
+    return t
+
+
+def all_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether a equals b in every world of the batch (host sync)."""
+    a, b = _whole(a), _whole(b)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def any_set(x: torch.Tensor) -> bool:
+    """Whether x is set anywhere in the batch (host sync)."""
+    return bool(_whole(x).any())
+
+
 def nonzero_fixed(x: torch.Tensor, size: int, fill: int = -1):
     """`jnp.nonzero(x.reshape(-1), size=size, fill_value=fill)[0]` as
     int64: the first `size` flat indices where x is set, padded with
-    `fill`."""
-    idx = torch.nonzero(x.reshape(-1)).reshape(-1)[:size]
-    if idx.numel() < size:
-        idx = torch.cat([idx, torch.full((size - idx.numel(),), fill,
-                                         dtype=idx.dtype, device=x.device)])
-    return idx
+    `fill`.  Each set index goes to its rank among the set ones, by a
+    scatter into a sink slot past the end for the rest."""
+    flat = x.reshape(-1).bool()
+    pos = torch.cumsum(flat.to(torch.int64), 0) - 1
+    slot = torch.where(flat & (pos < size), pos, size)
+    out = torch.full((size + 1,), fill, dtype=torch.int64, device=x.device)
+    out = out.scatter(0, slot, torch.arange(flat.shape[0], device=x.device))
+    return out[:size]
 
 
 def seg_min(vals, seg, num: int, init):
@@ -50,7 +79,7 @@ def seg_sum(vals, seg, num: int):
     """Segment sum; the callers sum integers, or f32 multiples of 0.5
     far below 2^24, which are exact in any order."""
     out = torch.zeros((num,), dtype=vals.dtype, device=vals.device)
-    return out.index_add(0, seg.reshape(-1).long(), vals.reshape(-1))
+    return out.scatter_add(0, seg.reshape(-1).long(), vals.reshape(-1))
 
 
 def set_last(dst: torch.Tensor, idx: torch.Tensor,
@@ -68,9 +97,9 @@ def set_last(dst: torch.Tensor, idx: torch.Tensor,
     last = torch.full((n + 1,), -1, dtype=torch.int64, device=idx.device)
     last = last.scatter_reduce(0, slot, order, "amax", include_self=True)
     win = keep & (last[slot] == order)
-    out = dst.clone()
-    out[idx[win]] = vals[win]
-    return out
+    # the winners' indices are unique; the rest go to a sink slot
+    out = torch.cat([dst, dst.new_zeros(1)])
+    return out.scatter(0, torch.where(win, idx, n), vals)[:n]
 
 
 def _neighbor_min(labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -88,7 +117,7 @@ def _fixpoint(step, x: torch.Tensor) -> torch.Tensor:
     while True:
         for _ in range(CHECK_EVERY):
             prev, x = x, step(x)
-        if torch.equal(prev, x):
+        if all_equal(prev, x):
             return x
 
 

@@ -1,6 +1,21 @@
-"""Shared-geometry world batches: B stochastic rollouts of one city (the
-JAX package's `parallel/mesh.py`, its one-device part).
+"""World batches on one device (the JAX package's `parallel/mesh.py`,
+its one-device part): batches of different cities, and shared-geometry
+batches of one city.
 
+Per-world geometry (BASELINE config #4, the parameter-sweep axis): every
+leaf of the world carries a leading batch dim B.  `init_world_batch`
+generates the cities from one key each (`sim.init_worlds`: the host
+draws of all worlds side by side, each device stage once for the batch);
+`run_chunk_batch` runs the chunk body (`sim.advance`) under
+`torch.func.vmap` with every leaf on dim 0, as the JAX bench runs
+`jax.vmap(run_chunk)`, and `run_batch` steps `sim.step_device` under
+vmap tick by tick (JAX's `run_batch`: routing rebuilt every tick).  Each
+world's key chain is walked on the host.  The kernels' vmap rules launch
+K1, K2 (`build_sdir_stacks`), K3 and K4 once per call for the whole
+batch, each world reading its own geometry; world b advances exactly as
+a single-world run of world b.
+
+Shared geometry:
 The geometry and static tables (`SHARED_GEOMETRY_FIELDS`), the
 [D, 4, H, W] key stack among them, are stored once for the whole batch;
 every other leaf of the world gains a leading batch dim B, and the trip
@@ -20,11 +35,81 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import prng
 from ..config import Config
 from ..core.state import World
 from ..core.transfer import world_from_leaves, world_leaves
 from ..lights.fsm import dense_reducers_profitable
 from ..ops import engine
+
+
+def init_world_batch(cfg: Config, key, n_worlds: int, mesh=None,
+                     device="cuda", timings=None) -> World:
+    """n_worlds cities, each from its own key of `prng.split(key,
+    n_worlds)` as JAX's `init_world_batch` splits it, every leaf with a
+    leading world dim, on `device`.  `mesh`: multi-GPU sharding is not
+    ported (ROADMAP Queue 1 item 15), so anything but None raises.
+    `timings`: a dict that receives the seconds by stage and
+    `generate_all_sec` (`sim.init_worlds`)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharding a world batch over devices is not ported yet "
+            "(ROADMAP Queue 1 item 15)")
+    from ..sim import init_worlds
+    return init_worlds(cfg, prng.split(np.asarray(key, np.uint32), n_worlds),
+                       device, timings)
+
+
+def batched_step(cfg: Config):
+    """One tick of every world of a per-world-geometry batch (JAX's
+    `batched_step`, `jax.vmap(step_world)`): each world's key chain is
+    walked one tick on the host, then `sim.step_device` runs under
+    `torch.func.vmap` with every leaf on dim 0."""
+    from ..sim import _key_np, _key_tensor, step_device
+
+    def body(lv, dr):
+        return world_leaves(step_device(cfg, world_from_leaves(lv), dr))
+
+    def step(worlds: World) -> World:
+        dev = worlds.grid.is_road.device
+        draws, keys = engine.tick_draws(cfg, _key_np(worlds.key), 1)
+        out = torch.func.vmap(body)(world_leaves(worlds),
+                                    torch.from_numpy(draws[:, 0]).to(dev))
+        out["key"] = _key_tensor(keys, dev)
+        return world_from_leaves(out)
+    return step
+
+
+def run_batch(cfg: Config, worlds: World, n_ticks: int) -> World:
+    """n_ticks of `batched_step` (JAX's `run_batch`: `step_world` per
+    tick, routing rebuilt every tick), after `assert_demand_window`."""
+    assert_demand_window(cfg, worlds, n_ticks)
+    step = batched_step(cfg)
+    for _ in range(n_ticks):
+        worlds = step(worlds)
+    return worlds
+
+
+def run_chunk_batch(cfg: Config, worlds: World, n: int) -> World:
+    """n ticks of every world of a per-world-geometry batch, as the JAX
+    bench steps config #4 (`jax.vmap(partial(run_chunk, cfg, n=n))`):
+    `sim.advance` under `torch.func.vmap` with every leaf on dim 0, the
+    routing planes rebuilt every PATHFINDING_COOLDOWN ticks.  The keys'
+    chains are walked on the host up front ([B, n, N_DRAWS] draws)."""
+    from ..sim import _key_np, _key_tensor, advance
+    if worlds.cost_field is None:
+        raise ValueError("worlds.cost_field is not built")
+    assert_demand_window(cfg, worlds, n)
+    dev = worlds.grid.is_road.device
+    draws, keys = engine.tick_draws(cfg, _key_np(worlds.key), n)
+
+    def body(lv, dr):
+        return world_leaves(advance(cfg, world_from_leaves(lv), n, dr))
+
+    out = torch.func.vmap(body)(world_leaves(worlds),
+                                torch.from_numpy(draws).to(dev))
+    out["key"] = _key_tensor(keys, dev)
+    return world_from_leaves(out)
 
 SHARED_GEOMETRY_FIELDS = frozenset({
     "grid", "lights_static", "groups_static", "blocks_static", "dests",
@@ -74,7 +159,8 @@ def tile_dynamic(world: World, keys: torch.Tensor) -> World:
 def demand_ticks_remaining(worlds: World) -> int:
     """Host-side: how many more ticks the pre-generated trip table
     covers, min over the batch (last valid depart tick - current tick).
-    Takes a single world or a shared-geometry batch."""
+    Takes a single world, a batch of cities (per-world tables) or a
+    shared-geometry batch (one table, per-world cursors)."""
     dem = worlds.demand
     depart = dem.depart_tick.cpu().numpy()
     valid = dem.valid.cpu().numpy()
@@ -130,7 +216,8 @@ def run_batch_shared(cfg: Config, batch: World, n_ticks: int) -> World:
 
 
 def fleet_metrics(worlds: World) -> dict:
-    """Aggregate metrics over the worlds of a batch."""
+    """Aggregate metrics over the worlds of a batch (of cities or of
+    one city's rollouts)."""
     m = worlds.metrics
     return dict(
         completed=(m.completed_internal + m.completed_through).sum(),
@@ -140,6 +227,8 @@ def fleet_metrics(worlds: World) -> dict:
 
 
 def world_at(batch: World, b: int) -> World:
-    """World b of a shared-geometry batch, as a single world."""
-    return world_from_leaves({k: (t[b] if _batched(k) else t)
+    """World b of a batch, as a single world: of a batch of cities
+    (every leaf batched) or of a shared-geometry batch."""
+    full = batch.grid.is_road.dim() == 3
+    return world_from_leaves({k: (t[b] if full or _batched(k) else t)
                               for k, t in world_leaves(batch).items()})

@@ -17,9 +17,9 @@ mega_ok`: TSIM_MEGA_FORCE on the card, TSIM_MEGA_INTERPRET on either
 device) each routing segment is one K9 call instead
 (`megakernel.run_segment_mega`).  The whole chunk's random draws come
 from JAX's key chain walked on the host up front (`tick_draws`), so no
-tick waits for the host.  `advance` is the device part of the chunk, a
-function of tensors only: `parallel/mesh.run_batch_shared` runs it under
-`torch.func.vmap` for a batch of worlds.
+tick waits for the host.  `advance` is the device part of the chunk, and
+`step_device` that of `step_world`, functions of tensors only: the world
+batches of `parallel/mesh.py` run them under `torch.func.vmap`.
 """
 
 from __future__ import annotations
@@ -38,9 +38,13 @@ from .config import Config
 from .agents import demand as demand_mod
 from .agents.blocks import init_blocks_state
 from .agents.rain import init_rain_state
-from .core.state import (Metrics, Overrides, Pedestrians, Vehicles, World)
+from .core.state import (BlockStatic, DestStatic, Grid, GroupStatic,
+                         LightStatic, Metrics, Overrides, Pedestrians,
+                         Vehicles, World)
+from .core.transfer import world_from_leaves, world_leaves
 from .gen import hier as ghier
-from .gen.generate import generate_city
+from .gen.generate import (city_cost_field, city_draws, city_from_draws,
+                           draws_to)
 from .lights import fsm
 from .ops import engine, megakernel
 from .ops.hier import RID_SPACE
@@ -117,17 +121,39 @@ def init_world(cfg: Config, key, device="cuda") -> World:
         raise ValueError("cfg.ROUTING_HIER worlds are host-orchestrated: "
                          "use init_world_hier(cfg, key)")
     dev = torch.device(device)
+    key = _key_array(key)
+    city_d, day_d = _world_draws(cfg, key)
+    city = city_from_draws(cfg, draws_to(city_d, dev))
+    field = engine.field_to_keys(cfg, city_cost_field(cfg, city[0], city[4]),
+                                 city[0].road_class)
+    return _assemble(cfg, city, field, draws_to(day_d, dev),
+                     _key_tensor(key, dev))
+
+
+def _world_draws(cfg: Config, key: np.ndarray):
+    """The host part of `init_world`: the city's draws (`city_draws`)
+    and the demand days' (`demand.days_draws`), numpy; for a stack of
+    keys [B, 2] every world's, side by side."""
+    kgen, kday = np.moveaxis(prng.split(key, 2), -2, 0)
+    return (city_draws(cfg, kgen),
+            demand_mod.days_draws(cfg, trip_layout_cached(cfg), kday, 0,
+                                  cfg.DEMAND_PREGEN_DAYS))
+
+
+def _assemble(cfg: Config, city, field, day_draws: dict,
+              key: torch.Tensor) -> World:
+    """The world of `init_world` from its city, key stack, demand draws
+    and key: the demand tables, the nearest-exit table and empty dynamic
+    state.  A function of tensors, which runs under vmap."""
+    grid, ls, gs, bs, dests = city
+    dev = key.device
     caps = cfg.capacities()
     H, W = cfg.HEIGHT, cfg.WIDTH
-    key = _key_array(key)
-    kgen, kday = prng.split(key, 2)
-    grid, ls, gs, bs, dests, field = generate_city(cfg, kgen, dev)
-    DF = field.shape[0]
-    field = engine.field_to_keys(cfg, field, grid.road_class)
+    DF = field.shape[-4]
     dem = demand_mod.generate_days(
-        cfg, trip_layout_cached(cfg), kday, 0, cfg.DEMAND_PREGEN_DAYS, -1,
-        bs.valid, bs.btype, bs.dest, bs.entrance, dests.valid, dests.kind,
-        dests.hw_pos, dests.hw_valid, DF)
+        cfg, trip_layout_cached(cfg), day_draws, 0, cfg.DEMAND_PREGEN_DAYS,
+        -1, bs.valid, bs.btype, bs.dest, bs.entrance, dests.valid,
+        dests.kind, dests.hw_pos, dests.hw_valid, DF)
     z = torch.zeros((4, 1, 1), dtype=torch.int32, device=dev)
     return World(
         grid=grid, lights_static=ls, groups_static=gs, blocks_static=bs,
@@ -153,7 +179,61 @@ def init_world(cfg: Config, key, device="cuda") -> World:
             spawn_rain=torch.zeros((), dtype=torch.bool, device=dev)),
         tick=torch.zeros((), dtype=torch.int32, device=dev),
         elapsed=torch.zeros((), dtype=torch.float32, device=dev),
-        key=_key_tensor(key, dev))
+        key=key)
+
+
+def init_worlds(cfg: Config, keys, device="cuda", timings=None) -> World:
+    """A batch of B worlds from keys uint32 [B, 2], every leaf with a
+    leading B: world b equals `init_world(cfg, keys[b], device)`, bit
+    for bit.  The host draws of all worlds are taken side by side (numpy
+    over the key stack); each device stage runs once for the whole
+    batch: the city's planes and tables and the demand and empty state
+    under `torch.func.vmap`, the cost fields and the key stack with a
+    leading world dim.  `timings`:
+    a dict that receives the seconds of each stage (`draws`, `city`,
+    `cost_field`, `key_stack`, `demand_state`) and their sum
+    `generate_all_sec`."""
+    if cfg.ROUTING_HIER:
+        raise ValueError("cfg.ROUTING_HIER worlds are host-orchestrated: "
+                         "use init_world_hier(cfg, key)")
+    dev = torch.device(device)
+    keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+    t0 = t = time.perf_counter()
+    city_d, day_d = (draws_to(d, dev) for d in _world_draws(cfg, keys))
+    key_t = _key_tensor(keys, dev)
+    t = _stage(timings, "draws", t)
+    city_l = torch.func.vmap(lambda d: [_fields(x) for x in city_from_draws(
+        cfg, d)])(city_d)
+    city = _city(city_l)
+    t = _stage(timings, "city", t)
+    field = city_cost_field(cfg, city[0], city[4])
+    t = _stage(timings, "cost_field", t)
+    field = engine.field_to_keys(cfg, field, city[0].road_class)
+    t = _stage(timings, "key_stack", t)
+
+    def rest(city_l, field, day_d, key):
+        return world_leaves(_assemble(cfg, _city(city_l), field, day_d, key))
+    leaves = torch.func.vmap(rest)(city_l, field, day_d, key_t)
+    world = world_from_leaves({k: v.contiguous() for k, v in leaves.items()})
+    t = _stage(timings, "demand_state", t)
+    if timings is not None:
+        timings["generate_all_sec"] = t - t0
+    return world
+
+
+def _fields(x) -> dict:
+    """A flat struct's tensors by field name (None fields left out)."""
+    return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)
+            if getattr(x, f.name) is not None}
+
+
+_CITY_TYPES = (Grid, LightStatic, GroupStatic, BlockStatic, DestStatic)
+
+
+def _city(dicts):
+    """`city_from_draws`' structs from their `_fields` dicts."""
+    return [cls(**{f.name: d.get(f.name) for f in dataclasses.fields(cls)})
+            for cls, d in zip(_CITY_TYPES, dicts)]
 
 
 def _stage(timings, name, t0):
@@ -417,14 +497,23 @@ def _key_tensor(key: np.ndarray, device) -> torch.Tensor:
 
 
 def step_world(cfg: Config, world: World) -> World:
-    """One tick: routing planes from the current state, S free slots,
-    `step_engine`, and the SoA conversion in and out."""
-    es = _enter_engine(cfg, world)
+    """One tick: the key walked on the host (`engine.tick_draws`), then
+    `step_device`."""
+    dev = world.grid.is_road.device
     draws, key = engine.tick_draws(cfg, _key_np(world.key), 1)
-    es = engine.step_engine(cfg, world, es,
-                            torch.from_numpy(draws[0]).to(es.pa.device))
-    return _exit_engine(cfg, world, es.replace(
-        key=_key_tensor(key, es.pa.device)))
+    end = step_device(cfg, world, torch.from_numpy(draws[0]).to(dev))
+    return end.replace(key=_key_tensor(key, dev))
+
+
+def step_device(cfg: Config, world: World, draws: torch.Tensor) -> World:
+    """The device part of `step_world`: routing planes from the current
+    state, S free slots, `step_engine` with this tick's draws (int64
+    [N_DRAWS]) and the SoA conversion in and out; the key is left as it
+    was.  A function of tensors only, with no host sync, so that it runs
+    under vmap (`parallel/mesh.batched_step`)."""
+    es = _enter_engine(cfg, world)
+    es = engine.step_engine(cfg, world, es, draws)
+    return _exit_engine(cfg, world, es)
 
 
 def reducer_matrices(cfg: Config, world: World):
