@@ -28,7 +28,11 @@ Phases (any failure raises and the script exits nonzero):
      K6 at config #5's shapes (1024^2; the windowed stack, 108 words,
      and the dense stack, 36 words; dest planes holding -1 and rows past
      the stack); the rain clouds' tick loop (no TPU kernel) for 16
-     worlds over 200 ticks, bit-equal to its plain version;
+     worlds over 200 ticks, bit-equal to its plain version; the
+     pedestrian step (`step_pedestrians`, no TPU kernel) at 256^2,
+     1024^2, a ragged 37 x 300 grid with counts up to 2000 a cell, and
+     B = 3 worlds each with its own cell types, bit-equal to its plain
+     version, one launch a call;
   3. the service FSM's ordered scatter-add on a case whose f32 sum
      depends on the order, and on signed zeros, subnormals and sums
      that flush to zero, runs of +-0 and dropped indices: the card must
@@ -132,7 +136,26 @@ Phases (any failure raises and the script exits nonzero):
      three chunks of the stepping loop's body (flush, `step(20)`,
      stats), timed, with their kernel launches checked; an
      ordinary and a food service vehicle spawned; the `/state` and
-     `/metrics` dicts; the frame shows the spawned vehicles.
+     `/metrics` dicts; the frame shows the spawned vehicles;
+ 16. pedestrians (group `config3`, BASELINE config #3 letter for letter,
+     `bench.py` `bench_config3`): 256^2 from seed 0 generated on the
+     card, `measure_and_shrink`, `inject_vehicles(..., 4000)`; every
+     leaf (the pedestrian planes and ped_map among them) held to the JAX
+     digest `data/ped_digest.json` (`tools/make_torch_ped_digest.py`)
+     at init and after 100 and 200 ticks of `run_chunk`; launches
+     `step_pedestrians` 100 (one a tick), K1 100, K4 100, K2 and K3 20,
+     no plain pedestrian step or decide core, no kernel mapping worlds;
+     then 3 timed chunks of 100 ticks (median steps/s, cell-updates/s),
+     launches and device busy ms a tick (a profile of 50 ticks), idle
+     share, active pedestrians,
+     the expected spawns a tick, active vehicles and the bench's cap
+     diagnostics; the step on its inputs of a tick of that run against
+     its plain version;
+ 17. no traffic (group `config1`, BASELINE config #1, `bench_config1`):
+     100^2 generated from seeds 1-3 after a warm seed 0 (ms a seed),
+     each held to the digest at init; seed 0 after 200 ticks held to the
+     digest; light cycling steps/s over 200 more ticks, the number of
+     lights, launches and device busy ms a tick (a profile of 50).
 
 The line before the last is the kernels' JSON summary, the one before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -219,6 +242,9 @@ KERNELS = {
     "rain_ticks": ("trafficsimulation_tpu_torch/csrc/rain.cu",
                    "none (XLA ops per tick, trafficsimulation_tpu/agents/"
                    "rain.py:26)", "f32"),
+    "step_pedestrians": ("trafficsimulation_tpu_torch/csrc/pedestrians.cu",
+                         "none (XLA ops per tick, trafficsimulation_tpu/"
+                         "agents/pedestrians.py:126)", "int32"),
     # the per-world-geometry forms (config #4's batch of cities): K1 with
     # its geometry one plane a world, K2 over the worlds' own key stacks,
     # K3 with its geometry one plane a world
@@ -244,7 +270,8 @@ SUMMARY_PATH = {"build_sdir": "single", "select_rows": "config5",
                 "mega": "mega", "decide_move_tiled": "single",
                 "render": "single", "decide_move_worlds": "config4",
                 "build_sdir_stacks": "config4",
-                "build_wavefront_worlds": "config4"}
+                "build_wavefront_worlds": "config4",
+                "step_pedestrians": "config3"}
 # on no path of the port (0 launches on every path); chip_smoke.py drives
 # them directly.  K6 serves the plain version of K1-hier's select.
 OFF_PATH = ("decide_move_tiled", "render", "select_rows")
@@ -269,8 +296,19 @@ CONFIG4_REPEATS = 3
 CONFIG4_ODD_B = 3
 CONFIG4_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
                               "config4_batch_digest.json")
+# BASELINE config #3 (`bench.py` `bench_config3`), letter for letter
+CONFIG3 = dict(WIDTH=256, HEIGHT=256, MAX_VEHICLES=4096,
+               MAX_FIELD_DESTS=640, PEDESTRIANS_ENABLED=True,
+               PEDESTRIANS_PER_DAY=200_000)
+CONFIG3_REPEATS = 3
+# BASELINE config #1 (`bench.py` `bench_config1`), letter for letter
+CONFIG1 = dict(WIDTH=100, HEIGHT=100, ENABLE_TRAFFIC=False,
+               MAX_FIELD_DESTS=64, MAX_VEHICLES=256)
+PED_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
+                          "ped_digest.json")
 PHASES = ("kernels", "ordered_add", "headline", "mega", "hier_digest",
-          "config4", "config5", "tiled", "render", "bridge")
+          "config4", "config5", "config3", "config1", "tiled", "render",
+          "bridge")
 TILES = ((64, 64), (16, 32))     # K7's tilings of the headline grid
 # the numbers of a kernel's other shapes in the summary line
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "kernels_per_call",
@@ -1634,6 +1672,232 @@ def phase_config4(HE, engine, tsim, mesh, transfer, card, prng, Config):
     return launches, kern
 
 
+def ped_cost(walk, cell_type, B: int):
+    """(bytes, ops) of one pedestrian tick of B worlds: eight count
+    planes in and out, the stop map, ped_block and ped_count per world,
+    cell_type once a geometry plane; per cell and world its 14 hashed
+    uniforms (7 shifts and xors on the ALU pipe only, 11 ops in all)."""
+    HW = walk.shape[-1] * walk.shape[-2]
+    nbytes = B * HW * (4 * 4 * 4 + 1 + 1 + 4) + cell_type.numel()
+    return nbytes, (B * HW * 14 * 7, B * HW * 14 * 11)
+
+
+def ped_inputs(r, B, H, W, hi, per_world=False):
+    """Random cell codes (sidewalks the most common), stop maps, counts
+    of 0..hi and u32 seeds for B worlds on the card."""
+    codes = torch.tensor((2, 2, 2, 17, 15, 16, 9, 10, 11, 12, 0, 1),
+                         dtype=torch.uint8, device="cuda")
+    cell = codes[r.rint(0, 12, *((B,) if per_world else ()), H, W).long()]
+    return (r.rint(0, hi, B, 4, H, W), r.rint(0, hi, B, 4, H, W), cell,
+            r.bern(0.5, B, H, W),
+            r.bits(B, 14).to(torch.int64) & 0xFFFFFFFF)
+
+
+def phase_pedestrians(HE) -> dict:
+    """`step_pedestrians` (no TPU kernel) against its plain version on
+    seeded random inputs: one world at 256^2 and 1024^2, a ragged 37 x 300
+    grid with counts up to 2000 a cell (every fractional split rounds),
+    and B = 3 worlds each with its own cell_type."""
+    from trafficsimulation_tpu_torch.agents.pedestrians import \
+        step_pedestrians_plain
+    from trafficsimulation_tpu_torch.config import Config
+    r = Inputs(11)
+    out = {}
+    for label, B, H, W, hi, per_world in (
+            ("256x256", 1, 256, 256, 40, False),
+            ("1024x1024", 1, 1024, 1024, 40, False),
+            ("37x300, counts to 2000", 1, 37, 300, 2000, False),
+            ("B = 3 per-world, 256x256", 3, 256, 256, 40, True)):
+        cfg = Config(WIDTH=W, HEIGHT=H, PEDESTRIANS_ENABLED=True,
+                     PEDESTRIANS_PER_DAY=2_000_000)
+        walk, cross, cell, stop, seeds = ped_inputs(r, B, H, W, hi,
+                                                    per_world)
+        nbytes, ops = ped_cost(walk, cell, B)
+        if B == 1:
+            a = (walk[0], cross[0], cell, stop[0], seeds[0])
+            kern = lambda a=a, c=cfg: HE.step_pedestrians(c, *a)
+            plain = lambda a=a, c=cfg: step_pedestrians_plain(c, *a)
+        else:
+            a = (walk, cross, cell, stop, seeds)
+            kern = lambda a=a, c=cfg: HE.step_pedestrians_batched(c, *a)
+            plain = lambda a=a, c=cfg: tuple(torch.stack(o) for o in zip(*(
+                step_pedestrians_plain(c, *(x[b] for x in a))
+                for b in range(B))))
+        n0 = HE.launches["step_pedestrians"]
+        kern()
+        if HE.launches["step_pedestrians"] != n0 + 1:
+            raise AssertionError("step_pedestrians: not one launch a call")
+        out[label] = measure(f"step_pedestrians ({label})", kern, plain,
+                             nbytes, ops, label, plain_reps=3)
+        del walk, cross, cell, stop, seeds, a
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_config3(HE, tsim, transfer, card, prng, Config):
+    """BASELINE config #3 on the card: the world generated as the bench
+    builds it, held to the JAX digest at init and after 100 and 200 ticks
+    (every leaf, the pedestrian planes and ped_map among them), the
+    launch counts of the path (one `step_pedestrians` a tick, no plain
+    step, no per-world map), then timed chunks of 100 ticks and the
+    pedestrian step on its inputs of a tick of that run."""
+    from trafficsimulation_tpu_torch.agents import pedestrians
+    with open(os.path.join(ROOT, PED_DIGEST)) as f:
+        dig = json.load(f)["config3"]
+    n = dig["chunk"]
+    base = Config(**CONFIG3)
+    world, t_gen = timed(lambda: tsim.init_world(
+        base, prng.PRNGKey(dig["seed"]), "cuda"))
+    cfg, world = tsim.measure_and_shrink(base, world)
+    world = tsim.inject_vehicles(cfg, world, dig["n_vehicles"])
+    for k, v in dig["cfg"].items():
+        want = (tuple(tuple(p) for p in v) if k == "CAP_OVERRIDES" else v)
+        if getattr(cfg, k) != want:
+            raise AssertionError(f"config #3 {k}: {getattr(cfg, k)} vs "
+                                 f"JAX's {want}")
+    ex, near = check_digest("config #3 at init", dig["init"],
+                            transfer.world_to_numpy(world))
+    R = max(1, cfg.PATHFINDING_COOLDOWN)
+    need = {"step_pedestrians": n, "decide_move": n, "prefix_planes": n,
+            "build_sdir": -(-n // R), "build_wavefront": -(-n // R),
+            "build_sdir_batched": 0, "select_rows": 0, "mega": 0,
+            "rain_ticks": n if cfg.RAIN_ENABLED else 0}
+    orig_plain = pedestrians.step_pedestrians_plain
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain pedestrian step ran on a card path")
+    HE.reset_launches()
+    pedestrians.step_pedestrians_plain = no_plain
+    try:
+        with mega_env(False), no_map_worlds(HE), no_plain_core(HE):
+            w, t_first = timed(lambda: tsim.run_chunk(cfg, world, n))
+    finally:
+        pedestrians.step_pedestrians_plain = orig_plain
+    launches = dict(HE.launches)
+    check_launches("config #3 path", launches, need)
+    counts = []
+    for t in (n, 2 * n):
+        if t > n:
+            with mega_env(False):
+                w = tsim.run_chunk(cfg, w, n)
+        check_digest(f"config #3 after {t} ticks", dig[f"tick{t}"],
+                     transfer.world_to_numpy(w))
+        peds = int(w.peds.walk.sum() + w.peds.cross.sum())
+        if peds != dig[f"counts{t}"]["active_pedestrians"]:
+            raise AssertionError(f"config #3: {peds} pedestrians at {t}")
+        counts.append(peds)
+    log(f"config #3 ({card}): generated on the card in {t_gen:.2f} s, "
+        f"init {ex}/{len(dig['init'])} leaves bit-equal to JAX's digest "
+        f"(f32 within rtol: {near}); after {n} and {2 * n} ticks every leaf "
+        f"equals JAX's (pedestrians {counts}); first chunk {t_first:.3f} s, "
+        f"launches {launches} (step_pedestrians "
+        f"{launches['step_pedestrians'] / n:g} a tick, no plain step, no "
+        f"per-world map)")
+    times = []
+    with mega_env(False):
+        for _ in range(CONFIG3_REPEATS):
+            w, dt = timed(lambda w=w: tsim.run_chunk(cfg, w, n))
+            times.append(dt)
+        dt = statistics.median(times)
+        busy, per_tick, top = profile_ticks(
+            lambda: tsim.run_chunk(cfg, w, N_PROFILE_TICKS), N_PROFILE_TICKS)
+    sps = n / dt
+    HW = cfg.HEIGHT * cfg.WIDTH
+    wall_ms = dt * 1e3 / n
+    idle = 1 - busy / wall_ms
+    lam = float(pedestrians.spawn_rate(cfg))
+    caps = cap_diagnostics(w)
+    peds = int(w.peds.walk.sum() + w.peds.cross.sum())
+    active = int(w.vehicles.active.sum())
+    log("config #3 device time per tick by kernel (top 8; name, ms, "
+        "launches): " + json.dumps([(k, round(m, 4), round(c, 1))
+                                    for k, m, c in top]))
+    log(f"config #3 ({card}): {CONFIG3_REPEATS} timed chunks of {n} ticks "
+        f"{[round(t, 3) for t in times]} s, median {dt:.3f} s = {sps:.2f} "
+        f"steps/s = {sps * HW:.4g} cell-updates/s; wall {wall_ms:.3f} "
+        f"ms/tick, device busy {busy:.3f} ms/tick in {per_tick:.1f} "
+        f"launches, idle share {idle:.3f}; active pedestrians {peds}, "
+        f"expected spawns a tick {lam:.4f}, active vehicles {active}; "
+        f"caps {caps}")
+    # the step on its inputs of the tick after the timed chunks
+    (a, _) = tick_inputs(cfg, w, HE, tsim, "step_pedestrians")
+    nbytes, ops = ped_cost(a[1], a[3], 1)
+    kern = measure("step_pedestrians on config #3's path",
+                   lambda: HE.step_pedestrians(*a),
+                   lambda: pedestrians.step_pedestrians_plain(*a), nbytes,
+                   ops, f"256x256, tick {int(w.tick)}, "
+                   f"{int(a[1].sum() + a[2].sum())} pedestrians",
+                   plain_reps=5)
+    REPORT["config3"] = {
+        "card": card, "generate_s": t_gen, "first_chunk_s": t_first,
+        "launches": launches, "chunk_s": times, "steps_per_s": sps,
+        "cell_updates_per_s": sps * HW, "wall_ms_per_tick": wall_ms,
+        "busy_ms_per_tick": busy, "idle_share": idle,
+        "device_launches_per_tick": per_tick, "top_kernels": top,
+        "active_pedestrians": peds, "expected_ped_spawns_per_tick": lam,
+        "active_vehicles": active, "caps": caps, "kernel": kern}
+    del world, w
+    torch.cuda.empty_cache()
+    return launches, kern
+
+
+def phase_config1(HE, tsim, transfer, card, prng, Config):
+    """BASELINE config #1 on the card as the bench runs it: generation
+    (seeds 1-3 timed after a warm seed 0), every seed held to the JAX
+    digest at init; seed 0 after 200 ticks held to the digest; then 200
+    ticks of light cycling timed from there, with the launches and device
+    time a tick."""
+    with open(os.path.join(ROOT, PED_DIGEST)) as f:
+        dig = json.load(f)["config1"]
+    cfg = Config(**CONFIG1)
+    n = dig["ticks"]
+    worlds = [tsim.init_world(cfg, prng.PRNGKey(0), "cuda")]
+    t_gen = []
+    for s in range(1, len(dig["init"])):
+        w, dt = timed(lambda s=s: tsim.init_world(cfg, prng.PRNGKey(s),
+                                                  "cuda"))
+        worlds.append(w)
+        t_gen.append(dt)
+    gen_ms = statistics.mean(t_gen) * 1e3
+    for s, w in enumerate(worlds):
+        check_digest(f"config #1 seed {s} at init", dig["init"][s],
+                     transfer.world_to_numpy(w))
+    HE.reset_launches()
+    with mega_env(False), no_plain_core(HE):
+        w, t_first = timed(lambda: tsim.run_chunk(cfg, worlds[0], n))
+    launches = dict(HE.launches)
+    check_launches("config #1 path", launches, {
+        "decide_move": n, "prefix_planes": n, "step_pedestrians": 0,
+        "mega": 0, "rain_ticks": n if cfg.RAIN_ENABLED else 0})
+    check_digest(f"config #1 after {n} ticks", dig["end"],
+                 transfer.world_to_numpy(w))
+    with mega_env(False):
+        w2, dt = timed(lambda: tsim.run_chunk(cfg, w, n))
+        busy, per_tick, _ = profile_ticks(
+            lambda: tsim.run_chunk(cfg, w2, N_PROFILE_TICKS), N_PROFILE_TICKS)
+    sps = n / dt
+    lights = int(worlds[0].lights_static.valid.sum())
+    if lights != dig["lights"]:
+        raise AssertionError(f"config #1: {lights} lights")
+    idle = 1 - busy / (dt * 1e3 / n)
+    log(f"config #1 ({card}): generation {gen_ms:.1f} ms a seed (seeds 1-"
+        f"{len(t_gen)}, after a warm seed 0: {[round(t, 3) for t in t_gen]}"
+        f" s), seeds 0-{len(t_gen)} equal JAX's digest at init; seed 0 after"
+        f" {n} ticks equals JAX's (first chunk {t_first:.3f} s, launches "
+        f"{launches}); light cycling {sps:.2f} steps/s over {n} ticks, "
+        f"{lights} lights, device busy {busy:.3f} ms/tick in "
+        f"{per_tick:.1f} launches, idle share {idle:.3f}")
+    REPORT["config1"] = {
+        "card": card, "generate_ms": gen_ms, "generate_s": t_gen,
+        "first_chunk_s": t_first, "launches": launches,
+        "light_cycling_steps_per_sec": sps, "lights": lights,
+        "busy_ms_per_tick": busy, "device_launches_per_tick": per_tick,
+        "idle_share": idle}
+    del worlds, w, w2
+    torch.cuda.empty_cache()
+    return launches
+
+
 class mega_env:
     """TSIM_MEGA_FORCE=1 (the megakernel path) or TSIM_NO_MEGAKERNEL=1
     (the per-tick path) inside the block, the environment as it was
@@ -2246,6 +2510,7 @@ def main():
         phase_batch_one(cfg0, HE, engine)
         k6 = phase_select_rows(HE)
         k_rain = phase_rain_ticks(HE)
+        k_ped = phase_pedestrians(HE)
         floor = launch_floor_ms(HE)
         log(f"one launch with no work: {floor:.4f} ms")
         REPORT["launch_floor_ms"] = floor
@@ -2299,6 +2564,12 @@ def main():
     if "config5" in run:
         l_c5, k_c5 = phase_config5(HE, engine, tsim, card, prng, Config)
         stamp("config5")
+    if "config3" in run:
+        l_c3, k_c3 = phase_config3(HE, tsim, transfer, card, prng, Config)
+        stamp("config3")
+    if "config1" in run:
+        l_c1 = phase_config1(HE, tsim, transfer, card, prng, Config)
+        stamp("config1")
     REPORT["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke phases took {REPORT['seconds']:.1f} s")
     if run != set(PHASES):
@@ -2311,7 +2582,7 @@ def main():
 
     launch_paths = {"single": l_single, "batched": l_batch,
                     "config5": l_c5, "mega": l_mega, "bridge": l_bridge,
-                    "config4": l_c4}
+                    "config4": l_c4, "config3": l_c3, "config1": l_c1}
     summary = {"kernels": []}
     for k in KERNELS:
         path = SUMMARY_PATH.get(k, "batched")
@@ -2330,6 +2601,8 @@ def main():
             m = k_add
         elif k == "rain_ticks":
             m = k_rain_path
+        elif k == "step_pedestrians":
+            m = k_c3
         else:
             m = single[k] if path == "single" else batched[k]
         entry = {"name": k, "route": "cuda", "source": KERNELS[k][0],
@@ -2351,6 +2624,8 @@ def main():
                  "launches_mega_path": l_mega[ctr],
                  "launches_bridge_path": l_bridge[ctr],
                  "launches_config4_path": l_c4[ctr],
+                 "launches_config3_path": l_c3[ctr],
+                 "launches_config1_path": l_c1[ctr],
                  "on_path": k not in OFF_PATH}
         if path == "config4":
             entry["odd_batch"] = {x: k_c4[f"B={CONFIG4_ODD_B}"][k][x]
@@ -2384,6 +2659,10 @@ def main():
             entry["library"] = k_add["library"]
         if k == "rain_ticks":
             entry["batch_200_ticks"] = {x: k_rain.get(x) for x in SUB_KEYS}
+        if k == "step_pedestrians":
+            entry["random_inputs"] = {
+                label: {x: v[x] for x in SUB_KEYS}
+                for label, v in k_ped.items()}
         if k == "render":
             entry["headline_256"] = {x: k8[x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

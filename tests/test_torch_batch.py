@@ -266,13 +266,16 @@ def test_ordered_add_matches_xla_scatter_order():
 
 
 def test_port_imports_nothing_of_jax():
-    """A process that imports every module of the port has loaded
-    neither jax nor any module of the JAX package."""
+    """A process that imports every module of the port (among them the
+    pedestrians and the synthetic worlds) has loaded neither jax nor any
+    module of the JAX package."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import trafficsimulation_tpu_torch as pkg\n"
         "for i in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(i.name)\n"
+        "new = ('agents.pedestrians', 'core.synth', 'utils')\n"
+        "assert all(pkg.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'trafficsimulation_tpu'))\n"
         "assert not bad, bad\n"

@@ -1118,3 +1118,70 @@ def test_wavefront_per_world_geometry_matches_plain(gen, shape):
     assert HE.launches["build_wavefront"] == n0 + 3
     _same((mixed,), (HE.wavefront_core_batched(cfg, allowed[0], road,
                                                hard),))
+
+
+# ---- pedestrians -----------------------------------------------------------
+
+_PED_CODES = (2, 2, 2, 17, 15, 16, 9, 10, 11, 12, 0, 1)
+
+
+def _ped_inputs(gen, B, H, W, hi=2000, per_world=False):
+    """Random cell codes (sidewalks the most common), stop maps, counts
+    of 0..hi and u32 seeds for B worlds."""
+    codes = torch.tensor(_PED_CODES, dtype=torch.uint8, device="cuda")
+    cell = codes[_rint(gen, 0, len(_PED_CODES),
+                       *((B,) if per_world else ()), H, W).long()]
+    stop = _bern(gen, 0.5, B, H, W)
+    walk = _rint(gen, 0, hi, B, 4, H, W)
+    cross = _rint(gen, 0, hi, B, 4, H, W)
+    seeds = _rint(gen, -2**31, 2**31, B, 14).to(torch.int64) & 0xFFFFFFFF
+    return walk, cross, cell, stop, seeds
+
+
+@pytest.mark.parametrize("shape,hi", [((37, 53), 2000), ((37, 300), 20000),
+                                      ((256, 256), 50)])
+def test_step_pedestrians_kernel_matches_plain(gen, shape, hi):
+    """One world: one launch, bit-equal to the plain version on every
+    output (ragged shapes; counts large enough that every fractional
+    split rounds)."""
+    from trafficsimulation_tpu_torch.agents.pedestrians import \
+        step_pedestrians_plain
+    H, W = shape
+    cfg = Config(WIDTH=W, HEIGHT=H, PEDESTRIANS_ENABLED=True,
+                 PEDESTRIANS_PER_DAY=2_000_000)
+    walk, cross, cell, stop, seeds = _ped_inputs(gen, 1, H, W, hi)
+    args = (walk[0], cross[0], cell, stop[0], seeds[0])
+    n0 = HE.launches["step_pedestrians"]
+    got = HE.step_pedestrians(cfg, *args)
+    assert HE.launches["step_pedestrians"] == n0 + 1
+    ref = step_pedestrians_plain(cfg, *args)
+    _same(got, ref)
+    assert bool(ref[2].any())
+
+
+@pytest.mark.parametrize("per_world", [False, True])
+def test_step_pedestrians_batched_and_vmapped(gen, per_world):
+    """B = 3 worlds, cell_type shared or one plane a world: the batched
+    kernel and the wrapper under torch.func.vmap each launch once and
+    equal the plain version world by world."""
+    from trafficsimulation_tpu_torch.agents.pedestrians import \
+        step_pedestrians_plain
+    B, H, W = 3, 45, 70
+    cfg = Config(WIDTH=W, HEIGHT=H, PEDESTRIANS_ENABLED=True,
+                 PEDESTRIANS_PER_DAY=2_000_000)
+    walk, cross, cell, stop, seeds = _ped_inputs(gen, B, H, W,
+                                                 per_world=per_world)
+    n0 = HE.launches["step_pedestrians"]
+    got = HE.step_pedestrians_batched(cfg, walk, cross, cell, stop, seeds)
+    assert HE.launches["step_pedestrians"] == n0 + 1
+    vm = torch.func.vmap(
+        lambda w, c, g, s, k: HE.step_pedestrians(cfg, w, c, g, s, k),
+        in_dims=(0, 0, 0 if per_world else None, 0, 0))(
+            walk, cross, cell, stop, seeds)
+    assert HE.launches["step_pedestrians"] == n0 + 2
+    for b in range(B):
+        ref = step_pedestrians_plain(cfg, walk[b], cross[b],
+                                     cell[b] if per_world else cell,
+                                     stop[b], seeds[b])
+        _same(tuple(g[b] for g in got), ref)
+        _same(tuple(v[b] for v in vm), ref)

@@ -14,10 +14,16 @@ frequent ops of each.  The card's own count comes from
 change to the host part can be weighed before a chip run:
 
     python tools/count_segment_ops.py
+
+With `--pedestrians` it counts the per-tick path of the same world with
+pedestrians on instead (20 ticks), and the ops of the pedestrian step's
+plain version apart from the rest: on the card the step is one
+`step_pedestrians` launch and the sidewalk count's reduction.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import os
 import sys
@@ -39,10 +45,16 @@ KERNEL = "kernel"
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--pedestrians", action="store_true",
+                    help="the per-tick path with pedestrians on")
+    peds = ap.parse_args().pedestrians
     sys.path.insert(0, ROOT)
     os.environ.pop("TSIM_NO_MEGAKERNEL", None)
-    os.environ["TSIM_MEGA_INTERPRET"] = "1"
+    if not peds:
+        os.environ["TSIM_MEGA_INTERPRET"] = "1"
     from trafficsimulation_tpu_torch import prng, sim
+    from trafficsimulation_tpu_torch.agents import pedestrians
     from trafficsimulation_tpu_torch.config import Config
     from trafficsimulation_tpu_torch.ops import engine, megakernel
     from trafficsimulation_tpu_torch.ops import hopper_engine as HE
@@ -86,24 +98,36 @@ def main():
     tag(megakernel, "build_chunk_static", "chunk entry and exit")
     tag(sim, "_enter_engine", "chunk entry and exit")
     tag(sim, "_exit_engine", "chunk entry and exit")
+    tag(pedestrians, "step_pedestrians_plain",
+        "pedestrian step (plain version)")
 
     torch.set_num_threads(2)
     cfg = Config(WIDTH=64, HEIGHT=64, WALL_THICKNESS=6, SIDEWALK_RING_WIDTH=2,
                  MAX_FIELD_DESTS=32, MAX_VEHICLES=256,
                  INTERNAL_POPULATION_TRAFFIC_PER_DAY=60000,
                  PASSING_POPULATION_TRAFFIC_PER_DAY=20000,
-                 RAIN_SPAWN_CHANCE=0.2)
+                 RAIN_SPAWN_CHANCE=0.2, PEDESTRIANS_ENABLED=peds,
+                 PEDESTRIANS_PER_DAY=200_000)
     world = sim.init_world(cfg, prng.PRNGKey(3), "cpu")
     cfg, world = sim.measure_and_shrink(cfg, world)
     world = sim.inject_vehicles(cfg, world, 120)
-    segs = N_TICKS // cfg.PATHFINDING_COOLDOWN
+    n_ticks = 20 if peds else N_TICKS
+    segs = n_ticks // cfg.PATHFINDING_COOLDOWN
     with Count():
-        sim.run_chunk(cfg, world, N_TICKS)
+        sim.run_chunk(cfg, world, n_ticks)
+    if peds:
+        total = sum(counts.values())
+        plain = counts["pedestrian step (plain version)"]
+        print(f"ops per tick ({n_ticks} ticks, pedestrians on): "
+              f"{total / n_ticks:.1f}, of which the pedestrian step's "
+              f"plain version {plain / n_ticks:.1f}; most frequent: "
+              f"{by_op['pedestrian step (plain version)'].most_common(6)}")
+        return 0
     # a nested stage's ops count in it, not in the stage around it
     outer = {"of which rain": "segment schedule",
              "of which metrics fold": "segment state"}
     total = sum(counts.values())
-    print(f"ops per segment ({N_TICKS} ticks, {segs} segments): "
+    print(f"ops per segment ({n_ticks} ticks, {segs} segments): "
           f"{total / segs:.1f}")
     for name, n in counts.most_common():
         rest = " (the rest)" if name in outer.values() else ""

@@ -207,8 +207,9 @@ class Overrides(_Struct):
 
 @dataclasses.dataclass
 class Pedestrians(_Struct):
-    """Pedestrian count planes (`agents/pedestrians.py`); carried as a
-    [4, 1, 1] stub while pedestrians are off (not ported yet)."""
+    """Pedestrian count planes by heading (`agents/pedestrians.py`):
+    [4, H, W] while PEDESTRIANS_ENABLED, a [4, 1, 1] stub while they
+    are off, as the JAX package carries them."""
     walk: Tensor   # i32 [4, H, W]
     cross: Tensor  # i32 [4, H, W]
 

@@ -74,6 +74,9 @@ _ARGTYPES = {
     # clouds, active, cooldown, spawn, want_cd, out seen, seen_a,
     # cooldown, B, n, R, cool, stream
     "tsim_rain_ticks": [P] * 8 + [I] * 4 + [P],
+    # walk, cross, cell, stop, seeds, n_side, out walk, cross, block,
+    # count, B, H, W, cell and n_side per world (0/1), lam, spawn, stream
+    "tsim_step_pedestrians": [P] * 10 + [I] * 4 + [ctypes.c_float, I, P],
     # ip[34], fp[7], pointer table, its length, grid, tiles a block,
     # stream
     "tsim_mega_segment": [P, P, P, I, I, I, P],

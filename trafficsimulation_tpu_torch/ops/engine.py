@@ -325,23 +325,35 @@ def _hash32(x: torch.Tensor) -> torch.Tensor:
 
 # per-tick draw row (int64 [N_DRAWS]): the 4 tick_randoms seeds (u32),
 # then the rain draws: spawn wanted, edge, position (the f32 uniform
-# times 2^23, an exact integer), corner flip, radius
-N_DRAWS = 9
-D_SEEDS, D_RAIN = 0, 4
+# times 2^23, an exact integer), corner flip, radius; then the
+# pedestrian step's 14 seeds (u32: 4 keep, 8 take, 2 spawn; zero while
+# pedestrians are off)
+D_SEEDS, D_RAIN, D_PED = 0, 4, 9
+N_DRAWS = D_PED + 14
 
 
 def tick_draws(cfg: Config, key: np.ndarray, n: int):
     """Walk the JAX key chain of n ticks on the host (`step_engine`:
-    split(key, 6); `_post_move`: split(key); `step_rain`: split(k_rain,
-    5)).  `key` uint32 [2], or [B, 2] for the worlds of a batch (each
-    world its own chain, walked together).  Returns (draws int64
-    [..., n, N_DRAWS] numpy, final keys [..., 2])."""
+    split(key, 6), then split(key) for the pedestrians when they are on;
+    `_post_move`: split(key); `step_rain`: split(k_rain, 5);
+    `step_pedestrians`: split(k_ped, 3)).  `key` uint32 [2], or [B, 2]
+    for the worlds of a batch (each world its own chain, walked
+    together).  Returns (draws int64 [..., n, N_DRAWS] numpy, final keys
+    [..., 2])."""
     key = np.asarray(key, np.uint32)
     out = np.zeros(key.shape[:-1] + (n, N_DRAWS), np.int64)
     for t in range(n):
         ks = prng.split(key, 6)
         key, k_mal, k_rain = ks[..., 0, :], ks[..., 1, :], ks[..., 5, :]
         out[..., t, D_SEEDS:D_SEEDS + 4] = prng.bits(k_mal, (4,))
+        if cfg.PEDESTRIANS_ENABLED:
+            kp = prng.split(key, 2)
+            key = kp[..., 0, :]
+            kq = prng.split(kp[..., 1, :], 3)
+            out[..., t, D_PED:D_PED + 4] = prng.bits(kq[..., 0, :], (4,))
+            out[..., t, D_PED + 4:D_PED + 12] = prng.bits(kq[..., 1, :], (8,))
+            out[..., t, D_PED + 12:D_PED + 14] = prng.bits(kq[..., 2, :],
+                                                           (2,))
         key = prng.split(key, 2)[..., 0, :]
         if cfg.RAIN_ENABLED:
             kr = prng.split(k_rain, 5)
@@ -397,14 +409,14 @@ def soft_penalties(cfg: Config, pa, stop_map, density):
 def routing_planes(cfg: Config, world, es: EngineState):
     """(sdir4, wnd, density) from the current dynamic state; rebuilt once
     per PATHFINDING_COOLDOWN ticks by `run_chunk` (see the JAX
-    `routing_planes`)."""
-    if cfg.PEDESTRIANS_ENABLED:
-        raise NotImplementedError(
-            "pedestrians are not ported yet (ROADMAP Queue 1 item 11)")
+    `routing_planes`).  Cells that held pedestrians after the last tick
+    are hard blockers."""
     grid = world.grid
     present = (es.pa & 1) == 1
     density = density_map(present, grid.is_road, cfg.VEHICLE_AWARENESS_RANGE)
     soft2, hard = soft_penalties(cfg, es.pa, es.stop_map, density)
+    if cfg.PEDESTRIANS_ENABLED:
+        hard = hard | (es.ped_map > 0)
     sdir4 = build_sdir(cfg, world.cost_field, grid.allowed_dirs,
                        grid.is_road, soft2, hard)
     wnd = build_wavefront(cfg, grid.allowed_dirs, grid.is_road, hard)
@@ -415,18 +427,16 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
                 sdir=None, spawn_slots: torch.Tensor = None,
                 dense: tuple = None) -> EngineState:
     """One tick on the plane representation (the JAX `step_engine`,
-    dense or hierarchical routing, no pedestrians, FSM lights).
-    `draws`: this tick's int64 [N_DRAWS] row from `tick_draws`; the
-    caller advances the key.  `dense`: the (M, A) light-reduction
-    matrices of `fsm.build_dense_reducers`, or None for the sparse
-    forms."""
+    dense or hierarchical routing, FSM lights, pedestrians when
+    PEDESTRIANS_ENABLED: their step, one `HE.step_pedestrians` launch,
+    after the stop map, its crossers blocking decide + move).  `draws`:
+    this tick's int64 [N_DRAWS] row from `tick_draws`; the caller
+    advances the key.  `dense`: the (M, A) light-reduction matrices of
+    `fsm.build_dense_reducers`, or None for the sparse forms."""
     if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM in fsm.RL_ALGOS:
         raise NotImplementedError(
             "RL light controllers are not ported yet (ROADMAP Queue 1 "
             "item 14)")
-    if cfg.PEDESTRIANS_ENABLED:
-        raise NotImplementedError(
-            "pedestrians are not ported yet (ROADMAP Queue 1 item 11)")
     caps = cfg.capacities()
     H, W = cfg.HEIGHT, cfg.WIDTH
     dt = float(cfg.TIME_PER_STEP_IN_SECONDS)
@@ -447,12 +457,21 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
     stop_map = fsm.build_stop_map(grid, world.lights_static, lights,
                                   dense_a=dense_a)
 
+    # ---- pedestrians: crossers on the roadway block vehicles ------------
+    peds, ped_map = es.peds, es.ped_map
+    if cfg.PEDESTRIANS_ENABLED:
+        walk, cross, ped_bit, ped_map = HE.step_pedestrians(
+            cfg, peds.walk, peds.cross, grid.cell_type, stop_map,
+            draws[D_PED:D_PED + 14])
+        peds = peds.replace(walk=walk, cross=cross)
+    else:
+        ped_bit = torch.zeros((H, W), dtype=torch.bool, device=es.pa.device)
+
     # ---- decide + move: K1, or under hierarchical routing K1-hier (the
     # windowed and the dense stack, selected in the kernel) --------------
     if sdir is None:
         sdir = routing_planes(cfg, world, es)
     sdir4, wnd, density = sdir
-    ped_bit = torch.zeros((H, W), dtype=torch.bool, device=es.pa.device)
     randoms = tick_randoms(cfg, draws[D_SEEDS:D_SEEDS + 4], H, W)
     planes = (es.pa, es.pb, es.pc, es.pd, es.pe, es.pl)
     out = HE.decide_move(
@@ -464,8 +483,8 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
     events = ((flags & HE.FLAG_NEW_MAL).sum().to(torch.int32),
               ((flags & HE.FLAG_NEW_COL) >> 1).sum().to(torch.int32))
     return _post_move(cfg, world, es, out[:6], lights, stop_map, density,
-                      tick, elapsed, draws[D_RAIN:D_RAIN + 5], events,
-                      spawn_slots=spawn_slots)
+                      peds, ped_map, tick, elapsed, draws[D_RAIN:D_RAIN + 5],
+                      events, spawn_slots=spawn_slots)
 
 
 def _isum(x: torch.Tensor) -> torch.Tensor:
@@ -473,8 +492,8 @@ def _isum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _post_move(cfg: Config, world, es: EngineState, planes, lights,
-               stop_map, density, tick, elapsed, rain_draws, events,
-               spawn_slots=None) -> EngineState:
+               stop_map, density, peds, ped_map, tick, elapsed, rain_draws,
+               events, spawn_slots=None) -> EngineState:
     """Arrivals, service FSM, despawns, demand spawning, daily counters,
     rain and block resources (the JAX `_post_move`)."""
     caps = cfg.capacities()
@@ -748,6 +767,7 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
     return es.replace(
         pa=pa, pb=pb, pc=pc, pd=pd, pe=pe, pl=pl, slot_used=slot_used,
         stop_map=stop_map, rain_map=rain_map, density=density,
+        ped_map=ped_map, peds=peds,
         lights=lights, blocks=bst, rain=rain, dem_cursor=cursor, metrics=m,
         overrides=Overrides(
             light_force=torch.full_like(es.overrides.light_force, -1),

@@ -30,20 +30,25 @@ version (the counterpart of the JAX package's `ops/pallas_engine.py`).
                            the JAX package leaves it to XLA's scatter)
   `rain_ticks`             the rain clouds' tick loop (no TPU kernel: the
                            JAX package steps rain in XLA ops per tick)
+  `step_pedestrians`       one tick of the pedestrian count planes (no
+                           TPU kernel: XLA ops per tick in the JAX
+                           package); every tick while pedestrians are on
 
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel (built from `csrc/` by `ops/build.py`)
 or raises.  There is no fallback from one to the other.  `launches`
 counts, per kernel, the wrapper calls that launched it.
 
-Batches.  K1, K2 (`build_sdir_stacks`), K3, K4, `ordered_add` and
-`rain_ticks` take a leading batch of worlds (`*_batched`; one launch per
-batch); the geometry that K1, K2 and K3 read (intersection and dest_id,
-the key stack and legality planes, allowed and is_road) is either shared
-by the batch or one plane a world (config #4's batch of different
-cities).  The single-world wrappers are the B = 1 call.  They have a
-`torch.autograd.Function` with a `vmap` rule (K1, K3, K4, `ordered_add`
-and `rain_ticks` take it only while a functorch transform is active, and
+Batches.  K1, K2 (`build_sdir_stacks`), K3, K4, `ordered_add`,
+`rain_ticks` and `step_pedestrians` take a leading batch of worlds
+(`*_batched`; one launch per batch); the geometry that K1, K2, K3 and
+`step_pedestrians` read (intersection and dest_id, the key stack and
+legality planes, allowed and is_road, cell_type) is either shared by the
+batch or one plane a world (config #4's batch of different cities).  The
+single-world wrappers are the B = 1 call.  They have a
+`torch.autograd.Function` with a `vmap` rule (K1, K3, K4, `ordered_add`,
+`rain_ticks` and `step_pedestrians` take it only while a functorch
+transform is active, and
 otherwise launch directly), the counterpart of the batching rules that
 `jax.vmap` finds for the Pallas kernels: under `torch.func.vmap` (the
 world batches of `parallel/mesh.py`) each launches its batched kernel
@@ -104,7 +109,7 @@ KINF = 0x7FFFFFFF
 launches = {"decide_move": 0, "build_sdir": 0, "build_sdir_batched": 0,
             "build_wavefront": 0, "prefix_planes": 0, "ordered_add": 0,
             "select_rows": 0, "mega": 0, "rain_ticks": 0,
-            "decide_move_tiled": 0, "render": 0}
+            "decide_move_tiled": 0, "render": 0, "step_pedestrians": 0}
 
 
 def reset_launches():
@@ -1552,6 +1557,125 @@ def rain_ticks(clouds, active, cooldown, spawn, want_cd, cool: int):
         return _RainTicks.apply(clouds, active, cooldown, spawn, want_cd,
                                 cool)
     return _rain_single(clouds, active, cooldown, spawn, want_cd, cool)
+
+
+# ---- pedestrians ------------------------------------------------------------
+
+def _ped_launch(cfg: Config, walk, cross, cell_type, stop_map, seeds, B: int,
+                geo: int):
+    """One `step_pedestrians` launch over B worlds (every tensor checked
+    by the caller): the sidewalk count of each geometry plane (one
+    reduction), then the kernel."""
+    from ..agents.pedestrians import spawn_rate
+    H, W = cell_type.shape[-2:]
+    dev = walk.device
+    n_side = (cell_type == C.SIDEWALK).sum((-2, -1), dtype=torch.int32)
+    walk_o = torch.empty(walk.shape, dtype=torch.int32, device=dev)
+    cross_o = torch.empty(walk.shape, dtype=torch.int32, device=dev)
+    block = torch.empty(stop_map.shape, dtype=torch.bool, device=dev)
+    count = torch.empty(stop_map.shape, dtype=torch.int32, device=dev)
+    _check_rc("tsim_step_pedestrians", _entry("tsim_step_pedestrians")(
+        walk.data_ptr(), cross.data_ptr(), cell_type.data_ptr(),
+        stop_map.data_ptr(), seeds.data_ptr(), n_side.data_ptr(),
+        walk_o.data_ptr(), cross_o.data_ptr(), block.data_ptr(),
+        count.data_ptr(), B, H, W, geo, float(spawn_rate(cfg)),
+        int(cfg.PEDESTRIANS_ENABLED),
+        torch._C._cuda_getCurrentRawStream(dev.index)))
+    launches["step_pedestrians"] += 1
+    return walk_o, cross_o, block, count
+
+
+def step_pedestrians_batched(cfg: Config, walk, cross, cell_type, stop_map,
+                             seeds):
+    """One pedestrian tick for B worlds: walk, cross int32 [B, 4, H, W],
+    cell_type u8 shared [H, W] or one plane a world [B, H, W], stop_map
+    bool [B, H, W], seeds int64 [B, 14] (`engine.tick_draws`' u32
+    seeds) -> (walk', cross' int32 [B, 4, H, W], ped_block bool
+    [B, H, W], ped_count int32 [B, H, W]).
+
+    No TPU kernel: the JAX package runs the step as XLA ops
+    (`agents/pedestrians.step_pedestrians`).  Source:
+    csrc/pedestrians.cu.  On the H100 it is bound by launch latency at
+    a few hundred thousand cells (~71 bytes a cell: eight count planes
+    in and out, cell_type, the stop map, ped_block and ped_count); the
+    plain version issues ~700 ops a tick.  Design: one launch, one
+    thread per cell and world in gather form (each cell recomputes the
+    splits of its four upstream neighbours from their counts and hashed
+    uniforms, sums what lands on it, thins its walkers and rolls its
+    spawn), every f32 rounding spelled out; the sidewalk count that
+    sets the spawn probability is one reduction per call."""
+    if not _on_cuda(walk):
+        from ..agents.pedestrians import step_pedestrians_plain
+        geo = cell_type.dim() == 3
+        outs = [step_pedestrians_plain(
+            cfg, walk[b], cross[b], cell_type[b] if geo else cell_type,
+            stop_map[b], seeds[b]) for b in range(walk.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    B, _, H, W = walk.shape
+    dev = walk.device
+    geo = int(cell_type.dim() == 3)
+    _check("walk", walk, torch.int32, (B, 4, H, W), dev)
+    _check("cross", cross, torch.int32, (B, 4, H, W), dev)
+    _check("cell_type", cell_type, torch.uint8, (B,) * geo + (H, W), dev)
+    _check("stop_map", stop_map, torch.bool, (B, H, W), dev)
+    _check("seeds", seeds, torch.int64, (B, 14), dev)
+    return _ped_launch(cfg, walk, cross, cell_type, stop_map, seeds, B, geo)
+
+
+def _ped_single(cfg: Config, walk, cross, cell_type, stop_map, seeds):
+    if not _on_cuda(walk):
+        from ..agents.pedestrians import step_pedestrians_plain
+        return step_pedestrians_plain(cfg, walk, cross, cell_type, stop_map,
+                                      seeds)
+    H, W = cell_type.shape
+    dev = walk.device
+    if not (walk.dtype == torch.int32 and cross.dtype == torch.int32
+            and cell_type.dtype == torch.uint8
+            and stop_map.dtype == torch.bool and seeds.dtype == torch.int64
+            and walk.shape == (4, H, W) and cross.shape == (4, H, W)
+            and stop_map.shape == (H, W) and seeds.shape == (14,)
+            and cross.device == dev and cell_type.device == dev
+            and stop_map.device == dev and seeds.device == dev
+            and walk.is_contiguous() and cross.is_contiguous()
+            and cell_type.is_contiguous() and stop_map.is_contiguous()
+            and seeds.is_contiguous()):
+        # the precise error
+        _check("walk", walk, torch.int32, (4, H, W), dev)
+        _check("cross", cross, torch.int32, (4, H, W), dev)
+        _check("cell_type", cell_type, torch.uint8, (H, W), dev)
+        _check("stop_map", stop_map, torch.bool, (H, W), dev)
+        _check("seeds", seeds, torch.int64, (14,), dev)
+    return _ped_launch(cfg, walk, cross, cell_type, stop_map, seeds, 1, 0)
+
+
+class _StepPedestrians(_Kernel):
+    @staticmethod
+    def forward(cfg, walk, cross, cell_type, stop_map, seeds):
+        return _ped_single(cfg, walk.contiguous(), cross.contiguous(),
+                           cell_type.contiguous(), stop_map.contiguous(),
+                           seeds.contiguous())
+
+    @staticmethod
+    def vmap(info, in_dims, cfg, walk, cross, cell_type, stop_map, seeds):
+        B = info.batch_size
+        _, wd, cd, gd, sd, kd = in_dims
+        cell = (cell_type.contiguous() if gd is None
+                else _front(cell_type, gd, B))
+        return step_pedestrians_batched(
+            cfg, _front(walk, wd, B), _front(cross, cd, B), cell,
+            _front(stop_map, sd, B), _front(seeds, kd, B)), (0, 0, 0, 0)
+
+
+def step_pedestrians(cfg: Config, walk, cross, cell_type, stop_map, seeds):
+    """One pedestrian tick of one world (`step_pedestrians_batched` with
+    B = 1): walk, cross int32 [4, H, W], cell_type u8 [H, W], stop_map
+    bool [H, W], seeds int64 [14] -> (walk', cross', ped_block,
+    ped_count).  One lean launch; under vmap one launch for all worlds,
+    through `_StepPedestrians`'s rule."""
+    if torch._C._are_functorch_transforms_active():
+        return _StepPedestrians.apply(cfg, walk, cross, cell_type, stop_map,
+                                      seeds)
+    return _ped_single(cfg, walk, cross, cell_type, stop_map, seeds)
 
 
 # ---- K9 --------------------------------------------------------------------

@@ -37,10 +37,10 @@ from .config import Config
 
 from .agents import demand as demand_mod
 from .agents.blocks import init_blocks_state
+from .agents.pedestrians import init_pedestrians
 from .agents.rain import init_rain_state
 from .core.state import (BlockStatic, DestStatic, Grid, GroupStatic,
-                         LightStatic, Metrics, Overrides, Pedestrians,
-                         Vehicles, World)
+                         LightStatic, Metrics, Overrides, Vehicles, World)
 from .core.transfer import world_from_leaves, world_leaves
 from .gen import hier as ghier
 from .gen.generate import (city_cost_field, city_draws, city_from_draws,
@@ -154,7 +154,6 @@ def _assemble(cfg: Config, city, field, day_draws: dict,
         cfg, trip_layout_cached(cfg), day_draws, 0, cfg.DEMAND_PREGEN_DAYS,
         -1, bs.valid, bs.btype, bs.dest, bs.entrance, dests.valid,
         dests.kind, dests.hw_pos, dests.hw_valid, DF)
-    z = torch.zeros((4, 1, 1), dtype=torch.int32, device=dev)
     return World(
         grid=grid, lights_static=ls, groups_static=gs, blocks_static=bs,
         dests=dests, cost_field=field,
@@ -171,7 +170,7 @@ def _assemble(cfg: Config, city, field, day_draws: dict,
         rain=init_rain_state(cfg, dev),
         demand=dem,
         metrics=init_metrics(dev),
-        peds=Pedestrians(walk=z, cross=z.clone()),
+        peds=init_pedestrians(H, W, cfg.PEDESTRIANS_ENABLED, dev),
         ped_map=torch.zeros((H, W), dtype=torch.int32, device=dev),
         overrides=Overrides(
             light_force=torch.full((caps.max_lights,), -1, dtype=torch.int8,

@@ -1,6 +1,7 @@
-"""Host-side helpers of the bridge's inspectors (the JAX package's
-`utils.flow_at` and `utils.highway_label`, on numpy copies of the
-world's tensors)."""
+"""Host-side helpers (the JAX package's `utils.py`): the bridge's
+inspectors `flow_at` and `highway_label`, the flow-mask checks
+`assert_flow_mask` and `interactive_check`, and `str_to_unique_int`, on
+numpy copies of the world's tensors."""
 
 from __future__ import annotations
 
@@ -21,6 +22,41 @@ def flow_at(allowed_dirs, x: int, y: int) -> set:
     """Set of direction names allowed at (x, y)."""
     bits = int(to_numpy(allowed_dirs)[y, x])
     return {C.DIR_NAMES[d] for d in range(4) if bits & (1 << d)}
+
+
+def assert_flow_mask(allowed_dirs, x: int, y: int, direction: str,
+                     expected: bool):
+    """Raise AssertionError when the arrow presence at (x, y) does not
+    match `expected` (reference `assert_flow_mask`)."""
+    got = direction.upper() in flow_at(allowed_dirs, x, y)
+    assert got == expected, (
+        f"flow mask at ({x},{y}) {direction}: got {got}, "
+        f"expected {expected}; mask = {sorted(flow_at(allowed_dirs, x, y))}")
+
+
+def interactive_check(allowed_dirs):
+    """REPL loop for poking at the direction mask (reference
+    `interactive_check`): `x y [dir]` per line, an empty line quits."""
+    print("enter: x y [dir]   (empty line quits)")
+    while True:
+        try:
+            line = input("> ").strip()
+        except EOFError:
+            break
+        if not line:
+            break
+        parts = line.split()
+        x, y = int(parts[0]), int(parts[1])
+        if len(parts) > 2:
+            print(parts[2].upper() in flow_at(allowed_dirs, x, y))
+        else:
+            print(sorted(flow_at(allowed_dirs, x, y)))
+
+
+def str_to_unique_int(s: str) -> int:
+    """Stable integer id from a string (reference `str_to_unique_int`)."""
+    import hashlib
+    return int(hashlib.md5(s.encode()).hexdigest()[:12], 16)
 
 
 def highway_label(grid, flat: int) -> str:
