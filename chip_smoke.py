@@ -155,7 +155,23 @@ Phases (any failure raises and the script exits nonzero):
      100^2 generated from seeds 1-3 after a warm seed 0 (ms a seed),
      each held to the digest at init; seed 0 after 200 ticks held to the
      digest; light cycling steps/s over 200 more ticks, the number of
-     lights, launches and device busy ms a tick (a profile of 50).
+     lights, launches and device busy ms a tick (a profile of 50);
+ 18. the RL light controllers (group `rl`) at the headline: REINFORCE
+     (NEIGHBOR_RL_BATCHED, 10 x 128), A2C (RL_A2C_BATCHED, 10 x 256) and
+     GAT-DQN (GAT_DQN_BATCHED), each world generated on the card from
+     seed 0 with its controller, JAX's initial parameters put in
+     (`data/rl_params.npz`), held to JAX's digest (`data/rl_digest.json`,
+     `tools/make_torch_rl_digest.py`) at init and after 23 ticks with
+     training held off (K1 and K4 23, K2 and K3 5 launches, no plain
+     decide core, no megakernel, every leaf on the card); then 64 ticks
+     at the Config's defaults with training on (parameters moved, Adam's
+     count equal to the host's mirror of the updates, no NaN, the grid's
+     arrows JAX's), a tick of `TrafficSim.step(1)`, and NEIGHBOR_RL and
+     GAT_DQN through `TrafficSim`; one training update's device ms and
+     kernels; and 3
+     timed chunks of 50 ticks and a profile of 50 for each family and
+     for QUEUE_ACTUATED on the same world, in one process (steps/s,
+     launches and device busy ms a tick, idle share).
 
 The line before the last is the kernels' JSON summary, the one before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -308,7 +324,7 @@ PED_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
                           "ped_digest.json")
 PHASES = ("kernels", "ordered_add", "headline", "mega", "hier_digest",
           "config4", "config5", "config3", "config1", "tiled", "render",
-          "bridge")
+          "bridge", "rl")
 TILES = ((64, 64), (16, 32))     # K7's tilings of the headline grid
 # the numbers of a kernel's other shapes in the summary line
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "kernels_per_call",
@@ -2441,6 +2457,269 @@ def phase_bridge(cfg, world, HE, tsim, card):
     return launches
 
 
+# the RL light controllers at the headline (`data/rl_digest.json`,
+# `tools/make_torch_rl_digest.py`; their initial parameters in
+# `data/rl_params.npz`)
+RL_FAMILIES = ("NEIGHBOR_RL_BATCHED", "RL_A2C_BATCHED", "GAT_DQN_BATCHED")
+RL_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
+                         "rl_digest.json")
+RL_PARAMS = os.path.join("trafficsimulation_tpu_torch", "data",
+                         "rl_params.npz")
+RL_NEAR = ("rl.roll_v",)      # A2C's value outputs: the nets' f32 order
+RL_NET_RTOL = 1e-5
+RL_TRAIN_TICKS = 64
+RL_CHUNK = 50
+RL_REPEATS = 3
+RL_DEVICE = "cuda"
+
+
+def rl_hold_off(cfg):
+    """The digest's config: training held off for the 23 ticks."""
+    return cfg.replace(SRL_UPDATE_EVERY=10 ** 6,
+                       GAT_BATCH_SIZE=cfg.GAT_MEMORY_CAPACITY + 1)
+
+
+def rl_world(tsim, prng, Config, snapshot, algo: str, dig: dict):
+    """The headline world generated on the card with the RL controller
+    `algo` as a user builds it (`init_world`, `measure_and_shrink`,
+    `inject_vehicles`), its shrunk config held to the digest's."""
+    base = Config(**snapshot.HEADLINE_CFG,
+                  TRAFFIC_LIGHT_AGENT_ALGORITHM=algo)
+    world = tsim.init_world(base, prng.PRNGKey(dig["seed"]), "cuda")
+    cfg, world = tsim.measure_and_shrink(base, world)
+    world = tsim.inject_vehicles(cfg, world, dig["n_vehicles"])
+    for k, v in dig["cfg"].items():
+        want = (tuple(tuple(p) for p in v) if k == "CAP_OVERRIDES" else v)
+        if getattr(cfg, k) != want:
+            raise AssertionError(f"{algo}: shrunk {k} {getattr(cfg, k)} vs "
+                                 f"JAX's {want}")
+    return cfg, world
+
+
+def rl_digest_check(name, digest: dict, leaves: dict):
+    """Every leaf against the JAX digest (`check_digest`); A2C's value
+    outputs within the nets' tolerance."""
+    leaves = {k: v for k, v in leaves.items() if k != "cost_field"}
+    near = {k: digest[k] for k in RL_NEAR if k in digest}
+    for k, d in near.items():
+        v = np.asarray(leaves.pop(k)).astype(np.float64)
+        got = (v.sum(), np.abs(v).sum(), v.max())
+        if not np.allclose(got, (d["sum"], d["abs_sum"], d["max"]),
+                           rtol=RL_NET_RTOL, atol=0.0):
+            raise AssertionError(f"{name}: {k} sums {got} vs JAX's "
+                                 f"{(d['sum'], d['abs_sum'], d['max'])}")
+    ex, f32 = check_digest(name, {k: d for k, d in digest.items()
+                                  if k not in near}, leaves)
+    return ex, f32 + [f"{k} (rtol {RL_NET_RTOL})" for k in near]
+
+
+def rl_profile(fn, n_ticks, top: int = 8):
+    """`profile_ticks` of fn() and, from the same trace, the `top` host
+    ops by self CPU ms a tick: (busy, launches, top kernels, top host
+    ops as (name, ms a tick, calls a tick))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    ev = [e for e in ka if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / n_ticks
+    launches = sum(e.count for e in ev) / n_ticks
+    host = sorted((e for e in ka if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    return busy, launches, [
+        (e.key[:60], e.self_device_time_total / 1e3 / n_ticks,
+         e.count / n_ticks) for e in ev[:top]], [
+        (e.key[:60], e.self_cpu_time_total / 1e3 / n_ticks,
+         e.count / n_ticks) for e in host[:top]]
+
+
+def rl_update_profile(cfg, world, rl_mod):
+    """(device ms, device kernels) of one training update of the world's
+    controller on its own buffers (the replay batch from its filled
+    rows), under torch.profiler."""
+    ts = world.rl
+    net = rl_mod.net_of(cfg)
+    algo = cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM
+    count = int(ts.opt_state.count) + 1
+    if algo in rl_mod.A2C_ALGOS:
+        tick = rl_mod.RLTick(train=True, count=count)
+        fn = lambda: rl_mod._a2c_update(cfg, net, ts, tick)  # noqa: E731
+    else:
+        B = (cfg.SRL_BATCH_SIZE if algo in rl_mod.SRL_ALGOS
+             else cfg.GAT_BATCH_SIZE)
+        bidx = torch.randint(0, max(int(ts.filled), 1), (B,),
+                             device=ts.filled.device)
+        tick = rl_mod.RLTick(train=True, bidx=bidx, count=count)
+        train = (rl_mod._srl_train if algo in rl_mod.SRL_ALGOS
+                 else rl_mod._gat_train)
+        fn = lambda: train(cfg, net, ts, tick)  # noqa: E731
+    fn()
+    busy, kernels, _ = profile_path(fn, 1)
+    return busy, kernels
+
+
+def phase_rl(HE, tsim, transfer, card, prng, Config, snapshot, utils):
+    """The RL controllers at the headline on the card: each family's
+    world generated as a user builds it, JAX's initial parameters put in
+    (`transfer.with_rl_params`), held to JAX's digest at init and after 23
+    ticks with training held off (one K1 and one K4 launch a tick, one K2
+    and one K3 a segment, no plain decide core, no megakernel, every
+    leaf on the card); then 64 ticks at the Config's defaults (training
+    on): the parameters moved, Adam's count equals the host's mirror of
+    the updates, nothing is NaN, and the arrows of the grid are JAX's
+    (`utils.assert_flow_mask` on sampled road cells); then timed chunks
+    (steps/s, launches and device busy ms a tick, idle share), one
+    training update profiled, and QUEUE_ACTUATED on the same world in
+    this call beside them."""
+    from trafficsimulation_tpu_torch.rl import controllers as rl_mod
+    with open(os.path.join(ROOT, RL_DIGEST)) as f:
+        dig = json.load(f)
+    head = dig["headline256"]
+    n = dig["ticks"]
+    R = None
+    out, launches_all = {}, {}
+    with np.load(os.path.join(ROOT, RL_PARAMS)) as z:
+        params = {a: {k[len(a) + 1:]: z[k] for k in z.files
+                      if k.startswith(a + ".")} for a in RL_FAMILIES}
+    for algo in RL_FAMILIES:
+        cfg, world = rl_world(tsim, prng, Config, snapshot, algo, head)
+        R = max(1, cfg.PATHFINDING_COOLDOWN)
+        rec = head[algo]
+        w = transfer.with_rl_params(world, params[algo])
+        cfg_h = rl_hold_off(cfg)
+        ex0, _ = rl_digest_check(f"{algo} at init", rec["init"],
+                                 transfer.world_to_numpy(w))
+        HE.reset_launches()
+        with mega_env(False), no_plain_core(HE):
+            end, t_ref = timed(lambda: tsim.run_chunk(cfg_h, w, n))
+        launches = dict(HE.launches)
+        check_launches(f"{algo} path", launches, {
+            "decide_move": n, "prefix_planes": n, "build_sdir": -(-n // R),
+            "build_wavefront": -(-n // R), "build_sdir_batched": 0,
+            "select_rows": 0, "mega": 0, "step_pedestrians": 0,
+            "rain_ticks": n if cfg.RAIN_ENABLED else 0})
+        cpu = [k for k, t in transfer.world_leaves(end).items()
+               if t.device.type != RL_DEVICE]
+        if cpu:
+            raise AssertionError(f"{algo}: leaves off the card: {cpu[:5]}")
+        ex, near = rl_digest_check(f"{algo} after {n} ticks",
+                                   rec[f"tick{n}"],
+                                   transfer.world_to_numpy(end))
+        launches_all[algo] = launches
+        log(f"rl {algo}: generated on the card, JAX's initial parameters "
+            f"in; init {ex0}/{len(rec['init'])} leaves bit-equal to "
+            f"JAX's digest; after {n} ticks ({t_ref:.2f} s) every leaf "
+            f"equals JAX's ({ex} bit-equal, f32 within rtol: {near}); "
+            f"launches {launches}")
+
+        # training at the Config's defaults from the same start
+        _, plan, _ = tsim._chain(cfg, world, RL_TRAIN_TICKS)
+        mirror = plan[-1].count
+        p0 = {k: v.clone() for k, v in world.rl.params.items()}
+        with mega_env(False), no_plain_core(HE):
+            trained, t_train = timed(lambda: tsim.run_chunk(
+                cfg, world, RL_TRAIN_TICKS))
+        count = int(trained.rl.opt_state.count)
+        if count != mirror or count == 0:
+            raise AssertionError(f"{algo}: Adam count {count}, host mirror "
+                                 f"{mirror}")
+        moved = sum(int(not torch.equal(p0[k], v))
+                    for k, v in trained.rl.params.items())
+        if moved == 0:
+            raise AssertionError(f"{algo}: no parameter moved")
+        bad = [k for k, t in transfer.world_leaves(trained).items()
+               if t.is_floating_point() and not bool(torch.isfinite(t).all())]
+        if bad:
+            raise AssertionError(f"{algo}: non-finite leaves {bad[:5]}")
+        allowed = trained.grid.allowed_dirs.cpu()
+        ref_dirs = world.grid.allowed_dirs.cpu().numpy()
+        ys, xs = np.nonzero(world.grid.is_road.cpu().numpy())
+        pick = np.random.default_rng(0).choice(len(ys), 32, replace=False)
+        for i in pick:
+            x, y = int(xs[i]), int(ys[i])
+            for bit, d in enumerate("NESW"):
+                utils.assert_flow_mask(allowed, x, y, d,
+                                       bool(ref_dirs[y, x] >> bit & 1))
+        # one tick through `TrafficSim.step(1)` (`step_world`)
+        one = tsim.TrafficSim.from_world(cfg, trained)
+        one.step(1)
+        if int(one.world.tick) != int(trained.tick) + 1:
+            raise AssertionError(f"{algo}: step(1) did not advance")
+        upd_ms, upd_kernels = rl_update_profile(cfg, trained, rl_mod)
+        log(f"rl {algo}: {RL_TRAIN_TICKS} ticks at the defaults in "
+            f"{t_train:.2f} s, Adam count {count} = the host's mirror, "
+            f"{moved}/{len(p0)} parameter tensors moved, no NaN, the grid's "
+            f"arrows hold; one update: {upd_ms:.3f} device ms in "
+            f"{upd_kernels:.0f} device kernels")
+        out[algo] = {"groups": int(world.groups_static.valid.sum()),
+                     "ref_s": t_ref, "launches": launches,
+                     "train_ticks": RL_TRAIN_TICKS, "train_s": t_train,
+                     "adam_count": count, "moved": moved,
+                     "update_device_ms": upd_ms,
+                     "update_kernels": upd_kernels, "world": trained,
+                     "cfg": cfg}
+        del end, w
+    # the two unbatched names run the same controllers (the JAX dispatch)
+    for twin, algo in (("NEIGHBOR_RL", RL_FAMILIES[0]),
+                       ("GAT_DQN", RL_FAMILIES[2])):
+        cfg = out[algo]["cfg"].replace(TRAFFIC_LIGHT_AGENT_ALGORITHM=twin)
+        sim = tsim.TrafficSim.from_world(cfg, out[algo]["world"])
+        c0 = int(sim.world.rl.opt_state.count)
+        sim.step(3)
+        sim.step(1)
+        c1 = int(sim.world.rl.opt_state.count)
+        if c1 <= c0:
+            raise AssertionError(f"{twin}: no update in 4 ticks ({c0})")
+        out[twin] = {"updates_in_4_ticks": c1 - c0}
+    log("rl: NEIGHBOR_RL and GAT_DQN train through TrafficSim.step(3) and "
+        f"step(1) on the card: {out['NEIGHBOR_RL']['updates_in_4_ticks']} "
+        f"and {out['GAT_DQN']['updates_in_4_ticks']} updates in 4 ticks")
+    # timed chunks of every family and of QUEUE_ACTUATED, in this call
+    fsm_cfg = out[RL_FAMILIES[0]]["cfg"].replace(
+        TRAFFIC_LIGHT_AGENT_ALGORITHM="QUEUE_ACTUATED")
+    fsm_world = out[RL_FAMILIES[0]]["world"].replace(rl=None)
+    runs = [(a, out[a]["cfg"], out[a]["world"]) for a in RL_FAMILIES]
+    runs.append(("QUEUE_ACTUATED", fsm_cfg, fsm_world))
+    HW = fsm_cfg.HEIGHT * fsm_cfg.WIDTH
+    for name, cfg, w in runs:
+        times = []
+        with mega_env(False):
+            for _ in range(RL_REPEATS):
+                w, dt = timed(lambda w=w: tsim.run_chunk(cfg, w, RL_CHUNK))
+                times.append(dt)
+            busy, per_tick, top, host = rl_profile(
+                lambda: tsim.run_chunk(cfg, w, N_PROFILE_TICKS),
+                N_PROFILE_TICKS)
+        dt = statistics.median(times)
+        wall_ms = dt * 1e3 / RL_CHUNK
+        rec = out.setdefault(name, {})
+        rec.update(chunk_s=times, steps_per_s=RL_CHUNK / dt,
+                   cell_updates_per_s=HW * RL_CHUNK / dt,
+                   wall_ms_per_tick=wall_ms, busy_ms_per_tick=busy,
+                   device_launches_per_tick=per_tick,
+                   idle_share=1 - busy / wall_ms, top_kernels=top,
+                   top_host_ops=host)
+        log(f"rl timing ({card}) {name}: {RL_REPEATS} chunks of {RL_CHUNK} "
+            f"ticks {[round(t, 3) for t in times]} s, median "
+            f"{RL_CHUNK / dt:.2f} steps/s; wall {wall_ms:.3f} ms/tick, "
+            f"device busy {busy:.3f} ms/tick in {per_tick:.1f} launches, "
+            f"idle share {1 - busy / wall_ms:.3f}; top kernels "
+            + json.dumps([(k, round(m, 4), round(c, 1)) for k, m, c in top])
+            + "; top host ops under the profiler (self CPU ms, calls a tick) "
+            + json.dumps([(k, round(m, 3), round(c, 1)) for k, m, c in host]))
+    for rec in out.values():
+        rec.pop("world", None)
+        rec.pop("cfg", None)
+    REPORT["rl"] = {"card": card, **out}
+    torch.cuda.empty_cache()
+    return launches_all["RL_A2C_BATCHED"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the build log and report")
@@ -2570,6 +2849,11 @@ def main():
     if "config1" in run:
         l_c1 = phase_config1(HE, tsim, transfer, card, prng, Config)
         stamp("config1")
+    if "rl" in run:
+        from trafficsimulation_tpu_torch import utils
+        l_rl = phase_rl(HE, tsim, transfer, card, prng, Config, snapshot,
+                        utils)
+        stamp("rl")
     REPORT["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke phases took {REPORT['seconds']:.1f} s")
     if run != set(PHASES):
@@ -2582,7 +2866,8 @@ def main():
 
     launch_paths = {"single": l_single, "batched": l_batch,
                     "config5": l_c5, "mega": l_mega, "bridge": l_bridge,
-                    "config4": l_c4, "config3": l_c3, "config1": l_c1}
+                    "config4": l_c4, "config3": l_c3, "config1": l_c1,
+                    "rl": l_rl}
     summary = {"kernels": []}
     for k in KERNELS:
         path = SUMMARY_PATH.get(k, "batched")
@@ -2626,6 +2911,7 @@ def main():
                  "launches_config4_path": l_c4[ctr],
                  "launches_config3_path": l_c3[ctr],
                  "launches_config1_path": l_c1[ctr],
+                 "launches_rl_path": l_rl[ctr],
                  "on_path": k not in OFF_PATH}
         if path == "config4":
             entry["odd_batch"] = {x: k_c4[f"B={CONFIG4_ODD_B}"][k][x]

@@ -91,8 +91,30 @@ def test_lights_match_jax_over_random_ticks(small_cfg, small_world, algo):
 
 
 def test_rl_controllers_raise(small_cfg, small_world):
+    """Under an RL algorithm `run_controllers` applies the controller's
+    (want, phase) request where no phase is pending, as JAX's does; with
+    no request both packages raise ValueError."""
     cfg = small_cfg.replace(TRAFFIC_LIGHT_AGENT_ALGORITHM="RL_A2C_BATCHED")
-    tw = world_from_numpy(world_to_leaves(small_world), "cpu")
-    occ = torch.zeros(tw.grid.is_road.shape, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tfsm.run_controllers(cfg, tw.grid, tw.groups_static, tw.lights, occ)
+    w = small_world
+    tw = world_from_numpy(world_to_leaves(w), "cpu")
+    G = w.groups_static.valid.shape[0]
+    rng = np.random.default_rng(5)
+    occ = np.asarray(w.grid.is_road) & (rng.random(w.grid.is_road.shape)
+                                        < 0.3)
+    pend = np.where(rng.random(G) < 0.5, -1, rng.integers(0, 2, G))
+    jl = w.lights.replace(pending_phase=jnp.asarray(pend, jnp.int32))
+    tl = tw.lights.replace(pending_phase=T(pend.astype(np.int32)))
+    want = rng.random(G) < 0.6
+    phase = rng.integers(0, 2, G).astype(np.int32)
+    jl = jfsm.run_controllers(cfg, w.grid, w.groups_static, jl,
+                              jnp.asarray(occ), rl_phase_request=(
+                                  jnp.asarray(want), jnp.asarray(phase)))
+    tl = tfsm.run_controllers(cfg, tw.grid, tw.groups_static, tl, T(occ),
+                              rl_phase_request=(T(want), T(phase)))
+    _lights_same(jl, tl, "RL request")
+    assert (np.asarray(jl.pending_phase) != pend).any()
+    for fsm, grid, gs, lights, o in (
+            (jfsm, w.grid, w.groups_static, jl, jnp.asarray(occ)),
+            (tfsm, tw.grid, tw.groups_static, tl, T(occ))):
+        with pytest.raises(ValueError, match="requires an RL controller"):
+            fsm.run_controllers(cfg, grid, gs, lights, o)

@@ -4,9 +4,8 @@
 `crossroad_world` must equal JAX's leaf for leaf, its key stack
 included, at several configurations: the crossroad of the simulation
 tests, with pedestrians, without traffic, a larger non-square one, and
-another key.  `empty_statics` must equal JAX's tables.  An RL light
-controller raises, as everywhere in the port.  No JAX compile: JAX's
-crossroad is built eagerly.
+another key, and with an RL controller.  `empty_statics` must equal
+JAX's tables.  No JAX compile: JAX's crossroad is built eagerly.
 """
 
 import dataclasses
@@ -76,9 +75,25 @@ def test_empty_statics_match_jax():
 
 
 def test_crossroad_world_with_rl_raises():
-    cfg = Config(**dict(BASE, TRAFFIC_LIGHT_AGENT_ALGORITHM="RL_A2C_BATCHED"))
-    with pytest.raises(NotImplementedError):
-        synth.crossroad_world(cfg, device="cpu")
+    """With an RL controller (A2C) the crossroad equals JAX's on every
+    leaf, the train state's buffers and Adam state among them; the
+    initial parameters have JAX's names, shapes and dtypes (the port draws
+    them from its own generator, `rl/nets.py`)."""
+    import jax
+    kw = dict(BASE, TRAFFIC_LIGHT_AGENT_ALGORITHM="RL_A2C_BATCHED")
+    jcfg, tcfg = _pair(**kw)
+    ref = world_to_leaves(jsynth.crossroad_world(
+        jcfg, key=jax.random.PRNGKey(0)))
+    got = world_to_numpy(synth.crossroad_world(tcfg, key=prng.PRNGKey(0),
+                                               device="cpu"))
+    drawn = {k for k in ref if k.startswith("rl.params.")}
+    assert len(drawn) == 2 * (tcfg.A2C_HIDDEN_LAYERS + 3)
+    assert got["rl.roll_s"].shape == (tcfg.A2C_UPDATE_EVERY,
+                                      tcfg.capacities().max_groups, 13)
+    _assert_same({k: v for k, v in ref.items() if k not in drawn},
+                 {k: v for k, v in got.items() if k not in drawn})
+    for k in drawn:
+        assert (ref[k].dtype, ref[k].shape) == (got[k].dtype, got[k].shape)
 
 
 def test_flow_helpers_match_jax(capsys, monkeypatch):

@@ -51,14 +51,24 @@ REF_NAMES = ("demand.cursor", "tick", "key", "elapsed", "veh_map",
              "stuck_map", "stop_map", "rain_map", "density")
 
 
+def _key_name(k) -> str:
+    """One step of a JAX tree path: a struct field, a dict key (the RL
+    params and optimizer moments) or a tuple index (optax's state)."""
+    for attr in ("name", "key", "idx"):
+        if hasattr(k, attr):
+            return str(getattr(k, attr))
+    raise TypeError(f"unknown tree path entry {k!r}")
+
+
 def world_to_leaves(world) -> dict:
     """Flatten a JAX `World` (or any flax struct) into numpy arrays keyed
-    by their attribute path ("grid.cell_type", "vehicles.active", ...).
+    by their attribute path ("grid.cell_type", "vehicles.active",
+    "rl.params.params.Dense_0.kernel", "rl.opt_state.0.count", ...).
     `None` fields (rl, local_sdir4, dests.rid under dense routing) carry
     no leaves."""
     import jax
     flat, _ = jax.tree_util.tree_flatten_with_path(world)
-    return {".".join(k.name for k in path): np.asarray(leaf)
+    return {".".join(_key_name(k) for k in path): np.asarray(leaf)
             for path, leaf in flat}
 
 

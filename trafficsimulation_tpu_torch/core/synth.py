@@ -9,8 +9,8 @@ runs, clearance bucket), two serviced city blocks with routable
 entrances, four highway ends and a pre-generated demand table.  The
 planes and the trips are drawn in numpy as the JAX version draws them,
 the tables written into `empty_statics` on `device`; the cost field
-comes from the port's `routing.compute_cost_fields`.  RL light controllers are not ported
-(ROADMAP Queue 1 item 14): a config that names one raises.
+comes from the port's `routing.compute_cost_fields`.  An RL config gets
+its controller's train state from the key (`rl/controllers.py`).
 """
 
 from __future__ import annotations
@@ -67,11 +67,12 @@ def empty_statics(cfg: Config, device="cuda"):
 
 
 def assemble_world(cfg: Config, grid: Grid, ls, gs, bs, dests, demand,
-                   key: torch.Tensor) -> World:
+                   key: torch.Tensor, rl=None) -> World:
     """Wrap static tables and a grid into a runnable `World`: dynamic
     state zeroed, the key stack of the first MAX_FIELD_DESTS
     destinations computed from the grid.  `key`: the PRNG key as an
-    int32 [2] tensor on the world's device."""
+    int32 [2] tensor on the world's device; `rl`: the RL controller's
+    train state or None."""
     from ..agents.blocks import init_blocks_state
     from ..agents.pedestrians import init_pedestrians
     from ..agents.rain import init_rain_state
@@ -79,10 +80,6 @@ def assemble_world(cfg: Config, grid: Grid, ls, gs, bs, dests, demand,
     from ..ops import engine, routing
     from ..sim import _nearest_exit_table, init_metrics, init_vehicles
 
-    if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM in fsm.RL_ALGOS:
-        raise NotImplementedError(
-            "RL light controllers are not ported yet (ROADMAP Queue 1 "
-            "item 14)")
     dev = key.device
     caps = cfg.capacities()
     H, W = cfg.HEIGHT, cfg.WIDTH
@@ -114,7 +111,7 @@ def assemble_world(cfg: Config, grid: Grid, ls, gs, bs, dests, demand,
         ped_map=torch.zeros((H, W), dtype=torch.int32, device=dev),
         tick=torch.zeros((), dtype=torch.int32, device=dev),
         elapsed=torch.zeros((), dtype=torch.float32, device=dev),
-        key=key)
+        key=key, rl=rl)
 
 
 def crossroad_world(cfg: Config, key=None, n_trips: int = 48,
@@ -346,4 +343,6 @@ def crossroad_world(cfg: Config, key=None, n_trips: int = 48,
         cursor=torch.zeros((), dtype=torch.int32, device=dev),
         day=torch.zeros((), dtype=torch.int32, device=dev))
     key_t = _t(np.asarray(key, np.uint32).reshape(2).view(np.int32), dev)
-    return assemble_world(cfg, grid, ls, gs, bs, dests, demand, key_t)
+    from ..rl.controllers import init_rl_state
+    rl = init_rl_state(cfg, caps.max_groups, key, dev)
+    return assemble_world(cfg, grid, ls, gs, bs, dests, demand, key_t, rl=rl)

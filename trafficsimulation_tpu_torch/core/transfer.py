@@ -11,6 +11,17 @@ uint32 leaves (the PRNG key) travel as `.view(np.int32)` and come back
 as `.view(np.uint32)`.  Fields absent from the dict (`rl`,
 `local_sdir4`, `dests.rid`, or `cost_field` in a snapshot) stay None.
 
+An RL controller's train state (`rl/controllers.py`) travels too.  JAX
+keeps the flax params as {"params": {...}} and optax's state as the
+tuple (ScaleByAdamState, EmptyState), so its leaves are named
+"rl.params.params.Dense_0.kernel", "rl.opt_state.0.count",
+"rl.opt_state.0.mu.params.Dense_0.kernel", ...; the port's are
+"rl.params.Dense_0.kernel", "rl.opt_state.count",
+"rl.opt_state.mu.Dense_0.kernel", ...  Kernels keep flax's [in, out]
+layout on both sides (`rl/nets.py`), so the numpy dicts carry JAX's
+names and arrays unchanged, and a JAX world with a trained controller
+becomes a port world that acts the same, and back.
+
 `world_leaves` / `world_from_leaves` are the same mapping with the
 tensors kept as they are: the form in which `torch.func.vmap` carries a
 batch of worlds (`parallel/mesh.py`).
@@ -24,6 +35,7 @@ import numpy as np
 import torch
 
 from .state import NESTED, World
+from ..rl.controllers import TRAIN_TYPES, Adam
 
 # leaves whose JAX dtype is uint32 (carried as int32 bits in torch)
 U32_LEAVES = frozenset({"key"})
@@ -36,6 +48,49 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+# port leaf prefix -> JAX leaf prefix of a train state's nested trees
+_RL_JAX = (("rl.params.", "rl.params.params."),
+           ("rl.target_params.", "rl.target_params.params."),
+           ("rl.opt_state.count", "rl.opt_state.0.count"),
+           ("rl.opt_state.mu.", "rl.opt_state.0.mu.params."),
+           ("rl.opt_state.nu.", "rl.opt_state.0.nu.params."))
+
+
+def _rename(name: str, to_jax: bool) -> str:
+    for port, jax in _RL_JAX:
+        a, b = (port, jax) if to_jax else (jax, port)
+        if name.startswith(a):
+            return b + name[len(a):]
+    return name
+
+
+def _sub(leaves: dict, prefix: str, conv) -> dict:
+    return {k[len(prefix):]: conv(v) for k, v in leaves.items()
+            if k.startswith(prefix)}
+
+
+def _build_rl(leaves: dict, conv):
+    """The train state whose leaves are under "rl." (port names), or
+    None: its class is the one whose last field is there."""
+    for cls in TRAIN_TYPES:
+        fields = dataclasses.fields(cls)
+        if "rl." + fields[-1].name not in leaves:
+            continue
+        kw = {}
+        for f in fields:
+            name = "rl." + f.name
+            if f.name == "opt_state":
+                kw[f.name] = Adam(count=conv(leaves[name + ".count"]),
+                                  mu=_sub(leaves, name + ".mu.", conv),
+                                  nu=_sub(leaves, name + ".nu.", conv))
+            elif f.name.endswith("params"):
+                kw[f.name] = _sub(leaves, name + ".", conv)
+            else:
+                kw[f.name] = conv(leaves[name])
+        return cls(**kw)
+    return None
+
+
 def _build(cls, leaves: dict, prefix: str, conv):
     kw = {}
     nested = NESTED.get(cls, {})
@@ -43,6 +98,8 @@ def _build(cls, leaves: dict, prefix: str, conv):
         name = prefix + f.name
         if f.name in nested:
             kw[f.name] = _build(nested[f.name], leaves, name + ".", conv)
+        elif name == "rl":
+            kw[f.name] = _build_rl(leaves, conv)
         elif name in leaves:
             kw[f.name] = conv(leaves[name])
         else:
@@ -52,6 +109,7 @@ def _build(cls, leaves: dict, prefix: str, conv):
 
 def world_from_numpy(leaves: dict, device) -> World:
     """The port's `World` on `device` from JAX leaves keyed by path."""
+    leaves = {_rename(k, False): v for k, v in leaves.items()}
     return _build(World, leaves, "", lambda a: _to_tensor(a, device))
 
 
@@ -68,6 +126,9 @@ def _flatten(obj, prefix: str, out: dict, conv):
             continue
         if dataclasses.is_dataclass(v):
             _flatten(v, name + ".", out, conv)
+        elif isinstance(v, dict):
+            for k, t in v.items():
+                out[f"{name}.{k}"] = conv(f"{name}.{k}", t)
         else:
             out[name] = conv(name, v)
     return out
@@ -79,10 +140,26 @@ def _numpy_leaf(name, t):
 
 
 def world_to_numpy(world: World) -> dict:
-    """Numpy leaves keyed by path, in the JAX package's dtypes."""
-    return _flatten(world, "", {}, _numpy_leaf)
+    """Numpy leaves keyed by JAX's paths, in the JAX package's dtypes."""
+    return {_rename(k, True): v
+            for k, v in _flatten(world, "", {}, _numpy_leaf).items()}
 
 
 def world_leaves(world: World) -> dict:
     """The world's tensors keyed by path (None fields left out)."""
     return _flatten(world, "", {}, lambda name, t: t)
+
+
+def with_rl_params(world: World, params: dict) -> World:
+    """The world with its RL controller's parameters replaced by
+    `params` (numpy arrays keyed by flax's names, "Dense_0.kernel", ...;
+    a GAT controller's target network too), on the world's device."""
+    dev = world.key.device
+    new = {k: _to_tensor(v, dev) for k, v in params.items()}
+    if set(new) != set(world.rl.params):
+        raise ValueError(f"parameter names differ from the controller's: "
+                         f"{sorted(set(new) ^ set(world.rl.params))}")
+    rl = world.rl.replace(params=new)
+    if hasattr(rl, "target_params"):
+        rl = rl.replace(target_params=dict(new))
+    return world.replace(rl=rl)

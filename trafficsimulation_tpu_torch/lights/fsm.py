@@ -148,8 +148,10 @@ def _apply_phase(state: LightsState, want, phase) -> LightsState:
 
 def run_controllers(cfg: Config, grid: Grid, gs: GroupStatic,
                     state: LightsState, occupancy: torch.Tensor,
-                    reductions=None) -> LightsState:
-    """One control decision per group (only where no phase is pending)."""
+                    rl_phase_request=None, reductions=None) -> LightsState:
+    """One control decision per group (only where no phase is pending).
+    Under an RL algorithm, `rl_phase_request` is the controller's (want,
+    phase) (`rl/controllers.py`)."""
     algo = cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM
     G = gs.valid.shape[0]
     dev = gs.valid.device
@@ -167,11 +169,6 @@ def run_controllers(cfg: Config, grid: Grid, gs: GroupStatic,
         return state.replace(
             ft_phase=torch.where(flip, 1 - state.ft_phase, state.ft_phase),
             fixed_time_timer=torch.where(flip, 0, state.fixed_time_timer))
-
-    if algo in RL_ALGOS:
-        raise NotImplementedError(
-            f"{algo}: RL light controllers are not ported yet (ROADMAP "
-            "Queue 1 item 14)")
 
     if reductions is None:
         reductions = group_reductions(grid, occupancy, G, gs)[:4]
@@ -229,6 +226,14 @@ def run_controllers(cfg: Config, grid: Grid, gs: GroupStatic,
                             torch.where(favor_ew & ~favor_ns, 1,
                                         torch.where(ns_in > ew_in, 0, 1)))
         return _apply_phase(state, active, phase)
+
+    if algo in RL_ALGOS:
+        if rl_phase_request is None:
+            raise ValueError(
+                f"algorithm {algo} requires an RL controller; pass its "
+                "phase request (see trafficsimulation_tpu_torch.rl)")
+        want, phase = rl_phase_request
+        return _apply_phase(state, active & want, phase)
 
     raise ValueError(f"unknown TRAFFIC_LIGHT_AGENT_ALGORITHM {algo!r}")
 

@@ -28,6 +28,7 @@ from ..agents.blocks import step_blocks, food_shortage, waste_surplus
 from ..agents.rain import step_rain
 from ..core.state import Overrides, Vehicles, _Struct
 from ..lights import fsm
+from ..rl.controllers import GAT_ALGOS, rl_controller_step
 from . import hier
 from . import hopper_engine as HE
 from . import routing
@@ -327,25 +328,40 @@ def _hash32(x: torch.Tensor) -> torch.Tensor:
 # then the rain draws: spawn wanted, edge, position (the f32 uniform
 # times 2^23, an exact integer), corner flip, radius; then the
 # pedestrian step's 14 seeds (u32: 4 keep, 8 take, 2 spawn; zero while
-# pedestrians are off)
+# pedestrians are off).  The RL controller's key goes beside the rows
+# (`tick_chain`)
 D_SEEDS, D_RAIN, D_PED = 0, 4, 9
 N_DRAWS = D_PED + 14
 
 
 def tick_draws(cfg: Config, key: np.ndarray, n: int):
+    """Walk the JAX key chain of n ticks on the host.  Returns (draws
+    int64 [..., n, N_DRAWS] numpy, final keys [..., 2]); see
+    `tick_chain`."""
+    draws, _, key = tick_chain(cfg, key, n)
+    return draws, key
+
+
+def tick_chain(cfg: Config, key: np.ndarray, n: int):
     """Walk the JAX key chain of n ticks on the host (`step_engine`:
-    split(key, 6), then split(key) for the pedestrians when they are on;
-    `_post_move`: split(key); `step_rain`: split(k_rain, 5);
-    `step_pedestrians`: split(k_ped, 3)).  `key` uint32 [2], or [B, 2]
-    for the worlds of a batch (each world its own chain, walked
-    together).  Returns (draws int64 [..., n, N_DRAWS] numpy, final keys
-    [..., 2])."""
+    split(key, 6), then split(key) for an RL controller, then split(key)
+    for the pedestrians when they are on; `_post_move`: split(key);
+    `step_rain`: split(k_rain, 5); `step_pedestrians`: split(k_ped, 3)).
+    `key` uint32 [2], or [B, 2] for the worlds of a batch (each world its
+    own chain, walked together).  Returns (draws int64 [..., n, N_DRAWS]
+    numpy, the ticks' RL keys uint32 [..., n, 2] or None without an RL
+    controller, final keys [..., 2])."""
     key = np.asarray(key, np.uint32)
     out = np.zeros(key.shape[:-1] + (n, N_DRAWS), np.int64)
+    rl = cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM in fsm.RL_ALGOS
+    rl_keys = np.zeros(key.shape[:-1] + (n, 2), np.uint32) if rl else None
     for t in range(n):
         ks = prng.split(key, 6)
         key, k_mal, k_rain = ks[..., 0, :], ks[..., 1, :], ks[..., 5, :]
         out[..., t, D_SEEDS:D_SEEDS + 4] = prng.bits(k_mal, (4,))
+        if rl:
+            kr = prng.split(key, 2)
+            key, rl_keys[..., t, :] = kr[..., 0, :], kr[..., 1, :]
         if cfg.PEDESTRIANS_ENABLED:
             kp = prng.split(key, 2)
             key = kp[..., 0, :]
@@ -366,7 +382,7 @@ def tick_draws(cfg: Config, key: np.ndarray, n: int):
             out[..., t, D_RAIN + 3] = prng.bernoulli(kr[..., 3, :])
             out[..., t, D_RAIN + 4] = prng.randint(
                 kr[..., 4, :], cfg.RAIN_RADIUS_MIN, cfg.RAIN_RADIUS_MAX + 1)
-    return out, key
+    return out, rl_keys, key
 
 
 def tick_randoms(cfg: Config, seeds: torch.Tensor, H: int, W: int):
@@ -423,20 +439,34 @@ def routing_planes(cfg: Config, world, es: EngineState):
     return sdir4, wnd, density
 
 
+def trip_penalty(m) -> torch.Tensor:
+    """GAT-DQN's global reward penalty 0.01 * avg trip duration + 1.0 *
+    avg time per cell (the JAX `step_engine`), f32 [].  XLA's jitted
+    compile drops the 1.0 and contracts the rest to one FMA."""
+    avg_dur = 0.5 * (
+        m.sum_duration_internal / torch.clamp(m.completed_internal, min=1)
+        + m.sum_duration_through / torch.clamp(m.completed_through, min=1))
+    avg_tpc = 0.5 * (
+        m.sum_duration_internal / torch.clamp(m.sum_steps_internal, min=1)
+        + m.sum_duration_through / torch.clamp(m.sum_steps_through, min=1))
+    # fma(0.01f, avg_dur, avg_tpc): the f64 product of two f32 is exact
+    c = float(np.float32(0.01))
+    return (avg_dur.double() * c + avg_tpc.double()).to(torch.float32)
+
+
 def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
                 sdir=None, spawn_slots: torch.Tensor = None,
-                dense: tuple = None) -> EngineState:
+                dense: tuple = None, rl_tick=None) -> EngineState:
     """One tick on the plane representation (the JAX `step_engine`,
-    dense or hierarchical routing, FSM lights, pedestrians when
+    dense or hierarchical routing, FSM or RL lights, pedestrians when
     PEDESTRIANS_ENABLED: their step, one `HE.step_pedestrians` launch,
     after the stop map, its crossers blocking decide + move).  `draws`:
     this tick's int64 [N_DRAWS] row from `tick_draws`; the caller
     advances the key.  `dense`: the (M, A) light-reduction matrices of
-    `fsm.build_dense_reducers`, or None for the sparse forms."""
-    if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM in fsm.RL_ALGOS:
-        raise NotImplementedError(
-            "RL light controllers are not ported yet (ROADMAP Queue 1 "
-            "item 14)")
+    `fsm.build_dense_reducers`, or None for the sparse forms.  `rl_tick`:
+    under an RL controller, this tick's `controllers.RLTick` (from
+    `controllers.plan_ticks`); the controller steps before the light
+    reductions, as in JAX."""
     caps = cfg.capacities()
     H, W = cfg.HEIGHT, cfg.WIDTH
     dt = float(cfg.TIME_PER_STEP_IN_SECONDS)
@@ -446,11 +476,21 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
     present = (es.pa & 1) == 1
 
     # ---- lights (commit first so decide reads the fresh stop map) --------
+    lights, rl_state, rl_request = es.lights, es.rl, None
+    if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM in fsm.RL_ALGOS:
+        stuck_map = torch.where(present, _fld(es.pb, PB_STUCK_SH, 12), 0)
+        tp = (trip_penalty(es.metrics) if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM
+              in GAT_ALGOS else None)        # GAT-DQN's reward alone
+        rl_state, lights, want, phase_req = rl_controller_step(
+            cfg, es.rl, grid, world.groups_static, lights, present,
+            stuck_map, tp, rl_tick)
+        rl_request = (want, phase_req)
     dense_m, dense_a = dense if dense is not None else (None, None)
     red = fsm.group_reductions(grid, present, caps.max_groups,
                                gs=world.groups_static, dense_m=dense_m)
-    lights = fsm.run_controllers(cfg, grid, world.groups_static, es.lights,
-                                 present, reductions=red[:4])
+    lights = fsm.run_controllers(cfg, grid, world.groups_static, lights,
+                                 present, rl_phase_request=rl_request,
+                                 reductions=red[:4])
     lights = fsm.execute_phase_change(cfg, world.lights_static,
                                       world.groups_static, lights, red[4])
     lights = fsm.apply_light_overrides(lights, es.overrides.light_force)
@@ -484,7 +524,7 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
               ((flags & HE.FLAG_NEW_COL) >> 1).sum().to(torch.int32))
     return _post_move(cfg, world, es, out[:6], lights, stop_map, density,
                       peds, ped_map, tick, elapsed, draws[D_RAIN:D_RAIN + 5],
-                      events, spawn_slots=spawn_slots)
+                      events, spawn_slots=spawn_slots).replace(rl=rl_state)
 
 
 def _isum(x: torch.Tensor) -> torch.Tensor:

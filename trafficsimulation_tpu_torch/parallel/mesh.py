@@ -50,7 +50,8 @@ def init_world_batch(cfg: Config, key, n_worlds: int, mesh=None,
     leading world dim, on `device`.  `mesh`: multi-GPU sharding is not
     ported (ROADMAP Queue 1 item 15), so anything but None raises.
     `timings`: a dict that receives the seconds by stage and
-    `generate_all_sec` (`sim.init_worlds`)."""
+    `generate_all_sec` (`sim.init_worlds`).  An RL config raises
+    (`sim.refuse_rl_batch`), as every batch runner here does."""
     if mesh is not None:
         raise NotImplementedError(
             "sharding a world batch over devices is not ported yet "
@@ -65,7 +66,8 @@ def batched_step(cfg: Config):
     `batched_step`, `jax.vmap(step_world)`): each world's key chain is
     walked one tick on the host, then `sim.step_device` runs under
     `torch.func.vmap` with every leaf on dim 0."""
-    from ..sim import _key_np, _key_tensor, step_device
+    from ..sim import _key_np, _key_tensor, refuse_rl_batch, step_device
+    refuse_rl_batch(cfg)
 
     def body(lv, dr):
         return world_leaves(step_device(cfg, world_from_leaves(lv), dr))
@@ -83,8 +85,8 @@ def batched_step(cfg: Config):
 def run_batch(cfg: Config, worlds: World, n_ticks: int) -> World:
     """n_ticks of `batched_step` (JAX's `run_batch`: `step_world` per
     tick, routing rebuilt every tick), after `assert_demand_window`."""
-    assert_demand_window(cfg, worlds, n_ticks)
     step = batched_step(cfg)
+    assert_demand_window(cfg, worlds, n_ticks)
     for _ in range(n_ticks):
         worlds = step(worlds)
     return worlds
@@ -96,7 +98,8 @@ def run_chunk_batch(cfg: Config, worlds: World, n: int) -> World:
     `sim.advance` under `torch.func.vmap` with every leaf on dim 0, the
     routing planes rebuilt every PATHFINDING_COOLDOWN ticks.  The keys'
     chains are walked on the host up front ([B, n, N_DRAWS] draws)."""
-    from ..sim import _key_np, _key_tensor, advance
+    from ..sim import _key_np, _key_tensor, advance, refuse_rl_batch
+    refuse_rl_batch(cfg)
     if worlds.cost_field is None:
         raise ValueError("worlds.cost_field is not built")
     assert_demand_window(cfg, worlds, n)
@@ -192,7 +195,8 @@ def run_batch_shared(cfg: Config, batch: World, n_ticks: int) -> World:
     the host up front ([B, n, N_DRAWS] draws); the dense light
     reductions are on where `fsm.dense_reducers_profitable` says so, as
     in the JAX version."""
-    from ..sim import advance, reducer_matrices
+    from ..sim import advance, reducer_matrices, refuse_rl_batch
+    refuse_rl_batch(cfg)
     if batch.cost_field is None:
         raise ValueError("batch.cost_field is not built "
                          "(snapshot.build_field)")

@@ -14,6 +14,10 @@ module covers exactly the calls the tick makes:
     `gen/zoning.py:78`, `gen/bands.py`)
   * `normal(key)` on scalars (`gen/bands.py:41,44`): sqrt(2) times XLA's
     f32 `ErfInv` polynomial of a uniform draw in (-1, 1)
+  * the RL controllers' draws (`rl/controllers.py:203, 231, 264, 382-383,
+    396`): `categorical` through `gumbel`, `uniform`, and `randint` whose
+    maxval the JAX code traces (`maximum(filled, 1)`); the port mirrors
+    `filled` on the host, so the whole draw runs here
 
 A key is a numpy uint32 array of shape (2,), as `jax.random.PRNGKey`
 returns it.  numpy has a real uint32, so the wrapping adds, rotations and
@@ -97,18 +101,22 @@ def uniform(key: np.ndarray, shape=()):
     return np.maximum(np.float32(0.0), _unit(b))[()]
 
 
-def randint(key: np.ndarray, minval: int, maxval: int, shape=()):
+def randint(key: np.ndarray, minval: int, maxval, shape=()):
     """`jax.random.randint(key, shape, minval, maxval)` for int32 per key:
-    two u32 draws reduced modulo the span (`_randint`)."""
+    two u32 draws reduced modulo the span (`_randint`).  `maxval` is an
+    int, or an int array over the key stack's batch dims: a maxval that
+    the JAX code traces, one per key (the draws do not depend on it,
+    only the span arithmetic does)."""
     k = split(key, 2)
-    n = (1,) if shape == () else shape
+    n = (1,) if shape == () else tuple(shape)
     hi, lo = bits(k[..., 0, :], n), bits(k[..., 1, :], n)
     out_shape = np.shape(key)[:-1] + tuple(shape)
-    if maxval <= minval:
-        return np.full(out_shape, minval, np.int32)[()]
-    span = np.uint32(maxval - minval)
-    mult = np.uint32((1 << 16) % int(span))
-    mult = (np.asarray([mult], np.uint32) * mult) % span
+    mx = np.asarray(maxval, np.int64)
+    mx = mx.reshape(mx.shape + (1,) * len(n))
+    # span 1 where maxval <= minval: every draw is minval, as in JAX
+    span = np.where(mx <= minval, 1, mx - minval).astype(np.uint32)
+    mult = (np.uint32(1 << 16) % span).astype(np.uint32)
+    mult = (mult * mult) % span
     off = ((hi % span) * mult + (lo % span)) % span
     return (np.int64(minval) + off).astype(np.int32).reshape(out_shape)[()]
 
@@ -175,3 +183,24 @@ def normal(key: np.ndarray):
     ErfInv is XLA's own; numpy's differs from it in the last bit for
     about 1% of draws."""
     return (SQRT2 * normal_erfinv(key)).astype(np.float32)[()]
+
+
+def gumbel(key: np.ndarray, shape=()) -> np.ndarray:
+    """`jax.random.gumbel(key, shape)` (mode "low"): -log(-log(u)) of a
+    uniform on [tiny, 1), f32.  The uniform bits are JAX's; numpy's f32
+    `log` is not XLA's, so a value may differ from JAX's in the last two
+    bits."""
+    f32 = np.float32
+    tiny = np.finfo(f32).tiny
+    # u * (1 - tiny) + tiny in f32: the draw itself, or tiny for 0
+    u = _unit(bits(key, shape))
+    u = np.where(u == f32(0.0), tiny, u).astype(f32)
+    return (-np.log(-np.log(u))).astype(f32)
+
+
+def categorical(key: np.ndarray, logits: np.ndarray) -> np.ndarray:
+    """`jax.random.categorical(key, logits, axis=-1)`: the argmax of the
+    logits plus Gumbel noise (the first index on a tie), int32."""
+    g = gumbel(key, np.shape(logits))
+    return np.argmax(g + np.asarray(logits, np.float32), axis=-1).astype(
+        np.int32)

@@ -48,6 +48,7 @@ from .gen.generate import (city_cost_field, city_draws, city_from_draws,
 from .lights import fsm
 from .ops import engine, megakernel
 from .ops.hier import RID_SPACE
+from .rl import controllers as rl_mod
 
 KBIG = engine.KBIG
 
@@ -126,8 +127,11 @@ def init_world(cfg: Config, key, device="cuda") -> World:
     city = city_from_draws(cfg, draws_to(city_d, dev))
     field = engine.field_to_keys(cfg, city_cost_field(cfg, city[0], city[4]),
                                  city[0].road_class)
-    return _assemble(cfg, city, field, draws_to(day_d, dev),
-                     _key_tensor(key, dev))
+    world = _assemble(cfg, city, field, draws_to(day_d, dev),
+                      _key_tensor(key, dev))
+    # the RL controller's train state from the world key (None for FSM)
+    return world.replace(rl=rl_mod.init_rl_state(
+        cfg, cfg.capacities().max_groups, key, dev))
 
 
 def _world_draws(cfg: Config, key: np.ndarray):
@@ -195,6 +199,7 @@ def init_worlds(cfg: Config, keys, device="cuda", timings=None) -> World:
     if cfg.ROUTING_HIER:
         raise ValueError("cfg.ROUTING_HIER worlds are host-orchestrated: "
                          "use init_world_hier(cfg, key)")
+    refuse_rl_batch(cfg)
     dev = torch.device(device)
     keys = np.asarray(keys, np.uint32).reshape(-1, 2)
     t0 = t = time.perf_counter()
@@ -406,7 +411,8 @@ def measure_and_shrink(cfg: Config, world: World):
         blocks=cut(world.blocks, n_blocks),
         overrides=world.overrides.replace(
             light_force=world.overrides.light_force[:n_lights]),
-        rl=None)
+        rl=None if world.rl is None else rl_mod.init_rl_state(
+            cfg2, n_groups, _key_np(world.key), world.key.device))
     return cfg2, world2
 
 
@@ -495,23 +501,51 @@ def _key_tensor(key: np.ndarray, device) -> torch.Tensor:
                             .copy()).to(device)
 
 
+def refuse_rl_batch(cfg: Config) -> None:
+    """World batches do not run the RL controllers yet: raise for an RL
+    config rather than run a different RL."""
+    if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM in fsm.RL_ALGOS:
+        raise NotImplementedError(
+            f"{cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM}: RL light controllers in "
+            "world batches are not ported yet (ROADMAP Queue 1 item 14b); "
+            "run the worlds one by one (sim.run_chunk)")
+
+
+def _chain(cfg: Config, world: World, n: int):
+    """(draws int64 [n, N_DRAWS] numpy, the ticks' RL inputs or None,
+    the key after n ticks): the key chain walked on the host
+    (`engine.tick_chain`) and, under an RL controller, its plan
+    (`rl/controllers.plan_ticks`: one read of its counters)."""
+    draws, rl_keys, key = engine.tick_chain(cfg, _key_np(world.key), n)
+    if rl_keys is None:
+        return draws, None, key
+    if world.rl is None:
+        raise ValueError(f"{cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM}: the world "
+                         "has no RL train state (build it with this config)")
+    return draws, rl_mod.plan_ticks(cfg, world.rl, world.groups_static.valid,
+                                    rl_keys), key
+
+
 def step_world(cfg: Config, world: World) -> World:
-    """One tick: the key walked on the host (`engine.tick_draws`), then
+    """One tick: the key walked on the host (`engine.tick_chain`), then
     `step_device`."""
     dev = world.grid.is_road.device
-    draws, key = engine.tick_draws(cfg, _key_np(world.key), 1)
-    end = step_device(cfg, world, torch.from_numpy(draws[0]).to(dev))
+    draws, plan, key = _chain(cfg, world, 1)
+    end = step_device(cfg, world, torch.from_numpy(draws[0]).to(dev),
+                      None if plan is None else plan[0])
     return end.replace(key=_key_tensor(key, dev))
 
 
-def step_device(cfg: Config, world: World, draws: torch.Tensor) -> World:
+def step_device(cfg: Config, world: World, draws: torch.Tensor,
+                rl_tick=None) -> World:
     """The device part of `step_world`: routing planes from the current
     state, S free slots, `step_engine` with this tick's draws (int64
-    [N_DRAWS]) and the SoA conversion in and out; the key is left as it
-    was.  A function of tensors only, with no host sync, so that it runs
-    under vmap (`parallel/mesh.batched_step`)."""
+    [N_DRAWS]; `rl_tick` the RL controller's inputs) and the SoA
+    conversion in and out; the key is left as it was.  A function of
+    tensors only, with no host sync, so that it runs under vmap
+    (`parallel/mesh.batched_step`)."""
     es = _enter_engine(cfg, world)
-    es = engine.step_engine(cfg, world, es, draws)
+    es = engine.step_engine(cfg, world, es, draws, rl_tick=rl_tick)
     return _exit_engine(cfg, world, es)
 
 
@@ -534,18 +568,21 @@ def run_chunk(cfg: Config, world: World, n: int,
         raise ValueError("world.cost_field is not built "
                          "(snapshot.build_field)")
     dev = world.grid.is_road.device
-    draws_np, key = engine.tick_draws(cfg, _key_np(world.key), n)
+    draws_np, plan, key = _chain(cfg, world, n)
     dense = reducer_matrices(cfg, world) if dense_reducers else None
-    end = advance(cfg, world, n, torch.from_numpy(draws_np).to(dev), dense)
+    end = advance(cfg, world, n, torch.from_numpy(draws_np).to(dev), dense,
+                  plan)
     return end.replace(key=_key_tensor(key, dev))
 
 
 def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
-            dense=None) -> World:
+            dense=None, rl_plan=None) -> World:
     """The device part of `run_chunk`: n ticks with this chunk's draws
     (int64 [n, N_DRAWS], `engine.tick_draws`); the key is left as it
-    was.  `dense`: the (M, A) reducer matrices or None.  A function of
-    tensors only, with no host sync, so that it runs under vmap."""
+    was.  `dense`: the (M, A) reducer matrices or None.  `rl_plan`: the
+    RL controller's inputs of the n ticks (`rl/controllers.plan_ticks`).
+    A function of tensors only, with no host sync, so that it runs under
+    vmap."""
     dev = world.grid.is_road.device
     es = _enter_engine(cfg, world)
     R = max(1, cfg.PATHFINDING_COOLDOWN) if cfg.PATHFINDING_CACHE else 1
@@ -570,8 +607,10 @@ def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
         cur = torch.zeros((), dtype=torch.int32, device=dev)
         for i in range(length):
             sl = slots0[(cur + sidx).long()]
-            e2 = engine.step_engine(cfg, world, e, draws[t0 + i], sdir=sdir,
-                                    spawn_slots=sl, dense=dense)
+            e2 = engine.step_engine(
+                cfg, world, e, draws[t0 + i], sdir=sdir, spawn_slots=sl,
+                dense=dense,
+                rl_tick=None if rl_plan is None else rl_plan[t0 + i])
             cur = cur + (e2.dem_cursor - e.dem_cursor)
             e = e2
         return e
