@@ -29,10 +29,12 @@ Phases (any failure raises and the script exits nonzero):
      and the dense stack, 36 words; dest planes holding -1 and rows past
      the stack); the rain clouds' tick loop (no TPU kernel) for 16
      worlds over 200 ticks, bit-equal to its plain version; the
-     pedestrian step (`step_pedestrians`, no TPU kernel) at 256^2,
-     1024^2, a ragged 37 x 300 grid with counts up to 2000 a cell, and
-     B = 3 worlds each with its own cell types, bit-equal to its plain
-     version, one launch a call;
+     pedestrian step (`step_pedestrians`, no TPU kernel; one tiled
+     shared-memory pass, given the world's cached sidewalk count) at
+     256^2, 1024^2, a ragged 37 x 300 grid with counts up to 2000 a
+     cell, and B = 3 worlds each with its own cell types, bit-equal to
+     its plain version (which counts the sidewalks itself), one launch
+     and one device kernel a call;
   3. the service FSM's ordered scatter-add on a case whose f32 sum
      depends on the order, and on signed zeros, subnormals and sums
      that flush to zero, runs of +-0 and dropped indices: the card must
@@ -121,14 +123,19 @@ Phases (any failure raises and the script exits nonzero):
      `trafficsimulation_tpu_torch/data/` (`tools/make_torch_batch_digest.
      py`) on every leaf at init and after the first 50 ticks of
      `run_chunk_batch` (`sim.advance` under vmap, the bench's
-     `jax.vmap(run_chunk)`); K1 50 (one launch a tick, its world groups
-     inside the launch, the plan printed), K4 50, K2 10 (the batched K2
-     over the worlds' own key stacks), K3 10, K5 0, and no kernel
-     mapping the worlds one by one (`_map_worlds`); then 3 timed chunks
-     of 50 ticks (median: cell-updates/s = 1024 x 4096 x steps/s,
-     steps/s per world), launches and device busy time a tick, the idle
-     share and the bench's cap diagnostics; K1, K2 and K3's per-world
-     forms against their plain versions at B = 1024 and B = 3;
+     `jax.vmap(run_chunk)`); K1 50 in its block-per-world form (one
+     launch a tick, one block a world; the form `k1_form` chooses and
+     its plan printed, at least 2 blocks an SM), none in its cooperative
+     form, K4 50, K2 10 (the batched K2 over the worlds' own key
+     stacks), K3 10, K5 0, and no kernel mapping the worlds one by one
+     (`_map_worlds`); K1 in both forms on the path's own inputs of tick
+     51 against its plain version; then 3 timed chunks of 50 ticks
+     (median: cell-updates/s = 1024 x 4096 x steps/s, steps/s per
+     world), launches and device busy time a tick, the idle share and
+     the bench's cap diagnostics; K1 in both forms, K2 and K3's
+     per-world forms against their plain versions at B = 1024 and B = 3
+     on seeded inputs, and K1 in the form the shape chooses at 1024
+     ragged 60 x 50 worlds;
  15. the host bridge (group `bridge`): `BridgeState` over the generated
      headline world on the card; one group's axis lights forced to stop
      and flushed must stop on the next tick and the override must clear,
@@ -149,8 +156,9 @@ Phases (any failure raises and the script exits nonzero):
      launches and device busy ms a tick (a profile of 50 ticks), idle
      share, active pedestrians,
      the expected spawns a tick, active vehicles and the bench's cap
-     diagnostics; the step on its inputs of a tick of that run against
-     its plain version;
+     diagnostics; the step on its inputs of tick 500 of that run (the
+     world's cached sidewalk count checked) against its plain version,
+     one device kernel a call;
  17. no traffic (group `config1`, BASELINE config #1, `bench_config1`):
      100^2 generated from seeds 1-3 after a warm seed 0 (ms a seed),
      each held to the digest at init; seed 0 after 200 ticks held to the
@@ -262,9 +270,14 @@ KERNELS = {
                          "none (XLA ops per tick, trafficsimulation_tpu/"
                          "agents/pedestrians.py:126)", "int32"),
     # the per-world-geometry forms (config #4's batch of cities): K1 with
-    # its geometry one plane a world, K2 over the worlds' own key stacks,
-    # K3 with its geometry one plane a world
+    # its geometry one plane a world (the cooperative form), K2 over the
+    # worlds' own key stacks, K3 with its geometry one plane a world
     "decide_move_worlds": ("trafficsimulation_tpu_torch/csrc/decide_move.cu",
+                           "trafficsimulation_tpu/ops/pallas_engine.py:1026",
+                           "int32"),
+    # K1's block-per-world form (one block owns one small world), which
+    # config #4's batch takes by shape (`hopper_engine.k1_form`)
+    "decide_move_blocks": ("trafficsimulation_tpu_torch/csrc/decide_move.cu",
                            "trafficsimulation_tpu/ops/pallas_engine.py:1026",
                            "int32"),
     "build_sdir_stacks": ("trafficsimulation_tpu_torch/csrc/sdir.cu",
@@ -285,17 +298,22 @@ COUNTER = {"decide_move_worlds": "decide_move",
 SUMMARY_PATH = {"build_sdir": "single", "select_rows": "config5",
                 "mega": "mega", "decide_move_tiled": "single",
                 "render": "single", "decide_move_worlds": "config4",
+                "decide_move_blocks": "config4",
                 "build_sdir_stacks": "config4",
                 "build_wavefront_worlds": "config4",
                 "step_pedestrians": "config3"}
 # on no path of the port (0 launches on every path); chip_smoke.py drives
-# them directly.  K6 serves the plain version of K1-hier's select.
-OFF_PATH = ("decide_move_tiled", "render", "select_rows")
+# them directly.  K6 serves the plain version of K1-hier's select; K1's
+# cooperative form with per-world geometry serves batches of different
+# cities too few to fill the card (config #4's takes the block-per-world
+# form).
+OFF_PATH = ("decide_move_tiled", "render", "select_rows",
+            "decide_move_worlds")
 MEGA_DUR_COLS = [2, 3, 7]      # the stats rows' f32 duration sums
 # the kernels whose call is one device kernel (the profiler's count)
 ONE_KERNEL = ("decide_move", "build_wavefront", "prefix_planes", "mega",
-              "decide_move_worlds", "build_sdir_stacks",
-              "build_wavefront_worlds")
+              "decide_move_worlds", "decide_move_blocks", "build_sdir_stacks",
+              "build_wavefront_worlds", "step_pedestrians")
 CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
                ROUTING_HIER=True, INTERNAL_POPULATION_TRAFFIC_PER_DAY=100_000,
                PASSING_POPULATION_TRAFFIC_PER_DAY=20_000)
@@ -310,6 +328,7 @@ CONFIG4_WORLDS = 1024
 CONFIG4_TICKS = 50
 CONFIG4_REPEATS = 3
 CONFIG4_ODD_B = 3
+CONFIG4_RAGGED = (60, 50)       # a ragged world within one block's reach
 CONFIG4_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
                               "config4_batch_digest.json")
 # BASELINE config #3 (`bench.py` `bench_config3`), letter for letter
@@ -325,6 +344,12 @@ PED_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
 PHASES = ("kernels", "ordered_add", "headline", "mega", "hier_digest",
           "config4", "config5", "config3", "config1", "tiled", "render",
           "bridge", "rl")
+# development groups, run only when named in --only: `forms` times K1's
+# forms over K1_SWEEP worlds and the pedestrian step (phase_forms)
+DEV_PHASES = ("forms",)
+K1_SWEEP = (3, 16, 132, 264, 528, 1024)
+SWEEP_PED_TICKS = 500
+SWEEP_VEHICLES = 4000
 TILES = ((64, 64), (16, 32))     # K7's tilings of the headline grid
 # the numbers of a kernel's other shapes in the summary line
 SUB_KEYS = ("max_abs_err", "ms", "device_ms", "kernels_per_call",
@@ -359,32 +384,36 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def device_profile(fn, reps: int = 10):
-    """(summed device time of the kernels one call of fn launches, device
-    kernels a call), from torch.profiler (a CUDA-event interval around
-    one call also holds the host's time in the wrapper, which is larger
-    for small kernels); (None, None) when three profiles in a row record
-    no device time.  A profile after a long one may come back empty, or
-    with some calls' kernels missing (a count a call that is not whole):
-    it is taken again, up to three times."""
+    """(device ms a call, device kernels a call) of fn from torch.profiler
+    (a CUDA-event interval around one call also holds the host's time in
+    the wrapper, which is larger for small kernels), over `reps` calls
+    after two warm-up calls inside the profiler's window; (None, None)
+    when three profiles in a row record no device time.  The profiler
+    may drop some calls' kernels (a profile after a long one may come
+    back empty, or with 0.3-0.9 kernels a call recorded for a one-kernel
+    call), so each kernel counts at its mean recorded duration, times its
+    launches a call (its recorded count over `reps`, rounded, at least
+    one)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    best = (None, None)
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=2, active=reps,
+                                       repeat=1)) as prof:
+            for _ in range(reps + 2):
                 fn()
-            torch.cuda.synchronize()
-        ms = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / 1e3 / reps
-        if ms > 0:
-            n = sum(1 for e in prof.events()
-                    if e.device_type == DeviceType.CUDA)
-            best = (ms, n / reps)
-            if n % reps == 0:
-                break
-    return best
+                torch.cuda.synchronize()
+                prof.step()
+        per = [(e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count]
+        if sum(t for t, _ in per) > 0:
+            calls = [max(1, round(c / reps)) for _, c in per]
+            ms = sum(t / c * k for (t, c), k in zip(per, calls)) / 1e3
+            return ms, float(sum(calls))
+    return None, None
 
 
 def device_ms(fn, reps: int = 10):
@@ -445,12 +474,35 @@ def bound(nbytes: float, ops, kernel: str):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def k1_cost(planes, kcfg, shared_geometry=False, stack_words=None):
+    """(bytes, ops) of K1 (one world, or B worlds) on these vehicle
+    planes, counting what this data needs.  At every cell of every world
+    the 5 i32 + 1 f32 planes in and the 6 planes and flags out; at a cell
+    where a vehicle stands also what only a vehicle reads: its 4 random
+    draws, wnd, the stop, rain and pedestrian masks, and the geometry
+    (intersection and dest_id, 5 bytes; once for a cell where any world
+    holds a vehicle when the worlds share it); and `stack_words` packed
+    stack words (default: one a vehicle).  Operations: at least one
+    compare (ALU only) per cell, world and phase (2 K + 2 phases)."""
+    H, W = planes[0].shape[-2:]
+    present = ((planes[0] & 1) == 1).reshape(-1, H, W)
+    cells = present.numel()
+    n_veh = int(present.sum())
+    geo = int(present.any(0).sum()) if shared_geometry else n_veh
+    words = n_veh if stack_words is None else stack_words
+    nbytes = cells * (6 * 4 + 7 * 4) + n_veh * (4 * 4 + 4 + 3) + geo * 5 \
+        + words * 4
+    return nbytes, (cells * (2 * kcfg.VEHICLE_MAX_SPEED + 2),) * 2
+
+
 def measure(name, kern, plain, nbytes, ops, shape, lib=None, reps=20,
-            plain_reps=3) -> dict:
+            plain_reps=3, one_kernel=True) -> dict:
     """One kernel (the KERNELS entry `name` begins with) against its plain
     version on the same inputs (bit-equal or raise), its median and
     device time, the plain version's median, the bound (bound), and the
-    library call's median where there is one."""
+    library call's median where there is one; a ONE_KERNEL entry must be
+    one device kernel a call unless `one_kernel` is False (an older
+    tree's, timed by the `forms` group)."""
     got = kern()
     torch.cuda.synchronize()
     ref = plain()
@@ -463,7 +515,7 @@ def measure(name, kern, plain, nbytes, ops, shape, lib=None, reps=20,
     plain_ms = median_ms(plain, reps=plain_reps, warmup=1)
     lib_ms = median_ms(lib, reps=reps) if lib is not None else None
     kernel = name.split()[0]
-    if kernel in ONE_KERNEL and nk is not None and nk > 1:
+    if one_kernel and kernel in ONE_KERNEL and nk is not None and nk > 1:
         raise AssertionError(f"{name}: {nk} device kernels a call, not one")
     bms, by = bound(nbytes, ops, kernel)
     to = ops_ms(ops, kernel)
@@ -530,14 +582,7 @@ def kernel_cases(cfg, HE, engine, B):
     dest = r.rint(-1, D, H, W)
     randoms = (r.unif(nb, H, W), r.unif(nb, H, W), r.rint(1, 6, nb, H, W),
                r.bits(nb, H, W))
-    present = int(sum((p & 1).sum() for p in planes[:1]))
-    # per world: 5 i32 + 1 f32 planes, wnd, 3 masks, 4 random planes in;
-    # 6 planes and flags out; one packed sdir word per vehicle; the
-    # geometry (intersection, dest_id) once.  Operations: at least one
-    # compare (ALU only) per cell, world and phase (2 K + 2 phases).
-    k1_bytes = nb * HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4) + present * 4 \
-        + HW * 5
-    k1_ops = (nb * HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2),) * 2
+    k1_bytes, k1_ops = k1_cost(planes, kcfg, shared_geometry=True)
     if B:
         cases["decide_move"] = (
             lambda: HE.decide_move_batched(kcfg, sdir4, wnd, planes, *masks,
@@ -990,7 +1035,8 @@ def phase_headline(HE, tsim, transfer, cfg, world, ref):
     check_launches("single-world path", launches, {
         "decide_move": N_REF_TICKS, "prefix_planes": N_REF_TICKS,
         "build_sdir": 5, "build_wavefront": 5, "build_sdir_batched": 0,
-        "rain_ticks": N_REF_TICKS, "select_rows": 0})
+        "rain_ticks": N_REF_TICKS, "select_rows": 0,
+        "decide_move_blocks": 0})
     return sim, launches
 
 
@@ -1018,7 +1064,8 @@ def phase_batch(cfg, world, ref, HE, mesh, tsim, transfer, prng):
     check_launches("batched path", launches, {
         "build_sdir_batched": 5, "decide_move": N_REF_TICKS,
         "build_wavefront": 5, "prefix_planes": N_REF_TICKS,
-        "rain_ticks": N_REF_TICKS, "build_sdir": 0, "select_rows": 0})
+        "rain_ticks": N_REF_TICKS, "build_sdir": 0, "select_rows": 0,
+        "decide_move_blocks": 0})
     compare_leaves("batch world 0 vs JAX", ref["end"],
                    transfer.world_to_numpy(mesh.world_at(batch, 0)))
     log(f"batch world 0 after {N_REF_TICKS} ticks equals JAX's end state")
@@ -1220,7 +1267,7 @@ def hier_launches(cfg, n_ticks: int) -> dict:
     segs = -(-n_ticks // max(1, cfg.PATHFINDING_COOLDOWN))
     return {"select_rows": 0, "build_sdir": segs, "build_wavefront": segs,
             "prefix_planes": n_ticks, "decide_move": n_ticks,
-            "build_sdir_batched": 0,
+            "build_sdir_batched": 0, "decide_move_blocks": 0,
             "rain_ticks": n_ticks if cfg.RAIN_ENABLED else 0}
 
 
@@ -1490,22 +1537,11 @@ class no_map_worlds:
         self.HE._map_worlds = self.orig
 
 
-def config4_kernels(HE, engine, cfg, B) -> dict:
-    """K1, K2 and K3's per-world-geometry forms for B worlds at config
-    #4's shapes (seeded random inputs, each world with its own geometry
-    and key stack) against their plain versions."""
-    H, W, D = cfg.HEIGHT, cfg.WIDTH, cfg.MAX_FIELD_DESTS
-    HW = H * W
-    D4 = (D + 3) // 4
-    if D % 4:
-        raise AssertionError("config #4's stack packs whole words")
-    r = Inputs(4)
-    shape = f"B = {B}, {H}x{W}, D = {D}"
-    heavy = dict(reps=10, plain_reps=1 if B > 16 else 3)
-    out = {}
-
-    kcfg = cfg.replace(VEHICLE_MALFUNCTION_CHANCE=0.01,
-                       VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3)
+def k1_world_inputs(engine, B, H, W, D, r):
+    """K1's seeded random arguments after the config for B worlds of
+    H x W, each world with its own geometry and stack of D rows (D a
+    multiple of 4), drawn from `r` (an Inputs)."""
+    D4 = D // 4
     # the stacks of all worlds packed at once: D is a multiple of 4, so
     # word g of the [B * D] rows is word g % D4 of world g // D4
     sdir4 = engine.pack_sdir4(r.rint(0, 256, B * D, H, W).to(
@@ -1520,19 +1556,45 @@ def config4_kernels(HE, engine, cfg, B) -> dict:
     dest = r.rint(-1, D, B, H, W)
     randoms = (r.unif(B, H, W), r.unif(B, H, W), r.rint(1, 6, B, H, W),
                r.bits(B, H, W))
-    present = int((planes[0] & 1).sum())
-    # as the shared-geometry K1, with the geometry (5 bytes a cell) one
-    # plane a world
-    k1_bytes = B * HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4 + 5) + present * 4
-    k1_ops = (B * HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2),) * 2
-    out["decide_move_worlds"] = measure(
-        f"decide_move_worlds (B={B})",
-        lambda: HE.decide_move_batched(kcfg, sdir4, wnd, planes, *masks,
-                                       inter, dest, randoms),
-        lambda: HE.decide_move_core_batched(kcfg, sdir4, wnd, planes,
-                                            *masks, inter, dest, randoms),
-        k1_bytes, k1_ops, shape, **heavy)
-    del sdir4, wnd, planes, masks, inter, dest, randoms
+    return (sdir4, wnd, planes, *masks, inter, dest, randoms)
+
+
+def config4_k1(HE, engine, kcfg, B, H, W, D, r, forms, heavy):
+    """K1's forms (`forms`: row name -> form, None for `k1_form`'s
+    choice) for B worlds of H x W on seeded random inputs, each world with
+    its own geometry, against the plain version."""
+    a = k1_world_inputs(engine, B, H, W, D, r)
+    k1_bytes, k1_ops = k1_cost(a[2], kcfg)
+    shape = f"B = {B}, {H}x{W}, D = {D}"
+    out = {}
+    for name, form in forms.items():
+        out[name] = measure(
+            f"{name} (B={B}, {H}x{W})",
+            lambda f=form: HE.decide_move_batched(kcfg, *a, form=f),
+            lambda: HE.decide_move_core_batched(kcfg, *a),
+            k1_bytes, k1_ops, shape, **heavy)
+    return out
+
+
+def config4_kernels(HE, engine, cfg, B) -> dict:
+    """K1 (in both forms), K2 and K3's per-world-geometry forms for B
+    worlds at config #4's shapes (seeded random inputs, each world with
+    its own geometry and key stack) against their plain versions."""
+    H, W, D = cfg.HEIGHT, cfg.WIDTH, cfg.MAX_FIELD_DESTS
+    HW = H * W
+    D4 = (D + 3) // 4
+    if D % 4:
+        raise AssertionError("config #4's stack packs whole words")
+    r = Inputs(4)
+    shape = f"B = {B}, {H}x{W}, D = {D}"
+    heavy = dict(reps=10, plain_reps=1 if B > 16 else 3)
+    kcfg = cfg.replace(VEHICLE_MALFUNCTION_CHANCE=0.01,
+                       VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3)
+    # the block-per-world form at B = 3 too, where the shape chooses the
+    # cooperative form
+    out = config4_k1(HE, engine, kcfg, B, H, W, D, r, {
+        "decide_move_blocks": "worlds", "decide_move_worlds": "coop"},
+        heavy)
 
     # K2 over B key stacks, each with unreachable rows; the bytes: every
     # world's K0, pen and legal planes in, its packed stack out
@@ -1569,6 +1631,134 @@ def config4_kernels(HE, engine, cfg, B) -> dict:
     return out
 
 
+def config4_path_k1(HE, cfg, world, mesh) -> dict:
+    """K1 on config #4's own state: its arguments of the next tick of
+    `world` (the batch of cities), captured from a one-tick
+    `run_chunk_batch`, in the shape's form (the block-per-world form)
+    and the cooperative form, each against the plain version."""
+    seen = []
+    orig = HE.decide_move_batched
+
+    def spy(*a, **k):
+        seen.append(a)
+        return orig(*a, **k)
+    HE.decide_move_batched = spy
+    try:
+        mesh.run_chunk_batch(cfg, world, 1)
+    finally:
+        HE.decide_move_batched = orig
+    if len(seen) != 1:
+        raise AssertionError(f"one tick called K1 {len(seen)} times")
+    a = seen[0]
+    nbytes, ops = k1_cost(a[3], a[0])
+    tick = int(world.tick.reshape(-1)[0]) + 1
+    shape = (f"config #4's path, tick {tick}, B = {a[3][0].shape[0]}, "
+             f"{int((a[3][0] & 1).sum())} vehicles")
+    out = {}
+    for name, form in (("decide_move_blocks", None),
+                       ("decide_move_worlds", "coop")):
+        out[name] = measure(
+            f"{name} on config #4's path", lambda f=form: orig(*a, form=f),
+            lambda: HE.decide_move_core_batched(*a), nbytes, ops, shape,
+            reps=10, plain_reps=1)
+    return out
+
+
+def phase_forms(HE, engine, tsim, mesh, prng, Config) -> dict:
+    """Development group `forms`: K1's forms and the pedestrian step
+    timed on the imported tree (`--tree`; an older tree without K1's
+    `form` argument runs its one form, the cooperative per-world one, and
+    one without the cached sidewalk count its step without it).  K1 at
+    config #4's 64 x 64 worlds with D = 32, for each B of K1_SWEEP, on
+    seeded planes (`k1_world_inputs`, Inputs(4)) and on the path's own
+    state, the first B worlds' arguments of tick 51 of config #4's batch
+    of cities; the pedestrian step on seeded planes at 256^2 and 1024^2
+    (`ped_inputs`, Inputs(11)) and on config #3's inputs of tick 501
+    (seed 0, SWEEP_VEHICLES vehicles); every row bit-equal to its plain
+    version (`measure`)."""
+    import inspect
+    from trafficsimulation_tpu_torch import codes as C
+    from trafficsimulation_tpu_torch.agents import pedestrians
+    has_form = "form" in inspect.signature(HE.decide_move_batched).parameters
+    has_side = "n_side" in inspect.signature(HE.step_pedestrians).parameters
+    forms = ({"decide_move_blocks": "worlds", "decide_move_worlds": "coop"}
+             if has_form else {"decide_move_worlds": None})
+    cfg = Config(**CONFIG4)
+    kcfg = cfg.replace(VEHICLE_MALFUNCTION_CHANCE=0.01,
+                       VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3)
+    H, W, D = cfg.HEIGHT, cfg.WIDTH, cfg.MAX_FIELD_DESTS
+
+    def k1_rows(label, kc, a):
+        nbytes, ops = k1_cost(a[2], kc)
+        B = a[2][0].shape[0]
+        shape = (f"{label}, B = {B}, {H}x{W}, {int((a[2][0] & 1).sum())} "
+                 "vehicles")
+        return {name: measure(
+            f"{name} ({label}, B={B})",
+            lambda f=form: HE.decide_move_batched(
+                kc, *a, **({} if f is None else {"form": f})),
+            lambda: HE.decide_move_core_batched(kc, *a), nbytes, ops, shape,
+            reps=20, plain_reps=1) for name, form in forms.items()}
+
+    out = {"forms": list(forms), "k1_plan": {}, "k1_seeded": {},
+           "k1_path": {}, "ped": {}}
+    for B in K1_SWEEP:
+        out["k1_plan"][B] = {name: HE.dm_plan(B, H, W, **(
+            {} if f is None else {"form": f})) for name, f in forms.items()}
+        a = k1_world_inputs(engine, B, H, W, D, Inputs(4))
+        out["k1_seeded"][B] = k1_rows("seeded", kcfg, a)
+        del a
+    world = mesh.init_world_batch(cfg, prng.PRNGKey(0), max(K1_SWEEP))
+    world = mesh.run_chunk_batch(cfg, world, CONFIG4_TICKS)
+    seen = []
+    orig = HE.decide_move_batched
+
+    def spy(*a, **k):
+        seen.append(a)
+        return orig(*a, **k)
+    HE.decide_move_batched = spy
+    try:
+        mesh.run_chunk_batch(cfg, world, 1)
+    finally:
+        HE.decide_move_batched = orig
+    pcfg, *pargs = seen[0]
+    label = f"config #4's path, tick {CONFIG4_TICKS + 1}"
+    for B in K1_SWEEP:
+        a = tuple(tuple(x[:B] for x in t) if isinstance(t, tuple)
+                  else t[:B] for t in pargs)
+        out["k1_path"][B] = k1_rows(label, pcfg, a)
+    del world, seen, pargs, a
+    torch.cuda.empty_cache()
+
+    def ped_row(label, a):
+        nbytes, ops = ped_cost(a[1], a[3], 1)
+        out["ped"][label] = measure(
+            f"step_pedestrians ({label})", lambda: HE.step_pedestrians(*a),
+            lambda: pedestrians.step_pedestrians_plain(*a[:6]), nbytes, ops,
+            label, plain_reps=3, one_kernel=has_side)
+
+    r = Inputs(11)
+    for n in (256, 1024):
+        pc = Config(WIDTH=n, HEIGHT=n, PEDESTRIANS_ENABLED=True,
+                    PEDESTRIANS_PER_DAY=2_000_000)
+        walk, cross, cell, stop, seeds = ped_inputs(r, 1, n, n, 40)
+        side = ((cell == C.SIDEWALK).sum(dtype=torch.int32),) if has_side \
+            else ()
+        ped_row(f"{n}x{n}", (pc, walk[0], cross[0], cell, stop[0], seeds[0],
+                             *side))
+    base = Config(**CONFIG3)
+    world = tsim.init_world(base, prng.PRNGKey(0), "cuda")
+    cfg3, world = tsim.measure_and_shrink(base, world)
+    world = tsim.inject_vehicles(cfg3, world, SWEEP_VEHICLES)
+    with mega_env(False):
+        world = tsim.run_chunk(cfg3, world, SWEEP_PED_TICKS)
+    a, _ = tick_inputs(cfg3, world, HE, tsim, "step_pedestrians")
+    ped_row(f"config #3's path, tick {SWEEP_PED_TICKS + 1}, "
+            f"{int(a[1].sum() + a[2].sum())} pedestrians", a)
+    REPORT["forms"] = out
+    return out
+
+
 def cap_diagnostics(world) -> dict:
     """The JAX bench's no-silent-caps counters (`bench._cap_diagnostics`)
     over a batch of cities."""
@@ -1601,8 +1791,14 @@ def phase_config4(HE, engine, tsim, mesh, transfer, card, prng, Config):
     with open(os.path.join(ROOT, CONFIG4_DIGEST)) as f:
         digest = json.load(f)
     plan = HE.dm_plan(n, cfg.HEIGHT, cfg.WIDTH)
-    log(f"config #4: K1's plan for {n} worlds of {cfg.HEIGHT}x{cfg.WIDTH}: "
-        f"{plan} (world groups walked in turn inside one launch)")
+    sms, smem = HE.card_numbers()
+    log(f"config #4: K1's form for {n} worlds of {cfg.HEIGHT}x{cfg.WIDTH} "
+        f"on {sms} SMs and {smem} bytes of shared memory a block: "
+        f"{plan['form']}; plan {plan}; the cooperative form's "
+        f"{HE.dm_plan(n, cfg.HEIGHT, cfg.WIDTH, form='coop')}")
+    if plan["form"] != "worlds" or plan["blocks_per_sm"] < 2:
+        raise AssertionError(f"config #4: K1's plan {plan}, not the "
+                             "block-per-world form at >= 2 blocks an SM")
     torch.cuda.reset_peak_memory_stats()
     timings = {}
     worlds, t_gen = timed(lambda: mesh.init_world_batch(
@@ -1620,7 +1816,8 @@ def phase_config4(HE, engine, tsim, mesh, transfer, card, prng, Config):
         f"digest ({exact} leaves each, {len(near)} f32 within rtol)")
     R = max(1, cfg.PATHFINDING_COOLDOWN)
     segs = -(-CONFIG4_TICKS // R)
-    need = {"decide_move": CONFIG4_TICKS, "prefix_planes": CONFIG4_TICKS,
+    need = {"decide_move_blocks": CONFIG4_TICKS, "decide_move": 0,
+            "prefix_planes": CONFIG4_TICKS,
             "build_sdir": segs, "build_wavefront": segs,
             "build_sdir_batched": 0, "select_rows": 0, "mega": 0,
             "rain_ticks": CONFIG4_TICKS if cfg.RAIN_ENABLED else 0}
@@ -1639,16 +1836,31 @@ def phase_config4(HE, engine, tsim, mesh, transfer, card, prng, Config):
         raise AssertionError(f"config #4 active vehicles {active[:4]}")
     log(f"config #4 worlds 0-{digest['worlds'] - 1} after {CONFIG4_TICKS} "
         f"ticks equal JAX's digest; first chunk {t_first:.3f} s; launches "
-        f"{launches} (K1 {launches['decide_move'] / CONFIG4_TICKS:g} a tick "
-        f"for all {n} worlds in {plan['groups']} world groups, K2 and K3 "
+        f"{launches} (K1 {launches['decide_move_blocks'] / CONFIG4_TICKS:g} "
+        f"a tick for all {n} worlds, one block a world, K2 and K3 "
         f"{launches['build_sdir'] / segs:g} and "
         f"{launches['build_wavefront'] / segs:g} a segment, no per-world "
         f"map); {sum(active)} active vehicles")
     del worlds
+    # K1 on the path's own state: its inputs of the next tick, in both
+    # forms, against the plain version
+    path = config4_path_k1(HE, cfg, w, mesh)
     # the kernels before the long profile below (a profile after a long
     # one may come back empty)
     kern = {f"B={b}": config4_kernels(HE, engine, cfg, b)
             for b in (n, CONFIG4_ODD_B)}
+    kern["path"] = path
+    rh, rw = CONFIG4_RAGGED
+    if HE.k1_form(n, rh, rw, *HE.card_numbers()) != "worlds":
+        raise AssertionError(f"K1's form at {n} x {rh}x{rw} is not the "
+                             "block-per-world form")
+    kern["ragged"] = config4_k1(
+        HE, engine, cfg.replace(WIDTH=rw, HEIGHT=rh,
+                                VEHICLE_MALFUNCTION_CHANCE=0.01,
+                                VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3),
+        n, rh, rw, cfg.MAX_FIELD_DESTS, Inputs(5),
+        {"decide_move_blocks": None}, dict(reps=10, plain_reps=1))
+    torch.cuda.empty_cache()
     times = []
     for _ in range(CONFIG4_REPEATS):
         w, dt = timed(lambda w=w: mesh.run_chunk_batch(cfg, w,
@@ -1717,6 +1929,7 @@ def phase_pedestrians(HE) -> dict:
     from trafficsimulation_tpu_torch.agents.pedestrians import \
         step_pedestrians_plain
     from trafficsimulation_tpu_torch.config import Config
+    from trafficsimulation_tpu_torch.core.state import sidewalk_count
     r = Inputs(11)
     out = {}
     for label, B, H, W, hi, per_world in (
@@ -1728,14 +1941,17 @@ def phase_pedestrians(HE) -> dict:
                      PEDESTRIANS_PER_DAY=2_000_000)
         walk, cross, cell, stop, seeds = ped_inputs(r, B, H, W, hi,
                                                     per_world)
+        n_side = sidewalk_count(cell)
         nbytes, ops = ped_cost(walk, cell, B)
         if B == 1:
             a = (walk[0], cross[0], cell, stop[0], seeds[0])
-            kern = lambda a=a, c=cfg: HE.step_pedestrians(c, *a)
+            kern = lambda a=a, c=cfg, n=n_side: HE.step_pedestrians(c, *a,
+                                                                     n)
             plain = lambda a=a, c=cfg: step_pedestrians_plain(c, *a)
         else:
             a = (walk, cross, cell, stop, seeds)
-            kern = lambda a=a, c=cfg: HE.step_pedestrians_batched(c, *a)
+            kern = lambda a=a, c=cfg, n=n_side: HE.step_pedestrians_batched(
+                c, *a, n)
             plain = lambda a=a, c=cfg: tuple(torch.stack(o) for o in zip(*(
                 step_pedestrians_plain(c, *(x[b] for x in a))
                 for b in range(B))))
@@ -1757,6 +1973,7 @@ def phase_config3(HE, tsim, transfer, card, prng, Config):
     launch counts of the path (one `step_pedestrians` a tick, no plain
     step, no per-world map), then timed chunks of 100 ticks and the
     pedestrian step on its inputs of a tick of that run."""
+    from trafficsimulation_tpu_torch import codes as C
     from trafficsimulation_tpu_torch.agents import pedestrians
     with open(os.path.join(ROOT, PED_DIGEST)) as f:
         dig = json.load(f)["config3"]
@@ -1777,6 +1994,7 @@ def phase_config3(HE, tsim, transfer, card, prng, Config):
     need = {"step_pedestrians": n, "decide_move": n, "prefix_planes": n,
             "build_sdir": -(-n // R), "build_wavefront": -(-n // R),
             "build_sdir_batched": 0, "select_rows": 0, "mega": 0,
+            "decide_move_blocks": 0,
             "rain_ticks": n if cfg.RAIN_ENABLED else 0}
     orig_plain = pedestrians.step_pedestrians_plain
 
@@ -1835,13 +2053,17 @@ def phase_config3(HE, tsim, transfer, card, prng, Config):
         f"launches, idle share {idle:.3f}; active pedestrians {peds}, "
         f"expected spawns a tick {lam:.4f}, active vehicles {active}; "
         f"caps {caps}")
-    # the step on its inputs of the tick after the timed chunks
+    # the step on its inputs of the tick after the timed chunks (the
+    # wrapper given the world's cached sidewalk count, the plain version
+    # counting the sidewalks itself)
     (a, _) = tick_inputs(cfg, w, HE, tsim, "step_pedestrians")
+    if int(a[6]) != int((a[3] == C.SIDEWALK).sum()):
+        raise AssertionError(f"config #3: cached sidewalk count {int(a[6])}")
     nbytes, ops = ped_cost(a[1], a[3], 1)
     kern = measure("step_pedestrians on config #3's path",
                    lambda: HE.step_pedestrians(*a),
-                   lambda: pedestrians.step_pedestrians_plain(*a), nbytes,
-                   ops, f"256x256, tick {int(w.tick)}, "
+                   lambda: pedestrians.step_pedestrians_plain(*a[:6]),
+                   nbytes, ops, f"256x256, tick {int(w.tick)}, "
                    f"{int(a[1].sum() + a[2].sum())} pedestrians",
                    plain_reps=5)
     REPORT["config3"] = {
@@ -1884,7 +2106,8 @@ def phase_config1(HE, tsim, transfer, card, prng, Config):
     launches = dict(HE.launches)
     check_launches("config #1 path", launches, {
         "decide_move": n, "prefix_planes": n, "step_pedestrians": 0,
-        "mega": 0, "rain_ticks": n if cfg.RAIN_ENABLED else 0})
+        "mega": 0, "rain_ticks": n if cfg.RAIN_ENABLED else 0,
+        "decide_move_blocks": 0})
     check_digest(f"config #1 after {n} ticks", dig["end"],
                  transfer.world_to_numpy(w))
     with mega_env(False):
@@ -2074,7 +2297,8 @@ def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
     check_launches("megakernel path", launches, {
         "mega": segs, "build_sdir": segs, "build_wavefront": segs,
         "rain_ticks": segs, "decide_move": 0, "prefix_planes": 0,
-        "ordered_add": 0, "build_sdir_batched": 0, "select_rows": 0})
+        "ordered_add": 0, "build_sdir_batched": 0, "select_rows": 0,
+        "decide_move_blocks": 0})
     log(f"megakernel path: step({N_REF_TICKS}) in {t_ref:.2f} s equals "
         f"JAX's end state ({n_exact} integer/bool leaves exact, "
         f"{len(ref['end']) - n_exact} f32 within rtol {FLOAT_RTOL}); "
@@ -2242,18 +2466,15 @@ def k1_hier_tick(cfg, world, HE, tsim) -> dict:
     local4, consts = kw["hier"]
     sdir4, wnd, planes, stop, rain, ped, inter, dest_id, randoms = a
     H, W = cfg.HEIGHT, cfg.WIDTH
-    HW = H * W
     present = (planes[0] & 1) == 1
     p, _ = hier.hier_rows(kcfg, (planes[0] >> 18) & ((1 << 14) - 1))
     n_veh = int(present.sum())
     n_win = int((present & (p >= 0)).sum())
-    # K1's bytes and operations as in kernel_cases (one world), its one
-    # stack word per vehicle now a word of the dense stack per vehicle
-    # and one of the windowed stack per vehicle whose cell lies in its
-    # destination's window
-    nbytes = HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4) + HW * 5 \
-        + 4 * (n_veh + n_win)
-    ops = (HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2),) * 2
+    # K1's bytes and operations (k1_cost), its one stack word per vehicle
+    # now a word of the dense stack per vehicle and one of the windowed
+    # stack per vehicle whose cell lies in its destination's window
+    nbytes, ops = k1_cost(planes, kcfg, shared_geometry=True,
+                          stack_words=n_veh + n_win)
 
     def plain():
         return HE.decide_move_core(
@@ -2277,13 +2498,10 @@ def phase_tiled(cfg, world, HE, tsim):
     if kw.get("hier") is not None:
         raise AssertionError("the headline tick ran K1-hier")
     H, W = cfg.HEIGHT, cfg.WIDTH
-    HW = H * W
     P = HE.TILE_HALO
     k1 = HE.decide_move(kcfg, *a)
     present = int((a[2][0] & 1).sum())
-    # K1's bytes and operations as in kernel_cases (one world)
-    k1_bytes = HW * (6 * 4 + 4 + 3 + 4 * 4 + 7 * 4) + present * 4 + HW * 5
-    k1_ops = (HW * (2 * kcfg.VEHICLE_MAX_SPEED + 2),) * 2
+    k1_bytes, k1_ops = k1_cost(a[2], kcfg, shared_geometry=True)
     k1m = measure("decide_move at the headline's first tick",
                   lambda: HE.decide_move(kcfg, *a),
                   lambda: HE.decide_move_core(kcfg, a[0], a[1], *a[2],
@@ -2409,7 +2627,8 @@ def phase_bridge(cfg, world, HE, tsim, card):
     check_launches("bridge loop", launches, {
         "decide_move": n_chunks * ticks, "prefix_planes": n_chunks * ticks,
         "rain_ticks": n_chunks * ticks, "build_sdir": segs,
-        "build_wavefront": segs, "select_rows": 0, "mega": 0})
+        "build_wavefront": segs, "select_rows": 0, "mega": 0,
+        "decide_move_blocks": 0})
     t_chunk = statistics.median(t_chunks)
     launches = {k: v // n_chunks for k, v in launches.items()}
     # spawns: a vehicle on a free road cell bound for destination 0, a
@@ -2602,6 +2821,7 @@ def phase_rl(HE, tsim, transfer, card, prng, Config, snapshot, utils):
             "decide_move": n, "prefix_planes": n, "build_sdir": -(-n // R),
             "build_wavefront": -(-n // R), "build_sdir_batched": 0,
             "select_rows": 0, "mega": 0, "step_pedestrians": 0,
+            "decide_move_blocks": 0,
             "rain_ticks": n if cfg.RAIN_ENABLED else 0})
         cpu = [k for k, t in transfer.world_leaves(end).items()
                if t.device.type != RL_DEVICE]
@@ -2723,16 +2943,23 @@ def phase_rl(HE, tsim, transfer, card, prng, Config, snapshot, utils):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the build log and report")
-    ap.add_argument("--only", nargs="+", choices=PHASES,
+    ap.add_argument("--only", nargs="+", choices=PHASES + DEV_PHASES,
                     help="run only these groups of phases (development; "
                     "no contract line is printed)")
+    ap.add_argument("--tree", default=ROOT,
+                    help="import the port from this source tree, e.g. an "
+                    "unpacked older commit to time beside this one "
+                    "(development; with --only forms)")
     args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    if tree != ROOT and set(args.only or PHASES) != {"forms"}:
+        ap.error("--tree takes --only forms")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, tree)
     import importlib
     import pkgutil
     import trafficsimulation_tpu_torch as pkg
@@ -2849,6 +3076,9 @@ def main():
     if "config1" in run:
         l_c1 = phase_config1(HE, tsim, transfer, card, prng, Config)
         stamp("config1")
+    if "forms" in run:
+        phase_forms(HE, engine, tsim, mesh, prng, Config)
+        stamp("forms")
     if "rl" in run:
         from trafficsimulation_tpu_torch import utils
         l_rl = phase_rl(HE, tsim, transfer, card, prng, Config, snapshot,
@@ -2916,6 +3146,10 @@ def main():
         if path == "config4":
             entry["odd_batch"] = {x: k_c4[f"B={CONFIG4_ODD_B}"][k][x]
                                   for x in SUB_KEYS}
+            for part in ("path", "ragged"):
+                if k in k_c4[part]:
+                    entry[f"config4_{part}"] = {x: k_c4[part][k][x]
+                                                for x in SUB_KEYS}
         if k in single and path == "batched":
             entry["single_world"] = {x: single[k][x] for x in SUB_KEYS}
         if k == "select_rows":

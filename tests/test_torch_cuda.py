@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from trafficsimulation_tpu_torch.config import Config
+from trafficsimulation_tpu_torch.core.state import sidewalk_count
 
 from trafficsimulation_tpu_torch.ops import engine
 from trafficsimulation_tpu_torch.ops import hopper_engine as HE
@@ -46,6 +47,33 @@ def _same(got, ref):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b)
+
+
+def _device_kernels(fn, reps=10):
+    """(names, count) of the device kernels one call of fn runs: the
+    profiler's over `reps` calls after two warm-up calls inside its
+    window.  The profiler may drop some calls' kernels, so each kernel
+    counts its recorded launches over `reps`, rounded, at least once
+    where any was recorded; a profile that records no kernel is taken
+    again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=2, active=reps,
+                                       repeat=1)) as prof:
+            for _ in range(reps + 2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        per = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count]
+        if per:
+            break
+    names = [k for k, c in per for _ in range(max(1, round(c / reps)))]
+    return names, len(names)
 
 
 @pytest.mark.parametrize("shape", [(64, 96), (37, 300)])
@@ -1037,7 +1065,7 @@ def test_decide_move_world_groups_in_one_launch(gen):
     to the same worlds launched in batches that fit one grid, and world
     by world to the plain version on a few worlds."""
     B, H, W, D = 1024, 64, 64, 8
-    plan = HE.dm_plan(B, H, W)
+    plan = HE.dm_plan(B, H, W, form="coop")
     assert plan["groups"] > 1, plan
     assert HE.dm_plan(16, H, W)["groups"] == 1
     cfg = Config(WIDTH=W, HEIGHT=H, VEHICLE_MALFUNCTION_CHANCE=0.01,
@@ -1047,7 +1075,7 @@ def test_decide_move_world_groups_in_one_launch(gen):
     dest = _rint(gen, -1, D, B, H, W)
     n0 = HE.launches["decide_move"]
     got = HE.decide_move_batched(cfg, sdir4, wnd, planes, *masks, inter,
-                                 dest, randoms)
+                                 dest, randoms, form="coop")
     assert HE.launches["decide_move"] == n0 + 1
     step = 128
     assert HE.dm_plan(step, H, W)["groups"] == 1
@@ -1056,7 +1084,7 @@ def test_decide_move_world_groups_in_one_launch(gen):
         part = HE.decide_move_batched(
             cfg, sdir4[s], wnd[s], tuple(p[s] for p in planes),
             *(m[s] for m in masks), inter[s], dest[s],
-            tuple(r[s] for r in randoms))
+            tuple(r[s] for r in randoms), form="coop")
         _same([o[s] for o in got], part)
     for b in (0, 527, B - 1):
         ref = HE.decide_move_core(
@@ -1064,6 +1092,74 @@ def test_decide_move_world_groups_in_one_launch(gen):
             *(m[b] for m in masks), inter[b], dest[b],
             *(r[b] for r in randoms))
         _same([o[b] for o in got], ref)
+
+
+@pytest.mark.parametrize("B,H,W,speed,moving", [
+    (1024, 64, 64, 5, False), (1024, 64, 64, 5, True), (3, 64, 64, 5, False),
+    (5, 60, 50, 2, True), (2, 128, 128, 5, True)])
+def test_decide_move_worlds_form_matches_plain(gen, B, H, W, speed, moving):
+    """K1's block-per-world form (one block owns one world, its keys and
+    pub bytes in shared memory): one device kernel a call, each world
+    equal to its plain version and to the cooperative form, at config
+    #4's shape, a batch too small to choose it, a ragged world and the
+    largest square world one block holds, on dense random planes with
+    each world's own geometry or with most vehicles moving; the form
+    `dm_plan` reports is the shape's (`k1_form`)."""
+    D = 8
+    cfg = Config(WIDTH=W, HEIGHT=H, VEHICLE_MALFUNCTION_CHANCE=0.01,
+                 VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3,
+                 VEHICLE_MAX_SPEED=speed)
+    if moving:
+        sdir4, wnd, planes, masks, inter, dest, randoms = _moving_worlds(
+            gen, B, H, W, D)
+    else:
+        sdir4, wnd, planes, masks, _, _, randoms = _dm_inputs(gen, B, H, W,
+                                                              D)
+        inter = _bern(gen, 0.1, B, H, W)
+        dest = _rint(gen, -1, D, B, H, W)
+    plan = HE.dm_plan(B, H, W)
+    assert plan["form"] == HE.k1_form(B, H, W, *HE.card_numbers())
+    assert plan["form"] == ("worlds" if B == 1024 else "coop"), plan
+    wplan = HE.dm_plan(B, H, W, form="worlds")
+    assert wplan["blocks_per_sm"] >= 1 and wplan["blocks"] == B, wplan
+    n0 = dict(HE.launches)
+    got = HE.decide_move_batched(cfg, sdir4, wnd, planes, *masks, inter,
+                                 dest, randoms, form="worlds")
+    assert HE.launches["decide_move_blocks"] == n0["decide_move_blocks"] + 1
+    assert HE.launches["decide_move"] == n0["decide_move"]
+    geo = (lambda t, b: t[b]) if inter.dim() == 3 else (lambda t, b: t)
+    for b in sorted({0, B // 2, B - 1}):
+        ref = HE.decide_move_core(
+            cfg, sdir4[b], wnd[b], *(p[b] for p in planes),
+            *(m[b] for m in masks), geo(inter, b), geo(dest, b),
+            *(r[b] for r in randoms))
+        _same([o[b] for o in got], ref)
+    if moving:
+        assert int(((got[6] & HE.FLAG_MOVED) != 0).sum()) > 0
+    if B <= 16:
+        _same(got, HE.decide_move_core_batched(cfg, sdir4, wnd, planes,
+                                               *masks, inter, dest, randoms))
+    # the cooperative form on the same inputs: the same bits
+    _same(got, HE.decide_move_batched(cfg, sdir4, wnd, planes, *masks, inter,
+                                      dest, randoms, form="coop"))
+    names, n = _device_kernels(lambda: HE.decide_move_batched(
+        cfg, sdir4, wnd, planes, *masks, inter, dest, randoms,
+        form="worlds"))
+    assert n == 1 and "dm_worlds" in names[0], names
+
+
+def test_decide_move_worlds_form_rejects_a_world_too_large(gen):
+    """A world past one block's shared memory (or past 64 tiles) fails in
+    the block-per-world form; it never runs in another form."""
+    B, H, W, D = 2, 128, 160, 8
+    assert HE.k1_form(B, H, W, *HE.card_numbers()) == "coop"
+    cfg = Config(WIDTH=W, HEIGHT=H)
+    sdir4, wnd, planes, masks, _, _, randoms = _dm_inputs(gen, B, H, W, D)
+    with pytest.raises(RuntimeError, match="tsim_decide_move_worlds"):
+        HE.decide_move_batched(cfg, sdir4, wnd, planes, *masks,
+                               _bern(gen, 0.1, B, H, W),
+                               _rint(gen, -1, D, B, H, W), randoms,
+                               form="worlds")
 
 
 @pytest.mark.parametrize("D", [8, 10])
@@ -1151,12 +1247,15 @@ def test_step_pedestrians_kernel_matches_plain(gen, shape, hi):
                  PEDESTRIANS_PER_DAY=2_000_000)
     walk, cross, cell, stop, seeds = _ped_inputs(gen, 1, H, W, hi)
     args = (walk[0], cross[0], cell, stop[0], seeds[0])
+    n_side = sidewalk_count(cell)
     n0 = HE.launches["step_pedestrians"]
-    got = HE.step_pedestrians(cfg, *args)
+    got = HE.step_pedestrians(cfg, *args, n_side)
     assert HE.launches["step_pedestrians"] == n0 + 1
     ref = step_pedestrians_plain(cfg, *args)
     _same(got, ref)
     assert bool(ref[2].any())
+    _, n = _device_kernels(lambda: HE.step_pedestrians(cfg, *args, n_side))
+    assert n == 1
 
 
 @pytest.mark.parametrize("per_world", [False, True])
@@ -1171,13 +1270,15 @@ def test_step_pedestrians_batched_and_vmapped(gen, per_world):
                  PEDESTRIANS_PER_DAY=2_000_000)
     walk, cross, cell, stop, seeds = _ped_inputs(gen, B, H, W,
                                                  per_world=per_world)
+    n_side = sidewalk_count(cell)
     n0 = HE.launches["step_pedestrians"]
-    got = HE.step_pedestrians_batched(cfg, walk, cross, cell, stop, seeds)
+    got = HE.step_pedestrians_batched(cfg, walk, cross, cell, stop, seeds,
+                                      n_side)
     assert HE.launches["step_pedestrians"] == n0 + 1
+    gd = 0 if per_world else None
     vm = torch.func.vmap(
-        lambda w, c, g, s, k: HE.step_pedestrians(cfg, w, c, g, s, k),
-        in_dims=(0, 0, 0 if per_world else None, 0, 0))(
-            walk, cross, cell, stop, seeds)
+        lambda w, c, g, s, k, n: HE.step_pedestrians(cfg, w, c, g, s, k, n),
+        in_dims=(0, 0, gd, 0, 0, gd))(walk, cross, cell, stop, seeds, n_side)
     assert HE.launches["step_pedestrians"] == n0 + 2
     for b in range(B):
         ref = step_pedestrians_plain(cfg, walk[b], cross[b],

@@ -251,6 +251,63 @@ def _geo(seed: int):
     return rng, allowed, road, hard
 
 
+# the H100's numbers that choose K1's form: 132 SMs, 232,448 bytes of
+# shared memory a block may take (of the SM's 233,472)
+H100 = (132, 232448)
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024            # the shared memory CUDA reserves a block
+
+
+@pytest.mark.parametrize("B,H,W,form", [
+    (1024, 64, 64, "worlds"),        # config #4
+    (3, 64, 64, "coop"),             # too few worlds to fill the card
+    (1, 64, 64, "coop"),
+    (1, 256, 256, "coop"),           # the one-world headline
+    (16, 256, 256, "coop"),          # the shared-geometry batch
+    (1, 1024, 1024, "coop"),         # config #5
+    (1, 100, 100, "coop"),           # config #1: fits, but one world
+    (1024, 60, 50, "worlds"),        # ragged, within a block
+    (1024, 80, 96, "worlds"),        # 30 tiles: still two blocks an SM
+    (1024, 96, 96, "coop"),          # 36 tiles: fits a block, one an SM
+    (1024, 128, 128, "coop"),        # 64 tiles: the most a block owns
+    (1024, 128, 160, "coop"),        # 80 tiles: larger than a block holds
+    (1024, 136, 128, "coop")])       # 68 tiles
+def test_k1_form_by_shape(B, H, W, form):
+    """K1's form is a function of the shape and the card's numbers
+    (`hopper_engine.k1_form`; no card needed): the block-per-world form
+    where one world fits one block, two such blocks fit one SM and the
+    batch fills the card, the cooperative form everywhere else."""
+    assert HE.k1_form(B, H, W, *H100) == form
+
+
+def test_k1_form_thresholds():
+    """The batch that fills the card starts at K1_WORLDS_PER_SM worlds an
+    SM; a card whose blocks take less shared memory keeps a 128^2 world
+    cooperative, and a 64^2 one where two blocks do not fit an SM;
+    config #4's block (52 KB of shared memory) leaves room
+    for at least two blocks an SM, and the form is taken exactly where
+    two blocks fit the SM's shared memory."""
+    n = int(HE.K1_WORLDS_PER_SM * H100[0])
+    assert HE.k1_form(n, 64, 64, *H100) == "worlds"
+    assert HE.k1_form(n - 1, 64, 64, *H100) == "coop"
+    assert HE.k1_form(1024, 128, 128, H100[0], 101376) == "coop"
+    # 99 KB a block holds one 64^2 world but one block an SM; 163 KB three
+    assert HE.k1_form(1024, 64, 64, H100[0], 101376) == "coop"
+    assert HE.k1_form(1024, 64, 64, 108, 166912) == "worlds"
+    smem = HE.k1_world_smem(64, 64)
+    assert smem == 16 * 256 * 8 + 4096 * 5
+    assert 2 * (smem + HE.K1_WORLD_STATIC + BLOCK_RESERVED) <= SM_SMEM
+    assert HE.K1_BLOCK_RESERVED == BLOCK_RESERVED
+    assert H100[1] + BLOCK_RESERVED == SM_SMEM
+    assert HE.k1_world_blocks_per_sm(64, 64, H100[1]) == 4
+    for H in range(8, 129, 8):
+        for W in range(32, 129, 32):
+            need = HE.k1_world_smem(H, W) + HE.K1_WORLD_STATIC
+            two = (HE.k1_world_tiles(H, W) <= HE.K1_MAX_TILES
+                   and 2 * (need + BLOCK_RESERVED) <= SM_SMEM)
+            assert (HE.k1_form(1024, H, W, *H100) == "worlds") == two, (H, W)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_k3_per_world_geometry(seed):
     """The batched K3's plain form with [B, H, W] allowed and is_road ==

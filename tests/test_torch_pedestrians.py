@@ -13,6 +13,9 @@
   CPU compiler fuses the keep split's multiply-add where the split
   moves walkers and not where it leaves the rest (see the module
   docstring of `agents/pedestrians.py`); the dense case shows both.
+* The plain step given the cached sidewalk count (`Grid.n_side`)
+  against the jitted JAX step; the count as the world's statics cache
+  it, a port-only leaf.
 * The wrapper's batched forms (shared and per-world `cell_type`, and
   under `torch.func.vmap`) against the single-world plain version.
 * Whole runs held to the JAX digest `data/ped_digest.json`
@@ -46,6 +49,8 @@ from trafficsimulation_tpu_torch import codes as C
 from trafficsimulation_tpu_torch import prng, sim
 from trafficsimulation_tpu_torch.agents import pedestrians as P
 from trafficsimulation_tpu_torch.config import Config
+from trafficsimulation_tpu_torch.core import transfer
+from trafficsimulation_tpu_torch.core.state import sidewalk_count
 from trafficsimulation_tpu_torch.core.synth import crossroad_world
 from trafficsimulation_tpu_torch.core.transfer import world_to_numpy
 from trafficsimulation_tpu_torch.ops import engine
@@ -170,7 +175,9 @@ def _case(name: str, seed: int):
     return cell, stop, walk.astype(np.int32), cross.astype(np.int32)
 
 
-def _both(cell, stop, walk, cross, key):
+def _both(cell, stop, walk, cross, key, n_side=None):
+    """JAX's jitted step and the plain step (counting the sidewalks
+    itself, or given the cached count `n_side`) on the same inputs."""
     H, W = cell.shape
     peds, blk, cnt = _jax_step(H, W)(jnp.asarray(walk), jnp.asarray(cross),
                                      jnp.asarray(cell), jnp.asarray(stop),
@@ -179,7 +186,7 @@ def _both(cell, stop, walk, cross, key):
     got = P.step_pedestrians_plain(
         Config(WIDTH=W, HEIGHT=H, **PED_KW), torch.from_numpy(walk),
         torch.from_numpy(cross), torch.from_numpy(cell),
-        torch.from_numpy(stop), torch.from_numpy(_seeds(key)))
+        torch.from_numpy(stop), torch.from_numpy(_seeds(key)), n_side)
     return ref, tuple(g.numpy() for g in got)
 
 
@@ -209,6 +216,22 @@ def test_step_pedestrians_plain_matches_jitted_jax(name, seed):
                    for d in range(4))
 
 
+@pytest.mark.parametrize("name,seed", [("crossroad", 6), ("ragged", 7),
+                                       ("dense", 8)])
+def test_step_pedestrians_plain_with_cached_count_matches_jitted_jax(name,
+                                                                    seed):
+    """The plain step given the world's cached sidewalk count
+    (`sidewalk_count`, what `Grid.n_side` holds and the card's wrapper
+    passes to the kernel) equals JAX's step, which counts the sidewalks
+    itself every tick."""
+    cell, stop, walk, cross = _case(name, seed)
+    n_side = sidewalk_count(torch.from_numpy(cell))
+    assert n_side.dtype == torch.int32 and n_side.shape == ()
+    ref, got = _both(cell, stop, walk, cross, jax.random.PRNGKey(seed),
+                     n_side)
+    _assert_same(ref, got)
+
+
 def test_step_pedestrians_plain_chained_ticks():
     """Five ticks on the crossroad, each from the JAX step's output."""
     cell, stop, walk, cross = _case("crossroad", 5)
@@ -233,24 +256,162 @@ def test_step_pedestrians_batched_forms_match_single(per_world):
                          for i in (1, 2, 3))
     seeds = torch.from_numpy(np.stack([_seeds(jax.random.PRNGKey(b))
                                        for b in range(3)]))
+    n_side = sidewalk_count(cell)
     singles = [P.step_pedestrians_plain(
         cfg, walk[b], cross[b], cells[b] if per_world else cell, stop[b],
         seeds[b]) for b in range(3)]
+    gd = 0 if per_world else None
     torch._C._functorch._set_vmap_fallback_warning_enabled(True)
     try:
         with warnings.catch_warnings():
             warnings.filterwarnings("error", message=".*batching rule.*")
             mapped = torch.func.vmap(
-                lambda w, c, g, s, k: HE.step_pedestrians(cfg, w, c, g, s, k),
-                in_dims=(0, 0, 0 if per_world else None, 0, 0))(
-                    walk, cross, cell, stop, seeds)
+                lambda w, c, g, s, k, n: HE.step_pedestrians(cfg, w, c, g, s,
+                                                             k, n),
+                in_dims=(0, 0, gd, 0, 0, gd))(
+                    walk, cross, cell, stop, seeds, n_side)
     finally:
         torch._C._functorch._set_vmap_fallback_warning_enabled(False)
-    batched = HE.step_pedestrians_batched(cfg, walk, cross, cell, stop, seeds)
+    batched = HE.step_pedestrians_batched(cfg, walk, cross, cell, stop, seeds,
+                                          n_side)
     for out in (mapped, batched):
         for b in range(3):
             for a, s in zip(out, singles[b]):
                 assert torch.equal(a[b], s)
+
+
+# ---- the kernel's tiled pass, emulated --------------------------------------
+
+_TX, _TY = 32, 8                 # csrc/pedestrians.cu TX, TY
+_NT, _NR = _TX * _TY, 2 * (_TX + _TY)
+_DY, _DX = (1, 0, -1, 0), (0, 1, 0, -1)
+
+
+def _sources(cell, stop, walk, cross, seeds):
+    """What every cell sends along each heading (walkers, crossers) and
+    keeps, as `source` in csrc/pedestrians.cu computes it, for all cells
+    at once: [4, H, W] each."""
+    H, W = cell.shape
+    u = P.uniform_planes(seeds, H, W)
+    f32 = torch.float32
+    walkable = torch.isin(cell, torch.tensor(
+        [C.SIDEWALK, C.BLOCK_ENTRANCE, C.TRAFFIC_LIGHT], dtype=cell.dtype))
+    roady = torch.isin(cell, torch.tensor(
+        [C.CONTROLLED_ROAD, C.R1, C.R2, C.R3, C.INTERSECTION],
+        dtype=cell.dtype))
+    entry = (cell == C.CONTROLLED_ROAD) & stop
+    aw = [P._ahead(walkable, d) for d in range(4)]
+    ar = [P._ahead(roady, d) for d in range(4)]
+    ac = [P._ahead(entry, d) for d in range(4)]
+    n_alt = sum(a.to(torch.int32) for a in aw)
+    keep = torch.tensor(P.PED_KEEP_HEADING, dtype=f32)
+    sw, sc, kw, kc, m = [], [], [], [], torch.zeros_like(walk[0])
+    for d in range(4):
+        n, c = walk[d], cross[d]
+        moves = aw[d] | ac[d]
+        k = torch.where(moves, P._sround(n, keep, u[d], fused=True), 0)
+        rest = torch.where(moves, n - P._sround(n, keep, u[d]), n)
+        sw.append(torch.where(aw[d], k + c, 0))
+        sc.append(torch.where(aw[d], 0, k) + torch.where(ar[d], c, 0))
+        kw.append(torch.where(n_alt > 0, 0, rest))
+        kc.append(torch.where(aw[d] | ar[d], 0, c))
+        m = m + torch.where(n_alt > 0, rest, 0)
+    rem = n_alt
+    for d in range(4):
+        part = P._sround(m, 1.0 / torch.clamp(rem, min=1).to(f32), u[4 + d])
+        take = torch.where(aw[d], torch.where(rem == 1, m, part), 0)
+        sw[d] = sw[d] + take
+        m, rem = m - take, rem - aw[d].to(torch.int32)
+    return (torch.stack(sw), torch.stack(sc), torch.stack(kw),
+            torch.stack(kc), u)
+
+
+def _tiled_step(cfg, walk, cross, cell, stop, seeds, n_side):
+    """csrc/pedestrians.cu's block structure on the CPU: per 32 x 8 tile,
+    thread t < 256 a tile cell (sends along every heading), the next 80
+    the ring (each along its one heading into the tile), into a sources'
+    region that starts poisoned; then each tile cell gathers from its
+    four upstream neighbours (a poisoned read fails), thins and
+    spawns."""
+    H, W = cell.shape
+    SW, SC, KW, KC, u = _sources(cell, stop, walk, cross, seeds)
+    poison = -(1 << 30)
+    nw, nc = torch.full_like(walk, poison), torch.full_like(cross, poison)
+    for y0 in range(0, H, _TY):
+        for x0 in range(0, W, _TX):
+            ow = torch.full((4, _TY + 2, _TX + 2), poison, dtype=torch.int32)
+            oc = ow.clone()
+            for t in range(_NT + _NR):
+                if t < _NT:
+                    sy, sx, dl = 1 + t // _TX, 1 + t % _TX, None
+                else:
+                    r = t - _NT
+                    if r < _TX:
+                        sy, sx, dl = 0, 1 + r, 0
+                    elif r < 2 * _TX:
+                        sy, sx, dl = _TY + 1, 1 + r - _TX, 2
+                    elif r < 2 * _TX + _TY:
+                        sy, sx, dl = 1 + r - 2 * _TX, 0, 1
+                    else:
+                        sy, sx, dl = 1 + r - 2 * _TX - _TY, _TX + 1, 3
+                gy, gx = y0 - 1 + sy, x0 - 1 + sx
+                if not (0 <= gy < H and 0 <= gx < W):
+                    continue
+                ds = range(4) if dl is None else (dl,)
+                for d in ds:
+                    ow[d, sy, sx] = SW[d, gy, gx]
+                    oc[d, sy, sx] = SC[d, gy, gx]
+            for t in range(_NT):
+                sy, sx = 1 + t // _TX, 1 + t % _TX
+                gy, gx = y0 - 1 + sy, x0 - 1 + sx
+                if not (gy < H and gx < W):
+                    continue
+                for d in range(4):
+                    a, b = KW[d, gy, gx], KC[d, gy, gx]
+                    uy, ux = gy - _DY[d], gx - _DX[d]
+                    if 0 <= uy < H and 0 <= ux < W:
+                        got_w = ow[d, sy - _DY[d], sx - _DX[d]]
+                        got_c = oc[d, sy - _DY[d], sx - _DX[d]]
+                        assert got_w != poison and got_c != poison
+                        a, b = a + got_w, b + got_c
+                    nw[d, gy, gx], nc[d, gy, gx] = a, b
+    p_die = torch.tensor(np.float32(1.0 / P.PED_MEAN_LIFE_TICKS))
+    nw = torch.stack([nw[d] - P._sround(nw[d], p_die, u[8 + d])
+                      for d in range(4)])
+    side = cell == C.SIDEWALK
+    p_cell = torch.tensor(P.spawn_rate(cfg)) / torch.clamp(
+        n_side, min=1).to(torch.float32)
+    born = side & (u[12] < p_cell)
+    h = (u[13] * 4.0).to(torch.int32)
+    nw = nw + torch.stack([(born & (h == d)).to(torch.int32)
+                           for d in range(4)])
+    csum = nc.sum(0, dtype=torch.int32)
+    return nw, nc, csum > 0, nw.sum(0, dtype=torch.int32) + csum
+
+
+@pytest.mark.parametrize("name,seed,shape", [
+    ("ragged", 21, None), ("sparse", 22, None), ("crossroad", 23, None),
+    ("ragged", 24, (8, 32)), ("ragged", 25, (9, 33))])
+def test_tiled_pass_emulation_matches_plain(name, seed, shape):
+    """The redesigned kernel's structure (a tile and its ring of source
+    cells, each computing its splits once, then a gather from shared
+    memory), emulated on the CPU, equals the plain step: every upstream
+    read is one the ring or the tile wrote, on grids that are ragged,
+    exactly one tile, and one cell past a tile each way."""
+    cell, stop, walk, cross = _case(name, seed)
+    if shape is not None:
+        cell, stop = cell[:shape[0], :shape[1]], stop[:shape[0], :shape[1]]
+        walk, cross = walk[:, :shape[0], :shape[1]], cross[:, :shape[0],
+                                                           :shape[1]]
+    H, W = cell.shape
+    cfg = Config(WIDTH=W, HEIGHT=H, **PED_KW)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                 for a in (walk, cross, cell, stop)) + (
+        torch.from_numpy(_seeds(jax.random.PRNGKey(seed))),)
+    ref = P.step_pedestrians_plain(cfg, *args)
+    got = _tiled_step(cfg, *args, sidewalk_count(args[2]))
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
 
 
 # ---- whole runs against the digest -----------------------------------------
@@ -365,11 +526,30 @@ def test_config3_matches_jax_digest():
             == d[f"counts{t}"]["active_pedestrians"]
 
 
+def test_sidewalk_count_is_cached_with_the_statics():
+    """`Grid.n_side` is counted where the world is built (`init_world`'s
+    assembly: config #1's seeds; the crossroad) and equals the SIDEWALK
+    cells of its cell plane; it is a port-only leaf: `world_to_numpy`
+    leaves it out (the JAX digests' leaf sets hold) and
+    `world_from_numpy` counts it again."""
+    _, worlds = _config1_worlds()
+    cross = crossroad_world(_cross_cfg("cross_ped"), device="cpu")
+    for w in (*worlds, cross):
+        n = w.grid.n_side
+        assert n.dtype == torch.int32 and n.shape == ()
+        assert int(n) == int((w.grid.cell_type == C.SIDEWALK).sum()) > 0
+        leaves = world_to_numpy(w)
+        assert "grid.n_side" not in leaves
+        back = transfer.world_from_numpy(leaves, "cpu")
+        assert torch.equal(back.grid.n_side, n)
+    assert transfer.PORT_ONLY == {"grid.n_side"}
+
+
 def test_pedestrian_planes_follow_the_config():
     """[4, H, W] planes while pedestrians are on, the [4, 1, 1] stub
     while they are off, as JAX's `init_pedestrians`."""
-    on = P.init_pedestrians(5, 7, True)
-    off = P.init_pedestrians(5, 7, False)
+    on = P.init_pedestrians(5, 7, True, device="cpu")
+    off = P.init_pedestrians(5, 7, False, device="cpu")
     jon, joff = JP.init_pedestrians(5, 7, True), JP.init_pedestrians(5, 7,
                                                                        False)
     assert tuple(on.walk.shape) == jon.walk.shape == (4, 5, 7)

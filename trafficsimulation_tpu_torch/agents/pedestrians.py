@@ -21,7 +21,9 @@ multiply-add in some of them); the redistribution's and the thinning's
 are a multiply then an add; `1.0 / cnt` and `lam / n_side` are true
 divisions.  The step runs as one launch of `hopper_engine.
 step_pedestrians` on the card (`csrc/pedestrians.cu`);
-`step_pedestrians_plain` below is its plain version.
+`step_pedestrians_plain` below is its plain version.  The sidewalk count
+`n_side` is a static of the world (`Grid.n_side`), counted where the
+world is built.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ _M32 = 0xFFFFFFFF
 
 
 def init_pedestrians(H: int, W: int, enabled: bool = True,
-                     device="cpu") -> Pedestrians:
+                     device="cuda") -> Pedestrians:
     """Count planes; a [4, 1, 1] stub when pedestrians are disabled, as
     the JAX package carries it."""
     if not enabled:
@@ -94,10 +96,13 @@ def uniform_planes(seeds: torch.Tensor, H: int, W: int):
 
 def step_pedestrians_plain(cfg: Config, walk: torch.Tensor,
                            cross: torch.Tensor, cell_type: torch.Tensor,
-                           stop_map: torch.Tensor, seeds: torch.Tensor):
+                           stop_map: torch.Tensor, seeds: torch.Tensor,
+                           n_side: torch.Tensor = None):
     """One tick on the count planes (the JAX `step_pedestrians`).
     walk, cross int32 [4, H, W]; cell_type u8 [H, W]; stop_map bool
-    [H, W]; seeds int64 [14] (u32 values: 4 keep, 8 take, 2 spawn).
+    [H, W]; seeds int64 [14] (u32 values: 4 keep, 8 take, 2 spawn);
+    n_side: the sidewalk count (`Grid.n_side`), or None to count it
+    here, as the JAX step does (the kernel's reference counts it).
     Returns (walk', cross', ped_block bool [H, W], ped_count int32
     [H, W])."""
     H, W = cell_type.shape[-2:]
@@ -163,7 +168,9 @@ def step_pedestrians_plain(cfg: Config, walk: torch.Tensor,
     # spawns: Bernoulli per sidewalk cell
     if cfg.PEDESTRIANS_ENABLED:
         side = cell_type == C.SIDEWALK
-        n_side = torch.clamp(side.to(i32).sum(), min=1)
+        if n_side is None:
+            n_side = side.to(i32).sum()
+        n_side = torch.clamp(n_side, min=1)
         p_cell = torch.tensor(spawn_rate(cfg), device=walk.device) \
             / n_side.to(f32)
         born = side & (u_spawn[0] < p_cell)

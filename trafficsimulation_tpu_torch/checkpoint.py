@@ -19,7 +19,8 @@ import os
 import torch
 
 from .config import Config
-from .core.transfer import world_from_leaves, world_leaves
+from .core.transfer import (with_port_statics, world_from_leaves,
+                             world_leaves)
 
 WORLD_FILE = "world.pt"
 
@@ -45,4 +46,4 @@ def restore(path: str, template=None, device=None):
                   else "cuda")
     leaves = torch.load(os.path.join(os.path.abspath(path), WORLD_FILE),
                         map_location=device, weights_only=True)
-    return world_from_leaves(leaves)
+    return with_port_statics(world_from_leaves(leaves))

@@ -11,6 +11,8 @@ docstrings for what each table holds.  Types map as follows:
 
 Every class has `replace(**changes)` like a flax struct.  Tensors are
 never mutated in place by the simulation: a tick builds new tensors.
+One field is the port's own, derived from the others and carried for
+speed: `Grid.n_side` (`PORT_ONLY` in `core/transfer.py`).
 """
 
 from __future__ import annotations
@@ -20,12 +22,20 @@ from typing import Any, Optional
 
 import torch
 
+from .. import codes as C
+
 Tensor = torch.Tensor
 
 
 class _Struct:
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
+
+
+def sidewalk_count(cell_type: Tensor) -> Tensor:
+    """The SIDEWALK cells of a [..., H, W] cell plane, i32 [...]
+    (`Grid.n_side`)."""
+    return (cell_type == C.SIDEWALK).sum((-2, -1), dtype=torch.int32)
 
 
 @dataclasses.dataclass
@@ -42,6 +52,10 @@ class Grid(_Struct):
     dest_id: Tensor        # i32 [H, W]
     queue_group: Tensor    # i32 [H, W]
     queue_bucket: Tensor   # i8 [H, W]
+    # port-only (no JAX leaf): the sidewalk cells of cell_type, the
+    # pedestrian step's spawn divisor, counted once where the statics
+    # are built (`sidewalk_count`); i32 []
+    n_side: Optional[Tensor] = None
 
 
 @dataclasses.dataclass

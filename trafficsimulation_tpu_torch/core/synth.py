@@ -22,7 +22,7 @@ from .. import codes as C
 from .. import prng
 from ..config import Config
 from .state import (BlockStatic, Demand, DestStatic, Grid, GroupStatic,
-                    LightStatic, Overrides, World)
+                    LightStatic, Overrides, World, sidewalk_count)
 
 
 def _t(a, device) -> torch.Tensor:
@@ -311,7 +311,8 @@ def crossroad_world(cfg: Config, key=None, n_trips: int = 48,
                     dev),
         block_id=_t(np.full((H, W), -1, np.int32), dev),
         light_id=_t(light_id_plane, dev), dest_id=_t(dest_plane, dev),
-        queue_group=_t(qg, dev), queue_bucket=_t(qb, dev))
+        queue_group=_t(qg, dev), queue_bucket=_t(qb, dev),
+        n_side=sidewalk_count(_t(cell, dev)))
 
     # ---- demand: interleaved internal (block -> block) and through trips --
     T = caps.max_trips

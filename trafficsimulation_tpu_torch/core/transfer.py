@@ -10,6 +10,9 @@ tests and in `tools/make_torch_snapshot.py`, never in this package.
 uint32 leaves (the PRNG key) travel as `.view(np.int32)` and come back
 as `.view(np.uint32)`.  Fields absent from the dict (`rl`,
 `local_sdir4`, `dests.rid`, or `cost_field` in a snapshot) stay None.
+The port-only leaves (`PORT_ONLY`: statics the port derives from JAX's
+leaves) stay out of the numpy dict, and `world_from_numpy` derives them
+again (`with_port_statics`).
 
 An RL controller's train state (`rl/controllers.py`) travels too.  JAX
 keeps the flax params as {"params": {...}} and optax's state as the
@@ -34,11 +37,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from .state import NESTED, World
+from .state import NESTED, World, sidewalk_count
 from ..rl.controllers import TRAIN_TYPES, Adam
 
 # leaves whose JAX dtype is uint32 (carried as int32 bits in torch)
 U32_LEAVES = frozenset({"key"})
+# the port's own leaves, derived from JAX's: no JAX world has them
+PORT_ONLY = frozenset({"grid.n_side"})
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -107,10 +112,20 @@ def _build(cls, leaves: dict, prefix: str, conv):
     return cls(**kw)
 
 
+def with_port_statics(world: World) -> World:
+    """The world with its port-only statics (`PORT_ONLY`) derived where
+    they are missing (and its cell plane is there)."""
+    if world.grid.n_side is not None or world.grid.cell_type is None:
+        return world
+    return world.replace(grid=world.grid.replace(
+        n_side=sidewalk_count(world.grid.cell_type)))
+
+
 def world_from_numpy(leaves: dict, device) -> World:
     """The port's `World` on `device` from JAX leaves keyed by path."""
     leaves = {_rename(k, False): v for k, v in leaves.items()}
-    return _build(World, leaves, "", lambda a: _to_tensor(a, device))
+    return with_port_statics(
+        _build(World, leaves, "", lambda a: _to_tensor(a, device)))
 
 
 def world_from_leaves(leaves: dict) -> World:
@@ -140,9 +155,11 @@ def _numpy_leaf(name, t):
 
 
 def world_to_numpy(world: World) -> dict:
-    """Numpy leaves keyed by JAX's paths, in the JAX package's dtypes."""
+    """Numpy leaves keyed by JAX's paths, in the JAX package's dtypes
+    (the port-only leaves left out)."""
     return {_rename(k, True): v
-            for k, v in _flatten(world, "", {}, _numpy_leaf).items()}
+            for k, v in _flatten(world, "", {}, _numpy_leaf).items()
+            if k not in PORT_ONLY}
 
 
 def world_leaves(world: World) -> dict:

@@ -1,12 +1,17 @@
-// The cooperative decide + move of one tick, shared by K1
-// (decide_move.cu: one launch a tick) and K9 (megakernel.cu: R ticks in
-// one launch).  See decide_move.cu for the design: a persistent grid of
-// resident blocks that own fixed 32 x 8 tiles (`cpt` a block) in every
-// phase, per-cell state words and per-phase work lists in the block's
-// shared memory, one working set of vehicle planes written only where a
-// vehicle stands, and one `pub` byte per cell through which neighbours
-// see each other; 2K grid barriers a tick (decide, then K x (intent,
-// commit); the finish reads only the block's own cells).
+// The decide + move of one tick, shared by K1 (decide_move.cu: one
+// launch a tick, in two forms) and K9 (megakernel.cu: R ticks in one
+// launch).  See decide_move.cu for the design: blocks that own fixed
+// 32 x 8 tiles (`cpt` a block) in every phase, per-cell state words and
+// per-phase work lists in the block's shared memory, one working set of
+// vehicle planes written only where a vehicle stands, and one `pub` byte
+// per cell through which neighbours see each other; 2K barriers a tick
+// (decide, then K x (intent, commit); the finish reads only the block's
+// own cells).  Who owns what is the `Own` policy of `coop_phases`: a
+// cooperative grid whose tiles spread over its blocks (`GridOwn`: the
+// pub bytes and keys in device memory, grid barriers; K1's cooperative
+// form and K9), or one block that owns a whole small world (`BlockOwn`:
+// the pub bytes and keys in shared memory, block barriers; K1's
+// block-per-world form).
 //
 // The random draws of a cell come through a `Draws` functor: K1 reads
 // the tick's random planes (`PlaneDraws`), K9 hashes them from the
@@ -35,6 +40,8 @@ namespace tsim {
 
 // K1's working planes per world: the vehicle planes, the steps left and
 // the keys (int32), then, after every world's, one `pub` byte per cell
+// (the block-per-world form keeps the keys and pub bytes in shared
+// memory instead)
 enum { W_PA, W_PB, W_PC, W_PD, W_PE, W_PL, W_STEPS, W_KEY, N_WORK };
 // the pub byte: bits 0..1 the key's direction, 2 a key (else KINF), 3
 // want, 4 contraflow (the intent's info word is bits 3..4), 5 occupied
@@ -80,16 +87,25 @@ __device__ __forceinline__ bool slot_cell(const DMParams& p,
   return b >= 0 && y < p.H && x < p.W;
 }
 
-// world b's working planes, and its pub bytes
+// world b's working planes, its keys and its pub bytes
 struct Work {
   int* S;
+  int* key;
   uint8_t* pub;
   long hw;
+  // all in device memory: the planes of world b of B in S0, its pub
+  // bytes after every world's planes
   __device__ __forceinline__ Work(int* S0, int B, int b, const DMParams& p)
       : hw((long)p.H * p.W) {
     S = S0 + (long)b * N_WORK * hw;
+    key = S + W_KEY * hw;
     pub = (uint8_t*)(S0 + (long)B * N_WORK * hw) + (long)b * hw;
   }
+  // the vehicle planes at S in device memory, the keys and pub bytes
+  // elsewhere (shared memory)
+  __device__ __forceinline__ Work(int* S_, int* key_, uint8_t* pub_,
+                                  const DMParams& p)
+      : S(S_), key(key_), pub(pub_), hw((long)p.H * p.W) {}
   __device__ __forceinline__ int* plane(int k) const { return S + k * hw; }
 };
 
@@ -195,7 +211,7 @@ __device__ __forceinline__ uint32_t coop_intent(const DMParams& p,
                        (want ? PUB_WANT : 0u) | (contra ? PUB_CONTRA : 0u) |
                        (old & PUB_ARR);
   if (pub != old) {
-    if (can) w.plane(W_KEY)[c] = (int)prio | dir;
+    if (can) w.key[c] = (int)prio | dir;
     w.pub[c] = (uint8_t)pub;
     s = (s & ~C_PUB_MASK) | (pub << C_PUB);
   }
@@ -218,7 +234,7 @@ __device__ __forceinline__ int coop_min_incoming(const DMParams& p,
 #pragma unroll
   for (int m = 0; m < 4; ++m)
     if ((b[m] & PUB_KEY) && (int)(b[m] & 3u) == m)
-      mk = min(mk, w.plane(W_KEY)[n[m]]);
+      mk = min(mk, w.key[n[m]]);
   return mk;
 }
 
@@ -231,7 +247,7 @@ __device__ __forceinline__ uint32_t coop_commit(const DMParams& p,
   const uint32_t pub = (s & C_PUB_MASK) >> C_PUB;
   bool won = false;
   if (pub & PUB_KEY) {
-    const int kc = w.plane(W_KEY)[c];
+    const int kc = w.key[c];
     const int ty = y + dir_dy((int)(pub & 3u));
     const int tx = x + dir_dx((int)(pub & 3u));
     won = ty >= 0 && ty < p.H && tx >= 0 && tx < p.W &&
@@ -385,27 +401,75 @@ __device__ __forceinline__ void coop_tiles(const DMParams& p, int B, int cpt,
   }
 }
 
+// the tiles of one world: the block owns tile k for k < cpt, every tile
+// of an H x W world, as world 0 (the block's pointers are its world's;
+// call with every thread, then sync)
+__device__ __forceinline__ void world_tiles(const DMParams& p, int cpt,
+                                            TileOrigin* org) {
+  const int tx = (p.W + TILE_W - 1) / TILE_W;
+  if ((int)threadIdx.x < cpt) {
+    const int k = threadIdx.x;
+    org[k] = TileOrigin{0, (k / tx) * TILE_H, (k % tx) * TILE_W};
+  }
+}
+
 // shared memory of a block that owns cpt tiles: the state words and the
 // work list
 inline size_t coop_smem(int cpt) {
   return (size_t)cpt * THREADS * 2 * sizeof(uint32_t);
 }
 
-// The decide and the K sub-rounds of one tick of B worlds, by every
-// thread of every block of the cooperative grid; the block's state words
-// `st` (its cells' in tile order) are left for the caller's finish, which
-// needs no grid barrier first.  `list` is the work list, `nlist` its
-// length, both in shared memory.  With kOneWorld (B = 1) every phase
-// reads `in0` itself: K9 builds its Inputs in the kernel, and a copy of
-// that struct through `world_inputs` was compiled to read other memory.
-template <class Select, class Draws, bool kOneWorld = false>
-__device__ __forceinline__ void coop_move(const DMParams& p,
-                                          const Inputs& in0, int* S0, int B,
-                                          int cpt, const TileOrigin* org,
-                                          uint32_t* st, int* list,
-                                          int& nlist, const Select& sel,
-                                          const Draws& dr,
-                                          cg::grid_group& grid) {
+// shared memory of a block that owns a whole world of hw cells in cpt
+// tiles: the state words and the work list, then a key word and a pub
+// byte a cell
+inline size_t world_smem(int cpt, long hw) {
+  return coop_smem(cpt) + (size_t)hw * (sizeof(int) + 1);
+}
+
+// Ownership of a cooperative grid (K1's cooperative form, K9): a block's
+// tiles lie anywhere in the B worlds, the keys and pub bytes of world b
+// in device memory, a grid barrier between phases (COOP_SYNC)
+struct GridOwn {
+  int* S0;
+  int B;
+  cg::grid_group& grid;
+  __device__ __forceinline__ Work work(const DMParams& p, int b) const {
+    return Work(S0, B, b, p);
+  }
+  __device__ __forceinline__ void sync() const { COOP_SYNC(grid); }
+};
+
+// Ownership of one small world by one block (K1's block-per-world form):
+// the vehicle planes at S in device memory, the keys and pub bytes of
+// every cell of the world in the block's shared memory, a block barrier
+// between phases
+struct BlockOwn {
+  int* S;
+  int* key;
+  uint8_t* pub;
+  __device__ __forceinline__ Work work(const DMParams& p, int) const {
+    return Work(S, key, pub, p);
+  }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+// The decide and the K sub-rounds of one tick, by every thread of every
+// block that owns cells (`own`: who owns what, and the barrier between
+// phases); the block's state words `st` (its cells' in tile order) are
+// left for the caller's finish, which needs no barrier first.  `list` is
+// the work list, `nlist` its length, both in shared memory.  With
+// kOneWorld every phase reads `in0` and world 0's working set itself
+// (one world: K9, which builds its Inputs in the kernel, and a copy of
+// that struct through `world_inputs` was compiled to read other memory;
+// and the block-per-world form, whose pointers are its world's); else
+// world b's through `world_inputs`.
+template <class Select, class Draws, bool kOneWorld, class Own>
+__device__ __forceinline__ void coop_phases(const DMParams& p,
+                                            const Inputs& in0, const Own& own,
+                                            int cpt, const TileOrigin* org,
+                                            uint32_t* st, int* list,
+                                            int& nlist, const Select& sel,
+                                            const Draws& dr) {
   const int tid = threadIdx.x, nslot = cpt * THREADS;
   const long hw = (long)p.H * p.W;
   __syncthreads();
@@ -421,7 +485,7 @@ __device__ __forceinline__ void coop_move(const DMParams& p,
     if (!slot_cell(p, org, q, b, c, y, x)) continue;
     const long g = (long)b * hw + c;
     const uint32_t pa = (uint32_t)ld_tick(in0.pa + g);
-    Work(S0, B, b, p).pub[c] = 0;
+    own.work(p, b).pub[c] = 0;
     if (pa & 1) {
       list[atomicAdd(&nlist, 1)] = q;
     } else {
@@ -437,13 +501,13 @@ __device__ __forceinline__ void coop_move(const DMParams& p,
     int b, c, y, x;
     slot_cell(p, org, q, b, c, y, x);
     if constexpr (kOneWorld)
-      st[q] = coop_decide(p, in0, Work(S0, 1, 0, p), c, y, x, sel, dr);
+      st[q] = coop_decide(p, in0, own.work(p, 0), c, y, x, sel, dr);
     else
-      st[q] = coop_decide(p, world_inputs(in0, b, hw, p),
-                          Work(S0, B, b, p), c, y, x, sel, dr);
+      st[q] = coop_decide(p, world_inputs(in0, b, hw, p), own.work(p, b), c,
+                          y, x, sel, dr);
   }
   COOP_MARK(2, K9_DECIDE);
-  COOP_SYNC(grid);
+  own.sync();
   COOP_MARK(3, -1);
 
   for (int r = 0; r < p.max_speed; ++r) {
@@ -469,7 +533,7 @@ __device__ __forceinline__ void coop_move(const DMParams& p,
       else if (s & C_HALT)
         now = pub & (PUB_CONTRA | PUB_ARR);
       if (now != pub) {
-        Work(S0, B, b, p).pub[c] = (uint8_t)now;
+        own.work(p, b).pub[c] = (uint8_t)now;
         st[q] = (s & ~C_PUB_MASK) | (now << C_PUB);
       }
     }
@@ -480,14 +544,13 @@ __device__ __forceinline__ void coop_move(const DMParams& p,
       int b, c, y, x;
       slot_cell(p, org, q, b, c, y, x);
       if constexpr (kOneWorld)
-        st[q] = coop_intent(p, in0, Work(S0, 1, 0, p), c, y, x, st[q], sel,
-                            dr);
+        st[q] = coop_intent(p, in0, own.work(p, 0), c, y, x, st[q], sel, dr);
       else
-        st[q] = coop_intent(p, world_inputs(in0, b, hw, p),
-                            Work(S0, B, b, p), c, y, x, st[q], sel, dr);
+        st[q] = coop_intent(p, world_inputs(in0, b, hw, p), own.work(p, b),
+                            c, y, x, st[q], sel, dr);
     }
     COOP_MARK(5 + 6 * r, K9_INTENT);
-    COOP_SYNC(grid);
+    own.sync();
     COOP_MARK(6 + 6 * r, -1);
 
     // commit: incoming keys found at every cell that can be a target (a
@@ -501,7 +564,7 @@ __device__ __forceinline__ void coop_move(const DMParams& p,
       int b, c, y, x;
       if (!slot_cell(p, org, q, b, c, y, x)) continue;
       if (!(s & (C_PRESENT | C_NEVER))) {
-        const int mk = coop_min_incoming(p, Work(S0, B, b, p), y, x);
+        const int mk = coop_min_incoming(p, own.work(p, b), y, x);
         if (mk != KINF) s |= C_PULL | ((uint32_t)(mk & 3) << C_PULL_M);
       }
       if (s & (C_PULL | (PUB_KEY << C_PUB))) {
@@ -517,15 +580,28 @@ __device__ __forceinline__ void coop_move(const DMParams& p,
       const int q = list[j];
       int b, c, y, x;
       slot_cell(p, org, q, b, c, y, x);
-      st[q] = coop_commit(p, Work(S0, B, b, p), c, y, x, st[q]);
+      st[q] = coop_commit(p, own.work(p, b), c, y, x, st[q]);
     }
     COOP_MARK(8 + 6 * r, K9_COMMIT);
     // the next intent reads the neighbours' committed bytes; the finish
     // reads only the block's own cells
-    if (r + 1 < p.max_speed) COOP_SYNC(grid);
+    if (r + 1 < p.max_speed) own.sync();
     COOP_MARK(9 + 6 * r, -1);
   }
+}
 
+// coop_phases on a cooperative grid (GridOwn): B worlds whose working
+// planes and pub bytes are in S0
+template <class Select, class Draws, bool kOneWorld = false>
+__device__ __forceinline__ void coop_move(const DMParams& p,
+                                          const Inputs& in0, int* S0, int B,
+                                          int cpt, const TileOrigin* org,
+                                          uint32_t* st, int* list,
+                                          int& nlist, const Select& sel,
+                                          const Draws& dr,
+                                          cg::grid_group& grid) {
+  coop_phases<Select, Draws, kOneWorld>(p, in0, GridOwn{S0, B, grid}, cpt,
+                                        org, st, list, nlist, sel, dr);
 }
 
 }  // namespace tsim

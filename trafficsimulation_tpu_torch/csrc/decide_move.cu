@@ -1,42 +1,53 @@
 // K1: the per-tick vehicle decide + move on the packed planes.
 //
 // Replaces pallas_engine.decide_move_pallas (_kernel -> decide_move_core).
-// One cooperative launch per call for a whole batch of B worlds (B = 1
-// is the single-world tick): a persistent grid of the card's resident
-// blocks runs the phases decide, K x (intent, commit), finish (K =
-// VEHICLE_MAX_SPEED sub-rounds), separated by grid-wide barriers.  Every
-// per-world plane (the packed stack, wavefronts, vehicle planes, masks,
-// random planes, outputs and K1's working planes) advances by one
+// One launch per call for a whole batch of B worlds (B = 1 is the
+// single-world tick), in one of two forms chosen by the caller from the
+// shape (`hopper_engine.k1_form`):
+//  - the cooperative form (`tsim_decide_move`): a persistent grid of the
+//    card's resident blocks runs the phases decide, K x (intent, commit),
+//    finish (K = VEHICLE_MAX_SPEED sub-rounds), separated by grid-wide
+//    barriers;
+//  - the block-per-world form (`tsim_decide_move_worlds`, for many small
+//    worlds): B ordinary blocks, block b owns every tile of world b, its
+//    keys and pub bytes live in the block's shared memory for the whole
+//    tick, and the barriers are block barriers.
+// Every per-world plane (the packed stack, wavefronts, vehicle planes,
+// masks, random planes, outputs and K1's working planes) advances by one
 // world's size per world; the geometry (intersection, dest_id) is shared
 // by the batch or, for a batch of different cities (config #4), one
 // plane a world (`DMParams::geo`).  Every neighbour index comes from
 // `nbr` on the world's own (y, x), so no read crosses into another world.
-// A batch with more tiles than one resident grid holds (at most
-// MAX_CPT tiles a block: the state words and work list take 8 bytes of
-// shared memory a cell) runs as world groups inside the one launch: the
-// grid walks group after group, each with its own 2K barriers, and no
-// barrier between groups, since a group reads and writes only its own
-// worlds' planes.
+// In the cooperative form, a batch with more tiles than one resident
+// grid holds (at most MAX_CPT tiles a block: the state words and work
+// list take 8 bytes of shared memory a cell) runs as world groups inside
+// the one launch: the grid walks group after group, each with its own 2K
+// barriers, and no barrier between groups, since a group reads and writes
+// only its own worlds' planes.
 //
-// K1-hier (`tsim_decide_move_hier`) is the same launch for one world
-// under hierarchical routing, the row select `HierSelect` in place of
-// `GridSelect`: it replaces the plain decide core with the hierarchical
-// select (K6 twice per select) that the JAX package runs for such worlds
-// (trafficsimulation_tpu/ops/engine.py, the ROUTING_HIER branch of
-// step_engine; select_rows_pallas for the selects).
+// K1-hier (`tsim_decide_move_hier`) is the cooperative launch for one
+// world under hierarchical routing, the row select `HierSelect` in place
+// of `GridSelect`: it replaces the plain decide core with the
+// hierarchical select (K6 twice per select) that the JAX package runs
+// for such worlds (trafficsimulation_tpu/ops/engine.py, the ROUTING_HIER
+// branch of step_engine; select_rows_pallas for the selects).
 //
 // On the H100 the function is bound by device-memory bytes (~80 B a
 // cell), the phase chain by its dependent steps and each phase by the
 // latency of its dependent loads.  Design:
-//  - one launch: the 2K + 2 phase launches became 2K grid barriers
-//    (the finish reads only the block's own cells, so it needs none);
-//  - fixed ownership: block j owns tiles j, j + grid, ... (32 x 8 cells,
-//    `cpt` tiles a block) in every phase, so what only a cell itself
-//    reads stays in a state word per cell in the block's shared memory:
-//    the decide aux word, the halt latch, moved, occupied, new on the
-//    cell, "never a target" (stopped, pedestrians or occupied at the
-//    start of the tick), vacated, the intent it last published and the
-//    key it takes in this sub-round;
+//  - one launch: the 2K + 2 phase launches became 2K barriers (the
+//    finish reads only the block's own cells, so it needs none);
+//  - fixed ownership: a block owns its tiles (32 x 8 cells, `cpt` tiles
+//    a block) in every phase, so what only a cell itself reads stays in a
+//    state word per cell in the block's shared memory: the decide aux
+//    word, the halt latch, moved, occupied, new on the cell, "never a
+//    target" (stopped, pedestrians or occupied at the start of the tick),
+//    vacated, the intent it last published and the key it takes in this
+//    sub-round.  The cooperative form deals tile j, j + grid, ... to
+//    block j; the block-per-world form all of world b's to block b, whose
+//    neighbours are then all its own: their keys and pub bytes stay in
+//    shared memory (13 bytes a cell with the state words and work list:
+//    52 KB at 64 x 64, so four blocks of 256 threads fit an SM's 228 KB);
 //  - compacted work: each phase first walks all of the block's cells,
 //    listing in shared memory the cells with work left (vehicles for
 //    decide; vehicles new on their cell for intent, the only ones whose
@@ -55,7 +66,8 @@
 //    key word only where that byte says a key aims at them.
 // Each skip leaves every output bit as the phase bodies of
 // decide_move.cuh compute it, which K7 still runs.  The phases live in
-// coop.cuh, which K9 (megakernel.cu) shares.
+// coop.cuh (`coop_phases`, its ownership policies `GridOwn` and
+// `BlockOwn`), which K9 (megakernel.cu) shares.
 #include <cooperative_groups.h>
 
 #include "decide_move.cuh"
@@ -222,6 +234,66 @@ int launch_dm(const DMParams& p, const Inputs& in, const Outputs& out,
   return (int)cudaGetLastError();
 }
 
+// One tick of B small worlds, block b owning world b whole (`cpt` tiles,
+// every tile of the world).  Dynamic shared memory (`world_smem`): the
+// state words and the work list, cpt * THREADS each, then the world's
+// keys and pub bytes, a word and a byte a cell.
+template <class Select>
+__global__ void __launch_bounds__(THREADS)
+    dm_worlds(DMParams p, Inputs in0, Outputs out, int* S0, int cpt,
+              Select sel) {
+  extern __shared__ uint32_t st[];
+  const long hw = (long)p.H * p.W;
+  int* list = (int*)(st + cpt * THREADS);
+  int* key = list + cpt * THREADS;
+  uint8_t* pub = (uint8_t*)(key + hw);
+  __shared__ TileOrigin org[MAX_CPT];
+  __shared__ int nlist;
+  const int b = blockIdx.x, tid = threadIdx.x, nslot = cpt * THREADS;
+  const Inputs in = world_inputs(in0, b, hw, p);
+  const BlockOwn own{S0 + (long)b * N_WORK * hw, key, pub};
+  world_tiles(p, cpt, org);
+  coop_phases<Select, PlaneDraws, true>(p, in, own, cpt, org, st, list,
+                                        nlist, sel, PlaneDraws());
+  __syncthreads();
+  const long o = (long)b * hw;
+  for (int q = tid; q < nslot; q += THREADS) {
+    int wb, c, y, x;
+    if (!slot_cell(p, org, q, wb, c, y, x)) continue;
+    out.flags[o + c] =
+        coop_finish(p, in, own.work(p, 0), c, y, x, st[q], out, o, sel);
+  }
+}
+
+// the block-per-world form's tiles a block for an H x W world
+inline int world_cpt(int H, int W) {
+  return ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
+}
+
+// one launch of B blocks for the tick of B worlds of H x W, each world
+// within one block's shared memory (else an error, never another form)
+template <class Select>
+int launch_dm_worlds(const DMParams& p, const Inputs& in, const Outputs& out,
+                     int* scratch, int B, cudaStream_t s, const Select& sel) {
+  const int cpt = world_cpt(p.H, p.W);
+  if (B <= 0 || cpt == 0) return 0;
+  if (cpt > MAX_CPT) return (int)cudaErrorInvalidValue;
+  const size_t smem = world_smem(cpt, (long)p.H * p.W);
+  static size_t attr[8];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 8 || attr[dev] < smem) {
+    e = cudaFuncSetAttribute(dm_worlds<Select>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 8) attr[dev] = smem;
+  }
+  dm_worlds<Select><<<B, THREADS, smem, s>>>(p, in, out, scratch, cpt, sel);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tsim
 
 #ifdef TSIM_K1_MARKS
@@ -254,6 +326,68 @@ extern "C" int tsim_decide_move(
                           r_prio},
                    Outputs{opa, opb, opc, opd, ope, opl, flags}, scratch, B,
                    (cudaStream_t)stream, GridSelect());
+}
+
+// K1's block-per-world form: the arguments of tsim_decide_move (the
+// batch's worlds each within one block's shared memory)
+extern "C" int tsim_decide_move_worlds(
+    const int* ip, const float* fp, const int* sdir4, int D4, const int* wnd,
+    const int* pa, const int* pb, const int* pc, const int* pd, const int* pe,
+    const float* pl, const uint8_t* stop, const uint8_t* rain,
+    const uint8_t* ped, const uint8_t* inter, const int* dest_id,
+    const float* r_mal, const float* r_side, const int* r_reroll,
+    const int* r_prio, int* opa, int* opb, int* opc, int* opd, int* ope,
+    float* opl, int* flags, int* scratch, int B, int H, int W, int geo,
+    void* stream) {
+  using namespace tsim;
+  if (geo & ~1) return (int)cudaErrorInvalidValue;
+  DMParams p = dm_params(ip, fp, H, W, D4);
+  p.geo = geo;
+  return launch_dm_worlds(p,
+                          Inputs{sdir4, wnd, pa, pb, pc, pd, pe, pl, stop,
+                                 rain, ped, inter, dest_id, r_mal, r_side,
+                                 r_reroll, r_prio},
+                          Outputs{opa, opb, opc, opd, ope, opl, flags},
+                          scratch, B, (cudaStream_t)stream, GridSelect());
+}
+
+// the block-per-world form's plan for worlds of H x W on the current card:
+// out = {tiles a block, dynamic shared memory bytes, static shared memory
+// bytes, registers a thread, resident blocks an SM}
+extern "C" int tsim_dm_worlds_plan(int H, int W, int* out) {
+  using namespace tsim;
+  const int cpt = world_cpt(H, W);
+  if (cpt < 1 || cpt > MAX_CPT) return (int)cudaErrorInvalidValue;
+  const size_t smem = world_smem(cpt, (long)H * W);
+  cudaError_t e = cudaFuncSetAttribute(
+      dm_worlds<GridSelect>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, dm_worlds<GridSelect>);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dm_worlds<GridSelect>, THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = cpt;
+  out[1] = (int)smem;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = fa.numRegs;
+  out[4] = per_sm;
+  return 0;
+}
+
+// the card's numbers that choose K1's form: out = {SMs, shared memory a
+// block may take (opt-in)}
+extern "C" int tsim_card_numbers(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[1],
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)e;
 }
 
 // K1's plan for B worlds of H x W on the current card (`dm_plan`):

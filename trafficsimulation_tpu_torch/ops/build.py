@@ -43,9 +43,17 @@ _ARGTYPES = {
     # flags, scratch, B, H, W, inter and dest_id per world (0/1), stream
     "tsim_decide_move": [P, P, P, I, P] + [P] * 6 + [P] * 4 + [P]
     + [P] * 4 + [P] * 6 + [P, P, I, I, I, I, P],
-    # B, H, W, out[3]: K1's cooperative plan for B worlds on this card
-    # (tiles a block, blocks, world groups)
+    # the same arguments: K1's block-per-world form
+    "tsim_decide_move_worlds": [P, P, P, I, P] + [P] * 6 + [P] * 4 + [P]
+    + [P] * 4 + [P] * 6 + [P, P, I, I, I, I, P],
+    # B, H, W, out[4]: K1's cooperative plan for B worlds on this card
+    # (tiles a block, blocks, worlds a group, groups)
     "tsim_dm_plan": [I, I, I, P],
+    # H, W, out[5]: the block-per-world form's plan (tiles a block, dynamic
+    # and static shared memory bytes, registers, resident blocks an SM)
+    "tsim_dm_worlds_plan": [I, I, P],
+    # out[2]: the card's SMs and the shared memory a block may take
+    "tsim_card_numbers": [P],
     # ip[16], fp[2], hier constants[10], local4, LD4, then the arguments
     # of tsim_decide_move from sdir4 to scratch, H, W, stream
     "tsim_decide_move_hier": [P, P, P, P, I, P, I, P] + [P] * 6 + [P] * 4

@@ -502,7 +502,7 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
     if cfg.PEDESTRIANS_ENABLED:
         walk, cross, ped_bit, ped_map = HE.step_pedestrians(
             cfg, peds.walk, peds.cross, grid.cell_type, stop_map,
-            draws[D_PED:D_PED + 14])
+            draws[D_PED:D_PED + 14], grid.n_side)
         peds = peds.replace(walk=walk, cross=cross)
     else:
         ped_bit = torch.zeros((H, W), dtype=torch.bool, device=es.pa.device)

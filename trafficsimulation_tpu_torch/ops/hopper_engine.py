@@ -5,7 +5,8 @@ version (the counterpart of the JAX package's `ops/pallas_engine.py`).
                               decide_move_core): every tick; under
                               hierarchical routing K1-hier
                               (`decide_move(..., hier=)`, the hier
-                              select in the kernel)
+                              select in the kernel); for many small
+                              worlds one block a world (`k1_form`)
   K2 `build_sdir`          <- pallas_engine.build_sdir_pallas (_sdir_body):
                               once per routing segment of one world
   K3 `build_wavefront`     <- pallas_engine.build_wavefront_pallas
@@ -37,7 +38,10 @@ version (the counterpart of the JAX package's `ops/pallas_engine.py`).
 Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel (built from `csrc/` by `ops/build.py`)
 or raises.  There is no fallback from one to the other.  `launches`
-counts, per kernel, the wrapper calls that launched it.
+counts, per kernel, the wrapper calls that launched it (K1's two forms
+apart: "decide_move" its cooperative kernel, "decide_move_blocks" its
+block-per-world kernel, which the wrapper chooses by shape,
+`k1_form`).
 
 Batches.  K1, K2 (`build_sdir_stacks`), K3, K4, `ordered_add`,
 `rain_ticks` and `step_pedestrians` take a leading batch of worlds
@@ -106,8 +110,9 @@ ND_NONE4 = 0x07070707
 KBIG = 1 << 19
 KINF = 0x7FFFFFFF
 
-launches = {"decide_move": 0, "build_sdir": 0, "build_sdir_batched": 0,
-            "build_wavefront": 0, "prefix_planes": 0, "ordered_add": 0,
+launches = {"decide_move": 0, "decide_move_blocks": 0, "build_sdir": 0,
+            "build_sdir_batched": 0, "build_wavefront": 0,
+            "prefix_planes": 0, "ordered_add": 0,
             "select_rows": 0, "mega": 0, "rain_ticks": 0,
             "decide_move_tiled": 0, "render": 0, "step_pedestrians": 0}
 
@@ -729,11 +734,99 @@ def _dm_check(sdir4, wnd, planes, masks, intersection, dest_id, randoms,
     _check("dest_id", dest_id, i32t, geo, dev)
 
 
+# K1's block-per-world form (csrc/decide_move.cu `dm_worlds`): an H x W
+# world is ceil(H / 8) x ceil(W / 32) tiles of 32 x 8 cells, at most
+# K1_MAX_TILES (csrc/coop.cuh MAX_CPT); its block's shared memory holds 8
+# bytes a tile cell (the state words and the work list) and 5 a world
+# cell (the key word and the pub byte), beside K1_WORLD_STATIC bytes of
+# static shared memory (the tile table and the list length)
+K1_TILE_H, K1_TILE_W, K1_THREADS = 8, 32, 256
+K1_MAX_TILES = 64
+K1_WORLD_STATIC = 64 * 12 + 4
+# the shared memory CUDA reserves a block; an SM's shared memory is
+# the most a block may take plus this reserve (H100: 232,448 + 1,024)
+K1_BLOCK_RESERVED = 1024
+# the fewest worlds an SM from which the block-per-world form is taken,
+# and the fewest of its blocks that must fit an SM at once: on the H100
+# at 64 x 64 (`chip_smoke.py --only forms`, PERF.md section 6) it was
+# behind the cooperative form at 132 worlds on seeded planes (0.118
+# against 0.093 device ms), even at 264 (0.173 against 0.177) and ahead
+# from 528 (1024: 0.514 against 0.648), and ahead from 132 on config #4's
+# own state (1024: 0.237 against 0.366); a world whose block leaves room
+# for fewer blocks an SM was not measured
+K1_WORLDS_PER_SM = 2
+
+
+def k1_world_tiles(H: int, W: int) -> int:
+    return -(-H // K1_TILE_H) * -(-W // K1_TILE_W)
+
+
+def k1_world_smem(H: int, W: int) -> int:
+    """Dynamic shared memory bytes of the block that owns an H x W world
+    (csrc/coop.cuh `world_smem`)."""
+    return k1_world_tiles(H, W) * K1_THREADS * 8 + H * W * 5
+
+
+def k1_world_blocks_per_sm(H: int, W: int, smem_per_block: int) -> int:
+    """How many blocks of the block-per-world form the shared memory of
+    one SM holds at once for H x W worlds (0: one world is more than a
+    block may take)."""
+    need = k1_world_smem(H, W) + K1_WORLD_STATIC
+    if need > smem_per_block:
+        return 0
+    return (smem_per_block + K1_BLOCK_RESERVED) // (need + K1_BLOCK_RESERVED)
+
+
+def k1_form(B: int, H: int, W: int, n_sm: int, smem_per_block: int) -> str:
+    """K1's form for B worlds of H x W on a card with `n_sm` SMs and
+    `smem_per_block` bytes of shared memory a block may take: "worlds"
+    (one block owns one world, block barriers) where one world fits one
+    block, K1_WORLDS_PER_SM of those blocks fit one SM, and the batch
+    fills the card (at least K1_WORLDS_PER_SM worlds an SM), else "coop"
+    (the cooperative grid; its world groups where the tiles outnumber one
+    resident grid).  A function of the shape alone: the H100's numbers
+    are 132 SMs and 232,448 bytes."""
+    fits = (k1_world_tiles(H, W) <= K1_MAX_TILES
+            and k1_world_blocks_per_sm(H, W, smem_per_block)
+            >= K1_WORLDS_PER_SM)
+    return "worlds" if fits and B >= K1_WORLDS_PER_SM * n_sm else "coop"
+
+
+_card = {}                # device index -> (SMs, shared memory a block)
+
+
+def card_numbers(device=None) -> tuple:
+    """(SMs, shared memory bytes a block may take) of the card, read
+    once a device."""
+    idx = torch.device("cuda" if device is None else device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    got = _card.get(idx)
+    if got is None:
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(idx):
+            _check_rc("tsim_card_numbers", _entry("tsim_card_numbers")(
+                ctypes.addressof(out)))
+        got = _card[idx] = (out[0], out[1])
+    return got
+
+
+_k1_forms = {}            # (device index, B, H, W) -> k1_form's choice
+
+
+def _k1_form_on(dev, B: int, H: int, W: int) -> str:
+    k = (dev.index, B, H, W)
+    form = _k1_forms.get(k)
+    if form is None:
+        form = _k1_forms[k] = k1_form(B, H, W, *card_numbers(dev))
+    return form
+
+
 def _dm_launch(cfg: Config, sdir4, wnd, planes, masks, intersection,
-               dest_id, randoms, hier=None):
+               dest_id, randoms, hier=None, form=None):
     """One K1 launch over checked tensors on the card, [H, W] or
     [B, H, W] per world, the geometry shared or one plane a world
-    (K1-hier with `hier` = (local4, its 10 constants), one world): (pa,
+    (K1-hier with `hier` = (local4, its 10 constants), one world), in
+    the form `form` ("worlds" or "coop"; None: `k1_form`'s choice): (pa,
     pb, pc, pd, pe, pl, flags), views of one allocation."""
     pa = planes[0]
     H, W = pa.shape[-2:]
@@ -752,7 +845,10 @@ def _dm_launch(cfg: Config, sdir4, wnd, planes, masks, intersection,
             *[o + k * step for k in range(7)], work.data_ptr())
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     if hier is None:
-        entry = "tsim_decide_move"
+        if form is None:
+            form = _k1_form_on(dev, B, H, W)
+        entry = ("tsim_decide_move_worlds" if form == "worlds"
+                 else "tsim_decide_move")
         rc = _entry(entry)(ip, fp, *args, B, H, W,
                            int(intersection.dim() == 3), stream)
     else:
@@ -762,18 +858,21 @@ def _dm_launch(cfg: Config, sdir4, wnd, planes, masks, intersection,
                            local4.data_ptr(), local4.shape[0], *args, H, W,
                            stream)
     _check_rc(entry, rc)
-    launches["decide_move"] += 1
+    launches["decide_move_blocks" if form == "worlds" else "decide_move"] += 1
     outs = out.unbind(0)
     return (*outs[:5], outs[5].view(torch.float32), outs[6])
 
 
 def decide_move_batched(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
-                        ped_block, intersection, dest_id, randoms):
+                        ped_block, intersection, dest_id, randoms,
+                        form=None):
     """K1 for a batch of B worlds: every argument carries a leading B;
     the geometry `intersection` and `dest_id` is both shared [H, W] or
     both one plane a world [B, H, W] (a batch of different cities,
     config #4; the vmap rule broadcasts a shared one beside a batched
-    one).
+    one).  `form`: None chooses by shape (`k1_form`); "worlds" or "coop"
+    takes that form (to measure one against the other; "worlds" fails
+    where a world does not fit one block).
     Returns (pa, pb, pc, pd, pe, pl, flags), each [B, H, W].
 
     Replaces `pallas_engine.decide_move_pallas` (`_kernel` ->
@@ -789,7 +888,11 @@ def decide_move_batched(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
     write a cell's working planes, keys and info words only where they
     change.  A batch with more tiles than one resident grid holds runs
     as world groups, one after another inside the same launch
-    (`dm_plan`).  The wrapper makes one allocation for the seven outputs
+    (`dm_plan`).  Many small worlds (config #4: 1024 of 64 x 64) take
+    the block-per-world form instead (`k1_form`): B ordinary blocks,
+    block b owning all of world b's tiles, its keys and pub bytes in
+    shared memory for the whole tick, block barriers between the same
+    phases.  The wrapper makes one allocation for the seven outputs
     and resolves the entry point once."""
     masks = (stop_map, rain_map, ped_block)
     if not _on_cuda(planes[0]):
@@ -801,19 +904,33 @@ def decide_move_batched(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
                          "takes [B, H, W]")
     _dm_check(sdir4, wnd, planes, masks, intersection, dest_id, randoms)
     return _dm_launch(cfg, sdir4, wnd, planes, masks, intersection, dest_id,
-                      randoms)
+                      randoms, form=form)
 
 
-def dm_plan(B: int, H: int, W: int, device=None) -> dict:
-    """K1's cooperative plan for B worlds of H x W on the card: tiles a
-    block, blocks of the grid, worlds a group and world groups (one
-    launch walks the groups in turn)."""
+def dm_plan(B: int, H: int, W: int, device=None, form=None) -> dict:
+    """K1's plan for B worlds of H x W on the card: its form (`k1_form`'s
+    choice, or `form`), tiles a block and blocks of the launch; for the
+    cooperative form worlds a group and world groups (one launch walks
+    the groups in turn), for the block-per-world form its dynamic and
+    static shared memory, registers a thread and resident blocks an
+    SM."""
+    dev = torch.device("cuda" if device is None else device)
+    if form is None:
+        form = k1_form(B, H, W, *card_numbers(dev))
+    if form == "worlds":
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(dev):
+            _check_rc("tsim_dm_worlds_plan", _entry("tsim_dm_worlds_plan")(
+                H, W, ctypes.addressof(out)))
+        return {"form": form, "tiles_per_block": out[0], "blocks": B,
+                "smem_bytes": out[1], "static_smem_bytes": out[2],
+                "registers": out[3], "blocks_per_sm": out[4]}
     out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device):
+    with torch.cuda.device(dev):
         _check_rc("tsim_dm_plan", _entry("tsim_dm_plan")(
             B, H, W, ctypes.addressof(out)))
-    return dict(zip(("tiles_per_block", "blocks", "worlds_per_group",
-                     "groups"), out))
+    return {"form": form, **dict(zip(
+        ("tiles_per_block", "blocks", "worlds_per_group", "groups"), out))}
 
 
 # argument positions of _DecideMove after cfg: the geometry, which a
@@ -1561,15 +1678,13 @@ def rain_ticks(clouds, active, cooldown, spawn, want_cd, cool: int):
 
 # ---- pedestrians ------------------------------------------------------------
 
-def _ped_launch(cfg: Config, walk, cross, cell_type, stop_map, seeds, B: int,
-                geo: int):
+def _ped_launch(cfg: Config, walk, cross, cell_type, stop_map, seeds, n_side,
+                B: int, geo: int):
     """One `step_pedestrians` launch over B worlds (every tensor checked
-    by the caller): the sidewalk count of each geometry plane (one
-    reduction), then the kernel."""
+    by the caller)."""
     from ..agents.pedestrians import spawn_rate
     H, W = cell_type.shape[-2:]
     dev = walk.device
-    n_side = (cell_type == C.SIDEWALK).sum((-2, -1), dtype=torch.int32)
     walk_o = torch.empty(walk.shape, dtype=torch.int32, device=dev)
     cross_o = torch.empty(walk.shape, dtype=torch.int32, device=dev)
     block = torch.empty(stop_map.shape, dtype=torch.bool, device=dev)
@@ -1585,31 +1700,45 @@ def _ped_launch(cfg: Config, walk, cross, cell_type, stop_map, seeds, B: int,
     return walk_o, cross_o, block, count
 
 
+def _no_side(n_side):
+    if n_side is None:
+        raise ValueError("n_side: the world's sidewalk count "
+                         "(`Grid.n_side`, core.state.sidewalk_count) is "
+                         "required")
+
+
 def step_pedestrians_batched(cfg: Config, walk, cross, cell_type, stop_map,
-                             seeds):
+                             seeds, n_side):
     """One pedestrian tick for B worlds: walk, cross int32 [B, 4, H, W],
     cell_type u8 shared [H, W] or one plane a world [B, H, W], stop_map
     bool [B, H, W], seeds int64 [B, 14] (`engine.tick_draws`' u32
-    seeds) -> (walk', cross' int32 [B, 4, H, W], ped_block bool
-    [B, H, W], ped_count int32 [B, H, W]).
+    seeds), n_side int32 the sidewalk count of each cell plane ([] or
+    [B], `Grid.n_side`) -> (walk', cross' int32 [B, 4, H, W], ped_block
+    bool [B, H, W], ped_count int32 [B, H, W]).
 
     No TPU kernel: the JAX package runs the step as XLA ops
     (`agents/pedestrians.step_pedestrians`).  Source:
     csrc/pedestrians.cu.  On the H100 it is bound by launch latency at
     a few hundred thousand cells (~71 bytes a cell: eight count planes
     in and out, cell_type, the stop map, ped_block and ped_count); the
-    plain version issues ~700 ops a tick.  Design: one launch, one
-    thread per cell and world in gather form (each cell recomputes the
-    splits of its four upstream neighbours from their counts and hashed
-    uniforms, sums what lands on it, thins its walkers and rolls its
-    spawn), every f32 rounding spelled out; the sidewalk count that
-    sets the spawn probability is one reduction per call."""
+    plain version issues ~700 ops a tick.  Design: one launch, a block
+    per 32 x 8 tile and world; each cell of the tile and of the ring one
+    step outside it computes its own splits once (the keep and cross
+    split per heading, the rest, the pool's takes, each with its hashed
+    uniform, from the cell types and stop map of the tile and a ring of
+    two staged in shared memory) and stores what it sends in shared
+    memory; after one block barrier each tile cell gathers what lands on
+    it, thins its walkers and rolls its spawn; every f32 rounding
+    spelled out.  The sidewalk count is a static of the world, so a
+    call is one launch."""
+    _no_side(n_side)
     if not _on_cuda(walk):
         from ..agents.pedestrians import step_pedestrians_plain
         geo = cell_type.dim() == 3
         outs = [step_pedestrians_plain(
             cfg, walk[b], cross[b], cell_type[b] if geo else cell_type,
-            stop_map[b], seeds[b]) for b in range(walk.shape[0])]
+            stop_map[b], seeds[b], n_side[b] if geo else n_side)
+            for b in range(walk.shape[0])]
         return tuple(torch.stack(o) for o in zip(*outs))
     B, _, H, W = walk.shape
     dev = walk.device
@@ -1619,23 +1748,30 @@ def step_pedestrians_batched(cfg: Config, walk, cross, cell_type, stop_map,
     _check("cell_type", cell_type, torch.uint8, (B,) * geo + (H, W), dev)
     _check("stop_map", stop_map, torch.bool, (B, H, W), dev)
     _check("seeds", seeds, torch.int64, (B, 14), dev)
-    return _ped_launch(cfg, walk, cross, cell_type, stop_map, seeds, B, geo)
+    _check("n_side", n_side, torch.int32, (B,) * geo, dev)
+    return _ped_launch(cfg, walk, cross, cell_type, stop_map, seeds, n_side,
+                       B, geo)
 
 
-def _ped_single(cfg: Config, walk, cross, cell_type, stop_map, seeds):
+def _ped_single(cfg: Config, walk, cross, cell_type, stop_map, seeds,
+                n_side):
+    _no_side(n_side)
     if not _on_cuda(walk):
         from ..agents.pedestrians import step_pedestrians_plain
         return step_pedestrians_plain(cfg, walk, cross, cell_type, stop_map,
-                                      seeds)
+                                      seeds, n_side)
     H, W = cell_type.shape
     dev = walk.device
     if not (walk.dtype == torch.int32 and cross.dtype == torch.int32
             and cell_type.dtype == torch.uint8
             and stop_map.dtype == torch.bool and seeds.dtype == torch.int64
+            and n_side.dtype == torch.int32
             and walk.shape == (4, H, W) and cross.shape == (4, H, W)
             and stop_map.shape == (H, W) and seeds.shape == (14,)
+            and n_side.shape == ()
             and cross.device == dev and cell_type.device == dev
             and stop_map.device == dev and seeds.device == dev
+            and n_side.device == dev
             and walk.is_contiguous() and cross.is_contiguous()
             and cell_type.is_contiguous() and stop_map.is_contiguous()
             and seeds.is_contiguous()):
@@ -1645,37 +1781,47 @@ def _ped_single(cfg: Config, walk, cross, cell_type, stop_map, seeds):
         _check("cell_type", cell_type, torch.uint8, (H, W), dev)
         _check("stop_map", stop_map, torch.bool, (H, W), dev)
         _check("seeds", seeds, torch.int64, (14,), dev)
-    return _ped_launch(cfg, walk, cross, cell_type, stop_map, seeds, 1, 0)
+        _check("n_side", n_side, torch.int32, (), dev)
+    return _ped_launch(cfg, walk, cross, cell_type, stop_map, seeds, n_side,
+                       1, 0)
 
 
 class _StepPedestrians(_Kernel):
     @staticmethod
-    def forward(cfg, walk, cross, cell_type, stop_map, seeds):
+    def forward(cfg, walk, cross, cell_type, stop_map, seeds, n_side):
         return _ped_single(cfg, walk.contiguous(), cross.contiguous(),
                            cell_type.contiguous(), stop_map.contiguous(),
-                           seeds.contiguous())
+                           seeds.contiguous(), n_side.contiguous())
 
     @staticmethod
-    def vmap(info, in_dims, cfg, walk, cross, cell_type, stop_map, seeds):
+    def vmap(info, in_dims, cfg, walk, cross, cell_type, stop_map, seeds,
+             n_side):
         B = info.batch_size
-        _, wd, cd, gd, sd, kd = in_dims
-        cell = (cell_type.contiguous() if gd is None
-                else _front(cell_type, gd, B))
+        _, wd, cd, gd, sd, kd, nd = in_dims
+        # the geometry (cell_type with its count) is shared only where
+        # all of it is
+        if gd is None and nd is None:
+            cell, side = cell_type.contiguous(), n_side.contiguous()
+        else:
+            cell, side = _front(cell_type, gd, B), _front(n_side, nd, B)
         return step_pedestrians_batched(
             cfg, _front(walk, wd, B), _front(cross, cd, B), cell,
-            _front(stop_map, sd, B), _front(seeds, kd, B)), (0, 0, 0, 0)
+            _front(stop_map, sd, B), _front(seeds, kd, B),
+            side), (0, 0, 0, 0)
 
 
-def step_pedestrians(cfg: Config, walk, cross, cell_type, stop_map, seeds):
+def step_pedestrians(cfg: Config, walk, cross, cell_type, stop_map, seeds,
+                     n_side):
     """One pedestrian tick of one world (`step_pedestrians_batched` with
     B = 1): walk, cross int32 [4, H, W], cell_type u8 [H, W], stop_map
-    bool [H, W], seeds int64 [14] -> (walk', cross', ped_block,
-    ped_count).  One lean launch; under vmap one launch for all worlds,
-    through `_StepPedestrians`'s rule."""
+    bool [H, W], seeds int64 [14], n_side int32 [] (`Grid.n_side`) ->
+    (walk', cross', ped_block, ped_count).  One lean launch; under vmap
+    one launch for all worlds, through `_StepPedestrians`'s rule."""
     if torch._C._are_functorch_transforms_active():
+        _no_side(n_side)
         return _StepPedestrians.apply(cfg, walk, cross, cell_type, stop_map,
-                                      seeds)
-    return _ped_single(cfg, walk, cross, cell_type, stop_map, seeds)
+                                      seeds, n_side)
+    return _ped_single(cfg, walk, cross, cell_type, stop_map, seeds, n_side)
 
 
 # ---- K9 --------------------------------------------------------------------

@@ -40,7 +40,8 @@ from .agents.blocks import init_blocks_state
 from .agents.pedestrians import init_pedestrians
 from .agents.rain import init_rain_state
 from .core.state import (BlockStatic, DestStatic, Grid, GroupStatic,
-                         LightStatic, Metrics, Overrides, Vehicles, World)
+                         LightStatic, Metrics, Overrides, Vehicles, World,
+                         sidewalk_count)
 from .core.transfer import world_from_leaves, world_leaves
 from .gen import hier as ghier
 from .gen.generate import (city_cost_field, city_draws, city_from_draws,
@@ -159,7 +160,8 @@ def _assemble(cfg: Config, city, field, day_draws: dict,
         -1, bs.valid, bs.btype, bs.dest, bs.entrance, dests.valid,
         dests.kind, dests.hw_pos, dests.hw_valid, DF)
     return World(
-        grid=grid, lights_static=ls, groups_static=gs, blocks_static=bs,
+        grid=grid.replace(n_side=sidewalk_count(grid.cell_type)),
+        lights_static=ls, groups_static=gs, blocks_static=bs,
         dests=dests, cost_field=field,
         nearest_exit=_nearest_exit_table(cfg, dests, DF),
         veh_map=torch.full((H, W), -1, dtype=torch.int32, device=dev),
