@@ -27,8 +27,11 @@ Phases (any failure raises and the script exits nonzero):
      (`tools/sass_count.py`); then
      K6 at config #5's shapes (1024^2; the windowed stack, 108 words,
      and the dense stack, 36 words; dest planes holding -1 and rows past
-     the stack); the rain clouds' tick loop (no TPU kernel) for 16
-     worlds over 200 ticks, bit-equal to its plain version; the
+     the stack; its bound counts dest and the result, 8 B a cell, and 32
+     B for each distinct 32-byte sector the gathers touch, the old count
+     of one word a hit beside it); the rain clouds' tick loop (no TPU
+     kernel) for 16 worlds over 200 ticks, bit-equal to its plain
+     version; the
      pedestrian step (`step_pedestrians`, no TPU kernel; one tiled
      shared-memory pass, given the world's cached sidewalk count) at
      256^2, 1024^2, a ragged 37 x 300 grid with counts up to 2000 a
@@ -84,7 +87,9 @@ Phases (any failure raises and the script exits nonzero):
      9), then 20 more timed (steps/s, cell-updates/s), the device idle
      share over 10 ticks, and K1-hier, K2, K3, K4 on that world's inputs
      (K1-hier's those of its first tick, captured from a one-tick
-     `run_chunk`) against their plain versions;
+     `run_chunk`) against their plain versions; K6 on the rows
+     `hier_rows` gives for the dest field of K1-hier's planes after the
+     first 20 ticks (the windowed stack with p, the dense stack with r);
  11. the megakernel path (group `mega`, TSIM_MEGA_FORCE=1) from the
      generated headline world: `TrafficSim.step(23)` must reproduce
      JAX's end state as in 5, with K9 5 (four segments of 5 ticks and
@@ -105,9 +110,11 @@ Phases (any failure raises and the script exits nonzero):
      generated headline world (D4 = 152), captured from a one-tick
      `run_chunk`; K1 on them against its plain version (median, device
      time, bound); K7 at tiles (64, 64) and (16, 32) must equal its plain
-     version and K1 bit for bit, in one launch per call; medians, device
-     times, and the bound (K1's bytes and operations: the function's,
-     at every tiling; the windows' bytes are reported beside it);
+     version and K1 bit for bit, in one launch and one device kernel per
+     call, its plan (one block a window: tiles, shared memory, registers,
+     blocks an SM) the kernel's own; medians, device times, and the bound
+     (K1's bytes and operations: the function's, at every tiling; the
+     windows' bytes are reported beside it);
  13. the framebuffer (group `render`): the port's `TrafficSim.render` of
      its 23-tick headline end state must hash to the sha256 of JAX's
      `render_frame` of that end state (`data/headline256_frame_digest.
@@ -313,7 +320,8 @@ MEGA_DUR_COLS = [2, 3, 7]      # the stats rows' f32 duration sums
 # the kernels whose call is one device kernel (the profiler's count)
 ONE_KERNEL = ("decide_move", "build_wavefront", "prefix_planes", "mega",
               "decide_move_worlds", "decide_move_blocks", "build_sdir_stacks",
-              "build_wavefront_worlds", "step_pedestrians")
+              "build_wavefront_worlds", "step_pedestrians", "select_rows",
+              "decide_move_tiled")
 CONFIG5 = dict(WIDTH=1024, HEIGHT=1024, MAX_VEHICLES=100_000,
                ROUTING_HIER=True, INTERNAL_POPULATION_TRAFFIC_PER_DAY=100_000,
                PASSING_POPULATION_TRAFFIC_PER_DAY=20_000)
@@ -345,8 +353,11 @@ PHASES = ("kernels", "ordered_add", "headline", "mega", "hier_digest",
           "config4", "config5", "config3", "config1", "tiled", "render",
           "bridge", "rl")
 # development groups, run only when named in --only: `forms` times K1's
-# forms over K1_SWEEP worlds and the pedestrian step (phase_forms)
-DEV_PHASES = ("forms",)
+# forms over K1_SWEEP worlds and the pedestrian step (phase_forms),
+# `select_rows` K6 alone (phase_select_rows)
+DEV_PHASES = ("forms", "select_rows")
+# the groups --tree may run (an older tree's kernels beside this one's)
+TREE_PHASES = ("forms", "select_rows", "tiled")
 K1_SWEEP = (3, 16, 132, 264, 528, 1024)
 SWEEP_PED_TICKS = 500
 SWEEP_VEHICLES = 4000
@@ -695,29 +706,56 @@ def phase_batch_one(cfg, HE, engine):
     torch.cuda.empty_cache()
 
 
+def k6_row(name, HE, sdir4, dest, shape) -> dict:
+    """K6 on these inputs against its plain version (`measure`), its bound
+    from the bytes this dest plane makes the memory move: dest in and the
+    result out, 8 B a cell, and 32 B for every distinct 32-byte sector of
+    the stack that the in-range gathers touch (the stack's base is
+    32-byte aligned); beside it the old count, one 4-byte word a hit,
+    and the bytes if the memory moved 64 bytes for every distinct
+    64-byte segment gathered (DRAM's fetch).  8 operations a cell (the
+    row's range compares, the shifts and the byte extract), counted as
+    ALU only."""
+    D4 = sdir4.shape[0]
+    HW = dest.numel()
+    hi = dest.reshape(-1).to(torch.int64) >> 2
+    hit = (hi >= 0) & (hi < D4)
+    word = (hi * HW + torch.arange(HW, device=dest.device))[hit]
+    sectors = int(torch.unique(word >> 3).numel())
+    segments = int(torch.unique(word >> 4).numel())
+    words = HW * 8 + 4 * int(hit.sum())
+    nbytes = HW * 8 + 32 * sectors
+    m = measure(name, lambda: (HE.select_rows(sdir4, dest),),
+                lambda: (HE.select_dest_rows(sdir4, dest),), nbytes,
+                (HW * 8,) * 2, shape, plain_reps=20)
+    seg_bytes = HW * 8 + 64 * segments
+    m.update(sectors=sectors, bytes_words=words,
+             bound_ms_words=words / PEAK_BYTES * 1e3, segments_64b=segments,
+             bound_ms_64b=seg_bytes / PEAK_BYTES * 1e3)
+    log(f"{name}: {sectors} distinct 32-byte sectors gathered "
+        f"({sectors / HW:.3f} a cell), bound {m['bound_ms']:.4f} ms on "
+        f"{nbytes / 1e6:.2f} MB (one word a hit: {words / 1e6:.2f} MB, "
+        f"{m['bound_ms_words']:.4f} ms; {segments} 64-byte segments: "
+        f"{seg_bytes / 1e6:.2f} MB, {m['bound_ms_64b']:.4f} ms); device "
+        f"{fmt_ms(m['device_ms'])}")
+    return m
+
+
 def phase_select_rows(HE):
     """K6 against its plain version at config #5's shapes: the windowed
     stack (9 * 48 planes, 108 words) and the dense stack (144 rows, 36
     words) at 1024^2, dest planes with -1 and rows past the stack."""
     H = W = CONFIG5["WIDTH"]
-    HW = H * W
     r = Inputs(1)
     out = {}
     for name, D4 in (("local", 108), ("dense", 36)):
         sdir4 = r.bits(D4, H, W)
         dest = r.rint(-5, 4 * D4 + 8, H, W)
-        # dest in, the result out, one word per cell whose row exists;
-        # 8 operations a cell (the row's range compares, the shifts and
-        # the byte extract), counted as ALU only
-        hits = int(((dest >> 2) >= 0).logical_and((dest >> 2) < D4).sum())
-        out[name] = measure(
-            f"select_rows ({name} stack)",
-            lambda: (HE.select_rows(sdir4, dest),),
-            lambda: (HE.select_dest_rows(sdir4, dest),),
-            HW * 8 + hits * 4, (HW * 8,) * 2,
-            f"sdir4 [{D4}, {H}, {W}], dest [{H}, {W}]", plain_reps=20)
+        out[name] = k6_row(f"select_rows ({name} stack)", HE, sdir4, dest,
+                           f"sdir4 [{D4}, {H}, {W}], dest [{H}, {W}]")
         del sdir4, dest
     torch.cuda.empty_cache()
+    REPORT["select_rows"] = out
     return out
 
 
@@ -1485,6 +1523,7 @@ def phase_config5(HE, engine, tsim, card, prng, Config):
         f"{idle:.3f}")
     es = tsim._enter_engine(cfg3, w40)
     kern = {"decide_move": k1_hier_tick(cfg3, world, HE, tsim)}
+    kern.update(config5_k6(cfg3, w20, HE, tsim))
     kern.update(config5_kernels(HE, engine, cfg3, w40, es))
     kern["ordered_add"] = ordered_add_tick(cfg3, w40, HE, tsim,
                                            "config #5")
@@ -2491,6 +2530,31 @@ def k1_hier_tick(cfg, world, HE, tsim) -> dict:
     return m
 
 
+def config5_k6(cfg, world, HE, tsim) -> dict:
+    """K6 on config #5's own state: the rows `hier_rows` gives for the
+    dest field of K1-hier's planes on the tick after `world` (captured
+    from a one-tick `run_chunk`), the windowed stack with p and the dense
+    stack with r.  The empty cells' dest field is 0, so their gathers
+    name one plane and share sectors, which the uniform draw of
+    phase_select_rows hides."""
+    from trafficsimulation_tpu_torch.ops import hier
+    (kcfg, *a), kw = tick_inputs(cfg, world, HE, tsim, "decide_move")
+    local4, _ = kw["hier"]
+    sdir4, planes = a[0], a[2]
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    p, r = hier.hier_rows(kcfg, (planes[0] >> 18) & ((1 << 14) - 1))
+    n_veh = int((planes[0] & 1).sum())
+    out = {}
+    for key, stack, rows, label in (
+            ("select_rows", local4, p, "windowed stack, hier_rows' p"),
+            ("select_rows_dense", sdir4, r, "dense stack, hier_rows' r")):
+        out[key] = k6_row(
+            f"select_rows at config #5 ({label})", HE, stack, rows,
+            f"{H}x{W}, {label}, D4 = {stack.shape[0]}, {n_veh} vehicles, "
+            f"{int((rows >= 0).sum())} rows in range")
+    return out
+
+
 def phase_tiled(cfg, world, HE, tsim):
     """K7 on the headline's first-tick inputs at the tilings TILES:
     bit-equal to its plain version and to K1, one launch per call."""
@@ -2511,6 +2575,10 @@ def phase_tiled(cfg, world, HE, tsim):
     k1_ms = k1m["ms"]
     out = {}
     for th, tw in TILES:
+        # the kernel's plan against k7_plan's (an older tree has neither)
+        plan = HE.tiled_plan(H, W, th, tw) if hasattr(HE, "tiled_plan") \
+            else None
+        log(f"decide_move_tiled {th}x{tw}: plan {plan}")
         n0 = HE.launches["decide_move_tiled"]
         got = HE.decide_move_tiled(kcfg, *a, th, tw)
         if HE.launches["decide_move_tiled"] != n0 + 1:
@@ -2530,6 +2598,7 @@ def phase_tiled(cfg, world, HE, tsim):
             f"{(H // th) * (W // tw)} windows", reps=10)
         m["window_ratio"] = ratio
         m["window_bytes"] = k1_bytes * ratio
+        m["plan"] = plan
     log(f"K7 equals K1 on the headline's first tick ({present} vehicles) "
         f"at tiles {TILES}; K1 on the same inputs {k1_ms:.4f} ms")
     REPORT["tiled"] = {"k1_ms": k1_ms, "k1": k1m, **out}
@@ -2949,11 +3018,12 @@ def main():
     ap.add_argument("--tree", default=ROOT,
                     help="import the port from this source tree, e.g. an "
                     "unpacked older commit to time beside this one "
-                    "(development; with --only forms)")
+                    "(development; with --only and groups of "
+                    "TREE_PHASES)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
-    if tree != ROOT and set(args.only or PHASES) != {"forms"}:
-        ap.error("--tree takes --only forms")
+    if tree != ROOT and not set(args.only or PHASES) <= set(TREE_PHASES):
+        ap.error(f"--tree takes --only with groups of {TREE_PHASES}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3079,6 +3149,9 @@ def main():
     if "forms" in run:
         phase_forms(HE, engine, tsim, mesh, prng, Config)
         stamp("forms")
+    if "select_rows" in run:
+        phase_select_rows(HE)
+        stamp("select_rows")
     if "rl" in run:
         from trafficsimulation_tpu_torch import utils
         l_rl = phase_rl(HE, tsim, transfer, card, prng, Config, snapshot,
@@ -3153,9 +3226,12 @@ def main():
         if k in single and path == "batched":
             entry["single_world"] = {x: single[k][x] for x in SUB_KEYS}
         if k == "select_rows":
+            entry["bound_ms_words"] = m["bound_ms_words"]
             entry["dense_stack"] = {x: k6["dense"][x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "shape")}
+                "bound_ms_words", "shape")}
+            entry["config5_dense"] = {x: k_c5["select_rows_dense"][x]
+                                      for x in SUB_KEYS}
         if k == "mega":
             entry["partial_segment"] = {x: k9["R=3"][x] for x in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",

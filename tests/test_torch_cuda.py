@@ -379,6 +379,24 @@ def test_select_rows_kernel_matches_plain(gen, D4, shape):
     assert bool(((got == 7) | (dest >> 2 < D4) & (dest >= 0)).all())
 
 
+@pytest.mark.parametrize("shape,offset", [((37, 301), 0), ((37, 300), 1),
+                                          ((64, 96), 3), ((5, 7), 2)])
+def test_select_rows_kernel_ragged_and_misaligned(gen, shape, offset):
+    """K6 where H * W is not a multiple of 4 and on a dest view whose
+    storage offset leaves it off a 16-byte boundary: the edge cells in
+    the same launch."""
+    H, W = shape
+    D4 = 9
+    sdir4 = _rint(gen, -2**31, 2**31, D4, H, W)
+    dest = _rint(gen, -6, 4 * D4 + 9, H * W + offset)[offset:].view(H, W)
+    assert dest.data_ptr() % 16 == 4 * offset
+    n0 = HE.launches["select_rows"]
+    got = HE.select_rows(sdir4, dest)
+    assert HE.launches["select_rows"] == n0 + 1
+    assert got.data_ptr() % 16 == dest.data_ptr() % 16
+    _same((got,), (HE.select_dest_rows(sdir4, dest),))
+
+
 def test_hier_select_launches_k6_twice(gen):
     """`hier_select` on the card: two K6 launches, the same bytes as the
     plain selects."""
@@ -840,6 +858,41 @@ def test_decide_move_tiled_matches_plain_and_k1(gen, shape, tiles):
         assert HE.launches["decide_move_tiled"] == n0 + 1
         _same(got, HE.decide_move_tiled_plain(cfg, *args, th, tw))
         _same(got, k1)
+
+
+@pytest.mark.parametrize("shape,tile,cpt", [((256, 256), (64, 64), 36),
+                                            ((256, 256), (16, 32), 12),
+                                            ((64, 96), (32, 48), 24)])
+def test_decide_move_tiled_runs_one_block_a_window(gen, shape, tile, cpt):
+    """K7 on 96 x 96, 48 x 64 and 64 x 80 windows: one block a window
+    (the kernel's plan is k7_plan's), one launch a call, equal to its
+    plain version and to K1."""
+    H, W = shape
+    cfg = Config(WIDTH=W, HEIGHT=H, VEHICLE_MALFUNCTION_CHANCE=0.01,
+                 VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.3)
+    args = _one_world(gen, H, W, 10)
+    plan = HE.tiled_plan(H, W, *tile)
+    assert plan["tiles_per_block"] == cpt and plan["blocks_per_sm"] >= 1
+    assert plan["blocks"] == (H // tile[0]) * (W // tile[1])
+    n0 = HE.launches["decide_move_tiled"]
+    got = HE.decide_move_tiled(cfg, *args, *tile)
+    assert HE.launches["decide_move_tiled"] == n0 + 1
+    _same(got, HE.decide_move_tiled_plain(cfg, *args, *tile))
+    _same(got, HE.decide_move(cfg, *args))
+
+
+def test_decide_move_tiled_rejects_a_window_past_one_block(gen):
+    """128 x 128 tiles make 160 x 160 windows of 100 tiles: ValueError,
+    no launch, never another form."""
+    H = W = 256
+    cfg = Config(WIDTH=W, HEIGHT=H)
+    args = _one_world(gen, H, W, 8)
+    n0 = HE.launches["decide_move_tiled"]
+    with pytest.raises(ValueError, match="past one block"):
+        HE.decide_move_tiled(cfg, *args, 128, 128)
+    with pytest.raises(ValueError, match="past one block"):
+        HE.tiled_plan(H, W, 128, 128)
+    assert HE.launches["decide_move_tiled"] == n0
 
 
 @pytest.mark.parametrize("shape", [(37, 300), (1024, 1024)])

@@ -182,6 +182,25 @@ def test_pack_and_select_match_jax():
         N(HE.select_dest_rows(got4, torch.from_numpy(dest))))
 
 
+@pytest.mark.parametrize("shape,D4", [((5, 7), 3), ((9, 13), 27),
+                                      ((3, 11), 1)])
+def test_select_dest_rows_ragged_matches_jax(shape, D4):
+    """K6's plain version against JAX's `select_dest_rows` where H * W is
+    not a multiple of 4 (the kernel's edge cells), on dest planes that
+    hold negative rows (the -1 of `hier_rows`) and rows past the stack."""
+    rng = np.random.default_rng(sum(shape) + D4)
+    sdir4 = rng.integers(-2**31, 2**31, (D4, *shape)).astype(np.int32)
+    dest = rng.integers(-6, 4 * D4 + 9, shape).astype(np.int32)
+    assert (shape[0] * shape[1]) % 4
+    assert (dest < 0).any() and (dest >> 2 >= D4).any()
+    ref = np.asarray(jengine.select_dest_rows(jnp.asarray(sdir4),
+                                              jnp.asarray(dest)))
+    got = N(HE.select_dest_rows(torch.from_numpy(sdir4),
+                                torch.from_numpy(dest)))
+    assert np.array_equal(ref, got)
+    assert (got[(dest < 0) | (dest >> 2 >= D4)] == 7).all()
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_wavefront_plain_matches_core_and_pallas(seed):
     """K3 plain == wavefront_core (padded shifts) == the Pallas kernel in

@@ -1,6 +1,7 @@
 """K7's plain version (`hopper_engine.decide_move_tiled` on CPU tensors)
 against the JAX package's whole-grid `decide_move_core`, bit for bit on
-every output plane, and the port's `pick_tile` against JAX's.
+every output plane, the port's `pick_tile` against JAX's, and K7's
+launch plan (`k7_plan`: one block a window, or ValueError).
 
 The inputs are those of the JAX package's own tiled-kernel test
 (tests/test_pallas_engine.py, random packed planes at 64^2 with D = 8),
@@ -36,7 +37,7 @@ KW = dict(WIDTH=W, HEIGHT=H, RAIN_ENABLED=True,
 NAMES = ("pa", "pb", "pc", "pd", "pe", "pl", "flags")
 
 
-def _inputs(seed: int, movers: bool):
+def _inputs(seed: int, movers: bool, H: int = H, W: int = W):
     """numpy inputs: (sdir bytes [D, H, W] u8, wnd, planes, stop, rain,
     ped, inter, dest, randoms); the u32 planes as int32 bits."""
     rng = np.random.default_rng(seed)
@@ -65,13 +66,10 @@ def _inputs(seed: int, movers: bool):
     return sdir, wnd, planes, masks, dest, randoms
 
 
-@pytest.fixture(scope="module", params=[(0, False), (3, False), (1, True)],
-                ids=["seed0", "seed3", "movers"])
-def case(request):
+def _case(seed: int, movers: bool, H: int = H, W: int = W):
     """The inputs and JAX's whole-grid outputs (as int32 bits)."""
-    seed, movers = request.param
-    sdir, wnd, planes, masks, dest, randoms = _inputs(seed, movers)
-    cfg = Config(**KW)
+    sdir, wnd, planes, masks, dest, randoms = _inputs(seed, movers, H, W)
+    cfg = Config(**{**KW, "WIDTH": W, "HEIGHT": H})
     jsd = jengine.pack_sdir4(jnp.asarray(sdir))
     u32 = lambda a: jnp.asarray(a.view(np.uint32))     # noqa: E731
     ref = jpe.decide_move_core(
@@ -89,6 +87,12 @@ def case(request):
     return args, ref
 
 
+@pytest.fixture(scope="module", params=[(0, False), (3, False), (1, True)],
+                ids=["seed0", "seed3", "movers"])
+def case(request):
+    return _case(*request.param)
+
+
 @pytest.mark.parametrize("tile", [(16, 32), (32, 32)])
 def test_decide_move_tiled_matches_jax_core(case, tile):
     args, ref = case
@@ -100,6 +104,63 @@ def test_decide_move_tiled_matches_jax_core(case, tile):
         assert g.shape == (H, W)
         assert np.array_equal(g.numpy(), r), name
     assert ((ref[6] & HE.FLAG_MOVED) != 0).any()
+
+
+def test_decide_move_tiled_window_width_not_a_multiple_of_32():
+    """32 x 48 tiles of a 64 x 96 grid: 64 x 80 windows, whose last
+    32-wide tile column the kernel's block covers only in part."""
+    args, ref = _case(1, True, 64, 96)
+    got = HE.decide_move_tiled(TConfig(**{**KW, "WIDTH": 96}), *args, 32, 48)
+    for name, g, r in zip(NAMES, got, ref):
+        g = g.view(torch.int32) if g.dtype == torch.float32 else g
+        assert np.array_equal(g.numpy(), r), name
+    assert ((ref[6] & HE.FLAG_MOVED) != 0).any()
+    assert HE.k7_plan(64, 96, 32, 48, H100_SMEM)[1] == 8 * 3
+
+
+# the shared memory a block may take on the H100 (opt-in)
+H100_SMEM = 232_448
+
+
+@pytest.mark.parametrize("grid,tile,want", [
+    ((256, 256), (64, 64), (16, 36, 119_808)),
+    ((256, 256), (16, 32), (128, 12, 39_936)),
+    ((64, 96), (32, 48), (4, 24, 74_752)),
+    ((64, 64), (32, 32), (4, 16, 53_248)),
+])
+def test_k7_plan(grid, tile, want):
+    """One block a window at the H100's shared memory: (blocks, tiles of
+    32 x 8 a block, dynamic shared memory bytes)."""
+    assert HE.k7_plan(*grid, *tile, H100_SMEM) == want
+
+
+def test_k7_plan_raises_past_one_block():
+    # a 160 x 160 window (128 x 128 tiles) takes 100 tiles, past 64
+    with pytest.raises(ValueError, match="100 tiles"):
+        HE.k7_plan(256, 256, 128, 128, H100_SMEM)
+    # a 96 x 96 window takes 36 tiles but 120,580 bytes: past a block
+    # that may take 100,000
+    HE.k7_plan(256, 256, 64, 64, 120_580)
+    with pytest.raises(ValueError, match="120580 bytes"):
+        HE.k7_plan(256, 256, 64, 64, 100_000)
+    with pytest.raises(ValueError):         # 24 does not divide 256
+        HE.k7_plan(256, 256, 24, 32, H100_SMEM)
+
+
+def test_k7_plan_admits_what_jax_budget_admits():
+    """Every window of a tile whose width is a multiple of 32, within the
+    JAX kernel's VMEM budget (`pick_tile`: 1060 bytes a window cell
+    under 15 MB), fits one block at the H100's numbers."""
+    P = HE.TILE_HALO
+    n = 0
+    for th in range(8, 256, 8):
+        for tw in range(32, 256, 32):
+            cells = (th + 2 * P) * (tw + 2 * P)
+            if 1060 * cells >= 15 * 1024 * 1024 or (tw + 2 * P) % 32:
+                continue
+            HE.k7_plan(th, tw, th, tw, H100_SMEM)
+            n += 1
+    assert n > 40
 
 
 def test_decide_move_tiled_rejects_a_tiling_that_does_not_divide():

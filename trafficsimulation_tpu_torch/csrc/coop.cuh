@@ -11,7 +11,7 @@
 // pub bytes and keys in device memory, grid barriers; K1's cooperative
 // form and K9), or one block that owns a whole small world (`BlockOwn`:
 // the pub bytes and keys in shared memory, block barriers; K1's
-// block-per-world form).
+// block-per-world form, and K7, whose windows are such worlds).
 //
 // The random draws of a cell come through a `Draws` functor: K1 reads
 // the tick's random planes (`PlaneDraws`), K9 hashes them from the
@@ -159,9 +159,9 @@ __device__ __forceinline__ uint32_t coop_decide(const DMParams& p,
          C_NEVER;
 }
 
-// the intent of the vehicle at cell c whose state word is s
-// (dm_intent_cell's rule): publishes its key and pub byte where they
-// change
+// the intent of the vehicle at cell c whose state word is s (the
+// reference's rule, pallas_engine.decide_move_core): publishes its key
+// and pub byte where they change
 template <class Select, class Draws>
 __device__ __forceinline__ uint32_t coop_intent(const DMParams& p,
                                                 const Inputs& in,
@@ -218,7 +218,7 @@ __device__ __forceinline__ uint32_t coop_intent(const DMParams& p,
   return s & ~C_FRESH;
 }
 
-// the lowest key aimed at (y, x) (min_incoming), read through the pub
+// the lowest key aimed at (y, x), KINF when none, read through the pub
 // bytes: a key word only where a neighbour's byte says it aims here
 __device__ __forceinline__ int coop_min_incoming(const DMParams& p,
                                                  const Work& w, int y,
@@ -238,7 +238,7 @@ __device__ __forceinline__ int coop_min_incoming(const DMParams& p,
   return mk;
 }
 
-// the commit at a cell with a key or an incoming key (dm_commit_cell's
+// the commit at a cell with a key or an incoming key (the reference's
 // rule): resolve its own key; a vehicle that won leaves the cell, a key
 // won here moves its vehicle in
 __device__ __forceinline__ uint32_t coop_commit(const DMParams& p,
@@ -288,7 +288,8 @@ __device__ __forceinline__ uint32_t coop_commit(const DMParams& p,
 }
 
 // writes the cell's final planes at out.*[o + c] and returns its flags
-// (dm_finish_cell's rule on the cell's last planes: those a vehicle
+// (FLAG_NEW_MAL | FLAG_NEW_COL << 1 | FLAG_MOVED << 2; the reference's
+// finish rule on the cell's last planes: those a vehicle
 // stands on, zero where one left, the decide's where none ever stood;
 // the start-of-tick move check only where it can reset the speed)
 template <class Select>
@@ -426,6 +427,11 @@ inline size_t world_smem(int cpt, long hw) {
   return coop_smem(cpt) + (size_t)hw * (sizeof(int) + 1);
 }
 
+// the tiles of an H x W world that one block owns whole
+inline int world_cpt(int H, int W) {
+  return ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
+}
+
 // Ownership of a cooperative grid (K1's cooperative form, K9): a block's
 // tiles lie anywhere in the B worlds, the keys and pub bytes of world b
 // in device memory, a grid barrier between phases (COOP_SYNC)
@@ -439,7 +445,8 @@ struct GridOwn {
   __device__ __forceinline__ void sync() const { COOP_SYNC(grid); }
 };
 
-// Ownership of one small world by one block (K1's block-per-world form):
+// Ownership of one small world by one block (K1's block-per-world form,
+// K7's windows):
 // the vehicle planes at S in device memory, the keys and pub bytes of
 // every cell of the world in the block's shared memory, a block barrier
 // between phases
@@ -455,15 +462,17 @@ struct BlockOwn {
 
 // The decide and the K sub-rounds of one tick, by every thread of every
 // block that owns cells (`own`: who owns what, and the barrier between
-// phases); the block's state words `st` (its cells' in tile order) are
+// phases; kThreads threads a block share its tiles' cells, THREADS a
+// tile).  The block's state words `st` (its cells' in tile order) are
 // left for the caller's finish, which needs no barrier first.  `list` is
 // the work list, `nlist` its length, both in shared memory.  With
 // kOneWorld every phase reads `in0` and world 0's working set itself
 // (one world: K9, which builds its Inputs in the kernel, and a copy of
 // that struct through `world_inputs` was compiled to read other memory;
-// and the block-per-world form, whose pointers are its world's); else
-// world b's through `world_inputs`.
-template <class Select, class Draws, bool kOneWorld, class Own>
+// and K1's block-per-world form and K7, whose pointers are the block's
+// world's or window's); else world b's through `world_inputs`.
+template <class Select, class Draws, bool kOneWorld, class Own,
+          int kThreads = THREADS>
 __device__ __forceinline__ void coop_phases(const DMParams& p,
                                             const Inputs& in0, const Own& own,
                                             int cpt, const TileOrigin* org,
@@ -479,7 +488,7 @@ __device__ __forceinline__ void coop_phases(const DMParams& p,
 
   // decide: every cell's pub byte cleared and state word set, the
   // vehicles listed
-  for (int q = tid; q < nslot; q += THREADS) {
+  for (int q = tid; q < nslot; q += kThreads) {
     int b, c, y, x;
     st[q] = 0;
     if (!slot_cell(p, org, q, b, c, y, x)) continue;
@@ -496,7 +505,7 @@ __device__ __forceinline__ void coop_phases(const DMParams& p,
   }
   __syncthreads();
   COOP_MARK(1, -1);
-  for (int j = tid; j < nlist; j += THREADS) {
+  for (int j = tid; j < nlist; j += kThreads) {
     const int q = list[j];
     int b, c, y, x;
     slot_cell(p, org, q, b, c, y, x);
@@ -520,7 +529,7 @@ __device__ __forceinline__ void coop_phases(const DMParams& p,
     __syncthreads();
     if (tid == 0) nlist = 0;
     __syncthreads();
-    for (int q = tid; q < nslot; q += THREADS) {
+    for (int q = tid; q < nslot; q += kThreads) {
       const uint32_t s = st[q];
       int b, c, y, x;
       if (!slot_cell(p, org, q, b, c, y, x)) continue;
@@ -539,7 +548,7 @@ __device__ __forceinline__ void coop_phases(const DMParams& p,
     }
     __syncthreads();
     COOP_MARK(4 + 6 * r, -1);
-    for (int j = tid; j < nlist; j += THREADS) {
+    for (int j = tid; j < nlist; j += kThreads) {
       const int q = list[j];
       int b, c, y, x;
       slot_cell(p, org, q, b, c, y, x);
@@ -559,7 +568,7 @@ __device__ __forceinline__ void coop_phases(const DMParams& p,
     // cells with a key or an incoming key listed
     if (tid == 0) nlist = 0;
     __syncthreads();
-    for (int q = tid; q < nslot; q += THREADS) {
+    for (int q = tid; q < nslot; q += kThreads) {
       uint32_t s = st[q];
       int b, c, y, x;
       if (!slot_cell(p, org, q, b, c, y, x)) continue;
@@ -576,7 +585,7 @@ __device__ __forceinline__ void coop_phases(const DMParams& p,
     }
     __syncthreads();
     COOP_MARK(7 + 6 * r, -1);
-    for (int j = tid; j < nlist; j += THREADS) {
+    for (int j = tid; j < nlist; j += kThreads) {
       const int q = list[j];
       int b, c, y, x;
       slot_cell(p, org, q, b, c, y, x);

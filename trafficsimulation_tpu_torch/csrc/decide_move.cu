@@ -64,10 +64,11 @@
 //    through one byte per cell (`pub`: the published key's direction,
 //    want and contraflow bits, and "occupied by an arrival") and read a
 //    key word only where that byte says a key aims at them.
-// Each skip leaves every output bit as the phase bodies of
-// decide_move.cuh compute it, which K7 still runs.  The phases live in
+// Each skip leaves every output bit as the reference's phase rules
+// (pallas_engine.decide_move_core) compute it.  The phases live in
 // coop.cuh (`coop_phases`, its ownership policies `GridOwn` and
-// `BlockOwn`), which K9 (megakernel.cu) shares.
+// `BlockOwn`), which K7 (decide_tiled.cu) and K9 (megakernel.cu)
+// share.
 #include <cooperative_groups.h>
 
 #include "decide_move.cuh"
@@ -263,11 +264,6 @@ __global__ void __launch_bounds__(THREADS)
     out.flags[o + c] =
         coop_finish(p, in, own.work(p, 0), c, y, x, st[q], out, o, sel);
   }
-}
-
-// the block-per-world form's tiles a block for an H x W world
-inline int world_cpt(int H, int W) {
-  return ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
 }
 
 // one launch of B blocks for the tick of B worlds of H x W, each world

@@ -1,28 +1,26 @@
-// K1's phase bodies, one cell each, run by K7 (decide_tiled.cu).  K1
-// (decide_move.cu) and K9 (megakernel.cu) run the decide through
-// `dm_decide_core` and the cooperative intent, commit and finish of
-// coop.cuh on a smaller working set, with the same rules.
+// The parameters, inputs, row selects and decide core of one tick's
+// decide + move, shared by K1 (decide_move.cu), K7 (decide_tiled.cu) and
+// K9 (megakernel.cu), which all run the phases of coop.cuh:
 //
-//   decide      start-of-tick faults, halts, speed, contraflow ladder;
-//               writes working set A, the halt latch and an aux word
+//   decide      start-of-tick faults, halts, speed, contraflow ladder
+//               (`dm_decide_core`): a vehicle's planes, its halt latch
+//               and an aux word
 //   intent  x K publishes each mover's conflict key (priority | dir)
 //   commit  x K every cell takes the lowest key aimed at it (reading
 //               keys up to two cells away to know whether its own
-//               vehicle won elsewhere) and pulls the winner's planes
-//               into the other working set
+//               vehicle won elsewhere) and pulls the winner's planes in
 //   finish      base-speed reset, stuck bookkeeping, flags
 //
-// Every function works on one world: `in` points at that world's planes
-// and `S` at its [20, H, W] scratch.  The random draws of a cell arrive
+// `in` points at one world's planes.  The random draws of a cell arrive
 // as values (K1 and K7 read them from planes, K9 hashes them from the
 // tick's seeds).  The destination row select is one indexed load: byte
 // (dest & 3) of sdir4[dest >> 2], ND_NONE when dest >> 2 is past the
-// stack; the phase bodies take it as a functor (`GridSelect` on the
-// whole grid, `HierSelect` under hierarchical routing, K7's window
-// select in decide_tiled.cu).  Neighbour reads outside the grid see the
-// fills of the padded shifts they replace: blocked (0xF) for the target
-// byte, KINF for keys, false for arrivals and sideswipe neighbours, true
-// for the start-of-tick blocked byte.
+// stack; the phases take it as a functor (`GridSelect` on the whole
+// grid, `HierSelect` under hierarchical routing, K7's window select in
+// decide_tiled.cu).  Neighbour reads outside the grid see the fills of
+// the padded shifts they replace: blocked (0xF) for the target byte,
+// KINF for keys, false for arrivals and sideswipe neighbours, true for
+// the start-of-tick blocked byte.
 #pragma once
 
 #include "common.cuh"
@@ -69,13 +67,6 @@ inline DMParams dm_params(const int* ip, const float* fp, int H, int W,
   p.side_chance = fp[1];
   return p;
 }
-
-// scratch planes (int32 [20, H, W] per world): two working sets of 8
-// planes, then the halt latch, the conflict keys, the intent info and
-// the decide aux
-enum { P_PA, P_PB, P_PC, P_PD, P_PE, P_PL, P_STEPS, P_MOVED, N_SET = 8 };
-constexpr int S_HALT = 16, S_KEY = 17, S_INFO = 18, S_AUX = 19;
-constexpr int N_SCRATCH = 20;
 
 constexpr uint32_t CF_CLEAR = ~(0xFFu << PD_CFKEY_SH);
 constexpr uint32_t CLEAR_A = ~((15u << PA_BASE_SH) | (15u << PA_CUR_SH) |
@@ -209,21 +200,20 @@ struct Decided {
   int aux;
 };
 
-// how the decide phase reads its inputs: every read where the phase
-// body makes it (K9, K7), or for K1's cooperative kernel, whose inputs
-// no phase writes, through the read-only path and either all up front
-// (a cell that holds a vehicle: one round trip before the select) or
-// only the cell's own pa, pb, pd words (an empty cell: every other
-// value is used only where a vehicle stands, and its aux word's nd0 is
-// then 7, read by no later phase; the random draws go unused too)
-enum DecideMode { DM_PLAIN, DM_VEHICLE, DM_EMPTY };
+// how the decide phase reads its inputs (`ld_tick`): all up front at a
+// cell that holds a vehicle (one round trip before the select), or only
+// the cell's own pa, pb, pd words at an empty cell (every other value is
+// used only where a vehicle stands, and its aux word's nd0 is then 7,
+// read by no later phase; the random draws go unused too)
+enum DecideMode { DM_VEHICLE, DM_EMPTY };
 
-// A load of a tick input by K1's cooperative phases (coop.cuh): through
-// the read-only data path, since no phase of K1's launch writes one.  A
+// A load of a tick input by the phases (coop.cuh): through the
+// read-only data path, since no phase of K1's launch writes one.  A
 // launch that wrote them in an earlier stage (K9: the last tick's planes
-// and the painted stop plane) defines TSIM_COHERENT_LOADS before
-// including this header, and its loads are plain: the read-only path
-// is not coherent with the launch's own writes.
+// and the painted stop plane; K7: its window planes) defines
+// TSIM_COHERENT_LOADS before including this header, and its loads are
+// plain: the read-only path is not coherent with the launch's own
+// writes.
 template <class T>
 __device__ __forceinline__ T ld_tick(const T* q) {
 #ifdef TSIM_COHERENT_LOADS
@@ -233,26 +223,17 @@ __device__ __forceinline__ T ld_tick(const T* q) {
 #endif
 }
 
-template <int kMode, class T>
-__device__ __forceinline__ T ld_in(const T* q) {
-  if constexpr (kMode == DM_PLAIN)
-    return *q;
-  else
-    return ld_tick(q);
-}
-
 // The decide phase at cell c = (y, x).
-template <class Select, int kMode = DM_PLAIN>
+template <class Select, int kMode>
 __device__ __forceinline__ Decided dm_decide_core(const DMParams& p,
                                                   const Inputs& in, int c,
                                                   int y, int x, float r_mal,
                                                   float r_side, int r_reroll,
                                                   const Select& sel) {
-  constexpr bool kSkipEmpty = kMode != DM_PLAIN;
   constexpr bool kAhead = kMode == DM_VEHICLE;
-  uint32_t pa = (uint32_t)ld_in<kMode>(in.pa + c);
-  uint32_t pb = (uint32_t)ld_in<kMode>(in.pb + c);
-  uint32_t pd = (uint32_t)ld_in<kMode>(in.pd + c);
+  uint32_t pa = (uint32_t)ld_tick(in.pa + c);
+  uint32_t pb = (uint32_t)ld_tick(in.pb + c);
+  uint32_t pd = (uint32_t)ld_tick(in.pd + c);
   uint32_t nb_pa[4] = {0u, 0u, 0u, 0u};
   bool stop_c = false, rain_c = false, inter_c = false;
   int dest_c = -1;
@@ -292,14 +273,14 @@ __device__ __forceinline__ Decided dm_decide_core(const DMParams& p,
     still = still || new_mal;
   }
   bool new_col = false;
-  if (p.side_active && (!kSkipEmpty || present)) {
+  if (p.side_active && present) {
     const int hk = max(head1 - 1, 0);
     const int opp1 = ((hk + 2) & 3) + 1;
     bool side_hit = false;
     for (int m = 0; m < 4; ++m) {
       const int n = nbr(y, x, m, p.H, p.W);
       if (n < 0) continue;
-      const uint32_t q = kAhead ? nb_pa[m] : (uint32_t)in.pa[n];
+      const uint32_t q = nb_pa[m];
       const bool nb_mov = (q & 1u) && fld(q, PA_CUR_SH, 4) > 0 &&
                           !bit(q, PA_STUCKF_SH) && !bit(q, PA_PARKED_SH) &&
                           !bit(q, PA_COL_SH) && !bit(q, PA_MAL_SH);
@@ -315,12 +296,11 @@ __device__ __forceinline__ Decided dm_decide_core(const DMParams& p,
   }
 
   const bool halted =
-      still || (present && (kAhead ? stop_c : in.stop[c])) || parked;
+      still || (present && stop_c) || parked;
   int base = (int)fld(pa, PA_BASE_SH, 4);
   if (present && base == 0) base = r_reroll;
   int speed = base;
-  if (p.rain_enabled && (!kSkipEmpty || present) &&
-      (kAhead ? rain_c : in.rain[c]))
+  if (p.rain_enabled && present && rain_c)
     speed = max(1, speed - p.rain_reduction);
   if (halted) {
     speed = 0;
@@ -328,18 +308,15 @@ __device__ __forceinline__ Decided dm_decide_core(const DMParams& p,
   }
 
   const int dest14 = (int)fld(pa, PA_DEST_SH, 14);
-  const int nd0 =
-      (!kSkipEmpty || present) ? sel(p, in, dest14, c, y, x) : 7;
+  const int nd0 = present ? sel(p, in, dest14, c, y, x) : 7;
   int dir0;
   bool contra0;
   resolve(nd0, head1, false, false, 0u, 0, dir0, contra0);
-  const bool at_dest0 = present && (kAhead ? dest_c : in.dest_id[c]) >= 0 &&
-                        dest14 == (kAhead ? dest_c : in.dest_id[c]);
+  const bool at_dest0 = present && dest_c >= 0 && dest14 == dest_c;
 
   // contraflow ladder
   int ct = max((int)fld(pb, PB_CONTRA_SH, 8) - 1, 0);
-  const uint32_t wnd =
-      !kSkipEmpty ? (uint32_t)in.wnd[c] : (present ? wnd_c : 0u);
+  const uint32_t wnd = present ? wnd_c : 0u;
   const int wkey0 = (int)fld(pd, PD_CFKEY_SH, 2);
   const int wdir0 = (int)((wnd >> (wkey0 * 8)) & 7u);
   const bool merged = present && ct > 0 && !bit(pd, PD_CFMODE_SH) &&
@@ -353,10 +330,8 @@ __device__ __forceinline__ Decided dm_decide_core(const DMParams& p,
                        (dir0 == 7 || (contra0 && !allow_pre));
   const bool overtake = p.ovt_active && blocked;
   const int stuck_v = (int)fld(pb, PB_STUCK_SH, 12);
-  const int thresh = (!kSkipEmpty || present) &&
-                             (kAhead ? inter_c : in.inter[c])
-                         ? p.stuck_cf_thresh_inter
-                         : p.stuck_cf_thresh;
+  const int thresh =
+      present && inter_c ? p.stuck_cf_thresh_inter : p.stuck_cf_thresh;
   const bool stuck_detour = p.stuck_cf_enabled && stuck_v >= thresh && present;
   const bool newly = present && !halted && (overtake || stuck_detour) &&
                      ct == 0;
@@ -376,182 +351,6 @@ __device__ __forceinline__ Decided dm_decide_core(const DMParams& p,
   return Decided{pa, pb, pd, present ? speed : 0, halted,
                  nd0 | (head1 << 8) | ((ct > 0) << 11) | (wkey_dec << 12) |
                      (at_dest0 << 14) | (new_mal << 15) | (new_col << 16)};
-}
-
-template <class Select = GridSelect>
-__device__ __forceinline__ void dm_decide_cell(const DMParams& p,
-                                               const Inputs& in, int* S,
-                                               int c, float r_mal,
-                                               float r_side, int r_reroll,
-                                               const Select& sel = Select()) {
-  const Decided d = dm_decide_core(p, in, c, c / p.W, c % p.W, r_mal,
-                                   r_side, r_reroll, sel);
-  const long hw = p.H * p.W;
-  S[P_PA * hw + c] = (int)d.pa;
-  S[P_PB * hw + c] = (int)d.pb;
-  S[P_PC * hw + c] = in.pc[c];
-  S[P_PD * hw + c] = (int)d.pd;
-  S[P_PE * hw + c] = in.pe[c];
-  S[P_PL * hw + c] = __float_as_int(in.pl[c]);
-  S[P_STEPS * hw + c] = d.steps;
-  S[P_MOVED * hw + c] = 0;
-  S[S_HALT * hw + c] = d.halted ? 1 : 0;
-  S[S_AUX * hw + c] = d.aux;
-}
-
-// sub-round, phase 1: each mover publishes priority | direction
-template <class Select = GridSelect>
-__device__ __forceinline__ void dm_intent_cell(const DMParams& p,
-                                               const Inputs& in, int* S,
-                                               int set, int c, int r_prio,
-                                               const Select& sel = Select()) {
-  const int HW = p.H * p.W;
-  const long hw = HW;
-  const int* X = S + (long)set * N_SET * hw;
-  const uint32_t pa = (uint32_t)X[P_PA * hw + c];
-  if (!(pa & 1u)) {
-    S[S_KEY * hw + c] = KINF;
-    S[S_INFO * hw + c] = 0;
-    return;
-  }
-  const int y = c / p.W, x = c % p.W;
-  const uint32_t pb = (uint32_t)X[P_PB * hw + c];
-  const uint32_t pd = (uint32_t)X[P_PD * hw + c];
-  const int dest_c = (int)fld(pa, PA_DEST_SH, 14);
-  const int nd = sel(p, in, dest_c, c, y, x);
-  const int h1 = (int)fld(pa, PA_HEAD_SH, 3);
-  const bool at_dest_c = in.dest_id[c] >= 0 && dest_c == in.dest_id[c];
-  const int csteps = (int)fld(pd, PD_CFSTEPS_SH, 5);
-  const int climit = bit(pd, PD_CFMODE_SH) ? p.detour_steps : p.ovt_steps;
-  const bool allow = fld(pb, PB_CONTRA_SH, 8) > 0 && csteps < climit;
-  int dir;
-  bool contra;
-  resolve(nd, h1, true, allow, (uint32_t)in.wnd[c],
-          (int)fld(pd, PD_CFKEY_SH, 2), dir, contra);
-  const bool can_dir = dir < 7 && (!contra || allow);
-  const bool want = S[S_HALT * hw + c] == 0 && X[P_STEPS * hw + c] > 0 &&
-                    !at_dest_c;
-  bool blocked_t = false;
-  if (dir < 4) {
-    const int t = nbr(y, x, dir, p.H, p.W);
-    blocked_t = t < 0 || in.stop[t] || (X[P_PA * hw + t] & 1) ||
-                (in.pa[t] & 1) || in.ped[t];
-  }
-  // directions 4..6 (possible only from malformed bytes) pass `can_dir`
-  // but, as in the reference, never send a key
-  const bool can = want && can_dir && !blocked_t && dir < 4;
-  const int prio = (int)(((uint32_t)r_prio >> 4) & 0x0FFFFFF8u);
-  S[S_KEY * hw + c] = can ? (prio | dir) : KINF;
-  S[S_INFO * hw + c] = (want ? 1 : 0) | (contra ? 2 : 0);
-}
-
-// lowest key aimed at cell (y, x), KINF when none
-__device__ __forceinline__ int min_incoming(const int* key, int y, int x,
-                                            int H, int W) {
-  int mk = KINF;
-  for (int m = 0; m < 4; ++m) {
-    const int s = nbr(y, x, opposite(m), H, W);
-    if (s < 0) continue;
-    const int k = key[s];
-    if (k != KINF && (k & 3) == m) mk = min(mk, k);
-  }
-  return mk;
-}
-
-// sub-round, phase 2: resolve conflicts and move set -> set ^ 1
-__device__ __forceinline__ void dm_commit_cell(const DMParams& p, int* S,
-                                               int set, int c) {
-  const long hw = p.H * p.W;
-  const int* X = S + (long)set * N_SET * hw;
-  int* Y = S + (long)(set ^ 1) * N_SET * hw;
-  const int* key = S + S_KEY * hw;
-  const int y = c / p.W, x = c % p.W;
-
-  const int kc = key[c];
-  bool won = false;
-  if (kc != KINF) {
-    const int t = nbr(y, x, kc & 3, p.H, p.W);
-    won = t >= 0 && min_incoming(key, t / p.W, t % p.W, p.H, p.W) == kc;
-  }
-  const int mk = min_incoming(key, y, x, p.H, p.W);
-  if (mk != KINF) {
-    const int m = mk & 3;
-    const int s = nbr(y, x, opposite(m), p.H, p.W);
-    const uint32_t spa = (uint32_t)X[P_PA * hw + s];
-    const uint32_t spc = (uint32_t)X[P_PC * hw + s];
-    uint32_t spd = (uint32_t)X[P_PD * hw + s];
-    if (S[S_INFO * hw + s] & 2)
-      spd = (spd & CFS_CLR) |
-            (min(fld(spd, PD_CFSTEPS_SH, 5) + 1u, 31u) << PD_CFSTEPS_SH);
-    Y[P_PA * hw + c] = (int)((spa & HEAD_CLR) |
-                             ((uint32_t)(m + 1) << PA_HEAD_SH));
-    Y[P_PB * hw + c] = X[P_PB * hw + s];
-    Y[P_PC * hw + c] =
-        (int)((min(fld(spc, PC_STEPS_SH, 12) + 1u, 4095u) << PC_STEPS_SH) |
-              (spc & ((1u << PC_STEPS_SH) - 1u)));
-    Y[P_PD * hw + c] = (int)spd;
-    Y[P_PE * hw + c] = X[P_PE * hw + s];
-    Y[P_PL * hw + c] = X[P_PL * hw + s];
-    Y[P_STEPS * hw + c] = X[P_STEPS * hw + s] - 1;
-    Y[P_MOVED * hw + c] = 1;
-  } else {
-    for (int q = 0; q < N_SET; ++q)
-      Y[q * hw + c] = won ? 0 : X[q * hw + c];
-  }
-  if ((S[S_INFO * hw + c] & 1) && !won) S[S_HALT * hw + c] = 1;
-}
-
-// writes the cell's final planes at out.*[o + c] and returns its flags
-// (FLAG_NEW_MAL | FLAG_NEW_COL << 1 | FLAG_MOVED << 2)
-__device__ __forceinline__ int dm_finish_cell(const DMParams& p,
-                                              const Inputs& in, const int* S,
-                                              int set, int c,
-                                              const Outputs& out, long o) {
-  const long hw = p.H * p.W;
-  const int* F = S + (long)set * N_SET * hw;
-  const int y = c / p.W, x = c % p.W;
-  uint32_t pa = (uint32_t)F[P_PA * hw + c], pb = (uint32_t)F[P_PB * hw + c];
-  const bool moved = F[P_MOVED * hw + c] != 0;
-  const bool present = pa & 1u;
-  const int aux = S[S_AUX * hw + c];
-  const int nd0 = aux & 0xFF, head1 = (aux >> 8) & 7;
-  const bool ct_pos = (aux >> 11) & 1;
-  const int wkey_dec = (aux >> 12) & 3;
-  const bool at_dest0 = (aux >> 14) & 1;
-
-  // full stop resets the cruising speed when the first move was
-  // impossible given start-of-tick state
-  int dir0r;
-  bool contra0r;
-  resolve(nd0, head1, true, present && ct_pos, (uint32_t)in.wnd[c], wkey_dec,
-          dir0r, contra0r);
-  bool tgt_blocked0 = false;
-  if (dir0r < 4) {
-    const int t = nbr(y, x, dir0r, p.H, p.W);
-    tgt_blocked0 = t < 0 || in.stop[t] || (in.pa[t] & 1) || in.ped[t];
-  }
-  const bool allow0 = present && fld(pb, PB_CONTRA_SH, 8) > 0;
-  const bool fb0 = at_dest0 || dir0r == 7 || (contra0r && !allow0) ||
-                   tgt_blocked0;
-  if (present && !moved && fb0) pa &= ~(15u << PA_BASE_SH);
-
-  // stuck bookkeeping
-  int stuck_v = (int)fld(pb, PB_STUCK_SH, 12);
-  const bool stuck_inc = present && !moved && !(present && in.stop[c]);
-  stuck_v = (present && moved) ? 0
-                               : (stuck_inc ? min(stuck_v + 1, 4095) : stuck_v);
-  bool stuckf = bit(pa, PA_STUCKF_SH);
-  stuckf = !(present && moved) && (stuck_v > p.recompute_thresh || stuckf);
-  pa = (pa & ~(1u << PA_STUCKF_SH)) | ((uint32_t)stuckf << PA_STUCKF_SH);
-  pb = (pb & ~4095u) | (uint32_t)stuck_v;
-
-  out.pa[o + c] = (int)pa;
-  out.pb[o + c] = (int)pb;
-  out.pc[o + c] = F[P_PC * hw + c];
-  out.pd[o + c] = F[P_PD * hw + c];
-  out.pe[o + c] = F[P_PE * hw + c];
-  out.pl[o + c] = __int_as_float(F[P_PL * hw + c]);
-  return ((aux >> 15) & 1) | (((aux >> 16) & 1) << 1) | (moved ? 4 : 0);
 }
 
 }  // namespace tsim

@@ -59,9 +59,12 @@ _ARGTYPES = {
     "tsim_decide_move_hier": [P, P, P, P, I, P, I, P] + [P] * 6 + [P] * 4
     + [P] + [P] * 4 + [P] * 6 + [P, P, I, I, P],
     # the arguments of tsim_decide_move up to the out planes, then flags,
-    # window planes (4-byte, 1-byte), scratch, H, W, th, tw, halo, stream
+    # the windows' work area, H, W, th, tw, halo, stream
     "tsim_decide_tiled": [P, P, P, I, P] + [P] * 6 + [P] * 4 + [P]
-    + [P] * 4 + [P] * 6 + [P] * 4 + [I] * 5 + [P],
+    + [P] * 4 + [P] * 6 + [P] * 2 + [I] * 5 + [P],
+    # th, tw, halo, out[5]: K7's plan (tiles a block, dynamic and static
+    # shared memory bytes, registers, resident blocks an SM)
+    "tsim_decide_tiled_plan": [I, I, I, P],
     # colour table, cell, stop, rain, vehicle classes, out, HW, the light
     # and controlled-road codes, stream
     "tsim_render_planes": [P] * 6 + [I] * 3 + [P],

@@ -667,9 +667,8 @@ class _Kernel(torch.autograd.Function):
 
 # ---- K1 --------------------------------------------------------------------
 
-_N_SCRATCH_DM = 20        # K7's scratch planes per tile
-_N_WORK_K1 = 8            # K1's and K9's int32 working planes per world,
-                          # then a byte per cell (csrc/coop.cuh)
+_N_WORK_K1 = 8            # K1's, K7's and K9's int32 working planes per
+                          # world, then a byte per cell (csrc/coop.cuh)
 
 
 def _dm_params(cfg: Config):
@@ -1106,6 +1105,54 @@ def decide_move_tiled_plain(cfg: Config, sdir4, wnd, planes, stop_map,
     return tuple(outs)
 
 
+# K7's window words a cell in device memory beside K1's working planes:
+# 12 input planes of 4 bytes and 4 of 1 byte (csrc/decide_tiled.cu)
+_N_WIN_K7 = 13
+
+
+def k7_plan(H: int, W: int, th: int, tw: int, smem_per_block: int) -> tuple:
+    """K7's launch for an H x W grid in [th, tw] tiles on a card whose
+    block may take `smem_per_block` bytes of shared memory: (blocks,
+    tiles a block, dynamic shared memory bytes).  Each tile's window of
+    (th + 2P) x (tw + 2P) cells is one block's world in K1's
+    block-per-world layout (`k1_world_tiles` tiles of 32 x 8,
+    `k1_world_smem` bytes), so a window past K1_MAX_TILES tiles or past
+    the block's shared memory raises ValueError: no other form runs it.
+    At the H100's 232,448 bytes every window that JAX's `pick_tile`
+    budget admits (~14,800 cells) fits where its width is a multiple of
+    32; a 160 x 160 window (128 x 128 tiles) takes 100 tiles and does
+    not."""
+    _check_tiling(H, W, th, tw)
+    wh, ww = th + 2 * TILE_HALO, tw + 2 * TILE_HALO
+    cpt, smem = k1_world_tiles(wh, ww), k1_world_smem(wh, ww)
+    if cpt > K1_MAX_TILES or smem + K1_WORLD_STATIC > smem_per_block:
+        raise ValueError(
+            f"tile ({th}, {tw}): its {wh} x {ww} window takes {cpt} tiles "
+            f"and {smem + K1_WORLD_STATIC} bytes of shared memory, past one "
+            f"block ({K1_MAX_TILES} tiles, {smem_per_block} bytes)")
+    return (H // th) * (W // tw), cpt, smem
+
+
+def tiled_plan(H: int, W: int, th: int, tw: int, device=None) -> dict:
+    """K7's plan on the card as the kernel's library sees it: `k7_plan`'s
+    blocks, tiles a block and dynamic shared memory (the kernel's own
+    count of the last two, which must agree), its static shared memory,
+    registers a thread and resident blocks an SM."""
+    dev = torch.device("cuda" if device is None else device)
+    blocks, cpt, smem = k7_plan(H, W, th, tw, card_numbers(dev)[1])
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(dev):
+        _check_rc("tsim_decide_tiled_plan", _entry("tsim_decide_tiled_plan")(
+            th, tw, TILE_HALO, ctypes.addressof(out)))
+    if (out[0], out[1]) != (cpt, smem):
+        raise AssertionError(f"K7's plan: the kernel's tiles and shared "
+                             f"memory {out[0]}, {out[1]}, k7_plan's {cpt}, "
+                             f"{smem}")
+    return {"blocks": blocks, "tiles_per_block": cpt, "smem_bytes": smem,
+            "static_smem_bytes": out[2], "registers": out[3],
+            "blocks_per_sm": out[4]}
+
+
 def decide_move_tiled(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
                       ped_block, intersection, dest_id, randoms,
                       th: int, tw: int):
@@ -1117,13 +1164,17 @@ def decide_move_tiled(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
     ops/pallas_engine.py).  Source: csrc/decide_tiled.cu.  On no path:
     `engine.step_engine` runs K1 (dense) or K1-hier (hierarchical), as
     JAX's gate (`pick_tile`) never picks the tiled kernel.  On the H100
-    it is bound by device-memory bytes: K1's planes read once per
-    window, so (th + 2P)(tw + 2P) / (th tw) times K1's bytes.  Design:
-    one launch, one CTA per tile; the CTA copies its window (JAX's pad
-    fills outside the grid) into device memory and runs K1's phase
-    bodies over it with `__syncthreads()` between the 2K + 2 phases; the
-    row select reads the whole grid's stack at the cell's global
-    coordinate; only the interior is written."""
+    the function is bound by device-memory bytes, K1's (the windows
+    re-read (th + 2P)(tw + 2P) / (th tw) of the grid); a call, like
+    K1's, by its chain of 2K + 2 dependent phases.  Design: one ordinary
+    launch of one 1024-thread block per tile, K1's block-per-world form
+    over the windows: the block copies its window (JAX's pad fills
+    outside the grid) into device memory and runs K1's phases (csrc/coop.cuh,
+    `BlockOwn`) over it as one small world, its keys and pub bytes in
+    shared memory, block barriers between phases; the row select reads
+    the whole grid's stack at the cell's global coordinate; only the
+    interior is written.  A window past one block raises ValueError
+    (`k7_plan`)."""
     pa = planes[0]
     H, W = pa.shape
     _check_tiling(H, W, th, tw)
@@ -1149,25 +1200,20 @@ def decide_move_tiled(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
                         ("r_prio", r_prio, i32t)):
         _check(name, t, dt, (H, W), dev)
     P = TILE_HALO
-    T = (H // th) * (W // tw)
+    T, _, _ = k7_plan(H, W, th, tw, card_numbers(dev)[1])
     n = (th + 2 * P) * (tw + 2 * P)
     outs = [torch.empty((H, W), dtype=i32t, device=dev) for _ in range(5)]
     out_pl = torch.empty((H, W), dtype=f32t, device=dev)
     flags = torch.empty((H, W), dtype=i32t, device=dev)
-    win32 = torch.empty((T, 12, n), dtype=i32t, device=dev)
-    win8 = torch.empty((T, 4, n), dtype=torch.uint8, device=dev)
-    scratch = torch.empty((T, _N_SCRATCH_DM, n), dtype=i32t, device=dev)
+    area = torch.empty(T * n * (_N_WIN_K7 + _N_WORK_K1), dtype=i32t,
+                       device=dev)
     ip, fp = _dm_params(cfg)
-    _call("tsim_decide_tiled", ctypes.cast(ip, ctypes.c_void_p),
-          ctypes.cast(fp, ctypes.c_void_p), _ptr(sdir4), ctypes.c_int(D4),
-          _ptr(wnd), *[_ptr(p) for p in planes],
-          _ptr(stop_map), _ptr(rain_map), _ptr(ped_block),
-          _ptr(intersection), _ptr(dest_id), _ptr(r_mal), _ptr(r_side),
-          _ptr(r_reroll), _ptr(r_prio),
-          *[_ptr(o) for o in outs], _ptr(out_pl), _ptr(flags),
-          _ptr(win32), _ptr(win8), _ptr(scratch), ctypes.c_int(H),
-          ctypes.c_int(W), ctypes.c_int(th), ctypes.c_int(tw),
-          ctypes.c_int(P), _stream(dev))
+    _check_rc("tsim_decide_tiled", _entry("tsim_decide_tiled")(
+        ip, fp, _ptr(sdir4), D4, _ptr(wnd), *[_ptr(p) for p in planes],
+        _ptr(stop_map), _ptr(rain_map), _ptr(ped_block), _ptr(intersection),
+        _ptr(dest_id), _ptr(r_mal), _ptr(r_side), _ptr(r_reroll),
+        _ptr(r_prio), *[_ptr(o) for o in outs], _ptr(out_pl), _ptr(flags),
+        _ptr(area), H, W, th, tw, P, _stream(dev)))
     launches["decide_move_tiled"] += 1
     return (*outs, out_pl, flags)
 
@@ -1475,7 +1521,11 @@ class _SelectRows(_Kernel):
         dev = sdir4.device
         _check("sdir4", sdir4, torch.int32, (D4, H, W), dev)
         _check("dest", dest, torch.int32, (H, W), dev)
-        out = torch.empty((H, W), dtype=torch.int32, device=dev)
+        # the kernel writes 16 bytes where it reads 16 of dest: the output
+        # at dest's offset from a 16-byte boundary
+        off = dest.data_ptr() // 4 % 4
+        out = torch.empty(H * W + off, dtype=torch.int32,
+                          device=dev)[off:].view(H, W)
         _call("tsim_select_rows", _ptr(sdir4), _ptr(dest), _ptr(out),
               ctypes.c_int(D4), ctypes.c_int(H * W), _stream(dev))
         launches["select_rows"] += 1
@@ -1490,10 +1540,15 @@ def select_rows(sdir4, dest):
 
     Replaces `pallas_engine.select_rows_pallas` (ops/pallas_engine.py).
     Source: csrc/select_rows.cu.  On the H100 it is bound by device
-    memory: 12 bytes per cell (dest, one gathered word, the result),
-    12.6 MB at 1024^2; the gathered words of neighbouring cells lie on
-    different planes and do not coalesce.  Design: one thread per cell,
-    one indexed load, where the TPU kernel streamed the whole stack.  On
+    memory: dest in and the result out, 8 bytes a cell, and a 32-byte
+    sector for every distinct sector the gathers touch (neighbouring
+    cells share one only where they name the same plane; ~40 MB at
+    1024^2 on uniform rows).  Design: four cells a thread, 16-byte loads
+    of dest and stores of the result, the four gathers in flight at once
+    and not allocated in L1, the edges before dest's first 16-byte
+    boundary and after its last vector in the same launch, where the
+    TPU kernel streamed the whole stack.  The result lies at dest's
+    offset from a 16-byte boundary (a view, storage offset 0-3).  On
     no path: under hierarchical routing the tick's selects run inside
     K1-hier (`decide_move(..., hier=)`); `ops/hier.hier_select`, its
     plain version, calls this."""
