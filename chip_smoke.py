@@ -134,8 +134,9 @@ Phases (any failure raises and the script exits nonzero):
      launch a tick, one block a world; the form `k1_form` chooses and
      its plan printed, at least 2 blocks an SM), none in its cooperative
      form, K4 50, K2 10 (the batched K2 over the worlds' own key
-     stacks), K3 10, K5 0, and no kernel mapping the worlds one by one
-     (`_map_worlds`); K1 in both forms on the path's own inputs of tick
+     stacks), K3 10, K5 0, K9 0 (each count the launches for the whole
+     batch, so a kernel mapping the worlds one by one would show B
+     times as many); K1 in both forms on the path's own inputs of tick
      51 against its plain version; then 3 timed chunks of 50 ticks
      (median: cell-updates/s = 1024 x 4096 x steps/s, steps/s per
      world), launches and device busy time a tick, the idle share and
@@ -158,7 +159,7 @@ Phases (any failure raises and the script exits nonzero):
      digest `data/ped_digest.json` (`tools/make_torch_ped_digest.py`)
      at init and after 100 and 200 ticks of `run_chunk`; launches
      `step_pedestrians` 100 (one a tick), K1 100, K4 100, K2 and K3 20,
-     no plain pedestrian step or decide core, no kernel mapping worlds;
+     no plain pedestrian step or decide core;
      then 3 timed chunks of 100 ticks (median steps/s, cell-updates/s),
      launches and device busy ms a tick (a profile of 50 ticks), idle
      share, active pedestrians,
@@ -186,7 +187,28 @@ Phases (any failure raises and the script exits nonzero):
      kernels; and 3
      timed chunks of 50 ticks and a profile of 50 for each family and
      for QUEUE_ACTUATED on the same world, in one process (steps/s,
-     launches and device busy ms a tick, idle share).
+     launches and device busy ms a tick, idle share);
+ 19. the batched megakernel (group `mega_batch`, TSIM_MEGA_FORCE=1): K8
+     on seeded planes at [3, 1024, 1024], [3, 256, 256], 37 x 300 and a
+     view one byte off a 16-byte boundary (the wrapper's path named),
+     each bit-equal to its plain version; the B = 16 rollouts of the
+     generated headline world (phase 6's keys) for 23 ticks on the
+     megakernel path: world 0 equal to JAX's end state, worlds 1 and 15
+     to their single-world runs, K9 5 launches for the whole batch (its
+     cooperative form), K5 5, no K1, K4 or ordered add; one batched K9
+     call from tick 23 against the plain batched version world for world
+     (`compare_mega`), one device kernel a call, its plan and bound
+     (each input read once: the shared chunk tables once); config #4's
+     1024 cities (`init_world_batch`) on the megakernel path for 50
+     ticks: worlds 0-3 equal to JAX's `chunk50` but a world whose chunk
+     tables reach one of K9's JAX quirks (`megakernel.quirks`, named and
+     held to the plain version only), K9 10 launches in its
+     block-per-world form, none cooperative; one batched K9 call against
+     the plain version on worlds 0-3 and every 64th; and both paths of
+     both batches in this process (steps/s, wall and device-busy ms a
+     tick, idle share, launches a segment, K9's device ms a call).  With
+     `--tree DIR` an older tree's K9 (one launch a world) is timed on the
+     same paths (config #4 over 10 ticks) beside K8.
 
 The line before the last is the kernels' JSON summary, the one before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -276,6 +298,13 @@ KERNELS = {
     "step_pedestrians": ("trafficsimulation_tpu_torch/csrc/pedestrians.cu",
                          "none (XLA ops per tick, trafficsimulation_tpu/"
                          "agents/pedestrians.py:126)", "int32"),
+    # K9 with a world dimension (`jax.vmap` of the pallas_call): one launch
+    # a segment for a batch, in its cooperative form (the B = 16 rollouts
+    # of one city) and its block-per-world form (config #4's cities)
+    "mega_batch": ("trafficsimulation_tpu_torch/csrc/megakernel.cu",
+                   "trafficsimulation_tpu/ops/megakernel.py:1175", "int32"),
+    "mega_worlds": ("trafficsimulation_tpu_torch/csrc/megakernel.cu",
+                    "trafficsimulation_tpu/ops/megakernel.py:1175", "int32"),
     # the per-world-geometry forms (config #4's batch of cities): K1 with
     # its geometry one plane a world (the cooperative form), K2 over the
     # worlds' own key stacks, K3 with its geometry one plane a world
@@ -296,7 +325,7 @@ KERNELS = {
                                "466", "int32"),
 }
 # the launch counter (`HE.launches`) of each summary entry
-COUNTER = {"decide_move_worlds": "decide_move",
+COUNTER = {"decide_move_worlds": "decide_move", "mega_batch": "mega",
            "build_sdir_stacks": "build_sdir",
            "build_wavefront_worlds": "build_wavefront"}
 # which run's launch count the summary reports: K2 on the single-world
@@ -308,7 +337,8 @@ SUMMARY_PATH = {"build_sdir": "single", "select_rows": "config5",
                 "decide_move_blocks": "config4",
                 "build_sdir_stacks": "config4",
                 "build_wavefront_worlds": "config4",
-                "step_pedestrians": "config3"}
+                "step_pedestrians": "config3", "mega_batch": "mega_batch",
+                "mega_worlds": "config4_mega"}
 # on no path of the port (0 launches on every path); chip_smoke.py drives
 # them directly.  K6 serves the plain version of K1-hier's select; K1's
 # cooperative form with per-world geometry serves batches of different
@@ -337,6 +367,11 @@ CONFIG4_TICKS = 50
 CONFIG4_REPEATS = 3
 CONFIG4_ODD_B = 3
 CONFIG4_RAGGED = (60, 50)       # a ragged world within one block's reach
+# the megakernel path's batches (group `mega_batch`): ticks timed on each
+# path of the B = 16 batch; an older tree's config #4 on its megakernel
+# path (1024 K9 launches a segment) over this many ticks
+MEGA_BATCH_TICKS = 100
+MEGA_OLD_CONFIG4_TICKS = 10
 CONFIG4_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
                               "config4_batch_digest.json")
 # BASELINE config #3 (`bench.py` `bench_config3`), letter for letter
@@ -349,7 +384,8 @@ CONFIG1 = dict(WIDTH=100, HEIGHT=100, ENABLE_TRAFFIC=False,
                MAX_FIELD_DESTS=64, MAX_VEHICLES=256)
 PED_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
                           "ped_digest.json")
-PHASES = ("kernels", "ordered_add", "headline", "mega", "hier_digest",
+PHASES = ("kernels", "ordered_add", "headline", "mega", "mega_batch",
+          "hier_digest",
           "config4", "config5", "config3", "config1", "tiled", "render",
           "bridge", "rl")
 # development groups, run only when named in --only: `forms` times K1's
@@ -357,7 +393,7 @@ PHASES = ("kernels", "ordered_add", "headline", "mega", "hier_digest",
 # `select_rows` K6 alone (phase_select_rows)
 DEV_PHASES = ("forms", "select_rows")
 # the groups --tree may run (an older tree's kernels beside this one's)
-TREE_PHASES = ("forms", "select_rows", "tiled")
+TREE_PHASES = ("forms", "select_rows", "tiled", "mega", "mega_batch")
 K1_SWEEP = (3, 16, 132, 264, 528, 1024)
 SWEEP_PED_TICKS = 500
 SWEEP_VEHICLES = 4000
@@ -1557,25 +1593,6 @@ def phase_config5(HE, engine, tsim, card, prng, Config):
     return launches, kern
 
 
-class no_map_worlds:
-    """Inside the block, a kernel whose vmap rule maps the worlds one by
-    one (`HE._map_worlds`) raises: on config #4's path K1, K2 and K3
-    launch once for the whole batch."""
-
-    def __init__(self, HE):
-        self.HE = HE
-
-    def __enter__(self):
-        self.orig = self.HE._map_worlds
-
-        def spy(*a, **k):
-            raise AssertionError("a kernel mapped the worlds one by one")
-        self.HE._map_worlds = spy
-
-    def __exit__(self, *exc):
-        self.HE._map_worlds = self.orig
-
-
 def k1_world_inputs(engine, B, H, W, D, r):
     """K1's seeded random arguments after the config for B worlds of
     H x W, each world with its own geometry and stack of D rows (D a
@@ -1859,9 +1876,10 @@ def phase_config4(HE, engine, tsim, mesh, transfer, card, prng, Config):
             "prefix_planes": CONFIG4_TICKS,
             "build_sdir": segs, "build_wavefront": segs,
             "build_sdir_batched": 0, "select_rows": 0, "mega": 0,
+            "mega_worlds": 0,
             "rain_ticks": CONFIG4_TICKS if cfg.RAIN_ENABLED else 0}
     HE.reset_launches()
-    with no_map_worlds(HE), no_plain_core(HE):
+    with no_plain_core(HE):
         w, t_first = timed(lambda: mesh.run_chunk_batch(cfg, worlds,
                                                         CONFIG4_TICKS))
     launches = dict(HE.launches)
@@ -2033,6 +2051,7 @@ def phase_config3(HE, tsim, transfer, card, prng, Config):
     need = {"step_pedestrians": n, "decide_move": n, "prefix_planes": n,
             "build_sdir": -(-n // R), "build_wavefront": -(-n // R),
             "build_sdir_batched": 0, "select_rows": 0, "mega": 0,
+            "mega_worlds": 0,
             "decide_move_blocks": 0,
             "rain_ticks": n if cfg.RAIN_ENABLED else 0}
     orig_plain = pedestrians.step_pedestrians_plain
@@ -2042,7 +2061,7 @@ def phase_config3(HE, tsim, transfer, card, prng, Config):
     HE.reset_launches()
     pedestrians.step_pedestrians_plain = no_plain
     try:
-        with mega_env(False), no_map_worlds(HE), no_plain_core(HE):
+        with mega_env(False), no_plain_core(HE):
             w, t_first = timed(lambda: tsim.run_chunk(cfg, world, n))
     finally:
         pedestrians.step_pedestrians_plain = orig_plain
@@ -2145,7 +2164,8 @@ def phase_config1(HE, tsim, transfer, card, prng, Config):
     launches = dict(HE.launches)
     check_launches("config #1 path", launches, {
         "decide_move": n, "prefix_planes": n, "step_pedestrians": 0,
-        "mega": 0, "rain_ticks": n if cfg.RAIN_ENABLED else 0,
+        "mega": 0,
+        "mega_worlds": 0, "rain_ticks": n if cfg.RAIN_ENABLED else 0,
         "decide_move_blocks": 0})
     check_digest(f"config #1 after {n} ticks", dig["end"],
                  transfer.world_to_numpy(w))
@@ -2268,8 +2288,14 @@ def k9_code(cfg, world, HE, engine, megakernel, tsim) -> dict:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import sass_count
-    ptxas = (sass_count.ptxas_info(build.build_log, "mega_kernel")
-             if build.build_log else {})
+    # the single-world kernel (mega_kernel<K9_ONE>) and, beside it, the
+    # batched cooperative and block-per-world instantiations
+    log_ = build.build_log or ""
+    one = "mega_kernelILi0E" if "mega_kernelILi0E" in log_ else "mega_kernel"
+    ptxas = sass_count.ptxas_info(log_, one) if log_ else {}
+    ptxas_batched = {form: sass_count.ptxas_info(log_, f"mega_kernelILi{i}E")
+                     for i, form in ((1, "coop"), (2, "worlds"))
+                     if f"mega_kernelILi{i}E" in log_}
     barriers = {}
     for algo in fsm.FSM_ALGOS:
         c = cfg.replace(TRAFFIC_LIGHT_AGENT_ALGORITHM=algo)
@@ -2303,13 +2329,15 @@ def k9_code(cfg, world, HE, engine, megakernel, tsim) -> dict:
         args["lown"], G, args["qrun"].shape[0], args["lstop"].shape[0],
         args["srun"].shape[0], args["srun"], cfg.HEIGHT, cfg.WIDTH, grid)
     log(f"K9's cooperative grid: {grid} blocks of 256 threads, {cpt} tiles "
-        f"of 32 x 8 a block, on {n_sm} SMs; ptxas: {ptxas}; grid barriers "
+        f"of 32 x 8 a block, on {n_sm} SMs; ptxas: {ptxas} (the batched "
+        f"forms: {ptxas_batched}); grid barriers "
         f"a tick (and one a segment) by controller, each segment equal to "
         f"plain: {barriers}; the profiler sees only {names[0][:40]} "
         f"({len(names)} of 3 calls), no memset; {G} groups, "
         f"{len(own['shared_stop_cells'])} stop "
         f"cells shared by two owners")
     return {"grid": grid, "tiles_a_block": cpt, "ptxas": ptxas,
+            "ptxas_batched": ptxas_batched,
             "barriers_a_tick": barriers, "device_kernels": names,
             "shared_stop_cells": len(own["shared_stop_cells"])}
 
@@ -2356,13 +2384,10 @@ def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
         dms = device_ms(lambda: HE.mega_segment(cfg, args), reps=5)
         plain_ms = median_ms(lambda: megakernel.segment_plain(cfg, args),
                              reps=3, warmup=1)
-        names = [n for n, _, _ in HE._MEGA_IN]
-        # each input read once, each output written once; at least one
-        # operation per cell, tick and phase (decide, 2 per sub-round,
-        # finish, the service and spawn stages)
-        nbytes = sum(args[n].numel() * args[n].element_size()
-                     for n in names) + sum(
-            t.numel() * t.element_size() for t in got.values())
+        # what this data needs (mega_cost); at least one operation per
+        # cell, tick and phase (decide, 2 per sub-round, finish, the
+        # service and spawn stages)
+        nbytes = mega_cost(args, got)
         ops = (r * HW * (2 * cfg.VEHICLE_MAX_SPEED + 4),) * 2
         bms, by = bound(nbytes, ops, "mega")
         out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
@@ -2423,6 +2448,372 @@ def phase_mega(cfg, world, ref, card, HE, engine, tsim, transfer):
                       "launches": launches, "kernel": out,
                       "grid_blocks": code["grid"], "timing": timing}
     return launches, out
+
+
+def capture_mega(HE, run):
+    """(inputs, B, batched names) of the first batched K9 call that
+    `run()` makes (`HE.mega_segment_batched`, which then runs as
+    usual)."""
+    seen = []
+    orig = HE.mega_segment_batched
+
+    def spy(cfg, a, B, batched, form=None):
+        seen.append((a, B, frozenset(batched)))
+        return orig(cfg, a, B, batched, form)
+    HE.mega_segment_batched = spy
+    try:
+        with mega_env(True):
+            run()
+    finally:
+        HE.mega_segment_batched = orig
+    if not seen:
+        raise AssertionError("no batched K9 call")
+    return seen[0]
+
+
+# K9's state planes (read at every cell), its tables of the light groups,
+# runs and ticks (read whole), and the block planes beside b_mask (read at
+# a block's cells)
+MEGA_STATE = ("pa", "pb", "pc", "pd", "pe", "pl", "food", "waste", "frem",
+              "wrem")
+MEGA_TABLES = ("qrun", "srun", "l_group", "l_axis", "gg_valid", "nbr",
+               "ticks", "elapsed", "force", "li", "lf", "lstop", "lown")
+MEGA_BLOCK = ("b_ok", "b_bid", "b_svcdest", "b_needs", "b_prod", "b_inner",
+              "b_fcap", "b_wcap")
+
+
+def mega_cost(a: dict, got: dict, batched=()) -> int:
+    """The bytes a K9 call (one world, or a batch whose inputs `batched`
+    names carry a leading world dim) must move on this data, counted as
+    k1_cost counts K1's: the state planes in and every output written
+    once at every cell of every world; the tables whole, b_mask and the
+    scheduled-spawn plane at every cell and tick, and the scheduled
+    vehicle where one is due; the block planes at the block cells; and a
+    tick's vehicles (the fewer of the segment's first and last tick) each
+    reading one packed stack word, wnd, the rain mask and the geometry
+    (intersection and dest_id) every tick.  A table the batch shares
+    counts once: its block cells once, and at a tick the cells where any
+    world holds a vehicle.  The tables only an arriving vehicle reads
+    (g_destkind1, g_nexit, g_exitcell) are left out."""
+    H, W = a["pa"].shape[-2:]
+    R = a["ticks"].shape[-2]
+
+    def nb(n):
+        return a[n].numel() * a[n].element_size()
+    ends = [((p & 1) == 1).reshape(-1, H, W) for p in (a["pa"], got["pa"])]
+    veh = min(int(p.sum()) for p in ends)
+    cells = min(int(p.any(0).sum()) for p in ends)
+
+    def per_tick(n):
+        return veh if n in batched else cells
+    nbytes = sum(nb(n) for n in MEGA_STATE + MEGA_TABLES
+                 + ("b_mask", "spawn_pe"))
+    nbytes += int((a["spawn_pe"] >= 0).sum()) * 4           # spawn_pa
+    nbytes += int((a["b_mask"] != 0).sum()) * 4 * len(MEGA_BLOCK)
+    nbytes += R * (veh * 4 + per_tick("wnd") * 4 + per_tick("rain")
+                   + per_tick("inter") + per_tick("g_destid") * 4)
+    return nbytes + sum(t.numel() * t.element_size() for t in got.values())
+
+
+def mega_batch_call(name, cfg, a, B, batched, worlds, HE, megakernel,
+                    reps=10) -> dict:
+    """One batched K9 call against the plain batched version on the
+    worlds `worlds` (each on its own inputs; bit-equal but the f32
+    duration sums, `compare_mega`; the plain version's time is its run
+    over those worlds), a rerun bit-equal, its median, device time and
+    device kernels a call (the profiler: one), its plan and its
+    bound."""
+    H, W = a["pa"].shape[-2:]
+    R = a["ticks"].shape[-2]
+    got = HE.mega_segment_batched(cfg, a, B, batched)
+    torch.cuda.synchronize()
+    idx = torch.tensor(list(worlds), device=a["pa"].device)
+    sub = {k: v[idx] if k in batched else v for k, v in a.items()}
+    ref, plain_s = timed(lambda: megakernel.segment_plain_batched(
+        cfg, sub, len(worlds), batched))
+    err = 0.0
+    for i, b in enumerate(worlds):
+        err = max(err, compare_mega(
+            f"{name} world {b}", {k: v[b] for k, v in got.items()},
+            {k: v[i] for k, v in ref.items()}, HE))
+    del ref, sub
+    again = HE.mega_segment_batched(cfg, a, B, batched)
+    for k in HE.MEGA_OUTPUTS:
+        compare(f"{name} rerun {k}", (again[k],), (got[k],))
+    del again
+    ms = median_ms(lambda: HE.mega_segment_batched(cfg, a, B, batched),
+                   reps=reps)
+    dms, nk = device_profile(
+        lambda: HE.mega_segment_batched(cfg, a, B, batched), reps=5)
+    if nk is not None and nk != 1:
+        raise AssertionError(f"{name}: {nk} device kernels a call, not one")
+    plain_ms = plain_s * 1e3
+    plan = HE.mega_plan(B, H, W)
+    nbytes = mega_cost(a, got, batched)
+    ops = (B * R * H * W * (2 * cfg.VEHICLE_MAX_SPEED + 4),) * 2
+    bms, by = bound(nbytes, ops, "mega")
+    log(f"kernel {name}: {len(worlds)} worlds equal to plain (max abs err "
+        f"{err:g}), a rerun bit-equal; median {ms:.4f} ms (device "
+        f"{fmt_ms(dms)} in {nk} kernels a call), plain {plain_ms:.1f} ms "
+        f"over the {len(worlds)} worlds, bound {bms:.4f} ms ({by}, "
+        f"{nbytes / 1e6:.1f} MB); plan {plan}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dms,
+            "kernels_per_call": nk, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "bytes": nbytes, "ops": ops,
+            "plan": plan, "worlds_checked": list(worlds),
+            "plain_worlds": len(worlds),
+            "shape": f"B = {B}, {H}x{W}, D4 = {a['sdir4'].shape[-3]}, "
+                     f"R = {R}"}
+
+
+def mega_groups_call(cfg, a, batched, HE, megakernel, B=35) -> dict:
+    """K9's cooperative form over more worlds of 256^2 than one resident
+    grid holds: B worlds on the inputs of a B = 16 call (world b on world
+    b mod 16's), so that the launch walks world groups of several blocks
+    a world, the last group short by padding worlds; the first and last
+    world of each group equal to the plain version on its inputs."""
+    H, W = a["pa"].shape[-2:]
+    plan = HE.mega_plan(B, H, W)
+    wpg = plan["worlds_per_group"]
+    if plan["form"] != "coop" or plan["groups"] < 2 or B % wpg == 0 \
+            or plan["blocks_per_world"] < 2:
+        raise AssertionError(f"B={B}: plan {plan}, not short world groups "
+                             "of several blocks a world")
+    idx = torch.arange(B, device=a["pa"].device) % a["pa"].shape[0]
+    big = {k: v[idx] if k in batched else v for k, v in a.items()}
+    got = HE.mega_segment_batched(cfg, big, B, batched)
+    torch.cuda.synchronize()
+    check = sorted({w for g in range(plan["groups"])
+                    for w in (g * wpg, min((g + 1) * wpg, B) - 1)})
+    sub = {k: v[idx[check]] if k in batched else v for k, v in a.items()}
+    ref = megakernel.segment_plain_batched(cfg, sub, len(check), batched)
+    err = 0.0
+    for i, b in enumerate(check):
+        err = max(err, compare_mega(
+            f"K9 B={B} world {b}", {k: v[b] for k, v in got.items()},
+            {k: v[i] for k, v in ref.items()}, HE))
+    log(f"K9's cooperative form over {plan['groups']} world groups of "
+        f"{wpg} (B = {B}, {H}x{W}, {plan['blocks_per_world']} blocks a "
+        f"world, {plan['groups'] * wpg - B} padding): worlds {check} equal "
+        f"to plain (max abs err {err:g}); plan {plan}")
+    return {"plan": plan, "worlds_checked": check, "max_abs_err": err}
+
+
+def batch_paths(run, n_ticks, HE, R, kernel_key, n_profile=None):
+    """Both paths of a batch runner in this process: `run(n, mega)` runs
+    n ticks (TSIM_MEGA_FORCE or TSIM_NO_MEGAKERNEL) from the same state;
+    per path the wall ms a tick over n_ticks, steps/s, device-busy ms and
+    device launches a tick over n_profile ticks (the profiler), the idle
+    share, launches a segment and the wrapper's K9 launches."""
+    n_profile = n_profile or n_ticks
+    out = {}
+    for path, mega in (("mega", True), ("per_tick", False)):
+        with mega_env(mega):
+            run(R, mega)                  # warm: the first segment's set-up
+            HE.reset_launches()
+            _, dt = timed(lambda: run(n_ticks, mega))
+            k9 = HE.launches["mega"] + HE.launches.get("mega_worlds", 0)
+            busy, per_tick, k9_dev = profile_path(
+                lambda: run(n_profile, mega), n_profile,
+                kernel_key if mega else None)
+        wall = dt * 1e3 / n_ticks
+        out[path] = {"steps_per_s": n_ticks / dt, "wall_ms_per_tick": wall,
+                     "busy_ms_per_tick": busy, "idle_share": 1 - busy / wall,
+                     "launches_per_tick": per_tick,
+                     "launches_per_segment": per_tick * R,
+                     "k9_launches": k9, "k9_device_ms_per_call": k9_dev}
+    return out
+
+
+def k8_cases(render) -> dict:
+    """K8 on seeded planes: [3, 1024, 1024], [3, 256, 256], the ragged 37 x
+    300 and a misaligned view (every input one byte past a 16-byte
+    boundary), each bit-equal to the plain version (`measure`), with the
+    path the wrapper takes (an older tree has one path)."""
+    out = {}
+    r = Inputs(8)
+    for label, (H, W), off in (("1024x1024", (1024, 1024), 0),
+                               ("256x256", (256, 256), 0),
+                               ("37x300", (37, 300), 0),
+                               ("misaligned 256x256", (256, 256), 1)):
+        def plane(t):
+            buf = torch.empty(H * W + off, dtype=t.dtype, device="cuda")
+            v = buf[off:].view(H, W)
+            v.copy_(t)
+            return v
+        args = (plane(r.rint(0, 20, H, W).to(torch.uint8)),
+                plane(r.bern(0.3, H, W)), plane(r.bern(0.3, H, W)),
+                plane(r.rint(0, 7, H, W).to(torch.uint8)))
+        path = (render.render_path(*args)
+                if hasattr(render, "render_path") else "one")
+        m = measure(f"render (K8, {label}, {path} path)",
+                    lambda: (render.render_planes(*args),),
+                    lambda: (render.render_planes_plain(*args),), 7 * H * W,
+                    15 * H * W, f"[3, {H}, {W}]{' misaligned' if off else ''}")
+        m["path"] = path
+        m["bound_share"] = (m["bound_ms"] / m["device_ms"]
+                            if m["device_ms"] else None)
+        out[label] = m
+    return out
+
+
+def phase_mega_batch(cfg, world, ref, card, HE, engine, tsim, transfer, mesh,
+                     prng, Config):
+    """The batched megakernel: the B = 16 shared-geometry batch and config
+    #4's 1024 cities on the megakernel path (one K9 launch a segment for
+    the batch), held to JAX and to single-world runs; one batched K9 call
+    of each against the plain version; both paths of both batches timed
+    in this process; K8 on seeded planes.  On an older tree (`--tree`,
+    whose K9 maps the worlds one launch each) only the paths' times, K9's
+    launches a segment and K8."""
+    from trafficsimulation_tpu_torch.ops import megakernel
+    from trafficsimulation_tpu_torch.ops import render
+    new = hasattr(HE, "mega_segment_batched")
+    R = cfg.PATHFINDING_COOLDOWN
+    segs = -(-N_REF_TICKS // R)
+    out = {"k8": k8_cases(render)}
+
+    # (1) B = 16 rollouts of the headline city, 23 ticks on the megakernel
+    # path
+    keys = batch_keys(world.key, prng)
+    batch = mesh.tile_dynamic(world, keys)
+    with mega_env(True):
+        HE.reset_launches()
+        b23, t_ref = timed(lambda: mesh.run_batch_shared(cfg, batch,
+                                                         N_REF_TICKS))
+        launches = dict(HE.launches)
+    need = {"mega": segs if new else segs * BATCH, "build_sdir_batched": segs,
+            "build_wavefront": segs, "rain_ticks": segs, "decide_move": 0,
+            "prefix_planes": 0, "ordered_add": 0, "build_sdir": 0,
+            "decide_move_blocks": 0}
+    if new:
+        need["mega_worlds"] = 0
+    check_launches("B=16 megakernel path", launches, need)
+    compare_leaves("B=16 megakernel path world 0 vs JAX", ref["end"],
+                   transfer.world_to_numpy(mesh.world_at(b23, 0)))
+    if new:
+        for b in (1, BATCH - 1):
+            w = world.replace(key=torch.from_numpy(
+                keys[b].view(np.int32).copy()).cuda())
+            with mega_env(True):
+                single = tsim.run_chunk(cfg, w, N_REF_TICKS)
+            compare_leaves(f"B=16 megakernel path world {b} vs its single "
+                           "run", transfer.world_to_numpy(single),
+                           transfer.world_to_numpy(mesh.world_at(b23, b)))
+    log(f"B=16 megakernel path: run_batch_shared({N_REF_TICKS}) in "
+        f"{t_ref:.2f} s; world 0 equals JAX's end state"
+        + (", worlds 1 and 15 their single runs" if new else "")
+        + f"; launches {launches}")
+    out["b16_launches"] = launches
+
+    if new:
+        # (2) one batched K9 call from tick 23 against the plain version
+        a, B, batched = capture_mega(
+            HE, lambda: mesh.run_batch_shared(cfg, b23, R))
+        if B != BATCH or {"qrun", "lown"} & batched:
+            raise AssertionError(f"B=16: {B} worlds, batched {batched}")
+        out["b16_kernel"] = mega_batch_call(
+            "mega (batched K9, B=16 from tick 23)", cfg, a, B, batched,
+            range(BATCH), HE, megakernel)
+        out["b16_groups"] = mega_groups_call(cfg, a, batched, HE,
+                                             megakernel)
+        del a
+        torch.cuda.empty_cache()
+
+    # (4) both paths of the B = 16 batch from tick 23
+    state = {"b": b23}
+
+    def run16(n, mega):
+        state["b"] = mesh.run_batch_shared(cfg, state["b"], n)
+    out["b16_paths"] = batch_paths(run16, MEGA_BATCH_TICKS, HE, R,
+                                   "mega_kernel", N_PROFILE_TICKS)
+    del state, b23, batch
+    torch.cuda.empty_cache()
+
+    # (3) config #4 on the megakernel path
+    c4 = Config(**CONFIG4)
+    n4 = CONFIG4_WORLDS
+    with open(os.path.join(ROOT, CONFIG4_DIGEST)) as f:
+        digest = json.load(f)
+    worlds = mesh.init_world_batch(c4, prng.PRNGKey(0), n4)
+    quirk = {b: megakernel.quirks(c4, mesh.world_at(worlds, b))
+             for b in range(digest["worlds"])} if new else {}
+    ticks4 = CONFIG4_TICKS if new else MEGA_OLD_CONFIG4_TICKS
+    with mega_env(True):
+        HE.reset_launches()
+        try:
+            w4, t4 = timed(lambda: mesh.run_chunk_batch(c4, worlds, ticks4))
+        except RuntimeError as e:
+            if new:
+                raise
+            # an older tree whose chunk tables do not vmap over per-world
+            # geometry: no config #4 on its megakernel path
+            log(f"config #4 megakernel path: this tree cannot run it ({e})")
+            REPORT["mega_batch"] = {"card": card, **out,
+                                    "config4_error": str(e)[:300]}
+            return launches, None, out
+        l4 = dict(HE.launches)
+    segs4 = -(-ticks4 // R)
+    need = {"decide_move_blocks": 0, "decide_move": 0, "prefix_planes": 0,
+            "build_sdir": segs4, "build_wavefront": segs4,
+            "build_sdir_batched": 0}
+    if new:
+        need.update(mega=0, mega_worlds=segs4)
+    else:
+        need.update(mega=segs4 * n4)
+    check_launches("config #4 megakernel path", l4, need)
+    if new:
+        for b in range(digest["worlds"]):
+            if quirk[b]:
+                log(f"config #4 world {b} reaches K9's JAX quirks {quirk[b]}:"
+                    " held to the plain version only")
+                continue
+            check_digest(f"config #4 megakernel path world {b} after "
+                         f"{ticks4} ticks", digest[f"chunk{ticks4}"][b],
+                         transfer.world_to_numpy(mesh.world_at(w4, b)))
+        plan4 = HE.mega_plan(n4, c4.HEIGHT, c4.WIDTH)
+        if plan4["form"] != "worlds":
+            raise AssertionError(f"config #4: K9's plan {plan4}")
+    log(f"config #4 megakernel path: {ticks4} ticks of {n4} worlds in "
+        f"{t4:.2f} s; launches {l4}"
+        + (f"; worlds 0-{digest['worlds'] - 1} equal JAX's digest but "
+           f"{[b for b in quirk if quirk[b]]} (quirks); plan {plan4}"
+           if new else ""))
+    out["config4_launches"] = l4
+    del worlds
+    if new:
+        a, B, batched = capture_mega(
+            HE, lambda: mesh.run_chunk_batch(c4, w4, R))
+        if B != n4 or "qrun" not in batched:
+            raise AssertionError(f"config #4: {B} worlds, batched {batched}")
+        check = sorted(set(range(4)) | set(range(0, n4, 64)))
+        out["config4_kernel"] = mega_batch_call(
+            "mega_worlds (batched K9, config #4, tick "
+            f"{ticks4 + R})", c4, a, B, batched, check, HE, megakernel)
+        del a
+        torch.cuda.empty_cache()
+    state = {"w": w4}
+
+    def run4(n, mega):
+        state["w"] = mesh.run_chunk_batch(c4, state["w"], n)
+    out["config4_paths"] = batch_paths(
+        run4, ticks4, HE, R, "mega_kernel",
+        N_PROFILE_TICKS if new else MEGA_OLD_CONFIG4_TICKS)
+    del state, w4
+    torch.cuda.empty_cache()
+    for name, n, p in (("B=16", BATCH, out["b16_paths"]),
+                       ("config #4", n4, out["config4_paths"])):
+        for path, t in p.items():
+            log(f"{name} {path} path ({card}): {t['steps_per_s']:.2f} steps/s "
+                f"({n} worlds), wall {t['wall_ms_per_tick']:.3f} ms/tick, "
+                f"device busy {t['busy_ms_per_tick']:.3f} ms/tick, idle "
+                f"share {t['idle_share']:.3f}, "
+                f"{t['launches_per_segment']:.0f} launches a segment"
+                + (f", K9 {t['k9_launches']} launches, "
+                   f"{fmt_ms(t['k9_device_ms_per_call'])} device a call"
+                   if path == "mega" else ""))
+    REPORT["mega_batch"] = {"card": card, **out}
+    return launches, l4, out
 
 
 def tick_inputs(cfg, world, HE, tsim, name: str):
@@ -2696,7 +3087,7 @@ def phase_bridge(cfg, world, HE, tsim, card):
     check_launches("bridge loop", launches, {
         "decide_move": n_chunks * ticks, "prefix_planes": n_chunks * ticks,
         "rain_ticks": n_chunks * ticks, "build_sdir": segs,
-        "build_wavefront": segs, "select_rows": 0, "mega": 0,
+        "build_wavefront": segs, "select_rows": 0, "mega": 0, "mega_worlds": 0,
         "decide_move_blocks": 0})
     t_chunk = statistics.median(t_chunks)
     launches = {k: v // n_chunks for k, v in launches.items()}
@@ -2889,7 +3280,8 @@ def phase_rl(HE, tsim, transfer, card, prng, Config, snapshot, utils):
         check_launches(f"{algo} path", launches, {
             "decide_move": n, "prefix_planes": n, "build_sdir": -(-n // R),
             "build_wavefront": -(-n // R), "build_sdir_batched": 0,
-            "select_rows": 0, "mega": 0, "step_pedestrians": 0,
+            "select_rows": 0, "mega": 0,
+            "mega_worlds": 0, "step_pedestrians": 0,
             "decide_move_blocks": 0,
             "rain_ticks": n if cfg.RAIN_ENABLED else 0})
         cpu = [k for k, t in transfer.world_leaves(end).items()
@@ -3093,8 +3485,8 @@ def main():
         stamp("kernels")
     if "ordered_add" in run:
         phase_ordered_add(HE)
-    if run & {"ordered_add", "headline", "mega", "tiled", "render",
-              "bridge"}:
+    if run & {"ordered_add", "headline", "mega", "mega_batch", "tiled",
+              "render", "bridge"}:
         cfg, world, ref = phase_generation(snapshot, tsim, transfer, prng,
                                            Config)
         stamp("generation")
@@ -3120,6 +3512,12 @@ def main():
                                 transfer)
         torch.cuda.empty_cache()
         stamp("mega")
+    if "mega_batch" in run:
+        l_mb, l_c4m, k_mb = phase_mega_batch(cfg, world, ref, card, HE,
+                                             engine, tsim, transfer, mesh,
+                                             prng, Config)
+        torch.cuda.empty_cache()
+        stamp("mega_batch")
     if "headline" in run:
         sim, l_single = phase_headline(HE, tsim, transfer, cfg, world, ref)
         batch, l_batch = phase_batch(cfg, world, ref, HE, mesh, tsim,
@@ -3170,7 +3568,7 @@ def main():
     launch_paths = {"single": l_single, "batched": l_batch,
                     "config5": l_c5, "mega": l_mega, "bridge": l_bridge,
                     "config4": l_c4, "config3": l_c3, "config1": l_c1,
-                    "rl": l_rl}
+                    "rl": l_rl, "mega_batch": l_mb, "config4_mega": l_c4m}
     summary = {"kernels": []}
     for k in KERNELS:
         path = SUMMARY_PATH.get(k, "batched")
@@ -3181,6 +3579,10 @@ def main():
             m = k6["local"]
         elif k == "mega":
             m = k9["R=5"]
+        elif k == "mega_batch":
+            m = k_mb["b16_kernel"]
+        elif k == "mega_worlds":
+            m = k_mb["config4_kernel"]
         elif k == "decide_move_tiled":
             m = k7[f"{TILES[0][0]}x{TILES[0][1]}"]
         elif k == "render":
@@ -3202,8 +3604,9 @@ def main():
                  "device_ms": m["device_ms"],
                  "kernels_per_call": m.get("kernels_per_call"),
                  "path": path,
-                 "batch": {"batched": BATCH, "config4": CONFIG4_WORLDS}.get(
-                     path, 1),
+                 "batch": {"batched": BATCH, "config4": CONFIG4_WORLDS,
+                           "mega_batch": BATCH,
+                           "config4_mega": CONFIG4_WORLDS}.get(path, 1),
                  "shape": m.get("shape", f"{cfg0.HEIGHT}x{cfg0.WIDTH}, "
                                 f"D = {cfg0.MAX_FIELD_DESTS}"),
                  "launches_single_path": l_single[ctr],
@@ -3215,6 +3618,8 @@ def main():
                  "launches_config3_path": l_c3[ctr],
                  "launches_config1_path": l_c1[ctr],
                  "launches_rl_path": l_rl[ctr],
+                 "launches_mega_batch_path": l_mb[ctr],
+                 "launches_config4_mega_path": l_c4m[ctr],
                  "on_path": k not in OFF_PATH}
         if path == "config4":
             entry["odd_batch"] = {x: k_c4[f"B={CONFIG4_ODD_B}"][k][x]
@@ -3237,7 +3642,7 @@ def main():
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "shape")}
             entry["code"] = {x: k9["R=5"]["code"][x] for x in (
-                "grid", "ptxas", "barriers_a_tick")}
+                "grid", "ptxas", "ptxas_batched", "barriers_a_tick")}
         if k == "decide_move_tiled":
             t1 = f"{TILES[1][0]}x{TILES[1][1]}"
             entry["tiles_" + t1] = {x: k7[t1][x] for x in (
@@ -3263,6 +3668,12 @@ def main():
             entry["headline_256"] = {x: k8[x] for x in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "shape")}
+            entry["seeded"] = {label: {x: v[x] for x in SUB_KEYS + (
+                "path", "bound_share")} for label, v in k_mb["k8"].items()}
+        if k in ("mega_batch", "mega_worlds"):
+            entry["plan"] = m["plan"]
+            entry["paths"] = k_mb["b16_paths" if k == "mega_batch"
+                                  else "config4_paths"]
         if k in k_c5 and k != "render":
             entry["config5"] = {x: k_c5[k][x] for x in SUB_KEYS}
             if k == "ordered_add":

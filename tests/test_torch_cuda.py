@@ -628,8 +628,10 @@ def test_mega_stop_runs_of_two_groups_share_a_cell(gen):
               if srun[r, 0] != 0 and lg[srun[r, 4]] >= 0)
     g0 = int(lg[srun[r0, 4]])
     grid, _ = HE.mega_grid(world.grid.is_road.device, H, W)
+    owner = megakernel.group_owner
     l1 = next(i for i in range(lg.shape[0])
-              if lg[i] >= 0 and int(lg[i]) % grid != g0 % grid)
+              if lg[i] >= 0 and owner(int(lg[i]), G, grid)
+              != owner(g0, G, grid))
     extra = srun[r0].clone()
     extra[4] = l1
     a = dict(args)
@@ -713,6 +715,122 @@ def test_mega_run_chunk_matches_per_tick_on_card(gen, monkeypatch):
             assert np.array_equal(a, got[k]), k
 
 
+def _mega_batch_args(cfg, B: int, tables: str, R: int = 5):
+    """(the inputs, batched names) of the first K9 call of a batch of B
+    worlds on the card's megakernel path, captured from one segment of
+    its runner: `run_batch_shared` over one world's geometry with B keys
+    ("shared": the chunk tables read by every world) or `run_chunk_batch`
+    over B cities from `sim.init_worlds` ("per_world")."""
+    import os
+    from trafficsimulation_tpu_torch import prng, sim
+    from trafficsimulation_tpu_torch.parallel import mesh
+    keys = prng.split(prng.PRNGKey(11), B)
+    if tables == "shared":
+        _, world = _mega_world(cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM)
+        batch = mesh.tile_dynamic(world, keys)
+        run = mesh.run_batch_shared
+    else:
+        batch = sim.init_worlds(cfg, keys, "cuda")
+        run = mesh.run_chunk_batch
+    seen = []
+    orig = HE.mega_segment_batched
+
+    def spy(cfg_, a, B_, batched, form=None):
+        seen.append((a, B_, frozenset(batched)))
+        return orig(cfg_, a, B_, batched, form)
+    HE.mega_segment_batched = spy
+    saved = os.environ.get("TSIM_MEGA_FORCE")
+    os.environ["TSIM_MEGA_FORCE"] = "1"
+    try:
+        run(cfg, batch, R)
+    finally:
+        HE.mega_segment_batched = orig
+        if saved is None:
+            os.environ.pop("TSIM_MEGA_FORCE")
+        else:
+            os.environ["TSIM_MEGA_FORCE"] = saved
+    assert len(seen) == 1 and seen[0][1] == B
+    return seen[0][0], seen[0][2]
+
+
+@pytest.mark.parametrize("algo", ["QUEUE_ACTUATED",
+                                  "NEIGHBOR_PRESSURE_CONTROL"])
+@pytest.mark.parametrize("tables", ["shared", "per_world"])
+@pytest.mark.parametrize("B", [3, 264, 529])
+def test_mega_batch_matches_plain(gen, B, tables, algo):
+    """The batched K9 in both forms (the cooperative grid and one block a
+    world, whichever the shape chooses: B = 3, 264 and 529 worlds of
+    64^2; the cooperative form walks 529 worlds in three groups of 177,
+    the last holding two padding worlds) on a batch's first segment, with
+    the chunk tables shared and one set a world: one launch a call (the
+    launch count; a profiler window here would leave the later one-call
+    profiles of this file empty, and `chip_smoke.py` counts the device
+    kernels of a call), 2K + 3 stage barriers a tick and one a segment
+    for each world group in turn, and each world (every world of 3; 0,
+    1, 131 and 263 of 264; the first and last of each group of 529) equal
+    to the plain version on its own inputs."""
+    from trafficsimulation_tpu_torch.ops import megakernel
+    cfg = Config(**MEGA_CFG, TRAFFIC_LIGHT_AGENT_ALGORITHM=algo)
+    if tables == "shared":
+        cfg = _mega_world(algo)[0]
+    a, batched = _mega_batch_args(cfg, B, tables)
+    assert ({"qrun", "lown", "b_mask"} <= batched) == (tables == "per_world")
+    R = a["ticks"].shape[-2]
+    by_shape = HE.k9_form(B, cfg.HEIGHT, cfg.WIDTH, *HE.card_numbers())
+    assert by_shape == ("worlds" if B >= 264 else "coop")
+    if B == 529:
+        assert HE.mega_plan(B, cfg.HEIGHT, cfg.WIDTH, form="coop")[
+            "worlds_per_group"] == 177
+    sample = {3: range(3), 264: (0, 1, 131, 263),
+              529: (0, 1, 176, 177, 353, 354, 528)}[B]
+    for form in ("coop", "worlds"):
+        counter = "mega_worlds" if form == "worlds" else "mega"
+        n0 = HE.launches[counter]
+        groups = HE.mega_plan(B, cfg.HEIGHT, cfg.WIDTH, form=form)["groups"]
+        assert groups == (3 if (B, form) == (529, "coop") else 1)
+        HE.mega_syncs()
+        got = HE.mega_segment_batched(cfg, a, B, batched, form=form)
+        assert HE.mega_syncs() == groups * (
+            1 + R * (2 * cfg.VEHICLE_MAX_SPEED + 3))
+        assert HE.launches[counter] == n0 + 1
+        for b in sample:
+            one = {k: v[b] if k in batched else v for k, v in a.items()}
+            _same_mega({k: v[b] for k, v in got.items()},
+                       megakernel.segment_plain(cfg, one))
+        # a second launch gives the same bits
+        again = HE.mega_segment_batched(cfg, a, B, batched, form=form)
+        for k in HE.MEGA_OUTPUTS:
+            _same((again[k],), (got[k],))
+
+
+def test_mega_plan_is_the_library_plan(gen):
+    """`mega_plan` at the shapes the paths take (B = 16 at 256^2, config
+    #4's 1024 worlds of 64^2, 3 worlds of 64^2, one world of 256^2, 64
+    worlds of 256^2 in world groups, 529 worlds of 64^2 forced to the
+    cooperative form in three groups): the library's plan equals
+    `k9_plan`'s at the card's numbers and the kernel's registers, and its
+    static shared memory K9_STATIC's; a shape that neither form takes
+    raises ValueError naming it, and so does the block-per-world form
+    forced on a world larger than a block."""
+    n_sm, smem = HE.card_numbers()
+    for B, H, W, form, want in (
+            (16, 256, 256, None, "coop"), (1024, 64, 64, None, "worlds"),
+            (3, 64, 64, None, "coop"), (1, 256, 256, None, "coop"),
+            (64, 256, 256, None, "coop"), (529, 64, 64, "coop", "coop")):
+        got = HE.mega_plan(B, H, W, form=form)
+        assert got["form"] == want
+        plan = HE.k9_plan(B, H, W, n_sm, smem, got["registers"], form)
+        assert {k: got[k] for k in plan} == plan, (B, H, W)
+        assert got["static_smem_bytes"] == HE.K9_STATIC[want], (B, H, W)
+    assert HE.mega_plan(529, 64, 64, form="coop")["groups"] == 3
+    assert HE.mega_plan(64, 256, 256)["groups"] == 2
+    assert HE.mega_grid(torch.device("cuda"), 256, 256) == (256, 1)
+    with pytest.raises(ValueError, match="2048 x 2048"):
+        HE.mega_plan(1, 2048, 2048)
+    with pytest.raises(ValueError, match="256 x 256"):
+        HE.mega_plan(16, 256, 256, form="worlds")
+
+
 def test_mega_rejects_what_it_does_not_take(gen):
     from trafficsimulation_tpu_torch import sim
     from trafficsimulation_tpu_torch.ops import megakernel
@@ -741,7 +859,8 @@ def test_mega_rejects_what_it_does_not_take(gen):
 
 def test_mega_batch_on_card_matches_single_worlds(gen, monkeypatch):
     """`run_batch_shared` on the card through K9 (its vmap rule launches
-    once per world and segment) against each world's per-tick run."""
+    once per segment for the whole batch) against each world's per-tick
+    run."""
     from trafficsimulation_tpu_torch import sim
     from trafficsimulation_tpu_torch.core.transfer import world_to_numpy
     from trafficsimulation_tpu_torch.parallel import mesh
@@ -750,7 +869,7 @@ def test_mega_batch_on_card_matches_single_worlds(gen, monkeypatch):
     monkeypatch.setenv("TSIM_MEGA_FORCE", "1")
     n0 = HE.launches["mega"]
     batch = mesh.run_batch_shared(cfg, mesh.tile_dynamic(world, keys), 7)
-    assert HE.launches["mega"] == n0 + 2 * 2
+    assert HE.launches["mega"] == n0 + 2
     monkeypatch.delenv("TSIM_MEGA_FORCE")
     monkeypatch.setenv("TSIM_NO_MEGAKERNEL", "1")
     for b in range(2):
@@ -902,6 +1021,36 @@ def test_render_kernel_matches_plain(gen, shape):
     cell = _rint(gen, 0, 20, H, W).to(torch.uint8)
     stop, rain = _bern(gen, 0.3, H, W), _bern(gen, 0.3, H, W)
     vstate = _rint(gen, 0, 7, H, W).to(torch.uint8)
+    n0 = HE.launches["render"]
+    got = R.render_planes(cell, stop, rain, vstate)
+    assert HE.launches["render"] == n0 + 1
+    _same((got,), (R.render_planes_plain(cell, stop, rain, vstate),))
+
+
+@pytest.mark.parametrize("shape,offset,path", [
+    ((1024, 1024), 0, "vector"), ((256, 256), 0, "vector"),
+    ((37, 300), 0, "vector"),          # HW % 16 = 12: the scalar tail
+    ((36, 300), 0, "vector"),          # HW % 16 = 0 but W is not
+    ((37, 301), 0, "vector"),          # odd HW: byte stores of planes 1-2
+    ((64, 96), 1, "scalar")])          # inputs one byte off a boundary
+def test_render_paths_match_plain(gen, shape, offset, path):
+    """K8 on aligned, ragged and misaligned planes: the wrapper's path
+    (`render_path`: 16 pixels a thread where every plane starts on a
+    16-byte boundary, a pixel a thread otherwise), one launch, and the
+    frame bit-equal to the plain version."""
+    from trafficsimulation_tpu_torch.ops import render as R
+    H, W = shape
+    n = H * W
+
+    def plane(t):
+        buf = torch.empty(n + offset, dtype=t.dtype, device="cuda")
+        view = buf[offset:].view(H, W)
+        view.copy_(t)
+        return view
+    cell = plane(_rint(gen, 0, 20, H, W).to(torch.uint8))
+    stop, rain = plane(_bern(gen, 0.3, H, W)), plane(_bern(gen, 0.3, H, W))
+    vstate = plane(_rint(gen, 0, 7, H, W).to(torch.uint8))
+    assert R.render_path(cell, stop, rain, vstate) == path
     n0 = HE.launches["render"]
     got = R.render_planes(cell, stop, rain, vstate)
     assert HE.launches["render"] == n0 + 1

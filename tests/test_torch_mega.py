@@ -206,21 +206,28 @@ def test_megakernel_path_matches_per_tick(monkeypatch, algo):
     assert not np.array_equal(start["vehicles.pos"], ref["vehicles.pos"])
 
 
+def _brute_owner(g, G, nb):
+    """The block j of nb whose pseudo-group range [j (G + 1) // nb,
+    (j + 1) (G + 1) // nb) holds g, by searching the ranges' starts."""
+    starts = np.array([j * (G + 1) // nb for j in range(nb)])
+    return np.searchsorted(starts, g, side="right") - 1
+
+
 def _owners_brute(cs, G, H, W, nb):
-    """Who owns each light-stage item when block j takes the groups j,
-    j + nb, ... with their runs and lights (light l of no group with
-    pseudo-group l mod (G + 1); no block takes a run that covers no
-    cell: -1), and
+    """Who owns each light-stage item when block j takes the contiguous
+    pseudo-groups [j (G + 1) // nb, (j + 1) (G + 1) // nb) with their
+    runs and lights (light l of no group with pseudo-group l mod (G + 1);
+    no block takes a run that covers no cell: -1), and
     the stop cells that runs of two owners share, from the chunk tables
     alone."""
     qrun, srun = _np(cs["qrun"]), _np(cs["srun"])
     lg = _np(cs["l_group"])
     lgrp = np.where((lg >= 0) & (lg < G), lg, np.arange(len(lg)) % (G + 1))
-    q_own = np.where(qrun[:, 0] != 0, qrun[:, 4] % nb, -1)
-    l_own = lgrp % nb
+    q_own = np.where(qrun[:, 0] != 0, _brute_owner(qrun[:, 4], G, nb), -1)
+    l_own = _brute_owner(lgrp, G, nb)
     s_ok = srun[:, 0] != 0
-    s_own = np.where(s_ok, lgrp[np.clip(srun[:, 4], 0, len(lg) - 1)] % nb,
-                     -1)
+    s_own = np.where(s_ok, _brute_owner(
+        lgrp[np.clip(srun[:, 4], 0, len(lg) - 1)], G, nb), -1)
     seen = {}
     for r in np.nonzero(s_ok)[0]:
         o, coord, a0, a1 = srun[r, :4]
@@ -255,7 +262,8 @@ def test_light_owner_table_gives_each_item_one_owner(which):
     """K9's owner table (`light_owner_table`, built with the chunk
     tables): every queue run, light and stop run is listed once, under
     its group (a stop run under its light's), the ungrouped lights spread
-    by index, the runs that cover no cell under no block; the
+    by index, the runs that cover no cell under no block, each block
+    owning a contiguous range of groups; the
     stop cells that runs of two owners share are the ones `light_owners`
     lists, on the world and on the world with a stop run that two groups
     share."""
@@ -280,12 +288,14 @@ def test_light_owner_table_gives_each_item_one_owner(which):
             q_own, l_own, s_own, shared = _owners_brute(tables, G, H, W, nb)
             for name in ("queue_run", "light", "stop_run"):
                 assert (got[name + "_listed"] == 1).all(), name
-            assert np.array_equal(got["group"], np.arange(G) % nb)
+            assert np.array_equal(got["group"],
+                                  _brute_owner(np.arange(G), G, nb))
             assert np.array_equal(got["queue_run"], q_own)
             assert np.array_equal(got["light"], l_own)
             assert np.array_equal(got["stop_run"], s_own)
             assert np.array_equal(got["shared_stop_cells"], shared)
-            if tables is cs2 and groups[0] % nb != groups[1] % nb:
+            if tables is cs2 and (_brute_owner(groups[0], G, nb)
+                                  != _brute_owner(groups[1], G, nb)):
                 # the copied run's cells are shared by two owners
                 o, coord, a0, a1 = _np(tables["srun"][-1, :4])
                 c = coord * W + a0 if o == 2 else a0 * W + coord
@@ -408,9 +418,9 @@ def test_fold_metrics_matches_the_tick_by_tick_fold(days):
 
 def test_megakernel_batch_matches_single_worlds(monkeypatch):
     """`run_batch_shared` through the megakernel branch (K9's vmap rule
-    runs the worlds one after another) against each world's per-tick
-    `run_chunk` with its key, with vmap's per-example fallback as an
-    error."""
+    runs the plain batched version once a segment) against each world's
+    per-tick `run_chunk` with its key, with vmap's per-example fallback
+    as an error."""
     import warnings
     from trafficsimulation_tpu_torch.parallel import mesh
     torch._C._functorch._set_vmap_fallback_warning_enabled(True)

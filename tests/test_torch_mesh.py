@@ -94,18 +94,21 @@ def test_init_world_batch_matches_jax_digest():
     _assert_digest(_worlds(), _digest()["init"][:2])
 
 
-def test_run_chunk_batch_matches_jax_digest():
+def test_run_chunk_batch_matches_jax_digest(monkeypatch):
     """10 ticks of the bench's vmapped chunk; the kernels' vmap rules run
-    their batched plain forms once per call, never `_map_worlds`."""
-    saved = HE._map_worlds
-
-    def refuse(*a, **k):
-        raise AssertionError("a kernel mapped the worlds one by one")
-    HE._map_worlds = refuse
-    try:
-        end = mesh.run_chunk_batch(_cfg(), _worlds(), 10)
-    finally:
-        HE._map_worlds = saved
+    their batched forms once per call for the whole batch: K1 and K4 once
+    a tick, K2 and K3 once a segment, no K9."""
+    calls = {}
+    for name in ("decide_move_batched", "prefix_planes_batched",
+                 "build_sdir_stacks", "build_wavefront_batched",
+                 "mega_segment_batched"):
+        def spy(*a, _name=name, _fn=getattr(HE, name), **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(HE, name, spy)
+    end = mesh.run_chunk_batch(_cfg(), _worlds(), 10)
+    assert calls == {"decide_move_batched": 10, "prefix_planes_batched": 10,
+                     "build_sdir_stacks": 2, "build_wavefront_batched": 2}
     _assert_digest(end, _digest()["chunk10"][:2])
     assert [int(a) for a in end.vehicles.active.sum(-1)] == \
         _digest()["chunk10_active"][:2]

@@ -240,6 +240,59 @@ def test_render_pallas_plain_matches_jax_interpret():
     assert len(np.unique(ref.reshape(3, -1), axis=1).T) > 12
 
 
+def test_k8_packed_word_arithmetic_matches_plain():
+    """K8's per-pixel arithmetic (csrc/render.cu `pixel_rgb`), emulated
+    in numpy on the wrapper's packed table (one r | g << 8 | b << 16 word
+    a colour; rain mixed on the word as ((rgb >> 1) & 0x7F7F7F) +
+    0x404040), against the plain version on every combination of cell
+    code (past the palette too), stop, rain and vehicle class."""
+    codes = np.arange(20, dtype=np.uint8)
+    grid = np.array(np.meshgrid(codes, [0, 1], [0, 1],
+                                np.arange(7, dtype=np.uint8),
+                                indexing="ij")).reshape(4, -1)
+    n = grid.shape[1]
+    W = 40
+    H = -(-n // W)
+    pad = H * W - n
+    cell, stop, rain, vs = (np.concatenate([g, np.zeros(pad, g.dtype)])
+                            .astype(np.uint8).reshape(H, W) for g in grid)
+    table = np.frombuffer(trender._packed_colours(), np.uint32)
+    k = np.where(cell < 18, cell.astype(np.int64), -1)
+    k = np.where((cell == TC.TRAFFIC_LIGHT) & (stop == 1), 18, k)
+    k = np.where((cell == TC.CONTROLLED_ROAD) & (stop == 1), 19, k)
+    rgb = np.where(k >= 0, table[np.maximum(k, 0)], 0).astype(np.uint32)
+    rgb = np.where(rain == 1, ((rgb >> 1) & 0x7F7F7F) + 0x404040, rgb)
+    rgb = np.where((vs >= 1) & (vs <= 5), table[np.clip(19 + vs, 0, 24)],
+                   rgb)
+    got = np.stack([(rgb >> (8 * ch)) & 0xFF for ch in range(3)]) \
+        .astype(np.uint8)
+    ref = trender.render_planes_plain(
+        torch.from_numpy(cell), torch.from_numpy(stop == 1),
+        torch.from_numpy(rain == 1), torch.from_numpy(vs)).numpy()
+    assert np.array_equal(got, ref)
+
+
+def test_k8_path_by_alignment():
+    """K8's wrapper takes its vector path (16 pixels a thread, 16-byte
+    loads and stores) where every plane starts on a 16-byte boundary and
+    its scalar path otherwise (`render_path`); on CPU tensors it runs
+    the plain version either way."""
+    H, W = 37, 300
+    buf = torch.zeros(H * W + 16, dtype=torch.uint8)
+    base = (-buf.data_ptr()) % 16
+    cell = buf[base:base + H * W].view(H, W)
+    odd = buf[base + 1:base + 1 + H * W].view(H, W)
+    stop = torch.zeros((H, W), dtype=torch.bool)
+    assert stop.data_ptr() % 16 == 0
+    assert trender.render_path(cell, stop, stop, cell) == "vector"
+    assert trender.render_path(odd, stop, stop, cell) == "scalar"
+    out = torch.empty((3, H, W), dtype=torch.uint8)
+    assert trender.render_path(cell, stop, stop, cell, out) == \
+        ("vector" if out.data_ptr() % 16 == 0 else "scalar")
+    assert torch.equal(trender.render_planes(odd, stop, stop, odd),
+                       trender.render_planes_plain(odd, stop, stop, odd))
+
+
 def test_headline_end_frame_matches_jax_digest():
     """The port's frame of the headline snapshot's end state (JAX's
     world after 23 ticks, as stored) hashes to the digest of JAX's frame

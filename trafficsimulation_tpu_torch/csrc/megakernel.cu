@@ -1,30 +1,53 @@
-// K9: one routing segment (R ticks) of the headline path in one launch.
+// K9: one routing segment (R ticks) of the headline path in one launch,
+// for one world or a batch of B worlds.
 //
 // Replaces megakernel.run_segment_mega's pallas_call (_mega_kernel,
 // trafficsimulation_tpu/ops/megakernel.py).  The TPU kernel walks
 // grid=(R,) in order with every plane and the 40 MB packed stack in
-// VMEM.  Here one cooperative launch holds a persistent grid of resident
-// blocks; on the H100 a tick is bound by its chain of dependent phases
-// and the grid-wide barriers between them, not by bytes (the planes and
-// the stack sit in the 50 MB L2).  Design:
-//  - fixed owners: block j owns the 32 x 8 cell tiles j, j + grid, ...
-//    (K1's `coop_tiles`) for every per-cell stage of every tick, and the
-//    light groups j, j + grid, ... with their queue runs, lights and
-//    stop runs (lights of no group spread over the pseudo-groups by
-//    index), as the host table `lown` lists them
-//    (megakernel.light_owner_table);
-//  - per tick, 2K + 3 grid barriers (K = VEHICLE_MAX_SPEED sub-rounds):
-//      lights   per block: queue counts (a warp per run, a lane per
-//               cell; each run's count wraps to int8 as the JAX kernel's
-//               `_i8(cnt * bq)` does), the groups' controllers and phase
+// VMEM; `jax.vmap` of `run_chunk` (parallel/mesh.py `run_batch_shared`,
+// the bench's config #4) puts a world axis on that grid.  Here one launch
+// runs the R ticks of every world of the batch; on the H100 a tick is
+// bound by its chain of dependent phases and the barriers between them,
+// not by bytes (the planes and the stack sit in the 50 MB L2).  Design:
+//  - every block works on ONE world wb, whose pointers it builds from the
+//    batch's base pointers and each input's world stride (0 for a table
+//    the batch shares, so a shared-geometry batch reads one copy); its
+//    phases then read that world's Inputs directly (coop.cuh's
+//    kOneWorld), as the single world always did;
+//  - two forms, chosen by shape on the host (hopper_engine.k9_form):
+//      cooperative  a persistent grid; world wb's tiles are dealt to its
+//                   `bpw` blocks (block j of the world owns K1's 32 x 8
+//                   tiles j, j + bpw, ..., `cpt` of them, so that dense
+//                   and empty parts of a world spread over its blocks)
+//                   and so are
+//                   its light groups: block j takes the pseudo-groups
+//                   [j (G + 1) / bpw, (j + 1) (G + 1) / bpw) with their
+//                   queue runs, lights and stop runs (lights of no group
+//                   spread over the pseudo-groups by index), which the
+//                   host table `lown` lists contiguously
+//                   (megakernel.light_owner_table), so each light stage
+//                   is one loop over the block's items; grid
+//                   barriers, shared by all worlds; a batch larger than
+//                   one resident grid runs as world groups, one after
+//                   another inside the launch; one world (B = 1) is this
+//                   form's `kOne` instantiation;
+//      worlds       B ordinary blocks, block b owns world b whole (K1's
+//                   block-per-world form, `BlockOwn`: its keys and pub
+//                   bytes in shared memory), the same stages with block
+//                   barriers in place of grid barriers (config #4: 1024
+//                   worlds of 64^2);
+//  - per tick, 2K + 3 barriers (K = VEHICLE_MAX_SPEED sub-rounds):
+//      lights   per block: queue counts (a thread per run; each run's
+//               count wraps to int8 as the JAX kernel's `_i8(cnt * bq)`
+//               does), the groups' controllers and phase
 //               commits, the lights, the stop paint (a warp per run);
 //               and the block's part of the first neediest-block
 //               reduction, which reads only the tick's starting tanks
 //      barrier
-//      decide + move: K1's cooperative phases (coop.cuh: per-cell state
-//               words and work lists in shared memory, one working set
-//               written only where a vehicle stands, the `pub` byte),
-//               the random draws hashed from the tick's seeds
+//      decide + move: K1's phases (coop.cuh: per-cell state words and
+//               work lists in shared memory, one working set written
+//               only where a vehicle stands, the `pub` byte), the random
+//               draws hashed from the world's tick seeds
 //               (engine.tick_randoms); 2K barriers
 //      finish, service FSM and despawns on the block's own cells (the
 //               neediest block from the tanks before the transfers), and
@@ -47,11 +70,12 @@
 // reductions that are not integer sums are reproducible: the neediest
 // block is a total order (value, then the lowest block id), and the
 // stats rows are per-thread sums over the thread's cells in a fixed
-// order, folded per block in a fixed tree and over blocks in block order
-// at the end.  The f32 duration sums are therefore in another order than
-// the plain version's; every other stat is an integer.  The wrapper
-// keeps the scratch per shape; the kernel zeroes at entry what it needs
-// zeroed (queue counts, the stop plane).
+// order, folded per block in a fixed tree and over a world's blocks in
+// block order at the end.  The f32 duration sums are therefore in
+// another order than the plain version's; every other stat is an
+// integer.  The wrapper keeps the scratch per shape and batch; the
+// kernel zeroes at entry what it needs zeroed (queue counts, the stop
+// plane).
 #include <cooperative_groups.h>
 
 #include <cmath>
@@ -71,6 +95,9 @@ enum { LI_CUR, LI_PEND, LI_TRANS, LI_CLEAR, LI_FT, LI_FTT, LI_QT, LI_GAP,
        LI_LASTARR, N_LI };
 enum { ALGO_DISABLED, ALGO_FIXED, ALGO_QUEUE, ALGO_PRESSURE,
        ALGO_NPRESSURE, ALGO_NGREEN };
+// the kernel's instantiations: the cooperative form for one world and for
+// a batch, and the block-per-world form
+enum { K9_ONE, K9_COOP, K9_WORLDS };
 constexpr int DEST_NONE = 16383;
 constexpr int SVC_BLOCK_NONE = 16383;
 constexpr int PD_TIMER_SH = 2, PD_BLOCK_SH = 10;
@@ -82,13 +109,69 @@ struct MegaParams {
   DMParams dm;
   int R, G, L, NQ, NS;
   int algo, green, qa_min, qa_gap, qa_max, trans_en, clear_en;
-  int load_time, gradual, min_speed, nbmax;
+  int load_time, gradual, min_speed;
+  int B;     // worlds of the batch
+  int bpw;   // blocks a world (1 in the block-per-world form)
+  int wpg;   // worlds a group (the cooperative form; B in the other)
   float dt, max_food, max_waste, frate, wrate;
 };
 
-// pointers in the Python wrapper's order (hopper_engine._MEGA_IN, then
-// the outputs and the scratch of `_mega_kernel`)
+// the inputs in the Python wrapper's order (hopper_engine._MEGA_IN)
+enum {
+  I_SDIR4, I_WND, I_INTER, I_DESTID, I_DESTK1, I_NEXIT, I_EXITC, I_BMASK,
+  I_BOK, I_BBID, I_BSVCD, I_BNEEDS, I_BPROD, I_BINNER, I_BFCAP, I_BWCAP,
+  I_QRUN,     // [NQ, 6]: orient, coord, a0, a1, group, bucket
+  I_SRUN,     // [NS, 5]: orient, coord, a0, a1, light
+  I_LGROUP, I_LAXIS, I_GVALID,
+  I_NBRG,     // [G, 4]
+  I_TICKS,    // [R, 8]: seeds x 4, tick, fallback dest, fdue, wdue
+  I_ELAPSED,
+  I_RAIN,     // [R, H, W]
+  I_SPA,      // [R, H, W]
+  I_SPE,      // [R, H, W]
+  I_FORCE,
+  I_P0,                  // start planes pa..pe
+  I_PL0 = I_P0 + 5,
+  I_TANK0,               // food, waste, food_rem, waste_rem
+  I_LI0 = I_TANK0 + 4, I_LF0, I_LSTOP0,
+  // the owners of the light stages, per pseudo-group g <= G + 1 (G + 1:
+  // the runs that cover no cell, which no block takes): offsets qoff,
+  // loff, soff [G + 3] each, then the queue runs, lights and stop runs
+  // in group order [NQ], [L], [NS]
+  I_LOWN,
+  N_IN
+};
+
+// the batch's pointers: the inputs (world 0's, with each input's world
+// stride in elements, 0 where the batch shares it), then the outputs and
+// the scratch, every world's after the other (the wrapper's order of
+// `_mega_launch`; each plane [B][H][W])
 struct MegaArgs {
+  const void* in[N_IN];
+  long ws[N_IN];
+  int* setp[2][5];  // plane sets written by even / odd ticks: pa..pe
+  float* setl[2];   // and their pl plane
+  uint8_t* stop;
+  float* tank[4];   // food, waste, food_rem, waste_rem
+  int* li[2];      // light rows [B][9][G] written by odd / even ticks
+  float* lf[2];    // [B][2][G]
+  uint8_t* lstop;  // [B][L]
+  float* stats;    // [B][R][16]
+  int* work;       // per world K1's working set [8][H][W] int32, then
+                   // [H][W] pub bytes (rounded up to words)
+  int* qcnt;       // [B][G * 5], zeroed at entry and after every read
+  int* gflag;      // [B][G]: all_red | commit << 1 | commit phase << 2
+  const uint8_t* ped;  // a zero plane, shared
+  int* am;         // [2][B][bpw][AM_WORDS] neediest-block partials
+  int* st_i;       // [B][R][bpw][16]
+  float* st_f;     // [B][R][bpw][4]
+};
+constexpr int N_PTRS = N_IN + 30;
+
+// world wb's pointers, as the block builds them (every stage reads its
+// world through these, never through another copy of the inputs; the
+// plane sets, which tick parity picks, are built each tick)
+struct MegaWorld {
   const int* sdir4;
   const int* wnd;
   const uint8_t* inter;
@@ -105,48 +188,39 @@ struct MegaArgs {
   const float* b_inner;
   const float* b_fcap;
   const float* b_wcap;
-  const int* qrun;   // [NQ, 6]: orient, coord, a0, a1, group, bucket
-  const int* srun;   // [NS, 5]: orient, coord, a0, a1, light
+  const int* qrun;
+  const int* srun;
   const int* l_group;
   const int* l_axis;
   const int* gvalid;
-  const int* nbrg;   // [G, 4]
-  const int* ticks;  // [R, 8]: seeds x 4, tick, fallback dest, fdue, wdue
+  const int* nbrg;
+  const int* ticks;
   const float* elapsed;
-  const uint8_t* rain;  // [R, H, W]
-  const int* spa;       // [R, H, W]
-  const int* spe;       // [R, H, W]
+  const uint8_t* rain;
+  const int* spa;
+  const int* spe;
   const int* force;
-  const int* p0[5];  // start planes pa..pe
+  const int* p0[5];
   const float* pl0;
-  const float* tank0[4];  // food, waste, food_rem, waste_rem
+  const float* tank0[4];
   const int* li0;
   const float* lf0;
   const uint8_t* lstop0;
-  // the owners of the light stages, per pseudo-group g <= G + 1 (G + 1:
-  // the runs that cover no cell, which no block takes): offsets qoff,
-  // loff, soff [G + 3] each, then the queue runs, lights and stop runs
-  // in group order [NQ], [L], [NS]
   const int* lown;
-  int* setp[2][5];  // plane sets written by even / odd ticks
-  float* setl[2];
   uint8_t* stop;
   float* tank[4];
-  int* li[2];       // light rows written by odd / even ticks
+  int* li[2];
   float* lf[2];
   uint8_t* lstop;
-  float* stats;  // [R, 16]
-  int* work;     // K1's working set [8, H, W] int32, then [H, W] pub bytes
-  int* qcnt;     // [G * 5], zeroed at entry and after every tick's read
-  int* gflag;    // [G]: all_red | commit << 1 | commit phase << 2
-  const uint8_t* ped;  // a zero plane
-  int* am;       // [2, nbmax, AM_WORDS] neediest-block partials
-  int* st_i;     // [R, nbmax, 16]
-  float* st_f;   // [R, nbmax, 4]
+  int* work;
+  int* qcnt;
+  int* gflag;
+  int* am[2];
+  int* st_i;
+  float* st_f;
 };
-constexpr int N_PTRS = 28 + 5 + 1 + 4 + 3 + 1 + 12 + 1 + 4 + 2 + 2 + 2 + 7;
 
-// the grid barriers of the launches since the count was last read
+// the stage barriers of the launches since the count was last read
 // (thread 0 of block 0 counts; tsim_mega_syncs)
 __device__ int k9_syncs;
 
@@ -182,11 +256,21 @@ __device__ __forceinline__ unsigned long long k9_now() {
   do {                \
   } while (0)
 #endif
-#define K9_SYNC(grid)                                            \
+#define K9_COUNT()                                               \
   do {                                                           \
-    grid.sync();                                                 \
     if (blockIdx.x == 0 && threadIdx.x == 0) k9_syncs += 1;      \
     K9_MARK(K9_BARRIER);                                         \
+  } while (0)
+#define K9_SYNC(grid) \
+  do {                \
+    grid.sync();      \
+    K9_COUNT();       \
+  } while (0)
+// the block-per-world form's barrier at the place of a grid barrier
+#define K9_BSYNC()     \
+  do {                 \
+    __syncthreads();   \
+    K9_COUNT();        \
   } while (0)
 
 }  // namespace tsim
@@ -196,6 +280,84 @@ __device__ __forceinline__ unsigned long long k9_now() {
 #include "coop.cuh"
 
 namespace tsim {
+
+template <class T>
+__device__ __forceinline__ const T* win(const MegaArgs& A, int k, int wb) {
+  return (const T*)A.in[k] + A.ws[k] * wb;
+}
+
+__device__ __forceinline__ MegaWorld mega_world(const MegaParams& P,
+                                                const MegaArgs& A, int wb) {
+  const long HW = (long)P.dm.H * P.dm.W, o = HW * wb;
+  const long G = P.G, bpw = P.bpw;
+  MegaWorld M;
+  M.sdir4 = win<int>(A, I_SDIR4, wb);
+  M.wnd = win<int>(A, I_WND, wb);
+  M.inter = win<uint8_t>(A, I_INTER, wb);
+  M.destid = win<int>(A, I_DESTID, wb);
+  M.destk1 = win<int>(A, I_DESTK1, wb);
+  M.nexit = win<int>(A, I_NEXIT, wb);
+  M.exitc = win<int>(A, I_EXITC, wb);
+  M.b_mask = win<int>(A, I_BMASK, wb);
+  M.b_ok = win<int>(A, I_BOK, wb);
+  M.b_bid = win<int>(A, I_BBID, wb);
+  M.b_svcd = win<int>(A, I_BSVCD, wb);
+  M.b_needs = win<int>(A, I_BNEEDS, wb);
+  M.b_prod = win<int>(A, I_BPROD, wb);
+  M.b_inner = win<float>(A, I_BINNER, wb);
+  M.b_fcap = win<float>(A, I_BFCAP, wb);
+  M.b_wcap = win<float>(A, I_BWCAP, wb);
+  M.qrun = win<int>(A, I_QRUN, wb);
+  M.srun = win<int>(A, I_SRUN, wb);
+  M.l_group = win<int>(A, I_LGROUP, wb);
+  M.l_axis = win<int>(A, I_LAXIS, wb);
+  M.gvalid = win<int>(A, I_GVALID, wb);
+  M.nbrg = win<int>(A, I_NBRG, wb);
+  M.ticks = win<int>(A, I_TICKS, wb);
+  M.elapsed = win<float>(A, I_ELAPSED, wb);
+  M.rain = win<uint8_t>(A, I_RAIN, wb);
+  M.spa = win<int>(A, I_SPA, wb);
+  M.spe = win<int>(A, I_SPE, wb);
+  M.force = win<int>(A, I_FORCE, wb);
+#pragma unroll
+  for (int k = 0; k < 5; ++k) M.p0[k] = win<int>(A, I_P0 + k, wb);
+  M.pl0 = win<float>(A, I_PL0, wb);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) M.tank0[k] = win<float>(A, I_TANK0 + k, wb);
+  M.li0 = win<int>(A, I_LI0, wb);
+  M.lf0 = win<float>(A, I_LF0, wb);
+  M.lstop0 = win<uint8_t>(A, I_LSTOP0, wb);
+  M.lown = win<int>(A, I_LOWN, wb);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    M.li[s] = A.li[s] + wb * N_LI * G;
+    M.lf[s] = A.lf[s] + wb * 2 * G;
+    M.am[s] = A.am + ((s * (long)P.B + wb) * bpw) * AM_WORDS;
+  }
+  M.stop = A.stop + o;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) M.tank[k] = A.tank[k] + o;
+  M.lstop = A.lstop + (long)wb * P.L;
+  M.work = A.work + wb * (N_WORK * HW + (HW + 3) / 4);
+  M.qcnt = A.qcnt + wb * G * 5;
+  M.gflag = A.gflag + wb * G;
+  M.st_i = A.st_i + (long)wb * P.R * bpw * N_STATS;
+  M.st_f = A.st_f + (long)wb * P.R * bpw * 4;
+  return M;
+}
+
+
+// the block-per-world form's ownership for coop_phases: BlockOwn with the
+// barriers counted
+struct MegaBlockOwn {
+  int* S;
+  int* key;
+  uint8_t* pub;
+  __device__ __forceinline__ Work work(const DMParams& p, int) const {
+    return Work(S, key, pub, p);
+  }
+  __device__ __forceinline__ void sync() const { K9_BSYNC(); }
+};
 
 __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   x = (x ^ (x >> 16)) * 0x7FEB352Du;
@@ -260,13 +422,14 @@ __device__ __forceinline__ void store_best(int* p, const Best& f,
   p[5] = w.d;
 }
 
-// the neediest food and waste blocks of the whole lattice, as the JAX
+// the neediest food and waste blocks of the whole world, as the JAX
 // `blk_argmax` resolves them (no value above -1: block 0 and `fallback`)
 struct Need {
   float mf, mw;
   int bidf, df, bidw, dw;
 };
 
+// the world's need from the partials of its nb blocks (in block order)
 __device__ Need reduce_need(const int* part, int nb, int fallback,
                             Best (*sh)[NWARP], Need* out) {
   Best f = best_init(), w = best_init();
@@ -293,15 +456,16 @@ __device__ Need reduce_need(const int* part, int nb, int fallback,
 }
 
 // a block cell's candidates: shortage and surplus where the block counts
-__device__ __forceinline__ void need_cell(const MegaArgs& A, int c,
-                                          float food, float waste, Best& f,
+// (its tanks read only there)
+__device__ __forceinline__ void need_cell(const MegaWorld& M, int c, Best& f,
                                           Best& w) {
-  if (!A.b_ok[c]) return;
-  const bool bm = A.b_mask[c] != 0;
-  const Best cf{(bm && A.b_needs[c]) ? A.b_fcap[c] - food : -1.0f,
-                A.b_bid[c], A.b_svcd[c]};
-  const Best cw{(bm && A.b_prod[c]) ? waste : -1.0f, A.b_bid[c],
-                A.b_svcd[c]};
+  if (!M.b_ok[c]) return;
+  const float food = M.tank[0][c], waste = M.tank[1][c];
+  const bool bm = M.b_mask[c] != 0;
+  const Best cf{(bm && M.b_needs[c]) ? M.b_fcap[c] - food : -1.0f,
+                M.b_bid[c], M.b_svcd[c]};
+  const Best cw{(bm && M.b_prod[c]) ? waste : -1.0f, M.b_bid[c],
+                M.b_svcd[c]};
   if (better(cf, f)) f = cf;
   if (better(cw, w)) w = cw;
 }
@@ -330,16 +494,16 @@ struct HashDraws {
 // group g's controller and phase commit: reads the light rows of the
 // last tick (`li`, `lf`; its neighbours' too) and its queue counts
 // (zeroed for the next tick), writes its rows of the next buffers
-__device__ void group_step(const MegaParams& P, const MegaArgs& A, int g,
+__device__ void group_step(const MegaParams& P, const MegaWorld& M, int g,
                            const int* li, const float* lf, int* lo,
                            float* lfo) {
   const int G = P.G;
   int v[N_LI];
   for (int k = 0; k < N_LI; ++k) v[k] = li[k * G + g];
   float nsp = lf[g], ewp = lf[G + g];
-  const bool gvalid = A.gvalid[g] != 0;
+  const bool gvalid = M.gvalid[g] != 0;
   const bool active = gvalid && v[LI_PEND] == -1;
-  int* q = A.qcnt + g * 5;
+  int* q = M.qcnt + g * 5;
   const int ns_in = q[0], ns_out = q[1], ew_in = q[2], ew_out = q[3];
   const int n_inter = q[4];
   for (int k = 0; k < 5; ++k) q[k] = 0;
@@ -382,7 +546,7 @@ __device__ void group_step(const MegaParams& P, const MegaArgs& A, int g,
       float ns_p = (float)(ns_in - ns_out), ew_p = (float)(ew_in - ew_out);
       if (P.algo == ALGO_NPRESSURE)
         for (int d = 0; d < 4; ++d) {
-          const int nb = A.nbrg[g * 4 + d];
+          const int nb = M.nbrg[g * 4 + d];
           const bool ns = d == 0 || d == 2;
           const float val = nb >= 0 ? lf[(ns ? 0 : G) + nb] : 0.0f;
           if (ns)
@@ -400,7 +564,7 @@ __device__ void group_step(const MegaParams& P, const MegaArgs& A, int g,
     case ALGO_NGREEN: {
       bool fns = false, few = false;
       for (int d = 0; d < 4; ++d) {
-        const int nb = A.nbrg[g * 4 + d];
+        const int nb = M.nbrg[g * 4 + d];
         if (nb < 0) continue;
         const int ph = li[LI_CUR * G + nb];
         if (d == 0 || d == 2)
@@ -427,7 +591,7 @@ __device__ void group_step(const MegaParams& P, const MegaArgs& A, int g,
   const bool blocked = P.clear_en && has_pending && !in_tr && n_inter > 0;
   const bool all_red = in_tr || blocked;
   const bool commit = has_pending && !all_red;
-  A.gflag[g] = (all_red ? 1 : 0) | (commit ? 2 : 0) |
+  M.gflag[g] = (all_red ? 1 : 0) | (commit ? 2 : 0) |
                ((commit ? v[LI_PEND] : 0) << 2);
   if (commit) {
     v[LI_CUR] = v[LI_PEND];
@@ -441,23 +605,23 @@ __device__ void group_step(const MegaParams& P, const MegaArgs& A, int g,
 // light l's stop flag: all-red, commit and the first tick's host
 // overrides, from its last flag in `lstop`
 __device__ __forceinline__ void light_step(const MegaParams& P,
-                                           const MegaArgs& A, int l,
+                                           const MegaWorld& M, int l,
                                            bool first_tick,
                                            const uint8_t* lstop) {
   int ls = lstop[l];
-  const int g = A.l_group[l];
+  const int g = M.l_group[l];
   if (g >= 0 && g < P.G) {
-    const int f = A.gflag[g];
+    const int f = M.gflag[g];
     const bool commit = f & 2;
-    const int cph = f >> 2, axis = A.l_axis[l];
+    const int cph = f >> 2, axis = M.l_axis[l];
     if (f & 1) ls = 1;
     if (commit && axis >= 0) ls = axis == cph ? 0 : 1;
   }
   if (first_tick) {
-    if (A.force[l] == 0) ls = 0;
-    if (A.force[l] == 1) ls = 1;
+    if (M.force[l] == 0) ls = 0;
+    if (M.force[l] == 1) ls = 1;
   }
-  A.lstop[l] = (uint8_t)ls;
+  M.lstop[l] = (uint8_t)ls;
 }
 
 // ---- post-move ---------------------------------------------------------
@@ -467,24 +631,24 @@ struct Acc {
   float dur[3];  // ST_DUR_I, ST_DUR_T, ST_DUR_SVC
 };
 
-// service FSM at the vehicle's cell, arrival stats and despawns; returns
-// the cell's post-transfer tank values through food / waste
-__device__ void service_cell(const MegaParams& P, const MegaArgs& A,
-                             int* const* dp, float* dpl, int c, float elapsed,
-                             const Need& need, Acc& acc) {
+// service FSM at the vehicle's cell (the tanks' transfers), arrival stats
+// and despawns
+__device__ void service_cell(const MegaParams& P, const MegaWorld& M,
+                             int* const* dp, float* dpl, int c,
+                             float elapsed, const Need& need, Acc& acc) {
   uint32_t pa = (uint32_t)dp[0][c], pd = (uint32_t)dp[3][c];
   const uint32_t pc = (uint32_t)dp[2][c];
   float pl = dpl[c];
   const bool present = pa & 1u;
   const int kind = (int)fld(pa, PA_KIND_SH, 2);
   const int dest14 = (int)fld(pa, PA_DEST_SH, 14);
-  const int destid = A.destid[c];
+  const int destid = M.destid[c];
   const bool at_dest = present && destid >= 0 && dest14 == destid;
   const int phase0 = (int)(pd & 3u);
   const float dur = elapsed - (float)fld(pc, 0, 20) * P.dt;
   const int steps = (int)fld(pc, PC_STEPS_SH, 12);
   const bool done_i = at_dest && kind == 0, done_t = at_dest && kind == 1;
-  const bool svc_done = at_dest && kind >= 2 && phase0 == 2 && A.exitc[c];
+  const bool svc_done = at_dest && kind >= 2 && phase0 == 2 && M.exitc[c];
   if (done_i) {
     acc.n[ST_DONE_I] += 1;
     acc.n[ST_STEPS_I] += steps;
@@ -503,17 +667,17 @@ __device__ void service_cell(const MegaParams& P, const MegaArgs& A,
 
   const bool is_svc = at_dest && kind >= 2;
   const bool arrive = is_svc && phase0 == 0;
-  const bool bm = A.b_mask[c] != 0;
-  float food = A.tank[0][c], waste = A.tank[1][c];
-  const float shortage = (bm && A.b_needs[c]) ? A.b_fcap[c] - food : -1.0f;
-  const float surplus = (bm && A.b_prod[c]) ? waste : -1.0f;
+  const bool bm = M.b_mask[c] != 0;
+  float food = M.tank[0][c], waste = M.tank[1][c];
+  const float shortage = (bm && M.b_needs[c]) ? M.b_fcap[c] - food : -1.0f;
+  const float surplus = (bm && M.b_prod[c]) ? waste : -1.0f;
   const float give =
       (arrive && kind == 2) ? fminf(pl, fmaxf(shortage, 0.0f)) : 0.0f;
   const float take = (arrive && kind == 3)
                          ? fminf(P.max_waste - pl, fmaxf(surplus, 0.0f))
                          : 0.0f;
-  A.tank[0][c] = fminf(fmaxf(food + give, 0.0f), A.b_fcap[c]);
-  A.tank[1][c] = fminf(fmaxf(waste - take, 0.0f), A.b_wcap[c]);
+  M.tank[0][c] = fminf(fmaxf(food + give, 0.0f), M.b_fcap[c]);
+  M.tank[1][c] = fminf(fmaxf(waste - take, 0.0f), M.b_wcap[c]);
   pl = pl - give + take;
   bool parked = bit(pa, PA_PARKED_SH) || arrive;
   int phase = arrive ? 1 : phase0;
@@ -527,7 +691,7 @@ __device__ void service_cell(const MegaParams& P, const MegaArgs& A,
   const bool go_again = finish && more && has_blk;
   const bool go_exit = finish && !go_again;
   int new_dest = go_again ? (is_food ? need.df : need.dw)
-                          : (go_exit ? A.nexit[c] : dest14);
+                          : (go_exit ? M.nexit[c] : dest14);
   new_dest = new_dest < 0 ? DEST_NONE : min(new_dest, DEST_NONE);
   const int new_sb = go_again ? (is_food ? need.bidf : need.bidw)
                               : (int)fld(pd, PD_BLOCK_SH, 14);
@@ -542,7 +706,7 @@ __device__ void service_cell(const MegaParams& P, const MegaArgs& A,
   }
   // despawns (stuck despawn is off under the gate)
   const bool despawn =
-      at_dest && (kind <= 1 || (kind >= 2 && phase == 2 && A.destk1[c]));
+      at_dest && (kind <= 1 || (kind >= 2 && phase == 2 && M.destk1[c]));
   if (despawn) {
     for (int k = 0; k < 5; ++k) dp[k][c] = 0;
     dpl[c] = 0.0f;
@@ -555,12 +719,12 @@ __device__ void service_cell(const MegaParams& P, const MegaArgs& A,
 
 // a scheduled spawn at cell c (placed when the cell is free), then the
 // cell's block tanks for the tick
-__device__ void spawn_cell(const MegaParams& P, const MegaArgs& A,
+__device__ void spawn_cell(const MegaParams& P, const MegaWorld& M,
                            int* const* dp, float* dpl, int c, long toff,
                            const int* tk, const Need& need, Acc& acc) {
-  const int spe = A.spe[toff + c];
+  const int spe = M.spe[toff + c];
   if (spe >= 0) {
-    const uint32_t spa = (uint32_t)A.spa[toff + c];
+    const uint32_t spa = (uint32_t)M.spa[toff + c];
     const int kind_s = (int)fld(spa, PA_KIND_SH, 2);
     if (dp[0][c] & 1) {
       acc.n[kind_s == 0 ? ST_DROP_I : ST_DROP_T] += 1;
@@ -581,26 +745,28 @@ __device__ void spawn_cell(const MegaParams& P, const MegaArgs& A,
     }
   }
 
-  // block resources (agents/blocks.step_blocks on the planes)
-  const bool bm = A.b_mask[c] != 0;
-  const bool needs = bm && A.b_needs[c], prod = bm && A.b_prod[c];
-  const float inner = A.b_inner[c];
-  float food = A.tank[0][c], waste = A.tank[1][c];
+  // block resources (agents/blocks.step_blocks on the planes; a cell
+  // that holds no block's tank keeps its zeros)
+  const bool bm = M.b_mask[c] != 0;
+  if (!bm) return;
+  const bool needs = bm && M.b_needs[c], prod = bm && M.b_prod[c];
+  const float inner = M.b_inner[c];
+  float food = M.tank[0][c], waste = M.tank[1][c];
   if (P.gradual) {
-    float frem = A.tank[2][c] + (needs ? inner * P.frate : 0.0f);
+    float frem = M.tank[2][c] + (needs ? inner * P.frate : 0.0f);
     const float fwhole = floorf(frem);
     food = fmaxf(food - fwhole, 0.0f);
-    A.tank[2][c] = frem - fwhole;
-    float wrem = A.tank[3][c] + (prod ? inner * P.wrate : 0.0f);
+    M.tank[2][c] = frem - fwhole;
+    float wrem = M.tank[3][c] + (prod ? inner * P.wrate : 0.0f);
     const float wwhole = floorf(wrem);
-    waste = fminf(waste + wwhole, A.b_wcap[c]);
-    A.tank[3][c] = wrem - wwhole;
+    waste = fminf(waste + wwhole, M.b_wcap[c]);
+    M.tank[3][c] = wrem - wwhole;
   } else {
     if (needs && tk[6]) food = fmaxf(food - inner, 0.0f);
-    if (prod && tk[7]) waste = fminf(waste + inner, A.b_wcap[c]);
+    if (prod && tk[7]) waste = fminf(waste + inner, M.b_wcap[c]);
   }
-  A.tank[0][c] = food;
-  A.tank[1][c] = waste;
+  M.tank[0][c] = food;
+  M.tank[1][c] = waste;
 }
 
 // the block's sums of the tick's stats into its partial row (fixed order:
@@ -634,6 +800,24 @@ __device__ void store_stats(const Acc& acc, int* pi, float* pf,
   }
 }
 
+// stats row value i (tick i / 16, column i % 16) of world w: its bpw
+// blocks' partials in block order
+__device__ __forceinline__ float fold_stat(const MegaParams& P,
+                                           const MegaArgs& A, int w, int i) {
+  const int t = i / N_STATS, k = i % N_STATS;
+  const int fk = k == ST_DUR_I ? 0 : k == ST_DUR_T ? 1
+               : k == ST_DUR_SVC ? 2 : -1;
+  const long row = ((long)w * P.R + t) * P.bpw;
+  if (fk >= 0) {
+    float v = 0.0f;
+    for (int b = 0; b < P.bpw; ++b) v += A.st_f[(row + b) * 4 + fk];
+    return v;
+  }
+  int s = 0;
+  for (int b = 0; b < P.bpw; ++b) s += A.st_i[(row + b) * N_STATS + k];
+  return (float)s;
+}
+
 // the run rectangle q (orientation, coordinate, span [a0, a1)): its
 // length inside the grid, and the flat index of its cell k
 __device__ __forceinline__ int run_len(const int* q, int H, int W) {
@@ -659,229 +843,372 @@ __device__ __forceinline__ void fill_runs(uint8_t* plane, const int* tab,
   }
 }
 
-// The R ticks; block j owns `cpt` tiles and the pseudo-groups j, j +
-// grid, ...  Dynamic shared memory: K1's state words and work list.
-__global__ void __launch_bounds__(THREADS)
+// The R ticks.  Block blockIdx.x works on world wb: in the cooperative
+// forms world b0 + blockIdx.x / bpw of each world group b0 (K9_ONE: world
+// 0 of one), as the world's block jw = blockIdx.x % bpw, owning its
+// tiles jw, jw + bpw, ... and its pseudo-groups [sh_g[0], sh_g[1]); in the
+// block-per-world form world blockIdx.x whole.  Dynamic shared memory:
+// K1's state words and work list (and, in the block-per-world form, the
+// world's keys and pub bytes).  The cooperative forms keep two blocks an
+// SM (at most 128 registers: the B = 16 batch's grid of 256 blocks is
+// resident at 16 tiles a block); the block-per-world form takes three
+// (at most 85: 1024 worlds in 2.6 waves rather than 3.9, 0.32 ms faster
+// a call at config #4 on the H100 despite its spills)
+template <int kForm>
+__global__ void __launch_bounds__(THREADS, kForm == K9_WORLDS ? 3 : 2)
     mega_kernel(const MegaParams P, const MegaArgs A, int cpt) {
+  constexpr bool kOne = kForm == K9_ONE, kBlock = kForm == K9_WORLDS;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ uint32_t st[];
   int* list = (int*)(st + cpt * THREADS);
   __shared__ TileOrigin org[MAX_CPT];
   __shared__ int nlist;
   __shared__ Best sh_best[2][NWARP];
-  __shared__ Need sh_need;
+  __shared__ Need sh_need[2];
   __shared__ int sh_i[N_STATS][NWARP];
   __shared__ float sh_f[3][NWARP];
+  __shared__ int sh_g[2];
   const int H = P.dm.H, W = P.dm.W, G = P.G;
   const int HW = H * W;
   const int tid = threadIdx.x, nslot = cpt * THREADS;
-  const int nb = gridDim.x;
-  const int* qoff = A.lown;
-  const int* loff = qoff + G + 3;
-  const int* soff = loff + G + 3;
-  const int* qidx = soff + G + 3;
-  const int* lidx = qidx + P.NQ;
-  const int* sidx = lidx + P.L;
-  const Work work(A.work, 1, 0, P.dm);
+  // blocks a world, and this block's place among them
+  const int bpw = kBlock ? 1 : kOne ? (int)gridDim.x : P.bpw;
+  const int jw = kBlock ? 0 : kOne ? (int)blockIdx.x : blockIdx.x % bpw;
+  const int tx = (W + TILE_W - 1) / TILE_W;
+  const int per_world = tx * ((H + TILE_H - 1) / TILE_H);
+  // the block's pseudo-groups of its world [sh_g[0], sh_g[1]) (G: the
+  // lights of no group), kept in shared memory rather than registers
+  if (tid == 0) {
+    sh_g[0] = (int)((long)jw * (G + 1) / bpw);
+    sh_g[1] = (int)((long)(jw + 1) * (G + 1) / bpw);
+  }
+  const int ngroups = kBlock || kOne ? 1 : (P.B + P.wpg - 1) / P.wpg;
   K9_MARK(K9_ENTRY);
 
-  // the carried tanks to the block's cells, its groups' queue counts
-  // zeroed, the stop plane zeroed
-  coop_tiles(P.dm, 1, cpt, org);
-  __syncthreads();
-  for (int q = tid; q < nslot; q += THREADS) {
-    int b, c, y, x;
-    if (!slot_cell(P.dm, org, q, b, c, y, x)) continue;
-    for (int k = 0; k < 4; ++k) A.tank[k][c] = A.tank0[k][c];
-  }
-  for (int g = blockIdx.x + tid * nb; g < G; g += THREADS * nb)
-    for (int k = 0; k < 5; ++k) A.qcnt[g * 5 + k] = 0;
-  for (int c = blockIdx.x * THREADS + tid; c < HW; c += nb * THREADS)
-    A.stop[c] = 0;
-  K9_MARK(K9_PROLOGUE);
-  K9_SYNC(grid);
-
-  for (int t = 0; t < P.R; ++t) {
-    const int* tk = A.ticks + t * 8;
-    const long toff = (long)t * HW;
-    // the tick's inputs: the planes of tick t - 1 (the carried planes
-    // at t = 0); no random planes (K9 hashes its draws)
-    const int* const* pin = A.p0;
-    const float* plin = A.pl0;
-    if (t > 0) {
-      pin = A.setp[(t - 1) & 1];
-      plin = A.setl[(t - 1) & 1];
-    }
-    const Inputs in{A.sdir4, A.wnd, pin[0], pin[1], pin[2], pin[3], pin[4],
-                    plin, A.stop, A.rain + toff, A.ped, A.inter, A.destid,
-                    nullptr, nullptr, nullptr, nullptr};
-    int* const* dp = A.setp[t & 1];
-    float* dpl = A.setl[t & 1];
-    const Outputs out{dp[0], dp[1], dp[2], dp[3], dp[4], dpl, nullptr};
-
-    // lights, on the block's groups: queue counts, a warp per run and a
-    // lane per cell
-    for (int g = blockIdx.x; g <= G; g += nb)
-      for (int i = qoff[g] + (tid >> 5); i < qoff[g + 1]; i += NWARP) {
-        const int* q = A.qrun + qidx[i] * 6;
-        const int n = run_len(q, H, W);
-        if (n <= 0) continue;
-        int cnt = 0;
-        for (int k = tid & 31; k < n; k += 32)
-          cnt += in.pa[run_cell(q, k, W)] & 1;
-        cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
-        const int w8 = ((cnt + 128) & 255) - 128;
-        if ((tid & 31) == 0 && w8) atomicAdd(&A.qcnt[q[4] * 5 + q[5]], w8);
-      }
-    __syncthreads();
-    K9_MARK(K9_QUEUE);
-    // the controllers and phase commits (tick t reads the light rows of
-    // tick t - 1 and writes buffer (t + 1) & 1)
-    {
-      const int* li = t == 0 ? A.li0 : A.li[t & 1];
-      const float* lf = t == 0 ? A.lf0 : A.lf[t & 1];
-      for (int g = blockIdx.x + tid * nb; g < G; g += THREADS * nb)
-        group_step(P, A, g, li, lf, A.li[(t + 1) & 1], A.lf[(t + 1) & 1]);
+  for (int gi = 0; gi < ngroups; ++gi) {
+    const int wb = kOne ? 0
+                 : kBlock ? (int)blockIdx.x
+                          : gi * P.wpg + (int)blockIdx.x / bpw;
+    const bool on = kOne || wb < P.B;
+    const MegaWorld M = mega_world(P, A, kOne ? 0 : wb);
+    // the block's tiles of its world (world 0 of the block's pointers)
+    __syncthreads();          // the last group's finish read `org`
+    if (tid < cpt) {
+      const int k = jw + tid * bpw;
+      org[tid] = TileOrigin{on && k < per_world ? 0 : -1,
+                            (k / tx) * TILE_H, (k % tx) * TILE_W};
     }
     __syncthreads();
-    K9_MARK(K9_GROUPS);
-    // the lights, then the stopped lights' runs painted
-    for (int g = blockIdx.x; g <= G; g += nb)
-      for (int i = loff[g] + tid; i < loff[g + 1]; i += THREADS)
-        light_step(P, A, lidx[i], t == 0, t == 0 ? A.lstop0 : A.lstop);
-    __syncthreads();
-    K9_MARK(K9_LIGHTS);
-    for (int g = blockIdx.x; g <= G; g += nb)
-      fill_runs(A.stop, A.srun, sidx, soff[g], soff[g + 1], A.lstop, H, W, 1);
-    K9_MARK(K9_PAINT);
-    // the block's candidates for the neediest blocks before the transfers
-    {
-      Best bf = best_init(), bw = best_init();
+    int* const key = list + cpt * THREADS;   // the block-per-world form's
+    const auto own = [&]() {
+      if constexpr (kBlock)
+        return MegaBlockOwn{M.work, key, (uint8_t*)(key + HW)};
+      else
+        return GridOwn{M.work, 1, grid};
+    }();
+
+    // the carried tanks to the block's cells, its groups' queue counts
+    // zeroed, the stop plane zeroed
+    if (on) {
       for (int q = tid; q < nslot; q += THREADS) {
         int b, c, y, x;
         if (!slot_cell(P.dm, org, q, b, c, y, x)) continue;
-        need_cell(A, c, A.tank[0][c], A.tank[1][c], bf, bw);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) M.tank[k][c] = M.tank0[k][c];
       }
-      block_best(bf, bw, sh_best);
-      if (tid == 0) store_best(A.am + blockIdx.x * AM_WORDS, bf, bw);
+      for (int g = sh_g[0] + tid; g < min(sh_g[1], G); g += THREADS)
+        for (int k = 0; k < 5; ++k) M.qcnt[g * 5 + k] = 0;
+      for (int c = jw * THREADS + tid; c < HW; c += bpw * THREADS)
+        M.stop[c] = 0;
     }
-    K9_MARK(K9_NEED);
-    K9_SYNC(grid);
+    K9_MARK(K9_PROLOGUE);
+    if constexpr (kBlock) K9_BSYNC(); else K9_SYNC(grid);
 
-    // decide + move
-    const Need need1 = reduce_need(A.am, nb, tk[5], sh_best, &sh_need);
-    const HashDraws dr{(uint32_t)tk[0], (uint32_t)tk[1], (uint32_t)tk[2],
-                       (uint32_t)tk[3], P.min_speed,
-                       P.dm.max_speed - P.min_speed + 1};
-    coop_move<GridSelect, HashDraws, true>(P.dm, in, A.work, 1, cpt, org,
-                                           st, list, nlist, GridSelect(), dr,
-                                           grid);
-    __syncthreads();
-
-    // finish, service FSM and despawns on the block's cells, against the
-    // tanks before the transfers
-    Acc acc;
-    for (int k = 0; k < N_STATS; ++k) acc.n[k] = 0;
-    for (int k = 0; k < 3; ++k) acc.dur[k] = 0.0f;
-    const float elapsed = A.elapsed[t];
-    {
-      Best bf = best_init(), bw = best_init();
-      for (int q = tid; q < nslot; q += THREADS) {
-        int b, c, y, x;
-        if (!slot_cell(P.dm, org, q, b, c, y, x)) continue;
-        const int flags =
-            coop_finish(P.dm, in, work, c, y, x, st[q], out, 0, GridSelect());
-        acc.n[ST_NEW_MAL] += flags & 1;
-        acc.n[ST_NEW_COL] += (flags >> 1) & 1;
-        service_cell(P, A, dp, dpl, c, elapsed, need1, acc);
-        need_cell(A, c, A.tank[0][c], A.tank[1][c], bf, bw);
+    const int* qoff = M.lown;
+    const int* loff = qoff + G + 3;
+    const int* soff = loff + G + 3;
+    const int* qidx = soff + G + 3;
+    const int* lidx = qidx + P.NQ;
+    const int* sidx = lidx + P.L;
+    for (int t = 0; t < P.R; ++t) {
+      const int* tk = M.ticks + t * 8;
+      const long toff = (long)t * HW;
+      const int s = t & 1;
+      // the tick's inputs: the planes of tick t - 1 (the carried planes
+      // at t = 0); no random planes (K9 hashes its draws); and the set
+      // this tick writes
+      const long o = (long)HW * wb;
+      const int* pin[5];
+      int* dp[5];
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        pin[k] = t == 0 ? M.p0[k] : A.setp[s ^ 1][k] + o;
+        dp[k] = A.setp[s][k] + o;
       }
-      block_best(bf, bw, sh_best);
-      if (tid == 0)
-        store_best(A.am + (P.nbmax + blockIdx.x) * AM_WORDS, bf, bw);
-    }
-    K9_MARK(K9_FINISH_SERVICE);
-    K9_SYNC(grid);
+      const float* plin = t == 0 ? M.pl0 : A.setl[s ^ 1] + o;
+      float* dpl = A.setl[s] + o;
+      const Inputs in{M.sdir4, M.wnd, pin[0], pin[1], pin[2], pin[3],
+                      pin[4], plin, M.stop, M.rain + toff, A.ped, M.inter,
+                      M.destid, nullptr, nullptr, nullptr, nullptr};
+      const Outputs out{dp[0], dp[1], dp[2], dp[3], dp[4], dpl, nullptr};
 
-    // spawns against the tanks after the transfers, block tanks, stats;
-    // the block's stop runs cleared for the next tick's paint
-    const Need need2 =
-        reduce_need(A.am + P.nbmax * AM_WORDS, nb, tk[5], sh_best, &sh_need);
-    for (int q = tid; q < nslot; q += THREADS) {
-      int b, c, y, x;
-      if (!slot_cell(P.dm, org, q, b, c, y, x)) continue;
-      spawn_cell(P, A, dp, dpl, c, toff, tk, need2, acc);
+      if (on) {
+        // lights, on the block's groups: queue counts, a thread per run
+        // (runs are short: the headline's longest is 11 cells)
+        for (int i = qoff[sh_g[0]] + tid; i < qoff[sh_g[1]]; i += THREADS) {
+          const int* q = M.qrun + qidx[i] * 6;
+          const int n = run_len(q, H, W);
+          int cnt = 0;
+          for (int k = 0; k < n; ++k) cnt += in.pa[run_cell(q, k, W)] & 1;
+          const int w8 = ((cnt + 128) & 255) - 128;
+          if (w8) atomicAdd(&M.qcnt[q[4] * 5 + q[5]], w8);
+        }
+      }
+      __syncthreads();
+      K9_MARK(K9_QUEUE);
+      // the controllers and phase commits (tick t reads the light rows
+      // of tick t - 1 and writes buffer (t + 1) & 1)
+      if (on) {
+        const int* li = t == 0 ? M.li0 : (s ? M.li[1] : M.li[0]);
+        const float* lf = t == 0 ? M.lf0 : (s ? M.lf[1] : M.lf[0]);
+        int* lo = s ? M.li[0] : M.li[1];
+        float* lfo = s ? M.lf[0] : M.lf[1];
+        for (int g = sh_g[0] + tid; g < min(sh_g[1], G); g += THREADS)
+          group_step(P, M, g, li, lf, lo, lfo);
+      }
+      __syncthreads();
+      K9_MARK(K9_GROUPS);
+      // the lights, then the stopped lights' runs painted
+      if (on)
+        for (int i = loff[sh_g[0]] + tid; i < loff[sh_g[1]]; i += THREADS)
+          light_step(P, M, lidx[i], t == 0, t == 0 ? M.lstop0 : M.lstop);
+      __syncthreads();
+      K9_MARK(K9_LIGHTS);
+      if (on)
+        fill_runs(M.stop, M.srun, sidx, soff[sh_g[0]], soff[sh_g[1]], M.lstop,
+                  H, W, 1);
+      K9_MARK(K9_PAINT);
+      // the block's candidates for the neediest blocks before the
+      // transfers
+      if (on) {
+        Best bf = best_init(), bw = best_init();
+        for (int q = tid; q < nslot; q += THREADS) {
+          int b, c, y, x;
+          if (!slot_cell(P.dm, org, q, b, c, y, x)) continue;
+          need_cell(M, c, bf, bw);
+        }
+        block_best(bf, bw, sh_best);
+        if (tid == 0) store_best(M.am[0] + jw * AM_WORDS, bf, bw);
+      }
+      K9_MARK(K9_NEED);
+      if constexpr (kBlock) K9_BSYNC(); else K9_SYNC(grid);
+
+      // decide + move
+      Need need1{};
+      if (on) need1 = reduce_need(M.am[0], bpw, tk[5], sh_best, &sh_need[0]);
+      const HashDraws dr{on ? (uint32_t)tk[0] : 0u, on ? (uint32_t)tk[1] : 0u,
+                         on ? (uint32_t)tk[2] : 0u, on ? (uint32_t)tk[3] : 0u,
+                         P.min_speed, P.dm.max_speed - P.min_speed + 1};
+      coop_phases<GridSelect, HashDraws, true>(P.dm, in, own, cpt, org, st,
+                                               list, nlist, GridSelect(), dr);
+      __syncthreads();
+
+      // finish, service FSM and despawns on the block's cells, against
+      // the tanks before the transfers
+      Acc acc;
+      for (int k = 0; k < N_STATS; ++k) acc.n[k] = 0;
+      for (int k = 0; k < 3; ++k) acc.dur[k] = 0.0f;
+      if (on) {
+        const float elapsed = M.elapsed[t];
+        const Work work = own.work(P.dm, 0);
+        Best bf = best_init(), bw = best_init();
+        for (int q = tid; q < nslot; q += THREADS) {
+          int b, c, y, x;
+          if (!slot_cell(P.dm, org, q, b, c, y, x)) continue;
+          const int flags =
+              coop_finish(P.dm, in, work, c, y, x, st[q], out, 0, GridSelect());
+          acc.n[ST_NEW_MAL] += flags & 1;
+          acc.n[ST_NEW_COL] += (flags >> 1) & 1;
+          // an empty cell that holds no block's tank: the service stage
+          // leaves it as it is (its load +0, its tanks zero)
+          if ((st[q] & C_PRESENT) || M.b_mask[c])
+            service_cell(P, M, dp, dpl, c, elapsed, need1, acc);
+          need_cell(M, c, bf, bw);
+        }
+        block_best(bf, bw, sh_best);
+        if (tid == 0) store_best(M.am[1] + jw * AM_WORDS, bf, bw);
+      }
+      K9_MARK(K9_FINISH_SERVICE);
+      if constexpr (kBlock) K9_BSYNC(); else K9_SYNC(grid);
+
+      // spawns against the tanks after the transfers, block tanks,
+      // stats; the block's stop runs cleared for the next tick's paint
+      if (on) {
+        const Need need2 =
+            reduce_need(M.am[1], bpw, tk[5], sh_best, &sh_need[1]);
+        for (int q = tid; q < nslot; q += THREADS) {
+          int b, c, y, x;
+          if (!slot_cell(P.dm, org, q, b, c, y, x)) continue;
+          spawn_cell(P, M, dp, dpl, c, toff, tk, need2, acc);
+        }
+      }
+      K9_MARK(K9_SPAWN);
+      if (on) {
+        const long prow = (long)t * bpw + jw;
+        store_stats(acc, M.st_i + prow * N_STATS, M.st_f + prow * 4, sh_i,
+                    sh_f);
+        if (t + 1 < P.R)
+          fill_runs(M.stop, M.srun, sidx, soff[sh_g[0]], soff[sh_g[1]],
+                    nullptr, H, W, 0);
+      }
+      K9_MARK(K9_STATS);
+      if constexpr (kBlock) K9_BSYNC(); else K9_SYNC(grid);
     }
-    K9_MARK(K9_SPAWN);
-    const long prow = (long)t * P.nbmax + blockIdx.x;
-    store_stats(acc, A.st_i + prow * N_STATS, A.st_f + prow * 4, sh_i, sh_f);
-    if (t + 1 < P.R)
-      for (int g = blockIdx.x; g <= G; g += nb)
-        fill_runs(A.stop, A.srun, sidx, soff[g], soff[g + 1], nullptr, H, W,
-                  0);
-    K9_MARK(K9_STATS);
-    K9_SYNC(grid);
   }
 
-  // the stats rows: block partials in block order
-  if (blockIdx.x == 0)
-    for (int i = tid; i < P.R * N_STATS; i += THREADS) {
-      const int t = i / N_STATS, k = i % N_STATS;
-      const int fk = k == ST_DUR_I ? 0 : k == ST_DUR_T ? 1
-                   : k == ST_DUR_SVC ? 2 : -1;
-      float v;
-      if (fk >= 0) {
-        v = 0.0f;
-        for (int b = 0; b < nb; ++b)
-          v += A.st_f[((long)t * P.nbmax + b) * 4 + fk];
-      } else {
-        int s = 0;
-        for (int b = 0; b < nb; ++b)
-          s += A.st_i[((long)t * P.nbmax + b) * N_STATS + k];
-        v = (float)s;
-      }
-      A.stats[i] = v;
-    }
+  // the stats rows: each world's block partials in block order
+  if constexpr (kBlock) {
+    for (int i = tid; i < P.R * N_STATS; i += THREADS)
+      A.stats[(long)blockIdx.x * P.R * N_STATS + i] =
+          fold_stat(P, A, blockIdx.x, i);
+  } else {
+    const int n = P.R * N_STATS;
+    for (long i = (long)blockIdx.x * THREADS + tid; i < (long)P.B * n;
+         i += (long)gridDim.x * THREADS)
+      A.stats[i] = fold_stat(P, A, (int)(i / n), (int)(i % n));
+  }
 #ifdef TSIM_K9_MARKS
   K9_MARK(K9_FOLD);
   if (tid == 0) atomicMax(&k9_end, k9_now());
 #endif
 }
 
-// the largest dynamic shared memory the kernel takes, set once per
-// device
-static cudaError_t mega_attr() {
-  static bool done[8];
+template <int kForm>
+const void* mega_fn() {
+  return (const void*)mega_kernel<kForm>;
+}
+
+// the largest dynamic shared memory each instantiation takes (the
+// cooperative forms' at MAX_CPT tiles, the block-per-world form's at
+// `smem`), set once per device and size
+static cudaError_t mega_attr(int kForm, size_t smem) {
+  static size_t done[3][8];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || (dev < 8 && done[dev])) return e;
-  e = cudaFuncSetAttribute(mega_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)coop_smem(MAX_CPT));
-  if (e == cudaSuccess && dev < 8) done[dev] = true;
+  if (e != cudaSuccess || (dev < 8 && done[kForm][dev] >= smem)) return e;
+  const void* fn = kForm == K9_ONE ? mega_fn<K9_ONE>()
+                   : kForm == K9_COOP ? mega_fn<K9_COOP>()
+                                      : mega_fn<K9_WORLDS>();
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess && dev < 8) done[kForm][dev] = smem;
   return e;
 }
 
-// the cooperative grid of an H x W world on this card: the fewest tiles
-// a block (a power of two) whose resident grid holds every tile
-static cudaError_t mega_grid(int H, int W, int* grid, int* cpt) {
-  int dev = 0, nsm = 0;
-  cudaError_t e = mega_attr();
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+// the instantiation a launch of B worlds in form `form` (0 cooperative,
+// 1 block per world) takes
+static int mega_kind(int B, int form) {
+  return form == 1 ? K9_WORLDS : (B == 1 ? K9_ONE : K9_COOP);
+}
+
+// The plan of a launch of B worlds of H x W on this card, in `form` (0
+// cooperative, 1 block per world; -1: by shape, hopper_engine.k9_form's
+// rule): out = {form, blocks, tiles a block, blocks a world, worlds a
+// group, groups, dynamic shared memory bytes, static shared memory
+// bytes, registers, resident blocks an SM}.  The cooperative form takes
+// the fewest tiles a block (a power of two) whose resident grid holds
+// every world's blocks; else as few world groups as the largest resident
+// grid allows, of equal size, each on the fewest tiles a block that hold
+// it.
+static cudaError_t mega_plan(int B, int H, int W, int form, int* out) {
+  const int tiles =
+      ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
+  if (B < 1 || tiles < 1) return cudaErrorInvalidValue;
+  int dev = 0, nsm = 0, smem_block = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_block,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  // each form's rule counts the static shared memory of the instantiation
+  // it launches
+  cudaFuncAttributes fa, fc;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, mega_fn<K9_WORLDS>());
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fc, mega_fn<K9_COOP>());
   if (e != cudaSuccess) return e;
-  const long ntiles =
-      (long)((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
-  for (int c = 1; c <= MAX_CPT; c *= 2) {
+  const long hw = (long)H * W;
+  const long reserve = 1024;   // the shared memory CUDA keeps a block
+  const long sm_smem = smem_block + reserve;
+  const long wneed = (long)world_smem(tiles, hw) + fa.sharedSizeBytes;
+  const bool fits = tiles <= MAX_CPT && wneed <= smem_block &&
+                    sm_smem / (wneed + reserve) >= 2;
+  if (form < 0) {
+    bool coop = false;
+    for (int c = 1; c <= MAX_CPT; c *= 2)
+      coop = coop || (long)(tiles + c - 1) / c <=
+                         (long)nsm * (sm_smem / ((long)coop_smem(c) +
+                                                 (long)fc.sharedSizeBytes +
+                                                 reserve));
+    if (fits && B >= 2 * nsm)
+      form = 1;
+    else if (coop)
+      form = 0;
+    else
+      return cudaErrorInvalidValue;
+  }
+  const int kind = mega_kind(B, form);
+  const void* fn = kind == K9_ONE ? mega_fn<K9_ONE>()
+                   : kind == K9_COOP ? mega_fn<K9_COOP>()
+                                     : mega_fn<K9_WORLDS>();
+  e = cudaFuncGetAttributes(&fa, fn);
+  if (e != cudaSuccess) return e;
+  out[0] = form;
+  out[7] = (int)fa.sharedSizeBytes;
+  out[8] = fa.numRegs;
+  if (form == 1) {
+    if (!fits && (tiles > MAX_CPT || wneed > smem_block))
+      return cudaErrorInvalidValue;
+    const size_t smem = world_smem(tiles, hw);
     int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mega_kernel, THREADS, coop_smem(c));
+    e = mega_attr(kind, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
+                                                        smem);
     if (e != cudaSuccess) return e;
-    const long n = (long)per_sm * nsm;
-    if (n * c < ntiles) continue;
-    *grid = (int)(n < ntiles ? n : ntiles);
-    *cpt = c;
+    out[1] = B;
+    out[2] = tiles;
+    out[3] = 1;
+    out[4] = B;
+    out[5] = 1;
+    out[6] = (int)smem;
+    out[9] = per_sm;
+    return cudaSuccess;
+  }
+  e = mega_attr(kind, coop_smem(MAX_CPT));
+  if (e != cudaSuccess) return e;
+  int per_sm[8];
+  long fit = 0;
+  for (int i = 0, c = 1; c <= MAX_CPT; ++i, c *= 2) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[i], fn, THREADS,
+                                                      coop_smem(c));
+    if (e != cudaSuccess) return e;
+    const long n = (long)per_sm[i] * nsm, bpw = (tiles + c - 1) / c;
+    fit = n / bpw > fit ? n / bpw : fit;
+  }
+  if (fit < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const long groups = (B + fit - 1) / fit;
+  const int wpg = (int)((B + groups - 1) / groups);
+  for (int i = 0, c = 1; c <= MAX_CPT; ++i, c *= 2) {
+    const long bpw = (tiles + c - 1) / c;
+    if (bpw * wpg > (long)per_sm[i] * nsm) continue;
+    out[1] = (int)(bpw * wpg);
+    out[2] = c;
+    out[3] = (int)bpw;
+    out[4] = wpg;
+    out[5] = (B + wpg - 1) / wpg;
+    out[6] = (int)coop_smem(c);
+    out[9] = per_sm[i];
     return cudaSuccess;
   }
   return cudaErrorCooperativeLaunchTooLarge;
@@ -889,11 +1216,18 @@ static cudaError_t mega_grid(int H, int W, int* grid, int* cpt) {
 
 }  // namespace tsim
 
+// One launch of K9 for B worlds: `ptr` the N_PTRS pointers (the inputs,
+// outputs and scratch in the wrapper's order), `ws` each input's world
+// stride in elements (0: shared by the batch); `form` (0 cooperative, 1
+// block per world), `grid` blocks, `cpt` tiles a block and `wpg` worlds a
+// group as `tsim_mega_plan` gives them.
 extern "C" int tsim_mega_segment(const int* ip, const float* fp,
-                                 void* const* ptr, int nptr, int grid,
-                                 int cpt, void* stream) {
+                                 void* const* ptr, const long* ws, int nptr,
+                                 int B, int form, int grid, int cpt, int wpg,
+                                 void* stream) {
   using namespace tsim;
-  if (nptr != N_PTRS || grid < 1 || cpt < 1 || cpt > MAX_CPT)
+  if (nptr != N_PTRS || B < 1 || grid < 1 || cpt < 1 || cpt > MAX_CPT ||
+      (form != 0 && form != 1))
     return (int)cudaErrorInvalidValue;
   MegaParams P;
   P.dm = dm_params(ip, fp, ip[16], ip[17], ip[18]);
@@ -912,53 +1246,32 @@ extern "C" int tsim_mega_segment(const int* ip, const float* fp,
   P.load_time = ip[31];
   P.gradual = ip[32];
   P.min_speed = ip[33];
-  P.nbmax = grid;
   P.dt = fp[2];
   P.max_food = fp[3];
   P.max_waste = fp[4];
   P.frate = fp[5];
   P.wrate = fp[6];
+  const int H = P.dm.H, W = P.dm.W;
+  const int tiles =
+      ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
+  P.B = B;
+  if (form == 1) {
+    if (cpt != tiles || grid != B) return (int)cudaErrorInvalidValue;
+    P.bpw = 1;
+    P.wpg = B;
+  } else {
+    P.bpw = (tiles + cpt - 1) / cpt;
+    P.wpg = wpg;
+    if (wpg < 1 || (long)grid != (long)P.bpw * wpg)
+      return (int)cudaErrorInvalidValue;
+  }
 
-  int i = 0;
-  auto I = [&]() { return (const int*)ptr[i++]; };
-  auto F = [&]() { return (const float*)ptr[i++]; };
-  auto U = [&]() { return (const uint8_t*)ptr[i++]; };
   MegaArgs A;
-  A.sdir4 = I();
-  A.wnd = I();
-  A.inter = U();
-  A.destid = I();
-  A.destk1 = I();
-  A.nexit = I();
-  A.exitc = I();
-  A.b_mask = I();
-  A.b_ok = I();
-  A.b_bid = I();
-  A.b_svcd = I();
-  A.b_needs = I();
-  A.b_prod = I();
-  A.b_inner = F();
-  A.b_fcap = F();
-  A.b_wcap = F();
-  A.qrun = I();
-  A.srun = I();
-  A.l_group = I();
-  A.l_axis = I();
-  A.gvalid = I();
-  A.nbrg = I();
-  A.ticks = I();
-  A.elapsed = F();
-  A.rain = U();
-  A.spa = I();
-  A.spe = I();
-  A.force = I();
-  for (int k = 0; k < 5; ++k) A.p0[k] = I();
-  A.pl0 = F();
-  for (int k = 0; k < 4; ++k) A.tank0[k] = F();
-  A.li0 = I();
-  A.lf0 = F();
-  A.lstop0 = U();
-  A.lown = I();
+  int i = 0;
+  for (int k = 0; k < N_IN; ++k) {
+    A.in[k] = ptr[i++];
+    A.ws[k] = ws[k];
+  }
   for (int s = 0; s < 2; ++s) {
     for (int k = 0; k < 5; ++k) A.setp[s][k] = (int*)ptr[i++];
     A.setl[s] = (float*)ptr[i++];
@@ -980,24 +1293,35 @@ extern "C" int tsim_mega_segment(const int* ip, const float* fp,
   A.st_f = (float*)ptr[i++];
   if (i != N_PTRS) return (int)cudaErrorInvalidValue;
 
-  cudaError_t e = mega_attr();
-  if (e != cudaSuccess) return (int)e;
+  const int kind = mega_kind(B, form);
+  cudaStream_t s = (cudaStream_t)stream;
   void* args[] = {(void*)&P, (void*)&A, (void*)&cpt};
-  e = cudaLaunchCooperativeKernel((const void*)mega_kernel, dim3(grid),
-                                  dim3(THREADS), args, coop_smem(cpt),
-                                  (cudaStream_t)stream);
+  cudaError_t e;
+  if (kind == K9_WORLDS) {
+    const size_t smem = world_smem(cpt, (long)H * W);
+    e = mega_attr(kind, smem);
+    if (e == cudaSuccess)
+      e = cudaLaunchKernel(mega_fn<K9_WORLDS>(), dim3(grid), dim3(THREADS),
+                           args, smem, s);
+  } else {
+    e = mega_attr(kind, coop_smem(MAX_CPT));
+    if (e == cudaSuccess)
+      e = cudaLaunchCooperativeKernel(
+          kind == K9_ONE ? mega_fn<K9_ONE>() : mega_fn<K9_COOP>(), dim3(grid),
+          dim3(THREADS), args, coop_smem(cpt), s);
+  }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// the grid and the tiles a block (out[0], out[1]) the launch above takes
-// for an H x W world on this card
-extern "C" int tsim_mega_grid(int H, int W, int* out) {
-  return (int)tsim::mega_grid(H, W, out, out + 1);
+// K9's plan for B worlds of H x W on this card (tsim::mega_plan): form
+// -1 chooses by shape
+extern "C" int tsim_mega_plan(int B, int H, int W, int form, int* out) {
+  return (int)tsim::mega_plan(B, H, W, form, out);
 }
 
-// the grid barriers K9's launches have passed since the last call
-// (*n), counted by block 0; then zeroed
+// the stage barriers K9's launches have passed since the last call (*n),
+// counted by block 0; then zeroed
 extern "C" int tsim_mega_syncs(int* n) {
   const int zero = 0;
   cudaError_t e = cudaMemcpyFromSymbol(n, tsim::k9_syncs, sizeof(int));
@@ -1026,4 +1350,3 @@ extern "C" int tsim_k9_marks(int* codes, unsigned long long* times,
   return n;
 }
 #endif
-

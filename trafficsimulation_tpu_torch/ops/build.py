@@ -66,8 +66,8 @@ _ARGTYPES = {
     # shared memory bytes, registers, resident blocks an SM)
     "tsim_decide_tiled_plan": [I, I, I, P],
     # colour table, cell, stop, rain, vehicle classes, out, HW, the light
-    # and controlled-road codes, stream
-    "tsim_render_planes": [P] * 6 + [I] * 3 + [P],
+    # and controlled-road codes, the vector path (0/1), stream
+    "tsim_render_planes": [P] * 6 + [I] * 4 + [P],
     # K0, pen4, legal4, out, D, HW, tp2, B, K0 and legal4 per world (0/1),
     # stream
     "tsim_build_sdir": [P, P, P, P, I, I, I, I, I, I, P],
@@ -88,12 +88,12 @@ _ARGTYPES = {
     # walk, cross, cell, stop, seeds, n_side, out walk, cross, block,
     # count, B, H, W, cell and n_side per world (0/1), lam, spawn, stream
     "tsim_step_pedestrians": [P] * 10 + [I] * 4 + [ctypes.c_float, I, P],
-    # ip[34], fp[7], pointer table, its length, grid, tiles a block,
+    # ip[34], fp[7], pointer table, the inputs' world strides (long), the
+    # table's length, B, form, blocks, tiles a block, worlds a group,
     # stream
-    "tsim_mega_segment": [P, P, P, I, I, I, P],
-    # H, W, out[2]: the cooperative grid K9 takes on this card and the
-    # tiles a block
-    "tsim_mega_grid": [I, I, P],
+    "tsim_mega_segment": [P, P, P, P, I, I, I, I, I, I, P],
+    # B, H, W, form (-1: by shape), out[10]: K9's plan on this card
+    "tsim_mega_plan": [I, I, I, I, P],
     # out: K9's grid barriers since the last call
     "tsim_mega_syncs": [P],
 }

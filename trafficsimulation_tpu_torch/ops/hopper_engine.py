@@ -25,7 +25,9 @@ version (the counterpart of the JAX package's `ops/pallas_engine.py`).
                               JAX's `pick_tile` never returns a tile)
   K9 `mega_segment`        <- megakernel.run_segment_mega (_mega_kernel):
                               one launch per routing segment under the
-                              megakernel gate (`ops/megakernel.py`)
+                              megakernel gate (`ops/megakernel.py`), for
+                              one world or a whole batch; for many small
+                              worlds one block a world (`k9_form`)
   `ordered_add`            the service FSM's f32 scatter-add into the
                            block tanks, in update order (no TPU kernel:
                            the JAX package leaves it to XLA's scatter)
@@ -41,7 +43,8 @@ or raises.  There is no fallback from one to the other.  `launches`
 counts, per kernel, the wrapper calls that launched it (K1's two forms
 apart: "decide_move" its cooperative kernel, "decide_move_blocks" its
 block-per-world kernel, which the wrapper chooses by shape,
-`k1_form`).
+`k1_form`; K9's two forms apart too: "mega" its cooperative kernel,
+"mega_worlds" its block-per-world kernel, `k9_form`).
 
 Batches.  K1, K2 (`build_sdir_stacks`), K3, K4, `ordered_add`,
 `rain_ticks` and `step_pedestrians` take a leading batch of worlds
@@ -59,8 +62,9 @@ world batches of `parallel/mesh.py`) each launches its batched kernel
 once for the whole batch, whichever of its arguments are batched.  A
 vmapped `build_sdir` whose key stack and legality planes are shared goes
 to K5, which reads the key stack once for the batch; any other goes to
-the batched K2.  Only K9's rule maps the single-world wrapper over the
-worlds (`_map_worlds`).
+the batched K2.  K9's rule launches once for the batch too
+(`mega_segment_batched`), its shared chunk tables read with world
+stride 0, in one of two forms by shape (`k9_form`).
 
 Packed u32 planes are carried as int32 with the same bits: every right
 shift below is masked to the field it extracts, so the sign fill of the
@@ -113,7 +117,8 @@ KINF = 0x7FFFFFFF
 launches = {"decide_move": 0, "decide_move_blocks": 0, "build_sdir": 0,
             "build_sdir_batched": 0, "build_wavefront": 0,
             "prefix_planes": 0, "ordered_add": 0,
-            "select_rows": 0, "mega": 0, "rain_ticks": 0,
+            "select_rows": 0, "mega": 0, "mega_worlds": 0,
+            "rain_ticks": 0,
             "decide_move_tiled": 0, "render": 0, "step_pedestrians": 0}
 
 
@@ -640,19 +645,6 @@ def _front(x, bdim, B):
     if bdim is None:
         return x.unsqueeze(0).expand(B, *x.shape).contiguous()
     return x.movedim(bdim, 0).contiguous()
-
-
-def _map_worlds(fn, B, in_dims, args):
-    """fn mapped over the worlds of a vmapped call: each batched tensor
-    argument is indexed per world, the rest passed as is; the outputs
-    stacked along a new dim 0."""
-    outs = []
-    for b in range(B):
-        outs.append(fn(*[a.select(d, b) if d is not None else a
-                         for a, d in zip(args, in_dims)]))
-    if isinstance(outs[0], tuple):
-        return tuple(torch.stack(o) for o in zip(*outs))
-    return torch.stack(outs)
 
 
 class _Kernel(torch.autograd.Function):
@@ -1912,6 +1904,166 @@ _ALGO_ID = {"DISABLED": 0, "FIXED_TIME": 1, "QUEUE_ACTUATED": 2,
             "PRESSURE_CONTROL": 3, "NEIGHBOR_PRESSURE_CONTROL": 4,
             "NEIGHBOR_GREEN_WAVE": 5}
 
+# K9's two forms (csrc/megakernel.cu), chosen by shape (`k9_form`):
+#  "coop"    one cooperative launch; each block owns `tiles_per_block` of
+#            K1's 32 x 8 tiles of ONE world (`blocks_per_world` blocks a
+#            world, block j its tiles j, j + blocks_per_world, ...) and a
+#            contiguous range of that world's light groups; grid
+#            barriers; the worlds in groups where one resident grid does
+#            not hold them all;
+#  "worlds"  one ordinary block a world that owns all of it, its keys and
+#            pub bytes in shared memory (K1's block-per-world layout,
+#            `k1_world_smem`), block barriers.
+# Beside the dynamic shared memory, every block takes K9_STATIC[form] bytes
+# of static shared memory: the tile table, the work list's length, the
+# neediest-block staging and both of a tick's results, the stats staging
+# and the block's range of light groups (ptxas, per instantiation; the
+# kernel's library reads its own, `mega_plan`'s "static_smem_bytes").
+K9_STATIC = {"coop": 1632, "worlds": 1616}
+# the block-per-world form from this many worlds an SM, where this many of
+# its blocks fit an SM's shared memory (K1's rule, K1_WORLDS_PER_SM)
+K9_WORLDS_PER_SM = 2
+SM_REGISTERS = 65536      # an SM's 32-bit registers (H100)
+_K9_FORMS = ("coop", "worlds")
+
+
+def k9_coop_smem(cpt: int) -> int:
+    """Dynamic shared memory bytes of a cooperative block of `cpt` tiles:
+    its state words and work list (csrc/coop.cuh `coop_smem`)."""
+    return cpt * K1_THREADS * 8
+
+
+def k9_blocks_per_sm(smem: int, smem_per_block: int, regs: int) -> int:
+    """Resident blocks an SM of K9's cooperative form with `smem` bytes of
+    dynamic shared memory and `regs` registers a thread, as CUDA's
+    occupancy calculator counts them: shared memory (each block also
+    holds K9_STATIC["coop"] and the K1_BLOCK_RESERVED bytes CUDA keeps),
+    registers (a warp's rounded up to 256) and threads (2048 an SM)."""
+    by_smem = (smem_per_block + K1_BLOCK_RESERVED) \
+        // (smem + K9_STATIC["coop"] + K1_BLOCK_RESERVED)
+    warp = -(-regs * 32 // 256) * 256
+    by_regs = SM_REGISTERS // (warp * (K1_THREADS // 32))
+    return min(by_smem, by_regs, 2048 // K1_THREADS)
+
+
+def k9_form(B: int, H: int, W: int, n_sm: int, smem_per_block: int) -> str:
+    """K9's form for B worlds of H x W on a card with `n_sm` SMs and
+    `smem_per_block` bytes of shared memory a block may take: "worlds"
+    where one world fits one block (at most K1_MAX_TILES tiles),
+    K9_WORLDS_PER_SM of those blocks fit an SM's shared memory and the
+    batch fills the card (at least K9_WORLDS_PER_SM worlds an SM); else
+    "coop" where one world's tiles fit one resident grid (by shared
+    memory) at some number of tiles a block; else ValueError.  A
+    function of the shape alone (the H100's numbers: 132 SMs, 232,448
+    bytes)."""
+    tiles = k1_world_tiles(H, W)
+    if B < 1 or tiles < 1:
+        raise ValueError(f"K9 takes no batch of {B} worlds of {H} x {W}")
+    need = k1_world_smem(H, W) + K9_STATIC["worlds"] + K1_BLOCK_RESERVED
+    fits = (tiles <= K1_MAX_TILES and (smem_per_block + K1_BLOCK_RESERVED)
+            // need >= K9_WORLDS_PER_SM)
+    if fits and B >= K9_WORLDS_PER_SM * n_sm:
+        return "worlds"
+    if any(-(-tiles // c) <= n_sm * ((smem_per_block + K1_BLOCK_RESERVED)
+                                     // (k9_coop_smem(c)
+                                         + K9_STATIC["coop"]
+                                         + K1_BLOCK_RESERVED))
+           for c in (1, 2, 4, 8, 16, 32, K1_MAX_TILES)):
+        return "coop"
+    raise ValueError(
+        f"K9 takes no batch of {B} worlds of {H} x {W}: a world of {tiles} "
+        f"tiles fits neither one block ({K1_MAX_TILES} tiles) nor one "
+        f"cooperative grid of {n_sm} SMs at {K1_MAX_TILES} tiles a block")
+
+
+def k9_plan(B: int, H: int, W: int, n_sm: int, smem_per_block: int,
+            regs: int, form=None) -> dict:
+    """K9's launch for B worlds of H x W (the form `k9_form` chooses, or
+    `form`) on a card with `n_sm` SMs, `smem_per_block` bytes of shared
+    memory a block and a kernel of `regs` registers a thread: its blocks,
+    tiles a block (a power of two in the cooperative form: the fewest
+    whose resident grid holds every world's blocks; else as few world
+    groups as the largest resident grid allows, of equal size), blocks a
+    world, worlds a group, groups and dynamic shared memory bytes.  A
+    function of these numbers alone: the mirror of the plan the kernel's
+    library makes on the card (`mega_plan`, which launches go by), for
+    the CPU's tests; the card's tests hold the two equal."""
+    if form is None:
+        form = k9_form(B, H, W, n_sm, smem_per_block)
+    tiles = k1_world_tiles(H, W)
+    if form == "worlds":
+        if tiles > K1_MAX_TILES or k1_world_smem(H, W) \
+                + K9_STATIC["worlds"] > smem_per_block:
+            raise ValueError(f"K9's block-per-world form takes no world of "
+                             f"{H} x {W}")
+        return {"form": form, "blocks": B, "tiles_per_block": tiles,
+                "blocks_per_world": 1, "worlds_per_group": B, "groups": 1,
+                "smem_bytes": k1_world_smem(H, W)}
+    cpts = [1 << i for i in range(7)]
+
+    def resident(c):
+        return n_sm * k9_blocks_per_sm(k9_coop_smem(c), smem_per_block, regs)
+
+    def bpw(c):
+        return -(-tiles // c)
+
+    wpg = B
+    if all(bpw(c) * B > resident(c) for c in cpts):
+        fit = max(resident(c) // bpw(c) for c in cpts)
+        if fit < 1:
+            raise ValueError(f"K9 takes no world of {H} x {W} in one "
+                             "cooperative grid")
+        wpg = -(-B // -(-B // fit))
+    c = next(c for c in cpts if bpw(c) * wpg <= resident(c))
+    return {"form": form, "blocks": bpw(c) * wpg, "tiles_per_block": c,
+            "blocks_per_world": bpw(c), "worlds_per_group": wpg,
+            "groups": -(-B // wpg), "smem_bytes": k9_coop_smem(c)}
+
+
+_mega_plans = {}          # (device index, B, H, W, form) -> mega_plan
+
+
+# what tsim_mega_plan returns for a shape it does not take
+# (cudaErrorInvalidValue, cudaErrorCooperativeLaunchTooLarge)
+_K9_REFUSED = (1, 720)
+
+
+def mega_plan(B: int, H: int, W: int, device=None, form=None) -> dict:
+    """K9's plan for B worlds of H x W on the card, as the kernel's library
+    makes it (its rule and the card's occupancy; `k9_plan` mirrors it):
+    form, blocks, tiles a block, blocks a world, worlds a group, groups,
+    dynamic and static shared memory, registers and resident blocks an
+    SM.  `form` forces one form; a shape that neither form (or the forced
+    one) takes raises ValueError naming it."""
+    dev = torch.device("cuda" if device is None else device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (idx, B, H, W, form)
+    got = _mega_plans.get(key)
+    if got is not None:
+        return got
+    out = (ctypes.c_int * 10)()
+    with torch.cuda.device(idx):
+        rc = _entry("tsim_mega_plan")(
+            B, H, W, -1 if form is None else _K9_FORMS.index(form),
+            ctypes.addressof(out))
+    if rc in _K9_REFUSED:
+        raise ValueError(f"K9 takes no batch of {B} worlds of {H} x {W}"
+                         + (f" in its {form!r} form" if form else ""))
+    _check_rc("tsim_mega_plan", rc)
+    names = ("blocks", "tiles_per_block", "blocks_per_world",
+             "worlds_per_group", "groups", "smem_bytes",
+             "static_smem_bytes", "registers", "blocks_per_sm")
+    got = {"form": _K9_FORMS[out[0]], **dict(zip(names, out[1:]))}
+    _mega_plans[key] = got
+    return got
+
+
+def mega_grid(dev, H: int, W: int):
+    """(blocks, tiles a block) of K9's cooperative grid for one H x W world
+    on the card `dev` (`mega_plan` at B = 1)."""
+    p = mega_plan(1, H, W, dev)
+    return p["blocks"], p["tiles_per_block"]
+
 
 def _mega_params(cfg: Config, dims: dict):
     ip_dm, fp_dm = _dm_params(cfg)
@@ -1938,152 +2090,206 @@ def _mega_params(cfg: Config, dims: dict):
     return ip, fp
 
 
-def check_mega_inputs(a: dict) -> dict:
-    """Raise unless `a` holds every input K9 takes, each of its dtype,
-    shape and device, and contiguous; returns the dimensions."""
-    dims = _mega_dims(a)
+def _mega_sig(dims: dict, B: int, batched) -> tuple:
+    """(name, dtype, shape, whether batched, the contiguous strides of one
+    world's tensor) of each input K9 takes: a leading B where `batched`
+    names it."""
+    out = []
     for name, dt, shape in _MEGA_IN:
-        _check(name, a[name], _DT[dt], [dims.get(s, s) for s in shape],
-               a["pa"].device)
+        one = tuple(dims.get(x, x) for x in shape)
+        strides = tuple(int(np.prod(one[i + 1:])) for i in range(len(one)))
+        lead = (B,) if name in batched else ()
+        out.append((name, _DT[dt], lead + one, bool(lead), strides))
+    return tuple(out)
+
+
+def _check_world(name, t, dtype, shape, device, batched: bool):
+    """`_check` of one K9 input: a batched one [B, ...] needs each world
+    contiguous (any stride between worlds: the kernel takes one per
+    input), a shared one contiguous."""
+    if batched:
+        if tuple(t.shape[:1]) != tuple(shape[:1]):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel takes "
+                             f"{tuple(shape)}")
+        t, shape = t[0], shape[1:]
+    _check(name, t, dtype, shape, device)
+
+
+def check_mega_inputs(a: dict, B: int = 1, batched=()) -> dict:
+    """Raise unless `a` holds every input K9 takes, each of its dtype,
+    shape and device; the tensors named in `batched` with a leading dim
+    of B worlds, each world contiguous (any stride between worlds), the
+    others one world's (shared by the batch) and contiguous.  Returns
+    the dimensions of one world."""
+    dims = _mega_dims(a, batched)
+    for name, dt, shape, bat, _ in _mega_sig(dims, B, batched):
+        _check_world(name, a[name], dt, shape, a["pa"].device, bat)
     return dims
 
 
-def _mega_dims(a: dict) -> dict:
-    H, W = a["pa"].shape
-    G, L = a["li"].shape[1], a["lstop"].shape[0]
-    NQ, NS = a["qrun"].shape[0], a["srun"].shape[0]
-    return {"H": H, "W": W, "D4": a["sdir4"].shape[0],
-            "R": a["ticks"].shape[0], "G": G, "L": L, "NQ": NQ, "NS": NS,
+def _mega_dims(a: dict, batched=()) -> dict:
+    def shape(k):
+        s = a[k].shape
+        return s[1:] if k in batched else s
+    H, W = shape("pa")
+    G, L = shape("li")[1], shape("lstop")[0]
+    NQ, NS = shape("qrun")[0], shape("srun")[0]
+    return {"H": H, "W": W, "D4": shape("sdir4")[0], "R": shape("ticks")[0],
+            "G": G, "L": L, "NQ": NQ, "NS": NS,
             "NOWN": 3 * (G + 3) + NQ + L + NS}
 
 
 class _MegaShape:
-    """K9's launch state for one device and shape, kept between calls:
-    the cooperative grid and tiles a block, the scratch (the plane set,
-    light rows and the K1 working set that are not returned, the queue
+    """K9's launch state for one device, world shape, batch size and form,
+    kept between calls: the plan (`mega_plan`), the scratch (the plane
+    set, light rows and K1 working sets that are not returned, the queue
     counts, group flags, a zero pedestrian plane, the reduction
-    partials), the inputs' signature and the pointer table."""
+    partials, each for every world), the pointer table, and per set of
+    batched inputs their signature and world strides."""
 
-    def __init__(self, dev, dims: dict):
+    def __init__(self, dev, dims: dict, B: int, plan: dict):
         H, W, R, G = dims["H"], dims["W"], dims["R"], dims["G"]
         HW = H * W
         i32t, f32t = torch.int32, torch.float32
-        self.grid, self.cpt = mega_grid(dev, H, W)
-        nb = self.grid
-        self.set_ = [*torch.empty((5, H, W), dtype=i32t,
-                                  device=dev).unbind(0),
-                     torch.empty((H, W), dtype=f32t, device=dev)]
-        self.li = torch.empty((9, G), dtype=i32t, device=dev)
-        self.lf = torch.empty((2, G), dtype=f32t, device=dev)
+        self.plan = plan
+        bpw = plan["blocks_per_world"]
+        self.launch = (_K9_FORMS.index(plan["form"]), plan["blocks"],
+                       plan["tiles_per_block"], plan["worlds_per_group"])
+        self.set_ = torch.empty((5, B, H, W), dtype=i32t, device=dev)
+        self.setl = torch.empty((B, H, W), dtype=f32t, device=dev)
+        self.li = torch.empty((B, 9, G), dtype=i32t, device=dev)
+        self.lf = torch.empty((B, 2, G), dtype=f32t, device=dev)
         self.scratch = [
-            torch.empty((_N_WORK_K1 * HW + (HW + 3) // 4,), dtype=i32t,
-                        device=dev),
-            torch.empty((G * 5,), dtype=i32t, device=dev),
-            torch.empty((G,), dtype=i32t, device=dev),
+            torch.empty((B * (_N_WORK_K1 * HW + (HW + 3) // 4),),
+                        dtype=i32t, device=dev),
+            torch.empty((B * G * 5,), dtype=i32t, device=dev),
+            torch.empty((B * G,), dtype=i32t, device=dev),
             torch.zeros((H, W), dtype=torch.uint8, device=dev),
-            torch.empty((2 * nb * 6,), dtype=i32t, device=dev),
-            torch.empty((R * nb * 16,), dtype=i32t, device=dev),
-            torch.empty((R * nb * 4,), dtype=f32t, device=dev)]
-        self.sig = tuple((name, _DT[dt], tuple(dims.get(x, x)
-                                                for x in shape))
-                         for name, dt, shape in _MEGA_IN)
-        # the inputs, then 2 plane sets of 6, the stop plane, 4 tanks,
-        # 2 + 2 light-row buffers, lstop, stats and the 7 scratch buffers
+            torch.empty((2 * B * bpw * 6,), dtype=i32t, device=dev),
+            torch.empty((B * R * bpw * 16,), dtype=i32t, device=dev),
+            torch.empty((B * R * bpw * 4,), dtype=f32t, device=dev)]
+        # the inputs, then the 2 plane sets (5 int planes, pl), the stop
+        # plane, the tanks, 2 + 2 light-row buffers, lstop, stats and the
+        # 7 scratch buffers
         self.ptrs = (ctypes.c_void_p * (len(_MEGA_IN) + 30))()
-        self.set_ptrs = [t.data_ptr() for t in self.set_]
+        plane = B * H * W * 4
+        self.set_ptrs = [self.set_.data_ptr() + k * plane
+                         for k in range(5)] + [self.setl.data_ptr()]
         self.scratch_ptrs = [t.data_ptr() for t in self.scratch]
+        self.ws = (ctypes.c_long * len(_MEGA_IN))()
+        self.sigs = {}            # frozenset(batched) -> signature
 
 
-_mega_cache = {}          # (device index, dims) -> _MegaShape
+_mega_cache = {}          # (device index, dims, B, form) -> _MegaShape
 _mega_last = [None, None, None]   # the last Config, dims and its params
 
 
-def _mega_kernel(cfg: Config, a: dict) -> dict:
-    """Launch K9 on the card: one cooperative launch for the R ticks.
-    The scratch and the parameters are kept per shape and per Config
-    (so calls of one shape run on one stream, as the path's do); the
-    outputs are new tensors at every call."""
+def _mega_kernel(cfg: Config, a: dict, B: int = 1, batched=frozenset(),
+                 form=None) -> dict:
+    """Launch K9 on the card: one launch for the R ticks of B worlds (the
+    tensors named in `batched` carry a leading dim B, the others are
+    shared and read with world stride 0), in the form `mega_plan` gives
+    (or `form`).  The scratch, the pointer table and the parameters are
+    kept per shape, B and form and per Config (so calls of one shape run
+    on one stream, as the path's do); the outputs are new tensors at
+    every call, each with a leading dim B."""
     dev = a["pa"].device
-    dims = _mega_dims(a)
-    key = (dev.index, *dims.values())
+    dims = _mega_dims(a, batched)
+    key = (dev.index, *dims.values(), B, form)
     sh = _mega_cache.get(key)
     if sh is None:
-        check_mega_inputs(a)
-        sh = _mega_cache[key] = _MegaShape(dev, dims)
+        check_mega_inputs(a, B, batched)
+        plan = mega_plan(B, dims["H"], dims["W"], dev, form)
+        sh = _mega_cache[key] = _MegaShape(dev, dims, B, plan)
+    sig = sh.sigs.get(batched)
+    if sig is None:
+        sig = sh.sigs[batched] = _mega_sig(dims, B, batched)
     idx = dev.index
     ins = []
-    for name, dt, shape in sh.sig:
+    ws = sh.ws
+    for i, (name, dt, shape, bat, strides) in enumerate(sig):
         t = a[name]
+        st = t.stride()
         if (t.dtype != dt or t.shape != shape or t.get_device() != idx
-                or not t.is_contiguous()):
-            _check(name, t, dt, shape, dev)
+                or (st[1:] if bat else st) != strides):
+            _check_world(name, t, dt, shape, dev, bat)
+        ws[i] = st[0] if bat else 0
         ins.append(t.data_ptr())
     if _mega_last[0] is not cfg or _mega_last[1] != key:
         _mega_last[:] = [cfg, key, _mega_params(cfg, dims)]
     p5, f5, stop, li, lf, lstop, stats = _mega_launch(
-        sh, ins, _mega_last[2], dims, dev)
+        sh, ins, ws, _mega_last[2], dims, B, dev)
     pa_, pb, pc, pd, pe = p5.unbind(0)
     pl, food, waste, frem, wrem = f5.unbind(0)
     return dict(zip(MEGA_OUTPUTS, (pa_, pb, pc, pd, pe, pl, stop, food,
                                    waste, frem, wrem, li, lf, lstop, stats)))
 
 
-def _mega_launch(sh, ins, params, dims: dict, dev):
-    """The one K9 launch: new outputs (the plane set [5, H, W] int32, pl
-    and the 4 tanks [5, H, W] f32, stop, li, lf, lstop, stats), the
-    pointer table of the inputs `ins` (pointers), the outputs and the
-    shape's scratch `sh`, then the kernel."""
+def _mega_launch(sh, ins, ws, params, dims: dict, B: int, dev):
+    """The one K9 launch: new outputs (the plane set [5, B, H, W] int32,
+    pl and the 4 tanks [5, B, H, W] f32, stop, li, lf, lstop, stats, each
+    world's after the others'), the pointer table of the inputs `ins`
+    (pointers), the outputs and the scratch of `sh`, then the kernel."""
     H, W, R, G = dims["H"], dims["W"], dims["R"], dims["G"]
     i32t, f32t = torch.int32, torch.float32
-    p5 = torch.empty((5, H, W), dtype=i32t, device=dev)
-    f5 = torch.empty((5, H, W), dtype=f32t, device=dev)
-    stop = torch.empty((H, W), dtype=torch.bool, device=dev)
-    li = torch.empty((9, G), dtype=i32t, device=dev)
-    lf = torch.empty((2, G), dtype=f32t, device=dev)
-    lstop = torch.empty((dims["L"],), dtype=torch.bool, device=dev)
-    stats = torch.empty((R, 16), dtype=f32t, device=dev)
+    p5 = torch.empty((5, B, H, W), dtype=i32t, device=dev)
+    f5 = torch.empty((5, B, H, W), dtype=f32t, device=dev)
+    stop = torch.empty((B, H, W), dtype=torch.bool, device=dev)
+    li = torch.empty((B, 9, G), dtype=i32t, device=dev)
+    lf = torch.empty((B, 2, G), dtype=f32t, device=dev)
+    lstop = torch.empty((B, dims["L"]), dtype=torch.bool, device=dev)
+    stats = torch.empty((B, R, 16), dtype=f32t, device=dev)
     # tick t writes plane set t & 1 and light buffer (t + 1) & 1: the
     # last tick's go to the outputs, the others to the scratch
     p0, fp0 = p5.data_ptr(), f5.data_ptr()
-    plane = H * W * 4
+    plane = B * H * W * 4
     fin = [p0 + k * plane for k in range(5)] + [fp0]
-    sets = [fin, sh.set_ptrs] if R & 1 else [sh.set_ptrs, fin]
+    sets = fin + sh.set_ptrs if R & 1 else sh.set_ptrs + fin
     lis = [li.data_ptr(), sh.li.data_ptr()]
     lfs = [lf.data_ptr(), sh.lf.data_ptr()]
     if R & 1:
         lis.reverse()
         lfs.reverse()
-    sh.ptrs[:] = (ins + sets[0] + sets[1]
-                  + [stop.data_ptr()] + [fp0 + k * plane for k in (1, 2, 3, 4)]
+    sh.ptrs[:] = (ins + sets + [stop.data_ptr()]
+                  + [fp0 + k * plane for k in (1, 2, 3, 4)]
                   + lis + lfs + [lstop.data_ptr(), stats.data_ptr()]
                   + sh.scratch_ptrs)
     ip, fp = params
+    form, grid, cpt, wpg = sh.launch
     _check_rc("tsim_mega_segment", _entry("tsim_mega_segment")(
         ctypes.addressof(ip), ctypes.addressof(fp),
-        ctypes.addressof(sh.ptrs), len(sh.ptrs), sh.grid, sh.cpt,
-        torch._C._cuda_getCurrentRawStream(dev.index)))
-    launches["mega"] += 1
+        ctypes.addressof(sh.ptrs), ctypes.addressof(ws), len(sh.ptrs), B,
+        form, grid, cpt, wpg, torch._C._cuda_getCurrentRawStream(dev.index)))
+    launches["mega_worlds" if form else "mega"] += 1
     return p5, f5, stop, li, lf, lstop, stats
 
 
-def mega_grid(dev, H: int, W: int):
-    """(blocks, tiles a block) of K9's cooperative grid for an H x W
-    world on the card `dev`."""
-    out = (ctypes.c_int * 2)()
-    with torch.cuda.device(dev):
-        _check_rc("tsim_mega_grid", _entry("tsim_mega_grid")(
-            H, W, ctypes.addressof(out)))
-    return out[0], out[1]
-
-
 def mega_syncs() -> int:
-    """The grid barriers K9's launches have passed since the last call
-    (the kernel counts them; synchronises the card)."""
+    """The stage barriers K9's launches have passed since the last call,
+    counted by block 0 (grid barriers in the cooperative form, its block
+    barriers at the same places in the block-per-world form; synchronises
+    the card)."""
     n = ctypes.c_int(0)
     torch.cuda.synchronize()
     _check_rc("tsim_mega_syncs",
               _entry("tsim_mega_syncs")(ctypes.addressof(n)))
     return n.value
+
+
+def mega_segment_batched(cfg: Config, a: dict, B: int, batched,
+                         form=None) -> dict:
+    """K9 for a batch of B worlds in one launch: the tensors of `a` named
+    in `batched` carry a leading world dim B, the others (chunk tables a
+    shared-geometry batch shares) are one world's and read by every
+    world.  Returns `MEGA_OUTPUTS`, each with a leading dim B.  On CPU
+    tensors the plain batched version (`megakernel.
+    segment_plain_batched`); on the card the kernel in the form
+    `k9_form` chooses by shape, or `form` ("coop" or "worlds")."""
+    batched = frozenset(batched)
+    if not _on_cuda(a["pa"]):
+        from .megakernel import segment_plain_batched
+        return segment_plain_batched(cfg, a, B, batched)
+    return _mega_kernel(cfg, a, B, batched, form)
 
 
 class _MegaSegment(_Kernel):
@@ -2094,15 +2300,20 @@ class _MegaSegment(_Kernel):
 
     @staticmethod
     def vmap(info, in_dims, cfg, names, *tensors):
-        out = _map_worlds(
-            lambda *t: _MegaSegment.forward(cfg, names, *t),
-            info.batch_size, in_dims[2:], tensors)
-        return out, (0,) * len(MEGA_OUTPUTS)
+        a, batched = {}, []
+        for name, t, d in zip(names, tensors, in_dims[2:]):
+            if d is not None:
+                t = t.movedim(d, 0)
+                batched.append(name)
+            a[name] = t
+        out = mega_segment_batched(cfg, a, info.batch_size, batched)
+        return (tuple(out[k] for k in MEGA_OUTPUTS),
+                (0,) * len(MEGA_OUTPUTS))
 
 
 def _mega_single(cfg: Config, a: dict) -> dict:
     if _on_cuda(a["pa"]):
-        return _mega_kernel(cfg, a)
+        return {k: v[0] for k, v in _mega_kernel(cfg, a).items()}
     from .megakernel import segment_plain
     return segment_plain(cfg, a)
 
@@ -2112,20 +2323,28 @@ def mega_segment(cfg: Config, args: dict) -> dict:
     chunk tables (`megakernel.build_chunk_static`), the segment's next-move
     stack and wavefronts, its streams and the carried state, as
     `megakernel.segment_plain` takes them; returns its outputs
-    (`MEGA_OUTPUTS`).  One lean launch; under vmap the worlds run one
-    after another (a batched K9 is later work).
+    (`MEGA_OUTPUTS`).  One lean launch; under vmap one launch for the
+    whole batch (`mega_segment_batched`), the shared tensors read by
+    every world.
 
     Replaces `megakernel.run_segment_mega`'s `pallas_call` (`_mega_kernel`,
-    ops/megakernel.py).  Source: csrc/megakernel.cu.  On the H100 a tick
-    is bound by its chain of dependent phases and the grid barriers
-    between them (the planes and the packed stack sit in the 50 MB L2),
-    then by this wrapper's host work.  Design: one cooperative launch;
-    blocks own fixed cell tiles (K1's cooperative decide + move, shared
-    through csrc/coop.cuh) and whole light groups with their runs
-    (`megakernel.light_owner_table`), so a tick takes 2K + 3 grid
-    barriers (K = VEHICLE_MAX_SPEED); reductions use per-block partials
-    in a fixed order, so a rerun gives the same bits.  The wrapper keeps
-    the scratch, the pointer table and the grid per shape, and the
+    ops/megakernel.py; batched by `jax.vmap` through the Pallas batching
+    rule, a world axis on its grid).  Source: csrc/megakernel.cu.  On the
+    H100 a tick is bound by its chain of dependent phases and the
+    barriers between them (the planes and the packed stack sit in the 50
+    MB L2), then by this wrapper's host work.  Design: blocks own fixed
+    cell tiles of one world (K1's decide + move, shared through
+    csrc/coop.cuh) and whole light groups of that world with their runs
+    (`megakernel.light_owner_table`), so a tick takes 2K + 3 barriers (K
+    = VEHICLE_MAX_SPEED); the form by shape (`k9_form`): one cooperative
+    launch whose blocks_per_world blocks share a world through grid
+    barriers (one world, or a batch such as 16 rollouts of 256^2), or one
+    block a world with its keys and pub bytes in shared memory and block
+    barriers (many small worlds: config #4); each block builds its
+    world's pointers from the batch's base pointers and world strides
+    (0 for a shared table).  Reductions use per-block partials in a
+    fixed order, so a rerun gives the same bits.  The wrapper keeps the
+    scratch, the pointer table and the plan per shape and batch, and the
     parameters per Config; the kernel zeroes what it needs zeroed."""
     if torch._C._are_functorch_transforms_active():
         names = tuple(args)

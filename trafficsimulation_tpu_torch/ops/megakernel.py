@@ -18,7 +18,12 @@ the design and the reference semantics).
                         (the cursor never depends on the lattice)
   `segment_plain`       the plain version of K9: the R ticks in torch ops,
                         its light stages those of the per-tick path
-                        (`lights/fsm.py`) on the group and light rows
+                        (`lights/fsm.py`) on the group and light rows;
+                        `segment_plain_batched` world by world for a
+                        batch (the plain version of the batched K9)
+  `block_owners`        the tiles and light groups each block of a K9
+                        launch owns (a mirror of the kernel's loops)
+  `quirks`              which of K9's JAX quirks a world can reach
   `run_segment_mega`    one segment: the schedule, one K9 call
                         (`hopper_engine.mega_segment`), and the engine
                         state rebuilt from its outputs with the metrics
@@ -263,9 +268,11 @@ def light_owner_table(qrun, srun, l_group, G: int) -> torch.Tensor:
     (a stop run belongs to its light's group); a light of no group l goes
     with pseudo-group l mod (G + 1), so that such lights spread over the
     blocks; G + 1 holds the runs that cover no cell (orientation 0),
-    which no block takes.  The kernel's block j takes the pseudo-groups
-    j, j + grid, ... up to G, so each group's counts, controller, lights
-    and paint stay in one block (`light_owners`)."""
+    which no block takes.  Of a world's `nb` blocks, the kernel's block j
+    takes the contiguous pseudo-groups [j (G + 1) / nb, (j + 1) (G + 1)
+    / nb) (`group_owner`), so each group's counts, controller, lights and
+    paint stay in one block, and each block's items are one range of
+    each index list (`light_owners`)."""
     dev = qrun.device
     L = l_group.shape[0]
     lgrp = torch.where((l_group >= 0) & (l_group < G), l_group,
@@ -280,27 +287,34 @@ def light_owner_table(qrun, srun, l_group, G: int) -> torch.Tensor:
     for grp in (qgrp, lgrp, sgrp):
         grp = grp.long()
         cnt = torch.zeros((G + 2,), dtype=torch.int64, device=dev) \
-            .scatter_add_(0, grp, torch.ones_like(grp))
+            .scatter_add(0, grp, torch.ones_like(grp))
         offs.append(torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)]))
         idxs.append(torch.sort(grp, stable=True).indices)
     return torch.cat(offs + idxs).to(torch.int32)
 
 
+def group_owner(g, G: int, nb: int):
+    """The block (of a world's `nb` blocks) that owns pseudo-group g <= G
+    in K9's light stages: block j owns [j (G + 1) // nb, (j + 1) (G + 1)
+    // nb) (int or numpy array)."""
+    return ((g + 1) * nb - 1) // (G + 1)
+
+
 def light_owners(lown: torch.Tensor, G: int, NQ: int, L: int, NS: int,
                  srun: torch.Tensor, H: int, W: int, nb: int) -> dict:
-    """Who owns what in K9's light stages with `nb` blocks: the owning
-    block of each group (g % nb), queue run, light and stop run (each
-    item's pseudo-group % nb; -1 for a run that covers no cell), read
-    from the owner table, with the times each item is listed; and the
-    stop cells (flat indices) that runs of two owners share, which the
-    kernel clears and paints in separate stages."""
+    """Who owns what in K9's light stages with `nb` blocks a world: the
+    owning block of each group, queue run, light and stop run (that of
+    the item's pseudo-group, `group_owner`; -1 for a run that covers no
+    cell), read from the owner table, with the times each item is
+    listed; and the stop cells (flat indices) that runs of two owners
+    share, which the kernel clears and paints in separate stages."""
     t = lown.cpu().numpy().astype(np.int64)
     n = G + 3
     qoff, loff, soff = t[:n], t[n:2 * n], t[2 * n:3 * n]
     qidx = t[3 * n:3 * n + NQ]
     lidx = t[3 * n + NQ:3 * n + NQ + L]
     sidx = t[3 * n + NQ + L:3 * n + NQ + L + NS]
-    out = {"group": np.arange(G) % nb}
+    out = {"group": group_owner(np.arange(G), G, nb)}
     for name, off, idx, size in (("queue_run", qoff, qidx, NQ),
                                  ("light", loff, lidx, L),
                                  ("stop_run", soff, sidx, NS)):
@@ -308,7 +322,7 @@ def light_owners(lown: torch.Tensor, G: int, NQ: int, L: int, NS: int,
         cnt = np.zeros(size, np.int64)
         for g in range(G + 2):
             items = idx[off[g]:off[g + 1]]
-            own[items] = g % nb if g <= G else -1
+            own[items] = group_owner(g, G, nb) if g <= G else -1
             np.add.at(cnt, items, 1)
         out[name] = own
         out[name + "_listed"] = cnt
@@ -689,6 +703,68 @@ def segment_plain(cfg: Config, a: dict) -> dict:
                 li=torch.stack([getattr(lights, f) for f in LI_FIELDS]),
                 lf=torch.stack([lights.ns_pressure, lights.ew_pressure]),
                 lstop=lights.light_stop, stats=torch.stack(stats))
+
+
+def segment_plain_batched(cfg: Config, a: dict, B: int, batched) -> dict:
+    """Plain version of the batched K9: `segment_plain` world by world.
+    The tensors of `a` named in `batched` carry a leading dim of B worlds;
+    the others (the chunk tables of a shared-geometry batch) are read by
+    every world.  Returns `OUTPUTS`, each with a leading dim B.  It serves
+    the CPU tests and `chip_smoke.py`'s checks, not the card's path."""
+    outs = [segment_plain(cfg, {k: v[b] if k in batched else v
+                                for k, v in a.items()}) for b in range(B)]
+    return {k: torch.stack([o[k] for o in outs]) for k in OUTPUTS}
+
+
+def block_owners(plan: dict, B: int, H: int, W: int, G: int) -> dict:
+    """Who owns what in K9's launch of B worlds of H x W with G light
+    groups under `plan` (`hopper_engine.k9_plan`), as the kernel's loops
+    deal it: per (world group, block), the world it works on (-1 for a
+    block idle in a short last group), its tiles (world tile indices,
+    K1's 32 x 8 tiles in row-major order) and its pseudo-groups (a range
+    of 0..G: the light groups, G the lights of no group; `light_owners`
+    lists the items of each within a world at `blocks_per_world`
+    blocks)."""
+    bpw, cpt = plan["blocks_per_world"], plan["tiles_per_block"]
+    wpg = plan["worlds_per_group"]
+    per_world = -(-H // 8) * -(-W // 32)
+    worlds_form = plan["form"] == "worlds"
+    out = {}
+    for gi in range(1 if worlds_form else plan["groups"]):
+        for blk in range(plan["blocks"]):
+            w = blk if worlds_form else gi * wpg + blk // bpw
+            jw = blk % bpw
+            if w >= B:
+                out[gi, blk] = (-1, [], [])
+                continue
+            tiles = [t for t in range(jw, jw + cpt * bpw, bpw)
+                     if t < per_world]
+            groups = range(jw * (G + 1) // bpw, (jw + 1) * (G + 1) // bpw)
+            out[gi, blk] = (w, tiles, list(groups))
+    return out
+
+
+def quirks(cfg: Config, world) -> list:
+    """Which of K9's three JAX quirks (ROADMAP Queue 3) one world's chunk
+    tables show it can reach, where the megakernel path may then differ
+    from the per-tick path: "long_run" (a queue run over 127 cells, whose
+    count K9 wraps to int8), "shared_cell" (two city blocks whose tanks
+    sit on one service cell) and "no_destination" (a valid block with no
+    destination, whose tank K9 does not drain)."""
+    cs = build_chunk_static(cfg, world)
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    q = cs["qrun"]
+    n = torch.where(q[:, 0] == 0, 0, torch.minimum(
+        q[:, 3], torch.where(q[:, 0] == 1, H, W)) - q[:, 2])
+    home = cs["has_home"]
+    out = []
+    if bool((n > 127).any()):
+        out.append("long_run")
+    if bool((home & (cs["bhome"] >= H * W)).any()):
+        out.append("shared_cell")
+    if bool((world.blocks_static.valid & ~home).any()):
+        out.append("no_destination")
+    return out
 
 
 # ---------------------------------------------------------------------------

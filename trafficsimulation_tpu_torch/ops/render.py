@@ -24,7 +24,7 @@ import torch
 
 from .. import codes as C
 
-from .hopper_engine import _call, _check, _on_cuda, _ptr, _stream, launches
+from .hopper_engine import _check, _check_rc, _entry, _on_cuda, launches
 
 PENDING_COLOR = (189, 183, 107)      # ZONE_COLORS["IntersectionPending"]
 DUMMY_COLOR = (255, 0, 255)
@@ -116,6 +116,17 @@ def _colour_table() -> np.ndarray:
                   C.COLOR_VEHICLE_COLLISION]).astype(np.uint8)]))
 
 
+def _packed_colours():
+    """The colour table as the kernel takes it, one r | g << 8 | b << 16
+    word a colour (a ctypes array, built once)."""
+    t = _colour_table().astype(np.uint32)
+    words = t[:, 0] | (t[:, 1] << 8) | (t[:, 2] << 16)
+    return (ctypes.c_uint32 * len(words))(*words.tolist())
+
+
+_colours = []             # the packed table, built at the first launch
+
+
 def vehicle_classes(vehicles, H: int, W: int) -> torch.Tensor:
     """u8 [H, W]: 0 where no active vehicle stands, else its class (1
     vehicle, 2 service, 3 parked, 4 malfunction, 5 collision), the
@@ -164,6 +175,16 @@ def render_planes_plain(cell, stop, rain, vstate) -> torch.Tensor:
     return torch.stack(out)
 
 
+def render_path(cell, stop, rain, vstate, out=None) -> str:
+    """The path K8's wrapper takes for these planes (and output): "vector"
+    (16 pixels a thread, 16-byte loads; a scalar tail for HW % 16) where
+    every one starts on a 16-byte boundary, else "scalar" (a pixel a
+    thread)."""
+    ts = (cell, stop, rain, vstate) + (() if out is None else (out,))
+    return "vector" if all(t.data_ptr() % 16 == 0 for t in ts) \
+        else "scalar"
+
+
 def render_planes(cell, stop, rain, vstate) -> torch.Tensor:
     """K8: cell u8, stop and rain bool, vehicle classes u8 (all [H, W])
     -> the planar frame u8 [3, H, W].
@@ -171,9 +192,13 @@ def render_planes(cell, stop, rain, vstate) -> torch.Tensor:
     Replaces `pallas_render.render_pallas`'s `pallas_call` (`_kernel`,
     ops/pallas_render.py).  Source: csrc/render.cu.  On the H100 it is
     bound by device-memory bytes: 4 bytes read and 3 written a pixel
-    (7.3 MB at 1024^2, about 2.2 us at 3.35 TB/s).  Design: one thread
-    per pixel, the colour table a by-value kernel argument staged in
-    shared memory, the three channel planes written coalesced."""
+    (7.3 MB at 1024^2, about 2.2 us at 3.35 TB/s).  Design: 16 pixels a
+    thread, one 16-byte load from each input plane and one 16-byte store
+    into each channel plane, the colour table a by-value kernel argument
+    staged in shared memory (a packed RGB word a colour, rain mixed on
+    the word); the path by alignment (`render_path`).  The wrapper is
+    lean: the table is packed once, the entry point resolved once, and
+    its checks read no tensor data."""
     if not _on_cuda(cell):
         return render_planes_plain(cell, stop, rain, vstate)
     H, W = cell.shape
@@ -183,11 +208,14 @@ def render_planes(cell, stop, rain, vstate) -> torch.Tensor:
     _check("rain", rain, torch.bool, (H, W), dev)
     _check("vstate", vstate, torch.uint8, (H, W), dev)
     out = torch.empty((3, H, W), dtype=torch.uint8, device=dev)
-    table = _colour_table()
-    _call("tsim_render_planes", table.ctypes.data_as(ctypes.c_void_p),
-          _ptr(cell), _ptr(stop), _ptr(rain), _ptr(vstate), _ptr(out),
-          ctypes.c_int(H * W), ctypes.c_int(C.TRAFFIC_LIGHT),
-          ctypes.c_int(C.CONTROLLED_ROAD), _stream(dev))
+    if not _colours:
+        _colours.append(_packed_colours())
+    _check_rc("tsim_render_planes", _entry("tsim_render_planes")(
+        ctypes.addressof(_colours[0]), cell.data_ptr(), stop.data_ptr(),
+        rain.data_ptr(), vstate.data_ptr(), out.data_ptr(), H * W,
+        C.TRAFFIC_LIGHT, C.CONTROLLED_ROAD,
+        int(render_path(cell, stop, rain, vstate, out) == "vector"),
+        torch._C._cuda_getCurrentRawStream(dev.index)))
     launches["render"] += 1
     return out
 

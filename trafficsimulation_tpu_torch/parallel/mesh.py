@@ -12,8 +12,9 @@ draws of all worlds side by side, each device stage once for the batch);
 vmap tick by tick (JAX's `run_batch`: routing rebuilt every tick).  Each
 world's key chain is walked on the host.  The kernels' vmap rules launch
 K1, K2 (`build_sdir_stacks`), K3 and K4 once per call for the whole
-batch, each world reading its own geometry; world b advances exactly as
-a single-world run of world b.
+batch, each world reading its own geometry (under the megakernel gate,
+K9 once a segment, one block a world); world b advances exactly as a
+single-world run of world b.
 
 Shared geometry:
 The geometry and static tables (`SHARED_GEOMETRY_FIELDS`), the
@@ -25,8 +26,9 @@ the single-world chunk body (`sim.advance`) under `torch.func.vmap`
 with these axes, as the JAX version runs `run_chunk` under `jax.vmap`:
 each kernel wrapper's vmap rule launches its batched kernel once per
 tick or segment for the whole batch (K5 reads the shared key stack once
-per segment), and the dense light reductions become one batched matrix
-product.  World b of the batch advances exactly as a single-world
+per segment; under the megakernel gate K9 once a segment, the shared
+chunk tables read by every world), and the dense light reductions
+become one batched matrix product.  World b of the batch advances exactly as a single-world
 `sim.run_chunk` of the same world with key b.
 """
 
