@@ -175,8 +175,9 @@ Phases (any failure raises and the script exits nonzero):
  18. the RL light controllers (group `rl`) at the headline: REINFORCE
      (NEIGHBOR_RL_BATCHED, 10 x 128), A2C (RL_A2C_BATCHED, 10 x 256) and
      GAT-DQN (GAT_DQN_BATCHED), each world generated on the card from
-     seed 0 with its controller, JAX's initial parameters put in
-     (`data/rl_params.npz`), held to JAX's digest (`data/rl_digest.json`,
+     seed 0 with its controller, its initial parameters drawn on the
+     card equal to flax's (the digest's sha256s), held to JAX's digest
+     (`data/rl_digest.json`,
      `tools/make_torch_rl_digest.py`) at init and after 23 ticks with
      training held off (K1 and K4 23, K2 and K3 5 launches, no plain
      decide core, no megakernel, every leaf on the card); then 64 ticks
@@ -209,6 +210,26 @@ Phases (any failure raises and the script exits nonzero):
      tick, idle share, launches a segment, K9's device ms a call).  With
      `--tree DIR` an older tree's K9 (one launch a world) is timed on the
      same paths (config #4 over 10 ticks) beside K8.
+ 20. the RL families in the world batches (group `rl_batch`; functorch's
+     per-world fallback warning an error): for each family at full
+     width, B = 16 rollouts of its headline world (`run_batch_shared`,
+     world 0 with the world's key): 23 ticks with training held off,
+     world 0 equal to the one-world digest's `headline256` (K1 and K4 23,
+     K5 and K3 5 launches for the batch); 50 ticks at the Config's
+     defaults, worlds 0 and 15 against their single-world runs (a world
+     with a near tie in either run passed over for the next; integers
+     exact, floats within RL_BATCH_RTOL / RL_BATCH_ATOL or, trained,
+     RL_TRAINED_FRAC of their displacement), two control runs of
+     REINFORCE that the gates must reject (TF32 products, replay indices
+     rolled by a world), Adam's count of every world equal to the host's
+     mirror and >= 1, parameters moved, nothing non-finite; one training
+     update's device kernels at B = 4 and 16 (equal); 2 timed chunks of
+     25 ticks and a profile of each family
+     and of QUEUE_ACTUATED at B = 16 (steps/s per world, launches and
+     device busy ms a tick, idle share); then config #4 with REINFORCE
+     (1024 cities: per-world train ticks counted, worlds 0-3 against
+     their single-world runs, K1 50 and K2 10 launches for the batch,
+     steps/s beside the FSM config #4).
 
 The line before the last is the kernels' JSON summary, the one before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -219,6 +240,7 @@ there too.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -387,7 +409,7 @@ PED_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
 PHASES = ("kernels", "ordered_add", "headline", "mega", "mega_batch",
           "hier_digest",
           "config4", "config5", "config3", "config1", "tiled", "render",
-          "bridge", "rl")
+          "bridge", "rl", "rl_batch")
 # development groups, run only when named in --only: `forms` times K1's
 # forms over K1_SWEEP worlds and the pedestrian step (phase_forms),
 # `select_rows` K6 alone (phase_select_rows)
@@ -3137,19 +3159,41 @@ def phase_bridge(cfg, world, HE, tsim, card):
 
 
 # the RL light controllers at the headline (`data/rl_digest.json`,
-# `tools/make_torch_rl_digest.py`; their initial parameters in
-# `data/rl_params.npz`)
+# `tools/make_torch_rl_digest.py`: the sha256 of JAX's initial parameters
+# among its leaves)
 RL_FAMILIES = ("NEIGHBOR_RL_BATCHED", "RL_A2C_BATCHED", "GAT_DQN_BATCHED")
 RL_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
                          "rl_digest.json")
-RL_PARAMS = os.path.join("trafficsimulation_tpu_torch", "data",
-                         "rl_params.npz")
 RL_NEAR = ("rl.roll_v",)      # A2C's value outputs: the nets' f32 order
 RL_NET_RTOL = 1e-5
 RL_TRAIN_TICKS = 64
 RL_CHUNK = 50
-RL_REPEATS = 3
+RL_REPEATS = 2            # timed chunks: 2 keep the script under ~950 s
 RL_DEVICE = "cuda"
+RL_START = {}           # family -> (cfg, world) as phase_rl built them
+# the RL families in the world batches (group `rl_batch`)
+RL_BATCH_TICKS = 50
+RL_BATCH_CHUNK = 25
+RL_BATCH_REPEATS = 2      # timed chunks: 2 keep the script under ~950 s
+RL_BATCH_WORLDS = (0, BATCH - 1)    # held to their single-world runs
+RL_CONFIG4_WORLDS = 4               # config #4 worlds held to theirs
+RL_MAX_SKIPPED = 4      # worlds with a near tie passed over, at most
+# a float leaf of a batch world against its single-world run: |a - b| <=
+# RL_BATCH_RTOL * max|single| + RL_BATCH_ATOL (the batched and the single
+# products may take other cuBLAS algorithms; Adam turns a gradient near 0
+# into a step of up to lr either way)
+RL_BATCH_RTOL, RL_BATCH_ATOL = 1e-3, 1e-5
+# ... and a trained float past that: Adam turns a gradient near 0, whose
+# sign the summation order decides, into a step of up to lr either way,
+# so after tens of updates elementwise bounds do not hold; the two runs
+# must agree within 5% of how far training moved the leaf (L2).  On the
+# H100: 0.52% the largest reading of two clean runs (REINFORCE world 15,
+# its elements past the elementwise bound with sqrt(nu) 10^3-10^5 below
+# their leaf's median), 292-373% for the controls that the gates must
+# reject (`rl_controls`)
+RL_TRAINED = ("rl.params.", "rl.target_params.", "rl.opt_state.0.mu.",
+              "rl.opt_state.0.nu.", "rl.roll_v")
+RL_TRAINED_FRAC = 0.05
 
 
 def rl_hold_off(cfg):
@@ -3217,35 +3261,55 @@ def rl_profile(fn, n_ticks, top: int = 8):
          e.count / n_ticks) for e in host[:top]]
 
 
-def rl_update_profile(cfg, world, rl_mod):
-    """(device ms, device kernels) of one training update of the world's
-    controller on its own buffers (the replay batch from its filled
-    rows), under torch.profiler."""
-    ts = world.rl
+def rl_update_profile(cfg, ts, rl_mod, B=None, calls: int = 10):
+    """(device ms, device kernels) of one training update of a train
+    state on its own buffers (the replay batch from its filled rows),
+    under torch.profiler, a mean over `calls` calls after 2 warm-ups.
+    `B`: the state is a batch's (every leaf with a leading world dim),
+    whose first B worlds update under vmap, as in the batch runners."""
     net = rl_mod.net_of(cfg)
     algo = cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM
-    count = int(ts.opt_state.count) + 1
-    if algo in rl_mod.A2C_ALGOS:
-        tick = rl_mod.RLTick(train=True, count=count)
-        fn = lambda: rl_mod._a2c_update(cfg, net, ts, tick)  # noqa: E731
-    else:
-        B = (cfg.SRL_BATCH_SIZE if algo in rl_mod.SRL_ALGOS
+    update = {"NEIGHBOR_RL_BATCHED": rl_mod._srl_train,
+              "RL_A2C_BATCHED": rl_mod._a2c_update,
+              "GAT_DQN_BATCHED": rl_mod._gat_train}[algo]
+    lead = () if B is None else (B,)
+    dev = ts.opt_state.count.device
+    counts = np.asarray(ts.opt_state.count.cpu()).reshape(-1)[
+        :B or 1] + 1
+    bc = rl_mod._bias_corrections(counts.reshape(lead))
+    tk = {"train": torch.ones(lead, dtype=torch.bool, device=dev),
+          "sync": torch.ones(lead, dtype=torch.bool, device=dev),
+          "bc1": torch.from_numpy(bc["bc1"]).to(dev),
+          "bc2": torch.from_numpy(bc["bc2"]).to(dev)}
+    if algo not in rl_mod.A2C_ALGOS:
+        n = (cfg.SRL_BATCH_SIZE if algo in rl_mod.SRL_ALGOS
              else cfg.GAT_BATCH_SIZE)
-        bidx = torch.randint(0, max(int(ts.filled), 1), (B,),
-                             device=ts.filled.device)
-        tick = rl_mod.RLTick(train=True, bidx=bidx, count=count)
-        train = (rl_mod._srl_train if algo in rl_mod.SRL_ALGOS
-                 else rl_mod._gat_train)
-        fn = lambda: train(cfg, net, ts, tick)  # noqa: E731
-    fn()
-    busy, kernels, _ = profile_path(fn, 1)
+        tk["bidx"] = torch.randint(0, max(int(ts.filled.min()), 1),
+                                   lead + (n,), device=dev)
+
+    def one(tree, t):
+        out = update(cfg, net, rl_mod.untree(ts, tree), rl_mod.RLTick(
+            train_any=True, train_all=True, **t))
+        return rl_mod.tree(out)
+    if B is None:
+        fn = lambda: one(rl_mod.tree(ts), tk)  # noqa: E731
+    else:
+        part = rl_mod.tree(ts)
+        part = torch.utils._pytree.tree_map(lambda t: t[:B], part)
+        vm = torch.func.vmap(one)
+        fn = lambda: vm(part, tk)  # noqa: E731
+    for _ in range(2):
+        fn()
+    busy, kernels, _ = profile_path(lambda: [fn() for _ in range(calls)],
+                                    calls)
     return busy, kernels
 
 
 def phase_rl(HE, tsim, transfer, card, prng, Config, snapshot, utils):
     """The RL controllers at the headline on the card: each family's
-    world generated as a user builds it, JAX's initial parameters put in
-    (`transfer.with_rl_params`), held to JAX's digest at init and after 23
+    world generated as a user builds it, its initial parameters (drawn
+    on the card) equal to flax's sha256s, held to JAX's digest at init
+    and after 23
     ticks with training held off (one K1 and one K4 launch a tick, one K2
     and one K3 a segment, no plain decide core, no megakernel, every
     leaf on the card); then 64 ticks at the Config's defaults (training
@@ -3262,15 +3326,19 @@ def phase_rl(HE, tsim, transfer, card, prng, Config, snapshot, utils):
     n = dig["ticks"]
     R = None
     out, launches_all = {}, {}
-    with np.load(os.path.join(ROOT, RL_PARAMS)) as z:
-        params = {a: {k[len(a) + 1:]: z[k] for k in z.files
-                      if k.startswith(a + ".")} for a in RL_FAMILIES}
     for algo in RL_FAMILIES:
         cfg, world = rl_world(tsim, prng, Config, snapshot, algo, head)
+        RL_START[algo] = (cfg, world)
         R = max(1, cfg.PATHFINDING_COOLDOWN)
         rec = head[algo]
-        w = transfer.with_rl_params(world, params[algo])
+        w = world
         cfg_h = rl_hold_off(cfg)
+        drawn = {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+                 for k, v in world.rl.params.items()}
+        if drawn != rec["params_sha256"]:
+            raise AssertionError(f"{algo}: the initial parameters drawn "
+                                 "on the card are not flax's: "
+                                 f"{sorted(k for k in drawn if drawn[k] != rec['params_sha256'].get(k))}")
         ex0, _ = rl_digest_check(f"{algo} at init", rec["init"],
                                  transfer.world_to_numpy(w))
         HE.reset_launches()
@@ -3292,15 +3360,17 @@ def phase_rl(HE, tsim, transfer, card, prng, Config, snapshot, utils):
                                    rec[f"tick{n}"],
                                    transfer.world_to_numpy(end))
         launches_all[algo] = launches
-        log(f"rl {algo}: generated on the card, JAX's initial parameters "
-            f"in; init {ex0}/{len(rec['init'])} leaves bit-equal to "
+        log(f"rl {algo}: generated on the card, its initial parameters "
+            f"drawn there equal to flax's (the digest's "
+            f"{len(drawn)} sha256s); init {ex0}/{len(rec['init'])} leaves "
+            f"bit-equal to "
             f"JAX's digest; after {n} ticks ({t_ref:.2f} s) every leaf "
             f"equals JAX's ({ex} bit-equal, f32 within rtol: {near}); "
             f"launches {launches}")
 
         # training at the Config's defaults from the same start
         _, plan, _ = tsim._chain(cfg, world, RL_TRAIN_TICKS)
-        mirror = plan[-1].count
+        mirror = int(plan.counts[-1])
         p0 = {k: v.clone() for k, v in world.rl.params.items()}
         with mega_env(False), no_plain_core(HE):
             trained, t_train = timed(lambda: tsim.run_chunk(
@@ -3331,7 +3401,7 @@ def phase_rl(HE, tsim, transfer, card, prng, Config, snapshot, utils):
         one.step(1)
         if int(one.world.tick) != int(trained.tick) + 1:
             raise AssertionError(f"{algo}: step(1) did not advance")
-        upd_ms, upd_kernels = rl_update_profile(cfg, trained, rl_mod)
+        upd_ms, upd_kernels = rl_update_profile(cfg, trained.rl, rl_mod)
         log(f"rl {algo}: {RL_TRAIN_TICKS} ticks at the defaults in "
             f"{t_train:.2f} s, Adam count {count} = the host's mirror, "
             f"{moved}/{len(p0)} parameter tensors moved, no NaN, the grid's "
@@ -3400,6 +3470,414 @@ def phase_rl(HE, tsim, transfer, card, prng, Config, snapshot, utils):
     torch.cuda.empty_cache()
     return launches_all["RL_A2C_BATCHED"]
 
+
+
+def rl_spied(cfg, world, n_worlds: int, fn):
+    """(fn(), near ties a world [n_worlds]) with `rl/ties.TieSpy` in the
+    controllers; `world`: the world or batch that fn advances from (its
+    plan)."""
+    from trafficsimulation_tpu_torch import sim as tsim
+    from trafficsimulation_tpu_torch.rl import ties
+    with ties.spying(n_worlds) as spy:
+        out = fn()
+    return out, spy.ties(cfg, tsim._chain(cfg, world, len(spy.gaps))[1])
+
+
+def rl_lr(cfg, rl_mod) -> float:
+    return (rl_mod.GAT_LR if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM
+            in rl_mod.GAT_ALGOS else cfg.SRL_LEARNING_RATE)
+
+
+def rl_past_bound(k, diff, lim, single: dict, lr: float, top: int = 5):
+    """Of a parameter leaf past the elementwise bound: how many elements,
+    and of the worst `top` the difference in units of the learning rate
+    with Adam's |mu| and sqrt(nu) there in the single run, beside the
+    leaf's median sqrt(nu) and that of the elements past the bound.  A
+    gradient near 0, whose sign the summation order decides, shows as a
+    small sqrt(nu) where Adam still steps by up to lr."""
+    rest = k[len("rl.params."):]
+    mu = np.abs(single["rl.opt_state.0.mu." + rest]).reshape(-1)
+    snu = np.sqrt(single["rl.opt_state.0.nu." + rest]).reshape(-1)
+    dd = diff.reshape(-1)
+    idx = np.nonzero(dd > lim)[0]
+    worst = idx[np.argsort(-dd[idx])][:top]
+    return {"n": int(idx.size), "of": int(dd.size),
+            "median_sqrt_nu_leaf": float(np.median(snu)),
+            "median_sqrt_nu_past": float(np.median(snu[idx])),
+            "worst_lr_mu_sqrtnu": [(float(dd[i] / lr), float(mu[i]),
+                                    float(snu[i])) for i in worst]}
+
+
+def rl_compare(name, single: dict, got: dict, start: dict, lr: float,
+               control: bool = False) -> dict:
+    """A batch world's leaves against its single-world run, both from the
+    leaves `start` and both free of near ties (`rl_vs_single`): integers
+    exact; floats within RL_BATCH_RTOL / RL_BATCH_ATOL elementwise or,
+    for a trained float (RL_TRAINED: parameters, Adam moments, value
+    outputs) past that, its difference within RL_TRAINED_FRAC of how far
+    training moved the leaf (L2: ||got - single|| <= RL_TRAINED_FRAC *
+    ||single - start||).  Returns the largest elementwise error, the
+    largest such fraction over the trained leaves and the parameter
+    leaves past the elementwise bound (`rl_past_bound`); raises on a
+    failed gate, or, for a `control` run that the gates must reject,
+    lists the rejections instead."""
+    bad, err, frac, past = [], 0.0, 0.0, {}
+    for k, a in single.items():
+        b = got[k]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            bad.append((k, "shape/dtype"))
+        elif np.issubdtype(a.dtype, np.floating):
+            if not (np.isfinite(a).all() and np.isfinite(b).all()):
+                bad.append((k, "non-finite"))
+                continue
+            a64 = a.astype(np.float64)
+            diff = np.abs(a64 - b)
+            d = float(diff.max()) if a.size else 0.0
+            err = max(err, d)
+            lim = RL_BATCH_RTOL * float(np.abs(a).max() if a.size else 0) \
+                + RL_BATCH_ATOL
+            f = None
+            if k.startswith(RL_TRAINED):
+                f = float(np.linalg.norm(diff)) / max(
+                    float(np.linalg.norm(a64 - start[k])), 1e-30)
+                frac = max(frac, f)
+            if d <= lim:
+                continue
+            if k.startswith("rl.params."):
+                past[k] = rl_past_bound(k, diff, lim, single, lr)
+            if f is None or f > RL_TRAINED_FRAC:
+                bad.append((k, d, lim, f))
+        elif not np.array_equal(a, b):
+            bad.append((k, "integer leaf differs"))
+    out = {"max_abs_float_err": err, "trained_frac": frac,
+           "past_bound": past}
+    if control:
+        return {"max_abs_float_err": err, "trained_frac": frac,
+                "rejects": [str(x)[:120] for x in bad[:4]],
+                "float_gate_rejects": any(len(x) == 4 for x in bad)}
+    if bad:
+        raise AssertionError(f"{name}: {bad[:8]}")
+    return out
+
+
+def rl_vs_single(name, want, n_worlds: int, batch_ties, single_of, got_of,
+                 lr: float):
+    """Each world of `want` held to its single-world run (`rl_compare`).
+    A near tie may flip an action and part the two runs, so a world with
+    one in the batch run or in its single run is not compared but
+    logged, and the next world of the batch outside `want` takes its
+    place (at most RL_MAX_SKIPPED).  `single_of(b)`: (the single run's
+    leaves, the start's, its near ties); `got_of(b)`: the batch world's
+    leaves.  Returns ({world: readings}, {skipped: [batch ties, single
+    ties]}, {world: (single, start)})."""
+    spare = [b for b in range(n_worlds) if b not in want]
+    cmp, skipped, singles = {}, {}, {}
+    for b in want:
+        while True:
+            t1 = None
+            if int(batch_ties[b]) == 0:
+                single, start, t1 = single_of(b)
+                if t1 == 0:
+                    break
+            skipped[b] = [int(batch_ties[b]), t1]
+            if len(skipped) > RL_MAX_SKIPPED or not spare:
+                raise AssertionError(f"{name}: near ties in {skipped}")
+            b = spare.pop(0)
+        cmp[b] = rl_compare(f"{name} world {b} vs its single run", single,
+                            got_of(b), start, lr)
+        singles[b] = (single, start)
+    return cmp, skipped, singles
+
+
+def rl_controls(rl_mod, mesh, transfer, cfg, batch, singles: dict,
+                lr: float) -> dict:
+    """Runs of the B = 16 batch that the gates must reject, each held to
+    the single runs as the batch was: `tf32`, the nets' products in TF32
+    (torch.backends.cuda.matmul.allow_tf32); `bidx_rolled`, each world
+    training on the replay rows that the next world's indices pick (the
+    plan's `bidx` rolled by one world).  Their readings set where
+    RL_TRAINED_FRAC lies."""
+    out = {}
+    plan_ticks = rl_mod.plan_ticks
+    mm = torch.backends.cuda.matmul
+
+    def rolled(*a, **kw):
+        plan = plan_ticks(*a, **kw)
+        return plan.of(dict(plan.tensors,
+                            bidx=plan.tensors["bidx"].roll(1, 0)))
+    for name in ("tf32", "bidx_rolled"):
+        tf32 = mm.allow_tf32
+        try:
+            if name == "tf32":
+                mm.allow_tf32 = True
+            else:
+                rl_mod.plan_ticks = rolled
+            with mega_env(False):
+                end = mesh.run_batch_shared(cfg, batch, RL_BATCH_TICKS)
+        finally:
+            mm.allow_tf32 = tf32
+            rl_mod.plan_ticks = plan_ticks
+        out[name] = {b: rl_compare(
+            f"control {name} world {b}", single, transfer.world_to_numpy(
+                mesh.world_at(end, b).replace(cost_field=None)), start, lr,
+            control=True) for b, (single, start) in singles.items()}
+        passed = [b for b, r in out[name].items() if not r["rejects"]]
+        if passed:
+            raise AssertionError(f"control {name}: worlds {passed} pass the "
+                                 f"gates: {out[name]}")
+    return out
+
+
+def phase_rl_batch(HE, tsim, transfer, mesh, card, prng, Config, snapshot):
+    """The RL families in the world batches on the card: for each family
+    at full width, B = 16 rollouts of its headline world (world 0 with
+    the world's key): 23 ticks with training held off, world 0 held to
+    the one-world digest; then RL_BATCH_TICKS ticks at the Config's
+    defaults, worlds 0 and 15 held to their single-world runs (near ties
+    counted), every world's Adam count equal to the host's mirror and
+    >= 1, parameters moved, no float leaf non-finite; the launches of
+    both runs; one training update's device kernels at B = 4 and 16;
+    timed chunks beside QUEUE_ACTUATED at B = 16.  Then config #4 with
+    REINFORCE: 1024 cities, one chunk of 50 ticks with per-world train
+    ticks, worlds 0-3 held to their single-world runs, one K1 launch a
+    tick and one K2 a segment, steps/s beside the FSM config #4."""
+    from trafficsimulation_tpu_torch.rl import controllers as rl_mod
+    with open(os.path.join(ROOT, RL_DIGEST)) as f:
+        dig = json.load(f)
+    head, n = dig["headline256"], dig["ticks"]
+    out, launches_all = {}, {}
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    import warnings
+    warnings.filterwarnings("error", message=".*performance drop.*")
+    for algo in RL_FAMILIES:
+        if algo not in RL_START:
+            RL_START[algo] = rl_world(tsim, prng, Config, snapshot, algo,
+                                      head)
+        cfg, world = RL_START[algo]
+        R = max(1, cfg.PATHFINDING_COOLDOWN)
+        keys = batch_keys(world.key, prng)
+        cfg_h = rl_hold_off(cfg)
+        HE.reset_launches()
+        with mega_env(False), no_plain_core(HE):
+            end, t_ref = timed(lambda: mesh.run_batch_shared(
+                cfg_h, mesh.tile_dynamic(world, keys), n))
+        launches = dict(HE.launches)
+        need = {"decide_move": n, "prefix_planes": n,
+                "build_sdir_batched": -(-n // R),
+                "build_wavefront": -(-n // R), "build_sdir": 0,
+                "select_rows": 0, "mega": 0, "mega_worlds": 0,
+                "decide_move_blocks": 0,
+                "rain_ticks": n if cfg.RAIN_ENABLED else 0}
+        check_launches(f"{algo} B={BATCH} path", launches, need)
+        ex, near = rl_digest_check(
+            f"{algo} B={BATCH} world 0 after {n} ticks",
+            head[algo][f"tick{n}"],
+            transfer.world_to_numpy(mesh.world_at(end, 0)))
+        log(f"rl_batch {algo}: B={BATCH} for {n} ticks with training held "
+            f"off ({t_ref:.2f} s): world 0 equals the one-world digest "
+            f"({ex} leaves bit-equal, f32 within rtol: {near}); launches "
+            f"{launches}")
+        del end
+        # training on, at the Config's defaults
+        batch = mesh.tile_dynamic(world, keys)
+        _, plan, _ = tsim._chain(cfg, batch, RL_BATCH_TICKS)
+        mirror = plan.counts[:, -1]
+        HE.reset_launches()
+        with mega_env(False), no_plain_core(HE):
+            (trained, ties), t_train = timed(lambda: rl_spied(
+                cfg, batch, BATCH, lambda: mesh.run_batch_shared(
+                    cfg, batch, RL_BATCH_TICKS)))
+        l_train = dict(HE.launches)
+        need_t = dict(need, decide_move=RL_BATCH_TICKS,
+                      prefix_planes=RL_BATCH_TICKS,
+                      build_sdir_batched=-(-RL_BATCH_TICKS // R),
+                      build_wavefront=-(-RL_BATCH_TICKS // R),
+                      rain_ticks=RL_BATCH_TICKS if cfg.RAIN_ENABLED else 0)
+        check_launches(f"{algo} B={BATCH} training path", l_train, need_t)
+        counts = trained.rl.opt_state.count.cpu().numpy()
+        if not (np.array_equal(counts, mirror) and counts.min() >= 1):
+            raise AssertionError(f"{algo}: Adam counts {counts} vs the "
+                                 f"host's mirror {mirror}")
+        moved = sum(int(not torch.equal(world.rl.params[k], v[b]))
+                    for k, v in trained.rl.params.items() for b in range(
+                        BATCH))
+        if moved == 0:
+            raise AssertionError(f"{algo}: no parameter moved")
+        bad = [k for k, t in transfer.world_leaves(trained).items()
+               if t.is_floating_point() and not bool(torch.isfinite(t).all())]
+        if bad:
+            raise AssertionError(f"{algo}: non-finite leaves {bad[:5]}")
+        # the key stack is geometry, the same in every run: left out
+        start = transfer.world_to_numpy(world.replace(cost_field=None))
+
+        def single_of(b):
+            w = world.replace(key=torch.from_numpy(
+                keys[b].view(np.int32).copy()).cuda())
+            with mega_env(False):
+                single, t1 = rl_spied(cfg, w, 1, lambda: tsim.run_chunk(
+                    cfg, w, RL_BATCH_TICKS))
+            return (transfer.world_to_numpy(single.replace(cost_field=None)),
+                    start, int(t1[0]))
+        lr = rl_lr(cfg, rl_mod)
+        cmp, skipped, singles = rl_vs_single(
+            f"{algo} B={BATCH}", RL_BATCH_WORLDS, BATCH, ties, single_of,
+            lambda b: transfer.world_to_numpy(mesh.world_at(
+                trained, b).replace(cost_field=None)), lr)
+        controls = (rl_controls(rl_mod, mesh, transfer, cfg, batch, singles,
+                                lr) if algo in rl_mod.SRL_ALGOS else {})
+        upd = {f"B={b}": rl_update_profile(cfg, trained.rl, rl_mod, b)
+               for b in (4, BATCH)}
+        # a mean over profiled calls, which the profiler may short by a
+        # kernel now and then; an op looped over the worlds would add at
+        # least BATCH - 4 kernels from B = 4 to B = BATCH
+        if abs(upd["B=4"][1] - upd[f"B={BATCH}"][1]) >= BATCH - 4:
+            raise AssertionError(f"{algo}: an update launches "
+                                 f"{upd['B=4'][1]} device kernels at B = 4, "
+                                 f"{upd[f'B={BATCH}'][1]} at {BATCH}")
+        log(f"rl_batch {algo}: B={BATCH} for {RL_BATCH_TICKS} ticks at the "
+            f"defaults ({t_train:.2f} s; launches {l_train}): Adam counts "
+            f"{counts.tolist()} = the host's mirror, {moved} parameter "
+            f"tensors of {BATCH} worlds moved, no NaN; worlds "
+            f"{list(cmp)} against their single runs {json.dumps(cmp)} "
+            f"(near ties a world in the batch run: {ties.tolist()}; passed "
+            f"over for a near tie [batch, single]: {json.dumps(skipped)}); "
+            + (f"controls the gates reject: {json.dumps(controls)}; "
+               if controls else "")
+            + f"one update (device ms, kernels): {json.dumps(upd)}")
+        launches_all[algo] = l_train
+        out[algo] = {"ref_s": t_ref, "launches_ref": launches,
+                     "train_s": t_train, "launches": l_train,
+                     "adam_counts": counts.tolist(), "moved": moved,
+                     "vs_single": cmp, "ties": ties.tolist(),
+                     "skipped_for_ties": skipped, "controls": controls,
+                     "update": upd, "batch": trained, "cfg": cfg}
+        del batch
+        torch.cuda.empty_cache()
+    # timed chunks of the three families and of QUEUE_ACTUATED at B = 16
+    cfg0, w0 = RL_START[RL_FAMILIES[0]]
+    fsm_cfg = cfg0.replace(TRAFFIC_LIGHT_AGENT_ALGORITHM="QUEUE_ACTUATED")
+    runs = [(a, out[a]["cfg"], out[a]["batch"]) for a in RL_FAMILIES]
+    runs.append(("QUEUE_ACTUATED", fsm_cfg, mesh.tile_dynamic(
+        w0.replace(rl=None), batch_keys(w0.key, prng))))
+    HW = cfg0.HEIGHT * cfg0.WIDTH
+    for name, cfg, b in runs:
+        times = []
+        with mega_env(False):
+            for _ in range(RL_BATCH_REPEATS):
+                b, dt = timed(lambda b=b: mesh.run_batch_shared(
+                    cfg, b, RL_BATCH_CHUNK))
+                times.append(dt)
+            busy, per_tick, top, host = rl_profile(
+                lambda: mesh.run_batch_shared(cfg, b, RL_BATCH_CHUNK),
+                RL_BATCH_CHUNK)
+        dt = statistics.median(times)
+        wall_ms = dt * 1e3 / RL_BATCH_CHUNK
+        rec = out.setdefault(name, {})
+        rec.update(chunk_s=times, steps_per_s_per_world=RL_BATCH_CHUNK / dt,
+                   cell_updates_per_s=BATCH * HW * RL_BATCH_CHUNK / dt,
+                   wall_ms_per_tick=wall_ms, busy_ms_per_tick=busy,
+                   device_launches_per_tick=per_tick,
+                   idle_share=1 - busy / wall_ms, top_kernels=top,
+                   top_host_ops=host)
+        log(f"rl_batch timing ({card}) {name}, B={BATCH}: "
+            f"{RL_BATCH_REPEATS} chunks of {RL_BATCH_CHUNK} ticks "
+            f"{[round(t, 3) for t in times]} s, median "
+            f"{RL_BATCH_CHUNK / dt:.2f} steps/s per world; wall "
+            f"{wall_ms:.3f} ms/tick, device busy {busy:.3f} ms/tick in "
+            f"{per_tick:.1f} launches, idle share {1 - busy / wall_ms:.3f}; "
+            "top kernels " + json.dumps(
+                [(k, round(m, 4), round(c, 1)) for k, m, c in top])
+            + "; top host ops under the profiler (self CPU ms, calls a tick) "
+            + json.dumps([(k, round(m, 3), round(c, 1)) for k, m, c in host]))
+        del b
+    for a in RL_FAMILIES:
+        out[a].pop("batch")
+        out[a].pop("cfg")
+    RL_START.clear()
+    torch.cuda.empty_cache()
+    out["config4"] = rl_config4(HE, tsim, transfer, mesh, card, prng,
+                                Config, rl_mod)
+    launches_all["config4"] = out["config4"]["launches"]
+    REPORT["rl_batch"] = {"card": card, **out}
+    torch.cuda.empty_cache()
+    return launches_all["RL_A2C_BATCHED"]
+
+
+def rl_config4(HE, tsim, transfer, mesh, card, prng, Config, rl_mod):
+    """Config #4 with REINFORCE (see `phase_rl_batch`)."""
+    cfg = Config(**CONFIG4, TRAFFIC_LIGHT_AGENT_ALGORITHM="NEIGHBOR_RL_BATCHED")
+    nw, T = CONFIG4_WORLDS, CONFIG4_TICKS
+    worlds, t_gen = timed(lambda: mesh.init_world_batch(
+        cfg, prng.PRNGKey(0), nw))
+    groups = worlds.groups_static.valid.sum(-1).cpu().numpy()
+    _, plan, _ = tsim._chain(cfg, worlds, T)
+    mixed = int((plan.train_any & ~plan.train_all).sum())
+    mirror = plan.counts[:, -1]
+    if mixed < 1:
+        raise AssertionError("config #4 RL: no tick with some worlds "
+                             "training and others not")
+    R = max(1, cfg.PATHFINDING_COOLDOWN)
+    HE.reset_launches()
+    with mega_env(False), no_plain_core(HE):
+        (end, ties), t_first = timed(lambda: rl_spied(
+            cfg, worlds, nw, lambda: mesh.run_chunk_batch(cfg, worlds, T)))
+    launches = dict(HE.launches)
+    check_launches("config #4 RL path", launches, {
+        "decide_move_blocks": T, "decide_move": 0, "prefix_planes": T,
+        "build_sdir": -(-T // R), "build_wavefront": -(-T // R),
+        "build_sdir_batched": 0, "select_rows": 0, "mega": 0,
+        "mega_worlds": 0, "rain_ticks": T if cfg.RAIN_ENABLED else 0})
+    counts = end.rl.opt_state.count.cpu().numpy()
+    if not (np.array_equal(counts, mirror) and counts.min() >= 1):
+        raise AssertionError(f"config #4 RL: Adam counts vs the mirror "
+                             f"differ in {int((counts != mirror).sum())} "
+                             f"worlds, min {counts.min()}")
+    keys = prng.split(prng.PRNGKey(0), nw)
+
+    def single_of(b):
+        w = tsim.init_world(cfg, keys[b], "cuda")
+        start = transfer.world_to_numpy(w)
+        compare_leaves(f"config #4 RL world {b} at init", start,
+                       transfer.world_to_numpy(mesh.world_at(worlds, b)))
+        with mega_env(False):
+            single, t1 = rl_spied(cfg, w, 1, lambda: tsim.run_chunk(
+                cfg, w, T))
+        return transfer.world_to_numpy(single), start, int(t1[0])
+    cmp, skipped, _ = rl_vs_single(
+        "config #4 RL", range(RL_CONFIG4_WORLDS), nw, ties, single_of,
+        lambda b: transfer.world_to_numpy(mesh.world_at(end, b)),
+        rl_lr(cfg, rl_mod))
+    fsm_cfg = cfg.replace(TRAFFIC_LIGHT_AGENT_ALGORITHM="QUEUE_ACTUATED")
+    timing = {}
+    for name, c, w in (("NEIGHBOR_RL_BATCHED", cfg, end),
+                       ("QUEUE_ACTUATED", fsm_cfg, end.replace(rl=None))):
+        times = []
+        with mega_env(False):
+            for _ in range(2):
+                w, dt = timed(lambda w=w: mesh.run_chunk_batch(c, w, T))
+                times.append(dt)
+        timing[name] = {"chunk_s": times,
+                        "steps_per_s_per_world": T / min(times)}
+    log(f"rl_batch config #4 ({card}): {nw} cities with REINFORCE "
+        f"generated in {t_gen:.2f} s (light groups {int(groups.min())}-"
+        f"{int(groups.max())}); {mixed} of {T} ticks with some worlds "
+        f"training and others not; first chunk {t_first:.2f} s, launches "
+        f"{launches} (K1 {launches['decide_move_blocks'] / T:g} a tick, K2 "
+        f"{launches['build_sdir'] / -(-T // R):g} a segment for the batch); "
+        f"Adam counts {int(counts.min())}-{int(counts.max())} = the host's "
+        f"mirror; worlds {list(cmp)} against their single runs "
+        f"{json.dumps(cmp)} (near ties in the batch run: {int(ties.sum())} "
+        f"in {int((ties > 0).sum())} worlds; passed over for a near tie "
+        f"[batch, single]: {json.dumps(skipped)}); 2 chunks of {T} ticks each (steps/s per "
+        "world, best): " + json.dumps(
+            {k: round(v["steps_per_s_per_world"], 2)
+             for k, v in timing.items()}))
+    return {"generate_s": t_gen, "groups": [int(groups.min()),
+                                            int(groups.max())],
+            "mixed_ticks": mixed, "first_chunk_s": t_first,
+            "launches": launches, "vs_single": cmp,
+            "ties": int(ties.sum()), "skipped_for_ties": skipped,
+            "timing": timing}
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3555,6 +4033,10 @@ def main():
         l_rl = phase_rl(HE, tsim, transfer, card, prng, Config, snapshot,
                         utils)
         stamp("rl")
+    if "rl_batch" in run:
+        l_rlb = phase_rl_batch(HE, tsim, transfer, mesh, card, prng, Config,
+                               snapshot)
+        stamp("rl_batch")
     REPORT["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke phases took {REPORT['seconds']:.1f} s")
     if run != set(PHASES):
@@ -3568,7 +4050,8 @@ def main():
     launch_paths = {"single": l_single, "batched": l_batch,
                     "config5": l_c5, "mega": l_mega, "bridge": l_bridge,
                     "config4": l_c4, "config3": l_c3, "config1": l_c1,
-                    "rl": l_rl, "mega_batch": l_mb, "config4_mega": l_c4m}
+                    "rl": l_rl, "mega_batch": l_mb, "config4_mega": l_c4m,
+                    "rl_batch": l_rlb}
     summary = {"kernels": []}
     for k in KERNELS:
         path = SUMMARY_PATH.get(k, "batched")
@@ -3618,6 +4101,7 @@ def main():
                  "launches_config3_path": l_c3[ctr],
                  "launches_config1_path": l_c1[ctr],
                  "launches_rl_path": l_rl[ctr],
+                 "launches_rl_batch_path": l_rlb[ctr],
                  "launches_mega_batch_path": l_mb[ctr],
                  "launches_config4_mega_path": l_c4m[ctr],
                  "on_path": k not in OFF_PATH}

@@ -17,13 +17,15 @@
   perturbed logits, closer than 1e-4, are counted: none on these seeds).
   Then one forced training update each from a random buffer and a
   random Adam state: parameters and moments within the tolerances
-  stated at `_assert_trained_like`.
+  stated at `_assert_trained_like`, and every leaf bit for bit the
+  autograd / `_foreach` form that the functional update replaced.
 * The learning oracles of tests/test_agents.py on the port alone: the
   parameters move and Adam counts its updates; GAT-DQN stores real
   (s, a, r, s') transitions and its TD loss falls.
-* `transfer` both ways, the crossroad run of each family held to JAX's
-  digest (`data/rl_digest.json`, `tools/make_torch_rl_digest.py`) at
-  init and after 23 ticks, and the world batches' refusal of RL.
+* `transfer` both ways, and the crossroad run of each family held to
+  JAX's digest (`data/rl_digest.json`, `tools/make_torch_rl_digest.py`)
+  at init, the port's own initial parameters included, and after 23
+  ticks.  The world batches: tests/test_torch_rl_batch.py.
 
 No JAX compile of the simulation: the JAX steps are the controllers'
 alone, and the crossroad is built eagerly.
@@ -54,7 +56,6 @@ from trafficsimulation_tpu_torch.config import Config
 from trafficsimulation_tpu_torch.core import synth, transfer
 from trafficsimulation_tpu_torch.lights import fsm as tfsm
 from trafficsimulation_tpu_torch.ops import engine
-from trafficsimulation_tpu_torch.parallel import mesh
 from trafficsimulation_tpu_torch.rl import controllers as tctl
 from trafficsimulation_tpu_torch.rl import features as tfeat
 from trafficsimulation_tpu_torch.rl import nets as tnets
@@ -322,9 +323,9 @@ def test_interleaved_gae_matches_jax_and_reference_transcription():
 
 
 def test_rl_draws_match_jax_random():
-    """`prng.gumbel` within 1e-6 relative of JAX's (numpy's f32 log is
-    not XLA's), `categorical` equal but at near ties (counted: none),
-    `uniform` and `randint` with a traced maxval bit for bit."""
+    """`prng.gumbel` and `categorical` bit for bit (the near ties of the
+    perturbed logits counted all the same: none), `uniform` and `randint`
+    with a traced maxval bit for bit."""
     ties = 0
     for s in range(6):
         key = jax.random.PRNGKey(s)
@@ -332,14 +333,14 @@ def test_rl_draws_match_jax_random():
         ref = np.asarray(jax.random.gumbel(key, (300, 2)))
         got = prng.gumbel(k, (300, 2))
         assert got.dtype == np.float32
-        assert (np.abs(got - ref) <= 1e-6 * np.maximum(1, np.abs(ref))).all()
+        assert np.array_equal(got.view(np.int32), ref.view(np.int32))
         logits = np.random.default_rng(s).normal(size=(300, 2)).astype(
             np.float32)
         jc = np.asarray(jax.random.categorical(key, logits, axis=-1))
         tc = prng.categorical(k, logits)
         margin = np.abs(np.diff(logits + ref, axis=-1))[:, 0]
         ties += int((margin < TIE).sum())
-        assert np.array_equal(jc[margin >= TIE], tc[margin >= TIE])
+        assert np.array_equal(jc, tc)
         assert np.array_equal(np.asarray(jax.random.uniform(key, (300,))),
                               prng.uniform(k, (300,)))
         rint = jax.jit(lambda kk, m: jax.random.randint(
@@ -403,7 +404,7 @@ def _jax_step(algo: str):
 
 def _run_both(algo: str, c: dict, jts, key, tp=0.75):
     """One step of JAX's controller and of the port's from the same
-    state: (JAX's outputs, the port's, the port's plan tick)."""
+    state: (JAX's outputs, the port's, the port's plan of the tick)."""
     _, tcfg = _cfgs(algo)
     ts = _to_port(jts)
     ref = _jax_step(algo)(jts, _lights(c, jfsm, jnp.asarray),
@@ -412,8 +413,8 @@ def _run_both(algo: str, c: dict, jts, key, tp=0.75):
     plan = tctl.plan_ticks(tcfg, ts, gs.valid, np.asarray(key)[None])
     got = tctl.rl_controller_step(tcfg, ts, grid, gs, _lights(c, tfsm, T),
                                   occ, stuck, torch.tensor(np.float32(tp)),
-                                  plan[0])
-    return ref, got, plan[0]
+                                  plan.tick(0))
+    return ref, got, plan
 
 
 NEAR = {"roll_v"}       # value head outputs (the nets' tolerance)
@@ -478,7 +479,8 @@ def test_step_inference_matches_jitted_jax(algo):
             epsilon=jnp.full((G,), 0.5, jnp.float32),
             cursor=jnp.int32(9990))
     key = jax.random.PRNGKey(31)
-    ref, got, tick = _run_both(algo, c, jts, key)
+    ref, got, plan = _run_both(algo, c, jts, key)
+    tick = plan.tick(0)
     assert not tick.train
     near_ties = int((_margin(algo, jts, c, tick) < TIE).sum())
     assert near_ties == 0
@@ -523,8 +525,37 @@ def _assert_trained_like(ref, got):
             assert np.array_equal(a, b), k
 
 
+# the autograd / `_foreach` form of the update that `torch.func.grad` and
+# the flat Adam replaced (functorch has no batching rule for `_foreach`)
+def _old_grads(loss_fn, params: dict) -> dict:
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        g = torch.autograd.grad(loss_fn(p), list(p.values()))
+    return dict(zip(p, g))
+
+
+def _old_adam(opt, params, grads, lr, bc1, bc2):
+    B1, B2, EPS = tctl.B1, tctl.B2, tctl.EPS
+    names = list(params)
+    g = [grads[k] for k in names]
+    mu = torch._foreach_add(torch._foreach_mul(g, 1 - B1),
+                            torch._foreach_mul([opt.mu[k] for k in names],
+                                               B1))
+    nu = torch._foreach_add(
+        torch._foreach_mul(torch._foreach_mul(g, g), 1 - B2),
+        torch._foreach_mul([opt.nu[k] for k in names], B2))
+    den = torch._foreach_add(torch._foreach_sqrt(
+        torch._foreach_div(nu, float(bc2))), EPS)
+    upd = torch._foreach_div(torch._foreach_div(mu, float(bc1)), den)
+    new = torch._foreach_add([params[k] for k in names],
+                             torch._foreach_mul(upd, -lr))
+    return dict(zip(names, new)), tctl.Adam(count=opt.count + 1,
+                                            mu=dict(zip(names, mu)),
+                                            nu=dict(zip(names, nu)))
+
+
 @pytest.mark.parametrize("algo", FAMILIES)
-def test_forced_training_update_matches_jitted_jax(algo):
+def test_forced_training_update_matches_jitted_jax(algo, monkeypatch):
     c = _case("random", 22)
     jcfg, _ = _cfgs(algo)
     G = c["valid"].shape[0]
@@ -561,9 +592,19 @@ def test_forced_training_update_matches_jitted_jax(algo):
             filled=jnp.int32(300), cursor=jnp.int32(300),
             train_steps=jnp.int32(jcfg.GAT_TARGET_UPDATE_EVERY - 1),
             epsilon=jnp.full((G,), 0.3, jnp.float32))
-    ref, got, tick = _run_both(algo, c, jts, jax.random.PRNGKey(41))
+    ref, got, plan = _run_both(algo, c, jts, jax.random.PRNGKey(41))
+    tick = plan.tick(0)
+    with monkeypatch.context() as m:
+        m.setattr(tctl, "_grads", _old_grads)
+        m.setattr(tctl, "adam_update", _old_adam)
+        _, old, _ = _run_both(algo, c, jts, jax.random.PRNGKey(41))
+    # the functional update gives the old form's bits
+    for k, a in _port_leaves(old[0]).items():
+        assert np.array_equal(a, _port_leaves(got[0])[k]), k
     assert tick.train and int(ref[0].opt_state[0].count) == 6
-    assert tick.count == 6 and tick.sync == (algo == "GAT_DQN_BATCHED")
+    assert plan.counts[0] == 6 and tick.train_all
+    assert (tick.sync is not None and bool(tick.sync)) == (
+        algo == "GAT_DQN_BATCHED")
     _assert_trained_like(ref, got)
     after = world_to_leaves(ref[0])
     assert any(not np.array_equal(after[k], p0[k]) for k in p0
@@ -592,7 +633,7 @@ def _drive(algo: str, n: int = 40, **kw):
     ts = ts0
     for t in range(n):
         occ = w.grid.is_road & T(rng.random(w.grid.is_road.shape) < 0.4)
-        tick = tctl.plan_ticks(cfg, ts, gs.valid, keys[t][None])[0]
+        tick = tctl.plan_ticks(cfg, ts, gs.valid, keys[t][None]).tick(0)
         ts, lights, want, phase = tctl.rl_controller_step(
             cfg, ts, w.grid, gs, lights, occ,
             torch.zeros(occ.shape, dtype=torch.int32),
@@ -636,7 +677,7 @@ def test_port_gat_stores_transitions_and_learns():
     key = prng.PRNGKey(5)
 
     def step(ts, lights, occ, k):
-        tick = tctl.plan_ticks(cfg, ts, gs.valid, k[None])[0]
+        tick = tctl.plan_ticks(cfg, ts, gs.valid, k[None]).tick(0)
         return tctl.gat_step(cfg, ts, w.grid, gs, lights, occ,
                              torch.tensor(0.0), tick)
 
@@ -695,7 +736,7 @@ def test_transfer_both_ways(algo):
     assert all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in
                zip(jax.tree_util.tree_leaves(back),
                    jax.tree_util.tree_leaves(jw)))
-    # the port's own crossroad: every leaf but the drawn parameters
+    # the port's own crossroad, its drawn parameters included
     mine = transfer.world_to_numpy(synth.crossroad_world(tcfg,
                                                          device="cpu"))
     jw0 = world_to_leaves(jsynth.crossroad_world(jcfg,
@@ -703,8 +744,7 @@ def test_transfer_both_ways(algo):
     assert set(mine) == set(jw0)
     for k, a in jw0.items():
         assert a.dtype == mine[k].dtype and a.shape == mine[k].shape, k
-        if "params." not in k:
-            assert np.array_equal(a, mine[k]), k
+        assert np.array_equal(a, mine[k]), k
 
 
 def _digest():
@@ -750,9 +790,11 @@ def test_crossroad_run_matches_jax_digest(algo):
     rec = dig["crossroad"][algo]
     cfg = hold_off(Config(**dig["crossroad"]["cfg"],
                           TRAFFIC_LIGHT_AGENT_ALGORITHM=algo))
-    w = transfer.with_rl_params(synth.crossroad_world(cfg, device="cpu"),
-                                rl_params(algo))
+    # the port's own initial parameters: flax's draws, held by the digest
+    w = synth.crossroad_world(cfg, device="cpu")
     leaves = transfer.world_to_numpy(w)
+    assert all(np.array_equal(leaves["rl.params.params." + k], v)
+               for k, v in rl_params(algo).items())
     leaves.pop("cost_field")
     check_digest("init", rec["init"], leaves)
     end = sim.run_chunk(cfg, w, n)
@@ -781,17 +823,6 @@ def test_every_rl_algorithm_runs_through_traffic_sim(algo):
     assert int(ts.world.rl.opt_state.count) >= 2
     with pytest.raises(ValueError, match="no RL train state"):
         sim.run_chunk(cfg, ts.world.replace(rl=None), 1)
-
-
-def test_batch_runners_refuse_rl():
-    cfg = Config(**CROSS, TRAFFIC_LIGHT_AGENT_ALGORITHM="RL_A2C_BATCHED")
-    for call in (lambda: mesh.run_batch_shared(cfg, None, 5),
-                 lambda: mesh.run_batch(cfg, None, 5),
-                 lambda: mesh.run_chunk_batch(cfg, None, 5),
-                 lambda: mesh.init_world_batch(cfg, prng.PRNGKey(0), 2,
-                                               device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            call()
 
 
 def test_trip_penalty_matches_jitted_jax():

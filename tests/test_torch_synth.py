@@ -76,9 +76,9 @@ def test_empty_statics_match_jax():
 
 def test_crossroad_world_with_rl_raises():
     """With an RL controller (A2C) the crossroad equals JAX's on every
-    leaf, the train state's buffers and Adam state among them; the
-    initial parameters have JAX's names, shapes and dtypes (the port draws
-    them from its own generator, `rl/nets.py`)."""
+    leaf, the train state's buffers and Adam state among them, and the
+    initial parameters, which the port draws as flax does
+    (`rl/nets.py`)."""
     import jax
     kw = dict(BASE, TRAFFIC_LIGHT_AGENT_ALGORITHM="RL_A2C_BATCHED")
     jcfg, tcfg = _pair(**kw)
@@ -90,10 +90,7 @@ def test_crossroad_world_with_rl_raises():
     assert len(drawn) == 2 * (tcfg.A2C_HIDDEN_LAYERS + 3)
     assert got["rl.roll_s"].shape == (tcfg.A2C_UPDATE_EVERY,
                                       tcfg.capacities().max_groups, 13)
-    _assert_same({k: v for k, v in ref.items() if k not in drawn},
-                 {k: v for k, v in got.items() if k not in drawn})
-    for k in drawn:
-        assert (ref[k].dtype, ref[k].shape) == (got[k].dtype, got[k].shape)
+    _assert_same(ref, got)
 
 
 def test_flow_helpers_match_jax(capsys, monkeypatch):

@@ -24,12 +24,12 @@ the buffers, and every integer leaf must come out exact.  All other
 settings are the Config's defaults.
 
 Each world is a dict: leaf path -> dtype, shape and sha256 (f32 leaves
-also carry their float64 sum, sum of magnitudes and maximum).  The port
-draws its initial parameters from another generator than flax's
-(`rl/nets.py`), so the initial parameters of each family also ship as
-arrays (`data/rl_params.npz`, flax's names, both worlds share them: the
-key is PRNGKey(0) in both and no net depends on the group count); the
-digest holds their sha256s.
+also carry their float64 sum, sum of magnitudes and maximum).  The
+initial parameters of each family also ship as arrays
+(`data/rl_params.npz`, flax's names, both worlds share them: the key is
+PRNGKey(0) in both and no net depends on the group count), for
+`core/transfer.with_rl_params` and the tests; the digest holds their
+sha256s, which the port's own draws (`rl/nets.init_params`) equal.
 
 Run from the repository root, on the CPU (~15 min on 8 cores):
 

@@ -8,7 +8,8 @@ one `cumsum` per axis.  The dense forms (`build_dense_reducers`) turn
 both into one matrix product against a one-hot geometry matrix, which
 under vmap becomes one batched product for all worlds of a
 shared-geometry batch (`parallel/mesh.run_batch_shared`).  The RL
-controllers raise until ROADMAP Queue 1 item 14.
+controllers live in `rl/controllers.py` and hand their phase requests
+to `run_controllers`.
 """
 
 from __future__ import annotations

@@ -30,6 +30,16 @@ per segment; under the megakernel gate K9 once a segment, the shared
 chunk tables read by every world), and the dense light reductions
 become one batched matrix product.  World b of the batch advances exactly as a single-world
 `sim.run_chunk` of the same world with key b.
+
+RL light controllers: every world has its own train state (parameters,
+Adam moments, buffers; per-world leaves in both batch kinds, so
+`tile_dynamic` copies the one world's state to every world, as JAX
+broadcasts it).  The host plan of a chunk (`rl/controllers.plan_ticks`)
+covers the batch, its tensors entering the vmapped body with in-dim 0;
+in a tick where only some worlds train, every world computes the update
+and keeps it where its flag is set (JAX's `lax.cond` under vmap).  The
+controllers' dense layers are batched matrix products; no kernel or op
+loops over the worlds.
 """
 
 from __future__ import annotations
@@ -42,7 +52,6 @@ from ..config import Config
 from ..core.state import World
 from ..core.transfer import world_from_leaves, world_leaves
 from ..lights.fsm import dense_reducers_profitable
-from ..ops import engine
 
 
 def init_world_batch(cfg: Config, key, n_worlds: int, mesh=None,
@@ -52,8 +61,8 @@ def init_world_batch(cfg: Config, key, n_worlds: int, mesh=None,
     leading world dim, on `device`.  `mesh`: multi-GPU sharding is not
     ported (ROADMAP Queue 1 item 15), so anything but None raises.
     `timings`: a dict that receives the seconds by stage and
-    `generate_all_sec` (`sim.init_worlds`).  An RL config raises
-    (`sim.refuse_rl_batch`), as every batch runner here does."""
+    `generate_all_sec` (`sim.init_worlds`).  Under an RL config each
+    world's train state comes from its own key."""
     if mesh is not None:
         raise NotImplementedError(
             "sharding a world batch over devices is not ported yet "
@@ -63,24 +72,39 @@ def init_world_batch(cfg: Config, key, n_worlds: int, mesh=None,
                        device, timings)
 
 
+def _vmapped(cfg: Config, worlds: World, n: int, fn, in_dims=0,
+             out_dims=0) -> World:
+    """`fn(world, draws, rl_plan)` under `torch.func.vmap` over a batch,
+    after walking every world's key chain n ticks on the host
+    (`sim._chain`: the [B, n, N_DRAWS] draws and, under an RL
+    controller, the batch's plan, whose tensors go in with in-dim 0 and
+    whose host flags hold for every world); the keys after n ticks."""
+    from ..sim import _chain, _key_tensor
+    dev = worlds.grid.is_road.device
+    draws, plan, keys = _chain(cfg, worlds, n)
+
+    def body(lv, dr, pt):
+        return world_leaves(fn(world_from_leaves(lv), dr,
+                               None if plan is None else plan.of(pt)))
+
+    out = torch.func.vmap(body, in_dims=(in_dims, 0, 0), out_dims=out_dims)(
+        world_leaves(worlds), torch.from_numpy(draws).to(dev),
+        {} if plan is None else plan.tensors)
+    out["key"] = _key_tensor(keys, dev)
+    return world_from_leaves(out)
+
+
 def batched_step(cfg: Config):
     """One tick of every world of a per-world-geometry batch (JAX's
     `batched_step`, `jax.vmap(step_world)`): each world's key chain is
     walked one tick on the host, then `sim.step_device` runs under
-    `torch.func.vmap` with every leaf on dim 0."""
-    from ..sim import _key_np, _key_tensor, refuse_rl_batch, step_device
-    refuse_rl_batch(cfg)
-
-    def body(lv, dr):
-        return world_leaves(step_device(cfg, world_from_leaves(lv), dr))
+    `torch.func.vmap` with every leaf on dim 0 (the RL controller's
+    inputs of the tick too)."""
+    from ..sim import step_device
 
     def step(worlds: World) -> World:
-        dev = worlds.grid.is_road.device
-        draws, keys = engine.tick_draws(cfg, _key_np(worlds.key), 1)
-        out = torch.func.vmap(body)(world_leaves(worlds),
-                                    torch.from_numpy(draws[:, 0]).to(dev))
-        out["key"] = _key_tensor(keys, dev)
-        return world_from_leaves(out)
+        return _vmapped(cfg, worlds, 1, lambda w, dr, plan: step_device(
+            cfg, w, dr[0], None if plan is None else plan.tick(0)))
     return step
 
 
@@ -99,22 +123,15 @@ def run_chunk_batch(cfg: Config, worlds: World, n: int) -> World:
     bench steps config #4 (`jax.vmap(partial(run_chunk, cfg, n=n))`):
     `sim.advance` under `torch.func.vmap` with every leaf on dim 0, the
     routing planes rebuilt every PATHFINDING_COOLDOWN ticks.  The keys'
-    chains are walked on the host up front ([B, n, N_DRAWS] draws)."""
-    from ..sim import _key_np, _key_tensor, advance, refuse_rl_batch
-    refuse_rl_batch(cfg)
+    chains are walked on the host up front ([B, n, N_DRAWS] draws, and
+    the RL plan of the batch)."""
+    from ..sim import advance
     if worlds.cost_field is None:
         raise ValueError("worlds.cost_field is not built")
     assert_demand_window(cfg, worlds, n)
-    dev = worlds.grid.is_road.device
-    draws, keys = engine.tick_draws(cfg, _key_np(worlds.key), n)
+    return _vmapped(cfg, worlds, n, lambda w, dr, plan: advance(
+        cfg, w, n, dr, rl_plan=plan))
 
-    def body(lv, dr):
-        return world_leaves(advance(cfg, world_from_leaves(lv), n, dr))
-
-    out = torch.func.vmap(body)(world_leaves(worlds),
-                                torch.from_numpy(draws).to(dev))
-    out["key"] = _key_tensor(keys, dev)
-    return world_from_leaves(out)
 
 SHARED_GEOMETRY_FIELDS = frozenset({
     "grid", "lights_static", "groups_static", "blocks_static", "dests",
@@ -141,9 +158,10 @@ def shared_geometry_axes(world: World) -> dict:
 
 def tile_dynamic(world: World, keys: torch.Tensor) -> World:
     """Batch ONE world for shared-geometry rollouts: the dynamic leaves
-    gain a leading batch dim (one per key), the geometry stays
-    unbatched and is not copied.  `keys`: [B, 2] PRNG keys (uint32 bits
-    as int32, or a numpy uint32 array)."""
+    (an RL controller's train state among them) gain a leading batch dim
+    (one per key), each world a copy, as JAX's `tile_dynamic` broadcasts
+    them; the geometry stays unbatched and is not copied.  `keys`: [B, 2]
+    PRNG keys (uint32 bits as int32, or a numpy uint32 array)."""
     dev = world.grid.is_road.device
     if isinstance(keys, np.ndarray):
         keys = torch.from_numpy(np.asarray(keys, np.uint32).view(np.int32)
@@ -194,31 +212,19 @@ def assert_demand_window(cfg: Config, worlds: World, n_ticks: int) -> None:
 def run_batch_shared(cfg: Config, batch: World, n_ticks: int) -> World:
     """Advance a shared-geometry batch (see `tile_dynamic`) n_ticks on
     the device its tensors lie on.  Each world's key chain is walked on
-    the host up front ([B, n, N_DRAWS] draws); the dense light
-    reductions are on where `fsm.dense_reducers_profitable` says so, as
-    in the JAX version."""
-    from ..sim import advance, reducer_matrices, refuse_rl_batch
-    refuse_rl_batch(cfg)
+    the host up front ([B, n, N_DRAWS] draws, and the RL plan of the
+    batch); the dense light reductions are on where
+    `fsm.dense_reducers_profitable` says so, as in the JAX version."""
+    from ..sim import advance, reducer_matrices
     if batch.cost_field is None:
         raise ValueError("batch.cost_field is not built "
                          "(snapshot.build_field)")
     assert_demand_window(cfg, batch, n_ticks)
-    dev = batch.grid.is_road.device
-    keys = batch.key.cpu().numpy().view(np.uint32)
-    draws, keys = engine.tick_draws(cfg, keys, n_ticks)
     dense = (reducer_matrices(cfg, batch) if dense_reducers_profitable(cfg)
              else None)
-    leaves = world_leaves(batch)
     axes = shared_geometry_axes(batch)
-
-    def body(lv, dr):
-        end = advance(cfg, world_from_leaves(lv), n_ticks, dr, dense)
-        return world_leaves(end)
-
-    out = torch.func.vmap(body, in_dims=(axes, 0), out_dims=axes)(
-        leaves, torch.from_numpy(draws).to(dev))
-    out["key"] = torch.from_numpy(keys.view(np.int32).copy()).to(dev)
-    return world_from_leaves(out)
+    return _vmapped(cfg, batch, n_ticks, lambda w, dr, plan: advance(
+        cfg, w, n_ticks, dr, dense, plan), in_dims=axes, out_dims=axes)
 
 
 def fleet_metrics(worlds: World) -> dict:

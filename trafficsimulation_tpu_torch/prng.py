@@ -18,6 +18,15 @@ module covers exactly the calls the tick makes:
     396`): `categorical` through `gumbel`, `uniform`, and `randint` whose
     maxval the JAX code traces (`maximum(filled, 1)`); the port mirrors
     `filled` on the host, so the whole draw runs here
+  * flax's parameter draws (`rl/nets.init_params`): `fold_in` and the
+    `truncated_normal(key, -2, 2)` of `lecun_normal`
+
+The float transforms are XLA's CPU f32 arithmetic, bit for bit: `log32`
+and `log1p32` (Eigen's polynomials with the backend's FMA contractions,
+`_fma32`), `erfinv32`, and the subnormal flush of the runtime.  `gumbel`
+and `truncated_normal` depend on a draw's bits only through the 23 bits
+of its uniform, so each looks its values up in a table of all 2^23 built
+once per process (~2 s each).
 
 A key is a numpy uint32 array of shape (2,), as `jax.random.PRNGKey`
 returns it.  numpy has a real uint32, so the wrapping adds, rotations and
@@ -29,6 +38,8 @@ chains of a batch of worlds, `ops/engine.tick_draws`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -92,23 +103,39 @@ def _unit(b: np.ndarray) -> np.ndarray:
     return f - np.float32(1.0)
 
 
-def uniform(key: np.ndarray, shape=()):
+def uniform(key: np.ndarray, shape=(), device=None):
     """`jax.random.uniform(key, shape)`: f32 in [0, 1) per key and
-    entry."""
+    entry.  With a `device`: a torch tensor, hashed there (`bits_on`)."""
+    if device is not None:
+        import torch
+        f = ((bits_on(key, shape, device) >> 9) | 0x3F800000).to(
+            torch.int32).view(torch.float32) - 1.0
+        return f.clamp(min=0.0)
     b = bits(key, (1,) if shape == () else shape)
     if shape == ():
         b = b[..., 0]
     return np.maximum(np.float32(0.0), _unit(b))[()]
 
 
-def randint(key: np.ndarray, minval: int, maxval, shape=()):
+def randint(key: np.ndarray, minval: int, maxval, shape=(), device=None):
     """`jax.random.randint(key, shape, minval, maxval)` for int32 per key:
     two u32 draws reduced modulo the span (`_randint`).  `maxval` is an
     int, or an int array over the key stack's batch dims: a maxval that
     the JAX code traces, one per key (the draws do not depend on it,
-    only the span arithmetic does)."""
+    only the span arithmetic does).  With a `device`: an int64 torch
+    tensor, hashed there (`bits_on`; the u32 wraps kept by masking)."""
     k = split(key, 2)
     n = (1,) if shape == () else tuple(shape)
+    if device is not None:
+        import torch
+        M = 0xFFFFFFFF
+        hi, lo = (bits_on(k[..., i, :], n, device) for i in (0, 1))
+        mx = torch.from_numpy(np.asarray(maxval, np.int64)).to(device)
+        mx = mx.reshape(mx.shape + (1,) * len(n))
+        span = torch.where(mx <= minval, 1, mx - minval)
+        mult = ((65536 % span) * (65536 % span) & M) % span
+        off = ((((hi % span) * mult & M) + lo % span) & M) % span
+        return (minval + off).reshape(np.shape(key)[:-1] + tuple(shape))
     hi, lo = bits(k[..., 0, :], n), bits(k[..., 1, :], n)
     out_shape = np.shape(key)[:-1] + tuple(shape)
     mx = np.asarray(maxval, np.int64)
@@ -139,26 +166,122 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 
 
 def _fma32(a, b, c):
-    """f32 a * b + c with one rounding (XLA's CPU contraction)."""
-    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+    """f32 a * b + c with one rounding (XLA's CPU contraction).  The f64
+    product of two f32 is exact; the f64 sum rounds once more, which can
+    land on a midpoint between two f32 and then round the wrong way: those
+    few sums are redone exactly (`_fma32_exact`)."""
+    a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+    s = np.multiply(a, b, dtype=np.float64) + c
+    out = np.asarray(s.astype(np.float32))
+    mid = (s.view(np.int64) & 0x1FFFFFFF) == 0x10000000
+    if mid.any():
+        i = np.nonzero(mid)
+        out[i] = _fma32_exact(*(np.broadcast_to(v, s.shape)[i]
+                                for v in (a, b, c)))
+    return out[()]
+
+
+def _fma32_exact(a, b, c):
+    """`_fma32` by an error-free sum (TwoSum) and round-to-odd in f64,
+    after which the cast to f32 rounds once, correctly."""
+    p = a.astype(np.float64) * b
+    c = c.astype(np.float64)
+    s = p + c
+    bp = s - c
+    lo = (p - bp) + (c - (s - bp))
+    bits = s.view(np.int64)
+    odd = (lo != 0) & ((bits & 1) == 0)
+    bits = np.where(odd, bits + np.where((lo > 0) == (s > 0), 1, -1), bits)
+    return bits.view(np.float64).astype(np.float32)
+
+
+def _ftz(x):
+    """XLA's CPU runtime flushes subnormal f32 results to zero (sign
+    kept)."""
+    x = np.asarray(x, np.float32)
+    return np.where(np.abs(x) < _TINY, np.copysign(np.float32(0), x), x)
+
+
+_TINY = np.finfo(np.float32).tiny
+
+# XLA's CPU f32 `log` (Eigen's `plog_float`, Cephes' polynomial): the
+# mantissa in [sqrt(1/2), sqrt(2)) minus one, a degree-8 polynomial in
+# three Horner chains joined by x^3, and the exponent times ln 2 split in
+# two; the LLVM backend contracts each multiply with a single use into
+# the add that takes it
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_SQRTHF = 0.707106781186547524
+
+
+def log32(x: np.ndarray) -> np.ndarray:
+    """XLA's CPU f32 `log`, bit for bit (-inf at 0 and at subnormals,
+    which the runtime reads as 0; NaN below 0)."""
+    f32 = np.float32
+    x = _ftz(x)
+    bits = np.maximum(x, _TINY).view(np.int32)
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(f32)
+    small = m < f32(_SQRTHF)
+    e = (((bits >> 23) - 127).astype(f32) + f32(1.0)) - small.astype(f32)
+    z = (m - f32(1.0)) + np.where(small, m, f32(0.0))
+    z2 = z * z
+    z3 = z2 * z
+    p = [f32(c) for c in _LOG_P]
+    y = _fma32(_fma32(z, p[0], p[1]), z, p[2])
+    y1 = _fma32(_fma32(z, p[3], p[4]), z, p[5])
+    y2 = _fma32(_fma32(z, p[6], p[7]), z, p[8])
+    y = _fma32(_fma32(_fma32(y, z3, y1), z3, y2), z3, e * f32(_LOG_Q1))
+    r = _fma32(e, f32(_LOG_Q2), _fma32(f32(-0.5), z2, z) + y)
+    r = np.where(x == f32(0.0), f32(-np.inf), r)
+    r = np.where(x == f32(np.inf), x, r)
+    return np.where(x < f32(0.0), f32(np.nan), r).astype(f32)[()]
+
+
+# XLA's CPU f32 `log1p`: below |x| = 0.41421357 a rational form
+# x - x^2 / 2 + x^3 P(x) / Q(x) (Horner steps contracted; the x^2 / 2
+# term one FMA), above it log(1 + x)
+_LOG1P_Q = (1.0, 15.062909, 83.04757, 221.7624, 309.09872, 216.42789,
+            60.11866)
+_LOG1P_P = (4.527e-05, 0.49854103, 6.5787325, 29.911919, 60.94967,
+            57.112965, 20.039553)
+
+
+def log1p32(x: np.ndarray) -> np.ndarray:
+    """XLA's CPU f32 `log1p`, bit for bit, subnormals flushed."""
+    f32 = np.float32
+    x = _ftz(x)
+    q = np.full(x.shape, f32(_LOG1P_Q[0]))
+    for c in _LOG1P_Q[1:]:
+        q = _fma32(q, x, f32(c))
+    p = np.full(x.shape, f32(_LOG1P_P[0]))
+    for c in _LOG1P_P[1:]:
+        p = _fma32(p, x, f32(c))
+    x2 = _ftz(x * x)
+    small = _ftz(x + _fma32(x2, f32(-0.5), _ftz(_ftz(x * x2)
+                                                  * _ftz(p / q))))
+    return np.where(np.abs(x) < f32(0.41421357), small,
+                    log32(x + f32(1.0))).astype(f32)[()]
 
 
 def erfinv32(x: np.ndarray) -> np.ndarray:
-    """XLA's f32 `ErfInv`: w = -log1p(-x*x); a degree-8 polynomial in
-    w - 2.5 (w < 5) or sqrt(w) - 3, evaluated by Horner steps that the
-    CPU backend contracts into fused multiply-adds; times x; +-inf at
-    |x| = 1."""
+    """XLA's f32 `ErfInv`, bit for bit: w = -log1p(x * -x) (XLA's
+    `log1p32`); a degree-8 polynomial in w - 2.5 (w < 5) or sqrt(w) - 3,
+    evaluated by Horner steps that the CPU backend contracts into fused
+    multiply-adds; times x; +-inf at |x| = 1."""
     f32 = np.float32
     x = np.asarray(x, f32)
-    w = (-np.log1p(-(x * x).astype(np.float64))).astype(f32)
+    w = -log1p32(_ftz(x * -x))
     lt = w < f32(5.0)
     w = np.where(lt, w - f32(2.5), np.sqrt(w).astype(f32) - f32(3.0))
     lo, hi = (np.asarray(c, f32) for c in (_ERFINV_LT5, _ERFINV_GE5))
     p = np.where(lt, lo[0], hi[0]).astype(f32)
     for i in range(1, 9):
         p = _fma32(p, w, np.where(lt, lo[i], hi[i]).astype(f32))
-    out = (p * x).astype(f32)
-    return np.where(np.abs(x) == f32(1.0), x * np.finfo(f32).max, out)
+    out = _ftz(p * x)
+    return np.where(np.abs(x) == f32(1.0), x * np.finfo(f32).max,
+                    out).astype(f32)[()]
 
 
 SQRT2 = np.float32(np.sqrt(2))
@@ -179,23 +302,124 @@ def normal_erfinv(key: np.ndarray):
 
 
 def normal(key: np.ndarray):
-    """`jax.random.normal(key)` in f32 per key.  The log1p inside XLA's
-    ErfInv is XLA's own; numpy's differs from it in the last bit for
-    about 1% of draws."""
+    """`jax.random.normal(key)` in f32 per key."""
     return (SQRT2 * normal_erfinv(key)).astype(np.float32)[()]
 
 
-def gumbel(key: np.ndarray, shape=()) -> np.ndarray:
-    """`jax.random.gumbel(key, shape)` (mode "low"): -log(-log(u)) of a
-    uniform on [tiny, 1), f32.  The uniform bits are JAX's; numpy's f32
-    `log` is not XLA's, so a value may differ from JAX's in the last two
-    bits."""
+def gumbel_of(u: np.ndarray) -> np.ndarray:
+    """-log(-log(u)) in f32 with XLA's CPU `log` (`log32`), the transform
+    of `jax.random.gumbel`."""
+    return _chunked(lambda x: -log32(-log32(x)), u)
+
+
+def _chunked(fn, x: np.ndarray, n: int = 1 << 16) -> np.ndarray:
+    """fn over a flat f32 array in pieces of n, which keep the f64
+    temporaries of `_fma32` in cache (2-3x faster than one pass)."""
+    x = np.asarray(x, np.float32)
+    flat = x.reshape(-1)
+    out = np.empty(flat.shape, np.float32)
+    for i in range(0, flat.size, n):
+        out[i:i + n] = fn(flat[i:i + n])
+    return out.reshape(x.shape)[()]
+
+
+@functools.cache
+def _unit_table(name: str) -> np.ndarray:
+    """A draw transform over all 2^23 values of a uniform's mantissa
+    bits, f32 [2^23]: the draws of `gumbel` and `truncated_normal`
+    depend on the bits only through them, so a draw is one lookup."""
+    f = _unit(np.arange(1 << 23, dtype=np.uint32) << np.uint32(9))
+    # gumbel's uniform(minval=tiny, maxval=1): f * (1 - tiny) + tiny
+    # rounds to f, or to tiny for f = 0
+    out = (gumbel_of(np.maximum(f, np.float32(_TINY))) if name == "gumbel"
+           else _chunked(_trunc_unit, f))
+    out.setflags(write=False)
+    return out
+
+
+def gumbel(key: np.ndarray, shape=(), device=None):
+    """`jax.random.gumbel(key, shape)` (mode "low"), f32, bit for bit:
+    -log(-log(u)) of a uniform on [tiny, 1) with XLA's CPU f32 `log`
+    (`gumbel_of`), looked up by the draw's 23 mantissa bits.  With a
+    `device`: a torch tensor, hashed and looked up there."""
+    if device is not None:
+        return _device_table("gumbel", device)[
+            bits_on(key, shape, device) >> 9]
+    return _unit_table("gumbel")[bits(key, shape) >> np.uint32(9)]
+
+
+# erf(-+2 / sqrt(2)) as XLA's CPU f32 `erf` computes it from the traced
+# bounds of `jax.random.truncated_normal(key, -2, 2)` (`-2 * 0.70710677`:
+# XLA turns the division by sqrt(2) into a multiply by its reciprocal)
+TRUNC_LO = np.int32(-1082893800).view(np.float32)      # -0.9544997
+TRUNC_HI = np.int32(1064589848).view(np.float32)       # 0.9544997
+
+
+def _trunc_unit(f: np.ndarray) -> np.ndarray:
     f32 = np.float32
-    tiny = np.finfo(f32).tiny
-    # u * (1 - tiny) + tiny in f32: the draw itself, or tiny for 0
-    u = _unit(bits(key, shape))
-    u = np.where(u == f32(0.0), tiny, u).astype(f32)
-    return (-np.log(-np.log(u))).astype(f32)
+    u = np.maximum(TRUNC_LO, _fma32(f, f32(TRUNC_HI - TRUNC_LO), TRUNC_LO))
+    out = (SQRT2 * erfinv32(u)).astype(f32)
+    return np.clip(out, np.nextafter(f32(-2.0), f32(0.0)),
+                   np.nextafter(f32(2.0), f32(0.0))).astype(f32)
+
+
+def truncated_normal(key: np.ndarray, shape=(), device=None):
+    """`jax.random.truncated_normal(key, -2, 2, shape)` in f32, bit for
+    bit (as jitted on the CPU): a uniform on [erf(-sqrt 2), erf(sqrt 2))
+    (one FMA), sqrt(2) times XLA's `ErfInv` of it, clipped inside
+    (-2, 2); looked up by the draw's 23 mantissa bits.  With a `device`
+    the bits are hashed there (`bits_on`) and a torch tensor comes back
+    (flax's parameter draws of a batch of worlds: ~10^8 draws at config
+    #4)."""
+    if device is None:
+        return _unit_table("trunc")[bits(key, shape) >> np.uint32(9)]
+    return _device_table("trunc", device)[bits_on(key, shape, device) >> 9]
+
+
+def bits_on(key: np.ndarray, shape, device):
+    """`bits(key, shape)` computed by torch on `device`: the u32 values
+    in an int64 tensor [..., *shape] (threefry2x32 with every sum masked
+    to 32 bits; fewer than 2^32 counters, so the high counter word is 0).
+    """
+    import torch
+    M = 0xFFFFFFFF
+    k = torch.from_numpy(np.asarray(key, np.uint32).astype(np.int64)).to(
+        device)
+    ks = (k[..., 0, None], k[..., 1, None])
+    ks += (ks[0] ^ ks[1] ^ int(_PARITY),)
+    n = int(np.prod(shape, dtype=np.int64))
+    x0 = ks[0].expand(k.shape[:-1] + (n,))
+    x1 = (torch.arange(n, dtype=torch.int64, device=k.device) + ks[1]) & M
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & M
+            x1 = (((x1 << r) & M) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M
+    return (x0 ^ x1).reshape(k.shape[:-1] + tuple(shape))
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def _device_table(name: str, device):
+    import torch
+    key = (name, str(torch.device(device)))
+    if key not in _DEVICE_TABLES:
+        _DEVICE_TABLES[key] = torch.from_numpy(
+            _unit_table(name).copy()).to(device)
+    return _DEVICE_TABLES[key]
+
+
+def fold_in(key: np.ndarray, data) -> np.ndarray:
+    """`jax.random.fold_in(key, data)` for a uint32 `data` (a scalar, or
+    an array over the key stack's batch dims): the threefry2x32 hash of
+    the counter pair (0, data) under the key."""
+    key = np.asarray(key, np.uint32)
+    d = np.broadcast_to(np.asarray(data, np.uint32), key.shape[:-1])
+    b0, b1 = threefry2x32(key, np.zeros(d.shape + (1,), np.uint32),
+                          d[..., None])
+    return np.stack([b0[..., 0], b1[..., 0]], axis=-1)
 
 
 def categorical(key: np.ndarray, logits: np.ndarray) -> np.ndarray:

@@ -13,25 +13,32 @@ unless A2C_INTERLEAVED_GAE; GAT-DQN stores a transition at the NEXT
 invocation, when its post-action state is observable.
 
 The train states are the JAX structs with the same fields.  Parameters
-are a dict of tensors keyed by flax's names (`rl/nets.py`), the
-optimizer state is optax's `ScaleByAdamState` (`Adam`: count, mu, nu),
-and `adam_update` is optax's Adam (b1 0.9, b2 0.999, eps 1e-8, bias
-corrected) on explicit tensors with a few `torch._foreach_*` calls.
-Gradients come from `torch.autograd`; GAT's target network runs under
-`no_grad`, where JAX has `stop_gradient`.
+are a dict of tensors keyed by flax's names (`rl/nets.py`, drawn as flax
+draws them), the optimizer state is optax's `ScaleByAdamState` (`Adam`:
+count, mu, nu), and `adam_update` is optax's Adam (b1 0.9, b2 0.999, eps
+1e-8, bias corrected) on one flat vector.  Gradients come from
+`torch.func.grad`; GAT's target network runs under `no_grad`, where JAX
+has `stop_gradient`.
 
 The training branch without a host sync per tick: JAX picks it with
 `lax.cond` on device counters, which move deterministically (REINFORCE's
 `since_train` grows by the number of valid groups a tick, A2C's `t` by
 one, GAT's `filled` by the completed transitions, capped).  `plan_ticks`
-reads the counters once at chunk entry, mirrors them on the host tick
-by tick and decides each tick's branch there, with the tick's random
-draws: the Gumbel noise of `categorical` ([G, 2]), GAT's explore
-uniforms and random actions ([G] each), and the replay batch's indices,
-whose `randint` maxval (`maximum(filled, 1)`) the mirror knows.  The
-device counters move as JAX's do.  The draws come from the tick's RL key
-(`engine.tick_chain`) through `prng`, bit for bit JAX's bits; the
-Gumbel transform uses numpy's f32 `log` (`prng.gumbel`).
+reads the counters once at chunk entry, for one world or for every world
+of a batch as one [B, k] copy, mirrors them on the host tick by tick and
+decides each world's branch there, with the tick's random draws: the
+Gumbel noise of `categorical` ([G, 2]), GAT's explore uniforms and random
+actions ([G] each), the replay batch's indices, whose `randint` maxval
+(`maximum(filled, 1)`) the mirror knows, and Adam's bias corrections.
+The device counters move as JAX's do.  The draws come from each world's
+RL key of the tick (`engine.tick_chain`) through `prng`, bit for bit
+JAX's (the Gumbel transform with XLA's CPU f32 `log`).
+
+A world batch runs the controllers under `torch.func.vmap`, where JAX's
+`lax.cond` on a batched predicate is a select: when some world trains in
+a tick, every world computes the update and keeps it where its `train`
+flag is set (`_maybe_train`); when none does, the host skips the branch.
+One world is the same code with one world's flags.
 """
 
 from __future__ import annotations
@@ -116,14 +123,40 @@ TRAIN_TYPES = (SRLTrain, A2CTrain, GATTrain)
 
 @dataclasses.dataclass
 class RLTick(_Struct):
-    """One tick's RL inputs, decided on the host by `plan_ticks`."""
+    """One tick's RL inputs, decided on the host by `plan_ticks`: per
+    world tensors (0-d where one value a world) and two host flags for
+    the whole batch."""
     gumbel: Optional[Tensor] = None     # f32 [G, 2]: categorical's noise
     explore_u: Optional[Tensor] = None  # f32 [G]: GAT's explore uniforms
     rand_a: Optional[Tensor] = None     # i32 [G]: GAT's random actions
-    train: bool = False                 # take the training branch
-    bidx: Optional[Tensor] = None       # i64 [B]: the replay batch
-    count: int = 0                      # Adam's count after the update
-    sync: bool = False                  # GAT: target <- params after it
+    bidx: Optional[Tensor] = None       # i64 [BS]: the replay batch
+    train: Optional[Tensor] = None      # bool []: this world trains
+    sync: Optional[Tensor] = None       # bool []: GAT target <- params
+    bc1: Optional[Tensor] = None        # f32 []: 1 - b1^count
+    bc2: Optional[Tensor] = None        # f32 []: 1 - b2^count
+    train_any: bool = False             # some world trains this tick
+    train_all: bool = False             # every world trains this tick
+
+
+@dataclasses.dataclass
+class RLPlan:
+    """The RL inputs of a chunk's n ticks (`plan_ticks`): `tensors`, each
+    [n, ...] for one world or [B, n, ...] for a batch (the vmapped bodies
+    of the world batches take them with in-dim 0 and rebuild the plan
+    with `of`), the batch's host flags of each tick, and the host's
+    mirror of each world's Adam count after each tick."""
+    tensors: dict
+    train_any: np.ndarray               # bool [n]
+    train_all: np.ndarray               # bool [n]
+    counts: np.ndarray                  # i64 [n] or [B, n]
+
+    def of(self, tensors: dict) -> "RLPlan":
+        return RLPlan(tensors, self.train_any, self.train_all, self.counts)
+
+    def tick(self, i: int) -> RLTick:
+        return RLTick(train_any=bool(self.train_any[i]),
+                      train_all=bool(self.train_all[i]),
+                      **{k: v[i] for k, v in self.tensors.items()})
 
 
 def net_of(cfg: Config):
@@ -141,25 +174,33 @@ def net_of(cfg: Config):
 
 
 def adam_init(params: dict) -> Adam:
-    dev = next(iter(params.values())).device
-    return Adam(count=torch.zeros((), dtype=torch.int32, device=dev),
+    """optax's `adam().init`: zero moments and count, the count with the
+    parameters' leading world dims (a kernel's last two dims are its
+    own)."""
+    p = next(v for k, v in params.items() if k.endswith("kernel"))
+    return Adam(count=torch.zeros(p.shape[:-2], dtype=torch.int32,
+                                  device=p.device),
                 mu={k: torch.zeros_like(v) for k, v in params.items()},
                 nu={k: torch.zeros_like(v) for k, v in params.items()})
 
 
 def init_rl_state(cfg: Config, num_groups: int, key, device) -> Any:
     """The train state of the config's RL controller for `num_groups`
-    groups, its parameters drawn from `key` (uint32 [2];
-    `nets.init_params`), on `device`; None for the FSM algorithms."""
+    groups, its parameters drawn from `key` as flax draws them
+    (`nets.init_params`), on `device`; None for the FSM algorithms.
+    `key`: uint32 [2], or [B, 2] for B worlds (every leaf then with a
+    leading B, world b's as from key b alone, as JAX's `init_world`
+    under `jax.vmap`)."""
     algo = cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM
     if algo not in SRL_ALGOS + A2C_ALGOS + GAT_ALGOS:
         return None
     G = num_groups
     dev = torch.device(device)
+    lead = np.shape(key)[:-1]
     params = nets.init_params(net_of(cfg), key, dev)
 
     def z(*shape, dtype=torch.float32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.zeros(lead + shape, dtype=dtype, device=dev)
     i32 = torch.int32
     if algo in SRL_ALGOS:
         cap = max(4 * cfg.SRL_BATCH_SIZE, 2 * G)
@@ -182,7 +223,7 @@ def init_rl_state(cfg: Config, num_groups: int, key, device) -> Any:
         buf_s=z(cap, 5, 9), buf_m=z(cap, 5), buf_a=z(cap, dtype=i32),
         buf_r=z(cap), buf_ns=z(cap, 5, 9), buf_nm=z(cap, 5),
         cursor=z(dtype=i32), filled=z(dtype=i32),
-        epsilon=torch.full((G,), cfg.EPS_INITIAL, dtype=torch.float32,
+        epsilon=torch.full(lead + (G,), cfg.EPS_INITIAL, dtype=torch.float32,
                            device=dev),
         train_steps=z(dtype=i32), pend_s=z(G, 5, 9), pend_m=z(G, 5),
         pend_a=z(G, dtype=i32), pend_valid=z(G, dtype=torch.bool))
@@ -192,73 +233,92 @@ def init_rl_state(cfg: Config, num_groups: int, key, device) -> Any:
 # The host plan of a chunk's ticks
 # ---------------------------------------------------------------------------
 
-def plan_ticks(cfg: Config, ts, valid: Tensor, rl_keys: np.ndarray):
-    """The RL inputs of n ticks (`RLTick` each) from their RL keys
-    (uint32 [n, 2], `engine.tick_chain`): one read of the train state's
-    counters, the counters mirrored on the host tick by tick, the draws
-    of all n ticks taken at once (the replay indices' maxval per tick)
-    and shipped to the state's device in one copy per kind."""
+def plan_ticks(cfg: Config, ts, valid: Tensor, rl_keys: np.ndarray
+               ) -> RLPlan:
+    """The RL inputs of n ticks from their RL keys (`engine.tick_chain`):
+    uint32 [n, 2] for one world, [B, n, 2] for a batch, whose train state
+    `ts` has a leading B on every leaf and whose `valid` is [G] (shared
+    geometry) or [B, G].  One [B, k] read of the counters, the counters
+    mirrored on the host tick by tick for every world at once, the draws
+    of all worlds and ticks taken at once and hashed where the state lies
+    (`prng.bits_on`; the replay indices' maxval per world and tick),
+    Adam's bias corrections 1 - b^count in f32 per world and tick, the
+    host's masks and corrections shipped in one copy per kind."""
     algo = cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM
     dev = valid.device
-    G = valid.shape[0]
-    n = rl_keys.shape[0]
-    vals = [valid.sum(), ts.opt_state.count]
+    G = valid.shape[-1]
+    lead = rl_keys.shape[:-2]               # () or (B,)
+    n = rl_keys.shape[-2]
+    vals = [valid.sum(-1).expand(lead), ts.opt_state.count]
     if algo in SRL_ALGOS:
         vals += [ts.filled, ts.since_train]
     elif algo in A2C_ALGOS:
         vals += [ts.t]
     else:
-        vals += [ts.filled, ts.train_steps, (ts.pend_valid & valid).sum()]
-    host = torch.stack([v.to(torch.int64) for v in vals]).cpu().tolist()
-    nv, count = host[0], host[1]
-    train = np.zeros(n, bool)
-    counts = np.zeros(n, np.int64)
+        vals += [ts.filled, ts.train_steps,
+                 (ts.pend_valid & valid).sum(-1)]
+    host = torch.stack([v.to(torch.int64) for v in vals], -1).cpu().numpy()
+    nv, count = host[..., 0], host[..., 1].copy()
+    train = np.zeros(lead + (n,), bool)
+    counts = np.zeros(lead + (n,), np.int64)
+    out = {}
     if algo in SRL_ALGOS:
-        cap, B = ts.buf_s.shape[0], cfg.SRL_BATCH_SIZE
-        k_act, k_samp = np.moveaxis(prng.split(rl_keys, 2), 1, 0)
-        filled, since = host[2], host[3]
-        fills = np.zeros(n, np.int64)
+        cap, B = ts.buf_s.shape[-2], cfg.SRL_BATCH_SIZE
+        k_act, k_samp = np.moveaxis(prng.split(rl_keys, 2), -2, 0)
+        filled, since = host[..., 2], host[..., 3]
+        fills = np.zeros(lead + (n,), np.int64)
         for i in range(n):
-            filled, since = min(filled + nv, cap), since + nv
-            if since >= cfg.SRL_UPDATE_EVERY:
-                since, count, train[i] = 0, count + 1, True
-            fills[i], counts[i] = filled, count
-        gum_t, bidx_t = _to(dev, prng.gumbel(k_act, (G, 2)), prng.randint(
-            k_samp, 0, np.maximum(fills, 1), (B,)).astype(np.int64))
-        return [RLTick(gumbel=gum_t[i], train=bool(train[i]), bidx=bidx_t[i],
-                       count=int(counts[i])) for i in range(n)]
-    if algo in A2C_ALGOS:
-        R, t = ts.roll_s.shape[0], host[2]
+            filled, since = np.minimum(filled + nv, cap), since + nv
+            tr = since >= cfg.SRL_UPDATE_EVERY
+            since, count = np.where(tr, 0, since), count + tr
+            train[..., i], fills[..., i], counts[..., i] = tr, filled, count
+        out.update(gumbel=prng.gumbel(k_act, (G, 2), dev), bidx=prng.randint(
+            k_samp, 0, np.maximum(fills, 1), (B,), dev))
+    elif algo in A2C_ALGOS:
+        R, t = ts.roll_s.shape[-3], host[..., 2]
         for i in range(n):
-            t += 1
-            if t >= R:
-                t, count, train[i] = 0, count + 1, True
-            counts[i] = count
-        (gum_t,) = _to(dev, prng.gumbel(prng.split(rl_keys, 2)[:, 0],
-                                        (G, 2)))
-        return [RLTick(gumbel=gum_t[i], train=bool(train[i]),
-                       count=int(counts[i])) for i in range(n)]
-    cap, B = ts.buf_s.shape[0], cfg.GAT_BATCH_SIZE
-    k_eps, k_rand, k_samp = np.moveaxis(prng.split(rl_keys, 3), 1, 0)
-    filled, steps, put = host[2], host[3], host[4]
-    fills = np.zeros(n, np.int64)
-    sync = np.zeros(n, bool)
-    for i in range(n):
-        filled, put = min(filled + put, cap), nv
-        if filled >= B:
-            steps, count, train[i] = steps + 1, count + 1, True
-            sync[i] = steps % cfg.GAT_TARGET_UPDATE_EVERY == 0
-        fills[i], counts[i] = filled, count
-    eu_t, ra_t, bidx_t = _to(
-        dev, prng.uniform(k_eps, (G,)), prng.randint(k_rand, 0, 2, (G,)),
-        prng.randint(k_samp, 0, np.maximum(fills, 1), (B,)).astype(np.int64))
-    return [RLTick(explore_u=eu_t[i], rand_a=ra_t[i], train=bool(train[i]),
-                   bidx=bidx_t[i], count=int(counts[i]), sync=bool(sync[i]))
-            for i in range(n)]
+            t = t + 1
+            tr = t >= R
+            t, count = np.where(tr, 0, t), count + tr
+            train[..., i], counts[..., i] = tr, count
+        out.update(gumbel=prng.gumbel(prng.split(rl_keys, 2)[..., 0, :],
+                                      (G, 2), dev))
+    else:
+        cap, B = ts.buf_s.shape[-3], cfg.GAT_BATCH_SIZE
+        k_eps, k_rand, k_samp = np.moveaxis(prng.split(rl_keys, 3), -2, 0)
+        filled, steps, put = host[..., 2], host[..., 3], host[..., 4]
+        fills = np.zeros(lead + (n,), np.int64)
+        sync = np.zeros(lead + (n,), bool)
+        for i in range(n):
+            filled, put = np.minimum(filled + put, cap), nv
+            tr = filled >= B
+            steps, count = steps + tr, count + tr
+            train[..., i], fills[..., i], counts[..., i] = tr, filled, count
+            sync[..., i] = tr & (steps % cfg.GAT_TARGET_UPDATE_EVERY == 0)
+        out.update(explore_u=prng.uniform(k_eps, (G,), dev),
+                   rand_a=prng.randint(k_rand, 0, 2, (G,), dev),
+                   bidx=prng.randint(k_samp, 0, np.maximum(fills, 1), (B,),
+                                     dev),
+                   sync=sync)
+    out.update(train=train, **_bias_corrections(counts))
+    flat = train.reshape(-1, n)
+    dtypes = {"bidx": torch.int64, "rand_a": torch.int32}
+    return RLPlan({k: (v if isinstance(v, Tensor) else torch.from_numpy(
+                       np.ascontiguousarray(v))).to(dev, dtypes.get(k))
+                   for k, v in out.items()},
+                  flat.any(axis=0), flat.all(axis=0), counts)
 
 
-def _to(dev, *arrays):
-    return [torch.from_numpy(a).to(dev) for a in arrays]
+def _bias_corrections(counts: np.ndarray) -> dict:
+    """Adam's 1 - b1^count and 1 - b2^count in f32 (numpy's scalar f32
+    power, one per distinct count; a count of 0, where no update is
+    kept, as 1)."""
+    f32 = np.float32
+    uniq, inv = np.unique(np.maximum(counts, 1), return_inverse=True)
+    bc = np.array([[f32(1.0) - f32(b) ** f32(c) for b in (B1, B2)]
+                   for c in uniq], f32).reshape(-1, 2)
+    return {"bc1": np.asarray(bc[inv, 0]).reshape(counts.shape),
+            "bc2": np.asarray(bc[inv, 1]).reshape(counts.shape)}
 
 
 # ---------------------------------------------------------------------------
@@ -271,20 +331,46 @@ def interleaved_gae(gamma: float, lam: float, r: Tensor, v: Tensor,
     `interleaved_gae`: the reference's `compute_gae` over buffer order);
     masked entries pass the (gae, next_v) chain through and get 0.  The
     recurrence is sequential over R x G entries, so it runs on the host
-    in f32 (one copy each way per update)."""
+    in f32, one copy each way per update: a custom op whose vmap rule
+    calls it once for the batch ([B, R*G], the worlds' recurrences side
+    by side)."""
+    return torch.ops.tsim.interleaved_gae(r.float(), v.float(), m.bool(),
+                                          gamma, lam)
+
+
+@torch.library.custom_op("tsim::interleaved_gae", mutates_args=())
+def _interleaved_gae_op(r: Tensor, v: Tensor, m: Tensor, gamma: float,
+                        lam: float) -> Tensor:
+    """`interleaved_gae` over the last dim of r, v, m ([..., N]), every
+    leading row its own trajectory."""
     f32 = np.float32
-    rn, vn, mn = (x.detach().cpu().numpy() for x in (r.float(), v.float(),
-                                                      m.bool()))
+    rn, vn, mn = (x.detach().cpu().numpy() for x in (r, v, m))
     g, gl = f32(gamma), f32(gamma * lam)
-    gae = next_v = f32(0.0)
+    gae = np.zeros(rn.shape[:-1], f32)
+    next_v = np.zeros(rn.shape[:-1], f32)
     adv = np.zeros(rn.shape, f32)
-    for i in range(rn.shape[0] - 1, -1, -1):
-        if mn[i]:
-            delta = rn[i] + g * next_v - vn[i]
-            gae = delta + gl * gae
-            next_v = vn[i]
-            adv[i] = gae
+    for i in range(rn.shape[-1] - 1, -1, -1):
+        mi = mn[..., i]
+        g2 = (rn[..., i] + g * next_v - vn[..., i]) + gl * gae
+        gae = np.where(mi, g2, gae)
+        next_v = np.where(mi, vn[..., i], next_v)
+        adv[..., i] = np.where(mi, g2, f32(0.0))
     return torch.from_numpy(adv).to(r.device)
+
+
+@_interleaved_gae_op.register_fake
+def _(r, v, m, gamma, lam):
+    return torch.empty_like(r)
+
+
+def _interleaved_gae_vmap(info, in_dims, r, v, m, gamma, lam):
+    r, v, m = (x.movedim(d, 0) if d is not None
+               else x.expand((info.batch_size,) + x.shape)
+               for x, d in zip((r, v, m), in_dims[:3]))
+    return _interleaved_gae_op(r, v, m, gamma, lam), 0
+
+
+torch.library.register_vmap("tsim::interleaved_gae", _interleaved_gae_vmap)
 
 
 def group_gae(gamma: float, lam: float, r: Tensor, v: Tensor) -> Tensor:
@@ -344,36 +430,79 @@ def _store_rows(ts, put: Tensor, rows: dict):
 
 
 def _grads(loss_fn, params: dict) -> dict:
-    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    with torch.enable_grad():
-        g = torch.autograd.grad(loss_fn(p), list(p.values()))
-    return dict(zip(p, g))
+    """d loss / d params by `torch.func.grad`: a function transform, so
+    it runs for one world and under the batches' vmap alike."""
+    return torch.func.grad(loss_fn)(params)
 
 
 def adam_update(opt: Adam, params: dict, grads: dict, lr: float,
-                count: int):
+                bc1: Tensor, bc2: Tensor):
     """optax's `adam(lr)` update and `apply_updates`: returns (params',
-    opt').  `count` is the update's count (opt.count + 1), mirrored on
-    the host, for the bias corrections 1 - b**count."""
-    f32 = np.float32
+    opt').  `bc1`, `bc2`: the bias corrections 1 - b^count of the
+    update's count (opt.count + 1), f32 [] tensors from the host plan
+    (`plan_ticks`).  Every parameter, gradient and moment is flattened
+    into one vector, so that the update is a dozen launches whatever the
+    number of layers (functorch has no batching rule for the `_foreach`
+    ops); each element sees the f32 operations of optax's tree map, in
+    its order, and the results are views of the vectors."""
     names = list(params)
-    g = [grads[k] for k in names]
-    mu = torch._foreach_add(torch._foreach_mul(g, 1 - B1),
-                            torch._foreach_mul([opt.mu[k] for k in names],
-                                               B1))
-    nu = torch._foreach_add(
-        torch._foreach_mul(torch._foreach_mul(g, g), 1 - B2),
-        torch._foreach_mul([opt.nu[k] for k in names], B2))
-    bc1 = float(f32(1.0) - f32(B1) ** f32(count))
-    bc2 = float(f32(1.0) - f32(B2) ** f32(count))
-    den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)),
-                             EPS)
-    upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
-    new = torch._foreach_add([params[k] for k in names],
-                             torch._foreach_mul(upd, -lr))
-    return dict(zip(names, new)), Adam(count=opt.count + 1,
-                                       mu=dict(zip(names, mu)),
-                                       nu=dict(zip(names, nu)))
+
+    def flat(d):
+        return torch.cat([d[k].reshape(-1) for k in names])
+    g = flat(grads)
+    mu = g * (1 - B1) + flat(opt.mu) * B1
+    nu = (g * g) * (1 - B2) + flat(opt.nu) * B2
+    new = flat(params) + ((mu / bc1) / (torch.sqrt(nu / bc2) + EPS)) * (-lr)
+    sizes = [params[k].numel() for k in names]
+
+    def unflat(v):
+        return {k: t.view(params[k].shape)
+                for k, t in zip(names, torch.split(v, sizes))}
+    return unflat(new), Adam(count=opt.count + 1, mu=unflat(mu),
+                             nu=unflat(nu))
+
+
+def tree(x):
+    """A train state as nested dicts of tensors (the pytrees that
+    `torch.func.vmap` maps over)."""
+    if dataclasses.is_dataclass(x):
+        return {f.name: tree(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    return {k: tree(v) for k, v in x.items()} if isinstance(x, dict) else x
+
+
+def untree(like, d):
+    """`tree` undone: the nested dicts `d` as a train state shaped as
+    `like`."""
+    if dataclasses.is_dataclass(like):
+        return type(like)(**{f.name: untree(getattr(like, f.name),
+                                            d[f.name])
+                             for f in dataclasses.fields(like)})
+    return d
+
+
+def _keep(flag: Tensor, new, old):
+    """`torch.where(flag, new, old)` leaf by leaf over a train state
+    (structs, dicts of tensors, tensors): JAX's `lax.cond` on a batched
+    predicate, which vmap turns into a select."""
+    if isinstance(new, Tensor):
+        return torch.where(flag, new, old)
+    if isinstance(new, dict):
+        return {k: _keep(flag, v, old[k]) for k, v in new.items()}
+    return type(new)(**{f.name: _keep(flag, getattr(new, f.name),
+                                      getattr(old, f.name))
+                        for f in dataclasses.fields(new)})
+
+
+def _maybe_train(ts, tick: RLTick, update):
+    """Take the training branch for the worlds whose `tick.train` is
+    set: skipped on the host when no world trains this tick, the update
+    kept whole when every world does, else computed for every world and
+    kept where its flag is set."""
+    if not tick.train_any:
+        return ts
+    new = update(ts)
+    return new if tick.train_all else _keep(tick.train, new, ts)
 
 
 # ---------------------------------------------------------------------------
@@ -401,8 +530,7 @@ def srl_step(cfg: Config, ts: SRLTrain, grid, gs, lights, occupancy,
     rows, nput = _store_rows(ts, gs.valid, dict(buf_s=s, buf_a=action,
                                                 buf_r=-neg))
     ts = ts.replace(since_train=ts.since_train + nput, **rows)
-    if tick.train:
-        ts = _srl_train(cfg, net, ts, tick)
+    ts = _maybe_train(ts, tick, lambda t: _srl_train(cfg, net, t, tick))
     return ts, lights, want, phase_req
 
 
@@ -418,7 +546,7 @@ def _srl_train(cfg: Config, net, ts: SRLTrain, tick: RLTick) -> SRLTrain:
 
     params, opt = adam_update(ts.opt_state, ts.params,
                               _grads(loss_fn, ts.params),
-                              cfg.SRL_LEARNING_RATE, tick.count)
+                              cfg.SRL_LEARNING_RATE, tick.bc1, tick.bc2)
     return ts.replace(params=params, opt_state=opt,
                       since_train=torch.zeros_like(ts.since_train))
 
@@ -452,8 +580,7 @@ def a2c_step(cfg: Config, ts: A2CTrain, grid, gs, lights, occupancy,
         roll_v=ts.roll_v.index_put(t, value[None]),
         roll_m=ts.roll_m.index_put(t, gs.valid[None]),
         t=ts.t + 1)
-    if tick.train:
-        ts = _a2c_update(cfg, net, ts, tick)
+    ts = _maybe_train(ts, tick, lambda t: _a2c_update(cfg, net, t, tick))
     return ts, lights, want, phase_req
 
 
@@ -490,7 +617,7 @@ def _a2c_update(cfg: Config, net, ts: A2CTrain, tick: RLTick) -> A2CTrain:
 
     params, opt = adam_update(ts.opt_state, ts.params,
                               _grads(loss_fn, ts.params),
-                              cfg.SRL_LEARNING_RATE, tick.count)
+                              cfg.SRL_LEARNING_RATE, tick.bc1, tick.bc2)
     return ts.replace(params=params, opt_state=opt,
                       t=torch.zeros_like(ts.t),
                       global_step=ts.global_step + 1)
@@ -529,8 +656,7 @@ def gat_step(cfg: Config, ts: GATTrain, grid, gs, lights, occupancy,
         cfg, lights, active, action, cfg.GAT_TRAFFIC_RL_MIN_GREEN)
     ts = ts.replace(pend_s=feats, pend_m=mask, pend_a=action,
                     pend_valid=gs.valid, epsilon=epsilon)
-    if tick.train:
-        ts = _gat_train(cfg, net, ts, tick)
+    ts = _maybe_train(ts, tick, lambda t: _gat_train(cfg, net, t, tick))
     return ts, lights, want, phase_req
 
 
@@ -547,10 +673,11 @@ def _gat_train(cfg: Config, net, ts: GATTrain, tick: RLTick) -> GATTrain:
         return torch.mean((qsa - tgt) ** 2)
 
     params, opt = adam_update(ts.opt_state, ts.params,
-                              _grads(loss_fn, ts.params), GAT_LR, tick.count)
+                              _grads(loss_fn, ts.params), GAT_LR, tick.bc1,
+                              tick.bc2)
     return ts.replace(params=params, opt_state=opt,
-                      target_params=(dict(params) if tick.sync
-                                     else ts.target_params),
+                      target_params=_keep(tick.sync, params,
+                                          ts.target_params),
                       train_steps=ts.train_steps + 1)
 
 

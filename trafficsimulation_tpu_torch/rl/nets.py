@@ -17,22 +17,26 @@ the meta device: their own parameters are never used.
 max(0, E[x^2] - E[x]^2) (`F.layer_norm` uses 1e-5 and another variance).
 `GraphAttention`'s leaky ReLU has slope 0.2 (torch's default is 0.01).
 
-`init_params` draws the initial parameters: flax's initializers (LeCun
-normal kernels, truncated at two standard deviations; zero biases;
-LayerNorm scale 1, bias 0), but from a `torch.Generator` seeded from the
-world's key, not from flax's per-module JAX keys, so the draws differ
-from flax's.  A JAX world's trained or initial parameters carry across
-through `core/transfer.py`.
+`init_params` draws the initial parameters as flax's `net.init(key,
+...)` does, bit for bit: each kernel's key is the init key folded with
+the SHA-1 of its module path and the module's first `make_rng` count
+(flax's `LazyRng`), the kernel LeCun normal (`prng.truncated_normal`
+times sqrt(1 / fan_in) / 0.8796..., f32); zero biases, LayerNorm scale 1
+and bias 0.  A JAX world's trained parameters carry across through
+`core/transfer.py`.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from .. import prng
 
 # the standard deviation of a standard normal truncated to (-2, 2)
 # (flax's `variance_scaling` constant)
@@ -160,23 +164,35 @@ def apply(net: nn.Module, params: dict, *args):
     return torch.func.functional_call(net, params, args)
 
 
+def _path_key(key: np.ndarray, path) -> np.ndarray:
+    """flax's key of a module's first `make_rng("params")`: the init key
+    folded with the first 4 bytes (big-endian) of the SHA-1 of the module
+    path's names and the count 1 (`flax.core.scope._fold_in_static`)."""
+    m = hashlib.sha1()
+    for x in tuple(path) + (1,):
+        m.update(x.encode("utf-8") if isinstance(x, str)
+                 else x.to_bytes((x.bit_length() + 7) // 8, "big"))
+    return prng.fold_in(key, int.from_bytes(m.digest()[:4], "big"))
+
+
 def init_params(net: nn.Module, key, device) -> dict:
-    """Initial parameters of `net` by flax's initializers, drawn from a
-    `torch.Generator` seeded from `key` (uint32 [2]) in the order of the
-    module's parameters, on `device`."""
-    k = np.asarray(key, np.uint32).reshape(2)
-    gen = torch.Generator().manual_seed((int(k[0]) << 32) | int(k[1]))
+    """Initial parameters of `net` as flax's `init(key, ...)` draws them
+    (see the module docstring), on `device`.  `key`: uint32 [2], or a
+    stack [B, 2] for B worlds, each parameter then with a leading B."""
+    k = np.asarray(key, np.uint32)
+    lead = k.shape[:-1]
+    dev = torch.device(device)
     out = {}
     for name, p in net.named_parameters():
-        leaf = name.rsplit(".", 1)[1]
+        path, leaf = name.rsplit(".", 1)
         if leaf == "kernel":
-            std = float(np.sqrt(1.0 / p.shape[0]) / _TRUNC_STD)
-            t = torch.empty(p.shape)
-            nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            t = t * std
-        elif leaf == "scale":
-            t = torch.ones(p.shape)
+            std = np.float32(np.sqrt(np.float32(1.0 / p.shape[0]))
+                             / np.float32(_TRUNC_STD))
+            kk = _path_key(k, path.split("."))
+            t = prng.truncated_normal(kk, tuple(p.shape), dev)
+            out[name] = t * float(std)
         else:
-            t = torch.zeros(p.shape)
-        out[name] = t.to(device)
+            out[name] = torch.full(lead + tuple(p.shape), 1.0 if leaf ==
+                                   "scale" else 0.0, dtype=torch.float32,
+                                   device=dev)
     return out

@@ -201,7 +201,6 @@ def init_worlds(cfg: Config, keys, device="cuda", timings=None) -> World:
     if cfg.ROUTING_HIER:
         raise ValueError("cfg.ROUTING_HIER worlds are host-orchestrated: "
                          "use init_world_hier(cfg, key)")
-    refuse_rl_batch(cfg)
     dev = torch.device(device)
     keys = np.asarray(keys, np.uint32).reshape(-1, 2)
     t0 = t = time.perf_counter()
@@ -221,6 +220,9 @@ def init_worlds(cfg: Config, keys, device="cuda", timings=None) -> World:
         return world_leaves(_assemble(cfg, _city(city_l), field, day_d, key))
     leaves = torch.func.vmap(rest)(city_l, field, day_d, key_t)
     world = world_from_leaves({k: v.contiguous() for k, v in leaves.items()})
+    # each world's RL train state from its own key (None for FSM)
+    world = world.replace(rl=rl_mod.init_rl_state(
+        cfg, cfg.capacities().max_groups, keys, dev))
     t = _stage(timings, "demand_state", t)
     if timings is not None:
         timings["generate_all_sec"] = t - t0
@@ -503,21 +505,12 @@ def _key_tensor(key: np.ndarray, device) -> torch.Tensor:
                             .copy()).to(device)
 
 
-def refuse_rl_batch(cfg: Config) -> None:
-    """World batches do not run the RL controllers yet: raise for an RL
-    config rather than run a different RL."""
-    if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM in fsm.RL_ALGOS:
-        raise NotImplementedError(
-            f"{cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM}: RL light controllers in "
-            "world batches are not ported yet (ROADMAP Queue 1 item 14b); "
-            "run the worlds one by one (sim.run_chunk)")
-
-
 def _chain(cfg: Config, world: World, n: int):
-    """(draws int64 [n, N_DRAWS] numpy, the ticks' RL inputs or None,
-    the key after n ticks): the key chain walked on the host
+    """(draws int64 [n, N_DRAWS] numpy, the ticks' RL plan or None, the
+    key after n ticks): the key chain walked on the host
     (`engine.tick_chain`) and, under an RL controller, its plan
-    (`rl/controllers.plan_ticks`: one read of its counters)."""
+    (`rl/controllers.plan_ticks`: one read of its counters).  For a
+    batch (`world.key` [B, 2]) every world's, with a leading B."""
     draws, rl_keys, key = engine.tick_chain(cfg, _key_np(world.key), n)
     if rl_keys is None:
         return draws, None, key
@@ -534,7 +527,7 @@ def step_world(cfg: Config, world: World) -> World:
     dev = world.grid.is_road.device
     draws, plan, key = _chain(cfg, world, 1)
     end = step_device(cfg, world, torch.from_numpy(draws[0]).to(dev),
-                      None if plan is None else plan[0])
+                      None if plan is None else plan.tick(0))
     return end.replace(key=_key_tensor(key, dev))
 
 
@@ -612,7 +605,7 @@ def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
             e2 = engine.step_engine(
                 cfg, world, e, draws[t0 + i], sdir=sdir, spawn_slots=sl,
                 dense=dense,
-                rl_tick=None if rl_plan is None else rl_plan[t0 + i])
+                rl_tick=None if rl_plan is None else rl_plan.tick(t0 + i))
             cur = cur + (e2.dem_cursor - e.dem_cursor)
             e = e2
         return e
