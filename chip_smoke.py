@@ -161,7 +161,7 @@ Phases (any failure raises and the script exits nonzero):
      `step_pedestrians` 100 (one a tick), K1 100, K4 100, K2 and K3 20,
      no plain pedestrian step or decide core;
      then 3 timed chunks of 100 ticks (median steps/s, cell-updates/s),
-     launches and device busy ms a tick (a profile of 50 ticks), idle
+     launches and device busy ms a tick (a profile of 25 ticks), idle
      share, active pedestrians,
      the expected spawns a tick, active vehicles and the bench's cap
      diagnostics; the step on its inputs of tick 500 of that run (the
@@ -171,7 +171,7 @@ Phases (any failure raises and the script exits nonzero):
      100^2 generated from seeds 1-3 after a warm seed 0 (ms a seed),
      each held to the digest at init; seed 0 after 200 ticks held to the
      digest; light cycling steps/s over 200 more ticks, the number of
-     lights, launches and device busy ms a tick (a profile of 50);
+     lights, launches and device busy ms a tick (a profile of 25);
  18. the RL light controllers (group `rl`) at the headline: REINFORCE
      (NEIGHBOR_RL_BATCHED, 10 x 128), A2C (RL_A2C_BATCHED, 10 x 256) and
      GAT-DQN (GAT_DQN_BATCHED), each world generated on the card from
@@ -186,7 +186,7 @@ Phases (any failure raises and the script exits nonzero):
      arrows JAX's), a tick of `TrafficSim.step(1)`, and NEIGHBOR_RL and
      GAT_DQN through `TrafficSim`; one training update's device ms and
      kernels; and 3
-     timed chunks of 50 ticks and a profile of 50 for each family and
+     timed chunks of 50 ticks and a profile of 25 for each family and
      for QUEUE_ACTUATED on the same world, in one process (steps/s,
      launches and device busy ms a tick, idle share);
  19. the batched megakernel (group `mega_batch`, TSIM_MEGA_FORCE=1): K8
@@ -230,6 +230,26 @@ Phases (any failure raises and the script exits nonzero):
      (1024 cities: per-world train ticks counted, worlds 0-3 against
      their single-world runs, K1 50 and K2 10 launches for the batch,
      steps/s beside the FSM config #4).
+ 21. the sharded world batches (group `mesh`): 4 ranks share the card
+     over gloo (`parallel/launch.spawn`, one process a rank): the
+     headline's B = 16 rollouts as 4 x 4 (rank 0 generates the world,
+     `replicate_world` sends it; 23 ticks on the per-tick and the
+     megakernel path) and config #4 letter for letter as 4 x 256
+     (`init_world_batch(..., mesh)`, 50 ticks on both paths): every
+     world's digest equal to the single-process runs of groups
+     `headline`, `mega_batch` and `config4` (integer leaves bit for
+     bit), world 0 to JAX's end state, worlds 0-3 to JAX's digest, the
+     fleet metrics all-reduced over the ranks to the single process's,
+     each rank's launches one a call for its slice (K1 23, K5 5, K3 5,
+     K4 23; K9 5 a 23-tick run), each rank's K1 and K9 forms logged
+     beside the single process's; the A2C crossroad shared batch of
+     `data/rl_batch_digest.json` as 2 ranks x 2 (integers JAX's, trained
+     floats within rtol 1e-4); the dry run's rank body
+     (`dryrun.dryrun_rank`, 4 ranks x 2 worlds: the A2C update on every
+     rank, the all-reduced total and the 8 worlds JAX's,
+     `data/mesh_digest.json`).  All in one spawn of 4 ranks.
+     `--only mesh_scaling` (development, no gate) times B = 16 over 1, 2
+     and 4 ranks on the card.
 
 The line before the last is the kernels' JSON summary, the one before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -254,10 +274,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_REF_TICKS = 23
 N_BENCH_TICKS = 200
-N_PROFILE_TICKS = 50       # long enough to amortise the per-call set-up
+# long enough to amortise the per-call set-up (5 segments); 50 until the
+# `mesh` group came: a profile's processing grows with its events (~1000
+# launches a tick under RL), and the script's phases passed ~950 s
+N_PROFILE_TICKS = 25
 BATCH = 16
 FLOAT_RTOL = 1e-6
 REPORT = {}
+T0 = time.perf_counter()
 
 # H100 SXM peaks (the bound of each kernel): device memory bytes/s; the
 # FP32 rate of the data sheet (an FMA counted as two flops on 128 FP32
@@ -409,11 +433,12 @@ PED_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
 PHASES = ("kernels", "ordered_add", "headline", "mega", "mega_batch",
           "hier_digest",
           "config4", "config5", "config3", "config1", "tiled", "render",
-          "bridge", "rl", "rl_batch")
+          "bridge", "rl", "rl_batch", "mesh")
 # development groups, run only when named in --only: `forms` times K1's
 # forms over K1_SWEEP worlds and the pedestrian step (phase_forms),
-# `select_rows` K6 alone (phase_select_rows)
-DEV_PHASES = ("forms", "select_rows")
+# `select_rows` K6 alone (phase_select_rows), `mesh_scaling` the B = 16
+# rollouts over 1, 2 and 4 ranks on the card (phase_mesh_scaling)
+DEV_PHASES = ("forms", "select_rows", "mesh_scaling")
 # the groups --tree may run (an older tree's kernels beside this one's)
 TREE_PHASES = ("forms", "select_rows", "tiled", "mega", "mega_batch")
 K1_SWEEP = (3, 16, 132, 264, 528, 1024)
@@ -426,7 +451,11 @@ SUB_KEYS = ("max_abs_err", "ms", "device_ms", "kernels_per_call",
 
 
 def log(*a):
+    """Print a line; the report keeps each line's start and seconds since
+    the script began (where the time goes)."""
     print(*a, flush=True)
+    REPORT.setdefault("log_s", []).append(
+        (round(time.perf_counter() - T0, 1), " ".join(map(str, a))[:90]))
 
 
 def card_line() -> str:
@@ -1177,6 +1206,7 @@ def phase_batch(cfg, world, ref, HE, mesh, tsim, transfer, prng):
     if tuple(vm.shape) != (BATCH, cfg.HEIGHT, cfg.WIDTH):
         raise AssertionError(f"batch veh_map shape {tuple(vm.shape)}")
     REPORT["batch_ref"] = {"seconds": t_b, "launches": launches}
+    keep_ref("b16_per_tick", batch, launches, mesh)
     return batch, launches
 
 
@@ -1390,32 +1420,17 @@ class no_plain_core:
 def check_digest(name, digest: dict, leaves: dict):
     """Every leaf's dtype, shape and sha256 against the JAX digest; an
     f32 leaf whose bytes differ must still match its float64 sum, sum of
-    magnitudes and maximum within FLOAT_RTOL.  Returns (exact, near)."""
-    import hashlib
-    bad, exact, near = [], 0, []
-    if set(digest) != set(leaves):
-        raise AssertionError(f"{name}: leaf sets differ: "
-                             f"{sorted(set(digest) ^ set(leaves))}")
-    for k, d in digest.items():
-        a = np.asarray(leaves[k])
-        if str(a.dtype) != d["dtype"] or list(a.shape) != d["shape"]:
-            bad.append((k, str(a.dtype), a.shape))
-            continue
-        if hashlib.sha256(a.tobytes()).hexdigest() == d["sha256"]:
-            exact += 1
-            continue
-        if "sum" in d:
-            v = a.astype(np.float64)
-            got = (v.sum(), np.abs(v).sum(), v.max() if v.size else 0.0)
-            if np.allclose(got, (d["sum"], d["abs_sum"], d["max"]),
-                           rtol=FLOAT_RTOL, atol=0.0):
-                near.append(k)
-                continue
-        bad.append((k, "sha256"))
+    magnitudes and maximum within FLOAT_RTOL (`parallel.mesh.
+    diff_digests`).  Returns (exact, near)."""
+    from trafficsimulation_tpu_torch.parallel import mesh
+    got = {k: mesh.leaf_digest(v) for k, v in leaves.items()}
+    bad = mesh.diff_digests(digest, got, rtol=FLOAT_RTOL)
     if bad:
         raise AssertionError(f"{name}: leaves differ from the JAX digest: "
                              f"{bad}")
-    return exact, near
+    near = [k for k, d in digest.items()
+            if got[k]["sha256"] != d["sha256"]]
+    return len(digest) - len(near), near
 
 
 def phase_hier_digest(HE, tsim, transfer, prng, snapshot, Config):
@@ -1913,6 +1928,7 @@ def phase_config4(HE, engine, tsim, mesh, transfer, card, prng, Config):
     active = [int(a) for a in w.vehicles.active.sum(-1)]
     if active[:digest["worlds"]] != digest[f"chunk{CONFIG4_TICKS}_active"]:
         raise AssertionError(f"config #4 active vehicles {active[:4]}")
+    keep_ref("config4_per_tick", w, launches, mesh)
     log(f"config #4 worlds 0-{digest['worlds'] - 1} after {CONFIG4_TICKS} "
         f"ticks equal JAX's digest; first chunk {t_first:.3f} s; launches "
         f"{launches} (K1 {launches['decide_move_blocks'] / CONFIG4_TICKS:g} "
@@ -2722,6 +2738,8 @@ def phase_mega_batch(cfg, world, ref, card, HE, engine, tsim, transfer, mesh,
             compare_leaves(f"B=16 megakernel path world {b} vs its single "
                            "run", transfer.world_to_numpy(single),
                            transfer.world_to_numpy(mesh.world_at(b23, b)))
+    if new:
+        keep_ref("b16_mega", b23, launches, mesh)
     log(f"B=16 megakernel path: run_batch_shared({N_REF_TICKS}) in "
         f"{t_ref:.2f} s; world 0 equals JAX's end state"
         + (", worlds 1 and 15 their single runs" if new else "")
@@ -2796,6 +2814,7 @@ def phase_mega_batch(cfg, world, ref, card, HE, engine, tsim, transfer, mesh,
         plan4 = HE.mega_plan(n4, c4.HEIGHT, c4.WIDTH)
         if plan4["form"] != "worlds":
             raise AssertionError(f"config #4: K9's plan {plan4}")
+        keep_ref("config4_mega", w4, l4, mesh, quirks=quirk)
     log(f"config #4 megakernel path: {ticks4} ticks of {n4} worlds in "
         f"{t4:.2f} s; launches {l4}"
         + (f"; worlds 0-{digest['worlds'] - 1} equal JAX's digest but "
@@ -3879,6 +3898,319 @@ def rl_config4(HE, tsim, transfer, mesh, card, prng, Config, rl_mod):
             "ties": int(ties.sum()), "skipped_for_ties": skipped,
             "timing": timing}
 
+
+# ---- the sharded world batches (groups `mesh` and `mesh_scaling`) ---------
+
+MESH_RANKS = 4              # ranks sharing the one card over gloo
+MESH_RL_RANKS = 2           # the A2C shared batch of 4: 2 ranks x 2
+MESH_SCALING = (1, 2, 4)    # ranks of the timing group's spawns
+MESH_SCALING_TICKS = 50
+MESH_SCALING_PROFILE = 25
+RL_BATCH_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
+                               "rl_batch_digest.json")
+MESH_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
+                           "mesh_digest.json")
+# the trained floats' tolerance of tests/test_torch_rl_batch.py: rtol, and
+# an absolute one times the leaf's largest magnitude (at most 1)
+RL_TRAINED_RTOL, RL_TRAINED_ATOL = 1e-4, 1e-5
+# the single-process runs the sharded ones are held to: name -> per-world
+# digests of the end state, fleet metrics, launches, forms (`keep_ref`)
+REF = {}
+
+
+def keep_ref(name, end, launches, mesh, quirks=None):
+    """Hash a single-process run's end state world by world (with its
+    fleet metrics, launches and kernel forms) for the `mesh` group."""
+    from trafficsimulation_tpu_torch.parallel import ranks
+    t0 = time.perf_counter()
+    REF[name] = {"digests": mesh.world_digests(end),
+                 "fleet": {k: int(v) for k, v in
+                           mesh.fleet_metrics(end).items()},
+                 "launches": dict(launches), "forms": ranks.forms(launches),
+                 "quirks": quirks or {}}
+    log(f"{name}: the end state's {len(REF[name]['digests'])} worlds "
+        f"hashed for the sharded runs in {time.perf_counter() - t0:.2f} s")
+
+
+def mesh_refs(cfg, world, keys, HE, mesh, prng, Config):
+    """The single-process runs of the `mesh` group that the groups run
+    before it did not leave (`--only mesh`): B = 16 of the headline for
+    N_REF_TICKS and config #4 for CONFIG4_TICKS, on both paths."""
+    from trafficsimulation_tpu_torch.ops import megakernel
+    for mega in (False, True):
+        name = "b16_mega" if mega else "b16_per_tick"
+        if name not in REF:
+            with mega_env(mega):
+                HE.reset_launches()
+                end = mesh.run_batch_shared(
+                    cfg, mesh.tile_dynamic(world, keys), N_REF_TICKS)
+                keep_ref(name, end, HE.launches, mesh)
+            del end
+    if {"config4_per_tick", "config4_mega"} <= set(REF):
+        return
+    c4 = Config(**CONFIG4)
+    worlds = mesh.init_world_batch(c4, prng.PRNGKey(0), CONFIG4_WORLDS)
+    quirk = {b: megakernel.quirks(c4, mesh.world_at(worlds, b))
+             for b in range(4)}
+    for mega in (False, True):
+        name = "config4_mega" if mega else "config4_per_tick"
+        if name not in REF:
+            with mega_env(mega):
+                HE.reset_launches()
+                end = mesh.run_chunk_batch(c4, worlds, CONFIG4_TICKS)
+                keep_ref(name, end, HE.launches, mesh,
+                         quirks=quirk if mega else None)
+            del end
+    del worlds
+    torch.cuda.empty_cache()
+
+
+def mesh_same(name, want: list, got: list, mesh):
+    """Every world's digest of a sharded run against the single-process
+    run's: every leaf, f32 too, by sha256."""
+    if len(want) != len(got):
+        raise AssertionError(f"{name}: {len(got)} worlds, not {len(want)}")
+    bad = {b: d[:6] for b, (w, g) in enumerate(zip(want, got))
+           if (d := mesh.diff_digests(w, g))}
+    if bad:
+        raise AssertionError(f"{name}: worlds differ from the single-process "
+                             f"run (world: [(leaf, reason)]): "
+                             f"{dict(list(bad.items())[:4])} ({len(bad)} "
+                             "worlds)")
+
+
+def mesh_vs_jax(name, want: dict, got: dict, mesh, trained=None,
+                skip=("cost_field",)):
+    """One world's digest against a JAX digest `want` (leaf -> digest):
+    sha256, f32 leaves within FLOAT_RTOL of their sums, and the leaves
+    `trained(leaf)` returns an array for element by element within the
+    RL tolerance (`got` carries them whole)."""
+    bad = []
+    for k, d in want.items():
+        if k in skip:
+            continue
+        if k not in got:
+            bad.append((k, "missing"))
+            continue
+        ref = trained(k) if trained else None
+        if ref is None:
+            bad += mesh.diff_digests({k: d}, {k: got[k]}, rtol=FLOAT_RTOL)
+            continue
+        scale = min(1.0, float(np.abs(ref).max(initial=0.0)))
+        if not np.allclose(got[k]["array"], ref, rtol=RL_TRAINED_RTOL,
+                           atol=RL_TRAINED_ATOL * scale):
+            bad.append((k, "trained floats past the tolerance"))
+    if bad:
+        raise AssertionError(f"{name}: leaves differ from JAX's: {bad[:8]}")
+
+
+def mesh_launches(name, per_rank: list, need: dict):
+    """Each rank's launches: K1 and K9 summed over their two forms (a
+    rank takes the form its own shape picks)."""
+    for r, la in enumerate(per_rank):
+        got = dict(la, k1=la["decide_move"] + la["decide_move_blocks"],
+                   k9=la["mega"] + la["mega_worlds"])
+        check_launches(f"{name}, rank {r}", got, need)
+
+
+def phase_mesh(cfg, world, keys, ref, card, HE, mesh, prng, Config):
+    """The sharded world batches on the card (see the module docstring,
+    group `mesh`)."""
+    from trafficsimulation_tpu_torch import dryrun
+    from trafficsimulation_tpu_torch.parallel import launch, ranks
+    t_start = time.perf_counter()
+    mesh_refs(cfg, world, keys, HE, mesh, prng, Config)
+    t_refs = time.perf_counter() - t_start
+    torch.cuda.empty_cache()
+    with open(os.path.join(ROOT, RL_BATCH_DIGEST)) as f:
+        rl_dig = json.load(f)
+    with open(os.path.join(ROOT, MESH_DIGEST)) as f:
+        mesh_dig = json.load(f)
+    with open(os.path.join(ROOT, CONFIG4_DIGEST)) as f:
+        c4_dig = json.load(f)
+    z_rl = np.load(os.path.join(ROOT, RL_BATCH_DIGEST.replace(
+        "digest.json", "trained.npz")))
+    z_mesh = np.load(os.path.join(ROOT, MESH_DIGEST.replace(
+        "digest.json", "trained.npz")))
+    rec = rl_dig["shared"]["RL_A2C_BATCHED"]
+    n_rl = rl_dig["ticks"]
+    jobs = [
+        dict(kind="rollouts", cfg=cfg, keys=keys, ticks=N_REF_TICKS,
+             world="headline", paths=(False, True)),
+        dict(kind="cities", cfg=Config(**CONFIG4), key=prng.PRNGKey(0),
+             n_worlds=CONFIG4_WORLDS, ticks=CONFIG4_TICKS,
+             paths=(False, True)),
+        # the dry run's rank body (`dryrun.dryrun_rank`, what
+        # `dryrun_multichip` spawns), in this spawn: a spawn of its own
+        # would start four more processes (~17 s)
+        dict(kind="dryrun", n_worlds=mesh_dig["dryrun_worlds"], ticks=1),
+        dict(kind="rollouts", ranks=MESH_RL_RANKS, cfg=Config(**rec["cfg"]),
+             keys=prng.split(prng.PRNGKey(0), rl_dig["shared_b"]),
+             ticks=n_rl, whole=dryrun.TRAINED)]
+    t0, wall0 = time.perf_counter(), time.time()
+    out = launch.spawn(ranks.run_jobs, MESH_RANKS, "gloo", args=(jobs,))
+    t_spawn = time.perf_counter() - t0
+    head, c4, dr, rl = ([o[j] for o in out] for j in range(4))
+    timing = {
+        "ready_s": [round(o[0]["started_at"] - wall0, 2) for o in out],
+        "job_s": {name: [round(r["job_s"], 2) for r in res if r]
+                  for name, res in (("headline", head), ("config4", c4),
+                                    ("dryrun", dr), ("rl", rl))},
+        "build_s": {name: [round(r["build_s"], 2) for r in res if r]
+                    for name, res in (("headline", head), ("config4", c4),
+                                      ("rl", rl))},
+        "digest_s": {f"{name} {p}": round(res[0][p]["digest_s"], 2)
+                     for name, res in (("headline", head), ("config4", c4))
+                     for p in ("per_tick", "mega")}}
+    log(f"mesh: {MESH_RANKS} ranks spawned and done in {t_spawn:.2f} s; "
+        f"seconds after the spawn each rank began (process start, CUDA, "
+        f"imports): {timing['ready_s']}; per job and rank {timing['job_s']}"
+        f"; building its slice {timing['build_s']}; rank 0 hashing and "
+        f"gathering {timing['digest_s']}")
+    segs = -(-N_REF_TICKS // cfg.PATHFINDING_COOLDOWN)
+    segs4 = -(-CONFIG4_TICKS // cfg.PATHFINDING_COOLDOWN)
+    rep = {"ranks": MESH_RANKS, "backend": "gloo", "card": card,
+           "spawn_s": t_spawn, "refs_s": t_refs, "timing": timing}
+
+    # the headline's 16 rollouts, 4 a rank, on both paths
+    jax_end = {k: mesh.leaf_digest(v) for k, v in ref["end"].items()}
+    for path, need in (
+            ("per_tick", {"k1": N_REF_TICKS, "build_sdir_batched": segs,
+                          "build_wavefront": segs, "prefix_planes":
+                          N_REF_TICKS, "k9": 0, "build_sdir": 0,
+                          "select_rows": 0, "rain_ticks": N_REF_TICKS}),
+            ("mega", {"k9": segs, "build_sdir_batched": segs,
+                      "build_wavefront": segs, "k1": 0, "prefix_planes": 0,
+                      "ordered_add": 0, "build_sdir": 0})):
+        single = REF[f"b16_{path}"]
+        got = head[0][path]["digests"]
+        mesh_same(f"headline B={BATCH}, {path} path, {MESH_RANKS} ranks",
+                  single["digests"], got, mesh)
+        mesh_vs_jax(f"headline world 0, {path} path, sharded", jax_end,
+                    got[0], mesh, skip=())
+        mesh_launches(f"headline {path} path", [h[path]["launches"]
+                                                for h in head], need)
+        fleet = [h[path]["fleet"] for h in head]
+        if any(f != single["fleet"] for f in fleet):
+            raise AssertionError(f"headline {path}: fleet metrics {fleet} "
+                                 f"vs the single process's "
+                                 f"{single['fleet']}")
+        forms = [h[path]["forms"] for h in head]
+        log(f"mesh: headline B={BATCH} as {MESH_RANKS} ranks x "
+            f"{BATCH // MESH_RANKS} ({path} path): every world equals the "
+            f"single-process run bit for bit (every leaf), world 0 JAX's "
+            f"end state; fleet {fleet[0]} "
+            f"equal; rank 0's launches {head[0][path]['launches']}"
+            f"; forms per rank {forms}, single process {single['forms']}; "
+            f"seconds per rank {[round(h[path]['seconds'], 2) for h in head]}")
+        rep[f"headline_{path}"] = {
+            "forms": forms, "single_forms": single["forms"],
+            "launches": [h[path]["launches"] for h in head],
+            "seconds": [h[path]["seconds"] for h in head], "fleet": fleet[0]}
+
+    # config #4: 1024 cities, 256 a rank, on both paths
+    for path, need in (
+            ("per_tick", {"k1": CONFIG4_TICKS, "prefix_planes":
+                          CONFIG4_TICKS, "build_sdir": segs4,
+                          "build_wavefront": segs4, "k9": 0,
+                          "build_sdir_batched": 0, "select_rows": 0}),
+            ("mega", {"k9": segs4, "build_sdir": segs4,
+                      "build_wavefront": segs4, "k1": 0, "prefix_planes": 0,
+                      "build_sdir_batched": 0})):
+        single = REF[f"config4_{path}"]
+        got = c4[0][path]["digests"]
+        mesh_same(f"config #4, {path} path, {MESH_RANKS} ranks",
+                  single["digests"], got, mesh)
+        for b in range(c4_dig["worlds"]):
+            if single["quirks"].get(b):
+                continue
+            mesh_vs_jax(f"config #4 world {b}, {path} path, sharded",
+                        c4_dig[f"chunk{CONFIG4_TICKS}"][b], got[b], mesh,
+                        skip=())
+        mesh_launches(f"config #4 {path} path",
+                      [r[path]["launches"] for r in c4], need)
+        fleet = [r[path]["fleet"] for r in c4]
+        if any(f != single["fleet"] for f in fleet):
+            raise AssertionError(f"config #4 {path}: fleet metrics {fleet} "
+                                 f"vs the single process's "
+                                 f"{single['fleet']}")
+        forms = [r[path]["forms"] for r in c4]
+        log(f"mesh: config #4 ({CONFIG4_WORLDS} cities) as {MESH_RANKS} "
+            f"ranks x {CONFIG4_WORLDS // MESH_RANKS} ({path} path): every "
+            f"world equals the single-process run bit for bit, worlds 0-3 "
+            f"JAX's digest (but quirk worlds "
+            f"{[b for b, q in single['quirks'].items() if q]}); fleet "
+            f"{fleet[0]} equal; K1 / K9 forms per rank {forms}, single "
+            f"process {single['forms']}; seconds per rank "
+            f"{[round(r[path]['seconds'], 2) for r in c4]}")
+        rep[f"config4_{path}"] = {
+            "forms": forms, "single_forms": single["forms"],
+            "launches": [r[path]["launches"] for r in c4],
+            "seconds": [r[path]["seconds"] for r in c4], "fleet": fleet[0]}
+
+    # RL: the A2C crossroad shared batch of 4 as 2 ranks x 2
+    got = rl[0]["per_tick"]["digests"]
+    for b in range(rl_dig["shared_b"]):
+        mesh_vs_jax(f"A2C shared batch world {b}, {MESH_RL_RANKS} ranks",
+                    rec[f"tick{n_rl}"][b], got[b], mesh,
+                    trained=lambda k, b=b: z_rl[
+                        f"shared|RL_A2C_BATCHED|tick{n_rl}|{b}|{k}"]
+                    if k.startswith(dryrun.TRAINED) else None)
+    if rl[MESH_RL_RANKS:] != [None] * (MESH_RANKS - MESH_RL_RANKS):
+        raise AssertionError("ranks outside the RL job's mesh ran it")
+    log(f"mesh: the A2C crossroad shared batch of {rl_dig['shared_b']} as "
+        f"{MESH_RL_RANKS} ranks x {rl_dig['shared_b'] // MESH_RL_RANKS}, "
+        f"{n_rl} ticks: integer leaves JAX's digest, trained floats within "
+        f"rtol {RL_TRAINED_RTOL} / atol {RL_TRAINED_ATOL} x max")
+
+    # the dry run: 8 crossroads training A2C, 2 a rank
+    totals = [r["total"] for r in dr]
+    if totals != [mesh_dig["dryrun_total"]] * MESH_RANKS:
+        raise AssertionError(f"dry run totals {totals} vs JAX's "
+                             f"{mesh_dig['dryrun_total']}")
+    for b, g in enumerate(dr[0]["digests"][0]):
+        mesh_vs_jax(f"dry run world {b}", mesh_dig["dryrun_tick1"][b], g,
+                    mesh, trained=lambda k, b=b: z_mesh[
+                        f"dryrun_tick1|{b}|{k}"]
+                    if k.startswith(dryrun.TRAINED) else None, skip=())
+    log(f"mesh: the dry run (dryrun_rank) as {MESH_RANKS} ranks x "
+        f"{mesh_dig['dryrun_worlds'] // MESH_RANKS}: the A2C update moved "
+        f"the parameters on every rank, the all-reduced total {totals[0]} "
+        f"is JAX's, its {mesh_dig['dryrun_worlds']} worlds after one tick "
+        f"JAX's mesh digest; launches per rank "
+        f"{[r['launches'] for r in dr][:1]}")
+    rep.update(dryrun_launches=[r["launches"] for r in dr],
+               phase_s=time.perf_counter() - t_start)
+    REPORT["mesh"] = rep
+    return {"mesh": head[0]["per_tick"]["launches"],
+            "mesh_mega": head[0]["mega"]["launches"]}
+
+
+def phase_mesh_scaling(cfg, keys, card):
+    """Development timing, no gate: the headline's B = 16 rollouts split
+    over 1, 2 and 4 ranks on the one card (gloo), both paths; the
+    aggregate steps/s (worlds x ticks over the slowest rank's wall) and
+    each rank's device idle share."""
+    from trafficsimulation_tpu_torch.parallel import launch, ranks
+    rep = {"card": card, "ticks": MESH_SCALING_TICKS}
+    for n in MESH_SCALING:
+        out = launch.spawn(ranks.run_jobs, n, "gloo", args=([dict(
+            kind="scaling", cfg=cfg, keys=keys, ticks=MESH_SCALING_TICKS,
+            profile=MESH_SCALING_PROFILE)],))
+        res = [o[0] for o in out]
+        for path in ("mega", "per_tick"):
+            wall = max(r[path]["wall_s"] for r in res)
+            agg = BATCH * MESH_SCALING_TICKS / wall
+            idle = [round(r[path]["idle_share"], 3) for r in res]
+            busy = [round(r[path]["busy_ms_per_tick"], 3) for r in res]
+            log(f"mesh_scaling ({card}): {n} rank(s) x {BATCH // n} worlds, "
+                f"{path} path: {agg:.2f} world-steps/s ({MESH_SCALING_TICKS}"
+                f" ticks in {wall:.3f} s on the slowest rank), device busy "
+                f"ms a tick per rank {busy}, idle share per rank {idle}")
+            rep[f"{n}_{path}"] = {"world_steps_per_s": agg, "wall_s": wall,
+                                  "busy_ms_per_tick": busy, "idle": idle}
+    REPORT["mesh_scaling"] = rep
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the build log and report")
@@ -3964,10 +4296,14 @@ def main():
     if "ordered_add" in run:
         phase_ordered_add(HE)
     if run & {"ordered_add", "headline", "mega", "mega_batch", "tiled",
-              "render", "bridge"}:
+              "render", "bridge", "mesh", "mesh_scaling"}:
         cfg, world, ref = phase_generation(snapshot, tsim, transfer, prng,
                                            Config)
+        mesh_keys = batch_keys(world.key, prng)
         stamp("generation")
+    if "mesh_scaling" in run:
+        phase_mesh_scaling(cfg, mesh_keys, card)
+        stamp("mesh_scaling")
     if "ordered_add" in run:
         k_add = ordered_add_tick(cfg, world, HE, tsim, "the headline")
         REPORT["ordered_add"] = k_add
@@ -4003,7 +4339,9 @@ def main():
         phase_throughput(cfg, sim, batch, card, HE, mesh, transfer)
         phase_service(cfg, world, HE, mesh, tsim, transfer,
                       batch_keys(world.key, prng))
-        del sim, batch, world
+        del sim, batch
+        if "mesh" not in run:
+            del world
         torch.cuda.empty_cache()
         stamp("headline")
     if "hier_digest" in run:
@@ -4037,6 +4375,12 @@ def main():
         l_rlb = phase_rl_batch(HE, tsim, transfer, mesh, card, prng, Config,
                                snapshot)
         stamp("rl_batch")
+    if "mesh" in run:
+        l_mesh = phase_mesh(cfg, world, mesh_keys, ref, card, HE, mesh, prng,
+                            Config)
+        del world
+        torch.cuda.empty_cache()
+        stamp("mesh")
     REPORT["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke phases took {REPORT['seconds']:.1f} s")
     if run != set(PHASES):
@@ -4104,6 +4448,10 @@ def main():
                  "launches_rl_batch_path": l_rlb[ctr],
                  "launches_mega_batch_path": l_mb[ctr],
                  "launches_config4_mega_path": l_c4m[ctr],
+                 # rank 0 of the 4 that share the card (group `mesh`):
+                 # the headline's rollouts, 4 of its 16
+                 "launches_mesh_path": l_mesh["mesh"][ctr],
+                 "launches_mesh_mega_path": l_mesh["mesh_mega"][ctr],
                  "on_path": k not in OFF_PATH}
         if path == "config4":
             entry["odd_batch"] = {x: k_c4[f"B={CONFIG4_ODD_B}"][k][x]

@@ -276,7 +276,8 @@ def test_port_imports_nothing_of_jax():
         "for i in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(i.name)\n"
         "new = ('agents.pedestrians', 'core.synth', 'utils', 'rl.nets',\n"
-        "       'rl.features', 'rl.controllers', 'checkpoint')\n"
+        "       'rl.features', 'rl.controllers', 'checkpoint',\n"
+        "       'parallel.launch', 'parallel.ranks', 'dryrun')\n"
         "assert all(pkg.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"

@@ -135,7 +135,9 @@ def test_batched_generator_equals_init_world():
 
 
 def test_init_world_batch_splits_the_key_and_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """Anything but a `parallel.mesh.Mesh` as `mesh` is refused (the
+    sharded batch: tests/test_torch_dist.py)."""
+    with pytest.raises(TypeError, match="Mesh"):
         mesh.init_world_batch(_cfg(), prng.PRNGKey(0), 2, mesh=object(),
                               device="cpu")
     tm = {}

@@ -484,7 +484,10 @@ def test_rl_batch_of_one_world_is_the_single_world_run():
 
 
 def test_init_world_batch_with_rl_still_refuses_a_mesh():
+    """Under an RL config too, anything but a `parallel.mesh.Mesh` as
+    `mesh` is refused (the sharded RL batch, from a `Mesh`:
+    tests/test_torch_dist.py)."""
     cfg = Config(**_digest()["per_world"]["NEIGHBOR_RL_BATCHED"]["cfg"])
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="Mesh"):
         mesh.init_world_batch(cfg, prng.PRNGKey(0), 2, mesh=object(),
                               device="cpu")
