@@ -250,6 +250,21 @@ Phases (any failure raises and the script exits nonzero):
      `data/mesh_digest.json`).  All in one spawn of 4 ranks.
      `--only mesh_scaling` (development, no gate) times B = 16 over 1, 2
      and 4 ranks on the card.
+ 22. one world split over ranks by rows (group `spatial`,
+     `parallel/spatial.py`): one spawn of 4 ranks sharing the card over
+     gloo; the headline world (rank 0 generates it, `shard_world` sends
+     each rank its windows) split over 2 and then 4 ranks, 23 ticks on
+     the per-tick path with TSIM_MEGA_FORCE set: the gathered world
+     equals the one-process `run_chunk` end state on every leaf by
+     sha256, f32 included; each rank launches K1 and K4 23 times, K2 and
+     K3 5 times, K9 never; each rank's resident key stack is its decide
+     window's rows (printed with its share, its peak allocated memory
+     and its all-reduces a tick); the dry run's crossroad over 4 ranks
+     against JAX's `spatial_chunk_fn` on 8 devices
+     (`data/spatial_digest.json`); K1-K4 on the headline's first-tick
+     inputs cut to an edge and an inner rank's windows of 4 and the first
+     of 2, against their plain versions.  `--only spatial_scaling`
+     (development, no gate) times the headline over 1, 2 and 4 ranks.
 
 The line before the last is the kernels' JSON summary, the one before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -433,12 +448,14 @@ PED_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
 PHASES = ("kernels", "ordered_add", "headline", "mega", "mega_batch",
           "hier_digest",
           "config4", "config5", "config3", "config1", "tiled", "render",
-          "bridge", "rl", "rl_batch", "mesh")
+          "bridge", "rl", "rl_batch", "mesh", "spatial")
 # development groups, run only when named in --only: `forms` times K1's
 # forms over K1_SWEEP worlds and the pedestrian step (phase_forms),
 # `select_rows` K6 alone (phase_select_rows), `mesh_scaling` the B = 16
-# rollouts over 1, 2 and 4 ranks on the card (phase_mesh_scaling)
-DEV_PHASES = ("forms", "select_rows", "mesh_scaling")
+# rollouts over 1, 2 and 4 ranks on the card (phase_mesh_scaling),
+# `spatial_scaling` one headline world split over 1, 2 and 4 ranks
+# (phase_spatial_scaling)
+DEV_PHASES = ("forms", "select_rows", "mesh_scaling", "spatial_scaling")
 # the groups --tree may run (an older tree's kernels beside this one's)
 TREE_PHASES = ("forms", "select_rows", "tiled", "mega", "mega_batch")
 K1_SWEEP = (3, 16, 132, 264, 528, 1024)
@@ -2862,21 +2879,31 @@ def tick_inputs(cfg, world, HE, tsim, name: str):
     the first tick of `world` on the per-tick path, captured from a
     one-tick `run_chunk` (the wrapper must be called once in that
     tick)."""
-    seen = []
-    orig = getattr(HE, name)
+    return tick_inputs_of(cfg, world, HE, tsim, (name,))[name]
 
-    def spy(*a, **k):
-        seen.append((a, k))
-        return orig(*a, **k)
-    setattr(HE, name, spy)
+
+def tick_inputs_of(cfg, world, HE, tsim, names: tuple) -> dict:
+    """`tick_inputs` of each wrapper of `names`, from one one-tick run."""
+    seen = {n: [] for n in names}
+    orig = {n: getattr(HE, n) for n in names}
+
+    def spy(n):
+        def f(*a, **k):
+            seen[n].append((a, k))
+            return orig[n](*a, **k)
+        return f
+    for n in names:
+        setattr(HE, n, spy(n))
     try:
         with mega_env(False):
             tsim.run_chunk(cfg, world, 1)
     finally:
-        setattr(HE, name, orig)
-    if len(seen) != 1:
-        raise AssertionError(f"one tick called {name} {len(seen)} times")
-    return seen[0]
+        for n in names:
+            setattr(HE, n, orig[n])
+    calls = {n: len(v) for n, v in seen.items()}
+    if any(c != 1 for c in calls.values()):
+        raise AssertionError(f"one tick called the wrappers {calls} times")
+    return {n: v[0] for n, v in seen.items()}
 
 
 def ordered_add_tick(cfg, world, HE, tsim, label: str) -> dict:
@@ -4211,6 +4238,222 @@ def phase_mesh_scaling(cfg, keys, card):
                                   "busy_ms_per_tick": busy, "idle": idle}
     REPORT["mesh_scaling"] = rep
 
+SPATIAL_RANKS = 4           # ranks sharing the one card over gloo
+SPATIAL_SPLITS = (2, 4)     # the headline split over 2, then 4 of them
+SPATIAL_SCALING = (1, 2, 4)
+SPATIAL_SCALING_TICKS = 25
+SPATIAL_SCALING_PROFILE = 10
+SPATIAL_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
+                              "spatial_digest.json")
+# the slab windows whose kernels are held to their plain versions:
+# (ranks, rank): an edge and an inner rank of 4, the first of 2
+SPATIAL_WINDOWS = ((4, 0), (4, 1), (2, 0))
+
+
+def spatial_kernels(cfg, world, HE, tsim, spatial) -> dict:
+    """K1-K4 at the shapes a split headline gives them: the first tick's
+    inputs of the unsharded run cut to a rank's windows (the split's own
+    first-tick inputs there: every input is exact on its window) for the
+    ranks of SPATIAL_WINDOWS; K1 and K2 on the decide window, K3 on the
+    route window, K4 on the own rows.  Each against its plain version."""
+    ins = tick_inputs_of(cfg, world, HE, tsim, (
+        "decide_move", "build_sdir", "build_wavefront", "prefix_planes"))
+    (kcfg, *a), kw = ins["decide_move"]
+    if kw.get("hier") is not None:
+        raise AssertionError("the headline tick ran K1-hier")
+    (K0, pen4, legal4, tp2), _ = ins["build_sdir"]
+    (wcfg, allowed, road, hard), _ = ins["build_wavefront"]
+    (occ,), _ = ins["prefix_planes"]
+    H, W, D = cfg.HEIGHT, cfg.WIDTH, K0.shape[0]
+    P, Q = spatial.halo_widths(cfg)
+    out = {}
+    for n, r in SPATIAL_WINDOWS:
+        slab = spatial.Slab(H=H, W=W, rank=r, size=n, P=P, Q=Q)
+        (d0, d1), (r0, r1), (o0, o1) = slab.dec, slab.route, slab.own
+
+        def cut(x, lo, hi):
+            return x[..., lo:hi, :].contiguous()
+        sd = cut(a[0], d0, d1)
+        wnd = cut(a[1], d0, d1)
+        planes = tuple(cut(p, d0, d1) for p in a[2])
+        masks = tuple(cut(m, d0, d1) for m in a[3:6])
+        inter, dest = cut(a[6], d0, d1), cut(a[7], d0, d1)
+        rnd = tuple(cut(x, d0, d1) for x in a[8])
+        hd, hr, ho = d1 - d0, r1 - r0, o1 - o0
+        tag = f"rank {r} of {n}"
+        present = int((planes[0] & 1).sum())
+        kb, ko = k1_cost(planes, kcfg, shared_geometry=True)
+        k1 = measure(
+            f"decide_move on the decide window of {tag}",
+            lambda: HE.decide_move(kcfg, sd, wnd, planes, *masks, inter,
+                                   dest, rnd),
+            lambda: HE.decide_move_core(kcfg, sd, wnd, *planes, *masks,
+                                        inter, dest, *rnd),
+            kb, ko, f"{hd}x{W} (rows {d0}-{d1} of {H}), D4 = "
+            f"{sd.shape[0]}, {present} vehicles", reps=10)
+        k0, p4, l4 = cut(K0, d0, d1), cut(pen4, d0, d1), cut(legal4, d0, d1)
+        D4 = (D + 3) // 4
+        k2 = measure(
+            f"build_sdir on the decide window of {tag}",
+            lambda: (HE.build_sdir(k0, p4, l4, tp2),),
+            lambda: (HE.sdir_encode(k0, p4, l4, tp2),),
+            D * 4 * hd * W * 4 + 2 * 4 * hd * W * 4 + D4 * hd * W * 4,
+            (D * hd * W * SDIR_ALU_OPS, D * hd * W * SDIR_OPS),
+            f"{hd}x{W}, D = {D}", reps=10, plain_reps=2)
+        del k0
+        al, rd, hh = (cut(x, r0, r1) for x in (allowed, road, hard))
+        k3 = measure(
+            f"build_wavefront on the route window of {tag}",
+            lambda: (HE.build_wavefront(wcfg, al, rd, hh),),
+            lambda: (HE.wavefront_core(wcfg, al, rd, hh),),
+            hr * W * 7, (hr * W * 4 * 4 * 2
+                         * cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS,) * 2,
+            f"{hr}x{W} (rows {r0}-{r1})", reps=10)
+        oc = cut(occ, o0, o1)
+        k4 = measure(
+            f"prefix_planes on the own rows of {tag}",
+            lambda: HE.prefix_planes(oc), lambda: HE.prefix_planes_plain(oc),
+            ho * W * 12, (0, ho * W * 2), f"{ho}x{W} (rows {o0}-{o1})",
+            lib=lambda: (torch.cumsum(oc, -1, dtype=torch.int32),
+                         torch.cumsum(oc, -2, dtype=torch.int32)))
+        out[f"{n}:{r}"] = {"decide_move": k1, "build_sdir": k2,
+                           "build_wavefront": k3, "prefix_planes": k4}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spatial(cfg, world, card, HE, tsim, transfer, mesh, Config):
+    """One world split over ranks by rows on the card (see the module
+    docstring, group `spatial`)."""
+    from trafficsimulation_tpu_torch.dryrun import TRAINED, dryrun_cfg
+    from trafficsimulation_tpu_torch.parallel import launch, ranks, spatial
+    t_start = time.perf_counter()
+    with mega_env(False):
+        end = tsim.run_chunk(cfg, world, N_REF_TICKS)
+    want = {k: mesh.leaf_digest(v) for k, v in
+            transfer.world_to_numpy(end).items()}
+    del end
+    with open(os.path.join(ROOT, SPATIAL_DIGEST)) as f:
+        dig = json.load(f)
+    z = np.load(os.path.join(ROOT, SPATIAL_DIGEST.replace(
+        "digest.json", "trained.npz")))
+    torch.cuda.empty_cache()
+    jobs = [dict(kind="spatial", cfg=cfg, ticks=N_REF_TICKS,
+                 world="headline", splits=SPATIAL_SPLITS, mega_env=True),
+            dict(kind="spatial", cfg=dryrun_cfg(), ticks=dig["ticks"],
+                 splits=(SPATIAL_RANKS,))]
+    t0 = time.perf_counter()
+    out = launch.spawn(ranks.run_jobs, SPATIAL_RANKS, "gloo", args=(jobs,))
+    t_spawn = time.perf_counter() - t0
+    P, Q = spatial.halo_widths(cfg)
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    segs = -(-N_REF_TICKS // cfg.PATHFINDING_COOLDOWN)
+    need = {"k1": N_REF_TICKS, "prefix_planes": N_REF_TICKS,
+            "build_sdir": segs, "build_wavefront": segs, "k9": 0,
+            "build_sdir_batched": 0, "select_rows": 0,
+            "rain_ticks": N_REF_TICKS}
+    rep = {"ranks": SPATIAL_RANKS, "backend": "gloo", "card": card,
+           "spawn_s": t_spawn, "halo": [P, Q]}
+    for n in SPATIAL_SPLITS:
+        res = [o[0][str(n)] for o in out[:n]]
+        got = res[0]["digests"]
+        bad = mesh.diff_digests(want, {k: {x: v[x] for x in v if x !=
+                                           "array"} for k, v in got.items()})
+        if bad:
+            raise AssertionError(f"spatial: the headline split over {n} "
+                                 f"ranks differs from the one-process run: "
+                                 f"{bad[:8]}")
+        mesh_launches(f"spatial headline over {n} ranks",
+                      [x["launches"] for x in res], need)
+        rows = []
+        for x in res:
+            r = x["rank"]
+            d0, d1 = x["dec"]
+            lim = (H // n + (P if r in (0, n - 1) else 2 * P)) / H
+            share = x["cost_field_bytes"] / (x["cost_field_shape"][0] * 4
+                                             * H * W * 4)
+            if share > lim + 1e-12 or x["cost_field_shape"][2] != d1 - d0:
+                raise AssertionError(f"spatial: rank {r} of {n} holds "
+                                     f"{share:.4%} of the key stack "
+                                     f"(limit {lim:.4%})")
+            rows.append({
+                "rank": r, "own": x["own"], "dec": x["dec"],
+                "route": x["route"], "cost_field_bytes":
+                x["cost_field_bytes"], "cost_field_share": share,
+                "peak_allocated_bytes": x["peak_bytes"],
+                "collectives_per_tick": x["stats"]["all_reduce"]
+                / N_REF_TICKS,
+                "collective_bytes_per_tick": x["stats"]["bytes"]
+                / N_REF_TICKS,
+                "collective_host_ms_per_tick": x["stats"]["host_s"] * 1e3
+                / N_REF_TICKS,
+                "largest_collective_bytes": x["stats"]["largest"],
+                "seconds": x["seconds"], "shard_s": x["shard_s"],
+                "gather_s": x["gather_s"], "launches": x["launches"]})
+            log(f"spatial ({card}): headline over {n} ranks, rank {r}: "
+                f"rows {x['own']}, decide window {x['dec']}, route window "
+                f"{x['route']}; key stack {x['cost_field_bytes']} bytes "
+                f"({share:.4%} of the whole, limit {lim:.4%}); peak "
+                f"allocated {x['peak_bytes']} bytes; "
+                f"{rows[-1]['collectives_per_tick']:.3f} all-reduces a tick "
+                f"({rows[-1]['collective_bytes_per_tick']:.0f} bytes, "
+                f"{rows[-1]['collective_host_ms_per_tick']:.3f} host ms); "
+                f"{N_REF_TICKS} ticks in {x['seconds']:.3f} s; launches "
+                f"{ {k: v for k, v in x['launches'].items() if v} }")
+        log(f"spatial: the headline split over {n} ranks (TSIM_MEGA_FORCE "
+            f"set, no K9 launch) equals the one-process {N_REF_TICKS}-tick "
+            f"end state on all {len(want)} leaves by sha256, f32 included")
+        rep[f"headline_{n}"] = rows
+
+    # the dry run's crossroad over 4 ranks against JAX's digest
+    got = out[0][1][str(SPATIAL_RANKS)]["digests"]
+    bad = []
+    for k, d in dig["digest"].items():
+        if k.startswith(TRAINED):
+            ref = z[k]
+            scale = min(1.0, float(np.abs(ref).max(initial=0.0)))
+            if not np.allclose(got[k]["array"], ref, rtol=RL_TRAINED_RTOL,
+                               atol=RL_TRAINED_ATOL * scale):
+                bad.append((k, "trained floats past the tolerance"))
+        elif got[k]["sha256"] != d["sha256"]:
+            bad.append((k, "sha256"))
+    if bad or set(got) != set(dig["digest"]):
+        raise AssertionError(f"spatial: the crossroad over {SPATIAL_RANKS} "
+                             f"ranks differs from JAX's: {bad[:8]}")
+    log(f"spatial: the dry run's crossroad split over {SPATIAL_RANKS} ranks "
+        f"for {dig['ticks']} ticks equals JAX's spatial_chunk_fn on "
+        f"{dig['devices']} devices (integers by sha256, trained floats "
+        f"within rtol {RL_TRAINED_RTOL})")
+    rep["kernels"] = spatial_kernels(cfg, world, HE, tsim, spatial)
+    rep["phase_s"] = time.perf_counter() - t_start
+    REPORT["spatial"] = rep
+    return out[0][0][str(SPATIAL_RANKS)]["launches"], rep["kernels"]
+
+
+def phase_spatial_scaling(cfg, card):
+    """Development timing, no gate: the headline world split over 1, 2
+    and 4 ranks on the one card (gloo), the per-tick path."""
+    from trafficsimulation_tpu_torch.parallel import launch, ranks
+    out = launch.spawn(ranks.run_jobs, max(SPATIAL_SCALING), "gloo",
+                       args=([dict(kind="spatial_scaling", cfg=cfg,
+                                   ticks=SPATIAL_SCALING_TICKS,
+                                   profile=SPATIAL_SCALING_PROFILE,
+                                   splits=SPATIAL_SCALING)],))
+    rep = {"card": card, "ticks": SPATIAL_SCALING_TICKS}
+    for n in SPATIAL_SCALING:
+        res = [o[0][str(n)] for o in out[:n]]
+        wall = max(r["wall_s"] for r in res)
+        rate = SPATIAL_SCALING_TICKS / wall
+        cols = {k: [round(r[k], 4) for r in res] for k in (
+            "busy_ms_per_tick", "idle_share", "collectives_per_tick",
+            "collective_host_ms_per_tick", "collective_bytes_per_tick")}
+        log(f"spatial_scaling ({card}): the headline over {n} rank(s): "
+            f"{rate:.2f} world-steps/s ({SPATIAL_SCALING_TICKS} ticks in "
+            f"{wall:.3f} s on the slowest rank); per rank {cols}")
+        rep[str(n)] = dict(world_steps_per_s=rate, wall_s=wall, **cols)
+    REPORT["spatial_scaling"] = rep
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the build log and report")
@@ -4296,7 +4539,8 @@ def main():
     if "ordered_add" in run:
         phase_ordered_add(HE)
     if run & {"ordered_add", "headline", "mega", "mega_batch", "tiled",
-              "render", "bridge", "mesh", "mesh_scaling"}:
+              "render", "bridge", "mesh", "mesh_scaling", "spatial",
+              "spatial_scaling"}:
         cfg, world, ref = phase_generation(snapshot, tsim, transfer, prng,
                                            Config)
         mesh_keys = batch_keys(world.key, prng)
@@ -4304,6 +4548,9 @@ def main():
     if "mesh_scaling" in run:
         phase_mesh_scaling(cfg, mesh_keys, card)
         stamp("mesh_scaling")
+    if "spatial_scaling" in run:
+        phase_spatial_scaling(cfg, card)
+        stamp("spatial_scaling")
     if "ordered_add" in run:
         k_add = ordered_add_tick(cfg, world, HE, tsim, "the headline")
         REPORT["ordered_add"] = k_add
@@ -4340,7 +4587,7 @@ def main():
         phase_service(cfg, world, HE, mesh, tsim, transfer,
                       batch_keys(world.key, prng))
         del sim, batch
-        if "mesh" not in run:
+        if not run & {"mesh", "spatial"}:
             del world
         torch.cuda.empty_cache()
         stamp("headline")
@@ -4378,9 +4625,15 @@ def main():
     if "mesh" in run:
         l_mesh = phase_mesh(cfg, world, mesh_keys, ref, card, HE, mesh, prng,
                             Config)
-        del world
         torch.cuda.empty_cache()
         stamp("mesh")
+    if "spatial" in run:
+        l_spatial, k_spatial = phase_spatial(cfg, world, card, HE, tsim,
+                                             transfer, mesh, Config)
+        stamp("spatial")
+    if run & {"mesh", "spatial"}:
+        del world
+        torch.cuda.empty_cache()
     REPORT["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke phases took {REPORT['seconds']:.1f} s")
     if run != set(PHASES):
@@ -4452,6 +4705,9 @@ def main():
                  # the headline's rollouts, 4 of its 16
                  "launches_mesh_path": l_mesh["mesh"][ctr],
                  "launches_mesh_mega_path": l_mesh["mesh_mega"][ctr],
+                 # rank 0 of the headline split over 4 ranks by rows
+                 # (group `spatial`)
+                 "launches_spatial_path": l_spatial[ctr],
                  "on_path": k not in OFF_PATH}
         if path == "config4":
             entry["odd_batch"] = {x: k_c4[f"B={CONFIG4_ODD_B}"][k][x]
@@ -4483,6 +4739,10 @@ def main():
         if k == "decide_move":
             entry["headline_first_tick"] = {x: REPORT["tiled"]["k1"].get(x)
                                             for x in SUB_KEYS}
+        if k in ("decide_move", "build_sdir", "build_wavefront",
+                 "prefix_planes"):
+            entry["spatial"] = {w: {x: v[k][x] for x in SUB_KEYS}
+                                for w, v in k_spatial.items()}
         if k == "build_sdir_batched":
             entry["code"] = {x: m["code"][x] for x in (
                 "ptxas", "per_key_world", "alu_per_key_world")}

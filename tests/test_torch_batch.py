@@ -277,7 +277,8 @@ def test_port_imports_nothing_of_jax():
         "    importlib.import_module(i.name)\n"
         "new = ('agents.pedestrians', 'core.synth', 'utils', 'rl.nets',\n"
         "       'rl.features', 'rl.controllers', 'checkpoint',\n"
-        "       'parallel.launch', 'parallel.ranks', 'dryrun')\n"
+        "       'parallel.launch', 'parallel.ranks', 'parallel.spatial',\n"
+        "       'dryrun')\n"
         "assert all(pkg.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"

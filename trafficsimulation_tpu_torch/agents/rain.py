@@ -40,12 +40,13 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
 
 
 def step_rain(cfg: Config, H: int, W: int, rain: RainState,
-              draws: torch.Tensor, force_spawn=None):
+              draws: torch.Tensor, force_spawn=None, rows: tuple = None):
     """Advance clouds one tick.  `draws`: int64 [5] (spawn wanted, edge,
     position as its f32 value times 2^23, corner flip, radius).  Returns
-    (rain', rain_map [H, W] bool)."""
+    (rain', rain_map [H, W] bool); with `rows` (lo, hi), the rain map's
+    rows [lo, hi) alone (a window of a split world)."""
     rain, maps = step_rain_ticks(cfg, H, W, rain, draws[None],
-                                 force_spawn=force_spawn)
+                                 force_spawn=force_spawn, rows=rows)
     return rain, maps[0]
 
 
@@ -69,18 +70,21 @@ def _spawn_params(cfg: Config, H: int, W: int, draws: torch.Tensor):
 
 
 def step_rain_ticks(cfg: Config, H: int, W: int, rain: RainState,
-                    draws: torch.Tensor, force_spawn=None):
+                    draws: torch.Tensor, force_spawn=None, rows: tuple = None):
     """Advance clouds n ticks, `draws` int64 [n, 5] (a row per tick, as
     `step_rain` takes it); `force_spawn` applies to the first tick.
-    Returns (rain', the rain map after each tick, bool [n, H, W]).  The
+    Returns (rain', the rain map after each tick, bool [n, H, W], or
+    [n, hi - lo, W]: rows [lo, hi) of it, with `rows`).  The
     spawn parameters depend on the draws alone and the disc raster on
     each tick's clouds alone, so both run for all n ticks at once; the
     clouds' motion, exits and the spawn decisions go tick by tick, in
     one launch of `hopper_engine.rain_ticks` on the card."""
     dev = rain.cx.device
     n = draws.shape[0]
+    y0, y1 = (0, H) if rows is None else rows
     if not cfg.RAIN_ENABLED:
-        return rain, torch.zeros((n, H, W), dtype=torch.bool, device=dev)
+        return rain, torch.zeros((n, y1 - y0, W), dtype=torch.bool,
+                                 device=dev)
     f32 = torch.float32
 
     def table(x, y, vx, vy, rad):
@@ -101,7 +105,7 @@ def step_rain_ticks(cfg: Config, H: int, W: int, rain: RainState,
     clouds = seen[-1]                                    # [9, R]
     sp = torch.floor(seen[:, :2])
     sr = seen[:, 8]
-    ys = torch.arange(H, dtype=f32, device=dev)[:, None]
+    ys = torch.arange(y0, y1, dtype=f32, device=dev)[:, None]
     xs = torch.arange(W, dtype=f32, device=dev)[None, :]
     ddx = xs - sp[:, 0, :, None, None]                   # [n, R, 1, W]
     ddy = ys - sp[:, 1, :, None, None]                   # [n, R, H, 1]

@@ -61,7 +61,8 @@ def _prefix_planes(occupancy: torch.Tensor) -> torch.Tensor:
 
 
 def build_dense_reducers(cfg: Config, grid: Grid, ls: LightStatic,
-                         build_m: bool = True, build_a: bool = True):
+                         build_m: bool = True, build_a: bool = True,
+                         slab=None):
     """Dense one-hot matrices for the two per-tick geometry reductions,
     built once per chunk from the static geometry (the JAX
     `build_dense_reducers`):
@@ -75,16 +76,26 @@ def build_dense_reducers(cfg: Config, grid: Grid, ls: LightStatic,
     Exact: the operands are 0/1.  M is f32, so the counts are exact
     integers below 2^24 on every device; the stop map only asks whether
     a count is positive, which a bf16 product of 0/1 operands answers
-    exactly."""
+    exactly.
+
+    `slab` (`parallel/spatial.Slab`; `grid` the route window's): M's
+    rows of the rank's own cells and A's columns of its route window's
+    cells."""
     H, W = grid.cell_type.shape
     HW = H * W
     G = int(cfg.capacities().max_groups)
     L = ls.valid.shape[0]
     dev = ls.valid.device
     M = A = None
+    qg, qb = grid.queue_group, grid.queue_bucket
+    pos, road = ls.pos, ls.assign_road
+    if slab is not None:
+        qg, qb = (slab.crop(x, slab.route, slab.own) for x in (qg, qb))
+        pos, road = (torch.where(c >= 0, slab.local(c, slab.route),
+                                 HW) for c in (pos, road))
     if build_m:
-        qg = grid.queue_group.reshape(-1).to(torch.int32)
-        qb = grid.queue_bucket.reshape(-1).to(torch.int32)
+        qg = qg.reshape(-1).to(torch.int32)
+        qb = qb.reshape(-1).to(torch.int32)
         seg = torch.where(qg >= 0, qg * 5 + qb, G * 5)
         M = (seg[:, None] == torch.arange(G * 5 + 1, dtype=torch.int32,
                                           device=dev)[None, :]
@@ -92,10 +103,10 @@ def build_dense_reducers(cfg: Config, grid: Grid, ls: LightStatic,
     if build_a:
         # column HW is the sink of the dropped writes
         A = torch.zeros((L, HW + 1), dtype=torch.bfloat16, device=dev)
-        pc = torch.where(ls.assign_valid, ls.assign_road, HW).long()
+        pc = torch.where(ls.assign_valid, road, HW).long()
         A[torch.clamp(ls.assign_light, 0, L - 1).long(), pc] = 1
         A[torch.arange(L, device=dev),
-          torch.where(ls.valid, ls.pos, HW).long()] = 1
+          torch.where(ls.valid, pos, HW).long()] = 1
         A = A[:, :HW].contiguous()
     return M, A
 
@@ -118,24 +129,36 @@ def dense_reducers_profitable(cfg: Config) -> bool:
 
 
 def group_reductions(grid: Grid, occupancy: torch.Tensor, num_groups: int,
-                     gs: GroupStatic, dense_m: torch.Tensor = None):
+                     gs: GroupStatic, dense_m: torch.Tensor = None,
+                     slab=None):
     """Per-group (ns_in, ns_out, ew_in, ew_out) queue counts and the
     intersection-occupied flag (bucket 4), from the run tables or, with
-    `dense_m`, as one matrix product."""
+    `dense_m`, as one matrix product.  `slab` (`parallel/spatial.Slab`):
+    `occupancy` is a rank's own rows; each rank counts the parts of the
+    runs in its rows (a row run lies in one rank's rows; a column run is
+    clipped to them, `Slab.prepare`), and one all-reduce sums them."""
     G = num_groups
     if dense_m is not None:
         q = torch.matmul(occupancy.reshape(-1).to(torch.float32), dense_m)
-        q = q[:G * 5].to(torch.int32).reshape(G, 5)
+        q = q[:G * 5]
+        if slab is not None:
+            q = slab.sum_counts(q)
+        q = q.to(torch.int32).reshape(G, 5)
         return (q[:, NS_IN], q[:, NS_OUT], q[:, EW_IN], q[:, EW_OUT],
                 q[:, 4] > 0)
     P = _prefix_planes(occupancy)
-    cnt = P[gs.run_hi.long()] - P[gs.run_lo.long()]
+    lo, hi = ((gs.run_lo.long(), gs.run_hi.long()) if slab is None
+              else (slab.maps["run_lo"], slab.maps["run_hi"]))
+    cnt = P[hi] - P[lo]
     seg = torch.where(gs.run_seg >= 0, gs.run_seg, G * 5).long()
     # scatter_add, not index_add: vmap batches it in one op where each
     # world has its own runs (index_add's rule loops over the worlds)
     sums = torch.zeros((G * 5 + 1,), dtype=torch.int32,
                        device=occupancy.device).scatter_add(0, seg, cnt)
-    q = sums[:G * 5].reshape(G, 5)
+    q = sums[:G * 5]
+    if slab is not None:
+        q, = slab.all_sum([q])
+    q = q.reshape(G, 5)
     return (q[:, NS_IN], q[:, NS_OUT], q[:, EW_IN], q[:, EW_OUT],
             q[:, 4] > 0)
 
@@ -277,11 +300,13 @@ def execute_phase_change(cfg: Config, ls: LightStatic, gs: GroupStatic,
 
 
 def build_stop_map(grid: Grid, ls: LightStatic, state: LightsState,
-                   dense_a: torch.Tensor = None) -> torch.Tensor:
+                   dense_a: torch.Tensor = None, slab=None) -> torch.Tensor:
     """stop_map from per-light stop flags: each stopped run adds +1 / -1
     to a diff buffer and one cumsum per axis covers the run; cells owned
     by another light's run keep OR semantics through the extras.  With
-    `dense_a`, one product light_stop @ A instead."""
+    `dense_a`, one product light_stop @ A instead.  `slab`
+    (`parallel/spatial.Slab`; `grid` the route window's): the route
+    window's rows, the runs clipped to them (`Slab.prepare`)."""
     H, W = grid.cell_type.shape
     HW = H * W
     L = ls.valid.shape[0]
@@ -292,15 +317,18 @@ def build_stop_map(grid: Grid, ls: LightStatic, state: LightsState,
     NH = H * (W + 1)
     NV = (H + 1) * W
 
+    srun_lo, srun_hi, sextra = ((ls.srun_lo, ls.srun_hi, ls.sextra_cell)
+                                if slab is None else (
+        slab.maps["srun_lo"], slab.maps["srun_hi"], slab.maps["sextra"]))
     stopped = (ls.srun_light >= 0) & \
         state.light_stop[torch.clamp(ls.srun_light, 0, L - 1).long()]
     one = stopped.to(torch.int32)
     sink = NH + NV
     diff = torch.zeros((NH + NV + 1,), dtype=torch.int32, device=dev)
     # scatter_add for vmap, as in `group_reductions` (exact in any order)
-    diff = diff.scatter_add(0, torch.where(stopped, ls.srun_lo, sink).long(),
+    diff = diff.scatter_add(0, torch.where(stopped, srun_lo, sink).long(),
                             one)
-    diff = diff.scatter_add(0, torch.where(stopped, ls.srun_hi, sink).long(),
+    diff = diff.scatter_add(0, torch.where(stopped, srun_hi, sink).long(),
                             -one)
     cov_h = torch.cumsum(diff[:NH].reshape(H, W + 1), 1,
                          dtype=torch.int32)[:, :W]
@@ -308,12 +336,12 @@ def build_stop_map(grid: Grid, ls: LightStatic, state: LightsState,
                          dtype=torch.int32)[:H]
     stop = (cov_h + cov_v) > 0
 
-    ex_ok = ls.sextra_cell >= 0
+    ex_ok = sextra >= 0
     ex_stop = ex_ok & state.light_stop[
         torch.clamp(ls.sextra_light, 0, L - 1).long()]
     extra = torch.zeros((HW + 1,), dtype=torch.int32,
                         device=dev).scatter_add(
-        0, torch.where(ex_stop, ls.sextra_cell, HW).long(),
+        0, torch.where(ex_stop, sextra, HW).long(),
         ex_stop.to(torch.int32))
     return stop | (extra[:HW] > 0).reshape(H, W)
 

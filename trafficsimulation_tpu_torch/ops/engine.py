@@ -109,12 +109,17 @@ def entry_costs(cfg: Config, allowed, is_road, soft2, hard):
     return legal4, pen4.to(torch.int32)
 
 
-def build_sdir(cfg: Config, K0, allowed, is_road, soft2, hard):
+def build_sdir(cfg: Config, K0, allowed, is_road, soft2, hard,
+               rows: slice = None):
     """Packed next-move stack [ceil(D/4), H, W] int32 (see the JAX
-    `build_sdir`): the entry costs here, the encode in K2."""
+    `build_sdir`): the entry costs here, the encode in K2.  `rows`: the
+    rows of the entry costs that K0 covers (a split world's decide window
+    inside its route window), all by default."""
     tp2 = int(round(2 * cfg.VEHICLE_TURN_PENALTY)
               if cfg.VEHICLE_TURN_PENALTY_ENABLED else 0)
     legal4, pen4 = entry_costs(cfg, allowed, is_road, soft2, hard)
+    if rows is not None:
+        legal4, pen4 = legal4[:, rows], pen4[:, rows]
     return HE.build_sdir(K0, pen4.contiguous(), legal4.contiguous(), tp2)
 
 
@@ -156,13 +161,20 @@ def _scatter_cells(HW, pos, vals, dtype, device):
     return z.index_put((pos,), vals.to(dtype))[:HW]
 
 
-def vehicles_to_planes(cfg: Config, v: Vehicles, H: int, W: int):
+def vehicles_to_planes(cfg: Config, v: Vehicles, H: int, W: int,
+                       rows: tuple = None):
     """Pack the vehicle pool onto the lattice: (pa..pe int32, pl f32) and
-    the [V] slot-used mask."""
+    the [V] slot-used mask.  `rows`: (lo, hi), the planes of those rows
+    alone (a rank's own rows of a split world, `parallel/spatial.py`):
+    the vehicles whose cell lies there."""
     HW = H * W
     V = v.active.shape[0]
     dev = v.active.device
     pos = torch.where(v.active, torch.clamp(v.pos, 0, HW - 1), HW).long()
+    if rows is not None:
+        lo, hi = rows
+        H, HW = hi - lo, (hi - lo) * W
+        pos = torch.where((pos >= lo * W) & (pos < hi * W), pos - lo * W, HW)
     dt = float(cfg.TIME_PER_STEP_IN_SECONDS)
     dest = torch.where(v.dest >= 0, torch.clamp(v.dest, max=DEST_NONE - 1),
                        DEST_NONE)
@@ -207,9 +219,11 @@ def vehicles_to_planes(cfg: Config, v: Vehicles, H: int, W: int):
     return planes, v.active.clone()
 
 
-def planes_to_vehicles(cfg: Config, planes, V: int) -> Vehicles:
+def planes_to_vehicles(cfg: Config, planes, V: int, slab=None) -> Vehicles:
     """Unpack the lattice into the SoA pool; inactive slots get pool
-    defaults."""
+    defaults.  `slab`: the planes are a rank's own rows of a split world
+    (`parallel/spatial.Slab`); each slot is written by the rank that
+    holds its vehicle, through one owner-masked all-reduce."""
     pa, pb, pc, pd, pe, pl = planes
     H, W = pa.shape
     HW = H * W
@@ -219,41 +233,46 @@ def planes_to_vehicles(cfg: Config, planes, V: int) -> Vehicles:
     dt = float(cfg.TIME_PER_STEP_IN_SECONDS)
     slot = torch.where(present, pe.reshape(-1), V).clamp(0, V).long()
     cell = torch.arange(HW, dtype=torch.int32, device=dev)
-
-    def put(vals, fill, dtype):
-        z = torch.full((V + 1,), fill, dtype=dtype, device=dev)
-        return z.index_put((slot,), vals.to(dtype))[:V]
+    if slab is not None:
+        cell = cell + slab.own[0] * W
 
     i32t, bt = torch.int32, torch.bool
     dest = _fld(paf, PA_DEST_SH, 14)
     sb = _fld(pdf, PD_BLOCK_SH, 14)
-    return Vehicles(
-        active=put(present, False, bt),
-        pos=put(cell, -1, i32t),
-        heading=put(_fld(paf, PA_HEAD_SH, 3) - 1, -1, i32t),
-        dest=put(torch.where(dest == DEST_NONE, -1, dest), -1, i32t),
-        base_speed=put(_fld(paf, PA_BASE_SH, 4), 0, i32t),
-        current_speed=put(_fld(paf, PA_CUR_SH, 4), 0, i32t),
-        stuck_ticks=put(_fld(pbf, PB_STUCK_SH, 12), 0, i32t),
-        is_stuck=put(_bit(paf, PA_STUCKF_SH), False, bt),
-        stranded_ticks=put(_fld(pbf, PB_STRAND_SH, 12), 0, i32t),
-        parked=put(_bit(paf, PA_PARKED_SH), False, bt),
-        in_collision=put(_bit(paf, PA_COL_SH), False, bt),
-        in_malfunction=put(_bit(paf, PA_MAL_SH), False, bt),
-        contraflow_ticks=put(_fld(pbf, PB_CONTRA_SH, 8), 0, i32t),
-        contraflow_key=put(_fld(pdf, PD_CFKEY_SH, 2), 0, i32t),
-        contraflow_steps=put(_fld(pdf, PD_CFSTEPS_SH, 5), 0, i32t),
-        detour=put(_bit(pdf, PD_CFMODE_SH), False, bt),
-        kind=put(_fld(paf, PA_KIND_SH, 2), 0, torch.uint8),
-        depart_time=put(_fld(pcf, PC_DEPART_SH, 20).to(torch.float32) * dt,
+    # name: (the cell's value, the inactive slot's default, dtype)
+    cols = {
+        "active": (present, False, bt),
+        "pos": (cell, -1, i32t),
+        "heading": (_fld(paf, PA_HEAD_SH, 3) - 1, -1, i32t),
+        "dest": (torch.where(dest == DEST_NONE, -1, dest), -1, i32t),
+        "base_speed": (_fld(paf, PA_BASE_SH, 4), 0, i32t),
+        "current_speed": (_fld(paf, PA_CUR_SH, 4), 0, i32t),
+        "stuck_ticks": (_fld(pbf, PB_STUCK_SH, 12), 0, i32t),
+        "is_stuck": (_bit(paf, PA_STUCKF_SH), False, bt),
+        "stranded_ticks": (_fld(pbf, PB_STRAND_SH, 12), 0, i32t),
+        "parked": (_bit(paf, PA_PARKED_SH), False, bt),
+        "in_collision": (_bit(paf, PA_COL_SH), False, bt),
+        "in_malfunction": (_bit(paf, PA_MAL_SH), False, bt),
+        "contraflow_ticks": (_fld(pbf, PB_CONTRA_SH, 8), 0, i32t),
+        "contraflow_key": (_fld(pdf, PD_CFKEY_SH, 2), 0, i32t),
+        "contraflow_steps": (_fld(pdf, PD_CFSTEPS_SH, 5), 0, i32t),
+        "detour": (_bit(pdf, PD_CFMODE_SH), False, bt),
+        "kind": (_fld(paf, PA_KIND_SH, 2), 0, torch.uint8),
+        "depart_time": (_fld(pcf, PC_DEPART_SH, 20).to(torch.float32) * dt,
                         0.0, torch.float32),
-        steps_traveled=put(_fld(pcf, PC_STEPS_SH, 12), 0, i32t),
-        service_phase=put(_fld(pdf, PD_PHASE_SH, 2), 0, torch.uint8),
-        load=put(pl.reshape(-1), 0.0, torch.float32),
-        service_timer=put(_fld(pdf, PD_TIMER_SH, 8), 0, i32t),
-        service_block=put(torch.where(sb == SVC_BLOCK_NONE, -1, sb), -1,
-                          i32t),
-    )
+        "steps_traveled": (_fld(pcf, PC_STEPS_SH, 12), 0, i32t),
+        "service_phase": (_fld(pdf, PD_PHASE_SH, 2), 0, torch.uint8),
+        "load": (pl.reshape(-1), 0.0, torch.float32),
+        "service_timer": (_fld(pdf, PD_TIMER_SH, 8), 0, i32t),
+        "service_block": (torch.where(sb == SVC_BLOCK_NONE, -1, sb), -1,
+                          i32t)}
+    tabs = [torch.zeros((V + 1,), dtype=dtype, device=dev).index_put(
+        (slot,), vals.to(dtype))[:V] for vals, _, dtype in cols.values()]
+    if slab is not None:
+        tabs = slab.all_sum(tabs)
+    active = tabs[0]
+    return Vehicles(**{name: torch.where(active, t, fill) for (name, (
+        _, fill, _)), t in zip(cols.items(), tabs)})
 
 
 def planes_to_maps(planes, V: int):
@@ -385,11 +404,14 @@ def tick_chain(cfg: Config, key: np.ndarray, n: int):
     return out, rl_keys, key
 
 
-def tick_randoms(cfg: Config, seeds: torch.Tensor, H: int, W: int):
+def tick_randoms(cfg: Config, seeds: torch.Tensor, H: int, W: int,
+                 row0: int = 0):
     """The tick's four random planes from 4 u32 seeds (int64 [4]) by
-    counter hashing: malfunction roll, sideswipe roll (f32 in [0, 1)),
-    speed re-roll (int32), conflict priority (int32 bits)."""
-    iota = torch.arange(H * W, dtype=torch.int64,
+    counter hashing of each cell's flat index: malfunction roll,
+    sideswipe roll (f32 in [0, 1)), speed re-roll (int32), conflict
+    priority (int32 bits).  [H, W] from global row `row0` (a window of a
+    split world hashes its cells' global indices)."""
+    iota = torch.arange(row0 * W, (row0 + H) * W, dtype=torch.int64,
                         device=seeds.device).reshape(H, W)
     b = [_hash32((iota + seeds[i]) & _M32) for i in range(4)]
     unit = 1.0 / (1 << 24)
@@ -422,20 +444,32 @@ def soft_penalties(cfg: Config, pa, stop_map, density):
     return torch.round(2.0 * soft).to(torch.int32), hard
 
 
-def routing_planes(cfg: Config, world, es: EngineState):
+def routing_planes(cfg: Config, world, es: EngineState, slab=None):
     """(sdir4, wnd, density) from the current dynamic state; rebuilt once
     per PATHFINDING_COOLDOWN ticks by `run_chunk` (see the JAX
     `routing_planes`).  Cells that held pedestrians after the last tick
-    are hard blockers."""
+    are hard blockers.  `slab` (`parallel/spatial.Slab`): a rank's part
+    of a split world: P + Q halo rows of `pa` exchanged, density,
+    penalties, entry costs and K3 over the route window, K2 over the
+    decide window (the key stack's rows); sdir4 and wnd are the decide
+    window's, density the own rows'."""
     grid = world.grid
-    present = (es.pa & 1) == 1
+    pa, rows = es.pa, None
+    if slab is not None:
+        pa, = slab.halo([es.pa], slab.P + slab.Q)
+        r0, (d0, d1) = slab.route[0], slab.dec
+        rows = slice(d0 - r0, d1 - r0)
+    present = (pa & 1) == 1
     density = density_map(present, grid.is_road, cfg.VEHICLE_AWARENESS_RANGE)
-    soft2, hard = soft_penalties(cfg, es.pa, es.stop_map, density)
+    soft2, hard = soft_penalties(cfg, pa, es.stop_map, density)
     if cfg.PEDESTRIANS_ENABLED:
         hard = hard | (es.ped_map > 0)
     sdir4 = build_sdir(cfg, world.cost_field, grid.allowed_dirs,
-                       grid.is_road, soft2, hard)
+                       grid.is_road, soft2, hard, rows=rows)
     wnd = build_wavefront(cfg, grid.allowed_dirs, grid.is_road, hard)
+    if slab is not None:
+        wnd = wnd[rows].contiguous()
+        density = slab.crop(density, slab.route, slab.own)
     return sdir4, wnd, density
 
 
@@ -456,24 +490,36 @@ def trip_penalty(m) -> torch.Tensor:
 
 def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
                 sdir=None, spawn_slots: torch.Tensor = None,
-                dense: tuple = None, rl_tick=None) -> EngineState:
+                dense: tuple = None, rl_tick=None, slab=None) -> EngineState:
     """One tick on the plane representation (the JAX `step_engine`,
     dense or hierarchical routing, FSM or RL lights, pedestrians when
     PEDESTRIANS_ENABLED: their step, one `HE.step_pedestrians` launch,
     after the stop map, its crossers blocking decide + move).  `draws`:
     this tick's int64 [N_DRAWS] row from `tick_draws`; the caller
-    advances the key.  `dense`: the (M, A) light-reduction matrices of
-    `fsm.build_dense_reducers`, or None for the sparse forms.  `rl_tick`:
-    under an RL controller, this tick's `controllers.RLTick` (from
-    `controllers.plan_ticks`); the controller steps before the light
-    reductions, as in JAX."""
+    advances the key.  `sdir`: this segment's `routing_planes`, or None
+    to build them here.  `spawn_slots`: the tick's free pool slots, or
+    None to compact them here.  `dense`: the (M, A) light-reduction
+    matrices of `fsm.build_dense_reducers`, or None for the sparse
+    forms.  `rl_tick`: under an RL controller, this tick's
+    `controllers.RLTick` (from `controllers.plan_ticks`); the controller
+    steps before the light reductions, as in JAX.
+
+    `slab` (`parallel/spatial.Slab`): `es` is a rank's part of a split
+    world (the planes its own rows, the stop map the route window's, the
+    rain map the decide window's); the light reductions and the RL
+    flows are the group's sums, the stop map is built over the route
+    window, K1 runs on the decide window after a P-row halo exchange and
+    its own rows are kept."""
     caps = cfg.capacities()
-    H, W = cfg.HEIGHT, cfg.WIDTH
+    W = cfg.WIDTH
     dt = float(cfg.TIME_PER_STEP_IN_SECONDS)
     grid = world.grid
+    own = grid if slab is None else slab.grid_rows(grid, slab.own)
     tick = es.tick
     elapsed = es.elapsed + dt
     present = (es.pa & 1) == 1
+    if slab is not None:
+        slab.new_tick()
 
     # ---- lights (commit first so decide reads the fresh stop map) --------
     lights, rl_state, rl_request = es.lights, es.rl, None
@@ -482,20 +528,21 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
         tp = (trip_penalty(es.metrics) if cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM
               in GAT_ALGOS else None)        # GAT-DQN's reward alone
         rl_state, lights, want, phase_req = rl_controller_step(
-            cfg, es.rl, grid, world.groups_static, lights, present,
-            stuck_map, tp, rl_tick)
+            cfg, es.rl, own, world.groups_static, lights, present,
+            stuck_map, tp, rl_tick, slab=slab)
         rl_request = (want, phase_req)
     dense_m, dense_a = dense if dense is not None else (None, None)
-    red = fsm.group_reductions(grid, present, caps.max_groups,
-                               gs=world.groups_static, dense_m=dense_m)
-    lights = fsm.run_controllers(cfg, grid, world.groups_static, lights,
+    red = fsm.group_reductions(own, present, caps.max_groups,
+                               gs=world.groups_static, dense_m=dense_m,
+                               slab=slab)
+    lights = fsm.run_controllers(cfg, own, world.groups_static, lights,
                                  present, rl_phase_request=rl_request,
                                  reductions=red[:4])
     lights = fsm.execute_phase_change(cfg, world.lights_static,
                                       world.groups_static, lights, red[4])
     lights = fsm.apply_light_overrides(lights, es.overrides.light_force)
     stop_map = fsm.build_stop_map(grid, world.lights_static, lights,
-                                  dense_a=dense_a)
+                                  dense_a=dense_a, slab=slab)
 
     # ---- pedestrians: crossers on the roadway block vehicles ------------
     peds, ped_map = es.peds, es.ped_map
@@ -504,27 +551,41 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
             cfg, peds.walk, peds.cross, grid.cell_type, stop_map,
             draws[D_PED:D_PED + 14], grid.n_side)
         peds = peds.replace(walk=walk, cross=cross)
-    else:
-        ped_bit = torch.zeros((H, W), dtype=torch.bool, device=es.pa.device)
 
     # ---- decide + move: K1, or under hierarchical routing K1-hier (the
     # windowed and the dense stack, selected in the kernel) --------------
     if sdir is None:
-        sdir = routing_planes(cfg, world, es)
+        sdir = routing_planes(cfg, world, es, slab)
     sdir4, wnd, density = sdir
-    randoms = tick_randoms(cfg, draws[D_SEEDS:D_SEEDS + 4], H, W)
     planes = (es.pa, es.pb, es.pc, es.pd, es.pe, es.pl)
+    stop_d, inter_d, dest_d, row0 = (stop_map, grid.intersection,
+                                     grid.dest_id, 0)
+    if slab is not None:
+        # the decide window: P halo rows of the planes from the neighbours
+        planes = tuple(slab.halo(list(planes), slab.P))
+        row0 = slab.dec[0]
+        stop_d = slab.crop(stop_map, slab.route, slab.dec).contiguous()
+        inter_d, dest_d = (slab.crop(x, slab.route, slab.dec).contiguous()
+                           for x in (grid.intersection, grid.dest_id))
+    if not cfg.PEDESTRIANS_ENABLED:
+        ped_bit = torch.zeros(stop_d.shape, dtype=torch.bool,
+                              device=es.pa.device)
+    randoms = tick_randoms(cfg, draws[D_SEEDS:D_SEEDS + 4], stop_d.shape[0],
+                           W, row0)
     out = HE.decide_move(
-        cfg, sdir4, wnd, planes, stop_map, es.rain_map, ped_bit,
-        grid.intersection, grid.dest_id, randoms,
+        cfg, sdir4, wnd, planes, stop_d, es.rain_map, ped_bit,
+        inter_d, dest_d, randoms,
         hier=((world.local_sdir4, hier.kernel_consts(cfg))
               if cfg.ROUTING_HIER else None))
+    if slab is not None:
+        out = [slab.crop(p, slab.dec, slab.own) for p in out]
     flags = out[6]
     events = ((flags & HE.FLAG_NEW_MAL).sum().to(torch.int32),
               ((flags & HE.FLAG_NEW_COL) >> 1).sum().to(torch.int32))
     return _post_move(cfg, world, es, out[:6], lights, stop_map, density,
                       peds, ped_map, tick, elapsed, draws[D_RAIN:D_RAIN + 5],
-                      events, spawn_slots=spawn_slots).replace(rl=rl_state)
+                      events, spawn_slots=spawn_slots,
+                      slab=slab).replace(rl=rl_state)
 
 
 def _isum(x: torch.Tensor) -> torch.Tensor:
@@ -533,15 +594,24 @@ def _isum(x: torch.Tensor) -> torch.Tensor:
 
 def _post_move(cfg: Config, world, es: EngineState, planes, lights,
                stop_map, density, peds, ped_map, tick, elapsed, rain_draws,
-               events, spawn_slots=None) -> EngineState:
+               events, spawn_slots=None, slab=None) -> EngineState:
     """Arrivals, service FSM, despawns, demand spawning, daily counters,
-    rain and block resources (the JAX `_post_move`)."""
+    rain and block resources (the JAX `_post_move`).  `events`: the
+    tick's new malfunctions and collisions (int32 scalars).
+
+    `slab` (`parallel/spatial.Slab`): `planes` are a rank's own rows; the
+    per-cell work runs on them, and its reductions (`events` among them)
+    and its gathers at destination cells and spawn origins (owner-masked)
+    are summed over the group in one all-reduce; the destination-space
+    service FSM, the tanks and the spawn choice then run on every rank
+    alike, and a write at a cell is made by the rank that owns it.  The
+    rain map is the decide window's."""
     caps = cfg.capacities()
     H, W = cfg.HEIGHT, cfg.WIDTH
-    HW = H * W
     V = caps.max_vehicles
     dt = float(cfg.TIME_PER_STEP_IN_SECONDS)
-    grid = world.grid
+    grid = world.grid if slab is None else slab.grid_rows(world.grid,
+                                                          slab.own)
     dests = world.dests
     bs = world.blocks_static
     bst = es.blocks
@@ -551,13 +621,27 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
     f32, i32t = torch.float32, torch.int32
 
     pa, pb, pc, pd, pe, pl = planes
+    h = pa.shape[0]             # the planes' rows: H, or the slab's own
+    HW = h * W                  # their cells; index HW is a sink
     present = (pa & 1) == 1
     kind = _fld(pa, PA_KIND_SH, 2)
+
+    def cells(c):
+        """Global flat cells -> the planes' flat index (HW: not here)."""
+        c = torch.clamp(c, 0, H * W - 1).long()
+        return c if slab is None else slab.cells(c)
+
+    def at(plane, ix):
+        """The flat plane's values at indices `ix`, 0 at the sink."""
+        flat = plane.reshape(-1)
+        if slab is not None:
+            flat = torch.cat([flat, flat.new_zeros(1)])
+        return flat[ix]
 
     # ---- arrivals in plane space -----------------------------------------
     Dall = dests.pos.shape[0]
     B = bs.valid.shape[0]
-    dpos = torch.clamp(dests.pos, 0, HW - 1).long()
+    dpos = cells(dests.pos)
     dest14_p = _fld(pa, PA_DEST_SH, 14)
     at_dest_p = present & (grid.dest_id >= 0) & (dest14_p == grid.dest_id)
     phase_p = _fld(pd, PD_PHASE_SH, 2)
@@ -577,6 +661,55 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
         torch.where(done_t_p, steps_p, zf),
         svc_done_p.to(f32), torch.where(svc_done_p, dur_p, zf),
         torch.where(svc_done_p, steps_p, zf)]).sum(dim=(1, 2))
+
+    # ---- the vehicles at the destination cells ---------------------------
+    pa_d, pd_d, pe_d, pl_d = (at(p, dpos) for p in (pa, pd, pe, pl))
+
+    # ---- despawns in plane space -----------------------------------------
+    despawn = done_i_p | done_t_p | svc_done_p
+    stuck_on = cfg.VEHICLE_STUCK_DESPAWN_ENABLED
+    if stuck_on:
+        stuck_v = _fld(pb, PB_STUCK_SH, 12)
+        thr = torch.where(grid.intersection,
+                          cfg.VEHICLE_STUCK_DESPAWN_THRESHOLD_INTERSECTION,
+                          cfg.VEHICLE_STUCK_DESPAWN_THRESHOLD)
+        kill = present & (stuck_v >= thr) & ~despawn
+        killed = torch.stack([_isum(kill & (kind == KIND_INTERNAL)),
+                              _isum(kill & (kind != KIND_INTERNAL))])
+        despawn = despawn | kill
+        # the pool slots the despawns free
+        dflat = despawn.reshape(-1)
+        freed = torch.zeros((V + 1,), dtype=torch.bool, device=dev
+                            ).index_put((torch.where(
+                                dflat, pe.reshape(-1), V).long(),),
+                                dflat)[:V]
+        despawn_d = at(despawn, dpos)
+        pa, pb, pc, pd, pe = (torch.where(despawn, 0, p)
+                              for p in (pa, pb, pc, pd, pe))
+        pl = torch.where(despawn, 0.0, pl)
+
+    # ---- the origins of the due spawns -----------------------------------
+    dem = world.demand
+    cursor = es.dem_cursor
+    S = caps.max_spawns_per_tick
+    T = dem.depart_tick.shape[0]
+    sidx = torch.arange(S, device=dev)
+    idxs = cursor + sidx
+    j = torch.clamp(idxs, 0, T - 1).long()
+    org_g = torch.clamp(dem.origin[j], 0, H * W - 1).long()
+    org = cells(dem.origin[j])
+    occupied = at(present & ~despawn, org)
+
+    # ---- one reduction of everything above over a split world's ranks ----
+    # (the f32 sums as the integers they are)
+    parts = [torch.stack(list(events)), arr if slab is None
+             else arr.to(i32t), pa_d, pd_d, pe_d, pl_d, occupied]
+    if stuck_on:
+        parts += [killed, despawn_d, freed]
+    if slab is not None:
+        parts = slab.all_sum(parts)
+    events, arr, pa_d, pd_d, pe_d, pl_d, occupied = parts[:7]
+    arr = arr.to(f32)
     n_svc_done = arr[6].to(i32t)
     m = m.replace(
         completed_internal=m.completed_internal + arr[0].to(i32t),
@@ -591,11 +724,6 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
         collisions_total=m.collisions_total + events[1])
 
     # ---- service FSM (destination space) ---------------------------------
-    paf = pa.reshape(-1)
-    pa_d = paf[dpos]
-    pd_d = pd.reshape(-1)[dpos]
-    pe_d = pe.reshape(-1)[dpos]
-    pl_d = pl.reshape(-1)[dpos]
     rid_d = (torch.arange(Dall, dtype=i32t, device=dev)
              if dests.rid is None else dests.rid)
     is_here = dests.valid & ((pa_d & 1) == 1) & \
@@ -661,28 +789,12 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
     pd_d_new = (phase_d | (torch.clamp(timer_d, 0, 255) << PD_TIMER_SH)
                 | (new_sb << PD_BLOCK_SH))
 
-    # ---- despawns --------------------------------------------------------
-    despawn = done_i_p | done_t_p | svc_done_p
-    if cfg.VEHICLE_STUCK_DESPAWN_ENABLED:
-        stuck_v = _fld(pb, PB_STUCK_SH, 12)
-        thr = torch.where(grid.intersection,
-                          cfg.VEHICLE_STUCK_DESPAWN_THRESHOLD_INTERSECTION,
-                          cfg.VEHICLE_STUCK_DESPAWN_THRESHOLD)
-        kill = present & (stuck_v >= thr) & ~despawn
-        m = m.replace(
-            errored_internal=m.errored_internal + _isum(
-                kill & (kind == KIND_INTERNAL)),
-            errored_through=m.errored_through + _isum(
-                kill & (kind != KIND_INTERNAL)))
-        despawn = despawn | kill
-        slotk = torch.where(despawn.reshape(-1), pe.reshape(-1), V).long()
-        su = torch.cat([slot_used, slot_used.new_zeros(1)])
-        su[slotk] = False
-        slot_used = su[:V]
-        despawn_d = despawn.reshape(-1)[dpos]
-        pa, pb, pc, pd, pe = (torch.where(despawn, 0, p)
-                              for p in (pa, pb, pc, pd, pe))
-        pl = torch.where(despawn, 0.0, pl)
+    # ---- despawns: metrics and pool slots --------------------------------
+    if stuck_on:
+        killed, despawn_d, freed = parts[7:]
+        m = m.replace(errored_internal=m.errored_internal + killed[0],
+                      errored_through=m.errored_through + killed[1])
+        slot_used = slot_used & ~freed
     else:
         despawn_d = is_here & (
             (kind_d <= KIND_THROUGH)
@@ -691,16 +803,8 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
         su[torch.where(despawn_d, torch.clamp(pe_d, 0, V - 1), V).long()] = \
             False
         slot_used = su[:V]
-    paf = pa.reshape(-1)
 
     # ---- demand spawning -------------------------------------------------
-    dem = world.demand
-    cursor = es.dem_cursor
-    S = caps.max_spawns_per_tick
-    T = dem.depart_tick.shape[0]
-    sidx = torch.arange(S, device=dev)
-    idxs = cursor + sidx
-    j = torch.clamp(idxs, 0, T - 1).long()
     due = (idxs < T) & dem.valid[j] & (dem.depart_tick[j] <= tick + 1)
     due = torch.cummin(due.to(i32t), 0).values.bool()   # sorted prefix
     if not cfg.ENABLE_TRAFFIC:
@@ -709,9 +813,7 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
         spawn_slots = free_slots(slot_used, S)
     slots = spawn_slots
     can = due & (slots >= 0)
-    org = torch.clamp(dem.origin[j], 0, HW - 1).long()
-    occupied = ((paf[org] & 1) == 1) & ~despawn.reshape(-1)[org]
-    earlier_same = (org[None, :] == org[:, None]) \
+    earlier_same = (org_g[None, :] == org_g[:, None]) \
         & (sidx[None, :] < sidx[:, None]) & (can & ~occupied)[None, :]
     place = can & ~occupied & ~earlier_same.any(dim=1)
     dropped = (can & ~place) | (due & (slots < 0))
@@ -739,10 +841,12 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
 
     # ---- ONE combined scatter per plane: service rows + despawn clears +
     # spawns; the index sets are disjoint by construction (a spawn needs
-    # its cell free, a row whose cell a spawn claims goes to the sink)
+    # its cell free, a row whose cell a spawn claims goes to the sink).
+    # A split world's rank writes the cells of its own rows alone: the
+    # others' indices are the sink
     sp_mask = torch.zeros((HW + 1,), dtype=torch.bool,
                           device=dev).index_put((scell,), place)
-    claimed = sp_mask[:HW][dpos]
+    claimed = sp_mask[dpos]
     row = torch.where((is_svc | despawn_d) & ~claimed, dpos, HW)
     zrow = torch.where(despawn_d & ~claimed, dpos, HW)
     idx = torch.cat([row, scell])
@@ -752,7 +856,7 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
     def put(plane, ix, vals):
         flat = torch.cat([plane.reshape(-1), plane.new_zeros(1)])
         flat[ix] = vals.to(plane.dtype)
-        return flat[:HW].reshape(H, W)
+        return flat[:HW].reshape(h, W)
 
     dz = despawn_d
     pa = put(pa, idx, torch.cat([torch.where(dz, 0, pa_d_new), spawn_pa]))
@@ -801,7 +905,8 @@ def _post_move(cfg: Config, world, es: EngineState, planes, lights,
 
     # ---- rain, blocks ----------------------------------------------------
     rain, rain_map = step_rain(cfg, H, W, es.rain, rain_draws,
-                               force_spawn=es.overrides.spawn_rain)
+                               force_spawn=es.overrides.spawn_rain,
+                               rows=None if slab is None else slab.dec)
     bst = step_blocks(cfg, bs, bst, tick)
 
     return es.replace(

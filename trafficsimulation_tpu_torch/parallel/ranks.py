@@ -212,8 +212,173 @@ def scaling(mesh: M.Mesh, cfg: Config, keys, ticks: int,
     return out
 
 
+def split_world(cfg: Config, world: str, device, key=None,
+                inject: int = 0):
+    """The whole world a split run starts from, built on its source rank
+    alone: the synthetic crossroad (`core/synth.crossroad_world`); a
+    city generated from `key` (`sim.init_world`, no shrink, as config #4
+    runs) with `inject` vehicles; or the headline city (`snapshot`'s:
+    `cfg` must be the configuration its `measure_and_shrink` gives)."""
+    from .. import sim, snapshot
+    from ..core import synth
+    if world == "crossroad":
+        return synth.crossroad_world(cfg, device=device)
+    if world == "city":
+        w = sim.init_world(cfg, key, device)
+        return sim.inject_vehicles(cfg, w, inject) if inject else w
+    if world != "headline":
+        raise ValueError(f"world {world!r}: 'crossroad', 'city' or "
+                         "'headline'")
+    c = Config(**snapshot.HEADLINE_CFG)
+    w = sim.init_world(c, prng.PRNGKey(snapshot.HEADLINE_SEED), device)
+    c, w = sim.measure_and_shrink(c, w)
+    if c != cfg:
+        raise AssertionError("the headline's shrunk config differs from the "
+                             "one given")
+    return sim.inject_vehicles(c, w, snapshot.HEADLINE_VEHICLES)
+
+
+def _split_source(cfg: Config, world: str, mesh: M.Mesh, key, inject):
+    """Rank 0's source world of the split runs, kept on the CPU between
+    them (its device holds only its slab while it runs); None on the
+    other ranks."""
+    if mesh.rank != 0:
+        return None
+    from ..core.transfer import world_from_leaves, world_leaves
+    w = split_world(cfg, world, mesh.device, key, inject)
+    w = world_from_leaves({k: t.cpu() for k, t in world_leaves(w).items()})
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return w
+
+
+def spatial(mesh: M.Mesh, cfg: Config, ticks: int, world: str = "crossroad",
+            splits=(None,), key=None, inject: int = 0,
+            mega_env: bool = False) -> dict:
+    """One world split by rows (`parallel/spatial.py`) over the first n
+    ranks of each n in `splits` (None: all): rank 0 builds it once
+    (`split_world`), `shard_world` lays it out, `run_chunk_spatial` runs
+    `ticks` ticks on the per-tick path (under TSIM_MEGA_FORCE with
+    `mega_env`, which the split must ignore) and `gather_world` brings it
+    back.  Per split (keyed by its size) and rank: its launches,
+    collectives (`Slab.stats`), rows, resident key-stack bytes, peak
+    device memory of the run and seconds; on rank 0 the gathered world's
+    leaf digests (`mesh.leaf_digest` of JAX's leaf paths), the trained
+    floats whole."""
+    from ..core.transfer import world_to_numpy
+    from ..dryrun import TRAINED
+    from ..ops import hopper_engine as HE
+    from . import spatial as SP
+    src = _split_source(cfg, world, mesh, key, inject)
+    out = {}
+    for n in splits:
+        sm = SP.spatial_mesh(n, mesh.device)
+        label = str(n or mesh.size)
+        if sm is None:
+            out[label] = None
+            continue
+        t0 = time.perf_counter()
+        sw = SP.shard_world(src, sm, cfg)
+        _sync(sm)
+        shard_s = time.perf_counter() - t0
+        if sm.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(sm.device)
+        with path_env(mega_env):
+            HE.reset_launches()
+            dist.barrier(group=sm.group)
+            t0 = time.perf_counter()
+            sw = SP.run_chunk_spatial(cfg, sw, ticks, sm)
+            _sync(sm)
+            seconds = time.perf_counter() - t0
+            launches = dict(HE.launches)
+        slab = sw.slab
+        res = {"rank": sm.rank, "launches": launches, "seconds": seconds,
+               "shard_s": shard_s, "stats": dict(slab.stats),
+               "own": slab.own, "dec": slab.dec, "route": slab.route,
+               "halo": (slab.P, slab.Q),
+               "cost_field_bytes": sw.world.cost_field.numel()
+               * sw.world.cost_field.element_size(),
+               "cost_field_shape": tuple(sw.world.cost_field.shape),
+               "peak_bytes": (torch.cuda.max_memory_allocated(sm.device)
+                              if sm.device.type == "cuda" else None)}
+        t0 = time.perf_counter()
+        g = SP.gather_world(sw, sm)
+        if g is not None:
+            res["digests"] = {
+                k: dict(M.leaf_digest(a), **({"array": a} if k.startswith(
+                    TRAINED) else {}))
+                for k, a in world_to_numpy(g).items()}
+        res["gather_s"] = time.perf_counter() - t0
+        out[label] = res
+        del sw, g
+        if sm.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def spatial_scaling(mesh: M.Mesh, cfg: Config, ticks: int, profile: int,
+                    splits=(None,), world: str = "headline") -> dict:
+    """Timing (no check): one world split over the first n ranks of each
+    n in `splits`, warmed one routing segment, then `ticks` ticks between
+    two barriers (wall seconds on this rank, and the collectives of those
+    ticks with their host seconds) and `profile` ticks under
+    torch.profiler (this rank's device busy ms a tick)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    from . import spatial as SP
+    src = _split_source(cfg, world, mesh, None, 0)
+    R = cfg.PATHFINDING_COOLDOWN
+    out = {}
+    for n in splits:
+        sm = SP.spatial_mesh(n, mesh.device)
+        label = str(n or mesh.size)
+        if sm is None:
+            out[label] = None
+            continue
+        state = {"w": SP.shard_world(src, sm, cfg)}
+
+        def run(k):
+            state["w"] = SP.run_chunk_spatial(cfg, state["w"], k, sm)
+        with path_env(False):
+            run(R)
+            _sync(sm)
+            dist.barrier(group=sm.group)
+            st0 = dict(state["w"].slab.stats)
+            t0 = time.perf_counter()
+            run(ticks)
+            _sync(sm)
+            wall = time.perf_counter() - t0
+            st1 = dict(state["w"].slab.stats)
+            dist.barrier(group=sm.group)
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as p:
+                t1 = time.perf_counter()
+                run(profile)
+                _sync(sm)
+                pwall = time.perf_counter() - t1
+            dist.barrier(group=sm.group)
+        busy = sum(e.self_device_time_total for e in p.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / profile
+        out[label] = {
+            "rank": sm.rank, "wall_s": wall, "ticks": ticks,
+            "busy_ms_per_tick": busy,
+            "profiled_wall_ms_per_tick": pwall * 1e3 / profile,
+            "idle_share": 1 - busy / (pwall * 1e3 / profile),
+            "collectives_per_tick": (st1["all_reduce"] - st0["all_reduce"])
+            / ticks,
+            "collective_host_ms_per_tick": (st1["host_s"] - st0["host_s"])
+            * 1e3 / ticks,
+            "collective_bytes_per_tick": (st1["bytes"] - st0["bytes"])
+            / ticks}
+        del state
+        if sm.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 JOBS = {"cities": cities, "rollouts": rollouts, "scaling": scaling,
-        "dryrun": dryrun_rank}
+        "dryrun": dryrun_rank, "spatial": spatial,
+        "spatial_scaling": spatial_scaling}
 
 
 def run_jobs(mesh: M.Mesh, jobs: list) -> list:

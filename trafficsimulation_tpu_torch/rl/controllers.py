@@ -510,10 +510,11 @@ def _maybe_train(ts, tick: RLTick, update):
 # ---------------------------------------------------------------------------
 
 def srl_step(cfg: Config, ts: SRLTrain, grid, gs, lights, occupancy,
-             stuck_map, tick: RLTick):
+             stuck_map, tick: RLTick, slab=None):
     G = gs.valid.shape[0]
     net = net_of(cfg)
-    s = features.srl_state(cfg, grid, gs, lights, occupancy, stuck_map)
+    s = features.srl_state(cfg, grid, gs, lights, occupancy, stuck_map,
+                           slab)
     with torch.no_grad():
         logits = nets.apply(net, ts.params, s)
     action = torch.argmax(logits + tick.gumbel, dim=-1).to(torch.int32)
@@ -522,10 +523,10 @@ def srl_step(cfg: Config, ts: SRLTrain, grid, gs, lights, occupancy,
         cfg, lights, active, action, cfg.SRL_MIN_GREEN)
 
     # reward: -(queue) [+ stuck penalty] (the JAX module docstring)
-    ln, le = features.group_flows(grid, occupancy, G)
+    ln, le = features.group_flows(grid, occupancy, G, slab)
     neg = ln + le
     if cfg.SRL_PUNISH_STUCK:
-        sn, se = features.group_flows(grid, stuck_map, G)
+        sn, se = features.group_flows(grid, stuck_map, G, slab)
         neg = neg + (sn + se) * cfg.SRL_PUNISH_STUCK_FACTOR
     rows, nput = _store_rows(ts, gs.valid, dict(buf_s=s, buf_a=action,
                                                 buf_r=-neg))
@@ -556,10 +557,10 @@ def _srl_train(cfg: Config, net, ts: SRLTrain, tick: RLTick) -> SRLTrain:
 # ---------------------------------------------------------------------------
 
 def a2c_step(cfg: Config, ts: A2CTrain, grid, gs, lights, occupancy,
-             tick: RLTick):
+             tick: RLTick, slab=None):
     G = gs.valid.shape[0]
     net = net_of(cfg)
-    s = features.a2c_state(cfg, grid, gs, lights, occupancy)
+    s = features.a2c_state(cfg, grid, gs, lights, occupancy, slab)
     with torch.no_grad():
         logits, value = nets.apply(net, ts.params, s)
     action = torch.argmax(logits + tick.gumbel, dim=-1).to(torch.int32)
@@ -569,7 +570,7 @@ def a2c_step(cfg: Config, ts: A2CTrain, grid, gs, lights, occupancy,
         cfg.TRAFFIC_LIGHT_PRESSURE_CONTROL_MIN_GREEN)
 
     # reward = -(queue + 0.25 * pressure^2) (`rl_a2c.py:160-164`)
-    ln, le = features.group_flows(grid, occupancy, G)
+    ln, le = features.group_flows(grid, occupancy, G, slab)
     reward = -(ln + le + 0.25 * (ln - le) ** 2)
 
     t = (ts.t.reshape(1).long(),)
@@ -628,16 +629,17 @@ def _a2c_update(cfg: Config, net, ts: A2CTrain, tick: RLTick) -> A2CTrain:
 # ---------------------------------------------------------------------------
 
 def gat_step(cfg: Config, ts: GATTrain, grid, gs, lights, occupancy,
-             trip_penalty, tick: RLTick):
+             trip_penalty, tick: RLTick, slab=None):
     """trip_penalty: the scalar global reward penalty
     0.01 * avg_trip_duration + 1.0 * avg_time_per_cell."""
     G = gs.valid.shape[0]
     net = net_of(cfg)
-    feats, mask = features.gat_state(cfg, grid, gs, lights, occupancy)
+    feats, mask = features.gat_state(cfg, grid, gs, lights, occupancy,
+                                     slab)
 
     # complete last tick's pending (s, a) with the now observable
     # post-action state and reward
-    ln, le = features.group_flows(grid, occupancy, G)
+    ln, le = features.group_flows(grid, occupancy, G, slab)
     reward = -(ln + le + trip_penalty)
     rows, _ = _store_rows(ts, ts.pend_valid & gs.valid, dict(
         buf_s=ts.pend_s, buf_m=ts.pend_m, buf_a=ts.pend_a, buf_r=reward,
@@ -682,14 +684,19 @@ def _gat_train(cfg: Config, net, ts: GATTrain, tick: RLTick) -> GATTrain:
 
 
 def rl_controller_step(cfg: Config, rl_state, grid, gs, lights, occupancy,
-                       stuck_map, trip_penalty, tick: RLTick):
+                       stuck_map, trip_penalty, tick: RLTick, slab=None):
+    """One controller step of algorithm cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM:
+    (train state, lights, want, phase request).  `slab`
+    (`parallel/spatial.Slab`): `grid`, `occupancy` and `stuck_map` are a
+    rank's own rows, and the features' flows the group's sums."""
     algo = cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM
     if algo in SRL_ALGOS:
         return srl_step(cfg, rl_state, grid, gs, lights, occupancy,
-                        stuck_map, tick)
+                        stuck_map, tick, slab)
     if algo in A2C_ALGOS:
-        return a2c_step(cfg, rl_state, grid, gs, lights, occupancy, tick)
+        return a2c_step(cfg, rl_state, grid, gs, lights, occupancy, tick,
+                        slab)
     if algo in GAT_ALGOS:
         return gat_step(cfg, rl_state, grid, gs, lights, occupancy,
-                        trip_penalty, tick)
+                        trip_penalty, tick, slab)
     raise ValueError(algo)

@@ -6,7 +6,9 @@ the f32 sums are exact in any order.  `neighbor_mean` takes all the
 columns a state needs in one gather, adds the neighbours in the order
 d = 0..3 and divides once, as JAX's loop does per column; the
 timer feature is the multiply by the f32 reciprocal of 30 into which XLA's
-jitted compile turns JAX's division.  Every feature equals JAX's bit for bit.
+jitted compile turns JAX's division.  Every feature equals JAX's bit for bit.  On a world split by rows
+(`parallel/spatial.py`) the flows are the ranks' partial sums plus one
+all-reduce of integers: exact, as the unsharded sums.
 """
 
 from __future__ import annotations
@@ -19,9 +21,20 @@ NS_IN, NS_OUT, EW_IN, EW_OUT = 0, 1, 2, 3
 SINKS = 1024
 
 
-def group_flows(grid: Grid, flow_map: torch.Tensor, num_groups: int):
+def group_flows(grid: Grid, flow_map: torch.Tensor, num_groups: int,
+                slab=None):
     """(local_ns, local_ew) per group: the sum of flow_map over the
-    group's in-flow lane cells, f32 [G] each."""
+    group's in-flow lane cells, f32 [G] each.  `slab`
+    (`parallel/spatial.Slab`): `grid` and `flow_map` are a rank's own
+    rows, and the group's sums come from one all-reduce of integers
+    (once a tick for a plane)."""
+    if slab is not None:
+        return slab.flows(flow_map, lambda: _flows(grid, flow_map,
+                                                   num_groups, slab))
+    return _flows(grid, flow_map, num_groups)
+
+
+def _flows(grid: Grid, flow_map: torch.Tensor, num_groups: int, slab=None):
     G = num_groups
     qg = grid.queue_group.reshape(-1)
     qb = grid.queue_bucket.reshape(-1).to(torch.int32)
@@ -33,7 +46,10 @@ def group_flows(grid: Grid, flow_map: torch.Tensor, num_groups: int):
     vals = flow_map.reshape(-1).to(torch.float32)
     sums = torch.zeros((G * 5 + SINKS,), dtype=torch.float32,
                        device=vals.device).scatter_add(0, seg.long(), vals)
-    q = sums[:G * 5].reshape(G, 5)
+    q = sums[:G * 5]
+    if slab is not None:
+        q = slab.sum_counts(q)
+    q = q.reshape(G, 5)
     return q[:, NS_IN], q[:, EW_IN]
 
 
@@ -61,16 +77,16 @@ def _phase_cols(lights):
 
 
 def srl_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy,
-              stuck_map):
+              stuck_map, slab=None):
     """REINFORCE's state, SRL_INPUT_DIMENSIONS (7, 11, 13, 17 or 19)
     columns, f32 [G, dim]."""
     G = gs.valid.shape[0]
-    ln, le = group_flows(grid, occupancy, G)
+    ln, le = group_flows(grid, occupancy, G, slab)
     p_ns, p_ew = ln - le, le - ln
     cols = [ln, le, p_ns, p_ew, *_phase_cols(lights)]
     dim = cfg.SRL_INPUT_DIMENSIONS
     if dim > 13:
-        sn, se = group_flows(grid, stuck_map, G)
+        sn, se = group_flows(grid, stuck_map, G, slab)
     # every neighbour mean of the row in one pass
     src = []
     if dim > 7:
@@ -91,10 +107,11 @@ def srl_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy,
     return torch.stack(cols, dim=1)
 
 
-def a2c_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy):
+def a2c_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy,
+              slab=None):
     """A2C's 13 state columns, f32 [G, 13]."""
     G = gs.valid.shape[0]
-    ln, le = group_flows(grid, occupancy, G)
+    ln, le = group_flows(grid, occupancy, G, slab)
     p_ns, p_ew = ln - le, le - ln
     m = neighbor_mean(gs, torch.stack([p_ns, p_ew, gs.intersection_size,
                                        gs.penalty_score], 1)).unbind(1)
@@ -103,11 +120,12 @@ def a2c_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy):
                        dim=1)
 
 
-def gat_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy):
+def gat_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy,
+              slab=None):
     """GAT-DQN's star graph: (1 + 4 neighbours) x 9 features, f32
     [G, 5, 9], and the validity mask, f32 [G, 5]."""
     G = gs.valid.shape[0]
-    ln, le = group_flows(grid, occupancy, G)
+    ln, le = group_flows(grid, occupancy, G, slab)
     node = torch.stack([ln, le, ln - le, le - ln, *_phase_cols(lights),
                         gs.intersection_size, gs.penalty_score], dim=1)
     has = gs.neighbor >= 0                                    # [G, 4]

@@ -19,7 +19,9 @@ device) each routing segment is one K9 call instead
 from JAX's key chain walked on the host up front (`tick_draws`), so no
 tick waits for the host.  `advance` is the device part of the chunk, and
 `step_device` that of `step_world`, functions of tensors only: the world
-batches of `parallel/mesh.py` run them under `torch.func.vmap`.
+batches of `parallel/mesh.py` run them under `torch.func.vmap`.  With a
+`slab`, `advance` runs a rank's rows of one world split over a process
+group (`parallel/spatial.run_chunk_spatial`).
 """
 
 from __future__ import annotations
@@ -465,14 +467,25 @@ def inject_vehicles(cfg: Config, world: World, n: int) -> World:
     return world.replace(vehicles=v, veh_map=vm.reshape(H, W))
 
 
-def _enter_engine(cfg: Config, world: World) -> engine.EngineState:
-    """Pack the SoA world into the plane-engine state."""
+def _enter_engine(cfg: Config, world: World,
+                  slab=None) -> engine.EngineState:
+    """Pack the SoA world into the plane-engine state.  `slab`
+    (`parallel/spatial.Slab`): a rank's part of a split world: the
+    planes of its own rows (the vehicles whose cell is there), the stop
+    map widened to the route window and the rain map to the decide
+    window (one halo exchange)."""
     H, W = cfg.HEIGHT, cfg.WIDTH
-    planes, slot_used = engine.vehicles_to_planes(cfg, world.vehicles, H, W)
+    planes, slot_used = engine.vehicles_to_planes(
+        cfg, world.vehicles, H, W, rows=None if slab is None else slab.own)
     pa, pb, pc, pd, pe, pl = planes
+    stop_map, rain_map = world.stop_map, world.rain_map
+    if slab is not None:
+        stop_map, rain_map = slab.halo([stop_map, rain_map],
+                                       slab.P + slab.Q)
+        rain_map = slab.crop(rain_map, slab.route, slab.dec).contiguous()
     return engine.EngineState(
         pa=pa, pb=pb, pc=pc, pd=pd, pe=pe, pl=pl, slot_used=slot_used,
-        stop_map=world.stop_map, rain_map=world.rain_map,
+        stop_map=stop_map, rain_map=rain_map,
         density=world.density, ped_map=world.ped_map,
         lights=world.lights, blocks=world.blocks, rain=world.rain,
         dem_cursor=world.demand.cursor, metrics=world.metrics,
@@ -480,15 +493,21 @@ def _enter_engine(cfg: Config, world: World) -> engine.EngineState:
         tick=world.tick, elapsed=world.elapsed, key=world.key, rl=world.rl)
 
 
-def _exit_engine(cfg: Config, world: World, es) -> World:
-    """Unpack the plane-engine state into the SoA world."""
+def _exit_engine(cfg: Config, world: World, es, slab=None) -> World:
+    """Unpack the plane-engine state into the SoA world.  `slab`: a
+    rank's part of a split world (the [V] table through one owner-masked
+    all-reduce; the maps cut to the own rows)."""
     V = cfg.capacities().max_vehicles
     planes = (es.pa, es.pb, es.pc, es.pd, es.pe, es.pl)
-    vehicles = engine.planes_to_vehicles(cfg, planes, V)
+    vehicles = engine.planes_to_vehicles(cfg, planes, V, slab)
     veh_map, stuck_map = engine.planes_to_maps(planes, V)
+    stop_map, rain_map = es.stop_map, es.rain_map
+    if slab is not None:
+        stop_map = slab.crop(stop_map, slab.route, slab.own).contiguous()
+        rain_map = slab.crop(rain_map, slab.dec, slab.own).contiguous()
     return world.replace(
         vehicles=vehicles, veh_map=veh_map, stuck_map=stuck_map,
-        stop_map=es.stop_map, rain_map=es.rain_map, density=es.density,
+        stop_map=stop_map, rain_map=rain_map, density=es.density,
         ped_map=es.ped_map, peds=es.peds,
         lights=es.lights, blocks=es.blocks, rain=es.rain,
         demand=world.demand.replace(cursor=es.dem_cursor),
@@ -544,13 +563,14 @@ def step_device(cfg: Config, world: World, draws: torch.Tensor,
     return _exit_engine(cfg, world, es)
 
 
-def reducer_matrices(cfg: Config, world: World):
+def reducer_matrices(cfg: Config, world: World, slab=None):
     """The dense light-reduction matrices (M, A) that pay at this size
     (`fsm.dense_reducer_modes`), built once per chunk from the geometry
-    (None where the sparse form stays)."""
+    (None where the sparse form stays); with `slab`, a rank's part of
+    them (`fsm.build_dense_reducers`)."""
     m_ok, a_ok = fsm.dense_reducer_modes(cfg)
     return fsm.build_dense_reducers(cfg, world.grid, world.lights_static,
-                                    build_m=m_ok, build_a=a_ok)
+                                    build_m=m_ok, build_a=a_ok, slab=slab)
 
 
 def run_chunk(cfg: Config, world: World, n: int,
@@ -571,17 +591,19 @@ def run_chunk(cfg: Config, world: World, n: int,
 
 
 def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
-            dense=None, rl_plan=None) -> World:
+            dense=None, rl_plan=None, slab=None) -> World:
     """The device part of `run_chunk`: n ticks with this chunk's draws
     (int64 [n, N_DRAWS], `engine.tick_draws`); the key is left as it
     was.  `dense`: the (M, A) reducer matrices or None.  `rl_plan`: the
     RL controller's inputs of the n ticks (`rl/controllers.plan_ticks`).
     A function of tensors only, with no host sync, so that it runs under
-    vmap."""
+    vmap.  `slab` (`parallel/spatial.Slab`, prepared): the world is a
+    rank's part of a split world (`parallel/spatial.run_chunk_spatial`);
+    the per-tick path runs with it, never the megakernel branch."""
     dev = world.grid.is_road.device
-    es = _enter_engine(cfg, world)
+    es = _enter_engine(cfg, world, slab)
     R = max(1, cfg.PATHFINDING_COOLDOWN) if cfg.PATHFINDING_CACHE else 1
-    if megakernel.mega_ok(cfg, world):
+    if slab is None and megakernel.mega_ok(cfg, world):
         # one K9 launch per routing segment (the JAX `run_chunk` branch)
         cs = megakernel.build_chunk_static(cfg, world)
         for t in range(0, n, R):
@@ -594,7 +616,7 @@ def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
     sidx = torch.arange(S, device=dev)
 
     def seg(e, t0, length):
-        sdir = engine.routing_planes(cfg, world, e)
+        sdir = engine.routing_planes(cfg, world, e, slab)
         # one free-slot compaction per segment: a cursor advances by each
         # tick's consumed trips, so ticks share the list without
         # collisions; S extra -1 entries keep the slice in bounds
@@ -605,7 +627,8 @@ def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
             e2 = engine.step_engine(
                 cfg, world, e, draws[t0 + i], sdir=sdir, spawn_slots=sl,
                 dense=dense,
-                rl_tick=None if rl_plan is None else rl_plan.tick(t0 + i))
+                rl_tick=None if rl_plan is None else rl_plan.tick(t0 + i),
+                slab=slab)
             cur = cur + (e2.dem_cursor - e.dem_cursor)
             e = e2
         return e
@@ -615,7 +638,7 @@ def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
         length = min(R, n - t)
         es = seg(es, t, length)
         t += length
-    return _exit_engine(cfg, world, es)
+    return _exit_engine(cfg, world, es, slab)
 
 
 class TrafficSim:
