@@ -14,12 +14,19 @@ meshes of 2 and 4):
 * vehicles crossing slab edges: a 64^2 city generated by the port with
   config #4's Config (QUEUE_ACTUATED) and 160 vehicles injected, 50
   ticks, every leaf equal to the unsharded run; the crossings counted on
-  the unsharded run so that the case cannot pass vacuously.
+  the unsharded run so that the case cannot pass vacuously;
+* the other two RL families on that city, 20 ticks each with narrow nets
+  that train inside the run: REINFORCE (19 state columns and the stuck
+  penalty, so both planes' flows are group sums) and GAT-DQN, every
+  leaf equal to the unsharded run, the trained floats too.
 
 Then, in this process: a one-rank group for the refusals and the
-megakernel gate, and plain unit tests of the rows, windows, halo widths,
+megakernel gate; plain unit tests of the rows, windows, halo widths,
 band buffers and index maps (the collectives emulated by summing the
-ranks' buffers).  No JAX compile.
+ranks' buffers); and the reach of each stage the halos cover, from
+plain versions on a window cut on both sides against the whole grid:
+decide + move within P, the routing planes exactly Q (one row fewer
+changes the decide window's next-move bytes).  No JAX compile.
 """
 
 import functools
@@ -38,7 +45,9 @@ from trafficsimulation_tpu_torch.core import synth
 from trafficsimulation_tpu_torch.core.transfer import world_to_numpy
 from trafficsimulation_tpu_torch.dryrun import TRAINED, dryrun_cfg
 from trafficsimulation_tpu_torch.lights import fsm
-from trafficsimulation_tpu_torch.ops import megakernel
+from trafficsimulation_tpu_torch.ops import engine, megakernel
+from trafficsimulation_tpu_torch.ops import hopper_engine as HE
+from trafficsimulation_tpu_torch.ops.density import density_map
 from trafficsimulation_tpu_torch.parallel import launch, ranks, spatial
 from trafficsimulation_tpu_torch.parallel.mesh import Mesh
 
@@ -56,6 +65,19 @@ CITY = Config(WIDTH=64, HEIGHT=64, WALL_THICKNESS=6, SIDEWALK_RING_WIDTH=2,
 CITY_KEY = prng.PRNGKey(1)
 CITY_VEHICLES = 160
 CITY_TICKS = 50
+# the two RL families the crossroad does not run, narrow nets that train
+# inside RL_TICKS (the digest's per-world settings,
+# tools/make_torch_rl_batch_digest.py)
+RL_CITIES = {
+    "NEIGHBOR_RL": CITY.replace(
+        TRAFFIC_LIGHT_AGENT_ALGORITHM="NEIGHBOR_RL", SRL_HIDDEN_LAYERS=2,
+        SRL_HIDDEN_LAYER_SIZE=32, SRL_BATCH_SIZE=8, SRL_UPDATE_EVERY=4,
+        SRL_INPUT_DIMENSIONS=19, SRL_PUNISH_STUCK=True),
+    "GAT_DQN": CITY.replace(
+        TRAFFIC_LIGHT_AGENT_ALGORITHM="GAT_DQN", GAT_BATCH_SIZE=16,
+        GAT_MEMORY_CAPACITY=512, EPS_INITIAL=0.5,
+        GAT_TARGET_UPDATE_EVERY=4)}
+RL_TICKS = 20
 
 
 def _sha(a: np.ndarray) -> str:
@@ -64,11 +86,14 @@ def _sha(a: np.ndarray) -> str:
 
 @functools.cache
 def _spawned() -> list:
-    """Every rank's results of the two cases (`ranks.spatial`)."""
+    """Every rank's results of every case (`ranks.spatial`)."""
     jobs = [dict(kind="spatial", cfg=dryrun_cfg(), ticks=CROSS_TICKS,
                  splits=SPLITS),
             dict(kind="spatial", cfg=CITY, ticks=CITY_TICKS, world="city",
-                 key=CITY_KEY, inject=CITY_VEHICLES, splits=SPLITS)]
+                 key=CITY_KEY, inject=CITY_VEHICLES, splits=SPLITS)] + [
+            dict(kind="spatial", cfg=c, ticks=RL_TICKS, world="city",
+                 key=CITY_KEY, inject=CITY_VEHICLES, splits=SPLITS)
+            for c in RL_CITIES.values()]
     return launch.spawn(ranks.run_jobs, N_RANKS, "gloo", device="cpu",
                         args=(jobs,), threads=1)
 
@@ -98,6 +123,18 @@ def _city_ref():
             a.pos // CITY.WIDTH // rows != b.pos // CITY.WIDTH // rows))
             .sum()) for a, b in zip(seen, seen[1:]))
     return world_to_numpy(w), crossings
+
+
+@functools.cache
+def _rl_city_ref(algo: str) -> tuple:
+    """The unsharded RL city run, and whether its nets trained."""
+    cfg = RL_CITIES[algo]
+    w = ranks.split_world(cfg, "city", "cpu", CITY_KEY, CITY_VEHICLES)
+    start = world_to_numpy(w)
+    end = world_to_numpy(sim.run_chunk(cfg, w, RL_TICKS))
+    trained = [k for k in start if k.startswith("rl.params.")
+               and not np.array_equal(start[k], end[k])]
+    return end, trained
 
 
 def _same(name: str, ref: dict, got: dict):
@@ -151,19 +188,40 @@ def test_city_split_with_crossings_equals_unsharded(n):
     _same(f"city over {n} ranks", ref, _spawned()[0][1][str(n)]["digests"])
 
 
-@pytest.mark.parametrize("job", [0, 1])
+@pytest.mark.parametrize("algo", list(RL_CITIES))
+@pytest.mark.parametrize("n", SPLITS)
+def test_rl_city_split_equals_unsharded(algo, n):
+    """REINFORCE and GAT-DQN on the 64^2 city split over n ranks for 20
+    ticks equal the unsharded run on every leaf, the trained floats too:
+    their state features and rewards read the group sums of the ranks'
+    flows, and the nets did train."""
+    ref, trained = _rl_city_ref(algo)
+    assert trained, f"{algo}: no parameter moved in {RL_TICKS} ticks"
+    job = 2 + list(RL_CITIES).index(algo)
+    _same(f"{algo} city over {n} ranks", ref,
+          _spawned()[0][job][str(n)]["digests"])
+
+
+# per job: its Config, ticks and all-reduces a tick (the light
+# reductions, the decide halo, the post-move's; plus one for each plane
+# whose RL flows a controller step reads)
+JOBS = [(dryrun_cfg(), CROSS_TICKS, 4), (CITY, CITY_TICKS, 3),
+        (RL_CITIES["NEIGHBOR_RL"], RL_TICKS, 5),
+        (RL_CITIES["GAT_DQN"], RL_TICKS, 4)]
+
+
+@pytest.mark.parametrize("job", range(len(JOBS)))
 def test_residency_and_collectives(job):
     """Each rank holds the key stack over its decide window alone, its
     rows are its share, and every rank made the same collectives: per
     tick the light reductions, the halo and the post-move's, per segment
-    the routing halo, once the entry and the exit (plus the RL flows
-    under A2C)."""
-    cfg = dryrun_cfg() if job == 0 else CITY
-    ticks = CROSS_TICKS if job == 0 else CITY_TICKS
+    the routing halo, once the entry and the exit (plus the RL flows:
+    the occupancy's under A2C and GAT-DQN, the stuck ticks' too under
+    this REINFORCE)."""
+    cfg, ticks, per_tick = JOBS[job]
     P, Q = spatial.halo_widths(cfg)
     H = cfg.HEIGHT
     segs = -(-ticks // cfg.PATHFINDING_COOLDOWN)
-    per_tick = 4 if job == 0 else 3
     for n in SPLITS:
         res = [o[job][str(n)] for o in _spawned()[:n]]
         assert all(o[job][str(n)] is None for o in _spawned()[n:])
@@ -339,35 +397,18 @@ def test_index_maps():
         assert torch.equal(gathered, cells.to(torch.int32) + 1)
 
 
-def test_dense_reducers_on_slabs():
-    """The dense light reductions of a rank (`fsm.build_dense_reducers`
-    with a slab): M's rows of its own cells give the group's queue
-    counts when the ranks' products are added, A's columns of its route
-    window give the stop map there."""
+def test_split_takes_the_sparse_light_reductions():
+    """A split world runs the light reductions from the run tables, as
+    the unsharded `run_chunk` does by default: `sim.advance` refuses the
+    dense matrices together with a slab."""
     cfg = dryrun_cfg()
     w = synth.crossroad_world(cfg, device="cpu")
-    H, W = cfg.HEIGHT, cfg.WIDTH
-    g = torch.Generator().manual_seed(7)
-    occ = (torch.rand((H, W), generator=g) < 0.4).to(torch.float32)
-    ls = w.lights_static
-    stop = torch.rand(ls.valid.shape, generator=g) < 0.5
-    M, A = fsm.build_dense_reducers(cfg, w.grid, ls)
-    want_q = occ.reshape(-1) @ M
-    want_s = (stop.to(torch.bfloat16) @ A > 0.5).reshape(H, W)
-    P, Q = spatial.halo_widths(cfg)
-    for n in SPLITS:
-        q = torch.zeros_like(want_q)
-        for r in range(n):
-            slab = spatial.Slab(H=H, W=W, rank=r, size=n, P=P, Q=Q)
-            r0, r1 = slab.route
-            route = w.grid.replace(**{f: t[r0:r1] for f, t in
-                                      vars(w.grid).items() if f != "n_side"})
-            Ms, As = fsm.build_dense_reducers(cfg, route, ls, slab=slab)
-            lo, hi = slab.own
-            q += occ[lo:hi].reshape(-1) @ Ms
-            st = (stop.to(torch.bfloat16) @ As > 0.5).reshape(r1 - r0, W)
-            assert torch.equal(st, want_s[r0:r1])
-        assert torch.equal(q, want_q)
+    slab = spatial.Slab(H=cfg.HEIGHT, W=cfg.WIDTH, rank=0, size=2,
+                        P=7, Q=11)
+    dense = fsm.build_dense_reducers(cfg, w.grid, w.lights_static)
+    with pytest.raises(ValueError, match="sparse light reductions"):
+        sim.advance(cfg, w, 1, torch.zeros((1, 1), dtype=torch.int64),
+                    dense, slab=slab)
 
 
 def test_local_runs_clip_column_runs():
@@ -456,3 +497,179 @@ def test_split_on_the_card_equals_unsharded():
         assert la["prefix_planes"] == CITY_TICKS
         assert (la["build_sdir"], la["build_wavefront"]) == (segs, segs)
         assert la["mega"] + la["mega_worlds"] == 0
+
+
+# ---- the reach of each stage the halos cover ------------------------------
+
+def _window(H: int, own: tuple, h: int) -> tuple:
+    return max(0, own[0] - h), min(H, own[1] + h)
+
+
+def _k1_inputs(seed: int, cfg: Config, H: int, W: int, D: int = 4):
+    """Dense traffic at the top speed for the plain K1: 60% of the cells
+    hold a vehicle with a heading and a destination of the stack, some
+    hold a contraflow allowance and excursion key, the next-move bytes
+    carry contraflow flags and the wavefront bytes overtakes; stops,
+    intersections and sideswipes (chance 1/2) here and there."""
+    rng = np.random.default_rng(seed)
+    S = cfg.VEHICLE_MAX_SPEED
+
+    def i32(a):
+        return a.astype(np.int64).astype(np.uint32).view(np.int32)
+    pres = rng.random((H, W)) < 0.6
+    pa = i32(pres | (rng.integers(0, 5, (H, W)) << HE.PA_HEAD_SH)
+             | (S << HE.PA_BASE_SH) | (S << HE.PA_CUR_SH)
+             | (rng.integers(0, D, (H, W)) << HE.PA_DEST_SH))
+    pb = i32(rng.integers(0, 4, (H, W)) << HE.PB_CONTRA_SH)
+    pd = i32((rng.integers(0, 4, (H, W)) << HE.PD_CFKEY_SH)
+             | ((rng.random((H, W)) < 0.3) << HE.PD_CFMODE_SH))
+    zero = np.zeros((H, W), np.int32)
+    planes = [pa, pb, zero, pd, zero, rng.random((H, W), dtype=np.float32)]
+    sdir = (rng.integers(0, 4, (D, H, W))
+            | ((rng.random((D, H, W)) < 0.3) << 3)
+            | (rng.integers(0, 16, (D, H, W)) << 4)).astype(np.uint8)
+    wb = rng.integers(0, 16, (4, H, W))
+    wnd = i32(wb[0] | (wb[1] << 8) | (wb[2] << 16) | (wb[3] << 24))
+    masks = (rng.random((H, W)) < 0.05, np.zeros((H, W), bool),
+             np.zeros((H, W), bool), rng.random((H, W)) < 0.1)
+    dest_id = np.where(rng.random((H, W)) < 0.03,
+                       rng.integers(0, D, (H, W)), -1).astype(np.int32)
+    randoms = (rng.random((H, W), dtype=np.float32),
+               rng.random((H, W), dtype=np.float32),
+               rng.integers(1, S + 1, (H, W)).astype(np.int32),
+               i32(rng.integers(0, 2**32, (H, W), dtype=np.uint64)))
+    return sdir, wnd, planes, masks, dest_id, randoms
+
+
+def _k1_rows(cfg: Config, inp, lo: int, hi: int) -> list:
+    """The plain K1 on rows [lo, hi) as if they were the world."""
+    sdir, wnd, planes, masks, dest_id, randoms = inp
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a[..., lo:hi, :]))
+    out = HE.decide_move_core(
+        cfg, engine.pack_sdir4(t(sdir)), t(wnd), *(t(p) for p in planes),
+        *(t(m) for m in masks), t(dest_id), *(t(r) for r in randoms))
+    return [o.view(torch.int32) if o.dtype == torch.float32 else o
+            for o in out]
+
+
+@pytest.mark.parametrize("speed", [2, 5])
+def test_decide_move_reach_within_P(speed):
+    """K1's plain version on a rank's decide window (its 8 own rows
+    widened by P, cut on both sides) gives the own rows of the whole
+    grid's tick on every output plane, for dense traffic at the top
+    speed.  The window's edges do damage: on the own rows alone (no
+    halo) some rows differ, and no damage reaches P rows in.  P = 1 + 3
+    x speed bounds the reach from above (the decide reads 1 away, a
+    movement sub-round at most 3); these inputs reach less deep, so the
+    value of P itself is pinned by `test_halo_widths`."""
+    W = 12
+    cfg = Config(WIDTH=W, HEIGHT=64, VEHICLE_MAX_SPEED=speed,
+                 MAX_FIELD_DESTS=4, MAX_VEHICLES=64,
+                 VEHICLE_SIDESWIPE_COLLISION_ACTIVE=True,
+                 VEHICLE_SIDESWIPE_COLLISION_CHANCE=0.5)
+    P, _ = spatial.halo_widths(cfg)
+    H = 2 * P + 12
+    own = (P + 2, P + 10)
+    deepest = 0
+    for seed in range(12):
+        inp = _k1_inputs(seed, cfg, H, W)
+        whole = [o[own[0]:own[1]] for o in _k1_rows(cfg, inp, 0, H)]
+        lo, hi = _window(H, own, P)
+        assert (lo, hi) == (2, H - 2)
+        got = _k1_rows(cfg, inp, lo, hi)
+        for name, a, b in zip(("pa", "pb", "pc", "pd", "pe", "pl", "flags"),
+                              whole, got):
+            assert torch.equal(a, b[own[0] - lo:own[1] - lo]), (seed, name)
+        bare = _k1_rows(cfg, inp, *own)
+        bad = torch.zeros(own[1] - own[0], dtype=torch.bool)
+        for a, b in zip(whole, bare):
+            bad |= (a != b).any(1)
+        rows = torch.nonzero(bad).flatten().tolist()
+        # depth from the nearer edge of the bare window, 1 = its edge row
+        deepest = max([deepest] + [1 + min(r, own[1] - own[0] - 1 - r)
+                                   for r in rows])
+    assert 0 < deepest < P, deepest
+
+
+def _routing_rows(cfg: Config, K0, allowed, is_road, pa, stop, lo: int,
+                  hi: int, dec: tuple) -> tuple:
+    """`engine.routing_planes`' stages on rows [lo, hi) as if they were
+    the world (density, penalties, entry costs, K2 and K3 plain), the
+    next-move words and wavefronts of the decide window's rows `dec`."""
+    sl = slice(lo, hi)
+    present = (pa[sl] & 1) == 1
+    density = density_map(present, is_road[sl], cfg.VEHICLE_AWARENESS_RANGE)
+    soft2, hard = engine.soft_penalties(cfg, pa[sl], stop[sl], density)
+    rows = slice(dec[0] - lo, dec[1] - lo)
+    sdir = engine.build_sdir(cfg, K0[:, :, dec[0]:dec[1]].contiguous(),
+                             allowed[sl], is_road[sl], soft2, hard,
+                             rows=rows)
+    wnd = engine.build_wavefront(cfg, allowed[sl], is_road[sl], hard)
+    return sdir, wnd[rows]
+
+
+@pytest.mark.parametrize("cfg", [Config(), dryrun_cfg()],
+                         ids=["defaults", "dryrun"])
+def test_routing_reach_is_Q(cfg):
+    """The routing planes of a rank's decide window, built over the
+    route window (decide window widened by Q, cut on both sides), equal
+    the whole grid's on random dense traffic; with Q - 1 rows the
+    density box sum (radius VEHICLE_AWARENESS_RANGE) behind the entry
+    costs (one neighbour further) misses a row and some next-move byte
+    of the decide window changes.  K3's wavefronts, which Q covers with
+    room to spare, are exact from K_OVT + 1 rows on and differ with
+    K_OVT: a blocker K_OVT + 1 rows beyond a window edge seeds a wave
+    that reaches the edge row in K_OVT steps."""
+    P, Q = spatial.halo_widths(cfg)
+    K = cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS
+    assert Q == cfg.VEHICLE_AWARENESS_RANGE + 1 > K + 1
+    W, D = 16, 4
+    H = 2 * (P + Q) + 20
+    own = (P + Q + 6, P + Q + 14)
+    dec = _window(H, own, P)
+    short = 0
+    for seed in range(6):
+        rng = np.random.default_rng(seed)
+        allowed = torch.from_numpy(rng.integers(0, 16, (H, W)).astype(
+            np.uint8))
+        is_road = torch.from_numpy(rng.random((H, W)) < 0.85)
+        # dense queues, some parked (hard) vehicles; keys close together,
+        # so that the entry costs decide the next moves
+        pa = torch.from_numpy(
+            ((rng.random((H, W)) < 0.8)
+             | ((rng.random((H, W)) < 0.1) << HE.PA_PARKED_SH)).astype(
+                np.int32))
+        stop = torch.from_numpy(rng.random((H, W)) < 0.05)
+        m = np.arange(4).reshape(1, 4, 1, 1)
+        K0 = torch.from_numpy(((rng.integers(0, 200, (D, 4, H, W)) << 2)
+                               | m).astype(np.int32))
+        args = (cfg, K0, allowed, is_road, pa, stop)
+        sd, wn = _routing_rows(*args, 0, H, dec)
+        for q in (Q, Q + 3, Q - 1, K + 1):
+            lo, hi = _window(H, dec, q)
+            assert 0 < lo and hi < H
+            s2, w2 = _routing_rows(*args, lo, hi, dec)
+            if q >= Q:
+                assert torch.equal(s2, sd) and torch.equal(w2, wn), (seed, q)
+            elif q == Q - 1:
+                short += int(not torch.equal(s2, sd))
+            else:
+                assert torch.equal(w2, wn), (seed, q)
+    assert short > 0
+    # K3 alone: open road, every direction legal, one blocker K_OVT + 1
+    # rows beyond each edge of the decide window
+    road = torch.ones((H, W), dtype=torch.bool)
+    every = torch.full((H, W), 15, dtype=torch.uint8)
+    hard = torch.zeros((H, W), dtype=torch.bool)
+    hard[dec[0] - K - 1, 3] = hard[dec[1] + K, W - 4] = True
+    whole = engine.build_wavefront(cfg, every, road, hard)[dec[0]:dec[1]]
+    for q in (K + 1, K):
+        lo, hi = _window(H, dec, q)
+        got = engine.build_wavefront(cfg, every[lo:hi], road[lo:hi],
+                                     hard[lo:hi])[dec[0] - lo:dec[1] - lo]
+        edge = q == K
+        assert (got != whole).any(1).tolist() == \
+            [edge] + [False] * (dec[1] - dec[0] - 2) + [edge], q
+

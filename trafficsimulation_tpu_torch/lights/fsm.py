@@ -61,8 +61,7 @@ def _prefix_planes(occupancy: torch.Tensor) -> torch.Tensor:
 
 
 def build_dense_reducers(cfg: Config, grid: Grid, ls: LightStatic,
-                         build_m: bool = True, build_a: bool = True,
-                         slab=None):
+                         build_m: bool = True, build_a: bool = True):
     """Dense one-hot matrices for the two per-tick geometry reductions,
     built once per chunk from the static geometry (the JAX
     `build_dense_reducers`):
@@ -76,26 +75,16 @@ def build_dense_reducers(cfg: Config, grid: Grid, ls: LightStatic,
     Exact: the operands are 0/1.  M is f32, so the counts are exact
     integers below 2^24 on every device; the stop map only asks whether
     a count is positive, which a bf16 product of 0/1 operands answers
-    exactly.
-
-    `slab` (`parallel/spatial.Slab`; `grid` the route window's): M's
-    rows of the rank's own cells and A's columns of its route window's
-    cells."""
+    exactly."""
     H, W = grid.cell_type.shape
     HW = H * W
     G = int(cfg.capacities().max_groups)
     L = ls.valid.shape[0]
     dev = ls.valid.device
     M = A = None
-    qg, qb = grid.queue_group, grid.queue_bucket
-    pos, road = ls.pos, ls.assign_road
-    if slab is not None:
-        qg, qb = (slab.crop(x, slab.route, slab.own) for x in (qg, qb))
-        pos, road = (torch.where(c >= 0, slab.local(c, slab.route),
-                                 HW) for c in (pos, road))
     if build_m:
-        qg = qg.reshape(-1).to(torch.int32)
-        qb = qb.reshape(-1).to(torch.int32)
+        qg = grid.queue_group.reshape(-1).to(torch.int32)
+        qb = grid.queue_bucket.reshape(-1).to(torch.int32)
         seg = torch.where(qg >= 0, qg * 5 + qb, G * 5)
         M = (seg[:, None] == torch.arange(G * 5 + 1, dtype=torch.int32,
                                           device=dev)[None, :]
@@ -103,10 +92,10 @@ def build_dense_reducers(cfg: Config, grid: Grid, ls: LightStatic,
     if build_a:
         # column HW is the sink of the dropped writes
         A = torch.zeros((L, HW + 1), dtype=torch.bfloat16, device=dev)
-        pc = torch.where(ls.assign_valid, road, HW).long()
+        pc = torch.where(ls.assign_valid, ls.assign_road, HW).long()
         A[torch.clamp(ls.assign_light, 0, L - 1).long(), pc] = 1
         A[torch.arange(L, device=dev),
-          torch.where(ls.valid, pos, HW).long()] = 1
+          torch.where(ls.valid, ls.pos, HW).long()] = 1
         A = A[:, :HW].contiguous()
     return M, A
 
@@ -133,17 +122,15 @@ def group_reductions(grid: Grid, occupancy: torch.Tensor, num_groups: int,
                      slab=None):
     """Per-group (ns_in, ns_out, ew_in, ew_out) queue counts and the
     intersection-occupied flag (bucket 4), from the run tables or, with
-    `dense_m`, as one matrix product.  `slab` (`parallel/spatial.Slab`):
-    `occupancy` is a rank's own rows; each rank counts the parts of the
-    runs in its rows (a row run lies in one rank's rows; a column run is
-    clipped to them, `Slab.prepare`), and one all-reduce sums them."""
+    `dense_m`, as one matrix product.  `slab` (`parallel/spatial.Slab`;
+    the run tables only): `occupancy` is a rank's own rows; each rank
+    counts the parts of the runs in its rows (a row run lies in one
+    rank's rows; a column run is clipped to them, `Slab.prepare`), and
+    one all-reduce sums them."""
     G = num_groups
     if dense_m is not None:
         q = torch.matmul(occupancy.reshape(-1).to(torch.float32), dense_m)
-        q = q[:G * 5]
-        if slab is not None:
-            q = slab.sum_counts(q)
-        q = q.to(torch.int32).reshape(G, 5)
+        q = q[:G * 5].to(torch.int32).reshape(G, 5)
         return (q[:, NS_IN], q[:, NS_OUT], q[:, EW_IN], q[:, EW_OUT],
                 q[:, 4] > 0)
     P = _prefix_planes(occupancy)
@@ -305,8 +292,9 @@ def build_stop_map(grid: Grid, ls: LightStatic, state: LightsState,
     to a diff buffer and one cumsum per axis covers the run; cells owned
     by another light's run keep OR semantics through the extras.  With
     `dense_a`, one product light_stop @ A instead.  `slab`
-    (`parallel/spatial.Slab`; `grid` the route window's): the route
-    window's rows, the runs clipped to them (`Slab.prepare`)."""
+    (`parallel/spatial.Slab`; the run tables only; `grid` the route
+    window's): the route window's rows, the runs clipped to them
+    (`Slab.prepare`)."""
     H, W = grid.cell_type.shape
     HW = H * W
     L = ls.valid.shape[0]

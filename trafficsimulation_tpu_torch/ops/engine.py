@@ -518,8 +518,6 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
     tick = es.tick
     elapsed = es.elapsed + dt
     present = (es.pa & 1) == 1
-    if slab is not None:
-        slab.new_tick()
 
     # ---- lights (commit first so decide reads the fresh stop map) --------
     lights, rl_state, rl_request = es.lights, es.rl, None

@@ -196,7 +196,6 @@ class Slab:
     stats: dict = dataclasses.field(default_factory=lambda: {
         "all_reduce": 0, "bytes": 0, "host_s": 0.0, "largest": 0})
     _bands: dict = dataclasses.field(default_factory=dict)
-    _memo: dict = dataclasses.field(default_factory=dict)
 
     # ---- rows ------------------------------------------------------------
     @property
@@ -246,11 +245,6 @@ class Slab:
             "sextra": torch.where(ls.sextra_cell >= 0, local_cells(
                 ls.sextra_cell, W, r0, r1), -1)}
 
-    def local(self, cells: torch.Tensor, rows: tuple) -> torch.Tensor:
-        """Global flat cells -> the flat index in rows `rows`, or the
-        sink (their cell count)."""
-        return local_cells(cells, self.W, *rows)
-
     def cells(self, cells: torch.Tensor) -> torch.Tensor:
         """Global flat cells (in range) -> the own rows' flat index, or
         the sink (the own cell count)."""
@@ -298,19 +292,6 @@ class Slab:
         """An f32 tensor of integer-valued partial sums (below 2^24)
         summed over the group as int32: exact, as the unsharded sum."""
         return self.all_sum([x.to(torch.int32)])[0].to(x.dtype)
-
-    def flows(self, key, fn):
-        """`fn()` (the group sums of a plane that `key` is) once a tick:
-        the RL features read one plane's sums twice."""
-        hit = self._memo.get(id(key))
-        if hit is not None and hit[0] is key:
-            return hit[1]
-        out = fn()
-        self._memo[id(key)] = (key, out)
-        return out
-
-    def new_tick(self) -> None:
-        self._memo.clear()
 
     def _band(self, width: int) -> dict:
         """The band buffer's plan for halos of `width`: the rows this
@@ -525,13 +506,12 @@ def shard_world(world: World | None, mesh: Mesh, cfg: Config,
 
 
 def run_chunk_spatial(cfg: Config, sworld: SpatialWorld, n_ticks: int,
-                      mesh: Mesh, dense_reducers: bool = False
-                      ) -> SpatialWorld:
+                      mesh: Mesh) -> SpatialWorld:
     """Advance a split world n_ticks (JAX's `run_chunk_spatial`): the key
     chain and the RL plan walked on every rank alike (`sim._chain`), then
     `sim.advance` with the rank's `Slab` on the per-tick path (the
-    megakernel branch is never taken).  `dense_reducers`: the dense
-    light reductions, M's own rows and A's route-window columns."""
+    megakernel branch is never taken; the light reductions are the
+    sparse forms that the unsharded `sim.run_chunk` takes by default)."""
     from .. import sim
     check_config(cfg)
     slab = sworld.slab
@@ -547,10 +527,8 @@ def run_chunk_spatial(cfg: Config, sworld: SpatialWorld, n_ticks: int,
     dev = world.grid.is_road.device
     slab.prepare(world)
     draws, plan, key = sim._chain(cfg, world, n_ticks)
-    dense = sim.reducer_matrices(cfg, world, slab) if dense_reducers \
-        else None
     end = sim.advance(cfg, world, n_ticks, torch.from_numpy(draws).to(dev),
-                      dense, plan, slab=slab)
+                      None, plan, slab=slab)
     return SpatialWorld(world=end.replace(key=sim._key_tensor(key, dev)),
                         slab=slab)
 

@@ -513,8 +513,12 @@ def srl_step(cfg: Config, ts: SRLTrain, grid, gs, lights, occupancy,
              stuck_map, tick: RLTick, slab=None):
     G = gs.valid.shape[0]
     net = net_of(cfg)
+    flows = features.group_flows(grid, occupancy, G, slab)
+    sflows = (features.group_flows(grid, stuck_map, G, slab)
+              if cfg.SRL_PUNISH_STUCK or cfg.SRL_INPUT_DIMENSIONS > 13
+              else None)
     s = features.srl_state(cfg, grid, gs, lights, occupancy, stuck_map,
-                           slab)
+                           flows, sflows)
     with torch.no_grad():
         logits = nets.apply(net, ts.params, s)
     action = torch.argmax(logits + tick.gumbel, dim=-1).to(torch.int32)
@@ -523,10 +527,10 @@ def srl_step(cfg: Config, ts: SRLTrain, grid, gs, lights, occupancy,
         cfg, lights, active, action, cfg.SRL_MIN_GREEN)
 
     # reward: -(queue) [+ stuck penalty] (the JAX module docstring)
-    ln, le = features.group_flows(grid, occupancy, G, slab)
+    ln, le = flows
     neg = ln + le
     if cfg.SRL_PUNISH_STUCK:
-        sn, se = features.group_flows(grid, stuck_map, G, slab)
+        sn, se = sflows
         neg = neg + (sn + se) * cfg.SRL_PUNISH_STUCK_FACTOR
     rows, nput = _store_rows(ts, gs.valid, dict(buf_s=s, buf_a=action,
                                                 buf_r=-neg))
@@ -560,7 +564,8 @@ def a2c_step(cfg: Config, ts: A2CTrain, grid, gs, lights, occupancy,
              tick: RLTick, slab=None):
     G = gs.valid.shape[0]
     net = net_of(cfg)
-    s = features.a2c_state(cfg, grid, gs, lights, occupancy, slab)
+    flows = features.group_flows(grid, occupancy, G, slab)
+    s = features.a2c_state(cfg, grid, gs, lights, occupancy, flows)
     with torch.no_grad():
         logits, value = nets.apply(net, ts.params, s)
     action = torch.argmax(logits + tick.gumbel, dim=-1).to(torch.int32)
@@ -570,7 +575,7 @@ def a2c_step(cfg: Config, ts: A2CTrain, grid, gs, lights, occupancy,
         cfg.TRAFFIC_LIGHT_PRESSURE_CONTROL_MIN_GREEN)
 
     # reward = -(queue + 0.25 * pressure^2) (`rl_a2c.py:160-164`)
-    ln, le = features.group_flows(grid, occupancy, G, slab)
+    ln, le = flows
     reward = -(ln + le + 0.25 * (ln - le) ** 2)
 
     t = (ts.t.reshape(1).long(),)
@@ -634,12 +639,13 @@ def gat_step(cfg: Config, ts: GATTrain, grid, gs, lights, occupancy,
     0.01 * avg_trip_duration + 1.0 * avg_time_per_cell."""
     G = gs.valid.shape[0]
     net = net_of(cfg)
+    flows = features.group_flows(grid, occupancy, G, slab)
     feats, mask = features.gat_state(cfg, grid, gs, lights, occupancy,
-                                     slab)
+                                     flows)
 
     # complete last tick's pending (s, a) with the now observable
     # post-action state and reward
-    ln, le = features.group_flows(grid, occupancy, G, slab)
+    ln, le = flows
     reward = -(ln + le + trip_penalty)
     rows, _ = _store_rows(ts, ts.pend_valid & gs.valid, dict(
         buf_s=ts.pend_s, buf_m=ts.pend_m, buf_a=ts.pend_a, buf_r=reward,
@@ -688,7 +694,8 @@ def rl_controller_step(cfg: Config, rl_state, grid, gs, lights, occupancy,
     """One controller step of algorithm cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM:
     (train state, lights, want, phase request).  `slab`
     (`parallel/spatial.Slab`): `grid`, `occupancy` and `stuck_map` are a
-    rank's own rows, and the features' flows the group's sums."""
+    rank's own rows, and the flows (once a step for each plane) the
+    group's sums."""
     algo = cfg.TRAFFIC_LIGHT_AGENT_ALGORITHM
     if algo in SRL_ALGOS:
         return srl_step(cfg, rl_state, grid, gs, lights, occupancy,

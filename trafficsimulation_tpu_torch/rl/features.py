@@ -6,9 +6,11 @@ the f32 sums are exact in any order.  `neighbor_mean` takes all the
 columns a state needs in one gather, adds the neighbours in the order
 d = 0..3 and divides once, as JAX's loop does per column; the
 timer feature is the multiply by the f32 reciprocal of 30 into which XLA's
-jitted compile turns JAX's division.  Every feature equals JAX's bit for bit.  On a world split by rows
-(`parallel/spatial.py`) the flows are the ranks' partial sums plus one
-all-reduce of integers: exact, as the unsharded sums.
+jitted compile turns JAX's division.  Every feature equals JAX's bit for
+bit.  On a world split by rows (`parallel/spatial.py`) the flows are the
+ranks' partial sums plus one all-reduce of integers: exact, as the
+unsharded sums.  A controller step computes each plane's flows once and
+hands them to its state builder (`flows=`).
 """
 
 from __future__ import annotations
@@ -26,15 +28,7 @@ def group_flows(grid: Grid, flow_map: torch.Tensor, num_groups: int,
     """(local_ns, local_ew) per group: the sum of flow_map over the
     group's in-flow lane cells, f32 [G] each.  `slab`
     (`parallel/spatial.Slab`): `grid` and `flow_map` are a rank's own
-    rows, and the group's sums come from one all-reduce of integers
-    (once a tick for a plane)."""
-    if slab is not None:
-        return slab.flows(flow_map, lambda: _flows(grid, flow_map,
-                                                   num_groups, slab))
-    return _flows(grid, flow_map, num_groups)
-
-
-def _flows(grid: Grid, flow_map: torch.Tensor, num_groups: int, slab=None):
+    rows, and the group's sums come from one all-reduce of integers."""
     G = num_groups
     qg = grid.queue_group.reshape(-1)
     qb = grid.queue_bucket.reshape(-1).to(torch.int32)
@@ -77,16 +71,19 @@ def _phase_cols(lights):
 
 
 def srl_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy,
-              stuck_map, slab=None):
+              stuck_map, flows=None, stuck_flows=None):
     """REINFORCE's state, SRL_INPUT_DIMENSIONS (7, 11, 13, 17 or 19)
-    columns, f32 [G, dim]."""
+    columns, f32 [G, dim].  `flows`, `stuck_flows`: the `group_flows` of
+    `occupancy` and `stuck_map` where the caller has them."""
     G = gs.valid.shape[0]
-    ln, le = group_flows(grid, occupancy, G, slab)
+    ln, le = flows if flows is not None else \
+        group_flows(grid, occupancy, G)
     p_ns, p_ew = ln - le, le - ln
     cols = [ln, le, p_ns, p_ew, *_phase_cols(lights)]
     dim = cfg.SRL_INPUT_DIMENSIONS
     if dim > 13:
-        sn, se = group_flows(grid, stuck_map, G, slab)
+        sn, se = stuck_flows if stuck_flows is not None else \
+            group_flows(grid, stuck_map, G)
     # every neighbour mean of the row in one pass
     src = []
     if dim > 7:
@@ -108,10 +105,12 @@ def srl_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy,
 
 
 def a2c_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy,
-              slab=None):
-    """A2C's 13 state columns, f32 [G, 13]."""
+              flows=None):
+    """A2C's 13 state columns, f32 [G, 13].  `flows`: the `group_flows`
+    of `occupancy` where the caller has them."""
     G = gs.valid.shape[0]
-    ln, le = group_flows(grid, occupancy, G, slab)
+    ln, le = flows if flows is not None else \
+        group_flows(grid, occupancy, G)
     p_ns, p_ew = ln - le, le - ln
     m = neighbor_mean(gs, torch.stack([p_ns, p_ew, gs.intersection_size,
                                        gs.penalty_score], 1)).unbind(1)
@@ -121,11 +120,13 @@ def a2c_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy,
 
 
 def gat_state(cfg, grid: Grid, gs: GroupStatic, lights, occupancy,
-              slab=None):
+              flows=None):
     """GAT-DQN's star graph: (1 + 4 neighbours) x 9 features, f32
-    [G, 5, 9], and the validity mask, f32 [G, 5]."""
+    [G, 5, 9], and the validity mask, f32 [G, 5].  `flows`: the
+    `group_flows` of `occupancy` where the caller has them."""
     G = gs.valid.shape[0]
-    ln, le = group_flows(grid, occupancy, G, slab)
+    ln, le = flows if flows is not None else \
+        group_flows(grid, occupancy, G)
     node = torch.stack([ln, le, ln - le, le - ln, *_phase_cols(lights),
                         gs.intersection_size, gs.penalty_score], dim=1)
     has = gs.neighbor >= 0                                    # [G, 4]

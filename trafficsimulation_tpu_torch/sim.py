@@ -563,14 +563,13 @@ def step_device(cfg: Config, world: World, draws: torch.Tensor,
     return _exit_engine(cfg, world, es)
 
 
-def reducer_matrices(cfg: Config, world: World, slab=None):
+def reducer_matrices(cfg: Config, world: World):
     """The dense light-reduction matrices (M, A) that pay at this size
     (`fsm.dense_reducer_modes`), built once per chunk from the geometry
-    (None where the sparse form stays); with `slab`, a rank's part of
-    them (`fsm.build_dense_reducers`)."""
+    (None where the sparse form stays)."""
     m_ok, a_ok = fsm.dense_reducer_modes(cfg)
     return fsm.build_dense_reducers(cfg, world.grid, world.lights_static,
-                                    build_m=m_ok, build_a=a_ok, slab=slab)
+                                    build_m=m_ok, build_a=a_ok)
 
 
 def run_chunk(cfg: Config, world: World, n: int,
@@ -599,7 +598,11 @@ def advance(cfg: Config, world: World, n: int, draws: torch.Tensor,
     A function of tensors only, with no host sync, so that it runs under
     vmap.  `slab` (`parallel/spatial.Slab`, prepared): the world is a
     rank's part of a split world (`parallel/spatial.run_chunk_spatial`);
-    the per-tick path runs with it, never the megakernel branch."""
+    the per-tick path runs with it, never the megakernel branch, and the
+    light reductions take their sparse forms."""
+    if slab is not None and dense is not None:
+        raise ValueError("a split world takes the sparse light reductions "
+                         "(dense=None)")
     dev = world.grid.is_road.device
     es = _enter_engine(cfg, world, slab)
     R = max(1, cfg.PATHFINDING_COOLDOWN) if cfg.PATHFINDING_CACHE else 1
