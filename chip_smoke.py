@@ -265,6 +265,29 @@ Phases (any failure raises and the script exits nonzero):
      inputs cut to an edge and an inner rank's windows of 4 and the first
      of 2, against their plain versions.  `--only spatial_scaling`
      (development, no gate) times the headline over 1, 2 and 4 ranks.
+ 23. config #5 split over ranks by rows (group `spatial_hier`): the
+     1024^2 world with 100k vehicles under hierarchical routing (group
+     `config5`'s, or built here), 10 ticks (two routing segments) in
+     this process, counting the vehicles whose row changes owner; then
+     written to a file that rank 0 of one spawn of 4 ranks (gloo, the
+     card shared) loads, split over 2 and 4 ranks: every leaf equal to
+     the one-process run by sha256; each rank launches K1-hier and K4 a
+     tick, K2 and K3 a segment, K9 never; each rank's dense key stack and
+     `local_sdir4` hold its decide window's rows alone (printed beside
+     the whole world's bytes and the window's limit, with the peak
+     memory and all-reduces a tick).  K1-hier on config #5's first-tick
+     inputs cut to an edge and an inner rank's decide windows of 4, with
+     the window's first world row, against its plain version.
+ 24. config #3 split over ranks by rows (group `spatial_peds`): the 256^2
+     world with pedestrians (group `config3`'s start, or built here), 23
+     ticks in this process, counting the walkers and crossers that step
+     across a slab edge (`step_pedestrians_plain(flux=True)` on each
+     tick's inputs), then split over 2 and 4 ranks as above: every leaf
+     equal, the pedestrian step launched once a tick on every rank.  The
+     pedestrian step on the inputs of the next tick cut to an edge and
+     an inner rank's pedestrian windows (the decide window widened by
+     `engine.PED_REACH`), with the window's first world row, against its
+     plain version.
 
 The line before the last is the kernels' JSON summary, the one before it
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -448,7 +471,8 @@ PED_DIGEST = os.path.join("trafficsimulation_tpu_torch", "data",
 PHASES = ("kernels", "ordered_add", "headline", "mega", "mega_batch",
           "hier_digest",
           "config4", "config5", "config3", "config1", "tiled", "render",
-          "bridge", "rl", "rl_batch", "mesh", "spatial")
+          "bridge", "rl", "rl_batch", "mesh", "spatial", "spatial_hier",
+          "spatial_peds")
 # development groups, run only when named in --only: `forms` times K1's
 # forms over K1_SWEEP worlds and the pedestrian step (phase_forms),
 # `select_rows` K6 alone (phase_select_rows), `mesh_scaling` the B = 16
@@ -1561,6 +1585,7 @@ def phase_config5(HE, engine, tsim, card, prng, Config):
     t_build = time.perf_counter() - t0
     world, t_inj = timed(lambda: tsim.inject_vehicles(cfg3, world,
                                                       CONFIG5_VEHICLES))
+    CONFIG5_START["world"] = (cfg3, world, t_build)
     n0 = int(world.vehicles.active.sum())
     bs = world.blocks_static
     unroutable = int((bs.valid & (bs.dest < 0)).sum())
@@ -2078,6 +2103,17 @@ def phase_pedestrians(HE) -> dict:
     return out
 
 
+def config3_world(tsim, prng, Config):
+    """(cfg, world): BASELINE config #3 as the bench builds it, from the
+    digest's seed, shrunk, with its vehicles injected."""
+    with open(os.path.join(ROOT, PED_DIGEST)) as f:
+        dig = json.load(f)["config3"]
+    base = Config(**CONFIG3)
+    world = tsim.init_world(base, prng.PRNGKey(dig["seed"]), "cuda")
+    cfg, world = tsim.measure_and_shrink(base, world)
+    return cfg, tsim.inject_vehicles(cfg, world, dig["n_vehicles"])
+
+
 def phase_config3(HE, tsim, transfer, card, prng, Config):
     """BASELINE config #3 on the card: the world generated as the bench
     builds it, held to the JAX digest at init and after 100 and 200 ticks
@@ -2090,11 +2126,8 @@ def phase_config3(HE, tsim, transfer, card, prng, Config):
     with open(os.path.join(ROOT, PED_DIGEST)) as f:
         dig = json.load(f)["config3"]
     n = dig["chunk"]
-    base = Config(**CONFIG3)
-    world, t_gen = timed(lambda: tsim.init_world(
-        base, prng.PRNGKey(dig["seed"]), "cuda"))
-    cfg, world = tsim.measure_and_shrink(base, world)
-    world = tsim.inject_vehicles(cfg, world, dig["n_vehicles"])
+    (cfg, world), t_gen = timed(lambda: config3_world(tsim, prng, Config))
+    CONFIG3_START["world"] = (cfg, world)
     for k, v in dig["cfg"].items():
         want = (tuple(tuple(p) for p in v) if k == "CAP_OVERRIDES" else v)
         if getattr(cfg, k) != want:
@@ -4430,6 +4463,316 @@ def phase_spatial(cfg, world, card, HE, tsim, transfer, mesh, Config):
     return out[0][0][str(SPATIAL_RANKS)]["launches"], rep["kernels"]
 
 
+SPATIAL_HIER_TICKS = 10      # two routing segments of config #5
+SPATIAL_PEDS_TICKS = 23
+# the windows whose K1-hier and pedestrian step are held to their plain
+# versions: an edge and an inner rank of 4
+SPATIAL_EDGE_INNER = ((4, 0), (4, 1))
+CONFIG5_START = {}    # "world": (cfg, world, build seconds), phase_config5's
+CONFIG3_START = {}    # "world": (cfg, world), phase_config3's
+
+
+def split_need(cfg, ticks: int, peds: bool = False) -> dict:
+    """Each rank's launches over `ticks` ticks of a split world: K1 (or
+    K1-hier) and K4 a tick, K2 and K3 a routing segment, no K9, K5 or K6;
+    rain a tick where it is on, the pedestrian step a tick with them."""
+    segs = -(-ticks // max(1, cfg.PATHFINDING_COOLDOWN))
+    return {"k1": ticks, "prefix_planes": ticks, "build_sdir": segs,
+            "build_wavefront": segs, "k9": 0, "build_sdir_batched": 0,
+            "select_rows": 0, "rain_ticks": ticks if cfg.RAIN_ENABLED else 0,
+            "step_pedestrians": ticks if peds else 0}
+
+
+def split_runs(label, cfg, path, ticks, want, need, card, mesh,
+               crossings) -> tuple:
+    """The world `ranks.save_world` wrote to `path`, split over 2 and 4
+    of SPATIAL_RANKS ranks sharing the card (gloo) for `ticks` ticks:
+    every leaf of the gathered world against the one-process digests
+    `want`, each rank's launches against `need`; per rank its rows, the
+    bytes of its key stack and windowed stack beside the whole world's
+    and the window's limit, peak memory and collectives.  Returns (rank
+    0's launches of the 4-rank run, the report)."""
+    from trafficsimulation_tpu_torch.parallel import launch, ranks, spatial
+    t0 = time.perf_counter()
+    out = launch.spawn(ranks.run_jobs, SPATIAL_RANKS, "gloo", args=([dict(
+        kind="spatial", cfg=cfg, ticks=ticks, world="file", path=path,
+        splits=SPATIAL_SPLITS, mega_env=True)],))
+    rep = {"spawn_s": time.perf_counter() - t0, "ticks": ticks,
+           "crossings": crossings}
+    P, _ = spatial.halo_widths(cfg)
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    for n in SPATIAL_SPLITS:
+        res = [o[0][str(n)] for o in out[:n]]
+        got = res[0]["digests"]
+        bad = mesh.diff_digests(want, {k: {x: v[x] for x in v if x !=
+                                           "array"} for k, v in got.items()})
+        if bad:
+            raise AssertionError(f"{label}: the split over {n} ranks differs "
+                                 f"from the one-process run: {bad[:8]}")
+        mesh_launches(f"{label} over {n} ranks",
+                      [x["launches"] for x in res], need)
+        rows = []
+        for x in res:
+            r = x["rank"]
+            d0, d1 = x["dec"]
+            lim = (H // n + (P if r in (0, n - 1) else 2 * P)) / H
+            stacks = {}
+            for k in ("cost_field", "local_sdir4"):
+                shape = x[f"{k}_shape"]
+                if shape is None:
+                    continue
+                whole = int(np.prod(shape[:-2])) * H * W * 4
+                share = x[f"{k}_bytes"] / whole
+                if share > lim + 1e-12 or shape[-2] != d1 - d0:
+                    raise AssertionError(f"{label}: rank {r} of {n} holds "
+                                         f"{share:.4%} of {k} (limit "
+                                         f"{lim:.4%})")
+                stacks[k] = {"bytes": x[f"{k}_bytes"], "whole_bytes": whole,
+                             "share": share, "limit": lim,
+                             "shape": list(shape)}
+            per_tick = x["stats"]["all_reduce"] / ticks
+            rows.append({
+                "rank": r, "own": x["own"], "dec": x["dec"],
+                "route": x["route"], "stacks": stacks,
+                "peak_allocated_bytes": x["peak_bytes"],
+                "collectives_per_tick": per_tick,
+                "collective_bytes_per_tick": x["stats"]["bytes"] / ticks,
+                "collective_host_ms_per_tick": x["stats"]["host_s"] * 1e3
+                / ticks,
+                "seconds": x["seconds"], "shard_s": x["shard_s"],
+                "gather_s": x["gather_s"], "launches": x["launches"]})
+            log(f"{label} ({card}): over {n} ranks, rank {r}: rows "
+                f"{x['own']}, decide window {x['dec']}; "
+                + "; ".join(f"{k} {v['bytes']} bytes of the whole "
+                            f"{v['whole_bytes']} ({v['share']:.4%}, limit "
+                            f"{v['limit']:.4%})" for k, v in stacks.items())
+                + f"; peak allocated {x['peak_bytes']} bytes; "
+                f"{per_tick:.3f} all-reduces a tick "
+                f"({rows[-1]['collective_bytes_per_tick']:.0f} bytes, "
+                f"{rows[-1]['collective_host_ms_per_tick']:.3f} host ms); "
+                f"{ticks} ticks in {x['seconds']:.3f} s (shard "
+                f"{x['shard_s']:.3f} s, gather {x['gather_s']:.3f} s); "
+                f"launches { {k: v for k, v in x['launches'].items() if v} }")
+        log(f"{label}: split over {n} ranks (TSIM_MEGA_FORCE set) equals the "
+            f"one-process {ticks}-tick end state on all {len(want)} leaves "
+            f"by sha256, f32 included")
+        rep[str(n)] = rows
+    return out[0][0][str(SPATIAL_RANKS)]["launches"], rep
+
+
+def chunk_digests(world, transfer, mesh) -> dict:
+    return {k: mesh.leaf_digest(v) for k, v in
+            transfer.world_to_numpy(world).items()}
+
+
+def vehicle_crossings(cfg, world, ticks, tsim) -> tuple:
+    """(the end state of `ticks` ticks in chunks of one routing segment,
+    which are the segments of one chunk; per split size the vehicles
+    whose row changed owner between two segments)."""
+    R = max(1, cfg.PATHFINDING_COOLDOWN)
+    seen, w = [world.vehicles], world
+    with mega_env(False):
+        for t in range(0, ticks, R):
+            w = tsim.run_chunk(cfg, w, min(R, ticks - t))
+            seen.append(w.vehicles)
+    out = {}
+    for n in SPATIAL_SPLITS:
+        rows = cfg.HEIGHT // n
+        out[str(n)] = sum(int((a.active & b.active & (
+            torch.div(a.pos, cfg.WIDTH * rows, rounding_mode="floor")
+            != torch.div(b.pos, cfg.WIDTH * rows, rounding_mode="floor")))
+            .sum()) for a, b in zip(seen, seen[1:]))
+    return w, out
+
+
+def window_tag(n, r, lo, hi, H):
+    return f"rank {r} of {n} (rows {lo}-{hi} of {H})"
+
+
+def spatial_hier_kernels(cfg, world, HE, tsim, spatial) -> dict:
+    """K1-hier on config #5's first-tick inputs cut to the decide windows
+    of SPATIAL_EDGE_INNER, with each window's first world row, against
+    its plain version (the decide core with `hier_select(row0)`)."""
+    from trafficsimulation_tpu_torch.ops import hier
+    (kcfg, *a), kw = tick_inputs(cfg, world, HE, tsim, "decide_move")
+    local4, consts = kw["hier"]
+    if kw.get("row0", 0) != 0:
+        raise AssertionError("the one-process tick ran K1-hier with a row0")
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    P, Q = spatial.halo_widths(cfg)
+    out = {}
+    for n, r in SPATIAL_EDGE_INNER:
+        d0, d1 = spatial.Slab(H=H, W=W, rank=r, size=n, P=P, Q=Q).dec
+
+        def cut(x):
+            return x[..., d0:d1, :].contiguous()
+        sd, wnd, l4 = cut(a[0]), cut(a[1]), cut(local4)
+        planes = tuple(cut(p) for p in a[2])
+        masks = tuple(cut(m) for m in a[3:6])
+        inter, dest = cut(a[6]), cut(a[7])
+        rnd = tuple(cut(x) for x in a[8])
+        present = (planes[0] & 1) == 1
+        p, _ = hier.hier_rows(kcfg, (planes[0] >> 18) & ((1 << 14) - 1), d0)
+        n_veh = int(present.sum())
+        n_win = int((present & (p >= 0)).sum())
+        nbytes, ops = k1_cost(planes, kcfg, shared_geometry=True,
+                              stack_words=n_veh + n_win)
+
+        def plain(sd=sd, wnd=wnd, planes=planes, masks=masks, inter=inter,
+                  dest=dest, rnd=rnd, l4=l4, d0=d0):
+            return HE.decide_move_core(
+                kcfg, sd, wnd, *planes, *masks, inter, dest, *rnd,
+                select=lambda d: hier.hier_select(kcfg, sd, l4, d, d0))
+        tile = "inside a tile" if d0 % kcfg.HIER_TILE else "on a tile edge"
+        m = measure(
+            f"decide_move (K1-hier) on the decide window of "
+            f"{window_tag(n, r, d0, d1, H)}",
+            lambda sd=sd, wnd=wnd, planes=planes, masks=masks, inter=inter,
+            dest=dest, rnd=rnd, l4=l4, d0=d0: HE.decide_move(
+                kcfg, sd, wnd, planes, *masks, inter, dest, rnd,
+                hier=(l4, consts), row0=d0),
+            plain, nbytes, ops,
+            f"{d1 - d0}x{W} (rows {d0}-{d1}, first row {tile}), dense D4 = "
+            f"{sd.shape[0]}, windowed D4 = {l4.shape[0]}, {n_veh} vehicles "
+            f"({n_win} in their destination's window)", reps=10)
+        m.update(vehicles=n_veh, in_window=n_win, row0=d0)
+        out[f"{n}:{r}"] = m
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_ped_kernels(cfg, world, HE, tsim, spatial) -> dict:
+    """The pedestrian step on config #3's inputs of the tick after the
+    reference run, cut to the pedestrian windows (the decide window
+    widened by `engine.PED_REACH`) of SPATIAL_EDGE_INNER, with each
+    window's first world row, against its plain version."""
+    from trafficsimulation_tpu_torch.agents import pedestrians
+    from trafficsimulation_tpu_torch.ops import engine
+    a, _ = tick_inputs(cfg, world, HE, tsim, "step_pedestrians")
+    pcfg, walk, cross, cell, stop, seeds, n_side = a
+    H, W = cfg.HEIGHT, cfg.WIDTH
+    P, Q = spatial.halo_widths(cfg)
+    out = {}
+    for n, r in SPATIAL_EDGE_INNER:
+        lo, hi = spatial.Slab(H=H, W=W, rank=r, size=n, P=P, Q=Q).window(
+            P + engine.PED_REACH)
+
+        def cut(x):
+            return x[..., lo:hi, :].contiguous()
+        wk, cr, ct, st = cut(walk), cut(cross), cut(cell), cut(stop)
+        nbytes, ops = ped_cost(wk, ct, 1)
+        out[f"{n}:{r}"] = measure(
+            f"step_pedestrians on the pedestrian window of "
+            f"{window_tag(n, r, lo, hi, H)}",
+            lambda wk=wk, cr=cr, ct=ct, st=st, lo=lo: HE.step_pedestrians(
+                pcfg, wk, cr, ct, st, seeds, n_side, row0=lo),
+            lambda wk=wk, cr=cr, ct=ct, st=st, lo=lo:
+            pedestrians.step_pedestrians_plain(
+                pcfg, wk, cr, ct, st, seeds, n_side, row0=lo),
+            nbytes, ops, f"{hi - lo}x{W} (rows {lo}-{hi}), tick "
+            f"{int(world.tick)}, {int(wk.sum() + cr.sum())} pedestrians",
+            plain_reps=5)
+        out[f"{n}:{r}"]["row0"] = lo
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spatial_hier(card, HE, tsim, transfer, mesh, prng, Config):
+    """Config #5 at full size split over ranks by rows (group
+    `spatial_hier`, see the module docstring)."""
+    import tempfile
+    from trafficsimulation_tpu_torch.parallel import ranks, spatial
+    t_start = time.perf_counter()
+    if "world" in CONFIG5_START:
+        cfg, world, t_build = CONFIG5_START.pop("world")
+    else:
+        world, t_build = timed(lambda: tsim.init_world_hier(
+            Config(**CONFIG5), prng.PRNGKey(0), "cuda"))
+        cfg, world = world
+        world = tsim.inject_vehicles(cfg, world, CONFIG5_VEHICLES)
+    end, crossings = vehicle_crossings(cfg, world, SPATIAL_HIER_TICKS, tsim)
+    if not all(c > 0 for c in crossings.values()):
+        raise AssertionError(f"spatial_hier: no vehicle crossed a slab "
+                             f"edge: {crossings}")
+    want = chunk_digests(end, transfer, mesh)
+    del end
+    log(f"spatial_hier: config #5's one-process {SPATIAL_HIER_TICKS} ticks; "
+        f"vehicles whose row changed owner between routing segments, by "
+        f"ranks: {crossings}")
+    kern = spatial_hier_kernels(cfg, world, HE, tsim, spatial)
+    with tempfile.TemporaryDirectory(prefix="tsim_split_") as tmp:
+        path = os.path.join(tmp, "config5.pt")
+        _, t_save = timed(lambda: ranks.save_world(world, path))
+        del world
+        torch.cuda.empty_cache()
+        launches, rep = split_runs(
+            "spatial_hier (config #5)", cfg, path, SPATIAL_HIER_TICKS, want,
+            split_need(cfg, SPATIAL_HIER_TICKS), card, mesh, crossings)
+    rep.update(card=card, kernels=kern, build_s=t_build, save_s=t_save,
+               phase_s=time.perf_counter() - t_start)
+    log(f"spatial_hier ({card}): world built in {t_build:.2f} s in this "
+        f"process, written in {t_save:.2f} s for rank 0; spawn, shard, run "
+        f"and gather over 2 and 4 ranks {rep['spawn_s']:.2f} s; group "
+        f"{rep['phase_s']:.2f} s")
+    REPORT["spatial_hier"] = rep
+    return launches, kern
+
+
+def phase_spatial_peds(card, HE, tsim, transfer, mesh, prng, Config):
+    """Config #3 split over ranks by rows (group `spatial_peds`, see the
+    module docstring)."""
+    import tempfile
+    from trafficsimulation_tpu_torch.agents import pedestrians
+    from trafficsimulation_tpu_torch.parallel import ranks, spatial
+    t_start = time.perf_counter()
+    if "world" in CONFIG3_START:
+        cfg, world = CONFIG3_START.pop("world")
+    else:
+        cfg, world = config3_world(tsim, prng, Config)
+    ticks = SPATIAL_PEDS_TICKS
+    flows = []
+    step = HE.step_pedestrians
+
+    def spy(c, walk, cross, cell, stop, seeds, n_side, row0=0):
+        flows.append(pedestrians.step_pedestrians_plain(
+            c, walk, cross, cell, stop, seeds, n_side, row0, flux=True)[4])
+        return step(c, walk, cross, cell, stop, seeds, n_side, row0)
+    HE.step_pedestrians = spy
+    try:
+        with mega_env(False):
+            end = tsim.run_chunk(cfg, world, ticks)
+    finally:
+        HE.step_pedestrians = step
+    crossed = {}
+    for n in SPATIAL_SPLITS:
+        h = cfg.HEIGHT // n
+        crossed[str(n)] = sum(int(f[0, b * h - 1].sum() + f[2, b * h].sum())
+                              for f in flows for b in range(1, n))
+    if len(flows) != ticks or not all(c > 0 for c in crossed.values()):
+        raise AssertionError(f"spatial_peds: {len(flows)} pedestrian steps, "
+                             f"walkers across slab edges {crossed}")
+    want = chunk_digests(end, transfer, mesh)
+    peds = int(end.peds.walk.sum() + end.peds.cross.sum())
+    log(f"spatial_peds: config #3's one-process {ticks} ticks, {peds} "
+        f"pedestrians; walkers and crossers that stepped across a slab "
+        f"edge, by ranks: {crossed}")
+    kern = spatial_ped_kernels(cfg, end, HE, tsim, spatial)
+    del end
+    with tempfile.TemporaryDirectory(prefix="tsim_split_") as tmp:
+        path = os.path.join(tmp, "config3.pt")
+        ranks.save_world(world, path)
+        del world
+        torch.cuda.empty_cache()
+        launches, rep = split_runs(
+            "spatial_peds (config #3)", cfg, path, ticks, want,
+            split_need(cfg, ticks, peds=True), card, mesh, crossed)
+    rep.update(card=card, kernels=kern, pedestrians=peds,
+               phase_s=time.perf_counter() - t_start)
+    log(f"spatial_peds ({card}): group {rep['phase_s']:.2f} s")
+    REPORT["spatial_peds"] = rep
+    return launches, kern
+
+
 def phase_spatial_scaling(cfg, card):
     """Development timing, no gate: the headline world split over 1, 2
     and 4 ranks on the one card (gloo), the per-tick path."""
@@ -4634,6 +4977,16 @@ def main():
     if run & {"mesh", "spatial"}:
         del world
         torch.cuda.empty_cache()
+    if "spatial_hier" in run:
+        l_sh, k_sh = phase_spatial_hier(card, HE, tsim, transfer, mesh, prng,
+                                        Config)
+        stamp("spatial_hier")
+    if "spatial_peds" in run:
+        l_sp, k_sp = phase_spatial_peds(card, HE, tsim, transfer, mesh, prng,
+                                        Config)
+        stamp("spatial_peds")
+    CONFIG5_START.clear()
+    CONFIG3_START.clear()
     REPORT["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke phases took {REPORT['seconds']:.1f} s")
     if run != set(PHASES):
@@ -4706,8 +5059,11 @@ def main():
                  "launches_mesh_path": l_mesh["mesh"][ctr],
                  "launches_mesh_mega_path": l_mesh["mesh_mega"][ctr],
                  # rank 0 of the headline split over 4 ranks by rows
-                 # (group `spatial`)
+                 # (group `spatial`), of config #5's and config #3's
+                 # (`spatial_hier`, `spatial_peds`)
                  "launches_spatial_path": l_spatial[ctr],
+                 "launches_spatial_hier_path": l_sh[ctr],
+                 "launches_spatial_peds_path": l_sp[ctr],
                  "on_path": k not in OFF_PATH}
         if path == "config4":
             entry["odd_batch"] = {x: k_c4[f"B={CONFIG4_ODD_B}"][k][x]
@@ -4743,6 +5099,12 @@ def main():
                  "prefix_planes"):
             entry["spatial"] = {w: {x: v[k][x] for x in SUB_KEYS}
                                 for w, v in k_spatial.items()}
+        if k == "decide_move":
+            entry["spatial_hier"] = {w: {x: v[x] for x in SUB_KEYS}
+                                     for w, v in k_sh.items()}
+        if k == "step_pedestrians":
+            entry["spatial"] = {w: {x: v[x] for x in SUB_KEYS}
+                                for w, v in k_sp.items()}
         if k == "build_sdir_batched":
             entry["code"] = {x: m["code"][x] for x in (
                 "ptxas", "per_key_world", "alu_per_key_world")}

@@ -441,18 +441,24 @@ def one_rank(tmp_path_factory):
 
 
 def test_refusals_name_item_15c(one_rank):
-    """Hierarchical routing and pedestrians raise ValueError naming
-    ROADMAP item 15c; none falls back."""
-    for kw in ({"ROUTING_HIER": True}, {"PEDESTRIANS_ENABLED": True}):
-        with pytest.raises(ValueError, match="ROADMAP item 15c"):
-            spatial.check_config(dryrun_cfg().replace(**kw))
+    """What the split still refuses: a leaf with the grid's rows that it
+    knows no window for raises ValueError naming the leaf (the
+    pedestrians' planes and hierarchical routing's windowed stack, once
+    refused, are known); a world with pedestrians lays out, its count
+    planes by rows and n_side replicated."""
+    with pytest.raises(ValueError, match=r"\['extra.plane'\] carry the "
+                       "grid's rows, and the split knows no window"):
+        spatial._check_rows({"extra.plane": "rows", "peds.walk": "rows",
+                             "local_sdir4": "rows", "grid.is_road": "rows"})
+    spatial._check_rows({"peds.walk": "rows", "peds.cross": "rows",
+                         "local_sdir4": "rows", "dests.rid": "replicated"})
     cfg = Config(WIDTH=32, HEIGHT=32, MAX_FIELD_DESTS=8, MAX_VEHICLES=64,
                  PEDESTRIANS_ENABLED=True)
     w = synth.crossroad_world(cfg, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP item 15c"):
-        spatial.shard_world(w, one_rank, cfg)
-    with pytest.raises(ValueError, match="ROADMAP item 15c"):
-        spatial._check_rows({"peds.walk": "rows", "grid.is_road": "rows"})
+    sw = spatial.shard_world(w, one_rank, cfg)
+    assert {"peds.walk", "peds.cross", "ped_map"} <= sw.slab.row_leaves
+    assert "grid.n_side" not in sw.slab.row_leaves
+    assert torch.equal(sw.world.grid.n_side, w.grid.n_side)
 
 
 def test_one_rank_never_takes_the_megakernel(one_rank, monkeypatch):

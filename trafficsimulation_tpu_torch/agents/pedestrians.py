@@ -84,10 +84,12 @@ def _sround(n: torch.Tensor, p: torch.Tensor, u: torch.Tensor,
                          n)
 
 
-def uniform_planes(seeds: torch.Tensor, H: int, W: int):
+def uniform_planes(seeds: torch.Tensor, H: int, W: int, row0: int = 0):
     """One (0, 1) f32 plane per u32 seed (int64 [n]) by counter hashing:
-    hash32(y * W + x + seed) >> 8, times 2^-24."""
-    iota = torch.arange(H * W, dtype=torch.int64,
+    hash32(y * W + x + seed) >> 8, times 2^-24, for the rows from world
+    row `row0` (a window of a split world hashes its cells' world
+    indices)."""
+    iota = torch.arange(row0 * W, (row0 + H) * W, dtype=torch.int64,
                         device=seeds.device).reshape(H, W)
     unit = 1.0 / (1 << 24)
     return [(_hash32((iota + seeds[i]) & _M32) >> 8).to(torch.float32) * unit
@@ -97,14 +99,20 @@ def uniform_planes(seeds: torch.Tensor, H: int, W: int):
 def step_pedestrians_plain(cfg: Config, walk: torch.Tensor,
                            cross: torch.Tensor, cell_type: torch.Tensor,
                            stop_map: torch.Tensor, seeds: torch.Tensor,
-                           n_side: torch.Tensor = None):
+                           n_side: torch.Tensor = None, row0: int = 0,
+                           flux: bool = False):
     """One tick on the count planes (the JAX `step_pedestrians`).
     walk, cross int32 [4, H, W]; cell_type u8 [H, W]; stop_map bool
     [H, W]; seeds int64 [14] (u32 values: 4 keep, 8 take, 2 spawn);
     n_side: the sidewalk count (`Grid.n_side`), or None to count it
     here, as the JAX step does (the kernel's reference counts it).
+    `row0`: the world's row of the planes' first row (a window of a
+    world split by rows, `parallel/spatial.py`): the uniforms hash the
+    world's cell indices, and the planes' edges act as the world's.
     Returns (walk', cross', ped_block bool [H, W], ped_count int32
-    [H, W])."""
+    [H, W]); with `flux`, also what each cell sent one step along each
+    heading, int32 [4, H, W] (walkers and crossers: the flows across a
+    row boundary)."""
     H, W = cell_type.shape[-2:]
     i32, f32 = torch.int32, torch.float32
     walkable = ((cell_type == C.SIDEWALK) | (cell_type == C.BLOCK_ENTRANCE)
@@ -114,7 +122,7 @@ def step_pedestrians_plain(cfg: Config, walk: torch.Tensor,
              | (cell_type == C.INTERSECTION))
     cross_entry = (cell_type == C.CONTROLLED_ROAD) & stop_map
 
-    u = uniform_planes(seeds, H, W)
+    u = uniform_planes(seeds, H, W, row0)
     u_keep, u_take, u_spawn = u[0:4], u[4:12], u[12:14]
     aw = [_ahead(walkable, d) for d in range(4)]
     ar = [_ahead(roady, d) for d in range(4)]
@@ -122,6 +130,7 @@ def step_pedestrians_plain(cfg: Config, walk: torch.Tensor,
     zero = torch.zeros_like(walk[0])
     new_walk = [zero] * 4
     new_cross = [zero] * 4
+    sent = [zero] * 4
 
     # walking: keep heading / start crossing / redistribute
     n_alt = sum(a.to(i32) for a in aw)
@@ -136,6 +145,7 @@ def step_pedestrians_plain(cfg: Config, walk: torch.Tensor,
         rest = n - _sround(n, p, u_keep[d])
         new_walk[d] = new_walk[d] + _move(k_walk, d)
         new_cross[d] = new_cross[d] + _move(k - k_walk, d)
+        sent[d] = sent[d] + k
         pool = pool + torch.where(has_alt, rest, 0)
         new_walk[d] = new_walk[d] + torch.where(has_alt, 0, rest)
     # the re-pickers over the walkable directions in order, each taking
@@ -148,6 +158,7 @@ def step_pedestrians_plain(cfg: Config, walk: torch.Tensor,
                            0)
         take = torch.where(rem == 1, m, take) * aw[d]
         new_walk[d] = new_walk[d] + _move(take, d)
+        sent[d] = sent[d] + take
         m = m - take
         rem = rem - aw[d].to(i32)
 
@@ -159,6 +170,7 @@ def step_pedestrians_plain(cfg: Config, walk: torch.Tensor,
         on_road = torch.where(roady, landed, 0)
         new_cross[d] = new_cross[d] + on_road + (c - moved)
         new_walk[d] = new_walk[d] + (landed - on_road)
+        sent[d] = sent[d] + moved
 
     # lifetime thinning (walkers only)
     p_die = torch.tensor(np.float32(1.0 / PED_MEAN_LIFE_TICKS), device=walk.device)
@@ -181,4 +193,5 @@ def step_pedestrians_plain(cfg: Config, walk: torch.Tensor,
     walk2 = torch.stack(new_walk)
     cross2 = torch.stack(new_cross)
     csum = cross2.sum(0, dtype=i32)
-    return walk2, cross2, csum > 0, walk2.sum(0, dtype=i32) + csum
+    out = (walk2, cross2, csum > 0, walk2.sum(0, dtype=i32) + csum)
+    return out + (torch.stack(sent),) if flux else out

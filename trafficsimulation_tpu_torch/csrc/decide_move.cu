@@ -405,10 +405,11 @@ extern "C" int tsim_dm_plan(int B, int H, int W, int* out) {
 
 // K1-hier: one world under hierarchical routing.  `sdir4` [D4, H, W] is
 // the dense (hub and direct) stack, `local4` [LD4, H, W] the windowed
-// stack, `hc` the 10 constants of HierConsts.
+// stack, `hc` the 10 constants of HierConsts, `row0` the world's row of
+// the planes' first row (HierSelect).
 extern "C" int tsim_decide_move_hier(
-    const int* ip, const float* fp, const int* hc, const int* local4,
-    int LD4, const int* sdir4, int D4, const int* wnd, const int* pa,
+    const int* ip, const float* fp, const int* hc, int row0,
+    const int* local4, int LD4, const int* sdir4, int D4, const int* wnd, const int* pa,
     const int* pb, const int* pc, const int* pd, const int* pe,
     const float* pl, const uint8_t* stop, const uint8_t* rain,
     const uint8_t* ped, const uint8_t* inter, const int* dest_id,
@@ -418,7 +419,8 @@ extern "C" int tsim_decide_move_hier(
   using namespace tsim;
   const HierSelect sel{local4, LD4,
                        HierConsts{hc[0], hc[1], hc[2], hc[3], hc[4], hc[5],
-                                  hc[6], hc[7], hc[8], hc[9]}};
+                                  hc[6], hc[7], hc[8], hc[9]},
+                       row0};
   return launch_dm(dm_params(ip, fp, H, W, D4),
                    Inputs{sdir4, wnd, pa, pb, pc, pd, pe, pl, stop, rain,
                           ped, inter, dest_id, r_mal, r_side, r_reroll,

@@ -136,11 +136,14 @@ struct HierConsts {
 // 3x3 tile window and the byte offers a move, else the dense row's (the
 // region's hub for a tiled rid, its own row for a direct one).  `in.sdir4`
 // and `p.D4` are the dense stack; a row past either stack reads ND_NONE.
-// One gathered word from each stack.
+// `row0` is the world's row of the planes' first row (a window of a world
+// split by rows; 0 for a whole world): the cell's tile row is that of
+// y + row0.  One gathered word from each stack.
 struct HierSelect {
   const int* local4;
   int local_d4;
   HierConsts h;
+  int row0;
 
   __device__ __forceinline__ int operator()(const DMParams& p,
                                             const Inputs& in, int dest,
@@ -152,7 +155,7 @@ struct HierSelect {
       const int l = dest - td * h.lmax;
       const int ty = (td * h.ntx_m) >> h.ntx_sh;
       const int tx = td - ty * h.ntx;
-      const int dy = ty - (y >> h.ts_sh), dx = tx - (x >> h.ts_sh);
+      const int dy = ty - ((y + row0) >> h.ts_sh), dx = tx - (x >> h.ts_sh);
       if (abs(dy) <= 1 && abs(dx) <= 1)
         loc = ((dy + 1) * 3 + (dx + 1)) * h.lmax + l;
       r = (ty >> 1) * h.nrx + (tx >> 1);

@@ -80,7 +80,8 @@ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// the uniform of seed s at flat cell i: hash32(i + s) >> 8, times 2^-24
+// the uniform of seed s at the world's flat cell i: hash32(i + s) >> 8,
+// times 2^-24
 __device__ __forceinline__ float unif(int i, uint32_t s) {
   return __fmul_rn(__uint2float_rn(hash32((uint32_t)i + s) >> 8), UNIT);
 }
@@ -97,7 +98,7 @@ __device__ __forceinline__ int sround_mul(int n, float p, float r) {
   return clamp_k(__fadd_rn(__fmul_rn(__int2float_rn(n), p), r), n);
 }
 
-// What source cell i (flat) sends along heading d, for every d up to
+// What source cell i (the world's flat index) sends along heading d, for every d up to
 // `dlast` (walkers sw[d], crossers sc[d]), and what stays there (kw[d],
 // kc[d]), from its counts n[4], c[4] and the flags a[4] of the cells
 // ahead of it.  The splits of every heading feed the pool; the pool's
@@ -157,7 +158,10 @@ __device__ __forceinline__ void source(int i, const int* n, const int* c,
 }
 
 // grid (ceil(W / TX), ceil(H / TY), B), NTHREADS threads: threads below
-// NT own a tile cell, the next NR a ring cell
+// NT own a tile cell, the next NR a ring cell.  `row0`: the world's row
+// of the planes' first row (a window of a world split by rows; 0 for a
+// whole world), which the uniforms hash; the planes' edges act as the
+// world's
 __global__ void __launch_bounds__(NTHREADS)
     step_kernel(const int* __restrict__ walk, const int* __restrict__ cross,
                 const uint8_t* __restrict__ cell,
@@ -166,7 +170,7 @@ __global__ void __launch_bounds__(NTHREADS)
                 const int* __restrict__ n_side, int* __restrict__ walk_o,
                 int* __restrict__ cross_o, uint8_t* __restrict__ block_o,
                 int* __restrict__ count_o, int H, int W, int geo, float lam,
-                int spawn) {
+                int spawn, int row0) {
   __shared__ uint8_t fl[FY][FX];
   __shared__ int out_w[4][SY][SX];
   __shared__ int out_c[4][SY][SX];
@@ -200,6 +204,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const int gy = y0 - 1 + sy, gx = x0 - 1 + sx;
   const bool active = tid < NT + NR && gy >= 0 && gy < H && gx >= 0 && gx < W;
   const int i = gy * W + gx;
+  const int gi = i + row0 * W;   // the cell's index in the world
 
   // the source cell's counts first (no shared memory needed)
   int n[4] = {0, 0, 0, 0}, c[4] = {0, 0, 0, 0};
@@ -229,7 +234,7 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int d = 0; d < 4; ++d)
       a[d] = fl[sy + 1 + dir_dy(d)][sx + 1 + dir_dx(d)];
-    source(i, n, c, a, seed, dlast, sw, sc, kw, kc);
+    source(gi, n, c, a, seed, dlast, sw, sc, kw, kc);
     if (tid < NT) {
 #pragma unroll
       for (int d = 0; d < 4; ++d) {
@@ -266,12 +271,12 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 #pragma unroll
   for (int d = 0; d < 4; ++d)
-    if (nw[d] != 0) nw[d] -= sround_mul(nw[d], P_DIE, unif(i, seed[8 + d]));
+    if (nw[d] != 0) nw[d] -= sround_mul(nw[d], P_DIE, unif(gi, seed[8 + d]));
   if (spawn && (fl[sy + 1][sx + 1] & F_SIDE)) {
     const float p_cell =
         __fdiv_rn(lam, __int2float_rn(max(n_side[b * geo], 1)));
-    if (unif(i, seed[12]) < p_cell) {
-      const int h = (int)__fmul_rn(unif(i, seed[13]), 4.0f);
+    if (unif(gi, seed[12]) < p_cell) {
+      const int h = (int)__fmul_rn(unif(gi, seed[13]), 4.0f);
 #pragma unroll
       for (int d = 0; d < 4; ++d) nw[d] += d == h;
     }
@@ -295,9 +300,9 @@ __global__ void __launch_bounds__(NTHREADS)
 
 // walk, cross int32 [B, 4, H, W]; cell u8 [H, W] (geo 0) or [B, H, W]
 // (geo 1); stop bool [B, H, W]; seeds int64 [B, 14] (u32 values);
-// n_side int32 [1] or [B] (the sidewalk cells of each cell plane);
-// outputs walk', cross' [B, 4, H, W], block bool [B, H, W], count int32
-// [B, H, W]
+// n_side int32 [1] or [B] (the sidewalk cells of each world); row0 the
+// world's row of the planes' first row; outputs walk', cross' [B, 4, H,
+// W], block bool [B, H, W], count int32 [B, H, W]
 extern "C" int tsim_step_pedestrians(const int* walk, const int* cross,
                                      const uint8_t* cell,
                                      const uint8_t* stop,
@@ -306,13 +311,13 @@ extern "C" int tsim_step_pedestrians(const int* walk, const int* cross,
                                      int* cross_o, uint8_t* block_o,
                                      int* count_o, int B, int H, int W,
                                      int geo, float lam, int spawn,
-                                     void* stream) {
+                                     int row0, void* stream) {
   using namespace tsim;
   if (B <= 0 || H <= 0 || W <= 0) return 0;
   const dim3 grid((W + ped::TX - 1) / ped::TX, (H + ped::TY - 1) / ped::TY,
                   B);
   ped::step_kernel<<<grid, ped::NTHREADS, 0, (cudaStream_t)stream>>>(
       walk, cross, cell, stop, seeds, n_side, walk_o, cross_o, block_o,
-      count_o, H, W, geo, lam, spawn);
+      count_o, H, W, geo, lam, spawn, row0);
   return (int)cudaGetLastError();
 }

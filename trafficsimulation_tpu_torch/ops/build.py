@@ -54,9 +54,10 @@ _ARGTYPES = {
     "tsim_dm_worlds_plan": [I, I, P],
     # out[2]: the card's SMs and the shared memory a block may take
     "tsim_card_numbers": [P],
-    # ip[16], fp[2], hier constants[10], local4, LD4, then the arguments
-    # of tsim_decide_move from sdir4 to scratch, H, W, stream
-    "tsim_decide_move_hier": [P, P, P, P, I, P, I, P] + [P] * 6 + [P] * 4
+    # ip[16], fp[2], hier constants[10], the planes' first world row,
+    # local4, LD4, then the arguments of tsim_decide_move from sdir4 to
+    # scratch, H, W, stream
+    "tsim_decide_move_hier": [P, P, P, I, P, I, P, I, P] + [P] * 6 + [P] * 4
     + [P] + [P] * 4 + [P] * 6 + [P, P, I, I, P],
     # the arguments of tsim_decide_move up to the out planes, then flags,
     # the windows' work area, H, W, th, tw, halo, stream
@@ -86,8 +87,10 @@ _ARGTYPES = {
     # cooldown, B, n, R, cool, stream
     "tsim_rain_ticks": [P] * 8 + [I] * 4 + [P],
     # walk, cross, cell, stop, seeds, n_side, out walk, cross, block,
-    # count, B, H, W, cell and n_side per world (0/1), lam, spawn, stream
-    "tsim_step_pedestrians": [P] * 10 + [I] * 4 + [ctypes.c_float, I, P],
+    # count, B, H, W, cell and n_side per world (0/1), lam, spawn, the
+    # planes' first world row, stream
+    "tsim_step_pedestrians": [P] * 10 + [I] * 4 + [ctypes.c_float, I, I,
+                                                   P],
     # ip[34], fp[7], pointer table, the inputs' world strides (long), the
     # table's length, B, form, blocks, tiles a block, worlds a group,
     # stream

@@ -448,22 +448,28 @@ def routing_planes(cfg: Config, world, es: EngineState, slab=None):
     """(sdir4, wnd, density) from the current dynamic state; rebuilt once
     per PATHFINDING_COOLDOWN ticks by `run_chunk` (see the JAX
     `routing_planes`).  Cells that held pedestrians after the last tick
-    are hard blockers.  `slab` (`parallel/spatial.Slab`): a rank's part
-    of a split world: P + Q halo rows of `pa` exchanged, density,
-    penalties, entry costs and K3 over the route window, K2 over the
-    decide window (the key stack's rows); sdir4 and wnd are the decide
-    window's, density the own rows'."""
+    are hard blockers.  Under hierarchical routing the key stack holds
+    the hub and direct rows, and nothing here reads a world coordinate.
+    `slab` (`parallel/spatial.Slab`): a rank's part of a split world: P
+    + Q halo rows of `pa` (and of the pedestrian counts) exchanged,
+    density, penalties, entry costs and K3 over the route window, K2
+    over the decide window (the key stack's rows); sdir4 and wnd are the
+    decide window's, density the own rows'."""
     grid = world.grid
-    pa, rows = es.pa, None
+    pa, ped_map, rows = es.pa, es.ped_map, None
     if slab is not None:
-        pa, = slab.halo([es.pa], slab.P + slab.Q)
+        # the pedestrian counts ride in the same exchange
+        if cfg.PEDESTRIANS_ENABLED:
+            pa, ped_map = slab.halo([es.pa, es.ped_map], slab.P + slab.Q)
+        else:
+            pa, = slab.halo([es.pa], slab.P + slab.Q)
         r0, (d0, d1) = slab.route[0], slab.dec
         rows = slice(d0 - r0, d1 - r0)
     present = (pa & 1) == 1
     density = density_map(present, grid.is_road, cfg.VEHICLE_AWARENESS_RANGE)
     soft2, hard = soft_penalties(cfg, pa, es.stop_map, density)
     if cfg.PEDESTRIANS_ENABLED:
-        hard = hard | (es.ped_map > 0)
+        hard = hard | (ped_map > 0)
     sdir4 = build_sdir(cfg, world.cost_field, grid.allowed_dirs,
                        grid.is_road, soft2, hard, rows=rows)
     wnd = build_wavefront(cfg, grid.allowed_dirs, grid.is_road, hard)
@@ -471,6 +477,14 @@ def routing_planes(cfg: Config, world, es: EngineState, slab=None):
         wnd = wnd[rows].contiguous()
         density = slab.crop(density, slab.route, slab.own)
     return sdir4, wnd, density
+
+
+# The pedestrian step's reach: an output cell reads the counts of the
+# cells one step upstream and, through those sources' splits, the cell
+# types and stop map two rows away.  A window's cut rows therefore damage
+# the step's outputs on its two edge rows only (the split world runs it
+# on the decide window widened by this much)
+PED_REACH = 2
 
 
 def trip_penalty(m) -> torch.Tensor:
@@ -505,11 +519,16 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
     steps before the light reductions, as in JAX.
 
     `slab` (`parallel/spatial.Slab`): `es` is a rank's part of a split
-    world (the planes its own rows, the stop map the route window's, the
-    rain map the decide window's); the light reductions and the RL
-    flows are the group's sums, the stop map is built over the route
-    window, K1 runs on the decide window after a P-row halo exchange and
-    its own rows are kept."""
+    world (the planes and the pedestrian counts its own rows, the stop
+    map the route window's, the rain map the decide window's); the
+    light reductions and the RL flows are the group's sums, the stop map
+    is built over the route window, K1 (K1-hier with the decide window's
+    first world row) runs on the decide window after a P-row halo
+    exchange and its own rows are kept.  The pedestrian step runs on the
+    decide window widened by PED_REACH (its counts in the same
+    exchange, the cell types and stop map cut from the route window):
+    its blocked cells cover K1's window, its counts are kept on the own
+    rows."""
     caps = cfg.capacities()
     W = cfg.WIDTH
     dt = float(cfg.TIME_PER_STEP_IN_SECONDS)
@@ -542,12 +561,37 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
     stop_map = fsm.build_stop_map(grid, world.lights_static, lights,
                                   dense_a=dense_a, slab=slab)
 
-    # ---- pedestrians: crossers on the roadway block vehicles ------------
     peds, ped_map = es.peds, es.ped_map
+    planes = (es.pa, es.pb, es.pc, es.pd, es.pe, es.pl)
+    if slab is not None:
+        # the decide window: P halo rows of the planes from the
+        # neighbours; with pedestrians, the exchange widened by the
+        # step's reach carries their count planes too
+        width = slab.P + (PED_REACH if cfg.PEDESTRIANS_ENABLED else 0)
+        pw = slab.window(width)
+        counts = (list(peds.walk.unbind(0)) + list(peds.cross.unbind(0))
+                  if cfg.PEDESTRIANS_ENABLED else [])
+        ex = slab.halo(list(planes) + counts, width)
+        planes = tuple(slab.crop(p, pw, slab.dec) for p in ex[:6])
+
+    # ---- pedestrians: crossers on the roadway block vehicles ------------
     if cfg.PEDESTRIANS_ENABLED:
-        walk, cross, ped_bit, ped_map = HE.step_pedestrians(
-            cfg, peds.walk, peds.cross, grid.cell_type, stop_map,
-            draws[D_PED:D_PED + 14], grid.n_side)
+        if slab is None:
+            walk, cross, ped_bit, ped_map = HE.step_pedestrians(
+                cfg, peds.walk, peds.cross, grid.cell_type, stop_map,
+                draws[D_PED:D_PED + 14], grid.n_side)
+        else:
+            # the step on the decide window widened by its reach, whose
+            # cut rows do no damage inside it: what blocks K1 over the
+            # decide window, the counts on the own rows
+            walk, cross, ped_bit, ped_map = HE.step_pedestrians(
+                cfg, torch.stack(ex[6:10]), torch.stack(ex[10:14]),
+                slab.crop(grid.cell_type, slab.route, pw).contiguous(),
+                slab.crop(stop_map, slab.route, pw).contiguous(),
+                draws[D_PED:D_PED + 14], grid.n_side, row0=pw[0])
+            walk, cross, ped_map = (slab.crop(x, pw, slab.own).contiguous()
+                                    for x in (walk, cross, ped_map))
+            ped_bit = slab.crop(ped_bit, pw, slab.dec).contiguous()
         peds = peds.replace(walk=walk, cross=cross)
 
     # ---- decide + move: K1, or under hierarchical routing K1-hier (the
@@ -555,12 +599,9 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
     if sdir is None:
         sdir = routing_planes(cfg, world, es, slab)
     sdir4, wnd, density = sdir
-    planes = (es.pa, es.pb, es.pc, es.pd, es.pe, es.pl)
     stop_d, inter_d, dest_d, row0 = (stop_map, grid.intersection,
                                      grid.dest_id, 0)
     if slab is not None:
-        # the decide window: P halo rows of the planes from the neighbours
-        planes = tuple(slab.halo(list(planes), slab.P))
         row0 = slab.dec[0]
         stop_d = slab.crop(stop_map, slab.route, slab.dec).contiguous()
         inter_d, dest_d = (slab.crop(x, slab.route, slab.dec).contiguous()
@@ -574,7 +615,7 @@ def step_engine(cfg: Config, world, es: EngineState, draws: torch.Tensor,
         cfg, sdir4, wnd, planes, stop_d, es.rain_map, ped_bit,
         inter_d, dest_d, randoms,
         hier=((world.local_sdir4, hier.kernel_consts(cfg))
-              if cfg.ROUTING_HIER else None))
+              if cfg.ROUTING_HIER else None), row0=row0)
     if slab is not None:
         out = [slab.crop(p, slab.dec, slab.own) for p in out]
     flags = out[6]

@@ -97,14 +97,17 @@ def kernel_consts(cfg: Config) -> tuple:
             hp.nr)
 
 
-def hier_rows(cfg: Config, dest: torch.Tensor):
+def hier_rows(cfg: Config, dest: torch.Tensor, row0: int = 0):
     """(p, r) from the rid plane `dest` (int32 [H, W]): p the windowed
     stack's plane, -1 where the cell lies outside the destination's 3x3
     window or the rid is direct; r the dense row (the region's hub for a
-    tiled rid, its own row for a direct one)."""
+    tiled rid, its own row for a direct one).  `row0`: the world's row
+    of the plane's first row (a window of a split world,
+    `parallel/spatial.py`), whose tiles are the world's."""
     hp = hier_params(cfg)
     H, W = dest.shape[-2:]
-    yy = torch.arange(H, dtype=torch.int32, device=dest.device)[:, None]
+    yy = torch.arange(row0, row0 + H, dtype=torch.int32,
+                      device=dest.device)[:, None]
     xx = torch.arange(W, dtype=torch.int32, device=dest.device)[None, :]
     tiled = dest < hp.direct_base
     d_t = torch.where(tiled, dest, 0)
@@ -122,12 +125,12 @@ def hier_rows(cfg: Config, dest: torch.Tensor):
 
 
 def hier_select(cfg: Config, dense4: torch.Tensor, local4: torch.Tensor,
-                dest: torch.Tensor) -> torch.Tensor:
+                dest: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """The next-move byte plane under hierarchical routing: the exact
     windowed byte where it exists and offers a move, else the dense
-    (hub or direct) row's.  Two K6 launches on the card; K1-hier's
-    `HierSelect` computes the same at one cell."""
-    p, r = hier_rows(cfg, dest)
+    (hub or direct) row's; `row0` as in `hier_rows`.  Two K6 launches
+    on the card; K1-hier's `HierSelect` computes the same at one cell."""
+    p, r = hier_rows(cfg, dest, row0)
     nd_loc = HE.select_rows(local4, p)
     nd_den = HE.select_rows(dense4, r)
     use_loc = (p >= 0) & ((nd_loc & 7) != 7)

@@ -816,7 +816,8 @@ def _dm_launch(cfg: Config, sdir4, wnd, planes, masks, intersection,
                dest_id, randoms, hier=None, form=None):
     """One K1 launch over checked tensors on the card, [H, W] or
     [B, H, W] per world, the geometry shared or one plane a world
-    (K1-hier with `hier` = (local4, its 10 constants), one world), in
+    (K1-hier with `hier` = (local4, its 10 constants, the planes' first
+    world row), one world), in
     the form `form` ("worlds" or "coop"; None: `k1_form`'s choice): (pa,
     pb, pc, pd, pe, pl, flags), views of one allocation."""
     pa = planes[0]
@@ -843,9 +844,9 @@ def _dm_launch(cfg: Config, sdir4, wnd, planes, masks, intersection,
         rc = _entry(entry)(ip, fp, *args, B, H, W,
                            int(intersection.dim() == 3), stream)
     else:
-        local4, consts = hier
+        local4, consts, row0 = hier
         entry = "tsim_decide_move_hier"
-        rc = _entry(entry)(ip, fp, (ctypes.c_int * 10)(*consts),
+        rc = _entry(entry)(ip, fp, (ctypes.c_int * 10)(*consts), int(row0),
                            local4.data_ptr(), local4.shape[0], *args, H, W,
                            stream)
     _check_rc(entry, rc)
@@ -970,13 +971,13 @@ class _DecideMove(_Kernel):
 
 
 def _dm_hier(cfg, consts, sdir4, wnd, planes, stop_map, rain_map,
-             ped_block, intersection, dest_id, randoms, local4):
+             ped_block, intersection, dest_id, randoms, local4, row0):
     masks = (stop_map, rain_map, ped_block)
     if not _on_cuda(planes[0]):
         from . import hier
 
         def select(dest):
-            return hier.hier_select(cfg, sdir4, local4, dest)
+            return hier.hier_select(cfg, sdir4, local4, dest, row0)
         return decide_move_core(cfg, sdir4, wnd, *planes, *masks,
                                 intersection, dest_id, *randoms,
                                 select=select)
@@ -988,11 +989,12 @@ def _dm_hier(cfg, consts, sdir4, wnd, planes, stop_map, rain_map,
     _dm_check(sdir4, wnd, planes, masks, intersection, dest_id, randoms,
               local4)
     return _dm_launch(cfg, sdir4, wnd, planes, masks, intersection, dest_id,
-                      randoms, (local4, consts))
+                      randoms, (local4, consts, row0))
 
 
 def decide_move(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
-                ped_block, intersection, dest_id, randoms, hier=None):
+                ped_block, intersection, dest_id, randoms, hier=None,
+                row0: int = 0):
     """K1 for one world (`decide_move_batched` with B = 1; under vmap one
     batched launch through `_DecideMove`'s rule; no autograd.Function
     otherwise).  Planes pa..pe and `wnd`, `r_prio` are int32 bit
@@ -1004,7 +1006,10 @@ def decide_move(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
     is then the dense (hub and direct) stack and the call is K1-hier, K1
     with the hierarchical select (`ops/hier.hier_select`) at each cell.
     Its plain version is `decide_move_core` with `hier_select` as the
-    select.  K1-hier replaces what the JAX package runs for such worlds
+    select.  `row0` (K1-hier only): the world's row of the planes' first
+    row, for a window of a world split by rows (`parallel/spatial.py`),
+    whose cells take their tile rows from the world's; K1 reads no
+    world coordinate.  K1-hier replaces what the JAX package runs for such worlds
     (ops/engine.py, the ROUTING_HIER branch of `step_engine`):
     `decide_move_core` in XLA ops with `hier_select`, two
     `select_rows_pallas` calls (K6) per select.  Source:
@@ -1020,7 +1025,7 @@ def decide_move(cfg: Config, sdir4, wnd, planes, stop_map, rain_map,
         local4, consts = hier
         return _dm_hier(cfg, tuple(consts), sdir4, wnd, planes, stop_map,
                         rain_map, ped_block, intersection, dest_id, randoms,
-                        local4)
+                        local4, row0)
     if torch._C._are_functorch_transforms_active():
         return _DecideMove.apply(cfg, sdir4, wnd, *planes, stop_map,
                                  rain_map, ped_block, intersection, dest_id,
@@ -1726,7 +1731,7 @@ def rain_ticks(clouds, active, cooldown, spawn, want_cd, cool: int):
 # ---- pedestrians ------------------------------------------------------------
 
 def _ped_launch(cfg: Config, walk, cross, cell_type, stop_map, seeds, n_side,
-                B: int, geo: int):
+                B: int, geo: int, row0: int = 0):
     """One `step_pedestrians` launch over B worlds (every tensor checked
     by the caller)."""
     from ..agents.pedestrians import spawn_rate
@@ -1741,7 +1746,7 @@ def _ped_launch(cfg: Config, walk, cross, cell_type, stop_map, seeds, n_side,
         stop_map.data_ptr(), seeds.data_ptr(), n_side.data_ptr(),
         walk_o.data_ptr(), cross_o.data_ptr(), block.data_ptr(),
         count.data_ptr(), B, H, W, geo, float(spawn_rate(cfg)),
-        int(cfg.PEDESTRIANS_ENABLED),
+        int(cfg.PEDESTRIANS_ENABLED), int(row0),
         torch._C._cuda_getCurrentRawStream(dev.index)))
     launches["step_pedestrians"] += 1
     return walk_o, cross_o, block, count
@@ -1755,13 +1760,16 @@ def _no_side(n_side):
 
 
 def step_pedestrians_batched(cfg: Config, walk, cross, cell_type, stop_map,
-                             seeds, n_side):
+                             seeds, n_side, row0: int = 0):
     """One pedestrian tick for B worlds: walk, cross int32 [B, 4, H, W],
     cell_type u8 shared [H, W] or one plane a world [B, H, W], stop_map
     bool [B, H, W], seeds int64 [B, 14] (`engine.tick_draws`' u32
-    seeds), n_side int32 the sidewalk count of each cell plane ([] or
-    [B], `Grid.n_side`) -> (walk', cross' int32 [B, 4, H, W], ped_block
-    bool [B, H, W], ped_count int32 [B, H, W]).
+    seeds), n_side int32 the sidewalk count of each world ([] or [B],
+    `Grid.n_side`) -> (walk', cross' int32 [B, 4, H, W], ped_block
+    bool [B, H, W], ped_count int32 [B, H, W]).  `row0`: the world's
+    row of the planes' first row (a window of a world split by rows,
+    `parallel/spatial.py`; the uniforms hash the world's cell indices
+    and the planes' edges act as the world's), 0 for whole worlds.
 
     No TPU kernel: the JAX package runs the step as XLA ops
     (`agents/pedestrians.step_pedestrians`).  Source:
@@ -1784,7 +1792,7 @@ def step_pedestrians_batched(cfg: Config, walk, cross, cell_type, stop_map,
         geo = cell_type.dim() == 3
         outs = [step_pedestrians_plain(
             cfg, walk[b], cross[b], cell_type[b] if geo else cell_type,
-            stop_map[b], seeds[b], n_side[b] if geo else n_side)
+            stop_map[b], seeds[b], n_side[b] if geo else n_side, row0)
             for b in range(walk.shape[0])]
         return tuple(torch.stack(o) for o in zip(*outs))
     B, _, H, W = walk.shape
@@ -1797,16 +1805,16 @@ def step_pedestrians_batched(cfg: Config, walk, cross, cell_type, stop_map,
     _check("seeds", seeds, torch.int64, (B, 14), dev)
     _check("n_side", n_side, torch.int32, (B,) * geo, dev)
     return _ped_launch(cfg, walk, cross, cell_type, stop_map, seeds, n_side,
-                       B, geo)
+                       B, geo, row0)
 
 
 def _ped_single(cfg: Config, walk, cross, cell_type, stop_map, seeds,
-                n_side):
+                n_side, row0: int = 0):
     _no_side(n_side)
     if not _on_cuda(walk):
         from ..agents.pedestrians import step_pedestrians_plain
         return step_pedestrians_plain(cfg, walk, cross, cell_type, stop_map,
-                                      seeds, n_side)
+                                      seeds, n_side, row0)
     H, W = cell_type.shape
     dev = walk.device
     if not (walk.dtype == torch.int32 and cross.dtype == torch.int32
@@ -1830,21 +1838,21 @@ def _ped_single(cfg: Config, walk, cross, cell_type, stop_map, seeds,
         _check("seeds", seeds, torch.int64, (14,), dev)
         _check("n_side", n_side, torch.int32, (), dev)
     return _ped_launch(cfg, walk, cross, cell_type, stop_map, seeds, n_side,
-                       1, 0)
+                       1, 0, row0)
 
 
 class _StepPedestrians(_Kernel):
     @staticmethod
-    def forward(cfg, walk, cross, cell_type, stop_map, seeds, n_side):
+    def forward(cfg, walk, cross, cell_type, stop_map, seeds, n_side, row0):
         return _ped_single(cfg, walk.contiguous(), cross.contiguous(),
                            cell_type.contiguous(), stop_map.contiguous(),
-                           seeds.contiguous(), n_side.contiguous())
+                           seeds.contiguous(), n_side.contiguous(), row0)
 
     @staticmethod
     def vmap(info, in_dims, cfg, walk, cross, cell_type, stop_map, seeds,
-             n_side):
+             n_side, row0):
         B = info.batch_size
-        _, wd, cd, gd, sd, kd, nd = in_dims
+        _, wd, cd, gd, sd, kd, nd, _ = in_dims
         # the geometry (cell_type with its count) is shared only where
         # all of it is
         if gd is None and nd is None:
@@ -1854,21 +1862,23 @@ class _StepPedestrians(_Kernel):
         return step_pedestrians_batched(
             cfg, _front(walk, wd, B), _front(cross, cd, B), cell,
             _front(stop_map, sd, B), _front(seeds, kd, B),
-            side), (0, 0, 0, 0)
+            side, row0), (0, 0, 0, 0)
 
 
 def step_pedestrians(cfg: Config, walk, cross, cell_type, stop_map, seeds,
-                     n_side):
+                     n_side, row0: int = 0):
     """One pedestrian tick of one world (`step_pedestrians_batched` with
     B = 1): walk, cross int32 [4, H, W], cell_type u8 [H, W], stop_map
     bool [H, W], seeds int64 [14], n_side int32 [] (`Grid.n_side`) ->
-    (walk', cross', ped_block, ped_count).  One lean launch; under vmap
-    one launch for all worlds, through `_StepPedestrians`'s rule."""
+    (walk', cross', ped_block, ped_count); `row0` as in the batched
+    form.  One lean launch; under vmap one launch for all worlds,
+    through `_StepPedestrians`'s rule."""
     if torch._C._are_functorch_transforms_active():
         _no_side(n_side)
         return _StepPedestrians.apply(cfg, walk, cross, cell_type, stop_map,
-                                      seeds, n_side)
-    return _ped_single(cfg, walk, cross, cell_type, stop_map, seeds, n_side)
+                                      seeds, n_side, row0)
+    return _ped_single(cfg, walk, cross, cell_type, stop_map, seeds, n_side,
+                       row0)
 
 
 # ---- K9 --------------------------------------------------------------------

@@ -212,13 +212,23 @@ def scaling(mesh: M.Mesh, cfg: Config, keys, ticks: int,
     return out
 
 
+def save_world(world, path: str) -> None:
+    """Write a world's leaves (on the CPU) to `path`, for a split run's
+    source rank to load (`split_world(..., "file", path=path)`): a world
+    built once in the parent process, not once more in a rank."""
+    from ..core.transfer import world_leaves
+    torch.save({k: t.detach().cpu() for k, t in world_leaves(world).items()},
+               path)
+
+
 def split_world(cfg: Config, world: str, device, key=None,
-                inject: int = 0):
+                inject: int = 0, path: str = None):
     """The whole world a split run starts from, built on its source rank
     alone: the synthetic crossroad (`core/synth.crossroad_world`); a
     city generated from `key` (`sim.init_world`, no shrink, as config #4
-    runs) with `inject` vehicles; or the headline city (`snapshot`'s:
-    `cfg` must be the configuration its `measure_and_shrink` gives)."""
+    runs) with `inject` vehicles; the headline city (`snapshot`'s:
+    `cfg` must be the configuration its `measure_and_shrink` gives); or
+    the world that `save_world` wrote to `path` ("file")."""
     from .. import sim, snapshot
     from ..core import synth
     if world == "crossroad":
@@ -226,9 +236,12 @@ def split_world(cfg: Config, world: str, device, key=None,
     if world == "city":
         w = sim.init_world(cfg, key, device)
         return sim.inject_vehicles(cfg, w, inject) if inject else w
+    if world == "file":
+        from ..core.transfer import world_from_leaves
+        return world_from_leaves(torch.load(path, map_location=device))
     if world != "headline":
-        raise ValueError(f"world {world!r}: 'crossroad', 'city' or "
-                         "'headline'")
+        raise ValueError(f"world {world!r}: 'crossroad', 'city', "
+                         "'headline' or 'file'")
     c = Config(**snapshot.HEADLINE_CFG)
     w = sim.init_world(c, prng.PRNGKey(snapshot.HEADLINE_SEED), device)
     c, w = sim.measure_and_shrink(c, w)
@@ -238,13 +251,16 @@ def split_world(cfg: Config, world: str, device, key=None,
     return sim.inject_vehicles(c, w, snapshot.HEADLINE_VEHICLES)
 
 
-def _split_source(cfg: Config, world: str, mesh: M.Mesh, key, inject):
+def _split_source(cfg: Config, world: str, mesh: M.Mesh, key, inject,
+                  path=None):
     """Rank 0's source world of the split runs, kept on the CPU between
     them (its device holds only its slab while it runs); None on the
     other ranks."""
     if mesh.rank != 0:
         return None
     from ..core.transfer import world_from_leaves, world_leaves
+    if world == "file":
+        return split_world(cfg, world, "cpu", path=path)
     w = split_world(cfg, world, mesh.device, key, inject)
     w = world_from_leaves({k: t.cpu() for k, t in world_leaves(w).items()})
     if mesh.device.type == "cuda":
@@ -254,14 +270,15 @@ def _split_source(cfg: Config, world: str, mesh: M.Mesh, key, inject):
 
 def spatial(mesh: M.Mesh, cfg: Config, ticks: int, world: str = "crossroad",
             splits=(None,), key=None, inject: int = 0,
-            mega_env: bool = False) -> dict:
+            mega_env: bool = False, path: str = None) -> dict:
     """One world split by rows (`parallel/spatial.py`) over the first n
-    ranks of each n in `splits` (None: all): rank 0 builds it once
-    (`split_world`), `shard_world` lays it out, `run_chunk_spatial` runs
-    `ticks` ticks on the per-tick path (under TSIM_MEGA_FORCE with
-    `mega_env`, which the split must ignore) and `gather_world` brings it
-    back.  Per split (keyed by its size) and rank: its launches,
-    collectives (`Slab.stats`), rows, resident key-stack bytes, peak
+    ranks of each n in `splits` (None: all): rank 0 builds it once, or
+    loads it from `path` (`split_world`), `shard_world` lays it out,
+    `run_chunk_spatial` runs `ticks` ticks on the per-tick path (under
+    TSIM_MEGA_FORCE with `mega_env`, which the split must ignore) and
+    `gather_world` brings it back.  Per split (keyed by its size) and
+    rank: its launches, collectives (`Slab.stats`), rows, resident bytes
+    of the key stack and of hierarchical routing's windowed stack, peak
     device memory of the run and seconds; on rank 0 the gathered world's
     leaf digests (`mesh.leaf_digest` of JAX's leaf paths), the trained
     floats whole."""
@@ -269,7 +286,7 @@ def spatial(mesh: M.Mesh, cfg: Config, ticks: int, world: str = "crossroad",
     from ..dryrun import TRAINED
     from ..ops import hopper_engine as HE
     from . import spatial as SP
-    src = _split_source(cfg, world, mesh, key, inject)
+    src = _split_source(cfg, world, mesh, key, inject, path)
     out = {}
     for n in splits:
         sm = SP.spatial_mesh(n, mesh.device)
@@ -292,6 +309,7 @@ def spatial(mesh: M.Mesh, cfg: Config, ticks: int, world: str = "crossroad",
             seconds = time.perf_counter() - t0
             launches = dict(HE.launches)
         slab = sw.slab
+        loc = sw.world.local_sdir4
         res = {"rank": sm.rank, "launches": launches, "seconds": seconds,
                "shard_s": shard_s, "stats": dict(slab.stats),
                "own": slab.own, "dec": slab.dec, "route": slab.route,
@@ -299,6 +317,9 @@ def spatial(mesh: M.Mesh, cfg: Config, ticks: int, world: str = "crossroad",
                "cost_field_bytes": sw.world.cost_field.numel()
                * sw.world.cost_field.element_size(),
                "cost_field_shape": tuple(sw.world.cost_field.shape),
+               "local_sdir4_bytes": None if loc is None
+               else loc.numel() * loc.element_size(),
+               "local_sdir4_shape": None if loc is None else tuple(loc.shape),
                "peak_bytes": (torch.cuda.max_memory_allocated(sm.device)
                               if sm.device.type == "cuda" else None)}
         t0 = time.perf_counter()

@@ -31,8 +31,13 @@ A rank's "decide window" is its rows widened by P on each side, its
 "route window" by P + Q, both cut at the world's edges (an edge rank
 has no halo there).  `SpatialWorld.world` holds, on each rank, the grid's
 planes over the route window, the key stack over the decide window (its
-only copy: `field_to_keys` applied the shift already), the rank's own
-rows of every other plane, and every other leaf whole (replicated).
+only copy: `field_to_keys` applied the shift already), under
+hierarchical routing the windowed static stack `local_sdir4` over the
+decide window too, the rank's own rows of every other plane (the
+pedestrians' count planes among them), and every other leaf whole
+(replicated: the routing-id tables `dests.rid` and `nearest_exit`, the
+sidewalk count `grid.n_side`, the pedestrians' [4, 1, 1] stub while they
+are off).
 
 A tick (`engine.step_engine` with a `Slab`): the light reductions are
 partial sums over the own rows plus one all-reduce (K4 on the own
@@ -44,11 +49,20 @@ damage stays within P rows of them), and the own rows are kept; the
 post-move's per-cell work runs on the own rows, its reductions and its
 gathers at destination cells and spawn origins (owner-masked: zero on
 every rank but the cell's owner) go in one all-reduce, and its writes at
-cells are made by the owning rank only.  A segment (`engine.
-routing_planes`): P + Q rows of `pa` are exchanged, density, penalties,
-entry costs and K3 run over the route window, and K2 over the decide
-window.  Chunk entry packs the vehicles whose cell is the rank's;
-chunk exit writes the [V] table through one owner-masked all-reduce.
+cells are made by the owning rank only.  Under hierarchical routing the
+planes' dest field carries routing ids, which the post-move reads
+through the replicated `dests.rid` and `nearest_exit`; K1-hier takes the
+decide window's first world row, from which its cells' tile rows
+follow.  With pedestrians, their 8 count planes join the decide halo
+exchange at P + PED_REACH rows (`engine.PED_REACH`: the step's reach,
+2), the step runs on that window with the cell types and stop map cut
+from the route window, its blocked cells feed K1 over the decide window
+and its counts are kept on the own rows.  A segment (`engine.
+routing_planes`): P + Q rows of `pa` (and of the pedestrian count map)
+are exchanged, density, penalties, entry costs and K3 run over the
+route window, and K2 over the decide window.  Chunk entry packs the
+vehicles whose cell is the rank's; chunk exit writes the [V] table
+through one owner-masked all-reduce.
 
 Collectives (`Slab.stats` counts them): `all_reduce` (SUM) only, as gloo
 takes CUDA tensors for `all_reduce` and `broadcast` alone.  Halo bands
@@ -58,13 +72,13 @@ f32 sums of integer values (counts, durations in whole tick lengths)
 travel as int32 integers.  Each band exchange is one buffer holding the
 rows every rank needs.
 
-Not split yet (ROADMAP item 15c; each raises ValueError): hierarchical
-routing (`ROUTING_HIER`), pedestrians, and any other leaf with a row
-dimension.  The megakernel branch (K9 advances a whole world's segment
-in one launch) is never taken on this path, as JAX's spatial path closes
-it through `USE_PALLAS_ENGINE=False`; the port's own kernels K1-K4 run
-on the slabs.  JAX's `spatial_chunk_fn` is a jit cache and has no
-counterpart: `run_chunk_spatial` runs eagerly.
+A leaf with a row dimension that the split does not know raises
+ValueError (`ROW_LEAVES`).  The megakernel branch (K9 advances a whole
+world's segment in one launch) is never taken on this path, as JAX's
+spatial path closes it through `USE_PALLAS_ENGINE=False`; the port's own
+kernels K1 (or K1-hier), K2-K4 and the pedestrian step run on the
+slabs.  JAX's `spatial_chunk_fn` is a jit cache and has no counterpart:
+`run_chunk_spatial` runs eagerly.
 
     from trafficsimulation_tpu_torch.parallel import launch, spatial
 
@@ -93,10 +107,10 @@ from ..core.state import Grid, World
 from ..core.transfer import world_from_leaves, world_leaves
 from .mesh import Mesh, make_mesh
 
-ITEM = "ROADMAP item 15c"
 # the row leaves a split world knows how to carry (every grid plane too)
-ROW_LEAVES = frozenset({"cost_field", "veh_map", "stop_map", "rain_map",
-                        "stuck_map", "density", "ped_map"})
+ROW_LEAVES = frozenset({"cost_field", "local_sdir4", "veh_map", "stop_map",
+                        "rain_map", "stuck_map", "density", "ped_map",
+                        "peds.walk", "peds.cross"})
 
 
 def spatial_mesh(n_devices: int | None = None, device=None) -> Mesh | None:
@@ -112,16 +126,6 @@ def halo_widths(cfg: Config) -> tuple:
     Q = max(cfg.VEHICLE_AWARENESS_RANGE + 1,
             cfg.VEHICLE_MAX_CONTRAFLOW_OVERTAKE_STEPS + 2)
     return P, Q
-
-
-def check_config(cfg: Config) -> None:
-    """Raise for a configuration the split does not carry yet."""
-    if cfg.ROUTING_HIER:
-        raise ValueError(f"ROUTING_HIER: splitting a world over ranks under "
-                         f"hierarchical routing is {ITEM}")
-    if cfg.PEDESTRIANS_ENABLED:
-        raise ValueError(f"PEDESTRIANS_ENABLED: splitting a world with "
-                         f"pedestrians over ranks is {ITEM}")
 
 
 def rows_of(H: int, n: int, r: int) -> tuple:
@@ -182,9 +186,10 @@ def local_runs(idx: torch.Tensor, H: int, W: int, lo: int, hi: int,
 class Slab:
     """One rank's part of a world split by rows (see the module
     docstring): the world's size, the rank and group, the halo widths,
-    the replicated tables' maps onto the rank's windows (`prepare`), and
-    the counts of its collectives (`stats`).  `slab=None` in the
-    engine's functions is the unsharded world."""
+    the paths of the leaves it holds by rows (`row_leaves`), the
+    replicated tables' maps onto the rank's windows (`prepare`), and the
+    counts of its collectives (`stats`).  `slab=None` in the engine's
+    functions is the unsharded world."""
     H: int
     W: int
     rank: int
@@ -192,6 +197,7 @@ class Slab:
     P: int
     Q: int
     group: Any = None
+    row_leaves: frozenset = frozenset()
     maps: dict = dataclasses.field(default_factory=dict)
     stats: dict = dataclasses.field(default_factory=lambda: {
         "all_reduce": 0, "bytes": 0, "host_s": 0.0, "largest": 0})
@@ -205,12 +211,16 @@ class Slab:
     @property
     def dec(self) -> tuple:
         """The decide window (K1's, and K2's output rows)."""
-        return window_of(self.H, self.size, self.rank, self.P)
+        return self.window(self.P)
 
     @property
     def route(self) -> tuple:
         """The route window (density, penalties, entry costs, K3)."""
-        return window_of(self.H, self.size, self.rank, self.P + self.Q)
+        return self.window(self.P + self.Q)
+
+    def window(self, width: int) -> tuple:
+        """The own rows widened by `width`, cut at the world's edges."""
+        return window_of(self.H, self.size, self.rank, width)
 
     @staticmethod
     def crop(x: torch.Tensor, frm: tuple, to: tuple) -> torch.Tensor:
@@ -382,16 +392,15 @@ def _check_rows(kinds: dict) -> None:
     extra = sorted(k for k, v in kinds.items() if v == "rows"
                    and not _is_grid_plane(k) and k not in ROW_LEAVES)
     if extra:
-        raise ValueError(f"leaves {extra} carry the grid's rows: splitting "
-                         f"them over ranks is {ITEM} (hierarchical routing's "
-                         "windowed stack, pedestrians)")
+        raise ValueError(f"leaves {extra} carry the grid's rows, and the "
+                         "split knows no window for them (ROW_LEAVES)")
 
 
 def _rows_for(path: str, H: int, n: int, r: int, P: int, Q: int) -> tuple:
     """The global rows of a row leaf that rank r holds."""
     if _is_grid_plane(path):
         return window_of(H, n, r, P + Q)
-    if path == "cost_field":
+    if path in ("cost_field", "local_sdir4"):
         return window_of(H, n, r, P)
     return rows_of(H, n, r)
 
@@ -425,16 +434,12 @@ def shard_world(world: World | None, mesh: Mesh, cfg: Config,
     pass None.  The replicated leaves go in one broadcast; each rank's
     row windows in one point-to-point message from `src` (through the
     CPU under gloo), so that no rank but `src` ever holds the whole
-    world.  Raises ValueError (every rank) for what the split does not
-    carry yet and where H is not a multiple of the mesh's size."""
-    check_config(cfg)
+    world.  Raises ValueError (every rank) for a row leaf the split does
+    not know and where H is not a multiple of the mesh's size."""
     P, Q = halo_widths(cfg)
     n, r, dev = mesh.size, mesh.rank, mesh.device
     meta = [None]
     if r == src:
-        if world.local_sdir4 is not None or world.dests.rid is not None:
-            raise ValueError(f"a hierarchical-routing world: splitting it "
-                             f"over ranks is {ITEM}")
         if world.cost_field is None:
             raise ValueError("world.cost_field is not built "
                              "(snapshot.build_field)")
@@ -501,7 +506,8 @@ def shard_world(world: World | None, mesh: Mesh, cfg: Config,
         out.update({k: t.to(dev) for (k, _, _), t in
                     zip(rows, _unpack(msg, specs))})
         del msg
-    slab = Slab(H=H, W=W, rank=r, size=n, P=P, Q=Q, group=mesh.group)
+    slab = Slab(H=H, W=W, rank=r, size=n, P=P, Q=Q, group=mesh.group,
+                row_leaves=frozenset(k for k, _, _ in rows))
     return SpatialWorld(world=world_from_leaves(out), slab=slab)
 
 
@@ -513,7 +519,6 @@ def run_chunk_spatial(cfg: Config, sworld: SpatialWorld, n_ticks: int,
     megakernel branch is never taken; the light reductions are the
     sparse forms that the unsharded `sim.run_chunk` takes by default)."""
     from .. import sim
-    check_config(cfg)
     slab = sworld.slab
     if (mesh.size, mesh.rank) != (slab.size, slab.rank):
         raise ValueError(f"the world is split over {slab.size} ranks "
@@ -541,13 +546,13 @@ def gather_world(sworld: SpatialWorld, mesh: Mesh, dst: int = 0):
     H, n = slab.H, slab.size
     mine = {}
     for k, t in world_leaves(sworld.world).items():
-        if _is_grid_plane(k) or k in ROW_LEAVES:
+        if k in slab.row_leaves:
             t = slab.crop(t, _rows_for(k, H, n, slab.rank, slab.P, slab.Q),
                           slab.own)
         mine[k] = t.detach().cpu().contiguous()
     parts = [None] * n if mesh.rank == dst else None
     dist.gather_object({k: v for k, v in mine.items()
-                        if _is_grid_plane(k) or k in ROW_LEAVES},
+                        if k in slab.row_leaves},
                        parts, dst=dst, group=mesh.group)
     if parts is None:
         return None
